@@ -1,0 +1,41 @@
+"""Carry operators of the JAX package across as numpy arrays.
+
+The JAX package's ``BellOperator`` and ``DenseOperator`` hold their data
+in JAX arrays; ``np.asarray`` turns them into numpy arrays (bfloat16
+values come as numpy's ``bfloat16`` extension dtype), and these functions
+build the port's operator from them, so both packages compute the same
+thing.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .ops.operators import DenseOperator, resolve_device
+from .ops.sparse import BellOperator
+
+
+def _tensor_from_numpy(a) -> torch.Tensor:
+    # A copy: arrays from JAX are read-only, and the tensor owns its data.
+    a = np.array(a, order="C")
+    if a.dtype.name == "bfloat16":
+        # Same 16 bits: reinterpret, no rounding.
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def bell_operator_from_numpy(vals, cols, n: int, *, symmetric: bool = False,
+                             device=None) -> BellOperator:
+    """The port's ``BellOperator`` for a JAX ``BellOperator``'s
+    ``np.asarray(op.vals)``, ``np.asarray(op.cols)`` and ``op.n``."""
+    dev = resolve_device(device)
+    return BellOperator(_tensor_from_numpy(vals).to(dev),
+                        _tensor_from_numpy(np.asarray(cols, np.int32)).to(dev),
+                        n, symmetric=symmetric)
+
+
+def dense_operator_from_numpy(a, *, device=None) -> DenseOperator:
+    """The port's ``DenseOperator`` for a JAX ``DenseOperator``'s
+    ``np.asarray(op.a)``."""
+    return DenseOperator(_tensor_from_numpy(a).to(resolve_device(device)))

@@ -1,0 +1,198 @@
+// Blocked-ELL sparse matrix-vector product for Hopper (sm_90a).
+//
+//   y[i*bs + a] = sum_j sum_b vals[i, j, a, b] * x[cols[i, j]*bs + b]
+//
+// vals: (nb, mb, bs, bs) row-major, float or bfloat16 (upcast in
+// registers); cols: (nb, mb) int32 block-column indices; x, y: (nb*bs,)
+// float.  Accumulation is always float.
+//
+// Replaces the Pallas TPU kernel `_spmv_kernel` of
+// dominantsparseeigenad_tpu/ops/pallas_spmv.py (launched by
+// `_bell_spmv_pallas` through `pl.pallas_call`), for its SpMV entry
+// `bell_spmv` with float values (K1) and bfloat16 values (K2).
+//
+// What bounds it on an H100: the value stream.  Per (bs, bs) block the
+// kernel reads bs*bs values against bs floats of x, so at bs = 128 the
+// values are ~99% of the bytes; 2 flops per value is far below the ratio
+// at which arithmetic would limit (67 TFLOP/s float against 3.35 TB/s).
+// The least time is therefore bytes / memory bandwidth.
+//
+// What the design does about it:
+// * One thread block per block-row i; blocks share nothing, so there are
+//   no atomics and y is written once.  (The TPU grid carried the partial
+//   y of row i across sequential grid steps in VMEM; here the loop over
+//   the mb slots runs inside the block instead.)
+// * Each row a of a value block is read by a group of G lanes with
+//   16-byte vector loads along b (4 floats or 8 bfloat16), so a warp's
+//   loads are contiguous and coalesced.  Reading with one thread per row
+//   a would stride by bs and waste most of each memory transaction.
+// * The x segment a group needs is read through the read-only cache:
+//   it is reused by every row of the block-row and stays in L1/L2, so the
+//   device-memory traffic stays the value stream plus one gather of x.
+// * Each lane keeps its partial sum in a register across all mb slots;
+//   the G lanes of a row are reduced with warp shuffles once, at the end.
+// * A block size that is not a multiple of the vector width, or an
+//   unaligned pointer, takes the same code with VEC = 1 (scalar loads,
+//   still coalesced), and the lane loop masks the ragged tail.
+// The loads of consecutive slots are independent, so the unrolled slot
+// loop keeps several of them in flight per thread; making the stream
+// faster (cp.async/TMA pipelines, several block-rows per block) is left
+// for later work.
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+namespace {
+
+template <typename T, int VEC>
+struct Loader;
+
+template <>
+struct Loader<float, 4> {
+  __device__ static void load(const float* p, float (&v)[4]) {
+    float4 t = __ldg(reinterpret_cast<const float4*>(p));
+    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+  }
+};
+
+template <>
+struct Loader<float, 1> {
+  __device__ static void load(const float* p, float (&v)[1]) {
+    v[0] = __ldg(p);
+  }
+};
+
+template <>
+struct Loader<__nv_bfloat16, 8> {
+  __device__ static void load(const __nv_bfloat16* p, float (&v)[8]) {
+    uint4 t = __ldg(reinterpret_cast<const uint4*>(p));
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&t);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      float2 f = __bfloat1622float2(h[k]);
+      v[2 * k] = f.x;
+      v[2 * k + 1] = f.y;
+    }
+  }
+};
+
+template <>
+struct Loader<__nv_bfloat16, 1> {
+  __device__ static void load(const __nv_bfloat16* p, float (&v)[1]) {
+    v[0] = __bfloat162float(p[0]);
+  }
+};
+
+// x is always float; VEC floats at a 16-byte aligned address when VEC > 1.
+template <int VEC>
+__device__ __forceinline__ void load_x(const float* p, float (&v)[VEC]) {
+  if constexpr (VEC == 1) {
+    v[0] = __ldg(p);
+  } else {
+#pragma unroll
+    for (int k = 0; k < VEC; k += 4) {
+      float4 t = __ldg(reinterpret_cast<const float4*>(p + k));
+      v[k] = t.x; v[k + 1] = t.y; v[k + 2] = t.z; v[k + 3] = t.w;
+    }
+  }
+}
+
+// G: lanes per row (a power of two <= 32).  Each warp covers 32 / G rows
+// per pass; the block's warps stride over the bs rows of block-row i.
+template <typename T, int VEC>
+__global__ void bell_spmv_kernel(const T* __restrict__ vals,
+                                 const int* __restrict__ cols,
+                                 const float* __restrict__ x,
+                                 float* __restrict__ y,
+                                 int mb, int bs, int G) {
+  const long long i = blockIdx.x;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const int sub = lane & (G - 1);        // chunk index within the row
+  const int rsub = lane / G;             // row within the warp's pass
+  const int rows_per_warp = 32 / G;
+  const int chunks = bs / VEC;           // VEC-wide chunks per row
+  const int* cols_i = cols + i * mb;
+  const long long blk = (long long)bs * bs;
+  const T* vals_i = vals + i * mb * blk;
+
+  for (int a0 = warp * rows_per_warp; a0 < bs;
+       a0 += nwarps * rows_per_warp) {
+    const int a = a0 + rsub;
+    float acc = 0.f;
+    if (a < bs) {
+      const T* row = vals_i + (long long)a * bs;
+#pragma unroll 4
+      for (int j = 0; j < mb; ++j) {
+        const float* xs = x + (long long)__ldg(cols_i + j) * bs;
+        const T* vr = row + j * blk;
+        for (int c = sub; c < chunks; c += G) {
+          float v[VEC], xv[VEC];
+          Loader<T, VEC>::load(vr + c * VEC, v);
+          load_x<VEC>(xs + c * VEC, xv);
+#pragma unroll
+          for (int k = 0; k < VEC; ++k) acc = fmaf(v[k], xv[k], acc);
+        }
+      }
+    }
+    // Every lane of the warp takes part in the shuffles (the loop bound
+    // is uniform across the warp); rows past bs contribute nothing.
+    for (int off = G >> 1; off > 0; off >>= 1)
+      acc += __shfl_xor_sync(0xffffffffu, acc, off);
+    if (sub == 0 && a < bs) y[i * bs + a] = acc;
+  }
+}
+
+int next_pow2_capped(int c) {
+  int g = 1;
+  while (g < c && g < 32) g <<= 1;
+  return g;
+}
+
+template <typename T, int VEC>
+int launch(const void* vals, const void* cols, const void* x, void* y,
+           long long nb, int mb, int bs, int device, void* stream) {
+  // The library carries its own CUDA runtime: bind it to the caller's
+  // device so the launch goes to the context that owns `stream`.
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const int G = next_pow2_capped(bs / VEC);
+  const int rows_per_warp = 32 / G;
+  int warps = (bs + rows_per_warp - 1) / rows_per_warp;
+  if (warps > 8) warps = 8;
+  bell_spmv_kernel<T, VEC><<<(unsigned)nb, warps * 32, 0,
+                             (cudaStream_t)stream>>>(
+      (const T*)vals, (const int*)cols, (const float*)x, (float*)y, mb, bs,
+      G);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Plain C entry points for ctypes.  `vec` is the vector width the caller
+// checked the block size and pointer alignment for (16 bytes of values, or
+// 1).  Each returns cudaGetLastError() after the launch (0 = launched).
+extern "C" int bell_spmv_f32(const void* vals, const void* cols,
+                             const void* x, void* y, long long nb, int mb,
+                             int bs, int vec, int device, void* stream) {
+  if (vec == 4)
+    return launch<float, 4>(vals, cols, x, y, nb, mb, bs, device, stream);
+  return launch<float, 1>(vals, cols, x, y, nb, mb, bs, device, stream);
+}
+
+extern "C" int bell_spmv_bf16vals(const void* vals, const void* cols,
+                                  const void* x, void* y, long long nb,
+                                  int mb, int bs, int vec, int device,
+                                  void* stream) {
+  if (vec == 8)
+    return launch<__nv_bfloat16, 8>(vals, cols, x, y, nb, mb, bs, device,
+                                    stream);
+  return launch<__nv_bfloat16, 1>(vals, cols, x, y, nb, mb, bs, device,
+                                  stream);
+}
+
+extern "C" const char* bell_spmv_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}

@@ -1,0 +1,236 @@
+"""Linear operators on PyTorch tensors.
+
+Counterpart of ``dominantsparseeigenad_tpu/ops/operators.py``.  The JAX
+package carries an operator's differentiable inputs as pytree leaves;
+here every operator exposes them through :meth:`LinearOperator.parameters`,
+the tensors that ``torch.autograd.grad`` differentiates the IFT rule of
+``eigh.py`` into.
+
+Every operator implements ``matvec``, ``rmatvec``, ``dim``, ``dtype`` and
+``device``.  The operator algebra of the JAX module (sums, scalings,
+shifts, compositions, transposed views) is not ported yet.
+
+Precision policy: the JAX package pins HIGHEST precision on its internal
+dots and GEMMs (``hdot``/``hmatmul``) because a TPU otherwise rounds f32
+operands to bf16.  The hazard on an NVIDIA card is TF32, which keeps about
+three decimal digits.  This module turns TF32 off for matrix products and
+:func:`hmatmul` refuses to run if something turned it back on.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable
+
+import torch
+
+torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: ``device`` if given, else CUDA.
+
+    There is no quiet fallback: with no card present, a caller that did
+    not ask for ``"cpu"`` gets an error.
+    """
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run on the "
+            "CPU")
+    return dev
+
+
+def check_device(device, *items) -> torch.device:
+    """Resolve ``device`` and require every item (a tensor or an
+    operator) to live on it."""
+    dev = resolve_device(device)
+    for t in items:
+        if t.device.type != dev.type:
+            raise ValueError(
+                f"input on {t.device} but the call runs on {dev}; pass "
+                f"device={t.device.type!r} or move the inputs")
+    return dev
+
+
+def _check_no_tf32():
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError(
+            "torch.backends.cuda.matmul.allow_tf32 is on: the solvers' "
+            "reductions need true fp32 (set it back to False)")
+
+
+def hmatmul(a, b):
+    """``torch.matmul`` in true fp32/fp64 (never TF32)."""
+    _check_no_tf32()
+    return torch.matmul(a, b)
+
+
+def hdot(a, b):
+    """Inner product ``<a, b>`` of two real vectors, accumulated in the
+    vectors' own dtype (cuBLAS ``dot`` has no TF32 mode)."""
+    return torch.dot(a, b)
+
+
+def pivot_gauge(v):
+    """Scale ``v`` (an (N,) vector, or the columns of an (N, r) block) so
+    that its largest-magnitude entry is positive: the sign gauge every
+    forward of the JAX package applies and its derivative rules assume."""
+    if v.ndim == 1:
+        return v * torch.sign(v[torch.argmax(torch.abs(v))])
+    idx = torch.argmax(torch.abs(v), dim=0)
+    pivots = torch.gather(v, 0, idx[None])[0]
+    return v * torch.sign(pivots)[None, :]
+
+
+def tol_floor(tol: float, dtype) -> float:
+    """Clamp a relative tolerance to 50 eps of ``dtype``, what a
+    residual-stopped loop can reach (~6e-6 in f32, ~1.1e-14 in f64)."""
+    return max(float(tol), 50.0 * float(torch.finfo(dtype).eps))
+
+
+def _tensors_of(params) -> list:
+    """Flatten a tensor, or a (nested) list/tuple/dict of them."""
+    if isinstance(params, torch.Tensor):
+        return [params]
+    if isinstance(params, dict):
+        params = list(params.values())
+    if isinstance(params, (list, tuple)):
+        return [t for p in params for t in _tensors_of(p)]
+    return []
+
+
+class LinearOperator:
+    """Abstract square linear operator."""
+
+    def matvec(self, x: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    def rmatvec(self, x: torch.Tensor) -> torch.Tensor:
+        """Transpose matvec ``A.T @ x``."""
+        raise NotImplementedError
+
+    def parameters(self) -> list:
+        """The tensors the operator is differentiable in."""
+        raise NotImplementedError
+
+    @property
+    def dim(self) -> int:
+        raise NotImplementedError
+
+    @property
+    def dtype(self) -> torch.dtype:
+        raise NotImplementedError
+
+    @property
+    def device(self) -> torch.device:
+        raise NotImplementedError
+
+    @property
+    def shape(self) -> tuple[int, int]:
+        return (self.dim, self.dim)
+
+    def matmat(self, X: torch.Tensor) -> torch.Tensor:
+        """``A @ X`` for an (N, m) block, one matvec per column."""
+        return torch.stack([self.matvec(X[:, j]) for j in range(X.shape[1])],
+                           dim=1)
+
+
+class DenseOperator(LinearOperator):
+    """Dense square matrix operator; applications run in true fp32/fp64."""
+
+    def __init__(self, a: torch.Tensor):
+        if a.ndim != 2 or a.shape[0] != a.shape[1]:
+            raise ValueError(f"expected square matrix, got shape "
+                             f"{tuple(a.shape)}")
+        self.a = a
+
+    def matvec(self, x):
+        return hmatmul(self.a, x)
+
+    def rmatvec(self, x):
+        return hmatmul(self.a.T, x)
+
+    def matmat(self, X):
+        return hmatmul(self.a, X)
+
+    def parameters(self):
+        return [self.a]
+
+    @property
+    def dim(self):
+        return self.a.shape[0]
+
+    @property
+    def dtype(self):
+        return self.a.dtype
+
+    @property
+    def device(self):
+        return self.a.device
+
+
+class MatrixFreeOperator(LinearOperator):
+    """Matrix-free operator ``A(params) @ x = matvec_fn(params, x)``.
+
+    ``params`` is a tensor or a list/tuple/dict of tensors; gradients with
+    respect to them come from ``torch.autograd.grad`` of ``matvec_fn``,
+    which is the lazy ``u^T (dA/dθ) w`` contraction of the reference: no
+    N×N matrix is built.  ``rmatvec_fn`` defaults to ``matvec_fn``
+    (symmetric operator).  ``device`` is where the operator runs when
+    ``params`` holds no tensor; otherwise it is the parameters' device.
+    """
+
+    def __init__(self, matvec_fn: Callable, params: Any, dim: int,
+                 dtype=torch.float32, rmatvec_fn: Callable | None = None,
+                 symmetric: bool = True, device=None):
+        if rmatvec_fn is None and not symmetric:
+            raise ValueError(
+                "non-symmetric MatrixFreeOperator requires rmatvec_fn")
+        self.matvec_fn = matvec_fn
+        self.params = params
+        self._dim = int(dim)
+        self._dtype = dtype
+        self.rmatvec_fn = rmatvec_fn
+        self.symmetric = bool(symmetric)
+        tensors = _tensors_of(params)
+        if tensors:
+            self._device = tensors[0].device
+            if device is not None and \
+                    torch.device(device).type != self._device.type:
+                raise ValueError(f"params on {self._device}, device="
+                                 f"{device!r} requested")
+        else:
+            self._device = resolve_device(device)
+
+    def matvec(self, x):
+        return self.matvec_fn(self.params, x)
+
+    def rmatvec(self, x):
+        if self.rmatvec_fn is not None:
+            return self.rmatvec_fn(self.params, x)
+        return self.matvec_fn(self.params, x)
+
+    def parameters(self):
+        return _tensors_of(self.params)
+
+    @property
+    def dim(self):
+        return self._dim
+
+    @property
+    def dtype(self):
+        return self._dtype
+
+    @property
+    def device(self):
+        return self._device
+
+
+def as_operator(a: Any) -> LinearOperator:
+    """Coerce a dense square tensor or an operator into a LinearOperator."""
+    if isinstance(a, LinearOperator):
+        return a
+    if not isinstance(a, torch.Tensor):
+        raise TypeError(f"expected a LinearOperator or a tensor, got "
+                        f"{type(a).__name__}")
+    return DenseOperator(a)

@@ -1,0 +1,194 @@
+"""Blocked-ELL sparse operator.
+
+Counterpart of the ``BellOperator`` and ``random_bell_operator`` of
+``dominantsparseeigenad_tpu/ops/sparse.py``.  The COO/CSR/BCOO formats
+wait for a later slice.  The device decides the SpMV path: on a CUDA
+tensor every matvec launches the hand-written kernel of ``bell_spmv``, on
+a CPU tensor it takes the plain version.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from .bell_spmv import _bell_rmatvec_torch, bell_spmv
+from .operators import LinearOperator, resolve_device
+
+
+class BellOperator(LinearOperator):
+    """Blocked-ELLPACK sparse operator.
+
+    ``vals[i, j]`` is the dense (bs, bs) block at block-row ``i``,
+    block-column ``cols[i, j]``; slots past a row's real block count are
+    zero blocks pointing at column 0.
+
+    Narrow-values tier: ``vals`` may be stored in bfloat16.  Vectors stay
+    in ``compute_dtype`` (float32 by default for bf16 storage) and the
+    blocks are upcast at the product, so the only rounding is storage,
+    ``||δA|| <= 2^-8 ||A||`` once at write time.
+    """
+
+    def __init__(self, vals: torch.Tensor, cols: torch.Tensor, n: int, *,
+                 symmetric: bool = False, compute_dtype=None):
+        if vals.ndim != 4 or vals.shape[2] != vals.shape[3]:
+            raise ValueError(f"vals must be (nb, max_blk, bs, bs), got "
+                             f"{tuple(vals.shape)}")
+        nb, max_blk, bs, _ = vals.shape
+        if nb * bs != int(n):
+            raise ValueError(f"n={n} is not nb*bs={nb * bs}")
+        if tuple(cols.shape) != (nb, max_blk):
+            raise ValueError(f"cols must be {(nb, max_blk)}, got "
+                             f"{tuple(cols.shape)}")
+        if cols.device != vals.device:
+            raise ValueError(f"cols on {cols.device}, vals on {vals.device}")
+        cols = cols.to(torch.int32)
+        # The kernel trusts the indices: check the range once, here.
+        if cols.numel() and (int(cols.min()) < 0 or int(cols.max()) >= nb):
+            raise ValueError(f"cols must lie in [0, {nb})")
+        self.vals = vals
+        self.cols = cols
+        self.n = int(n)
+        self.symmetric = bool(symmetric)
+        if compute_dtype is None:
+            compute_dtype = (torch.float32 if vals.dtype == torch.bfloat16
+                             else vals.dtype)
+        self.compute_dtype = compute_dtype
+
+    @classmethod
+    def from_dense(cls, a, bs: int = 128, *, symmetric: bool = False,
+                   device=None):
+        """The nonzero (bs, bs) blocks of the dense (N, N) ``a``; built on
+        the host, then moved to ``device``."""
+        dev = resolve_device(device)
+        a = a.detach().cpu().numpy() if isinstance(a, torch.Tensor) \
+            else np.asarray(a)
+        n = a.shape[0]
+        if n % bs:
+            raise ValueError(f"dim {n} not divisible by block size {bs}")
+        nb = n // bs
+        blocks = a.reshape(nb, bs, nb, bs).transpose(0, 2, 1, 3)
+        keep = np.abs(blocks).max(axis=(2, 3)) > 0         # (nb, nb)
+        max_blk = max(int(keep.sum(axis=1).max()), 1)
+        vals = np.zeros((nb, max_blk, bs, bs), a.dtype)
+        cols = np.zeros((nb, max_blk), np.int32)
+        for i in range(nb):
+            js = np.nonzero(keep[i])[0]
+            vals[i, : len(js)] = blocks[i, js]
+            cols[i, : len(js)] = js
+        return cls(torch.from_numpy(vals).to(dev),
+                   torch.from_numpy(cols).to(dev), n, symmetric=symmetric)
+
+    def matvec(self, x):
+        return bell_spmv(self.vals, self.cols, x)
+
+    def rmatvec(self, x):
+        if self.symmetric:
+            return self.matvec(x)
+        # A^T x: scatter-transpose in plain PyTorch (off the Lanczos loop).
+        return _bell_rmatvec_torch(self.vals, self.cols, x,
+                                   self.vals.shape[0])
+
+    def parameters(self):
+        return [self.vals]
+
+    def to_dense(self):
+        """Dense (N, N) matrix in the compute dtype (test helper)."""
+        nb, max_blk, bs, _ = self.vals.shape
+        rows = torch.arange(nb, device=self.vals.device)[:, None].expand(
+            nb, max_blk)
+        dense = torch.zeros(nb, nb, bs, bs, dtype=self.compute_dtype,
+                            device=self.vals.device)
+        dense = dense.index_put((rows, self.cols.long()),
+                                self.vals.to(self.compute_dtype),
+                                accumulate=True)
+        return dense.permute(0, 2, 1, 3).reshape(self.n, self.n)
+
+    def astype_vals(self, dtype):
+        """Copy with the block values cast to ``dtype`` (e.g. bfloat16);
+        Krylov vectors keep ``compute_dtype``."""
+        return self.with_vals(self.vals.to(dtype))
+
+    def with_vals(self, vals):
+        """Copy with new block values on the same sparsity pattern."""
+        return type(self)(vals, self.cols, self.n, symmetric=self.symmetric,
+                          compute_dtype=self.compute_dtype)
+
+    @property
+    def dim(self):
+        return self.n
+
+    @property
+    def dtype(self):
+        # The compute dtype, which Lanczos vectors and reductions use.
+        return self.compute_dtype
+
+    @property
+    def device(self):
+        return self.vals.device
+
+    @property
+    def block_size(self):
+        return self.vals.shape[-1]
+
+    @property
+    def nnz(self):
+        """Stored entries, padding blocks included."""
+        return math.prod(self.vals.shape)
+
+
+def random_bell_operator(n: int, bs: int, blocks_per_row: int, *,
+                         generator: torch.Generator | None = None,
+                         dtype=torch.float32, vals_dtype=None,
+                         device=None) -> BellOperator:
+    """Synthetic symmetric block-banded operator (BASELINE config #5).
+
+    The structure is the JAX ``random_bell_operator``'s exactly: the
+    diagonal block (symmetrized) plus pairs of bands at offsets ±o drawn
+    from ``np.random.default_rng(7)``, the -o band the transpose of the +o
+    band, entries scaled by ``1/sqrt(blocks_per_row * bs)``.  So ``cols``
+    equals the JAX operator's.  The values come from ``generator`` (seeded
+    0 on the device when None) and are made on the device, one band at a
+    time.
+    """
+    if blocks_per_row % 2 == 0:
+        raise ValueError("blocks_per_row must be odd (diag + ± band pairs)")
+    nb = n // bs
+    if nb * bs != n:
+        raise ValueError(f"dim {n} not divisible by block size {bs}")
+    dev = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    n_off = (blocks_per_row - 1) // 2
+    rng = np.random.default_rng(7)
+    offs = (rng.permutation(np.arange(1, nb))[:n_off]
+            if nb > 1 else np.zeros(0, np.int64))
+    n_off = len(offs)
+
+    scale = float(1.0 / np.sqrt((1 + 2 * n_off) * bs))
+    i = np.arange(nb)
+    cols = [i]
+    vals = torch.empty((nb, 1 + 2 * n_off, bs, bs), dtype=dtype, device=dev)
+    band = torch.empty((nb, bs, bs), dtype=dtype, device=dev)
+    torch.randn(band.shape, generator=generator, out=band)
+    band.mul_(scale)
+    vals[:, 0] = (band + band.transpose(-1, -2)) / 2
+    for o_idx, o in enumerate(offs):
+        torch.randn(band.shape, generator=generator, out=band)
+        band.mul_(scale)
+        # +o band: block B_i at (i, (i+o) % nb)
+        vals[:, 1 + 2 * o_idx] = band
+        cols.append((i + o) % nb)
+        # -o band: block at (i, (i-o) % nb) = B_{(i-o) % nb}^T
+        src = (i - o) % nb
+        vals[:, 2 + 2 * o_idx] = band[torch.from_numpy(src).to(dev)] \
+            .transpose(-1, -2)
+        cols.append(src)
+    del band
+    cols = torch.from_numpy(np.stack(cols, axis=1).astype(np.int32)).to(dev)
+    op = BellOperator(vals, cols, n, symmetric=True)
+    if vals_dtype is not None:
+        op = op.astype_vals(vals_dtype)
+    return op
