@@ -7,7 +7,8 @@ Run from the root of a checkout, on a machine with a CUDA card and the
 CUDA toolkit (``nvcc``).  It imports nothing of JAX.  Phases, one JSON
 line each:
 
-1. ``build``: compiles ``csrc/bell_spmv.cu`` with nvcc (timed), reads the
+1. ``build``: compiles ``csrc/bell_spmv.cu`` and ``csrc/bell_spmm.cu``
+   with nvcc (one process each, started together; timed), reads the
    card's name and power limit, measures the device-to-device copy rate.
 2. ``spmv``: the blocked-ELL kernel against its plain PyTorch version, in
    float32 and bfloat16 values, at the BASELINE config-#5 shape (n = 2^19,
@@ -19,6 +20,20 @@ line each:
    counts of that run; then the checks (λ against a plain-SpMV solve from
    the same start vector, ∂λ/∂vals against v⊗v on the pattern, a
    dot-product test of the full gradient against the forward IFT tangent).
+4. ``spmm``: the blocked-ELL SpMM kernel against its plain version and
+   against r chained SpMV launches, float32 and bfloat16 values, at
+   config #5 with r = 8 and r = 4, and at small odd shapes (r = 8; r = 3
+   with an X that is not 16-byte aligned); kernel, plain, chained-SpMV,
+   bound and library (cuSPARSE BSR, float32 only) times.
+5. ``eigh_multi``: the block path at the config-#5 shape.
+   ``dominant_eigh_multi`` with r = 8, LOBPCG capped at 100 iterations,
+   and the gradient of ``Σ c_i λ_i + <C, V>`` with the backward's batched
+   CG capped at 1000 iterations, on float32 values; a bfloat16-values
+   LOBPCG forward; a Lanczos forward with its info residual; the launch
+   counts of that run; then the checks (launch counts against the
+   iterations, the pairs against an independent SpMV, ∂Σλ/∂vals against
+   Σ v_i⊗v_i on the pattern, a dot-product test of the full gradient
+   against the forward block IFT tangent, bf16 against f32 eigenvalues).
 
 Then a ``kernels`` line, the ``nvidia-smi`` name and power-limit line, and
 as the last line ``{"ok": true, "device": {...}}``.  Any failed check
@@ -48,6 +63,12 @@ K = 100
 DEVICE = "cuda"
 CG_TOL = 1e-6                          # clamped to 50 eps(f32) = 6e-6
 CG_MAXITER = 3000
+SPMM_SHAPES = ((CONFIG5, 8, False), (CONFIG5, 4, False),
+               (SMALL_SHAPES[0], 8, False), (SMALL_SHAPES[1], 3, True))
+MULTI_R = 8
+LOBPCG_ITERS = 100
+MULTI_CG_MAXITER = 1000
+LANCZOS_K = 50
 
 
 def emit(obj):
@@ -121,6 +142,17 @@ def bsr_library_call(vals, cols, n):
     return lambda x: a @ x
 
 
+def bound(nnz, val_bytes, other_bytes, r=1):
+    """Least time (ms) for the product and what bounds it: each input read
+    once and each output written once at the published memory rate, or
+    2 r operations per value at the float32 rate."""
+    bytes_min = nnz * val_bytes + other_bytes
+    t_bytes = bytes_min / PEAK_BYTES_PER_S
+    t_ops = 2 * nnz * r / PEAK_F32_FLOP_PER_S
+    return (bytes_min, max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
 def spmv_case(spmv, sparse, n, bs, bpr, copy_gbps, seed, unaligned=False):
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
     op = sparse.random_bell_operator(n, bs, bpr, generator=gen,
@@ -158,11 +190,8 @@ def spmv_case(spmv, sparse, n, bs, bpr, copy_gbps, seed, unaligned=False):
         nb, max_blk = cols.shape
         nnz = vals.numel()
         # Least bytes: each input once (values, cols, x), y once.
-        bytes_min = nnz * vals.element_size() + cols.numel() * 4 + 2 * n * 4
-        bound_ms = max(bytes_min / PEAK_BYTES_PER_S,
-                       2 * nnz / PEAK_F32_FLOP_PER_S) * 1e3
-        bound_by = ("bytes" if bytes_min / PEAK_BYTES_PER_S
-                    >= 2 * nnz / PEAK_F32_FLOP_PER_S else "operations")
+        bytes_min, bound_ms, bound_by = bound(
+            nnz, vals.element_size(), cols.numel() * 4 + 2 * n * 4)
         # The same stream with every x gather counted, over the measured
         # copy rate.
         bytes_gather = nnz * vals.element_size() + nb * max_blk * bs * 4 \
@@ -181,6 +210,73 @@ def spmv_case(spmv, sparse, n, bs, bpr, copy_gbps, seed, unaligned=False):
         results[name] = row
         del vals, y_k, y_p
     del op, x
+    torch.cuda.empty_cache()
+    return results
+
+
+def spmm_case(spmv, sparse, n, bs, bpr, r, seed, unaligned=False):
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    op = sparse.random_bell_operator(n, bs, bpr, generator=gen,
+                                     device=DEVICE)
+    X = torch.randn(n, r, generator=gen, device=DEVICE)
+    if unaligned:
+        # An X that is not 16-byte aligned: the kernel stages X with
+        # scalar loads, so only the values' alignment matters.
+        buf = torch.empty(n * r + 1, device=DEVICE)
+        buf[1:] = X.reshape(-1)
+        X = buf[1:].view(n, r)
+    x_cols = X.T.contiguous()                 # the r columns, for chained K1
+    big = n >= CONFIG5[0]
+    results = {}
+    for name, spmv_name, vals in (
+            ("bell_spmm_f32", "bell_spmv_f32", op.vals),
+            ("bell_spmm_bf16vals", "bell_spmv_bf16vals",
+             op.vals.to(torch.bfloat16))):
+        cols = op.cols
+        y_k = spmv._bell_spmm_cuda(vals, cols, X)
+        y_p = spmv._bell_spmm_torch(vals, cols, X)
+
+        def chained():
+            return [spmv._bell_spmv_cuda(vals, cols, x_cols[c])
+                    for c in range(r)]
+
+        y_c = torch.stack(chained(), dim=1)
+        torch.cuda.synchronize()
+        err, chained_err = rel_err(y_k, y_p), rel_err(y_k, y_c)
+        max_abs = float((y_k - y_p).abs().max())
+        if not (math.isfinite(err) and err <= 1e-5 and chained_err <= 1e-5):
+            raise AssertionError(f"{name} at n={n} bs={bs} r={r}: rel err "
+                                 f"{err} (plain), {chained_err} (chained)")
+        batch_k = 5 if big else 100
+        kernel_ms = event_ms(lambda: spmv._bell_spmm_cuda(vals, cols, X),
+                             samples=12, batch=batch_k)
+        plain_ms = event_ms(lambda: spmv._bell_spmm_torch(vals, cols, X),
+                            samples=12, batch=batch_k // 5 or 1)
+        chained_ms = event_ms(chained, samples=12, batch=batch_k // 5 or 1)
+        library_ms = lib_err = None
+        if vals.dtype == torch.float32 and not unaligned:
+            lib = bsr_library_call(vals, cols, n)
+            lib_err = rel_err(lib(X), y_p)
+            library_ms = event_ms(lambda: lib(X), samples=12,
+                                  batch=batch_k // 5 or 1)
+            del lib
+        # Least bytes: values, cols, X once, Y once.
+        bytes_min, bound_ms, bound_by = bound(
+            vals.numel(), vals.element_size(),
+            cols.numel() * 4 + 2 * n * r * 4, r)
+        row = {"phase": "spmm", "kernel": name, "n": n, "bs": bs,
+               "blocks_per_row": bpr, "r": r, "x_aligned": not unaligned,
+               "rel_err": err, "max_abs_err": max_abs,
+               "chained_spmv_rel_err": chained_err,
+               "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+               "library_ms": library_ms, "library_rel_err": lib_err,
+               "chained_spmv_ms": chained_ms, "bytes_min": bytes_min,
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "achieved_gbps": bytes_min / (kernel_ms * 1e-3) / 1e9}
+        emit(row)
+        results[name] = row
+        del vals, y_k, y_p, y_c
+    del op, X, x_cols
     torch.cuda.empty_cache()
     return results
 
@@ -339,6 +435,219 @@ def phase_eigh(pkg, spmv):
     return counts
 
 
+def phase_eigh_multi(pkg, spmv):
+    from dominantsparseeigenad_tpu_torch.ops.cg import (CHECK_EVERY,
+                                                        solve_deflated_info)
+    n, bs, bpr = CONFIG5
+    r = MULTI_R
+    gen = torch.Generator(device=DEVICE).manual_seed(11)
+    op = pkg.random_bell_operator(n, bs, bpr, generator=gen, device=DEVICE)
+    op.vals.requires_grad_(True)
+    op_bf = op.with_vals(op.vals.detach().to(torch.bfloat16))
+    x0 = torch.randn(n, r, generator=gen, device=DEVICE)
+    c = torch.randn(r, generator=gen, device=DEVICE)
+    C = torch.randn(n, r, generator=gen, device=DEVICE) / math.sqrt(n)
+    solve = dict(r=r, k=LOBPCG_ITERS, method="lobpcg", tol=CG_TOL,
+                 maxiter=MULTI_CG_MAXITER, x0=x0, with_info=True,
+                 device=DEVICE)
+
+    # Warm-up on a small operator through the same calls, so that one-time
+    # costs (library loads, first launches of each kernel) stay out.
+    t0 = time.perf_counter()
+    small = pkg.random_bell_operator(1 << 14, bs, bpr, generator=gen,
+                                     device=DEVICE)
+    for o in (small, small.astype_vals(torch.bfloat16)):
+        o.vals.requires_grad_(True)
+        lams_w, v_w = pkg.dominant_eigh_multi(o, r=r, k=10, method="lobpcg",
+                                              maxiter=10, device=DEVICE)
+        (lams_w.sum() + v_w.sum()).backward()
+    pkg.dominant_eigh_multi(small, r=r, k=20, with_info=True, device=DEVICE)
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter() - t0
+    del small, o, lams_w, v_w
+    torch.cuda.reset_peak_memory_stats()
+
+    # ---- the main path, counted ----------------------------------------
+    spmv.reset_launch_counts()
+    t0 = time.perf_counter()
+    lams, V, info = pkg.dominant_eigh_multi(op, **solve)
+    torch.cuda.synchronize()
+    t_fwd = time.perf_counter() - t0
+    fwd = dict(spmv.launch_counts)
+    before = spmv.launch_counts["bell_spmm_f32"]
+    t0 = time.perf_counter()
+    (g_sum,) = torch.autograd.grad(lams.sum(), op.vals, retain_graph=True)
+    torch.cuda.synchronize()
+    t_bwd_lam = time.perf_counter() - t0
+    bwd_lam_launches = spmv.launch_counts["bell_spmm_f32"] - before
+    before = spmv.launch_counts["bell_spmm_f32"]
+    t0 = time.perf_counter()
+    ((c * lams).sum() + (C * V).sum()).backward()
+    torch.cuda.synchronize()
+    t_bwd = time.perf_counter() - t0
+    bwd_launches = spmv.launch_counts["bell_spmm_f32"] - before
+    t0 = time.perf_counter()
+    lams_bf, V_bf, info_bf = pkg.dominant_eigh_multi(op_bf, **solve)
+    torch.cuda.synchronize()
+    t_bf = time.perf_counter() - t0
+    before = dict(spmv.launch_counts)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        lams_lz, _, info_lz = pkg.dominant_eigh_multi(
+            op, r=r, k=LANCZOS_K, method="lanczos", with_info=True,
+            v0=x0[:, 0], device=DEVICE)
+    torch.cuda.synchronize()
+    t_lz = time.perf_counter() - t0
+    counts = dict(spmv.launch_counts)
+    lz = {k: counts[k] - before[k] for k in counts}
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    # ---- end of the counted run -----------------------------------------
+
+    its = int(info.effective_k)
+    lams, V = lams.detach(), V.detach()
+    vals_d, cols = op.vals.detach(), op.cols
+    lam_scale = float(lams.abs().max())
+
+    def deflated(Z):
+        """P (A P Z - P Z diag(λ)), P = I - V V^T (the unsigned system)."""
+        pz = Z - V @ (V.T @ Z)
+        az = op.matmat(pz) - pz * lams[None, :]
+        return az - V @ (V.T @ az)
+
+    with torch.no_grad():
+        # The pairs, with A applied by the SpMV kernel (independent of K3).
+        rq = torch.stack([torch.dot(V[:, i], spmv._bell_spmv_cuda(
+            vals_d, cols, V[:, i].contiguous())) for i in range(r)])
+        pair_err = float((lams - rq).abs().max()) / lam_scale
+        orth_err = float((V.T @ V - torch.eye(r, device=DEVICE)).abs().max())
+
+        # The backward's batched CG, re-run on the same right-hand side;
+        # the kernels are deterministic, so it gives the backward's X.
+        b = -(C - V @ (V.T @ C))
+        before = spmv.launch_counts["bell_spmm_f32"]
+        x, x_its, x_res = solve_deflated_info(
+            op, lams, V, b, tol=CG_TOL, maxiter=MULTI_CG_MAXITER,
+            device=DEVICE)
+        cg_loop = spmv.launch_counts["bell_spmm_f32"] - before - 1
+        cg_loop_expect = min(MULTI_CG_MAXITER,
+                             -(-max(x_its) // CHECK_EVERY) * CHECK_EVERY)
+
+        # ∂Σλ/∂vals = Σ_i v_i[i*bs+a] v_i[cols[i,j]*bs+b] on the pattern.
+        vb = V.reshape(-1, bs, r)
+        expect = torch.matmul(vb[:, None], vb[cols.long()].transpose(-1, -2))
+        dlam_err = rel_err(g_sum, expect)
+        del expect
+
+        # Dot-product test of the full gradient: <grad, dvals> against the
+        # forward block IFT tangent Σ c_i dλ_i + <C, dV>, with
+        # M = V^T dA V, dλ = diag(M), dV = V (F∘M) + dV_out, dV_out the
+        # batched deflated solve of -(I - V V^T) dA V.  With residuals
+        # r_x = P b - D_i x_i and r_d = P rhs_i - D_i dv_i per column
+        # (D_i = P (A - λ_i) P), the two sides differ by
+        # Σ_i (<r_x_i, dv_i> - <x_i, r_d_i>) exactly, at any CG stopping
+        # point, up to round-off.
+        g_full = op.vals.grad
+        dvals = torch.randn(vals_d.shape, generator=gen, device=DEVICE)
+        lhs = sum(float(torch.dot(g.reshape(-1).double(),
+                                  d.reshape(-1).double()))
+                  for g, d in zip(g_full.split(256), dvals.split(256)))
+        dav = spmv.bell_spmm(dvals, cols, V)
+        del dvals
+        m = V.T @ dav
+        gap = lams[None, :] - lams[:, None]
+        f = gap / (gap * gap + 1e-24) * (1 - torch.eye(r, device=DEVICE))
+        rhs_d = -(dav - V @ m)
+        dv, dv_its, dv_res = solve_deflated_info(
+            op, lams, V, rhs_d, tol=CG_TOL, maxiter=MULTI_CG_MAXITER,
+            device=DEVICE)
+        r_x = (b - V @ (V.T @ b)) - deflated(x)
+        r_d = (rhs_d - V @ (V.T @ rhs_d)) - deflated(dv)
+        col_terms = [[float(torch.dot(r_x[:, i], dv[:, i])),
+                      -float(torch.dot(x[:, i], r_d[:, i]))]
+                     for i in range(r)]
+        tangent = [float(torch.dot(c, torch.diagonal(m))),
+                   float((C * (V @ (f * m))).sum()), float((C * dv).sum())]
+        resid_sum = sum(sum(t) for t in col_terms)
+        dot_err = abs(lhs - sum(tangent) - resid_sum) / (
+            abs(lhs) + sum(abs(t) for t in tangent)
+            + sum(abs(t) for ts in col_terms for t in ts))
+        finite = all(bool(torch.isfinite(t).all())
+                     for t in (lams, V, g_full, g_sum, lams_bf, V_bf,
+                               lams_lz))
+    # What a LOBPCG iteration spends besides its two SpMMs: two 3r x 3r
+    # and one r x r symmetric eigenproblems on the card, and the host read
+    # of the block residual.
+    g = torch.randn(3 * r, 3 * r, generator=gen, device=DEVICE)
+    g = g + g.T
+    g_r = g[:r, :r].contiguous()
+    eigh_3r_ms = event_ms(lambda: torch.linalg.eigh(g), samples=12, batch=10)
+    eigh_r_ms = event_ms(lambda: torch.linalg.eigh(g_r), samples=12,
+                         batch=10)
+    t0 = time.perf_counter()
+    for _ in range(100):
+        float(g[0, 0] + 1.0)
+    host_read_ms = (time.perf_counter() - t0) * 10
+    bf_err = float((lams_bf - lams).abs().max()) / lam_scale
+    emit({"phase": "eigh_multi", "n": n, "bs": bs, "blocks_per_row": bpr,
+          "r": r, "method": "lobpcg", "k": LOBPCG_ITERS,
+          "lams": lams.tolist(), "lobpcg_iterations": its,
+          "block_residual": float(info.residual),
+          "converged": float(info.converged), "warmup_s": t_warm,
+          "forward_s": t_fwd, "backward_lam_s": t_bwd_lam,
+          "backward_s": t_bwd, "bf16_forward_s": t_bf,
+          "lanczos_k": LANCZOS_K, "lanczos_forward_s": t_lz,
+          "lanczos_residual": float(info_lz.residual),
+          "lanczos_launches": lz,
+          "cg_loop_iterations": cg_loop, "cg_iterations": x_its,
+          "cg_rel_residuals": x_res, "launches": counts,
+          "forward_launches": fwd, "backward_lam_launches": bwd_lam_launches,
+          "backward_launches": bwd_launches, "pair_rel_err": pair_err,
+          "orthonormality_err": orth_err, "dsumlam_dvals_rel_err": dlam_err,
+          "dot_test_lhs": lhs, "dot_test_tangent": tangent,
+          "dot_test_column_terms": col_terms, "dot_test_rel_err": dot_err,
+          "tangent_cg_iterations": dv_its,
+          "tangent_cg_rel_residuals": dv_res,
+          "lams_bf16vals": lams_bf.tolist(),
+          "bf16_lobpcg_iterations": int(info_bf.effective_k),
+          "lams_bf16vals_rel": bf_err, "peak_mem_gib": peak_gib,
+          "eigh_3r_ms": eigh_3r_ms, "eigh_r_ms": eigh_r_ms,
+          "host_read_ms": host_read_ms})
+
+    checks = {
+        # lobpcg.py: one SpMM for A X0, then A W and A P every iteration;
+        # with_info adds none (LOBPCG reports its own residual).
+        "forward SpMM launches == 1 + 2 x iterations":
+            fwd["bell_spmm_f32"] == 1 + 2 * its,
+        "forward SpMV launches == 0": fwd["bell_spmv_f32"] == 0,
+        # V̄ = 0: the batched CG takes no iteration; one SpMM for ∂(A V).
+        "∂Σλ backward SpMM launches == 1": bwd_lam_launches == 1,
+        "backward SpMM launches == block-CG iterations + 1":
+            bwd_launches == cg_loop + 1,
+        "block-CG loop == its columns' iterations, rounded up":
+            cg_loop == cg_loop_expect,
+        "bf16 SpMM launches == 1 + 2 x iterations":
+            counts["bell_spmm_bf16vals"] == 1 + 2 * int(info_bf.effective_k),
+        # The Lanczos forward: k SpMVs, and one SpMM for its info residual.
+        "lanczos forward: k SpMVs + 1 SpMM":
+            lz["bell_spmv_f32"] == LANCZOS_K and lz["bell_spmm_f32"] == 1,
+        # Ritz values are Rayleigh quotients of their vectors.
+        "|λ_i - v_i^T A v_i| <= 1e-5 max|λ|": pair_err <= 1e-5,
+        "||V^T V - I||_max <= 1e-5": orth_err <= 1e-5,
+        # The same products as the backward's, formed directly.
+        "∂Σλ/∂vals vs Σ v_i⊗v_i, rel 1e-5": dlam_err <= 1e-5,
+        # An exact identity up to f32 round-off in products of vectors
+        # whose norms the ill-conditioned solves inflate.
+        "dot-product test, rel 1e-3": dot_err <= 1e-3,
+        # Weyl: bf16 storage moves each eigenvalue by at most 2^-8 ||A||.
+        "bf16-values λ within 2^-8 rel": bf_err <= 2.0 ** -8,
+        "finite": finite,
+    }
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"eigh_multi phase failed: {failed}")
+    return counts
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this script runs on the card")
@@ -357,16 +666,29 @@ def main():
     spmv_case(spmv, sparse, *SMALL_SHAPES[1], copy_gbps, seed=3,
               unaligned=True)
     counts = phase_eigh(pkg, spmv)
+    spmm = [spmm_case(spmv, sparse, *shape, r, seed=4 + i,
+                      unaligned=unaligned)
+            for i, (shape, r, unaligned) in enumerate(SPMM_SHAPES)]
+    counts.update({k: v for k, v in phase_eigh_multi(pkg, spmv).items()
+                   if k.startswith("bell_spmm")})
+    big.update(spmm[0])
 
-    src = "dominantsparseeigenad_tpu_torch/csrc/bell_spmv.cu"
+    csrc = "dominantsparseeigenad_tpu_torch/csrc/"
+    # The Pallas kernel body, and the SpMM entry that runs it on (N, r).
     tpu = "dominantsparseeigenad_tpu/ops/pallas_spmv.py:161"
+    tpu_spmm = "dominantsparseeigenad_tpu/ops/pallas_spmv.py:424"
     kernels = []
-    for name in ("bell_spmv_f32", "bell_spmv_bf16vals"):
+    for name in ("bell_spmv_f32", "bell_spmv_bf16vals", "bell_spmm_f32",
+                 "bell_spmm_bf16vals"):
         row = big[name]
         if counts[name] < 1:
             raise AssertionError(f"{name} never launched on the main path")
-        kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": tpu, "launches": counts[name],
+        spmm_kernel = "spmm" in name
+        kernels.append({"name": name, "route": "cuda",
+                        "source": csrc + ("bell_spmm.cu" if spmm_kernel
+                                          else "bell_spmv.cu"),
+                        "replaces": tpu_spmm if spmm_kernel else tpu,
+                        "launches": counts[name],
                         "max_abs_err": row["max_abs_err"],
                         "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
                         "bound_ms": row["bound_ms"],

@@ -2,10 +2,13 @@
 
 A package of its own beside the JAX one, with the same module layout.  It
 imports ``torch`` and ``numpy`` only.  So far it covers the sparse tier's
-eigensolver path: ``dominant_eigh`` (one extremal eigenpair, first-order
-reverse-mode gradients through the implicit-function-theorem rule) on a
-``BellOperator`` whose every SpMV runs the hand-written CUDA kernel of
-``csrc/bell_spmv.cu``, plus the dense and matrix-free operators.
+eigensolver paths, with first-order reverse-mode gradients through the
+implicit-function-theorem rule: ``dominant_eigh`` (one extremal
+eigenpair) on a ``BellOperator`` whose every SpMV runs the hand-written
+CUDA kernel of ``csrc/bell_spmv.cu``, and the block solver
+``dominant_eigh_multi`` (the r extremal pairs, by Lanczos or
+``lobpcg_eigh``) whose every SpMM runs the one of ``csrc/bell_spmm.cu``;
+plus the dense and matrix-free operators.
 
 Entry points run on CUDA unless called with ``device="cpu"``; without a
 card they raise rather than fall back.

@@ -1,27 +1,34 @@
-"""Blocked-ELL SpMV: the hand-written Hopper kernel and its plain version.
+"""Blocked-ELL SpMV and SpMM: the hand-written Hopper kernels and their
+plain versions.
 
 Counterpart of ``dominantsparseeigenad_tpu/ops/pallas_spmv.py``, for its
-SpMV entry ``bell_spmv``:
+entries ``bell_spmv`` and ``bell_spmm``:
 
-    y[i*bs + a] = sum_j vals[i, j, a, b] @ x[cols[i, j]*bs + b]
+    y[i*bs + a]    = sum_j vals[i, j, a, b] @ x[cols[i, j]*bs + b]
+    Y[i*bs + a, c] = sum_j vals[i, j, a, b] @ X[cols[i, j]*bs + b, c]
 
 ``vals`` is (nb, max_blk, bs, bs) in float32/float64, or bfloat16
 storage that is upcast at the product; ``cols`` is (nb, max_blk) int32;
-``x`` and ``y`` are (nb*bs,) in the compute dtype.
+``x`` and ``y`` are (nb*bs,), ``X`` and ``Y`` (nb*bs, r) row-major, in
+the compute dtype.
 
 * On a CUDA tensor :func:`bell_spmv` launches the CUDA kernel in
-  ``csrc/bell_spmv.cu`` (float32 ``x``; float32 or bfloat16 values), or
-  raises.  There is no fallback.
-* On a CPU tensor it takes :func:`_bell_spmv_torch`, the plain PyTorch
-  version, which is also what the kernel is checked against on the card.
+  ``csrc/bell_spmv.cu`` and :func:`bell_spmm` the one in
+  ``csrc/bell_spmm.cu`` (float32 vectors; float32 or bfloat16 values), or
+  raise.  There is no fallback.
+* On a CPU tensor they take :func:`_bell_spmv_torch` /
+  :func:`_bell_spmm_torch`, the plain PyTorch versions, which are also
+  what the kernels are checked against on the card.
 
-The kernel runs forward only.  Gradients come from the plain math in
-:class:`_BellSpmv`'s backward, as the JAX kernel's JVP goes through XLA.
+The kernels run forward only.  Gradients come from the plain math in the
+backward of :class:`_BellProduct`, as the JAX kernels' JVPs go through
+XLA.
 
-The kernel is compiled on first use with ``nvcc`` into a shared library
-with a plain C interface under ``build/torch_kernels/`` of the checkout
-and loaded with ``ctypes``; the library name carries a hash of the source,
-so an edited source is rebuilt.
+The kernels are compiled on first use with ``nvcc``, one process per
+source started together, and linked into one shared library with a plain
+C interface under ``build/torch_kernels/`` of the checkout, loaded with
+``ctypes``; the library name carries a hash of every source, so an edited
+source is rebuilt.
 """
 
 from __future__ import annotations
@@ -36,13 +43,17 @@ from pathlib import Path
 
 import torch
 
-_SRC = Path(__file__).resolve().parent.parent / "csrc" / "bell_spmv.cu"
+_CSRC = Path(__file__).resolve().parent.parent / "csrc"
+_SRC = _CSRC / "bell_spmv.cu"          # the SpMV kernel's source
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # Launches of each kernel, counted by the wrapper where it launches.
-launch_counts = {"bell_spmv_f32": 0, "bell_spmv_bf16vals": 0}
+launch_counts = {"bell_spmv_f32": 0, "bell_spmv_bf16vals": 0,
+                 "bell_spmm_f32": 0, "bell_spmm_bf16vals": 0}
+_SPMV_NAMES = ("bell_spmv_f32", "bell_spmv_bf16vals")
+_SPMM_NAMES = ("bell_spmm_f32", "bell_spmm_bf16vals")
 
 # What the last build did: seconds spent in nvcc (0.0 when the library was
 # already built) and nvcc's output (register and shared-memory use).
@@ -67,24 +78,56 @@ def _nvcc() -> str:
                        "use and needs the CUDA toolkit")
 
 
+def _sources() -> list[Path]:
+    return sorted(_CSRC.glob("*.cu"))
+
+
+def _library_path() -> Path:
+    """The library's path, named by a hash of the flags and of every
+    source."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode() + src.read_bytes())
+    return _BUILD_DIR / f"libbell_kernels_{h.hexdigest()[:12]}.so"
+
+
 def build_library() -> Path:
-    """Compile ``csrc/bell_spmv.cu`` unless this source is already built."""
-    digest = hashlib.sha256(_SRC.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    out = _BUILD_DIR / f"libbell_spmv_{digest}.so"
+    """Compile every ``csrc/*.cu`` unless these sources are already built:
+    one nvcc per source, all started together, then one link."""
+    sources = _sources()
+    out = _library_path()
     build_info["path"] = str(out)
     if out.exists():
         build_info["seconds"] = 0.0
         return out
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    objs = [out.with_suffix(f".{src.stem}.{os.getpid()}.o")
+            for src in sources]
     t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SRC)],
-                          capture_output=True, text=True)
+    nvcc = _nvcc()
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                               str(src)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(sources, objs)]
+    logs, failed = [], []
+    for src, proc in zip(sources, procs):
+        logs.append(f"== {src.name}\n{proc.communicate()[0]}")
+        if proc.returncode != 0:
+            failed.append(src.name)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    if not failed:
+        link = subprocess.run([nvcc, "-shared", *NVCC_FLAGS[:2], "-o",
+                               str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        logs.append(link.stdout + link.stderr)
+        if link.returncode != 0:
+            failed.append("link")
+    for obj in objs:
+        obj.unlink(missing_ok=True)
     build_info["seconds"] = time.perf_counter() - t0
-    build_info["log"] = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {_SRC}:\n{build_info['log']}")
+    build_info["log"] = "".join(logs)
+    if failed:
+        raise RuntimeError(f"nvcc failed on {failed}:\n{build_info['log']}")
     os.replace(tmp, out)
     return out
 
@@ -93,20 +136,31 @@ def _library():
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build_library()))
-        argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + \
-            [ctypes.c_int] * 4 + [ctypes.c_void_p]
-        for name in launch_counts:
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+        ptrs = [ctypes.c_void_p] * 4 + [ctypes.c_longlong]
+        for names, n_int in ((_SPMV_NAMES, 4), (_SPMM_NAMES, 5)):
+            for name in names:
+                fn = getattr(lib, name)
+                # (vals, cols, x, y, nb, mb, bs[, r], vec, device, stream)
+                fn.argtypes = ptrs + [ctypes.c_int] * n_int + [ctypes.c_void_p]
+                fn.restype = ctypes.c_int
         lib.bell_spmv_error_string.argtypes = [ctypes.c_int]
         lib.bell_spmv_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
 
 
+# The SpMM kernel stages X segments in shared memory, 8 columns of about
+# bs floats per slot in at most 100 KiB: a bound on bs that leaves room
+# for one slot with margin.
+SPMM_MAX_BS = 1024
+
+
 def _check_kernel_args(vals, cols, x) -> str:
-    """Validate what the CUDA kernel takes; return its name."""
+    """Validate what the CUDA kernels take; return the kernel's name.
+
+    ``x`` of shape (N,) goes to the SpMV kernel, (N, r) to the SpMM one.
+    """
+    kind = "bell_spmm" if x.ndim == 2 else "bell_spmv"
     if vals.ndim != 4 or vals.shape[2] != vals.shape[3]:
         raise ValueError(f"vals must be (nb, max_blk, bs, bs), got "
                          f"{tuple(vals.shape)}")
@@ -116,16 +170,23 @@ def _check_kernel_args(vals, cols, x) -> str:
     if tuple(cols.shape) != (nb, max_blk):
         raise ValueError(f"cols must be {(nb, max_blk)}, got "
                          f"{tuple(cols.shape)}")
-    if x.shape != (nb * bs,):
+    if kind == "bell_spmv" and x.shape != (nb * bs,):
         raise ValueError(f"x must be ({nb * bs},), got {tuple(x.shape)}")
+    if kind == "bell_spmm":
+        if x.shape[0] != nb * bs or x.shape[1] < 1:
+            raise ValueError(f"X must be ({nb * bs}, r) with r >= 1, got "
+                             f"{tuple(x.shape)}")
+        if bs > SPMM_MAX_BS:
+            raise ValueError(f"the SpMM kernel takes bs <= {SPMM_MAX_BS}, "
+                             f"got {bs}")
     if cols.dtype != torch.int32:
         raise ValueError(f"cols must be int32, got {cols.dtype}")
     if x.dtype != torch.float32:
         raise ValueError(f"the kernel takes float32 x, got {x.dtype}")
     if vals.dtype == torch.float32:
-        name = "bell_spmv_f32"
+        name = f"{kind}_f32"
     elif vals.dtype == torch.bfloat16:
-        name = "bell_spmv_bf16vals"
+        name = f"{kind}_bf16vals"
     else:
         raise ValueError(f"the kernel takes float32 or bfloat16 values, "
                          f"got {vals.dtype}")
@@ -135,27 +196,53 @@ def _check_kernel_args(vals, cols, x) -> str:
         if t.device != x.device:
             raise ValueError(f"{what} on {t.device}, x on {x.device}")
     if x.device.type != "cuda":
-        raise ValueError(f"bell_spmv runs on CUDA or CPU tensors, got "
+        raise ValueError(f"{kind} runs on CUDA or CPU tensors, got "
                          f"{x.device}")
     return name
+
+
+def _vec_width(vals, *aligned) -> int:
+    """16 bytes of values per load where the block size and the pointers
+    allow it, else 1."""
+    vec = 16 // vals.element_size()
+    if vals.shape[-1] % vec or any(t.data_ptr() % 16
+                                   for t in (vals, *aligned)):
+        return 1
+    return vec
+
+
+def _raise_on_error(name, err):
+    if err != 0:
+        msg = _library().bell_spmv_error_string(err).decode()
+        raise RuntimeError(f"{name} launch failed: {msg} (error {err})")
 
 
 def _bell_spmv_cuda(vals, cols, x):
     name = _check_kernel_args(vals, cols, x)
     nb, max_blk, bs, _ = vals.shape
-    vec = 16 // vals.element_size()
-    if bs % vec or any(t.data_ptr() % 16 for t in (vals, x)):
-        vec = 1
     y = torch.empty_like(x)
     err = getattr(_library(), name)(
         vals.data_ptr(), cols.data_ptr(), x.data_ptr(), y.data_ptr(), nb,
-        max_blk, bs, vec, x.device.index,
+        max_blk, bs, _vec_width(vals, x), x.device.index,
         torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        msg = _library().bell_spmv_error_string(err).decode()
-        raise RuntimeError(f"{name} launch failed: {msg} (error {err})")
+    _raise_on_error(name, err)
     launch_counts[name] += 1
     return y
+
+
+def _bell_spmm_cuda(vals, cols, X):
+    name = _check_kernel_args(vals, cols, X)
+    nb, max_blk, bs, _ = vals.shape
+    Y = torch.empty_like(X)
+    # X is staged through shared memory with scalar loads: only the
+    # values' alignment picks the vector width.
+    err = getattr(_library(), name)(
+        vals.data_ptr(), cols.data_ptr(), X.data_ptr(), Y.data_ptr(), nb,
+        max_blk, bs, X.shape[1], _vec_width(vals), X.device.index,
+        torch.cuda.current_stream(X.device).cuda_stream)
+    _raise_on_error(name, err)
+    launch_counts[name] += 1
+    return Y
 
 
 def _bell_spmv_torch(vals, cols, x):
@@ -167,44 +254,79 @@ def _bell_spmv_torch(vals, cols, x):
     return y.sum(dim=1).reshape(-1)
 
 
-def _bell_rmatvec_torch(vals, cols, y, n_cols):
-    """``A^T y`` in plain PyTorch: each block's transpose product,
-    scattered onto its block-column (``n_cols`` block-columns)."""
+def _bell_spmm_torch(vals, cols, X):
+    """Plain PyTorch version: a batched (bs, bs) x (bs, r) GEMM over the
+    gathered X segments, values upcast to ``X``'s dtype at the product."""
     nb, max_blk, bs, _ = vals.shape
-    contrib = torch.matmul(y.reshape(nb, 1, 1, bs),
-                           vals.to(y.dtype)).squeeze(-2)   # (nb, max_blk, bs)
-    out = torch.zeros(n_cols, bs, dtype=y.dtype, device=y.device)
+    r = X.shape[1]
+    xg = X.reshape(-1, bs, r)[cols.long()]          # (nb, max_blk, bs, r)
+    return torch.matmul(vals.to(X.dtype), xg).sum(dim=1).reshape(-1, r)
+
+
+def _bell_rmatmat_torch(vals, cols, Y, n_cols):
+    """``A^T Y`` for an (nb*bs, r) block in plain PyTorch: each block's
+    transpose product, scattered onto its block-column (``n_cols``
+    block-columns)."""
+    nb, max_blk, bs, _ = vals.shape
+    r = Y.shape[1]
+    contrib = torch.matmul(vals.to(Y.dtype).transpose(-1, -2),
+                           Y.reshape(nb, 1, bs, r))   # (nb, max_blk, bs, r)
+    out = torch.zeros(n_cols, bs, r, dtype=Y.dtype, device=Y.device)
     return out.index_add(0, cols.reshape(-1).long(),
-                         contrib.reshape(-1, bs)).reshape(-1)
+                         contrib.reshape(-1, bs, r)).reshape(-1, r)
 
 
-class _BellSpmv(torch.autograd.Function):
-    """Kernel forward; backward in plain PyTorch (the map is bilinear in
-    ``vals`` and ``x``)."""
+def _bell_rmatvec_torch(vals, cols, y, n_cols):
+    """``A^T y`` in plain PyTorch (see :func:`_bell_rmatmat_torch`)."""
+    return _bell_rmatmat_torch(vals, cols, y[:, None], n_cols)[:, 0]
+
+
+class _BellProduct(torch.autograd.Function):
+    """Kernel forward for ``x`` (N,) or ``X`` (N, r); backward in plain
+    PyTorch (the map is bilinear in ``vals`` and ``x``)."""
 
     @staticmethod
     def forward(ctx, vals, cols, x):
         ctx.save_for_backward(vals, cols, x)
+        if x.ndim == 1:
+            plain, kernel = _bell_spmv_torch, _bell_spmv_cuda
+        else:
+            plain, kernel = _bell_spmm_torch, _bell_spmm_cuda
         if x.device.type == "cpu":
-            return _bell_spmv_torch(vals, cols, x)
-        return _bell_spmv_cuda(vals, cols, x)
+            return plain(vals, cols, x)
+        return kernel(vals, cols, x)
 
     @staticmethod
     def backward(ctx, y_bar):
         vals, cols, x = ctx.saved_tensors
         nb, max_blk, bs, _ = vals.shape
-        yb = y_bar.reshape(nb, bs)
+        yb = y_bar.reshape(nb, bs, -1)                  # (nb, bs, r)
         vals_bar = x_bar = None
         if ctx.needs_input_grad[0]:
-            # vals_bar[i, j, a, b] = y_bar[i*bs + a] * x[cols[i, j]*bs + b]
-            xg = x.reshape(-1, bs)[cols.long()]
-            vals_bar = (yb[:, None, :, None] * xg[:, :, None, :]).to(
+            # vals_bar[i, j, a, b] = sum_c y_bar[i*bs + a, c]
+            #                              * x[cols[i, j]*bs + b, c]
+            xg = x.reshape(-1, bs, yb.shape[-1])[cols.long()]
+            vals_bar = torch.matmul(yb[:, None], xg.transpose(-1, -2)).to(
                 vals.dtype)
         if ctx.needs_input_grad[2]:
-            x_bar = _bell_rmatvec_torch(vals, cols, y_bar, x.numel() // bs)
+            x_bar = _bell_rmatmat_torch(
+                vals, cols, y_bar.reshape(nb * bs, -1),
+                x.shape[0] // bs).reshape(x.shape)
         return vals_bar, None, x_bar
 
 
 def bell_spmv(vals, cols, x):
     """``y = A x`` for a blocked-ELL matrix (see the module docstring)."""
-    return _BellSpmv.apply(vals, cols, x)
+    if x.ndim != 1:
+        raise ValueError(f"bell_spmv takes x of shape (N,), got "
+                         f"{tuple(x.shape)}")
+    return _BellProduct.apply(vals, cols, x)
+
+
+def bell_spmm(vals, cols, X):
+    """``Y = A X`` for a blocked-ELL matrix and an (N, r) block (see the
+    module docstring): the values are streamed once for all r columns."""
+    if X.ndim != 2:
+        raise ValueError(f"bell_spmm takes X of shape (N, r), got "
+                         f"{tuple(X.shape)}")
+    return _BellProduct.apply(vals, cols, X)

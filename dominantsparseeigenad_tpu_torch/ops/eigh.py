@@ -17,9 +17,26 @@ and the gradient of every operator parameter θ is ``u^T (∂A/∂θ) v``, taken
 as ``torch.autograd.grad`` of one matvec ``A(θ) v`` with ``u`` as its
 output cotangent: one matvec's cost, with no N×N matrix built.
 
-Second order, forward mode, ``extreme="both"``, ``with_info``,
-``restart_cycles``, ``early_exit_tol``, ``basis_dtype`` with
-``refine_eigenpair`` and ``precond`` wait for later slices.
+The block solver :func:`dominant_eigh_multi` (the r extremal pairs, by
+one Lanczos sweep or by LOBPCG) has the block counterpart of that rule:
+for cotangents (λ̄ (r,), V̄ (N, r)), with ``W = V^T V̄`` and the broadened
+gap inverses ``F[j, i] = g / (g² + gap_eps²)``, ``g = λ_i - λ_j``,
+``F[i, i] = 0``,
+
+    G = diag(λ̄) + F ∘ W,
+    X[:, i] = solve_deflated(A, λ_i, V, -(I - V V^T) V̄[:, i]),
+    U = V G + X,
+
+deflated on span(V)⊥ (the whole block, so a cluster inside it stays
+well conditioned) and solved by the batched CG of ``cg.py``, one matmat
+per iteration; the gradient is ``autograd.grad`` of one ``A(θ) V`` with
+output cotangent U.  This is the transpose of the JAX package's
+``_multi_pair_tangents``.
+
+Second order, forward mode, ``extreme="both"``, ``with_info`` of
+``dominant_eigh``, ``restart_cycles``, ``early_exit_tol``,
+``basis_dtype`` with ``refine_eigenpair``, ``reorth_chunks`` and
+``precond`` wait for later slices.
 """
 
 from __future__ import annotations
@@ -29,8 +46,10 @@ import dataclasses
 import torch
 
 from .cg import solve_deflated
-from .lanczos import lanczos_eigh
-from .operators import as_operator, check_device, hdot
+from .lanczos import LanczosInfo, _tridiagonal, lanczos, lanczos_eigh
+from .lobpcg import lobpcg_eigh
+from .operators import (as_operator, check_device, hdot, hmatmul,
+                        pivot_gauge, tol_floor)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,20 +86,28 @@ class _DominantEigh(torch.autograd.Function):
         x = solve_deflated(op, lam, v, b, definite_sign=sign, tol=opts.tol,
                            maxiter=opts.maxiter, device=op.device)
         u = lam_bar * v + x
-        params = op.parameters()
-        wanted = [i for i, need in enumerate(ctx.needs_input_grad[4:])
-                  if need]
-        grads = [None] * len(params)
-        if wanted:
-            # u^T (dA/dθ) v: differentiate one matvec A(θ) v with output
-            # cotangent u.
-            with torch.enable_grad():
-                av = op.matvec(v.detach())
-            got = torch.autograd.grad(av, [params[i] for i in wanted],
-                                      grad_outputs=u, allow_unused=True)
-            for i, g in zip(wanted, got):
-                grads[i] = g
+        # u^T (dA/dθ) v: differentiate one matvec A(θ) v with output
+        # cotangent u.
+        grads = _parameter_grads(op, op.matvec, v, u,
+                                 ctx.needs_input_grad[4:])
         return (None, None, None, None, *grads)
+
+
+def _parameter_grads(op, apply, v, u, needs):
+    """``u^T (∂A/∂θ) v`` for every parameter θ of ``op`` that ``needs``
+    marks: ``autograd.grad`` of one ``apply(v)`` (a matvec, or a matmat
+    for a block) with output cotangent ``u``."""
+    params = op.parameters()
+    wanted = [i for i, need in enumerate(needs) if need]
+    grads = [None] * len(params)
+    if wanted:
+        with torch.enable_grad():
+            av = apply(v.detach())
+        got = torch.autograd.grad(av, [params[i] for i in wanted],
+                                  grad_outputs=u, allow_unused=True)
+        for i, g in zip(wanted, got):
+            grads[i] = g
+    return grads
 
 
 def dominant_eigh(op, k: int = 128, *, extreme: str = "min",
@@ -115,3 +142,156 @@ def dominant_eigh(op, k: int = 128, *, extreme: str = "min",
                        reorthogonalize=bool(reorthogonalize),
                        reorth_passes=int(reorth_passes))
     return _DominantEigh.apply(op, opts, v0, generator, *op.parameters())
+
+
+@dataclasses.dataclass(frozen=True)
+class EighMultiOptions:
+    """Configuration of :func:`dominant_eigh_multi`."""
+
+    r: int = 4
+    k: int = 128
+    extreme: str = "min"
+    tol: float = 1e-8
+    maxiter: int | None = None
+    reorth_passes: int = 2
+    gap_eps: float = 1e-12
+    method: str = "lanczos"
+
+
+def _multi_forward(op, opts, v0, generator):
+    """``(lams, V)``: the r extremal pairs, V sign-gauged."""
+    if opts.method == "lobpcg":
+        # LOBPCG iterations are not bounded by the dimension: k is the
+        # iteration cap, unclamped.
+        return lobpcg_eigh(op, opts.r, extreme=opts.extreme,
+                           maxiter=opts.k, tol=opts.tol, x0=v0,
+                           generator=generator, device=op.device)
+    k = min(opts.k, op.dim)
+    res = lanczos(op, k, v0=v0, generator=generator,
+                  reorth_passes=opts.reorth_passes, device=op.device)
+    evals, evecs = torch.linalg.eigh(_tridiagonal(res.alphas, res.betas))
+    idx = torch.arange(opts.r, device=evals.device)
+    if opts.extreme == "max":
+        idx = k - 1 - idx
+    return evals[idx], pivot_gauge(hmatmul(res.basis, evecs[:, idx]))
+
+
+def _multi_forward_info(op, opts, v0, generator):
+    """Forward with its :class:`LanczosInfo`: the max-over-block Ritz
+    residual ``||A v - lam v|| / max(|lam|, 1)``, the LOBPCG stopping
+    convention.  LOBPCG reports its own (``effective_k`` = iterations
+    run, no extra matmat); the Lanczos sweep pays one width-r matmat."""
+    if opts.method == "lobpcg":
+        lams, v, linfo = lobpcg_eigh(
+            op, opts.r, extreme=opts.extreme, maxiter=opts.k, tol=opts.tol,
+            x0=v0, generator=generator, with_info=True, device=op.device)
+        return lams, v, LanczosInfo(effective_k=linfo.iterations,
+                                    residual=linfo.residual,
+                                    converged=linfo.converged)
+    lams, v = _multi_forward(op, opts, v0, generator)
+    resid = torch.linalg.vector_norm(op.matmat(v) - v * lams[None, :], dim=0)
+    resid = torch.max(resid / torch.clamp(lams.abs(), min=1.0))
+    ref_tol = tol_floor(opts.tol, op.dtype)
+    return lams, v, LanczosInfo(
+        effective_k=torch.tensor(float(min(opts.k, op.dim)), dtype=v.dtype,
+                                 device=v.device),
+        residual=resid, converged=(resid <= ref_tol).to(v.dtype))
+
+
+class _DominantEighMulti(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, op, opts, v0, generator, with_info, *params):
+        if with_info:
+            lams, v, info = _multi_forward_info(op, opts, v0, generator)
+        else:
+            lams, v = _multi_forward(op, opts, v0, generator)
+            info = ()
+        ctx.op, ctx.opts = op, opts
+        ctx.save_for_backward(lams, v)
+        ctx.mark_non_differentiable(*info)
+        return (lams, v, *info)
+
+    @staticmethod
+    def backward(ctx, lams_bar, v_bar, *info_bar):
+        op, opts = ctx.op, ctx.opts
+        lams, v = ctx.saved_tensors
+        # In-block rotations: F[j, i] = g / (g² + gap_eps²), g = λ_i - λ_j,
+        # finite on multiplets and exact for separated pairs.
+        gap = lams[None, :] - lams[:, None]
+        f = gap / (gap * gap + opts.gap_eps ** 2)
+        f = f * (1.0 - torch.eye(opts.r, dtype=f.dtype, device=f.device))
+        g = torch.diag(lams_bar) + f * hmatmul(v.T, v_bar)
+        # Out-of-block part: one deflated solve per pair on span(V)⊥,
+        # batched over the r columns.
+        sign = 1.0 if opts.extreme == "min" else -1.0
+        x = solve_deflated(op, lams, v, -(v_bar - hmatmul(v, hmatmul(v.T,
+                                                                     v_bar))),
+                           definite_sign=sign, tol=opts.tol,
+                           maxiter=opts.maxiter, device=op.device)
+        u = hmatmul(v, g) + x
+        grads = _parameter_grads(op, op.matmat, v, u,
+                                 ctx.needs_input_grad[5:])
+        return (None, None, None, None, None, *grads)
+
+
+def dominant_eigh_multi(op, r: int = 4, k: int = 128, *,
+                        extreme: str = "min", tol: float = 1e-8,
+                        maxiter: int | None = None, seed: int = 0,
+                        reorth_passes: int = 2, gap_eps: float = 1e-12,
+                        method: str = "lanczos", precond=None,
+                        with_info: bool = False,
+                        v0: torch.Tensor | None = None,
+                        x0: torch.Tensor | None = None,
+                        generator: torch.Generator | None = None,
+                        device=None):
+    """Top-r extremal eigenpairs of a symmetric operator, differentiable
+    (first order, reverse mode) in ``op.parameters()``.
+
+    method  : "lanczos" (one k-step sweep; ``k`` clamped to ``op.dim``,
+              start vector ``v0`` (N,)) or "lobpcg" (up to ``k``
+              iterations of :func:`~.lobpcg.lobpcg_eigh`, start block
+              ``x0`` (N, r)); both drawn from ``generator`` (seeded
+              ``seed`` on the device when None) if not given.
+    extreme : "min" (ascending) or "max" (descending).
+    tol     : the LOBPCG residual target and the backward's CG tolerance;
+              ``maxiter`` bounds the CG's iterations (default 10 N).
+    gap_eps : broadening of the in-block gap inverses.
+    precond : not ported yet (raises NotImplementedError).
+    device  : where the solve runs (CUDA when None).
+
+    Returns ``(lams, V)``, lams (r,) and V (N, r) orthonormal and
+    sign-gauged; with ``with_info``, ``(lams, V, info)`` where ``info`` is
+    a :class:`~.lanczos.LanczosInfo` (non-differentiable) whose residual
+    is the max-over-block ``||A v - lam v|| / max(|lam|, 1)``.
+    """
+    if extreme not in ("min", "max"):
+        raise ValueError(f"extreme must be min|max, got {extreme!r}")
+    if method not in ("lanczos", "lobpcg"):
+        raise ValueError(f"method must be lanczos|lobpcg, got {method!r}")
+    if precond is not None:
+        raise NotImplementedError(
+            "precond in dominant_eigh_multi waits for the preconditioned "
+            "CG of a later slice")
+    start = x0 if method == "lobpcg" else v0
+    if (v0 if method == "lobpcg" else x0) is not None:
+        raise ValueError("pass v0 (N,) for method='lanczos' and x0 (N, r) "
+                         "for method='lobpcg'")
+    op = as_operator(op)
+    dev = check_device(device, op)
+    r = int(r)
+    k = int(min(k, op.dim)) if method == "lanczos" else int(k)
+    if r > k:
+        raise ValueError(f"need k >= r, got k={k} < r={r}")
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(int(seed))
+    opts = EighMultiOptions(
+        r=r, k=k, extreme=extreme, tol=float(tol),
+        maxiter=None if maxiter is None else int(maxiter),
+        reorth_passes=int(reorth_passes), gap_eps=float(gap_eps),
+        method=method)
+    out = _DominantEighMulti.apply(op, opts, start, generator,
+                                   bool(with_info), *op.parameters())
+    if with_info:
+        return out[0], out[1], LanczosInfo(*out[2:])
+    return out

@@ -9,7 +9,8 @@ implicit-function-theorem rule.
 
 Not ported yet: ``reorth_chunks``, ``basis_dtype``,
 ``restart_mode="carry"``, ``lanczos_adaptive``, ``power_iteration`` and
-``arnoldi_step``.
+``arnoldi_step``.  ``LanczosInfo`` is here for the block eigensolver's
+convergence report.
 """
 
 from __future__ import annotations
@@ -38,6 +39,19 @@ class LanczosResult(NamedTuple):
     alphas: torch.Tensor
     betas: torch.Tensor
     basis: torch.Tensor
+
+
+class LanczosInfo(NamedTuple):
+    """Convergence report of a solve (float scalar tensors).
+
+    effective_k : steps (or block iterations) actually run
+    residual    : Ritz residual, relative (see the function that returns it)
+    converged   : 1.0 if the residual test passed
+    """
+
+    effective_k: torch.Tensor
+    residual: torch.Tensor
+    converged: torch.Tensor
 
 
 def _tridiagonal(alphas, betas):

@@ -7,8 +7,9 @@ the tensors that ``torch.autograd.grad`` differentiates the IFT rule of
 ``eigh.py`` into.
 
 Every operator implements ``matvec``, ``rmatvec``, ``dim``, ``dtype`` and
-``device``.  The operator algebra of the JAX module (sums, scalings,
-shifts, compositions, transposed views) is not ported yet.
+``device``; ``matmat``/``rmatmat`` default to a loop over columns.  The
+operator algebra of the JAX module (sums, scalings, shifts, compositions,
+transposed views) is not ported yet.
 
 Precision policy: the JAX package pins HIGHEST precision on its internal
 dots and GEMMs (``hdot``/``hmatmul``) because a TPU otherwise rounds f32
@@ -134,6 +135,11 @@ class LinearOperator:
         return torch.stack([self.matvec(X[:, j]) for j in range(X.shape[1])],
                            dim=1)
 
+    def rmatmat(self, X: torch.Tensor) -> torch.Tensor:
+        """``A.T @ X`` for an (N, m) block, one rmatvec per column."""
+        return torch.stack([self.rmatvec(X[:, j])
+                            for j in range(X.shape[1])], dim=1)
+
 
 class DenseOperator(LinearOperator):
     """Dense square matrix operator; applications run in true fp32/fp64."""
@@ -152,6 +158,9 @@ class DenseOperator(LinearOperator):
 
     def matmat(self, X):
         return hmatmul(self.a, X)
+
+    def rmatmat(self, X):
+        return hmatmul(self.a.T, X)
 
     def parameters(self):
         return [self.a]

@@ -2,9 +2,10 @@
 
 Counterpart of the ``BellOperator`` and ``random_bell_operator`` of
 ``dominantsparseeigenad_tpu/ops/sparse.py``.  The COO/CSR/BCOO formats
-wait for a later slice.  The device decides the SpMV path: on a CUDA
-tensor every matvec launches the hand-written kernel of ``bell_spmv``, on
-a CPU tensor it takes the plain version.
+wait for a later slice.  The device decides the product's path: on a
+CUDA tensor every matvec launches the hand-written kernel of
+``bell_spmv`` and every matmat the one of ``bell_spmm``, on a CPU tensor
+they take the plain versions.
 """
 
 from __future__ import annotations
@@ -14,7 +15,8 @@ import math
 import numpy as np
 import torch
 
-from .bell_spmv import _bell_rmatvec_torch, bell_spmv
+from .bell_spmv import (_bell_rmatmat_torch, _bell_rmatvec_torch,
+                        bell_spmm, bell_spmv)
 from .operators import LinearOperator, resolve_device
 
 
@@ -89,6 +91,17 @@ class BellOperator(LinearOperator):
             return self.matvec(x)
         # A^T x: scatter-transpose in plain PyTorch (off the Lanczos loop).
         return _bell_rmatvec_torch(self.vals, self.cols, x,
+                                   self.vals.shape[0])
+
+    def matmat(self, X):
+        """``A @ X`` for an (N, r) block: one SpMM streams the values once
+        for all r columns (what the block solvers call)."""
+        return bell_spmm(self.vals, self.cols, X)
+
+    def rmatmat(self, X):
+        if self.symmetric:
+            return self.matmat(X)
+        return _bell_rmatmat_torch(self.vals, self.cols, X,
                                    self.vals.shape[0])
 
     def parameters(self):

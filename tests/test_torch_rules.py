@@ -91,6 +91,16 @@ def _entry_points():
         "solve_deflated": lambda: port.solve_deflated(a, 1.0, v, v),
         "solve_deflated_info": lambda: port.solve_deflated_info(a, 1.0, v, v),
         "dominant_eigh": lambda: port.dominant_eigh(a, k=4),
+        "lobpcg_eigh": lambda: port.lobpcg_eigh(a, 2),
+        "dominant_eigh_multi": lambda: port.dominant_eigh_multi(a, r=2, k=4),
+        "dominant_eigh_multi lobpcg": lambda: port.dominant_eigh_multi(
+            a, r=2, k=4, method="lobpcg"),
+        # The SpMM's device is its tensors'; a user reaches it through a
+        # BellOperator, made on CUDA unless asked otherwise.
+        "bell_spmm": lambda: port.bell_spmm(
+            *(t.to(port.resolve_device()) for t in (vals, cols, a[:, :2]))),
+        "BellOperator.matmat": lambda: port.BellOperator.from_dense(
+            a.numpy(), bs=8).matmat(a[:, :2]),
     }
 
 
@@ -107,6 +117,17 @@ def test_cpu_operator_on_a_cuda_call_is_refused(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     with pytest.raises(ValueError, match="runs on cuda"):
         port.dominant_eigh(torch.eye(8, dtype=torch.float64), k=4)
+
+
+@pytest.mark.parametrize("call", [
+    lambda a: port.lobpcg_eigh(a, 2),
+    lambda a: port.dominant_eigh_multi(a, r=2, k=4),
+    lambda a: port.dominant_eigh_multi(a, r=2, k=4, method="lobpcg"),
+], ids=["lobpcg_eigh", "dominant_eigh_multi", "dominant_eigh_multi_lobpcg"])
+def test_cpu_operator_on_a_cuda_block_call_is_refused(call, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    with pytest.raises(ValueError, match="runs on cuda"):
+        call(torch.eye(8, dtype=torch.float64))
 
 
 def test_tf32_is_off_and_refused():
