@@ -34,6 +34,26 @@ line each:
    iterations, the pairs against an independent SpMV, ∂Σλ/∂vals against
    Σ v_i⊗v_i on the pattern, a dot-product test of the full gradient
    against the forward block IFT tangent, bf16 against f32 eigenvalues).
+6. ``panel``: the same two kernels on rectangular row panels (K4a), the
+   block-rows one rank of a p = 2 and a p = 4 sharding of config #5 keeps
+   (2048 and 1024 block-rows against all 4096 block-columns), SpMV and
+   SpMM (r = 8), float32 and bfloat16 values: against the plain version
+   and against the matching rows of the square product (expected equal
+   bit for bit); kernel, plain, bound and library (cuSPARSE BSR on the
+   panel, float32 only) times.
+7. ``sharded``: the row-sharded tier, two ranks sharing the one card over
+   a gloo group (NCCL refuses two ranks on one card), spawned after the
+   kernel library is built.  Each rank builds config #5 from the same
+   seed, keeps its panel (``RowShardedBellOperator``) and runs
+   ``dominant_eigh`` (k = 100) with the gradient of ``λ + Σ c⊙v`` (CG
+   capped at 1000), ``dominant_eigh_multi`` (LOBPCG, r = 8, capped at 100
+   iterations) with ∂Σλ, and bfloat16-values forwards of both, counted;
+   then the checks (the ranks' λ equal bit for bit, λ against the
+   unsharded solve from the same start, the gradients against v⊗v on the
+   panel's pattern and by the dot-product identity, panel launches
+   against the products the solvers made, bf16 against f32).  Its times
+   are those of two ranks sharing one card over gloo, not a multi-GPU
+   number.
 
 Then a ``kernels`` line, the ``nvidia-smi`` name and power-limit line, and
 as the last line ``{"ok": true, "device": {...}}``.  Any failed check
@@ -44,13 +64,18 @@ code 1 before printing any result.
 import json
 import math
 import os
+import queue
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+import traceback
 import warnings
 
 import torch
+import torch.multiprocessing
 
 # Published H100 SXM peaks at the 700 W limit (NVIDIA data sheet):
 # device memory 3.35 TB/s, float32 outside the tensor cores 67 TFLOP/s.
@@ -69,6 +94,11 @@ MULTI_R = 8
 LOBPCG_ITERS = 100
 MULTI_CG_MAXITER = 1000
 LANCZOS_K = 50
+PANEL_SHARDS = (2, 4)                  # the panels of these shardings
+PANEL_R = 8
+SHARDED_RANKS = 2                      # ranks sharing the one card
+SHARDED_CG_MAXITER = 1000
+SHARDED_TIMEOUT_S = 600                # a rank's whole run
 
 
 def emit(obj):
@@ -126,8 +156,9 @@ def phase_build(spmv):
 
 
 def bsr_library_call(vals, cols, n):
-    """One PyTorch call for the same product: a cuSPARSE BSR matrix, with
-    each row's slots sorted by column.  A yardstick only."""
+    """One PyTorch call for the same product: a cuSPARSE BSR matrix of
+    nb*bs rows and n columns, with each row's slots sorted by column.  A
+    yardstick only."""
     nb, max_blk, bs, _ = vals.shape
     order = cols.argsort(dim=1)
     cols_s = cols.gather(1, order)
@@ -137,7 +168,8 @@ def bsr_library_call(vals, cols, n):
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         a = torch.sparse_bsr_tensor(crow, cols_s.reshape(-1),
-                                    vals_s.reshape(-1, bs, bs), size=(n, n),
+                                    vals_s.reshape(-1, bs, bs),
+                                    size=(nb * bs, n),
                                     check_invariants=False)
     return lambda x: a @ x
 
@@ -281,6 +313,44 @@ def spmm_case(spmv, sparse, n, bs, bpr, r, seed, unaligned=False):
     return results
 
 
+def ift_dot_test(op, lam, v, c, b, x, lhs, dav, maxiter):
+    """Dot-product test of the gradient of ``λ + cᵀv``: ``lhs`` =
+    <grad, dvals> against the forward IFT tangent dλ + cᵀdv, dv =
+    solve_deflated(A, λ, v, -(I - v vᵀ) dA v), ``dav`` = dA v.  With
+    residuals r_x = P b - M x and r_d = -P dA v - M dv of the two solves
+    (``b`` = -(I - v vᵀ) c and ``x`` the backward's solution, M the
+    deflated operator), lhs - (dλ + cᵀdv) = <r_x, dv> - <x, r_d> exactly,
+    so the test holds at any CG stopping point, up to round-off.  Returns
+    (terms, relative error, the tangent solve's iterations and
+    residual)."""
+    from dominantsparseeigenad_tpu_torch.ops.cg import solve_deflated_info
+
+    def deflated(z):
+        """P (A - λ) P z, P = I - v v^T."""
+        pz = z - v * torch.dot(v, z)
+        az = op.matvec(pz) - lam * pz
+        return az - v * torch.dot(v, az)
+
+    dlam = torch.dot(v, dav)
+    rhs_d = -(dav - dlam * v)
+    dv, dv_its, dv_res = solve_deflated_info(
+        op, lam, v, rhs_d, definite_sign=1.0, tol=CG_TOL, maxiter=maxiter,
+        device=DEVICE)
+    r_x = (b - v * torch.dot(v, b)) - deflated(x)
+    r_d = (rhs_d - v * torch.dot(v, rhs_d)) - deflated(dv)
+    terms = [float(dlam), float(torch.dot(c, dv)),
+             float(torch.dot(r_x, dv)), -float(torch.dot(x, r_d))]
+    dot_err = abs(lhs - terms[0] - terms[1] - terms[2] - terms[3]) / (
+        abs(lhs) + sum(abs(t) for t in terms))
+    return terms, dot_err, dv_its, dv_res
+
+
+def grad_dot(g, d) -> float:
+    """<g, d> in float64, in chunks (config-#5 gradients are GBs)."""
+    return sum(float(torch.dot(a.reshape(-1).double(), b.reshape(-1).double()))
+               for a, b in zip(g.split(256), d.split(256)))
+
+
 def phase_eigh(pkg, spmv):
     from dominantsparseeigenad_tpu_torch.ops.cg import solve_deflated_info
     n, bs, bpr = CONFIG5
@@ -339,12 +409,6 @@ def phase_eigh(pkg, spmv):
     lam_f, lam_bf_f = float(lam), float(lam_bf.detach())
     vals_d, cols = op.vals.detach(), op.cols
 
-    def deflated(z):
-        """P (A - λ) P z, P = I - v v^T."""
-        pz = z - v * torch.dot(v, z)
-        az = op.matvec(pz) - lam * pz
-        return az - v * torch.dot(v, az)
-
     with torch.no_grad():
         ritz_res = float(torch.linalg.vector_norm(op.matvec(v) - lam * v)
                          / abs(lam_f))
@@ -368,31 +432,14 @@ def phase_eigh(pkg, spmv):
         dlam_err = rel_err(g_lam, expect)
         del expect
 
-        # Dot-product test of the full gradient: <grad, dvals> against the
-        # forward IFT tangent dλ + c^T dv, dv = solve_deflated(A, λ, v,
-        # -(I - v v^T) dA v).  With residuals r_x = P(-c) - M x and
-        # r_d = -P dA v - M dv of the two solves (M the deflated operator),
-        # <grad, dvals> - (dλ + c^T dv) = <r_x, dv> - <x, r_d> exactly, so
-        # the test holds at any CG stopping point, up to round-off.
+        # Dot-product test of the full gradient (see ift_dot_test).
         g_full = op.vals.grad
         dvals = torch.randn(vals_d.shape, generator=gen, device=DEVICE)
-        lhs = sum(float(torch.dot(g.reshape(-1).double(),
-                                  d.reshape(-1).double()))
-                  for g, d in zip(g_full.split(256), dvals.split(256)))
+        lhs = grad_dot(g_full, dvals)
         dav = spmv.bell_spmv(dvals, cols, v)
         del dvals
-        dlam = torch.dot(v, dav)
-        rhs_d = -(dav - dlam * v)
-        dv, dv_its, dv_res = solve_deflated_info(
-            op, lam, v, rhs_d, definite_sign=1.0, tol=CG_TOL,
-            maxiter=CG_MAXITER, device=DEVICE)
-        r_x = (b - v * torch.dot(v, b)) - deflated(x)
-        r_d = (rhs_d - v * torch.dot(v, rhs_d)) - deflated(dv)
-        terms = [float(dlam), float(torch.dot(c, dv)),
-                 float(torch.dot(r_x, dv)), -float(torch.dot(x, r_d))]
-        rhs = terms[0] + terms[1]
-        dot_err = abs(lhs - rhs - terms[2] - terms[3]) / (
-            abs(lhs) + sum(abs(t) for t in terms))
+        terms, dot_err, dv_its, dv_res = ift_dot_test(
+            op, lam, v, c, b, x, lhs, dav, CG_MAXITER)
         finite = all(bool(torch.isfinite(t).all())
                      for t in (v, g_full, g_lam_bf, v_bf.detach()))
     bf_err = abs(lam_bf_f - lam_f) / abs(lam_f)
@@ -548,9 +595,7 @@ def phase_eigh_multi(pkg, spmv):
         # point, up to round-off.
         g_full = op.vals.grad
         dvals = torch.randn(vals_d.shape, generator=gen, device=DEVICE)
-        lhs = sum(float(torch.dot(g.reshape(-1).double(),
-                                  d.reshape(-1).double()))
-                  for g, d in zip(g_full.split(256), dvals.split(256)))
+        lhs = grad_dot(g_full, dvals)
         dav = spmv.bell_spmm(dvals, cols, V)
         del dvals
         m = V.T @ dav
@@ -648,6 +693,358 @@ def phase_eigh_multi(pkg, spmv):
     return counts
 
 
+def phase_panel(spmv, sparse):
+    """K4a: the kernels on the row panels one rank of a p-way sharding of
+    config #5 keeps (the last rank's, so that vals, cols and y start past
+    the operator's first rows), against the plain version and against the
+    same rows of the square product."""
+    n, bs, bpr = CONFIG5
+    nb = n // bs
+    gen = torch.Generator(device=DEVICE).manual_seed(13)
+    op = sparse.random_bell_operator(n, bs, bpr, generator=gen, device=DEVICE)
+    rhs = {"spmv": torch.randn(n, generator=gen, device=DEVICE),
+           "spmm": torch.randn(n, PANEL_R, generator=gen, device=DEVICE)}
+    kernels = {"spmv": (spmv._bell_spmv_cuda, spmv._bell_spmv_torch),
+               "spmm": (spmv._bell_spmm_cuda, spmv._bell_spmm_torch)}
+    results = {}
+    for suffix, vals in (("f32", op.vals),
+                         ("bf16vals", op.vals.to(torch.bfloat16))):
+        for kind, (kernel, plain) in kernels.items():
+            x = rhs[kind]
+            r = 1 if x.ndim == 1 else x.shape[1]
+            square = kernel(vals, op.cols, x)
+            for p in PANEL_SHARDS:
+                nb_l = nb // p
+                rows = slice((p - 1) * nb_l, p * nb_l)
+                vals_p, cols_p = vals[rows], op.cols[rows]
+                y_k = kernel(vals_p, cols_p, x)
+                y_p = plain(vals_p, cols_p, x)
+                torch.cuda.synchronize()
+                err = rel_err(y_k, y_p)
+                max_abs = float((y_k - y_p).abs().max())
+                square_diff = float((y_k - square[rows.start * bs:
+                                                  rows.stop * bs]).abs().max())
+                name = f"bell_{kind}_{suffix}"
+                if not (math.isfinite(err) and err <= 1e-5
+                        and square_diff == 0.0):
+                    raise AssertionError(
+                        f"{name} panel p={p}: rel err {err} (plain), max "
+                        f"|panel - square rows| {square_diff}")
+                kernel_ms = event_ms(lambda: kernel(vals_p, cols_p, x),
+                                     samples=12, batch=5)
+                plain_ms = event_ms(lambda: plain(vals_p, cols_p, x),
+                                    samples=12)
+                library_ms = lib_err = None
+                if vals.dtype == torch.float32:
+                    lib = bsr_library_call(vals_p, cols_p, n)
+                    lib_err = rel_err(lib(x), y_p)
+                    library_ms = event_ms(lambda: lib(x), samples=12)
+                    del lib
+                # Least bytes: the panel's values and cols, x once (all of
+                # it), the panel's y once.
+                bytes_min, bound_ms, bound_by = bound(
+                    vals_p.numel(), vals_p.element_size(),
+                    cols_p.numel() * 4 + x.numel() * 4 + y_k.numel() * 4, r)
+                row = {"phase": "panel", "kernel": name, "shards": p,
+                       "panel_block_rows": nb_l, "block_cols": nb, "n": n,
+                       "bs": bs, "blocks_per_row": bpr, "r": r,
+                       "rel_err": err, "max_abs_err": max_abs,
+                       "square_rows_max_abs_diff": square_diff,
+                       "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+                       "library_ms": library_ms, "library_rel_err": lib_err,
+                       "bytes_min": bytes_min, "bound_ms": bound_ms,
+                       "bound_by": bound_by,
+                       "achieved_gbps": bytes_min / (kernel_ms * 1e-3) / 1e9}
+                emit(row)
+                results[(name, p)] = row
+                del y_k, y_p
+            del square
+        del vals
+    del op, rhs
+    torch.cuda.empty_cache()
+    return results
+
+
+def _sharded_rank(rank, world, init_method, out_queue):
+    """One rank of the ``sharded`` phase (a spawned process): sends
+    (rank, results, None), or (rank, None, traceback) if it failed."""
+    try:
+        out_queue.put((rank, _sharded_run(rank, world, init_method), None))
+    except Exception:  # the parent raises it; this rank exits non-zero
+        out_queue.put((rank, None, traceback.format_exc()))
+        sys.exit(1)
+
+
+def _sharded_run(rank, world, init_method):
+    from dominantsparseeigenad_tpu_torch import init_distributed, make_mesh
+    init_distributed("gloo", init_method, rank, world)
+    try:
+        return _sharded_solves(make_mesh())
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def _sharded_solves(sg):
+    import importlib
+    import dominantsparseeigenad_tpu_torch as pkg
+    from dominantsparseeigenad_tpu_torch.ops.cg import solve_deflated_info
+    from dominantsparseeigenad_tpu_torch.parallel import collectives
+    spmv = importlib.import_module("dominantsparseeigenad_tpu_torch.ops."
+                                   "bell_spmv")
+    n, bs, bpr = CONFIG5
+    r = MULTI_R
+    gen = torch.Generator(device=DEVICE).manual_seed(7)
+    op = pkg.random_bell_operator(n, bs, bpr, generator=gen, device=DEVICE)
+    v0 = torch.randn(n, generator=gen, device=DEVICE)
+    c = torch.randn(n, generator=gen, device=DEVICE) / math.sqrt(n)
+    x0 = torch.randn(n, r, generator=gen, device=DEVICE)
+    solve = dict(k=K, extreme="min", tol=CG_TOL, maxiter=SHARDED_CG_MAXITER,
+                 v0=v0, device=DEVICE)
+    lam_unsharded = None
+    if sg.rank == 0:
+        # The unsharded solve from the same start, for the check.
+        with torch.no_grad():
+            lam_unsharded = float(pkg.dominant_eigh(op, **solve)[0])
+    # The rank keeps its block-rows; the global operator goes.
+    sop = pkg.RowShardedBellOperator.from_bell(op, sg)
+    del op
+    torch.cuda.empty_cache()
+    panel = sop.vals.requires_grad_(True)
+    cols_l = sop.cols
+    nb_l = panel.shape[0]
+
+    # Warm-up on a small sharded operator through the same calls, so that
+    # one-time costs stay out of the times.
+    t0 = time.perf_counter()
+    small = pkg.RowShardedBellOperator.from_bell(pkg.random_bell_operator(
+        1 << 14, bs, bpr, generator=gen, device=DEVICE), sg)
+    for o in (small, small.astype_vals(torch.bfloat16)):
+        w = o.with_vals(o.vals.detach().clone().requires_grad_(True))
+        lam_w, v_w = pkg.dominant_eigh(w, k=20, maxiter=20, device=DEVICE)
+        (lam_w + v_w.sum()).backward()
+        lams_w, _ = pkg.dominant_eigh_multi(w, r=r, k=10, method="lobpcg",
+                                            maxiter=10, device=DEVICE)
+        lams_w.sum().backward()
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter() - t0
+    del small, o, w, lam_w, v_w, lams_w
+    torch.cuda.reset_peak_memory_stats()
+
+    # ---- the main path, counted ----------------------------------------
+    spmv.reset_launch_counts()
+    counts = spmv.panel_launch_counts
+    t0 = time.perf_counter()
+    lam, v = pkg.dominant_eigh(sop, **solve)
+    torch.cuda.synchronize()
+    t_fwd = time.perf_counter() - t0
+    fwd_launches = counts["bell_spmv_f32"]
+    t0 = time.perf_counter()
+    (g_lam,) = torch.autograd.grad(lam, panel, retain_graph=True)
+    torch.cuda.synchronize()
+    t_bwd_lam = time.perf_counter() - t0
+    before = counts["bell_spmv_f32"]
+    t0 = time.perf_counter()
+    (lam + (c * v).sum()).backward()
+    torch.cuda.synchronize()
+    t_bwd = time.perf_counter() - t0
+    bwd_launches = counts["bell_spmv_f32"] - before
+    t0 = time.perf_counter()
+    lams, V, info = pkg.dominant_eigh_multi(
+        sop, r=r, k=LOBPCG_ITERS, method="lobpcg", tol=CG_TOL, x0=x0,
+        with_info=True, device=DEVICE)
+    torch.cuda.synchronize()
+    t_multi = time.perf_counter() - t0
+    multi_launches = counts["bell_spmm_f32"]
+    (g_sum,) = torch.autograd.grad(lams.sum(), panel)
+    torch.cuda.synchronize()
+    sum_launches = counts["bell_spmm_f32"] - multi_launches
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        sop_bf = sop.astype_vals(torch.bfloat16)
+        lam_bf, _ = pkg.dominant_eigh(sop_bf, **solve)
+        torch.cuda.synchronize()
+        t_bf = time.perf_counter() - t0
+        lams_bf, _, info_bf = pkg.dominant_eigh_multi(
+            sop_bf, r=r, k=LOBPCG_ITERS, method="lobpcg", tol=CG_TOL,
+            x0=x0, with_info=True, device=DEVICE)
+        del sop_bf
+    torch.cuda.synchronize()
+    t_bf_multi = time.perf_counter() - t0 - t_bf
+    launches = dict(counts)
+    square_launches = dict(spmv.launch_counts)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    # ---- end of the counted run -----------------------------------------
+
+    lam, v, lams, V = lam.detach(), v.detach(), lams.detach(), V.detach()
+    its = int(info.effective_k)
+    rows = slice(sg.rank * nb_l * bs, (sg.rank + 1) * nb_l * bs)
+    with torch.no_grad():
+        b = -(c - v * torch.dot(v, c))
+        x, cg_its, cg_res = solve_deflated_info(
+            sop, lam, v, b, definite_sign=1.0, tol=CG_TOL,
+            maxiter=SHARDED_CG_MAXITER, device=DEVICE)
+        # ∂λ/∂panel = v[rows] ⊗ v[cols] on the panel's pattern.
+        vb = v.reshape(-1, bs)
+        expect = vb[rows.start // bs:rows.stop // bs][:, None, :, None] \
+            * vb[cols_l.long()][:, :, None, :]
+        dlam_err = rel_err(g_lam, expect)
+        Vb = V.reshape(-1, bs, r)
+        expect = torch.matmul(Vb[rows.start // bs:rows.stop // bs][:, None],
+                              Vb[cols_l.long()].transpose(-1, -2))
+        dsum_err = rel_err(g_sum, expect)
+        del expect
+        # Dot-product test of the full gradient: <grad, dvals> summed over
+        # the ranks' panels, dA v by the sharded operator on dvals.
+        dvals = torch.randn(panel.shape, device=DEVICE,
+                            generator=torch.Generator(device=DEVICE)
+                            .manual_seed(100 + sg.rank))
+        lhs = collectives.all_reduce_sum(torch.tensor(
+            [grad_dot(panel.grad, dvals)], dtype=torch.float64), sg)
+        dav = sop.with_vals(dvals).matvec(v)
+        del dvals
+        terms, dot_err, dv_its, dv_res = ift_dot_test(
+            sop, lam, v, c, b, x, float(lhs), dav, SHARDED_CG_MAXITER)
+        finite = all(bool(torch.isfinite(t).all())
+                     for t in (v, panel.grad, g_lam, lams, V, g_sum))
+
+        # The split of a sharded matvec (both ranks in step, so the two
+        # ranks' launches share the card): the panel kernel alone, the
+        # gather of the panel outputs through the host, the whole matvec.
+        y_l = spmv._bell_spmv_cuda(panel.detach(), cols_l, v)
+        panel_ms = event_ms(lambda: spmv._bell_spmv_cuda(panel.detach(),
+                                                         cols_l, v),
+                            samples=12, batch=5)
+        gather_ms = event_ms(lambda: collectives.all_gather_rows(y_l, sg),
+                             samples=12, batch=5)
+        matvec_ms = event_ms(lambda: sop.matvec(v), samples=12, batch=5)
+    lam_f = float(lam)
+    return {
+        "rank": sg.rank, "world": sg.size, "backend": sg.backend,
+        "panel_block_rows": nb_l, "lam": lam_f, "lam_hex": lam_f.hex(),
+        "lams_hex": [float(t).hex() for t in lams], "lams": lams.tolist(),
+        "lam_unsharded": lam_unsharded, "lam_bf16vals": float(lam_bf),
+        "lams_bf16vals": lams_bf.tolist(),
+        "bf16_lobpcg_iterations": int(info_bf.effective_k),
+        "lobpcg_iterations": its, "block_residual": float(info.residual),
+        "warmup_s": t_warm, "forward_s": t_fwd, "backward_lam_s": t_bwd_lam,
+        "backward_s": t_bwd, "multi_forward_s": t_multi,
+        "bf16_forward_s": t_bf, "bf16_multi_forward_s": t_bf_multi,
+        "launches": launches,
+        "square_launches": square_launches, "forward_launches": fwd_launches,
+        "backward_launches": bwd_launches, "multi_launches": multi_launches,
+        "dsumlam_launches": sum_launches, "cg_iterations": cg_its,
+        "cg_rel_residual": cg_res, "dlam_dpanel_rel_err": dlam_err,
+        "dsumlam_dpanel_rel_err": dsum_err, "dot_test_lhs": float(lhs),
+        "dot_test_terms": terms, "dot_test_rel_err": dot_err,
+        "tangent_cg_iterations": dv_its, "tangent_cg_rel_residual": dv_res,
+        "finite": finite, "panel_spmv_ms": panel_ms,
+        "gather_ms": gather_ms, "matvec_ms": matvec_ms,
+        "peak_mem_gib": peak_gib}
+
+
+def phase_sharded():
+    """Spawn the ranks, collect what each sends, check them together."""
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    store = tempfile.mkdtemp(prefix="sharded_store_", dir=build)
+    # The ranks reach each other over the loopback interface.
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    ctx = torch.multiprocessing.get_context("spawn")
+    out_queue = ctx.Queue()
+    procs = [ctx.Process(target=_sharded_rank,
+                         args=(rank, SHARDED_RANKS,
+                               f"file://{store}/store", out_queue))
+             for rank in range(SHARDED_RANKS)]
+    t0 = time.perf_counter()
+    for proc in procs:
+        proc.start()
+    try:
+        got = {}
+        for _ in procs:
+            try:
+                rank, res, err = out_queue.get(timeout=SHARDED_TIMEOUT_S)
+            except queue.Empty:
+                raise RuntimeError(f"sharded phase: a rank sent nothing in "
+                                   f"{SHARDED_TIMEOUT_S} s") from None
+            if err is not None:
+                raise RuntimeError(f"sharded phase: rank {rank} failed:\n"
+                                   f"{err}")
+            got[rank] = res
+        for proc in procs:
+            proc.join(timeout=60)
+            if proc.is_alive() or proc.exitcode != 0:
+                raise RuntimeError(f"sharded phase: a rank did not exit "
+                                   f"cleanly (exit code {proc.exitcode})")
+    finally:
+        for proc in procs:
+            if proc.is_alive():
+                proc.kill()
+                proc.join(timeout=10)
+        shutil.rmtree(store, ignore_errors=True)
+    wall_s = time.perf_counter() - t0
+    ranks = [got[rank] for rank in range(SHARDED_RANKS)]
+    first = ranks[0]
+    lam_ref = first["lam_unsharded"]
+    unsharded_err = abs(first["lam"] - lam_ref) / abs(lam_ref)
+    bf_err = max(
+        abs(first["lam_bf16vals"] - first["lam"]) / abs(first["lam"]),
+        max(abs(a - b) for a, b in zip(first["lams_bf16vals"],
+                                        first["lams"]))
+        / max(abs(a) for a in first["lams"]))
+    total = {name: sum(res["launches"][name] for res in ranks)
+             for name in first["launches"]}
+    emit({"phase": "sharded", "note": "2 ranks sharing one card over gloo; "
+          "not a multi-GPU or scaling number", "n": CONFIG5[0],
+          "bs": CONFIG5[1], "blocks_per_row": CONFIG5[2], "k": K,
+          "r": MULTI_R, "lobpcg_cap": LOBPCG_ITERS,
+          "cg_cap": SHARDED_CG_MAXITER, "wall_s": wall_s,
+          "lam_vs_unsharded_rel": unsharded_err,
+          "lam_bf16vals_rel": bf_err, "launches_total": total,
+          "ranks": ranks})
+
+    checks = {
+        # Lockstep: bit for bit the same eigenvalues on every rank.
+        "ranks' λ bitwise equal": all(
+            res["lam_hex"] == first["lam_hex"]
+            and res["lams_hex"] == first["lams_hex"]
+            and res["lams_bf16vals"] == first["lams_bf16vals"]
+            for res in ranks),
+        # The same Lanczos from the same start, sums in another order.
+        "λ vs unsharded λ, rel 1e-4": unsharded_err <= 1e-4,
+        "bf16-values λ within 2^-8 rel": bf_err <= 2.0 ** -8,
+    }
+    for res in ranks:
+        rk, cnt = res["rank"], res["launches"]
+        checks.update({
+            # Every A x and A X of the solvers ran a panel kernel.
+            f"rank {rk}: forward panel SpMVs == k":
+                res["forward_launches"] == K,
+            f"rank {rk}: backward panel SpMVs == CG iterations + 1":
+                res["backward_launches"] == res["cg_iterations"] + 1,
+            f"rank {rk}: LOBPCG panel SpMMs == 1 + 2 x iterations":
+                res["multi_launches"] == 1 + 2 * res["lobpcg_iterations"],
+            f"rank {rk}: ∂Σλ panel SpMMs == 1": res["dsumlam_launches"] == 1,
+            f"rank {rk}: bf16 panel SpMVs == k":
+                cnt["bell_spmv_bf16vals"] == K,
+            f"rank {rk}: bf16 LOBPCG panel SpMMs == 1 + 2 x iterations":
+                cnt["bell_spmm_bf16vals"]
+                == 1 + 2 * res["bf16_lobpcg_iterations"],
+            f"rank {rk}: no square launch":
+                not any(res["square_launches"].values()),
+            f"rank {rk}: ∂λ/∂panel vs v⊗v, rel 1e-5":
+                res["dlam_dpanel_rel_err"] <= 1e-5,
+            f"rank {rk}: ∂Σλ/∂panel vs Σ v_i⊗v_i, rel 1e-5":
+                res["dsumlam_dpanel_rel_err"] <= 1e-5,
+            f"rank {rk}: dot-product test, rel 1e-3":
+                res["dot_test_rel_err"] <= 1e-3,
+            f"rank {rk}: finite": res["finite"],
+        })
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"sharded phase failed: {failed}")
+    return total
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this script runs on the card")
@@ -672,6 +1069,10 @@ def main():
     counts.update({k: v for k, v in phase_eigh_multi(pkg, spmv).items()
                    if k.startswith("bell_spmm")})
     big.update(spmm[0])
+    panel = phase_panel(spmv, sparse)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    panel_counts = phase_sharded()
 
     csrc = "dominantsparseeigenad_tpu_torch/csrc/"
     # The Pallas kernel body, and the SpMM entry that runs it on (N, r).
@@ -689,6 +1090,24 @@ def main():
                                           else "bell_spmv.cu"),
                         "replaces": tpu_spmm if spmm_kernel else tpu,
                         "launches": counts[name],
+                        "max_abs_err": row["max_abs_err"],
+                        "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
+                        "bound_ms": row["bound_ms"],
+                        "bound_by": row["bound_by"],
+                        "library_ms": row["library_ms"]})
+    # K4a: the same kernels on the row panels of the sharded run (p = 2).
+    for kind, suffix in (("spmv", "f32"), ("spmv", "bf16vals"),
+                         ("spmm", "f32"), ("spmm", "bf16vals")):
+        name = f"bell_{kind}_{suffix}"
+        row = panel[(name, SHARDED_RANKS)]
+        if panel_counts[name] < 1:
+            raise AssertionError(f"{name} never launched on a panel in the "
+                                 f"sharded run")
+        kernels.append({"name": f"bell_{kind}_panel_{suffix}",
+                        "route": "cuda",
+                        "source": csrc + f"bell_{kind}.cu",
+                        "replaces": tpu_spmm if kind == "spmm" else tpu,
+                        "launches": panel_counts[name],
                         "max_abs_err": row["max_abs_err"],
                         "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
                         "bound_ms": row["bound_ms"],

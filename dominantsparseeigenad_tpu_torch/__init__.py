@@ -8,15 +8,22 @@ eigenpair) on a ``BellOperator`` whose every SpMV runs the hand-written
 CUDA kernel of ``csrc/bell_spmv.cu``, and the block solver
 ``dominant_eigh_multi`` (the r extremal pairs, by Lanczos or
 ``lobpcg_eigh``) whose every SpMM runs the one of ``csrc/bell_spmm.cu``;
-plus the dense and matrix-free operators.
+plus the dense and matrix-free operators.  The row-sharded tier
+(``parallel/``, on ``torch.distributed``) splits a blocked-ELL or dense
+operator's rows over ranks, one process each, and both solvers run
+through it unchanged; each rank's row panel runs the same kernels.
 
 Entry points run on CUDA unless called with ``device="cpu"``; without a
 card they raise rather than fall back.
 """
 
-from .convert import bell_operator_from_numpy, dense_operator_from_numpy
+from .convert import (bell_operator_from_numpy, dense_operator_from_numpy,
+                      row_sharded_bell_operator_from_numpy)
 from .ops import *  # noqa: F401,F403
 from .ops import __all__ as _ops_all
+from .parallel import *  # noqa: F401,F403
+from .parallel import __all__ as _parallel_all
 
 __all__ = ["bell_operator_from_numpy", "dense_operator_from_numpy",
-           *_ops_all]
+           "row_sharded_bell_operator_from_numpy", *_ops_all,
+           *_parallel_all]

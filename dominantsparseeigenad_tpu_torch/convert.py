@@ -14,6 +14,7 @@ import torch
 
 from .ops.operators import DenseOperator, resolve_device
 from .ops.sparse import BellOperator
+from .parallel.sharded_sparse import RowShardedBellOperator
 
 
 def _tensor_from_numpy(a) -> torch.Tensor:
@@ -33,6 +34,20 @@ def bell_operator_from_numpy(vals, cols, n: int, *, symmetric: bool = False,
     return BellOperator(_tensor_from_numpy(vals).to(dev),
                         _tensor_from_numpy(np.asarray(cols, np.int32)).to(dev),
                         n, symmetric=symmetric)
+
+
+def row_sharded_bell_operator_from_numpy(
+        vals, cols, n: int, group=None, *, symmetric: bool = False,
+        device=None) -> RowShardedBellOperator:
+    """This rank's ``RowShardedBellOperator`` for a JAX
+    ``RowShardedBellOperator``'s (or ``BellOperator``'s) global
+    ``np.asarray(op.vals)``, ``np.asarray(op.cols)`` and ``op.n``;
+    ``group`` as in :func:`~.parallel.make_mesh`."""
+    dev = resolve_device(device)
+    return RowShardedBellOperator(
+        _tensor_from_numpy(vals).to(dev),
+        _tensor_from_numpy(np.asarray(cols, np.int32)).to(dev), n, group,
+        symmetric=symmetric)
 
 
 def dense_operator_from_numpy(a, *, device=None) -> DenseOperator:

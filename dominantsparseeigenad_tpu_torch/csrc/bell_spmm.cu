@@ -3,15 +3,22 @@
 //   Y[i*bs + a, c] = sum_j sum_b vals[i, j, a, b] * X[cols[i, j]*bs + b, c]
 //
 // vals: (nb, mb, bs, bs) row-major, float or bfloat16 (upcast in
-// registers); cols: (nb, mb) int32 block-column indices; X, Y: (nb*bs, r)
-// float, row-major (the layout of the JAX package's public function).
-// Accumulation is always float.
+// registers); cols: (nb, mb) int32 block-column indices in [0, nb_cols);
+// X: (nb_cols*bs, r) and Y: (nb*bs, r) float, row-major (the layout of
+// the JAX package's public function).  Accumulation is always float.
+// X is read only through cols, so nb_cols never enters the kernel: a
+// square operator has nb_cols = nb, a rectangular row panel (one rank's
+// block-rows of a row-sharded operator) any nb_cols.  The caller checks
+// the range of cols; every offset into X, (cols*bs + b)*r + c, is formed
+// in 64 bits.
 //
 // Replaces the Pallas TPU kernel `_spmv_kernel` of
 // dominantsparseeigenad_tpu/ops/pallas_spmv.py for its SpMM entry
 // `bell_spmm` (K3), which `BellOperator.matmat` calls for the block
 // solvers (LOBPCG, the batched deflated CG of the block eigensolver's
-// backward).
+// backward), on a square operator and on a row panel (K4a, from
+// `RowShardedBellOperator._panel_spmv` of
+// dominantsparseeigenad_tpu/parallel/sharded_sparse.py).
 //
 // What bounds it on an H100: the value stream, as for the SpMV.  Each
 // value is used for all r columns, so at r = 8 a value costs 16 flops

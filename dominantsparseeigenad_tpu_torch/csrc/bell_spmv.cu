@@ -3,13 +3,21 @@
 //   y[i*bs + a] = sum_j sum_b vals[i, j, a, b] * x[cols[i, j]*bs + b]
 //
 // vals: (nb, mb, bs, bs) row-major, float or bfloat16 (upcast in
-// registers); cols: (nb, mb) int32 block-column indices; x, y: (nb*bs,)
-// float.  Accumulation is always float.
+// registers); cols: (nb, mb) int32 block-column indices in [0, nb_cols);
+// x: (nb_cols*bs,) float; y: (nb*bs,) float.  Accumulation is always
+// float.  x is read only through cols, so nb_cols never enters the
+// kernel: a square operator has nb_cols = nb, a rectangular row panel
+// (one rank's block-rows of a row-sharded operator) any nb_cols.  The
+// caller checks the range of cols; every offset into x, cols*bs + b, is
+// formed in 64 bits.
 //
 // Replaces the Pallas TPU kernel `_spmv_kernel` of
 // dominantsparseeigenad_tpu/ops/pallas_spmv.py (launched by
 // `_bell_spmv_pallas` through `pl.pallas_call`), for its SpMV entry
-// `bell_spmv` with float values (K1) and bfloat16 values (K2).
+// `bell_spmv` with float values (K1) and bfloat16 values (K2), on a
+// square operator and on a row panel (K4a, from
+// `RowShardedBellOperator._panel_spmv` of
+// dominantsparseeigenad_tpu/parallel/sharded_sparse.py).
 //
 // What bounds it on an H100: the value stream.  Per (bs, bs) block the
 // kernel reads bs*bs values against bs floats of x, so at bs = 128 the

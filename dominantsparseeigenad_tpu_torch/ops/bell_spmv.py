@@ -8,9 +8,14 @@ entries ``bell_spmv`` and ``bell_spmm``:
     Y[i*bs + a, c] = sum_j vals[i, j, a, b] @ X[cols[i, j]*bs + b, c]
 
 ``vals`` is (nb, max_blk, bs, bs) in float32/float64, or bfloat16
-storage that is upcast at the product; ``cols`` is (nb, max_blk) int32;
-``x`` and ``y`` are (nb*bs,), ``X`` and ``Y`` (nb*bs, r) row-major, in
-the compute dtype.
+storage that is upcast at the product; ``cols`` is (nb, max_blk) int32
+in [0, nb_cols); ``x`` is (nb_cols*bs,) and ``y`` (nb*bs,), ``X``
+(nb_cols*bs, r) and ``Y`` (nb*bs, r) row-major, in the compute dtype.
+A square operator has nb_cols = nb; a rectangular row panel (one rank's
+block-rows of a row-sharded operator, ``parallel/sharded_sparse.py``)
+has nb block-rows against an x of any nb_cols block-columns.  Nothing
+here checks the range of ``cols`` (that would read it back from the
+card): the operators check it once, when they are built.
 
 * On a CUDA tensor :func:`bell_spmv` launches the CUDA kernel in
   ``csrc/bell_spmv.cu`` and :func:`bell_spmm` the one in
@@ -49,9 +54,12 @@ _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-# Launches of each kernel, counted by the wrapper where it launches.
+# Launches of each kernel, counted by the wrapper where it launches: on a
+# square operator (x as long as y) in launch_counts, on a rectangular row
+# panel (x longer or shorter than y) in panel_launch_counts.
 launch_counts = {"bell_spmv_f32": 0, "bell_spmv_bf16vals": 0,
                  "bell_spmm_f32": 0, "bell_spmm_bf16vals": 0}
+panel_launch_counts = dict(launch_counts)
 _SPMV_NAMES = ("bell_spmv_f32", "bell_spmv_bf16vals")
 _SPMM_NAMES = ("bell_spmm_f32", "bell_spmm_bf16vals")
 
@@ -63,8 +71,9 @@ _lib = None
 
 
 def reset_launch_counts():
-    for name in launch_counts:
-        launch_counts[name] = 0
+    for counts in (launch_counts, panel_launch_counts):
+        for name in counts:
+            counts[name] = 0
 
 
 def _nvcc() -> str:
@@ -158,7 +167,8 @@ SPMM_MAX_BS = 1024
 def _check_kernel_args(vals, cols, x) -> str:
     """Validate what the CUDA kernels take; return the kernel's name.
 
-    ``x`` of shape (N,) goes to the SpMV kernel, (N, r) to the SpMM one.
+    ``x`` of shape (N,) goes to the SpMV kernel, (N, r) to the SpMM one;
+    N may be any positive multiple of bs (a row panel's x).
     """
     kind = "bell_spmm" if x.ndim == 2 else "bell_spmv"
     if vals.ndim != 4 or vals.shape[2] != vals.shape[3]:
@@ -170,11 +180,14 @@ def _check_kernel_args(vals, cols, x) -> str:
     if tuple(cols.shape) != (nb, max_blk):
         raise ValueError(f"cols must be {(nb, max_blk)}, got "
                          f"{tuple(cols.shape)}")
-    if kind == "bell_spmv" and x.shape != (nb * bs,):
-        raise ValueError(f"x must be ({nb * bs},), got {tuple(x.shape)}")
+    if x.shape[0] == 0 or x.shape[0] % bs:
+        what = "x must be (nb_cols*bs,)" if kind == "bell_spmv" \
+            else "X must be (nb_cols*bs, r)"
+        raise ValueError(f"{what}, a positive multiple of bs={bs} rows, got "
+                         f"{tuple(x.shape)}")
     if kind == "bell_spmm":
-        if x.shape[0] != nb * bs or x.shape[1] < 1:
-            raise ValueError(f"X must be ({nb * bs}, r) with r >= 1, got "
+        if x.shape[1] < 1:
+            raise ValueError(f"X must be (nb_cols*bs, r) with r >= 1, got "
                              f"{tuple(x.shape)}")
         if bs > SPMM_MAX_BS:
             raise ValueError(f"the SpMM kernel takes bs <= {SPMM_MAX_BS}, "
@@ -217,23 +230,36 @@ def _raise_on_error(name, err):
         raise RuntimeError(f"{name} launch failed: {msg} (error {err})")
 
 
+def _output(vals, x):
+    """The product's output: (nb*bs,) or (nb*bs, r), the rows of ``vals``
+    (a row panel's y is shorter or longer than its x)."""
+    nb, _, bs, _ = vals.shape
+    return torch.empty((nb * bs, *x.shape[1:]), dtype=x.dtype,
+                       device=x.device)
+
+
+def _count_launch(name, vals, x):
+    square = x.shape[0] == vals.shape[0] * vals.shape[2]
+    (launch_counts if square else panel_launch_counts)[name] += 1
+
+
 def _bell_spmv_cuda(vals, cols, x):
     name = _check_kernel_args(vals, cols, x)
     nb, max_blk, bs, _ = vals.shape
-    y = torch.empty_like(x)
+    y = _output(vals, x)
     err = getattr(_library(), name)(
         vals.data_ptr(), cols.data_ptr(), x.data_ptr(), y.data_ptr(), nb,
         max_blk, bs, _vec_width(vals, x), x.device.index,
         torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on_error(name, err)
-    launch_counts[name] += 1
+    _count_launch(name, vals, x)
     return y
 
 
 def _bell_spmm_cuda(vals, cols, X):
     name = _check_kernel_args(vals, cols, X)
     nb, max_blk, bs, _ = vals.shape
-    Y = torch.empty_like(X)
+    Y = _output(vals, X)
     # X is staged through shared memory with scalar loads: only the
     # values' alignment picks the vector width.
     err = getattr(_library(), name)(
@@ -241,7 +267,7 @@ def _bell_spmm_cuda(vals, cols, X):
         max_blk, bs, X.shape[1], _vec_width(vals), X.device.index,
         torch.cuda.current_stream(X.device).cuda_stream)
     _raise_on_error(name, err)
-    launch_counts[name] += 1
+    _count_launch(name, vals, X)
     return Y
 
 
@@ -316,7 +342,8 @@ class _BellProduct(torch.autograd.Function):
 
 
 def bell_spmv(vals, cols, x):
-    """``y = A x`` for a blocked-ELL matrix (see the module docstring)."""
+    """``y = A x`` for a blocked-ELL matrix, square or a row panel (see
+    the module docstring)."""
     if x.ndim != 1:
         raise ValueError(f"bell_spmv takes x of shape (N,), got "
                          f"{tuple(x.shape)}")
@@ -324,8 +351,9 @@ def bell_spmv(vals, cols, x):
 
 
 def bell_spmm(vals, cols, X):
-    """``Y = A X`` for a blocked-ELL matrix and an (N, r) block (see the
-    module docstring): the values are streamed once for all r columns."""
+    """``Y = A X`` for a blocked-ELL matrix, square or a row panel, and an
+    (nb_cols*bs, r) block (see the module docstring): the values are
+    streamed once for all r columns."""
     if X.ndim != 2:
         raise ValueError(f"bell_spmm takes X of shape (N, r), got "
                          f"{tuple(X.shape)}")

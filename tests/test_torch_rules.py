@@ -50,6 +50,29 @@ def test_port_imports_without_jax():
     assert int(out.stdout.strip()) >= 8
 
 
+def test_import_scan_covers_the_parallel_package():
+    """The scan below reads every source of ``parallel/``, and the import
+    check above imports every module of it with JAX blocked."""
+    names = {p.relative_to(PKG).as_posix() for p in _sources()
+             if p.is_relative_to(PKG)}
+    assert {"parallel/__init__.py", "parallel/mesh.py",
+            "parallel/collectives.py", "parallel/sharded.py",
+            "parallel/sharded_sparse.py"} <= names
+    code = (
+        "import sys, pkgutil\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['dominantsparseeigenad_tpu'] = None\n"
+        "import dominantsparseeigenad_tpu_torch as p\n"
+        "print(' '.join(m.name for m in pkgutil.walk_packages(p.__path__, "
+        "p.__name__ + '.')))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    walked = set(out.stdout.split())
+    assert {f"dominantsparseeigenad_tpu_torch.parallel.{m}" for m in
+            ("mesh", "collectives", "sharded", "sharded_sparse")} <= walked
+
+
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: p.name)
 def test_no_source_imports_the_jax_package(path):
     for no, line in enumerate(path.read_text().splitlines(), 1):
@@ -101,6 +124,9 @@ def _entry_points():
             *(t.to(port.resolve_device()) for t in (vals, cols, a[:, :2]))),
         "BellOperator.matmat": lambda: port.BellOperator.from_dense(
             a.numpy(), bs=8).matmat(a[:, :2]),
+        "row_sharded_bell_operator_from_numpy":
+            lambda: port.row_sharded_bell_operator_from_numpy(
+                vals.numpy(), cols.numpy(), 8),
     }
 
 
