@@ -12,25 +12,36 @@ line each:
    card's name and power limit, measures the device-to-device copy rate.
 2. ``spmv``: the blocked-ELL kernel against its plain PyTorch version, in
    float32 and bfloat16 values, at the BASELINE config-#5 shape (n = 2^19,
-   bs = 128, 17 blocks per row) and at small odd shapes; kernel, plain,
-   bound and library (cuSPARSE BSR, float32 only) times.
-3. ``eigh``: the main path at the config-#5 shape.  ``dominant_eigh`` with
+   bs = 128, 17 blocks per row) and at small odd shapes; then the same
+   kernel in its banded mode (K4b, the operator's slot plan: every slot a
+   ring band) against the plain banded version and against the gather
+   mode on the same inputs (equal bit for bit); kernel (gather and banded
+   timed in turns), plain, bound and library (cuSPARSE BSR, float32 only)
+   times.
+3. ``eigh``: the main path at the config-#5 shape, on the operator as the
+   JAX package builds it (banded slot plan).  ``dominant_eigh`` with
    k = 100 and the gradient of ``λ + Σ c⊙v`` with respect to the stored
-   values, on float32 values and on bfloat16 values; the SpMV launch
-   counts of that run; then the checks (λ against a plain-SpMV solve from
-   the same start vector, ∂λ/∂vals against v⊗v on the pattern, a
-   dot-product test of the full gradient against the forward IFT tangent).
+   values, on float32 values and on bfloat16 values; the twin solves (the
+   same operators with ``slot_plan=None``, the gather kernels, forwards
+   from the same start: λ equal bit for bit); one forward-mode tangent of
+   λ for random dvals (``torch.autograd.forward_ad``); the launch counts
+   of that run; then the checks (λ against a plain-SpMV solve from the
+   same start vector, ∂λ/∂vals against v⊗v on the pattern, a dot-product
+   test of the full gradient against the forward IFT tangent, the
+   forward-mode dλ against ⟨dvals, ∂λ/∂vals⟩, the launches of each part).
 4. ``spmm``: the blocked-ELL SpMM kernel against its plain version and
    against r chained SpMV launches, float32 and bfloat16 values, at
    config #5 with r = 8 and r = 4, and at small odd shapes (r = 8; r = 3
-   with an X that is not 16-byte aligned); kernel, plain, chained-SpMV,
-   bound and library (cuSPARSE BSR, float32 only) times.
-5. ``eigh_multi``: the block path at the config-#5 shape.
+   with an X that is not 16-byte aligned); then its banded mode as in
+   ``spmv``; kernel, plain, chained-SpMV, bound and library (cuSPARSE BSR,
+   float32 only) times.
+5. ``eigh_multi``: the block path at the config-#5 shape, banded.
    ``dominant_eigh_multi`` with r = 8, LOBPCG capped at 100 iterations,
    and the gradient of ``Σ c_i λ_i + <C, V>`` with the backward's batched
    CG capped at 1000 iterations, on float32 values; a bfloat16-values
-   LOBPCG forward; a Lanczos forward with its info residual; the launch
-   counts of that run; then the checks (launch counts against the
+   LOBPCG forward; the twin LOBPCG forwards on the gather kernels (the 8 λ
+   equal bit for bit); a Lanczos forward with its info residual; the
+   launch counts of that run; then the checks (launch counts against the
    iterations, the pairs against an independent SpMV, ∂Σλ/∂vals against
    Σ v_i⊗v_i on the pattern, a dot-product test of the full gradient
    against the forward block IFT tangent, bf16 against f32 eigenvalues).
@@ -44,16 +55,25 @@ line each:
 7. ``sharded``: the row-sharded tier, two ranks sharing the one card over
    a gloo group (NCCL refuses two ranks on one card), spawned after the
    kernel library is built.  Each rank builds config #5 from the same
-   seed, keeps its panel (``RowShardedBellOperator``) and runs
-   ``dominant_eigh`` (k = 100) with the gradient of ``λ + Σ c⊙v`` (CG
-   capped at 1000), ``dominant_eigh_multi`` (LOBPCG, r = 8, capped at 100
-   iterations) with ∂Σλ, and bfloat16-values forwards of both, counted;
-   then the checks (the ranks' λ equal bit for bit, λ against the
-   unsharded solve from the same start, the gradients against v⊗v on the
-   panel's pattern and by the dot-product identity, panel launches
-   against the products the solvers made, bf16 against f32).  Its times
-   are those of two ranks sharing one card over gloo, not a multi-GPU
-   number.
+   seed, keeps its panel (``RowShardedBellOperator``, gather kernels: a
+   panel binds no slot plan) and runs ``dominant_eigh`` (k = 100) with
+   the gradient of ``λ + Σ c⊙v`` (CG capped at 1000),
+   ``dominant_eigh_multi`` (LOBPCG, r = 8, capped at 100 iterations) with
+   ∂Σλ, and bfloat16-values forwards of both, counted; then the checks
+   (the ranks' λ equal bit for bit, λ against the unsharded solve from
+   the same start, the gradients against v⊗v on the panel's pattern and
+   by the dot-product identity, panel launches against the products the
+   solvers made, bf16 against f32).  Its times are those of two ranks
+   sharing one card over gloo, not a multi-GPU number.
+8. ``tfim``: the paper's flagship at the bench's headline settings
+   (``bench.py:36-43``): the matrix-free TFIM at N = 20, g = 1.2, f32,
+   ``dominant_eigh`` with k = 60, one reorthogonalization pass, CG tol
+   1e-5 and at most 150 iterations, and one forward-mode pass giving E0,
+   dE0/dg and χ_F, against the Jordan-Wigner closed forms; the plain
+   forward's time per Lanczos step, the cost of its per-step host read
+   of β (the same steps' device work without the read, timed beside it),
+   the tangent's CG time and iterations; the same pass at N = 10 against
+   a dense ``torch.linalg.eigh`` (ED) in float64.
 
 Then a ``kernels`` line, the ``nvidia-smi`` name and power-limit line, and
 as the last line ``{"ok": true, "device": {...}}``.  Any failed check
@@ -75,6 +95,7 @@ import traceback
 import warnings
 
 import torch
+import torch.autograd.forward_ad as fwAD
 import torch.multiprocessing
 
 # Published H100 SXM peaks at the 700 W limit (NVIDIA data sheet):
@@ -99,6 +120,13 @@ PANEL_R = 8
 SHARDED_RANKS = 2                      # ranks sharing the one card
 SHARDED_CG_MAXITER = 1000
 SHARDED_TIMEOUT_S = 600                # a rank's whole run
+FWD_CG_MAXITER = 300                   # the forward-mode tangent's CG
+# The TFIM headline (bench.py:36-43), f32, and its tolerances against the
+# Jordan-Wigner closed forms (the JAX package's own f32 errors at these
+# settings, on a CPU: 6.7e-7, 1.2e-4, 6.3e-4).
+TFIM_N, TFIM_N_ED, TFIM_G, TFIM_K = 20, 10, 1.2, 60
+TFIM_CG_TOL, TFIM_CG_MAXITER, TFIM_REORTH_PASSES = 1e-5, 150, 1
+TFIM_RTOL = {"e0": 2e-5, "de0_dg": 1e-3, "chi_f": 5e-3}
 
 
 def emit(obj):
@@ -140,7 +168,8 @@ def phase_build(spmv):
     spmv.build_library()
     log = spmv.build_info["log"]
     ptxas = [ln.strip() for ln in log.splitlines()
-             if "registers" in ln or "spill" in ln]
+             if "entry function" in ln or "registers" in ln
+             or "spill" in ln]
     n_copy = 1 << 30                                   # 4 GiB of float32
     src = torch.empty(n_copy, dtype=torch.float32, device=DEVICE)
     src.fill_(1.0)
@@ -183,6 +212,54 @@ def bound(nnz, val_bytes, other_bytes, r=1):
     t_ops = 2 * nnz * r / PEAK_F32_FLOP_PER_S
     return (bytes_min, max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def banded_case(gather_row, kernel, banded, plain_banded, vals, cols, x, plan,
+                y_gather, batch_k):
+    """K4b: the kernel's banded mode on the inputs of ``gather_row``,
+    against the plain banded version (1e-5) and against the gather mode's
+    ``y_gather`` (equal bit for bit), timed in turns with the gather mode
+    (gather, banded, banded, gather).  Emits and returns its row."""
+    name = gather_row["kernel"].replace("bell_spmv", "bell_spmv_banded") \
+        .replace("bell_spmm", "bell_spmm_banded")
+    if plan is None or any(kind != "band" for kind, _ in plan):
+        raise AssertionError(f"{name}: the operator's slots are not all "
+                             f"bands: {plan}")
+    y_b = banded(vals, cols, x, plan)
+    y_p = plain_banded(vals, cols, x, plan)
+    torch.cuda.synchronize()
+    err = rel_err(y_b, y_p)
+    max_abs = float((y_b - y_p).abs().max())
+    diff = float((y_b - y_gather).abs().max())
+    if not (math.isfinite(err) and err <= 1e-5 and diff == 0.0):
+        raise AssertionError(f"{name} at n={gather_row['n']} "
+                             f"bs={gather_row['bs']}: rel err {err} (plain "
+                             f"banded), max |banded - gather| {diff}")
+
+    def timed(fn):
+        return event_ms(fn, samples=12, batch=batch_k)
+
+    t_g1 = timed(lambda: kernel(vals, cols, x))
+    t_b1 = timed(lambda: banded(vals, cols, x, plan))
+    t_b2 = timed(lambda: banded(vals, cols, x, plan))
+    t_g2 = timed(lambda: kernel(vals, cols, x))
+    plain_ms = event_ms(lambda: plain_banded(vals, cols, x, plan),
+                        samples=12, batch=batch_k // 5 or 1)
+    kernel_ms = (t_b1 + t_b2) / 2
+    row = {key: gather_row[key] for key in
+           ("phase", "n", "bs", "blocks_per_row", "r", "x_aligned",
+            "library_ms", "bytes_min", "bound_ms", "bound_by")
+           if key in gather_row}
+    row.update({"kernel": name, "slot_plan": "all bands",
+                "rel_err": err, "max_abs_err": max_abs,
+                "vs_gather_max_abs_diff": diff, "kernel_ms": kernel_ms,
+                "kernel_ms_turns": [t_b1, t_b2],
+                "gather_kernel_ms_turns": [t_g1, t_g2],
+                "banded_over_gather": kernel_ms / ((t_g1 + t_g2) / 2),
+                "plain_ms": plain_ms,
+                "achieved_gbps": row["bytes_min"] / (kernel_ms * 1e-3) / 1e9})
+    emit(row)
+    return row
 
 
 def spmv_case(spmv, sparse, n, bs, bpr, copy_gbps, seed, unaligned=False):
@@ -240,6 +317,11 @@ def spmv_case(spmv, sparse, n, bs, bpr, copy_gbps, seed, unaligned=False):
                "achieved_gbps": bytes_min / (kernel_ms * 1e-3) / 1e9}
         emit(row)
         results[name] = row
+        brow = banded_case(row, spmv._bell_spmv_cuda,
+                           spmv._bell_spmv_banded_cuda,
+                           spmv._bell_spmv_banded_torch, vals, cols, x,
+                           op.slot_plan, y_k, batch_k)
+        results[brow["kernel"]] = brow
         del vals, y_k, y_p
     del op, x
     torch.cuda.empty_cache()
@@ -307,6 +389,11 @@ def spmm_case(spmv, sparse, n, bs, bpr, r, seed, unaligned=False):
                "achieved_gbps": bytes_min / (kernel_ms * 1e-3) / 1e9}
         emit(row)
         results[name] = row
+        brow = banded_case(row, spmv._bell_spmm_cuda,
+                           spmv._bell_spmm_banded_cuda,
+                           spmv._bell_spmm_banded_torch, vals, cols, X,
+                           op.slot_plan, y_k, batch_k)
+        results[brow["kernel"]] = brow
         del vals, y_k, y_p, y_c
     del op, X, x_cols
     torch.cuda.empty_cache()
@@ -355,13 +442,21 @@ def phase_eigh(pkg, spmv):
     from dominantsparseeigenad_tpu_torch.ops.cg import solve_deflated_info
     n, bs, bpr = CONFIG5
     gen = torch.Generator(device=DEVICE).manual_seed(7)
+    # The operator as the JAX package builds it: every slot a ring band,
+    # so the products run the banded kernels (K4b).
     op = pkg.random_bell_operator(n, bs, bpr, generator=gen, device=DEVICE)
     op.vals.requires_grad_(True)
     op_bf = pkg.BellOperator(op.vals.detach().to(torch.bfloat16)
                              .requires_grad_(True), op.cols, n,
                              symmetric=True)
+    # The twins: the same values with slot_plan=None (gather kernels).
+    twin = pkg.BellOperator(op.vals.detach(), op.cols, n, symmetric=True,
+                            slot_plan=None)
+    twin_bf = pkg.BellOperator(op_bf.vals.detach(), op.cols, n,
+                               symmetric=True, slot_plan=None)
     v0 = torch.randn(n, generator=gen, device=DEVICE)
     c = torch.randn(n, generator=gen, device=DEVICE) / math.sqrt(n)
+    dvals = torch.randn(op.vals.shape, generator=gen, device=DEVICE)
     solve = dict(k=K, extreme="min", tol=CG_TOL, maxiter=CG_MAXITER, v0=v0,
                  device=DEVICE)
 
@@ -374,6 +469,15 @@ def phase_eigh(pkg, spmv):
         o.vals.requires_grad_(True)
         lam_w, v_w = pkg.dominant_eigh(o, k=20, maxiter=20, device=DEVICE)
         (lam_w + v_w.sum()).backward()
+        with torch.no_grad():
+            pkg.dominant_eigh(pkg.BellOperator(o.vals.detach(), o.cols,
+                                               o.n, symmetric=True,
+                                               slot_plan=None),
+                              k=20, device=DEVICE)
+    with fwAD.dual_level():
+        pkg.dominant_eigh(small.with_vals(fwAD.make_dual(
+            small.vals.detach(), torch.ones_like(small.vals))), k=20,
+            maxiter=20, device=DEVICE)
     torch.cuda.synchronize()
     t_warm = time.perf_counter() - t0
     del small, o, lam_w, v_w
@@ -381,27 +485,48 @@ def phase_eigh(pkg, spmv):
 
     # ---- the main path, counted ----------------------------------------
     spmv.reset_launch_counts()
+    counts = spmv.launch_counts
     t0 = time.perf_counter()
     lam, v = pkg.dominant_eigh(op, **solve)
     torch.cuda.synchronize()
     t_fwd = time.perf_counter() - t0
-    fwd_launches = spmv.launch_counts["bell_spmv_f32"]
+    fwd_launches = counts["bell_spmv_banded_f32"]
     t0 = time.perf_counter()
     (g_lam,) = torch.autograd.grad(lam, op.vals, retain_graph=True)
     torch.cuda.synchronize()
     t_bwd_lam = time.perf_counter() - t0
-    before = spmv.launch_counts["bell_spmv_f32"]
+    before = counts["bell_spmv_banded_f32"]
     t0 = time.perf_counter()
     (lam + (c * v).sum()).backward()
     torch.cuda.synchronize()
     t_bwd = time.perf_counter() - t0
-    bwd_launches = spmv.launch_counts["bell_spmv_f32"] - before
+    bwd_launches = counts["bell_spmv_banded_f32"] - before
     t0 = time.perf_counter()
     lam_bf, v_bf = pkg.dominant_eigh(op_bf, **solve)
     (g_lam_bf,) = torch.autograd.grad(lam_bf, op_bf.vals)
     torch.cuda.synchronize()
     t_bf = time.perf_counter() - t0
-    counts = dict(spmv.launch_counts)
+    # The twins, forward only, from the same start.
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        lam_twin, _ = pkg.dominant_eigh(twin, **solve)
+        lam_twin_bf, _ = pkg.dominant_eigh(twin_bf, **solve)
+    torch.cuda.synchronize()
+    t_twins = time.perf_counter() - t0
+    # One forward-mode tangent of λ along dvals: k banded SpMVs, one for
+    # dA v, one per iteration of the tangent's CG.
+    before = counts["bell_spmv_banded_f32"]
+    t0 = time.perf_counter()
+    with torch.no_grad(), fwAD.dual_level():
+        lam_fm, v_fm = pkg.dominant_eigh(
+            op.with_vals(fwAD.make_dual(op.vals.detach(), dvals)),
+            **dict(solve, maxiter=FWD_CG_MAXITER))
+        dlam_fm = float(fwAD.unpack_dual(lam_fm).tangent)
+        dv_fm = fwAD.unpack_dual(v_fm).tangent
+    torch.cuda.synchronize()
+    t_fm = time.perf_counter() - t0
+    fm_launches = counts["bell_spmv_banded_f32"] - before
+    counts = dict(counts)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     # ---- end of the counted run -----------------------------------------
 
@@ -432,24 +557,49 @@ def phase_eigh(pkg, spmv):
         dlam_err = rel_err(g_lam, expect)
         del expect
 
+        # Forward mode against reverse mode: both are v^T dA v.
+        dlam_rev = grad_dot(g_lam, dvals)
+        fm_err = abs(dlam_fm - dlam_rev) / abs(dlam_rev)
+        # The tangent's CG, re-run on its right-hand side: its iterations
+        # and time (the rest of the forward-mode pass is the forward).
+        dav = spmv.bell_spmv(dvals, cols, v, op.slot_plan)
+        rhs_fm = -(dav - torch.dot(v, dav) * v)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, fm_cg_its, fm_cg_res = solve_deflated_info(
+            op, lam, v, rhs_fm, definite_sign=1.0, tol=CG_TOL,
+            maxiter=FWD_CG_MAXITER, device=DEVICE)
+        torch.cuda.synchronize()
+        t_fm_cg = time.perf_counter() - t0
+
         # Dot-product test of the full gradient (see ift_dot_test).
         g_full = op.vals.grad
-        dvals = torch.randn(vals_d.shape, generator=gen, device=DEVICE)
         lhs = grad_dot(g_full, dvals)
-        dav = spmv.bell_spmv(dvals, cols, v)
         del dvals
         terms, dot_err, dv_its, dv_res = ift_dot_test(
             op, lam, v, c, b, x, lhs, dav, CG_MAXITER)
         finite = all(bool(torch.isfinite(t).all())
-                     for t in (v, g_full, g_lam_bf, v_bf.detach()))
+                     for t in (v, g_full, g_lam_bf, v_bf.detach(), dv_fm))
     bf_err = abs(lam_bf_f - lam_f) / abs(lam_f)
+    twins_equal = (float(lam_twin).hex() == lam_f.hex()
+                   and float(lam_twin_bf).hex() == lam_bf_f.hex())
     emit({"phase": "eigh", "n": n, "bs": bs, "blocks_per_row": bpr, "k": K,
-          "lam": lam_f, "ritz_residual": ritz_res, "warmup_s": t_warm,
-          "forward_s": t_fwd, "backward_lam_s": t_bwd_lam,
+          "slot_plan": "all bands", "lam": lam_f, "ritz_residual": ritz_res,
+          "warmup_s": t_warm, "forward_s": t_fwd, "backward_lam_s": t_bwd_lam,
           "backward_s": t_bwd, "bf16_forward_backward_s": t_bf,
           "cg_iterations": cg_its, "cg_rel_residual": cg_res,
           "launches": counts, "forward_launches": fwd_launches,
           "backward_launches": bwd_launches,
+          "twin_lam_hex": [float(lam_twin).hex(), float(lam_twin_bf).hex()],
+          "lam_hex": [lam_f.hex(), lam_bf_f.hex()],
+          "twins_forward_s": t_twins,
+          "forward_mode_s": t_fm, "forward_mode_launches": fm_launches,
+          "forward_mode_cg_iterations": fm_cg_its,
+          "forward_mode_cg_rel_residual": fm_cg_res,
+          "forward_mode_cg_s": t_fm_cg,
+          "forward_mode_minus_cg_s": t_fm - t_fm_cg,
+          "dlam_forward_mode": dlam_fm, "dlam_reverse": dlam_rev,
+          "dlam_forward_vs_reverse_rel": fm_err,
           "lam_vs_plain_rel": lam_mf_err, "dlam_dvals_rel_err": dlam_err,
           "dot_test_lhs": lhs, "dot_test_terms": terms,
           "dot_test_rel_err": dot_err, "tangent_cg_iterations": dv_its,
@@ -459,12 +609,24 @@ def phase_eigh(pkg, spmv):
 
     checks = {
         # The forward is k SpMVs; the backward one per CG iteration plus
-        # the one matvec autograd differentiates.
+        # the one matvec autograd differentiates; all banded.
         "forward launches == k": fwd_launches == K,
         "backward launches == CG iterations + 1": bwd_launches == cg_its + 1,
-        "f32 launches >= k + CG iterations":
-            counts["bell_spmv_f32"] >= K + cg_its,
-        "bf16 launches >= k + 1": counts["bell_spmv_bf16vals"] >= K + 1,
+        "f32 banded launches >= k + CG iterations":
+            counts["bell_spmv_banded_f32"] >= K + cg_its,
+        "bf16 banded launches >= k + 1":
+            counts["bell_spmv_banded_bf16vals"] >= K + 1,
+        # The twins ran the gather kernels, k SpMVs each, and found the
+        # same λ bit for bit (the same sums in the same order).
+        "twin gather launches == k": counts["bell_spmv_f32"] == K
+            and counts["bell_spmv_bf16vals"] == K,
+        "twins' λ bitwise equal to the banded λ": twins_equal,
+        # Forward mode: k SpMVs (the Lanczos loop carries no tangent), one
+        # for dA v, one per CG iteration.
+        "forward-mode launches == k + 1 + CG iterations":
+            fm_launches == K + 1 + fm_cg_its,
+        # Both are v^T dA v: f32 sums of 2176 products per row.
+        "forward-mode dλ vs <dvals, ∂λ/∂vals>, rel 1e-5": fm_err <= 1e-5,
         # Two f32 Lanczos runs whose SpMVs sum in different orders.
         "λ vs plain-SpMV λ, rel 1e-4": lam_mf_err <= 1e-4,
         # The same products as the backward's, formed directly.
@@ -488,9 +650,13 @@ def phase_eigh_multi(pkg, spmv):
     n, bs, bpr = CONFIG5
     r = MULTI_R
     gen = torch.Generator(device=DEVICE).manual_seed(11)
+    # As the JAX package builds it: every slot a band (banded SpMMs).
     op = pkg.random_bell_operator(n, bs, bpr, generator=gen, device=DEVICE)
     op.vals.requires_grad_(True)
     op_bf = op.with_vals(op.vals.detach().to(torch.bfloat16))
+    # The twins, on the gather kernels.
+    twins = [pkg.BellOperator(o.vals.detach(), op.cols, n, symmetric=True,
+                              slot_plan=None) for o in (op, op_bf)]
     x0 = torch.randn(n, r, generator=gen, device=DEVICE)
     c = torch.randn(r, generator=gen, device=DEVICE)
     C = torch.randn(n, r, generator=gen, device=DEVICE) / math.sqrt(n)
@@ -508,6 +674,11 @@ def phase_eigh_multi(pkg, spmv):
         lams_w, v_w = pkg.dominant_eigh_multi(o, r=r, k=10, method="lobpcg",
                                               maxiter=10, device=DEVICE)
         (lams_w.sum() + v_w.sum()).backward()
+        with torch.no_grad():
+            pkg.dominant_eigh_multi(
+                pkg.BellOperator(o.vals.detach(), o.cols, o.n,
+                                 symmetric=True, slot_plan=None),
+                r=r, k=10, method="lobpcg", device=DEVICE)
     pkg.dominant_eigh_multi(small, r=r, k=20, with_info=True, device=DEVICE)
     torch.cuda.synchronize()
     t_warm = time.perf_counter() - t0
@@ -521,22 +692,29 @@ def phase_eigh_multi(pkg, spmv):
     torch.cuda.synchronize()
     t_fwd = time.perf_counter() - t0
     fwd = dict(spmv.launch_counts)
-    before = spmv.launch_counts["bell_spmm_f32"]
+    before = spmv.launch_counts["bell_spmm_banded_f32"]
     t0 = time.perf_counter()
     (g_sum,) = torch.autograd.grad(lams.sum(), op.vals, retain_graph=True)
     torch.cuda.synchronize()
     t_bwd_lam = time.perf_counter() - t0
-    bwd_lam_launches = spmv.launch_counts["bell_spmm_f32"] - before
-    before = spmv.launch_counts["bell_spmm_f32"]
+    bwd_lam_launches = spmv.launch_counts["bell_spmm_banded_f32"] - before
+    before = spmv.launch_counts["bell_spmm_banded_f32"]
     t0 = time.perf_counter()
     ((c * lams).sum() + (C * V).sum()).backward()
     torch.cuda.synchronize()
     t_bwd = time.perf_counter() - t0
-    bwd_launches = spmv.launch_counts["bell_spmm_f32"] - before
+    bwd_launches = spmv.launch_counts["bell_spmm_banded_f32"] - before
     t0 = time.perf_counter()
     lams_bf, V_bf, info_bf = pkg.dominant_eigh_multi(op_bf, **solve)
     torch.cuda.synchronize()
     t_bf = time.perf_counter() - t0
+    # The twins' LOBPCG forwards, from the same start block.
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        twin_out = [pkg.dominant_eigh_multi(o, **solve) for o in twins]
+    torch.cuda.synchronize()
+    t_twins = time.perf_counter() - t0
+    twin_its = [int(out[2].effective_k) for out in twin_out]
     before = dict(spmv.launch_counts)
     t0 = time.perf_counter()
     with torch.no_grad():
@@ -571,11 +749,11 @@ def phase_eigh_multi(pkg, spmv):
         # The backward's batched CG, re-run on the same right-hand side;
         # the kernels are deterministic, so it gives the backward's X.
         b = -(C - V @ (V.T @ C))
-        before = spmv.launch_counts["bell_spmm_f32"]
+        before = spmv.launch_counts["bell_spmm_banded_f32"]
         x, x_its, x_res = solve_deflated_info(
             op, lams, V, b, tol=CG_TOL, maxiter=MULTI_CG_MAXITER,
             device=DEVICE)
-        cg_loop = spmv.launch_counts["bell_spmm_f32"] - before - 1
+        cg_loop = spmv.launch_counts["bell_spmm_banded_f32"] - before - 1
         cg_loop_expect = min(MULTI_CG_MAXITER,
                              -(-max(x_its) // CHECK_EVERY) * CHECK_EVERY)
 
@@ -633,8 +811,13 @@ def phase_eigh_multi(pkg, spmv):
         float(g[0, 0] + 1.0)
     host_read_ms = (time.perf_counter() - t0) * 10
     bf_err = float((lams_bf - lams).abs().max()) / lam_scale
+    lams_hex = [[float(t).hex() for t in out] for out in (lams, lams_bf)]
+    twin_hex = [[float(t).hex() for t in out[0]] for out in twin_out]
     emit({"phase": "eigh_multi", "n": n, "bs": bs, "blocks_per_row": bpr,
           "r": r, "method": "lobpcg", "k": LOBPCG_ITERS,
+          "slot_plan": "all bands", "lams_hex": lams_hex,
+          "twin_lams_hex": twin_hex, "twin_lobpcg_iterations": twin_its,
+          "twins_forward_s": t_twins,
           "lams": lams.tolist(), "lobpcg_iterations": its,
           "block_residual": float(info.residual),
           "converged": float(info.converged), "warmup_s": t_warm,
@@ -661,20 +844,29 @@ def phase_eigh_multi(pkg, spmv):
     checks = {
         # lobpcg.py: one SpMM for A X0, then A W and A P every iteration;
         # with_info adds none (LOBPCG reports its own residual).
-        "forward SpMM launches == 1 + 2 x iterations":
-            fwd["bell_spmm_f32"] == 1 + 2 * its,
-        "forward SpMV launches == 0": fwd["bell_spmv_f32"] == 0,
+        "forward banded SpMM launches == 1 + 2 x iterations":
+            fwd["bell_spmm_banded_f32"] == 1 + 2 * its,
+        "forward SpMV launches == 0":
+            fwd["bell_spmv_f32"] == fwd["bell_spmv_banded_f32"] == 0,
         # V̄ = 0: the batched CG takes no iteration; one SpMM for ∂(A V).
         "∂Σλ backward SpMM launches == 1": bwd_lam_launches == 1,
         "backward SpMM launches == block-CG iterations + 1":
             bwd_launches == cg_loop + 1,
         "block-CG loop == its columns' iterations, rounded up":
             cg_loop == cg_loop_expect,
-        "bf16 SpMM launches == 1 + 2 x iterations":
-            counts["bell_spmm_bf16vals"] == 1 + 2 * int(info_bf.effective_k),
+        "bf16 banded SpMM launches == 1 + 2 x iterations":
+            counts["bell_spmm_banded_bf16vals"]
+            == 1 + 2 * int(info_bf.effective_k),
+        # The twins: the gather SpMMs, the same iterations, the same 8 λ
+        # bit for bit (the same sums in the same order).
+        "twin gather SpMM launches == 1 + 2 x iterations":
+            counts["bell_spmm_f32"] == 1 + 2 * twin_its[0]
+            and counts["bell_spmm_bf16vals"] == 1 + 2 * twin_its[1],
+        "twins' λ bitwise equal to the banded λ": twin_hex == lams_hex,
         # The Lanczos forward: k SpMVs, and one SpMM for its info residual.
-        "lanczos forward: k SpMVs + 1 SpMM":
-            lz["bell_spmv_f32"] == LANCZOS_K and lz["bell_spmm_f32"] == 1,
+        "lanczos forward: k banded SpMVs + 1 banded SpMM":
+            lz["bell_spmv_banded_f32"] == LANCZOS_K
+            and lz["bell_spmm_banded_f32"] == 1,
         # Ritz values are Rayleigh quotients of their vectors.
         "|λ_i - v_i^T A v_i| <= 1e-5 max|λ|": pair_err <= 1e-5,
         "||V^T V - I||_max <= 1e-5": orth_err <= 1e-5,
@@ -1045,6 +1237,161 @@ def phase_sharded():
     return total
 
 
+def tfim_pass(pkg, models, n, dtype):
+    """One forward-mode pass at the headline settings: (E0, dE0/dg, χ_F,
+    ψ), with χ_F = <∂ψ|∂ψ> - <ψ|∂ψ>² from the tangent of ψ."""
+    with torch.no_grad(), fwAD.dual_level():
+        g = fwAD.make_dual(torch.tensor(TFIM_G, dtype=dtype, device=DEVICE),
+                           torch.ones((), dtype=dtype, device=DEVICE))
+        lam, v = pkg.dominant_eigh(
+            models.tfim_operator(n, g, dtype=dtype, device=DEVICE),
+            k=min(TFIM_K, 1 << n), extreme="min", tol=TFIM_CG_TOL,
+            maxiter=TFIM_CG_MAXITER, reorth_passes=TFIM_REORTH_PASSES,
+            device=DEVICE)
+        e0, de0 = fwAD.unpack_dual(lam)
+        psi, dpsi = fwAD.unpack_dual(v)
+    chi = torch.dot(dpsi, dpsi) - torch.dot(psi, dpsi) ** 2
+    return float(e0), float(de0), float(chi), psi
+
+
+def lanczos_without_host_reads(op, k, v0):
+    """The device work of ``ops/lanczos.py::lanczos`` with one
+    reorthogonalization pass, step for step, without its per-step host
+    read of β (and so without the breakdown branch it decides): timed
+    beside the real loop, the difference is what the read costs."""
+    from dominantsparseeigenad_tpu_torch.ops.lanczos import _project_out
+    n, dtype = op.dim, op.dtype
+    q = v0 / torch.linalg.vector_norm(v0)
+    basis = torch.zeros((k + 1, n), dtype=dtype, device=DEVICE)
+    basis[0] = q
+    alphas = torch.zeros(k, dtype=dtype, device=DEVICE)
+    betas = torch.zeros(k, dtype=dtype, device=DEVICE)
+    q_prev = torch.zeros_like(q)
+    beta_prev = torch.zeros((), dtype=dtype, device=DEVICE)
+    for i in range(k):
+        w = op.matvec(q)
+        alpha = torch.dot(q, w)
+        w = w - alpha * q - beta_prev * q_prev
+        w = _project_out(basis[:i + 1], w)
+        beta = torch.linalg.vector_norm(w)
+        # The breakdown test's device work, left unread.
+        scale = torch.sqrt(alpha * alpha + beta_prev * beta_prev) + 1.0
+        _ = beta <= 1e-5 * scale
+        q_next = w / beta
+        alphas[i] = alpha
+        betas[i] = beta
+        basis[i + 1] = q_next
+        q_prev, q, beta_prev = q, q_next, beta
+    return alphas, betas
+
+
+def phase_tfim(pkg):
+    """The TFIM flagship (see the module docstring, phase 8)."""
+    from dominantsparseeigenad_tpu_torch import models
+    from dominantsparseeigenad_tpu_torch.ops.cg import solve_deflated_info
+    f32 = torch.float32
+
+    # N = 10 first: the oracle checks, and the warm-up of every call.
+    t0 = time.perf_counter()
+    small = tfim_pass(pkg, models, TFIM_N_ED, f32)
+    ed = [float(t) for t in models.tfim_ed_observables(
+        TFIM_N_ED, TFIM_G, dtype=torch.float64, device=DEVICE)]
+    torch.cuda.synchronize()
+    t_small = time.perf_counter() - t0
+    jw_small = (float(models.tfim_exact_e0(TFIM_N_ED, TFIM_G, device=DEVICE)),
+                models.tfim_exact_de0_dg(TFIM_N_ED, TFIM_G),
+                models.tfim_exact_chi_f(TFIM_N_ED, TFIM_G))
+    ed_vs_jw = max(abs(a - b) / abs(b) for a, b in
+                   zip((ed[0], ed[1], ed[3]), jw_small))
+    small_vs_ed = dict(zip(TFIM_RTOL, (abs(a - b) / abs(b) for a, b in
+                                       zip(small[:3], (ed[0], ed[1], ed[3])))))
+
+    # N = 20, the headline: one forward-mode pass, the first at this size
+    # and a second one (the same numbers, without one-time costs).
+    n = TFIM_N
+    t_passes = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        e0, de0, chi, psi = tfim_pass(pkg, models, n, f32)
+        torch.cuda.synchronize()
+        t_passes.append(time.perf_counter() - t0)
+    jw = (float(models.tfim_exact_e0(n, TFIM_G, device=DEVICE)),
+          models.tfim_exact_de0_dg(n, TFIM_G),
+          models.tfim_exact_chi_f(n, TFIM_G))
+    errs = dict(zip(TFIM_RTOL, (abs(a - b) / abs(b) for a, b in
+                                zip((e0, de0, chi), jw))))
+
+    # Where the pass's time goes: the plain forward, its steps with and
+    # without the host read of β, one matvec, the tangent's CG.
+    op = models.tfim_operator(n, TFIM_G, dtype=f32, device=DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    v0 = torch.randn(op.dim, generator=gen, device=DEVICE)
+    forward = dict(k=TFIM_K, extreme="min", reorth_passes=TFIM_REORTH_PASSES,
+                   v0=v0, device=DEVICE)
+    with torch.no_grad():
+        pkg.lanczos(op, 5, v0=v0, reorth_passes=1, device=DEVICE)
+        lanczos_without_host_reads(op, 5, v0)
+        times = {"with": [], "without": []}
+        for kind in ("with", "without", "without", "with") * 3:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if kind == "with":
+                pkg.lanczos(op, TFIM_K, v0=v0, reorth_passes=1, device=DEVICE)
+            else:
+                lanczos_without_host_reads(op, TFIM_K, v0)
+            torch.cuda.synchronize()
+            times[kind].append((time.perf_counter() - t0) / TFIM_K * 1e3)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lam, v = pkg.dominant_eigh(op, **forward)
+        torch.cuda.synchronize()
+        t_fwd = time.perf_counter() - t0
+        matvec_ms = event_ms(lambda: op.matvec(v), samples=12, batch=10)
+        dav = op.tangent_matvec(v, [torch.ones((), device=DEVICE), None])
+        rhs = -(dav - torch.dot(v, dav) * v)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, cg_its, cg_res = solve_deflated_info(
+            op, lam, v, rhs, definite_sign=1.0, tol=TFIM_CG_TOL,
+            maxiter=TFIM_CG_MAXITER, device=DEVICE)
+        torch.cuda.synchronize()
+        t_cg = time.perf_counter() - t0
+    step_with = statistics.median(times["with"])
+    step_without = statistics.median(times["without"])
+    emit({"phase": "tfim", "n": n, "g": TFIM_G, "dtype": "float32",
+          "k": TFIM_K, "reorth_passes": TFIM_REORTH_PASSES,
+          "cg_tol": TFIM_CG_TOL, "cg_maxiter": TFIM_CG_MAXITER,
+          "e0": e0, "de0_dg": de0, "chi_f": chi,
+          "jordan_wigner": dict(zip(TFIM_RTOL, jw)), "rel_err": errs,
+          "rtol": TFIM_RTOL, "pass_s": t_passes, "forward_s": t_fwd,
+          "forward_step_ms": t_fwd / TFIM_K * 1e3, "matvec_ms": matvec_ms,
+          "lanczos_step_ms_with_host_read": times["with"],
+          "lanczos_step_ms_without_host_read": times["without"],
+          "host_read_ms_per_step": step_with - step_without,
+          "tangent_cg_s": t_cg, "tangent_cg_iterations": cg_its,
+          "tangent_cg_rel_residual": cg_res,
+          "n_ed": TFIM_N_ED, "small_pass_and_ed_s": t_small,
+          "small": dict(zip(TFIM_RTOL, small[:3])),
+          "ed": {"e0": ed[0], "de0_dg": ed[1], "d2e0_dg2": ed[2],
+                 "chi_f": ed[3]},
+          "small_rel_err_vs_ed": small_vs_ed, "ed_vs_jw_rel": ed_vs_jw})
+
+    checks = {f"N={n} {name} vs Jordan-Wigner, rel {TFIM_RTOL[name]}":
+              errs[name] <= TFIM_RTOL[name] for name in TFIM_RTOL}
+    checks.update({f"N={TFIM_N_ED} {name} vs ED, rel {TFIM_RTOL[name]}":
+                   small_vs_ed[name] <= TFIM_RTOL[name] for name in TFIM_RTOL})
+    checks.update({
+        # Two float64 oracles of the same quantities.
+        f"N={TFIM_N_ED} ED vs Jordan-Wigner, rel 1e-10": ed_vs_jw <= 1e-10,
+        "finite": all(math.isfinite(t) for t in (e0, de0, chi))
+        and bool(torch.isfinite(psi).all()),
+    })
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"tfim phase failed: {failed}")
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this script runs on the card")
@@ -1073,22 +1420,29 @@ def main():
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     panel_counts = phase_sharded()
+    phase_tfim(pkg)
 
     csrc = "dominantsparseeigenad_tpu_torch/csrc/"
     # The Pallas kernel body, and the SpMM entry that runs it on (N, r).
     tpu = "dominantsparseeigenad_tpu/ops/pallas_spmv.py:161"
     tpu_spmm = "dominantsparseeigenad_tpu/ops/pallas_spmv.py:424"
     kernels = []
+    # K1-K3 (launched by the twins) and K4b (by the main path).
     for name in ("bell_spmv_f32", "bell_spmv_bf16vals", "bell_spmm_f32",
-                 "bell_spmm_bf16vals"):
+                 "bell_spmm_bf16vals", "bell_spmv_banded_f32",
+                 "bell_spmv_banded_bf16vals", "bell_spmm_banded_f32",
+                 "bell_spmm_banded_bf16vals"):
         row = big[name]
         if counts[name] < 1:
             raise AssertionError(f"{name} never launched on the main path")
         spmm_kernel = "spmm" in name
+        replaces = tpu
+        if spmm_kernel and "banded" not in name:
+            replaces = tpu_spmm
         kernels.append({"name": name, "route": "cuda",
                         "source": csrc + ("bell_spmm.cu" if spmm_kernel
                                           else "bell_spmv.cu"),
-                        "replaces": tpu_spmm if spmm_kernel else tpu,
+                        "replaces": replaces,
                         "launches": counts[name],
                         "max_abs_err": row["max_abs_err"],
                         "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],

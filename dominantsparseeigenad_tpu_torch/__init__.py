@@ -2,7 +2,7 @@
 
 A package of its own beside the JAX one, with the same module layout.  It
 imports ``torch`` and ``numpy`` only.  So far it covers the sparse tier's
-eigensolver paths, with first-order reverse-mode gradients through the
+eigensolver paths, with first-order gradients through the
 implicit-function-theorem rule: ``dominant_eigh`` (one extremal
 eigenpair) on a ``BellOperator`` whose every SpMV runs the hand-written
 CUDA kernel of ``csrc/bell_spmv.cu``, and the block solver
@@ -11,7 +11,12 @@ CUDA kernel of ``csrc/bell_spmv.cu``, and the block solver
 plus the dense and matrix-free operators.  The row-sharded tier
 (``parallel/``, on ``torch.distributed``) splits a blocked-ELL or dense
 operator's rows over ranks, one process each, and both solvers run
-through it unchanged; each rank's row panel runs the same kernels.
+through it unchanged; each rank's row panel runs the same kernels.  An
+operator whose slots are ring bands (config #5's all are) binds the
+banded slot plan, and its products run the kernels' banded mode (K4b).
+``dominant_eigh`` has forward mode too (``torch.autograd.forward_ad``),
+and ``models/`` holds the matrix-free TFIM flagship with its
+Jordan-Wigner and ED oracles.
 
 Entry points run on CUDA unless called with ``device="cpu"``; without a
 card they raise rather than fall back.

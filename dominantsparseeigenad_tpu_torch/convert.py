@@ -27,13 +27,15 @@ def _tensor_from_numpy(a) -> torch.Tensor:
 
 
 def bell_operator_from_numpy(vals, cols, n: int, *, symmetric: bool = False,
-                             device=None) -> BellOperator:
+                             slot_plan="auto", device=None) -> BellOperator:
     """The port's ``BellOperator`` for a JAX ``BellOperator``'s
-    ``np.asarray(op.vals)``, ``np.asarray(op.cols)`` and ``op.n``."""
+    ``np.asarray(op.vals)``, ``np.asarray(op.cols)`` and ``op.n``;
+    ``slot_plan`` as in :class:`BellOperator` (JAX's ``op.slot_plan`` may
+    be passed as it is)."""
     dev = resolve_device(device)
     return BellOperator(_tensor_from_numpy(vals).to(dev),
                         _tensor_from_numpy(np.asarray(cols, np.int32)).to(dev),
-                        n, symmetric=symmetric)
+                        n, symmetric=symmetric, slot_plan=slot_plan)
 
 
 def row_sharded_bell_operator_from_numpy(

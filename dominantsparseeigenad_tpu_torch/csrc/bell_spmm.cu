@@ -58,6 +58,21 @@
 //   values, take the same code with VEC = 1 (scalar loads).
 // Making the stream faster (cp.async/TMA pipelines, several block-rows per
 // block) is left for later work.
+//
+// Banded mode (K4b): the same kernel body for the banded slot plan of
+// `_spmv_kernel` (pallas_spmv.py:161; its slab DMAs :211-258).  Where a
+// slot's plan entry band_off[j] = o is >= 0, the staging takes the slot's
+// block-column from (i + o) % nb and never reads cols; a slot with -1
+// reads cols as in the gather mode.  Staging, slot loop and sums run in
+// the same order in both modes, so a plan that matches cols gives the
+// gather mode's Y bit for bit.  On the TPU a band let one slab DMA fetch
+// the X segments of a row group of G block-rows instead of G row
+// gathers.  Here one block owns (a slab of rows of) one block-row and
+// loads its own indices, so the slab has no direct counterpart at this
+// design: the band mode removes the cols read and makes the X segments
+// that neighbouring blocks stage contiguous.  A block that owns G
+// block-rows and stages a band's (G, bs, r) slab with one bulk (TMA) copy,
+// reusing X across them, is later, performance work.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -133,11 +148,15 @@ struct Raw<__nv_bfloat16, 1> {
 // Grid: (nb * slabs, ceil(r / RC)).  Block: warps of 32 lanes; a warp
 // covers (32 / G) lane groups of TR rows each.  ld: the padded length of a
 // staged X column (a multiple of 4 floats); jt: slots staged at a time.
-template <typename T, int VEC, int RC>
+// BANDED: band_off (mb,) holds o in [0, nb) for a band slot, -1 for a
+// gather slot; unused otherwise.
+template <typename T, int VEC, int RC, bool BANDED>
 __global__ void __launch_bounds__(MAX_WARPS * 32)
 bell_spmm_kernel(const T* __restrict__ vals, const int* __restrict__ cols,
-                 const float* __restrict__ X, float* __restrict__ Y, int mb,
-                 int bs, int r, int G, int slabs, int ld, int jt) {
+                 const int* __restrict__ band_off,
+                 const float* __restrict__ X, float* __restrict__ Y,
+                 long long nb, int mb, int bs, int r, int G, int slabs,
+                 int ld, int jt) {
   constexpr int TR = RowsPerGroup<T>::value;
   constexpr int U = VEC < 4 ? VEC : 4;  // values unpacked at a time
   extern __shared__ float4 smem4[];
@@ -171,8 +190,15 @@ bell_spmm_kernel(const T* __restrict__ vals, const int* __restrict__ cols,
   for (int j0 = 0; j0 < mb; j0 += jt) {
     const int jn = min(jt, mb - j0);
     __syncthreads();                    // the previous tile is consumed
-    for (int jj = threadIdx.x; jj < jn; jj += blockDim.x)
-      cs[jj] = __ldg(cols_i + j0 + jj);
+    for (int jj = threadIdx.x; jj < jn; jj += blockDim.x) {
+      if constexpr (BANDED) {
+        const int o = __ldg(band_off + j0 + jj);
+        cs[jj] = o < 0 ? __ldg(cols_i + j0 + jj)
+                       : (int)(i + o < nb ? i + o : i + o - nb);
+      } else {
+        cs[jj] = __ldg(cols_i + j0 + jj);
+      }
+    }
     __syncthreads();
     // SB independent loads per thread before their stores, so the
     // gather's latency is paid once per batch, not once per element.
@@ -302,9 +328,10 @@ int next_pow2_capped(int c) {
   return g;
 }
 
-template <typename T, int VEC, int RC>
-int launch_rc(const void* vals, const void* cols, const void* X, void* Y,
-              long long nb, int mb, int bs, int r, cudaStream_t stream) {
+template <typename T, int VEC, int RC, bool BANDED>
+int launch_rc(const void* vals, const void* cols, const void* band_off,
+              const void* X, void* Y, long long nb, int mb, int bs, int r,
+              cudaStream_t stream) {
   const int G = next_pow2_capped(bs / VEC);
   const int rows_per_warp = (32 / G) * RowsPerGroup<T>::value;
   int warps = (bs + rows_per_warp - 1) / rows_per_warp;
@@ -320,52 +347,94 @@ int launch_rc(const void* vals, const void* cols, const void* X, void* Y,
   const int smem = jt * slot_bytes;
   if (smem > SMEM_DEFAULT) {
     cudaError_t err = cudaFuncSetAttribute(
-        bell_spmm_kernel<T, VEC, RC>,
+        bell_spmm_kernel<T, VEC, RC, BANDED>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
   }
   const dim3 grid((unsigned)(nb * slabs), (unsigned)((r + RC - 1) / RC));
-  bell_spmm_kernel<T, VEC, RC><<<grid, warps * 32, smem, stream>>>(
-      (const T*)vals, (const int*)cols, (const float*)X, (float*)Y, mb, bs,
-      r, G, slabs, ld, jt);
+  bell_spmm_kernel<T, VEC, RC, BANDED><<<grid, warps * 32, smem, stream>>>(
+      (const T*)vals, (const int*)cols, (const int*)band_off,
+      (const float*)X, (float*)Y, nb, mb, bs, r, G, slabs, ld, jt);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int VEC>
-int launch(const void* vals, const void* cols, const void* X, void* Y,
-           long long nb, int mb, int bs, int r, int device, void* stream) {
+template <typename T, int VEC, bool BANDED>
+int launch(const void* vals, const void* cols, const void* band_off,
+           const void* X, void* Y, long long nb, int mb, int bs, int r,
+           int device, void* stream) {
   // The library carries its own CUDA runtime: bind it to the caller's
   // device so the launch goes to the context that owns `stream`.
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = (cudaStream_t)stream;
   if (r > 4)
-    return launch_rc<T, VEC, 8>(vals, cols, X, Y, nb, mb, bs, r, s);
-  return launch_rc<T, VEC, 4>(vals, cols, X, Y, nb, mb, bs, r, s);
+    return launch_rc<T, VEC, 8, BANDED>(vals, cols, band_off, X, Y, nb, mb,
+                                        bs, r, s);
+  return launch_rc<T, VEC, 4, BANDED>(vals, cols, band_off, X, Y, nb, mb, bs,
+                                      r, s);
+}
+
+// The vector width the caller checked (16 bytes of values, or 1) picks
+// the instantiation.
+template <bool BANDED>
+int launch_f32(const void* vals, const void* cols, const void* band_off,
+               const void* X, void* Y, long long nb, int mb, int bs, int r,
+               int vec, int device, void* stream) {
+  if (vec == 4)
+    return launch<float, 4, BANDED>(vals, cols, band_off, X, Y, nb, mb, bs,
+                                    r, device, stream);
+  return launch<float, 1, BANDED>(vals, cols, band_off, X, Y, nb, mb, bs, r,
+                                  device, stream);
+}
+
+template <bool BANDED>
+int launch_bf16(const void* vals, const void* cols, const void* band_off,
+                const void* X, void* Y, long long nb, int mb, int bs, int r,
+                int vec, int device, void* stream) {
+  if (vec == 8)
+    return launch<__nv_bfloat16, 8, BANDED>(vals, cols, band_off, X, Y, nb,
+                                            mb, bs, r, device, stream);
+  return launch<__nv_bfloat16, 1, BANDED>(vals, cols, band_off, X, Y, nb,
+                                          mb, bs, r, device, stream);
 }
 
 }  // namespace
 
 // Plain C entry points for ctypes.  `vec` is the vector width the caller
 // checked the block size and the values' alignment for (16 bytes of
-// values, or 1).  Each returns cudaGetLastError() after the launch
+// values, or 1); `band_off` the banded entries' plan, (mb,) int32 on the
+// device.  Each returns cudaGetLastError() after the launch
 // (0 = launched).
 extern "C" int bell_spmm_f32(const void* vals, const void* cols,
                              const void* X, void* Y, long long nb, int mb,
                              int bs, int r, int vec, int device,
                              void* stream) {
-  if (vec == 4)
-    return launch<float, 4>(vals, cols, X, Y, nb, mb, bs, r, device, stream);
-  return launch<float, 1>(vals, cols, X, Y, nb, mb, bs, r, device, stream);
+  return launch_f32<false>(vals, cols, nullptr, X, Y, nb, mb, bs, r, vec,
+                           device, stream);
 }
 
 extern "C" int bell_spmm_bf16vals(const void* vals, const void* cols,
                                   const void* X, void* Y, long long nb,
                                   int mb, int bs, int r, int vec, int device,
                                   void* stream) {
-  if (vec == 8)
-    return launch<__nv_bfloat16, 8>(vals, cols, X, Y, nb, mb, bs, r, device,
-                                    stream);
-  return launch<__nv_bfloat16, 1>(vals, cols, X, Y, nb, mb, bs, r, device,
-                                  stream);
+  return launch_bf16<false>(vals, cols, nullptr, X, Y, nb, mb, bs, r, vec,
+                            device, stream);
+}
+
+extern "C" int bell_spmm_banded_f32(const void* vals, const void* cols,
+                                    const void* band_off, const void* X,
+                                    void* Y, long long nb, int mb, int bs,
+                                    int r, int vec, int device,
+                                    void* stream) {
+  return launch_f32<true>(vals, cols, band_off, X, Y, nb, mb, bs, r, vec,
+                          device, stream);
+}
+
+extern "C" int bell_spmm_banded_bf16vals(const void* vals, const void* cols,
+                                         const void* band_off, const void* X,
+                                         void* Y, long long nb, int mb,
+                                         int bs, int r, int vec, int device,
+                                         void* stream) {
+  return launch_bf16<true>(vals, cols, band_off, X, Y, nb, mb, bs, r, vec,
+                           device, stream);
 }

@@ -46,6 +46,22 @@
 // loop keeps several of them in flight per thread; making the stream
 // faster (cp.async/TMA pipelines, several block-rows per block) is left
 // for later work.
+//
+// Banded mode (K4b): the same kernel body for the banded slot plan of
+// `_spmv_kernel` (pallas_spmv.py:161; its slab DMAs :211-258).  A slot j
+// whose plan entry band_off[j] = o is >= 0 takes its column from
+// (i + o) % nb and never reads cols; a slot with -1 reads cols as in the
+// gather mode.  Each block writes its slots' columns to shared memory
+// once, before the slot loop.  The slot loop and the sums run in the same
+// order in both modes, so a plan that matches cols gives the gather
+// mode's y bit for bit.  On the TPU a band let one slab DMA fetch the x segments of a row
+// group of G block-rows instead of G row gathers.  Here one block owns
+// one block-row and loads its own indices, so the slab has no direct
+// counterpart at this design: the band mode removes the cols read
+// (4 bytes a slot) and makes the x segments that neighbouring blocks read
+// contiguous, which the L2 serves alike.  A block that owns G block-rows
+// and copies a band's (G, bs) slab with one bulk (TMA) copy is later,
+// performance work.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -106,15 +122,16 @@ __device__ __forceinline__ void load_x(const float* p, float (&v)[VEC]) {
   }
 }
 
-// G: lanes per row (a power of two <= 32).  Each warp covers 32 / G rows
-// per pass; the block's warps stride over the bs rows of block-row i.
-template <typename T, int VEC>
-__global__ void bell_spmv_kernel(const T* __restrict__ vals,
-                                 const int* __restrict__ cols,
-                                 const float* __restrict__ x,
-                                 float* __restrict__ y,
-                                 int mb, int bs, int G) {
-  const long long i = blockIdx.x;
+// The product of block-row i, the body of both modes.  G: lanes per row
+// (a power of two <= 32).  Each warp covers 32 / G rows per pass; the
+// block's warps stride over the bs rows of block-row i.  Slot j's
+// block-column is cols_i[j], or s_cols[j] in the banded mode; the loop
+// and the sums run in the same order in both.
+template <typename T, int VEC, bool BANDED>
+__device__ __forceinline__ void spmv_block_row(
+    const T* __restrict__ vals, const int* __restrict__ cols_i,
+    const int* s_cols, const float* __restrict__ x, float* __restrict__ y,
+    long long i, int mb, int bs, int G) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int nwarps = blockDim.x >> 5;
@@ -122,7 +139,6 @@ __global__ void bell_spmv_kernel(const T* __restrict__ vals,
   const int rsub = lane / G;             // row within the warp's pass
   const int rows_per_warp = 32 / G;
   const int chunks = bs / VEC;           // VEC-wide chunks per row
-  const int* cols_i = cols + i * mb;
   const long long blk = (long long)bs * bs;
   const T* vals_i = vals + i * mb * blk;
 
@@ -134,7 +150,8 @@ __global__ void bell_spmv_kernel(const T* __restrict__ vals,
       const T* row = vals_i + (long long)a * bs;
 #pragma unroll 4
       for (int j = 0; j < mb; ++j) {
-        const float* xs = x + (long long)__ldg(cols_i + j) * bs;
+        const long long col = BANDED ? s_cols[j] : __ldg(cols_i + j);
+        const float* xs = x + col * bs;
         const T* vr = row + j * blk;
         for (int c = sub; c < chunks; c += G) {
           float v[VEC], xv[VEC];
@@ -153,15 +170,54 @@ __global__ void bell_spmv_kernel(const T* __restrict__ vals,
   }
 }
 
+// Gather mode: one block per block-row, columns from cols.
+template <typename T, int VEC>
+__global__ void bell_spmv_kernel(const T* __restrict__ vals,
+                                 const int* __restrict__ cols,
+                                 const float* __restrict__ x,
+                                 float* __restrict__ y, int mb, int bs,
+                                 int G) {
+  const long long i = blockIdx.x;
+  spmv_block_row<T, VEC, false>(vals, cols + i * mb, nullptr, x, y, i, mb,
+                                bs, G);
+}
+
+// Banded mode: band_off (mb,) holds o in [0, nb) for a band slot, -1 for
+// a gather slot.  The block first writes its slots' columns to shared
+// memory, (i + o) % nb for a band, cols for the rest.  At most 32
+// registers a thread, so that 8 blocks of 256 threads share an SM, as the
+// gather mode's float kernel does: with the column select inside the
+// slot loop the banded float kernel took 37 registers (6 blocks an SM)
+// and ran 4.8% slower than the gather mode on an H100.
+template <typename T, int VEC>
+__global__ void __launch_bounds__(256, 8)
+bell_spmv_banded_kernel(const T* __restrict__ vals,
+                        const int* __restrict__ cols,
+                        const int* __restrict__ band_off,
+                        const float* __restrict__ x, float* __restrict__ y,
+                        long long nb, int mb, int bs, int G) {
+  extern __shared__ int s_cols[];
+  const long long i = blockIdx.x;
+  const int* cols_i = cols + i * mb;
+  for (int j = threadIdx.x; j < mb; j += blockDim.x) {
+    const int o = __ldg(band_off + j);
+    s_cols[j] = o < 0 ? __ldg(cols_i + j)
+                      : (int)(i + o < nb ? i + o : i + o - nb);
+  }
+  __syncthreads();
+  spmv_block_row<T, VEC, true>(vals, cols_i, s_cols, x, y, i, mb, bs, G);
+}
+
 int next_pow2_capped(int c) {
   int g = 1;
   while (g < c && g < 32) g <<= 1;
   return g;
 }
 
-template <typename T, int VEC>
-int launch(const void* vals, const void* cols, const void* x, void* y,
-           long long nb, int mb, int bs, int device, void* stream) {
+template <typename T, int VEC, bool BANDED>
+int launch(const void* vals, const void* cols, const void* band_off,
+           const void* x, void* y, long long nb, int mb, int bs, int device,
+           void* stream) {
   // The library carries its own CUDA runtime: bind it to the caller's
   // device so the launch goes to the context that owns `stream`.
   cudaError_t err = cudaSetDevice(device);
@@ -170,35 +226,86 @@ int launch(const void* vals, const void* cols, const void* x, void* y,
   const int rows_per_warp = 32 / G;
   int warps = (bs + rows_per_warp - 1) / rows_per_warp;
   if (warps > 8) warps = 8;
-  bell_spmv_kernel<T, VEC><<<(unsigned)nb, warps * 32, 0,
-                             (cudaStream_t)stream>>>(
-      (const T*)vals, (const int*)cols, (const float*)x, (float*)y, mb, bs,
-      G);
+  cudaStream_t s = (cudaStream_t)stream;
+  if constexpr (BANDED) {
+    const size_t smem = (size_t)mb * sizeof(int);
+    if (smem > 48 * 1024) {
+      err = cudaFuncSetAttribute(bell_spmv_banded_kernel<T, VEC>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)smem);
+      if (err != cudaSuccess) return (int)err;
+    }
+    bell_spmv_banded_kernel<T, VEC><<<(unsigned)nb, warps * 32, smem, s>>>(
+        (const T*)vals, (const int*)cols, (const int*)band_off,
+        (const float*)x, (float*)y, nb, mb, bs, G);
+  } else {
+    bell_spmv_kernel<T, VEC><<<(unsigned)nb, warps * 32, 0, s>>>(
+        (const T*)vals, (const int*)cols, (const float*)x, (float*)y, mb,
+        bs, G);
+  }
   return (int)cudaGetLastError();
+}
+
+// The vector width the caller checked (16 bytes of values, or 1) picks
+// the instantiation.
+template <bool BANDED>
+int launch_f32(const void* vals, const void* cols, const void* band_off,
+               const void* x, void* y, long long nb, int mb, int bs, int vec,
+               int device, void* stream) {
+  if (vec == 4)
+    return launch<float, 4, BANDED>(vals, cols, band_off, x, y, nb, mb, bs,
+                                    device, stream);
+  return launch<float, 1, BANDED>(vals, cols, band_off, x, y, nb, mb, bs,
+                                  device, stream);
+}
+
+template <bool BANDED>
+int launch_bf16(const void* vals, const void* cols, const void* band_off,
+                const void* x, void* y, long long nb, int mb, int bs,
+                int vec, int device, void* stream) {
+  if (vec == 8)
+    return launch<__nv_bfloat16, 8, BANDED>(vals, cols, band_off, x, y, nb,
+                                            mb, bs, device, stream);
+  return launch<__nv_bfloat16, 1, BANDED>(vals, cols, band_off, x, y, nb,
+                                          mb, bs, device, stream);
 }
 
 }  // namespace
 
 // Plain C entry points for ctypes.  `vec` is the vector width the caller
 // checked the block size and pointer alignment for (16 bytes of values, or
-// 1).  Each returns cudaGetLastError() after the launch (0 = launched).
+// 1); `band_off` the banded entries' plan, (mb,) int32 on the device.
+// Each returns cudaGetLastError() after the launch (0 = launched).
 extern "C" int bell_spmv_f32(const void* vals, const void* cols,
                              const void* x, void* y, long long nb, int mb,
                              int bs, int vec, int device, void* stream) {
-  if (vec == 4)
-    return launch<float, 4>(vals, cols, x, y, nb, mb, bs, device, stream);
-  return launch<float, 1>(vals, cols, x, y, nb, mb, bs, device, stream);
+  return launch_f32<false>(vals, cols, nullptr, x, y, nb, mb, bs, vec,
+                           device, stream);
 }
 
 extern "C" int bell_spmv_bf16vals(const void* vals, const void* cols,
                                   const void* x, void* y, long long nb,
                                   int mb, int bs, int vec, int device,
                                   void* stream) {
-  if (vec == 8)
-    return launch<__nv_bfloat16, 8>(vals, cols, x, y, nb, mb, bs, device,
-                                    stream);
-  return launch<__nv_bfloat16, 1>(vals, cols, x, y, nb, mb, bs, device,
-                                  stream);
+  return launch_bf16<false>(vals, cols, nullptr, x, y, nb, mb, bs, vec,
+                            device, stream);
+}
+
+extern "C" int bell_spmv_banded_f32(const void* vals, const void* cols,
+                                    const void* band_off, const void* x,
+                                    void* y, long long nb, int mb, int bs,
+                                    int vec, int device, void* stream) {
+  return launch_f32<true>(vals, cols, band_off, x, y, nb, mb, bs, vec,
+                          device, stream);
+}
+
+extern "C" int bell_spmv_banded_bf16vals(const void* vals, const void* cols,
+                                         const void* band_off, const void* x,
+                                         void* y, long long nb, int mb,
+                                         int bs, int vec, int device,
+                                         void* stream) {
+  return launch_bf16<true>(vals, cols, band_off, x, y, nb, mb, bs, vec,
+                           device, stream);
 }
 
 extern "C" const char* bell_spmv_error_string(int code) {

@@ -1,0 +1,194 @@
+"""1D transverse-field Ising model (TFIM), the paper's flagship.
+
+Counterpart of the 1D part of ``dominantsparseeigenad_tpu/models/tfim.py``:
+the 2^N-dimensional Hamiltonian
+
+    H(g) = - sum_i sz_i sz_{i+1}  -  g * sum_i sx_i     (PBC)
+
+matrix-free (a precomputed zz diagonal, and the transverse term as N
+single-spin flips of the state), as a dense matrix for exact
+diagonalization at small N, and the Jordan-Wigner closed forms for
+validation where ED is impossible (N = 20: dim 2^20).  The observables go
+through the eigensolver: E0 and dE0/dg from ``dominant_eigh`` in either
+AD mode, χ_F from one forward-mode pass.
+
+The JAX ``flip_sum`` contracts groups of up to 7 bits with hypercube
+adjacency matrices, a device for the TPU's matrix unit; here each flip is
+a reversed view, ``x.view(2**(n-1-i), 2, 2**i).flip(1)``.  No Pallas
+kernel is on this path, so none is owed.
+
+Not ported yet: ``tfim_observables_sweep``, ``tfim_energy_gap``, the 2D
+model and ``tfim_sharded_operator`` (``ROADMAP.md``).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..ops.eigh import dominant_eigh
+from ..ops.observables import fidelity_susceptibility as _chi
+from ..ops.operators import MatrixFreeOperator, resolve_device
+
+
+def tfim_zz_diagonal(n: int, dtype=torch.float64, device=None):
+    """Diagonal of -sum_i sz_i sz_{i+1} (PBC) over the 2^n basis.
+
+    Basis state j has spin s_i = 1 - 2 bit_i(j); an anti-aligned pair
+    adds +1, an aligned one -1.
+    """
+    if n < 3:
+        # The JAX guard: the PBC ring visits its single (n=2) bond from
+        # both ends, and n=1 bonds a site to itself.
+        raise ValueError(f"need n >= 3 (PBC double-counts bonds at n=2, "
+                         f"self-bonds at n=1); got n={n}")
+    dev = resolve_device(device)
+    idx = torch.arange(1 << n, dtype=torch.int64, device=dev)
+    n_anti = torch.zeros(1 << n, dtype=dtype, device=dev)
+    for i in range(n):
+        bi = (idx >> i) & 1
+        bj = (idx >> ((i + 1) % n)) & 1
+        n_anti = n_anti + (bi ^ bj).to(dtype)
+    # -sum sz sz = -((n - n_anti) - n_anti) = 2 n_anti - n
+    return 2.0 * n_anti - n
+
+
+def flip_sum(x: torch.Tensor, n: int) -> torch.Tensor:
+    """sum_i flip_i(x): every single-spin flip of the 2^n state, summed.
+    Flipping spin i maps basis index j to j XOR 2^i, which reverses the
+    middle axis of the (2^(n-1-i), 2, 2^i) view."""
+    x = x.reshape(-1)
+    out = torch.zeros_like(x)
+    for i in range(n):
+        out = out + x.view(1 << (n - 1 - i), 2, 1 << i).flip(1).reshape(-1)
+    return out
+
+
+def tfim_matvec(params, x: torch.Tensor) -> torch.Tensor:
+    """y = H(g) x, matrix-free.  params = (g, zz_diagonal)."""
+    g, diag = params
+    n = diag.shape[0].bit_length() - 1
+    return diag.to(x.dtype) * x - g * flip_sum(x, n)
+
+
+def _coupling(g, dtype, dev):
+    """``g`` as a scalar tensor of ``dtype`` on ``dev``, differentiably
+    (a dual or requires-grad tensor keeps its tangent or graph)."""
+    return torch.as_tensor(g, dtype=dtype, device=dev)
+
+
+def tfim_operator(n: int, g, dtype=torch.float64,
+                  device=None) -> MatrixFreeOperator:
+    """Matrix-free TFIM Hamiltonian; its parameters are ``(g, diag)``, as
+    in JAX, and derivatives in ``g`` go through ``tfim_matvec``."""
+    dev = resolve_device(device)
+    diag = tfim_zz_diagonal(n, dtype=dtype, device=dev)
+    return MatrixFreeOperator(tfim_matvec, (_coupling(g, dtype, dev), diag),
+                              dim=1 << n, dtype=dtype)
+
+
+def tfim_dense_hamiltonian(n: int, g, dtype=torch.float64, device=None):
+    """Full 2^n x 2^n TFIM matrix (exact diagonalization; small n only)."""
+    dev = resolve_device(device)
+    dim = 1 << n
+    idx = np.arange(dim)
+    hx = np.zeros((dim, dim))
+    for i in range(n):
+        hx[idx, idx ^ (1 << i)] += 1.0
+    hx = torch.as_tensor(hx, dtype=dtype, device=dev)
+    return (torch.diag(tfim_zz_diagonal(n, dtype=dtype, device=dev))
+            - _coupling(g, dtype, dev) * hx)
+
+
+# ---------------------------------------------------------------------------
+# Jordan-Wigner closed forms (even N, PBC)
+# ---------------------------------------------------------------------------
+
+def _jw_momenta(n: int) -> np.ndarray:
+    """The ground state's momenta k = (2m + 1) π / N, m = 0..N-1 (the
+    even-parity, antiperiodic sector)."""
+    return (2 * np.arange(n) + 1) * np.pi / n
+
+
+def tfim_exact_e0(n: int, g, device=None):
+    """Exact finite-N ground energy, E0 = -Σ_k sqrt(1 + g² - 2 g cos k),
+    as a tensor differentiable in ``g`` (a float becomes float64)."""
+    dev = resolve_device(device)
+    if not isinstance(g, torch.Tensor):
+        g = torch.tensor(float(g), dtype=torch.float64)
+    g = g.to(dev)
+    cos_k = torch.as_tensor(np.cos(_jw_momenta(n)), dtype=g.dtype,
+                            device=dev)
+    return -torch.sum(torch.sqrt(1.0 + g * g - 2.0 * g * cos_k))
+
+
+def tfim_exact_de0_dg(n: int, g: float) -> float:
+    """dE0/dg of :func:`tfim_exact_e0` in numpy float64:
+    -Σ_k (g - cos k) / ε_k, ε_k = sqrt(1 + g² - 2 g cos k)."""
+    k = _jw_momenta(n)
+    eps = np.sqrt(1.0 + g * g - 2.0 * g * np.cos(k))
+    return float(-np.sum((g - np.cos(k)) / eps))
+
+
+def tfim_exact_chi_f(n: int, g: float) -> float:
+    """Fidelity susceptibility of the ground state in numpy float64:
+    χ_F = ¼ Σ_{k ∈ (0, π)} sin²k / ε_k⁴ (equal to the ED χ_F of
+    :func:`tfim_ed_observables`)."""
+    k = _jw_momenta(n)
+    k = k[k < np.pi]
+    eps2 = 1.0 + g * g - 2.0 * g * np.cos(k)
+    return float(0.25 * np.sum(np.sin(k) ** 2 / eps2 ** 2))
+
+
+# ---------------------------------------------------------------------------
+# Observables through the eigensolver
+# ---------------------------------------------------------------------------
+
+def tfim_ground_energy(n: int, g, *, k: int = 100, tol: float = 1e-10,
+                       dtype=torch.float64, device=None):
+    """E0(g) through the matrix-free Lanczos eigensolver, differentiable
+    to first order in ``g`` (reverse or forward mode)."""
+    lam, _ = tfim_ground_state(n, g, k=k, tol=tol, dtype=dtype,
+                               device=device)
+    return lam
+
+
+def tfim_ground_state(n: int, g, *, k: int = 100, tol: float = 1e-10,
+                      dtype=torch.float64, device=None):
+    """(E0, |ψ0>) through the eigensolver, differentiable to first
+    order."""
+    dev = resolve_device(device)
+    return dominant_eigh(tfim_operator(n, g, dtype=dtype, device=dev),
+                         k=min(k, 1 << n), extreme="min", tol=tol,
+                         device=dev)
+
+
+def fidelity_susceptibility(n: int, g, *, k: int = 100, tol: float = 1e-10,
+                            dtype=torch.float64, device=None):
+    """χ_F(g) of the TFIM ground state, by the generic
+    :func:`~..ops.observables.fidelity_susceptibility` (one forward-mode
+    pass)."""
+    dev = resolve_device(device)
+    return _chi(lambda gg: tfim_operator(n, gg, dtype=dtype, device=dev),
+                _coupling(g, dtype, dev), k=min(k, 1 << n), tol=tol,
+                device=dev)
+
+
+def tfim_ed_observables(n: int, g, dtype=torch.float64, device=None):
+    """Dense-ED oracle: (E0, dE0/dg, d²E0/dg², χ_F) from a full eigh, by
+    the sum-over-states formulas
+
+        dE0/dg   = <0| dH/dg |0>,
+        d²E0/dg² = 2 Σ_{m>0} |<m|dH/dg|0>|² / (E0 - Em),
+        χ_F      =   Σ_{m>0} |<m|dH/dg|0>|² / (E0 - Em)².
+    """
+    dev = resolve_device(device)
+    h = tfim_dense_hamiltonian(n, g, dtype=dtype, device=dev)
+    evals, evecs = torch.linalg.eigh(h)
+    v0 = evecs[:, 0]
+    dh_v0 = -flip_sum(v0, n)                  # dH/dg |0> = -Σ_i sx_i |0>
+    de = torch.dot(v0, dh_v0)
+    me = evecs[:, 1:].T @ dh_v0
+    gaps = evals[0] - evals[1:]
+    return (evals[0], de, 2.0 * torch.sum(me ** 2 / gaps),
+            torch.sum(me ** 2 / gaps ** 2))

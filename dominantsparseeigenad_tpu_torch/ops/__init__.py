@@ -1,10 +1,11 @@
 """Operators, kernels and solvers of the port (see the package docstring)."""
 
-from .bell_spmv import bell_spmm, bell_spmv
+from .bell_spmv import bell_spmm, bell_spmv, detect_slot_plan
 from .cg import cg, solve_deflated, solve_deflated_info
 from .eigh import dominant_eigh, dominant_eigh_multi
 from .lanczos import LanczosInfo, LanczosResult, lanczos, lanczos_eigh
 from .lobpcg import LobpcgInfo, lobpcg_eigh
+from .observables import fidelity_susceptibility
 from .operators import (DenseOperator, LinearOperator, MatrixFreeOperator,
                         as_operator, hdot, hmatmul, pivot_gauge,
                         resolve_device, tol_floor)
@@ -13,8 +14,9 @@ from .sparse import BellOperator, random_bell_operator
 __all__ = [
     "BellOperator", "DenseOperator", "LanczosInfo", "LanczosResult",
     "LinearOperator", "LobpcgInfo", "MatrixFreeOperator", "as_operator",
-    "bell_spmm", "bell_spmv", "cg", "dominant_eigh", "dominant_eigh_multi",
-    "hdot", "hmatmul", "lanczos", "lanczos_eigh", "lobpcg_eigh",
+    "bell_spmm", "bell_spmv", "cg", "detect_slot_plan", "dominant_eigh",
+    "dominant_eigh_multi", "fidelity_susceptibility", "hdot", "hmatmul",
+    "lanczos", "lanczos_eigh", "lobpcg_eigh",
     "pivot_gauge", "random_bell_operator", "resolve_device",
     "solve_deflated", "solve_deflated_info", "tol_floor",
 ]

@@ -25,9 +25,21 @@ card): the operators check it once, when they are built.
   :func:`_bell_spmm_torch`, the plain PyTorch versions, which are also
   what the kernels are checked against on the card.
 
+The banded slot plan (K4b), JAX's ``slot_plan``: :func:`detect_slot_plan`
+marks slot j a band ``("band", o)`` when ``cols[:, j] == (arange(nb) + o)
+% nb``, else ``("gather", 0)``.  With a plan, each kernel runs in its
+banded mode: a band slot takes its column from ``(i + o) % nb`` and never
+reads ``cols``; the loop order is the gather mode's, so the two give the
+same y bit for bit.  The plan is dropped, and the gather kernel runs, as
+JAX drops it: when its length is not ``max_blk``, on a row panel (x not
+nb*bs long), or when it does not match ``cols``.  A bare call with a plan
+checks the match on a host copy of ``cols``; ``BellOperator`` checks it
+once, when it binds the plan, and its products never read ``cols`` back.
+
 The kernels run forward only.  Gradients come from the plain math in the
 backward of :class:`_BellProduct`, as the JAX kernels' JVPs go through
-XLA.
+XLA; its forward-mode ``jvp`` runs the kernels on the tangents (the map is
+bilinear).
 
 The kernels are compiled on first use with ``nvcc``, one process per
 source started together, and linked into one shared library with a plain
@@ -39,6 +51,7 @@ source is rebuilt.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -46,6 +59,7 @@ import subprocess
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -56,12 +70,15 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # Launches of each kernel, counted by the wrapper where it launches: on a
 # square operator (x as long as y) in launch_counts, on a rectangular row
-# panel (x longer or shorter than y) in panel_launch_counts.
-launch_counts = {"bell_spmv_f32": 0, "bell_spmv_bf16vals": 0,
-                 "bell_spmm_f32": 0, "bell_spmm_bf16vals": 0}
-panel_launch_counts = dict(launch_counts)
+# panel (x longer or shorter than y) in panel_launch_counts.  The banded
+# kernels run on square operators only.
 _SPMV_NAMES = ("bell_spmv_f32", "bell_spmv_bf16vals")
 _SPMM_NAMES = ("bell_spmm_f32", "bell_spmm_bf16vals")
+_BANDED_SPMV_NAMES = ("bell_spmv_banded_f32", "bell_spmv_banded_bf16vals")
+_BANDED_SPMM_NAMES = ("bell_spmm_banded_f32", "bell_spmm_banded_bf16vals")
+launch_counts = dict.fromkeys(_SPMV_NAMES + _SPMM_NAMES + _BANDED_SPMV_NAMES
+                              + _BANDED_SPMM_NAMES, 0)
+panel_launch_counts = dict.fromkeys(_SPMV_NAMES + _SPMM_NAMES, 0)
 
 # What the last build did: seconds spent in nvcc (0.0 when the library was
 # already built) and nvcc's output (register and shared-memory use).
@@ -145,12 +162,15 @@ def _library():
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build_library()))
-        ptrs = [ctypes.c_void_p] * 4 + [ctypes.c_longlong]
-        for names, n_int in ((_SPMV_NAMES, 4), (_SPMM_NAMES, 5)):
+        # (vals, cols[, band_off], x, y, nb, mb, bs[, r], vec, device,
+        # stream)
+        for names, n_ptr, n_int in ((_SPMV_NAMES, 4, 4), (_SPMM_NAMES, 4, 5),
+                                    (_BANDED_SPMV_NAMES, 5, 4),
+                                    (_BANDED_SPMM_NAMES, 5, 5)):
             for name in names:
                 fn = getattr(lib, name)
-                # (vals, cols, x, y, nb, mb, bs[, r], vec, device, stream)
-                fn.argtypes = ptrs + [ctypes.c_int] * n_int + [ctypes.c_void_p]
+                fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_longlong]
+                               + [ctypes.c_int] * n_int + [ctypes.c_void_p])
                 fn.restype = ctypes.c_int
         lib.bell_spmv_error_string.argtypes = [ctypes.c_int]
         lib.bell_spmv_error_string.restype = ctypes.c_char_p
@@ -164,13 +184,16 @@ def _library():
 SPMM_MAX_BS = 1024
 
 
-def _check_kernel_args(vals, cols, x) -> str:
+def _check_kernel_args(vals, cols, x, plan=None) -> str:
     """Validate what the CUDA kernels take; return the kernel's name.
 
     ``x`` of shape (N,) goes to the SpMV kernel, (N, r) to the SpMM one;
-    N may be any positive multiple of bs (a row panel's x).
+    N may be any positive multiple of bs (a row panel's x), or exactly
+    nb*bs for the banded kernels (``plan`` given, one entry per slot).
     """
     kind = "bell_spmm" if x.ndim == 2 else "bell_spmv"
+    if plan is not None:
+        kind += "_banded"
     if vals.ndim != 4 or vals.shape[2] != vals.shape[3]:
         raise ValueError(f"vals must be (nb, max_blk, bs, bs), got "
                          f"{tuple(vals.shape)}")
@@ -181,11 +204,19 @@ def _check_kernel_args(vals, cols, x) -> str:
         raise ValueError(f"cols must be {(nb, max_blk)}, got "
                          f"{tuple(cols.shape)}")
     if x.shape[0] == 0 or x.shape[0] % bs:
-        what = "x must be (nb_cols*bs,)" if kind == "bell_spmv" \
-            else "X must be (nb_cols*bs, r)"
+        what = "X must be (nb_cols*bs, r)" if x.ndim == 2 \
+            else "x must be (nb_cols*bs,)"
         raise ValueError(f"{what}, a positive multiple of bs={bs} rows, got "
                          f"{tuple(x.shape)}")
-    if kind == "bell_spmm":
+    if plan is not None:
+        if len(plan) != max_blk:
+            raise ValueError(f"the slot plan has {len(plan)} entries, the "
+                             f"operator {max_blk} slots")
+        if x.shape[0] != nb * bs:
+            raise ValueError(f"the banded kernels take a square operator: x "
+                             f"must have nb*bs = {nb * bs} rows, got "
+                             f"{x.shape[0]}")
+    if x.ndim == 2:
         if x.shape[1] < 1:
             raise ValueError(f"X must be (nb_cols*bs, r) with r >= 1, got "
                              f"{tuple(x.shape)}")
@@ -243,32 +274,55 @@ def _count_launch(name, vals, x):
     (launch_counts if square else panel_launch_counts)[name] += 1
 
 
-def _bell_spmv_cuda(vals, cols, x):
-    name = _check_kernel_args(vals, cols, x)
+@functools.lru_cache(maxsize=64)
+def _band_offsets(plan, nb, device):
+    """The plan as the banded kernels take it: an int32 (max_blk,) tensor
+    on ``device`` holding ``o % nb`` for a band slot and -1 for a gather
+    slot.  Built once per plan, size and device, never per product."""
+    return torch.tensor([int(o) % nb if kind == "band" else -1
+                         for kind, o in plan], dtype=torch.int32,
+                        device=device)
+
+
+def _launch(vals, cols, x, plan):
+    """Launch the SpMV (x (N,)) or SpMM (X (N, r)) kernel, banded when
+    ``plan`` is given; return the output."""
+    name = _check_kernel_args(vals, cols, x, plan)
     nb, max_blk, bs, _ = vals.shape
     y = _output(vals, x)
+    band = () if plan is None else \
+        (_band_offsets(plan, nb, x.device).data_ptr(),)
+    # The SpMM stages X through shared memory with scalar loads: only the
+    # values' alignment picks its vector width.
+    shape = (nb, max_blk, bs, _vec_width(vals, x)) if x.ndim == 1 else \
+        (nb, max_blk, bs, x.shape[1], _vec_width(vals))
     err = getattr(_library(), name)(
-        vals.data_ptr(), cols.data_ptr(), x.data_ptr(), y.data_ptr(), nb,
-        max_blk, bs, _vec_width(vals, x), x.device.index,
+        vals.data_ptr(), cols.data_ptr(), *band, x.data_ptr(), y.data_ptr(),
+        *shape, x.device.index,
         torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on_error(name, err)
     _count_launch(name, vals, x)
     return y
 
 
+def _bell_spmv_cuda(vals, cols, x):
+    return _launch(vals, cols, x, None)
+
+
 def _bell_spmm_cuda(vals, cols, X):
-    name = _check_kernel_args(vals, cols, X)
-    nb, max_blk, bs, _ = vals.shape
-    Y = _output(vals, X)
-    # X is staged through shared memory with scalar loads: only the
-    # values' alignment picks the vector width.
-    err = getattr(_library(), name)(
-        vals.data_ptr(), cols.data_ptr(), X.data_ptr(), Y.data_ptr(), nb,
-        max_blk, bs, X.shape[1], _vec_width(vals), X.device.index,
-        torch.cuda.current_stream(X.device).cuda_stream)
-    _raise_on_error(name, err)
-    _count_launch(name, vals, X)
-    return Y
+    return _launch(vals, cols, X, None)
+
+
+def _bell_spmv_banded_cuda(vals, cols, x, plan):
+    """The SpMV kernel in its banded mode (``plan`` of one entry per
+    slot, matching ``cols``: the caller checks the match)."""
+    return _launch(vals, cols, x, plan)
+
+
+def _bell_spmm_banded_cuda(vals, cols, X, plan):
+    """The SpMM kernel in its banded mode (see
+    :func:`_bell_spmv_banded_cuda`)."""
+    return _launch(vals, cols, X, plan)
 
 
 def _bell_spmv_torch(vals, cols, x):
@@ -289,6 +343,60 @@ def _bell_spmm_torch(vals, cols, X):
     return torch.matmul(vals.to(X.dtype), xg).sum(dim=1).reshape(-1, r)
 
 
+def _band_columns(cols, plan):
+    """The (nb, max_blk) block-columns the plan reads: ``(i + o) % nb`` for
+    a band slot, ``cols[:, j]`` for a gather slot."""
+    nb = cols.shape[0]
+    i = torch.arange(nb, dtype=torch.int64, device=cols.device)
+    out = cols.long().clone()
+    for j, (kind, o) in enumerate(plan):
+        if kind == "band":
+            out[:, j] = (i + int(o)) % nb
+    return out
+
+
+def _bell_spmv_banded_torch(vals, cols, x, plan):
+    """Plain PyTorch version of the banded SpMV: band columns from the
+    plan, gather columns from ``cols``."""
+    return _bell_spmv_torch(vals, _band_columns(cols, plan), x)
+
+
+def _bell_spmm_banded_torch(vals, cols, X, plan):
+    """Plain PyTorch version of the banded SpMM (see
+    :func:`_bell_spmv_banded_torch`)."""
+    return _bell_spmm_torch(vals, _band_columns(cols, plan), X)
+
+
+def _host(cols) -> np.ndarray:
+    if isinstance(cols, torch.Tensor):
+        return cols.detach().cpu().numpy()
+    return np.asarray(cols)
+
+
+def detect_slot_plan(cols, nb: int):
+    """Per-slot fetch plan from the block-column indices, JAX's
+    ``detect_slot_plan`` on a host copy of ``cols``: a tuple of
+    ``("band", o)`` (``cols[:, j] == (arange(nb) + o) % nb``) and
+    ``("gather", 0)`` entries, or None when no slot is a band."""
+    cs = _host(cols)
+    i = np.arange(nb)
+    plan = []
+    for j in range(cs.shape[1]):
+        o = int(cs[0, j]) % nb
+        band = np.array_equal(cs[:, j], (i + o) % nb)
+        plan.append(("band", o) if band else ("gather", 0))
+    return tuple(plan) if any(k == "band" for k, _ in plan) else None
+
+
+def _slot_plan_matches(cols, nb: int, plan) -> bool:
+    """Whether every band slot of ``plan`` matches ``cols`` (a host
+    copy); a mismatched plan would read the wrong x segments."""
+    cs = _host(cols)
+    i = np.arange(nb)
+    return all(kind != "band" or np.array_equal(cs[:, j], (i + int(o)) % nb)
+               for j, (kind, o) in enumerate(plan))
+
+
 def _bell_rmatmat_torch(vals, cols, Y, n_cols):
     """``A^T Y`` for an (nb*bs, r) block in plain PyTorch: each block's
     transpose product, scattered onto its block-column (``n_cols``
@@ -307,20 +415,41 @@ def _bell_rmatvec_torch(vals, cols, y, n_cols):
     return _bell_rmatmat_torch(vals, cols, y[:, None], n_cols)[:, 0]
 
 
+def _product(vals, cols, x, plan):
+    """The product, without autograd: the plain version on a CPU tensor,
+    else the kernel; banded when ``plan`` is given (checked by the
+    caller)."""
+    if x.device.type == "cpu":
+        if plan is None:
+            plain = _bell_spmv_torch if x.ndim == 1 else _bell_spmm_torch
+            return plain(vals, cols, x)
+        plain = _bell_spmv_banded_torch if x.ndim == 1 \
+            else _bell_spmm_banded_torch
+        return plain(vals, cols, x, plan)
+    return _launch(vals, cols, x, plan)
+
+
 class _BellProduct(torch.autograd.Function):
     """Kernel forward for ``x`` (N,) or ``X`` (N, r); backward in plain
-    PyTorch (the map is bilinear in ``vals`` and ``x``)."""
+    PyTorch; forward mode on the kernels, ``dy = A(dvals) x + A(vals) dx``
+    (the map is bilinear in ``vals`` and ``x``)."""
 
     @staticmethod
-    def forward(ctx, vals, cols, x):
+    def forward(ctx, vals, cols, x, plan):
         ctx.save_for_backward(vals, cols, x)
-        if x.ndim == 1:
-            plain, kernel = _bell_spmv_torch, _bell_spmv_cuda
-        else:
-            plain, kernel = _bell_spmm_torch, _bell_spmm_cuda
-        if x.device.type == "cpu":
-            return plain(vals, cols, x)
-        return kernel(vals, cols, x)
+        ctx.save_for_forward(vals, cols, x)
+        ctx.plan = plan
+        return _product(vals, cols, x, plan)
+
+    @staticmethod
+    def jvp(ctx, dvals, _, dx, __):
+        vals, cols, x = ctx.saved_tensors
+        dy = torch.zeros_like(_output(vals, x))
+        if dvals is not None:
+            dy = dy + _product(dvals.contiguous(), cols, x, ctx.plan)
+        if dx is not None:
+            dy = dy + _product(vals, cols, dx.contiguous(), ctx.plan)
+        return dy
 
     @staticmethod
     def backward(ctx, y_bar):
@@ -338,23 +467,41 @@ class _BellProduct(torch.autograd.Function):
             x_bar = _bell_rmatmat_torch(
                 vals, cols, y_bar.reshape(nb * bs, -1),
                 x.shape[0] // bs).reshape(x.shape)
-        return vals_bar, None, x_bar
+        return vals_bar, None, x_bar, None
 
 
-def bell_spmv(vals, cols, x):
+def _bare_plan(vals, cols, x, slot_plan):
+    """A bare call's plan after JAX's drop rule (one entry per slot, a
+    square operator, bands that match ``cols``, checked on a host copy);
+    None where the gather kernel runs."""
+    if slot_plan is None or vals.ndim != 4:
+        return None
+    plan = tuple((str(kind), int(o)) for kind, o in slot_plan)
+    if (len(plan) == vals.shape[1]
+            and x.shape[0] == vals.shape[0] * vals.shape[2]
+            and _slot_plan_matches(cols, vals.shape[0], plan)):
+        return plan
+    return None
+
+
+def bell_spmv(vals, cols, x, slot_plan=None):
     """``y = A x`` for a blocked-ELL matrix, square or a row panel (see
-    the module docstring)."""
+    the module docstring); ``slot_plan`` as JAX's, dropped where it does
+    not apply."""
     if x.ndim != 1:
         raise ValueError(f"bell_spmv takes x of shape (N,), got "
                          f"{tuple(x.shape)}")
-    return _BellProduct.apply(vals, cols, x)
+    return _BellProduct.apply(vals, cols, x,
+                              _bare_plan(vals, cols, x, slot_plan))
 
 
-def bell_spmm(vals, cols, X):
+def bell_spmm(vals, cols, X, slot_plan=None):
     """``Y = A X`` for a blocked-ELL matrix, square or a row panel, and an
     (nb_cols*bs, r) block (see the module docstring): the values are
-    streamed once for all r columns."""
+    streamed once for all r columns; ``slot_plan`` as in
+    :func:`bell_spmv`."""
     if X.ndim != 2:
         raise ValueError(f"bell_spmm takes X of shape (N, r), got "
                          f"{tuple(X.shape)}")
-    return _BellProduct.apply(vals, cols, X)
+    return _BellProduct.apply(vals, cols, X,
+                              _bare_plan(vals, cols, X, slot_plan))

@@ -19,7 +19,8 @@ from typing import Callable
 
 import torch
 
-from .operators import as_operator, check_device, hdot, hmatmul, tol_floor
+from .operators import (as_operator, check_device, hdot, hmatmul,
+                        refuse_complex, tol_floor)
 
 # The JAX loop tests the residual on the device every iteration inside a
 # ``lax.while_loop``.  Eager PyTorch would have to read it on the host,
@@ -78,6 +79,7 @@ def cg(matvec: Callable, b: torch.Tensor, *, tol: float = 1e-7,
     or after ``maxiter`` iterations (default 10 N).
     """
     check_device(device, b)
+    refuse_complex(b.dtype, "b")
     return _cg_loop(matvec, b, tol, maxiter)[0]
 
 
@@ -173,6 +175,7 @@ def solve_deflated_info(op, lam, V, b, *, definite_sign: float = 1.0,
     both are lists with one entry per column."""
     op = as_operator(op)
     check_device(device, op, V, b)
+    refuse_complex(b.dtype, "b")
     mv, rhs, x, its = _solve(op, lam, V, b, definite_sign, tol, maxiter)
     bnorm = torch.linalg.vector_norm(rhs, dim=0)
     res = torch.linalg.vector_norm(rhs - mv(x), dim=0) / torch.where(
@@ -199,6 +202,7 @@ def solve_deflated(op, lam, V, b, *, definite_sign: float = 1.0,
     """
     op = as_operator(op)
     check_device(device, op, V, b)
+    refuse_complex(b.dtype, "b")
     _, _, x, _ = _solve(op, lam, V, b, definite_sign, tol, maxiter)
     # Keep x exactly in V⊥: round-off would leak a span(V) component into
     # the gradients downstream.

@@ -33,10 +33,23 @@ per iteration; the gradient is ``autograd.grad`` of one ``A(θ) V`` with
 output cotangent U.  This is the transpose of the JAX package's
 ``_multi_pair_tangents``.
 
-Second order, forward mode, ``extreme="both"``, ``with_info`` of
-``dominant_eigh``, ``restart_cycles``, ``early_exit_tol``,
-``basis_dtype`` with ``refine_eigenpair``, ``reorth_chunks`` and
-``precond`` wait for later slices.
+Forward mode of :func:`dominant_eigh` (first order) is that JVP rule
+itself, the JAX package's ``_pair_jvp``, as the ``jvp`` of the same
+Function: under ``torch.autograd.forward_ad``, with dual tensors among
+the operator's parameters,
+
+    dA v = op.tangent_matvec(v, dθ),   dλ = v^T (dA v),
+    dv = solve_deflated(A, λ, v, -(dA v - dλ v)),
+
+one tangent product (on a ``BellOperator`` the same kernel as a matvec)
+and one deflated solve.  The Lanczos loop carries no tangents: forward
+AD is off inside a custom Function's forward.
+
+Second order, forward mode of :func:`dominant_eigh_multi`,
+``extreme="both"``, ``with_info`` of ``dominant_eigh``,
+``restart_cycles``, ``early_exit_tol``, ``basis_dtype`` with
+``refine_eigenpair``, ``reorth_chunks`` and ``precond`` wait for later
+slices.
 """
 
 from __future__ import annotations
@@ -46,7 +59,7 @@ import dataclasses
 import torch
 
 from .cg import solve_deflated
-from .lanczos import LanczosInfo, _tridiagonal, lanczos, lanczos_eigh
+from .lanczos import LanczosInfo, _tridiagonal_eigh, lanczos, lanczos_eigh
 from .lobpcg import lobpcg_eigh
 from .operators import (as_operator, check_device, hdot, hmatmul,
                         pivot_gauge, tol_floor)
@@ -73,9 +86,29 @@ class _DominantEigh(torch.autograd.Function):
                               reorthogonalize=opts.reorthogonalize,
                               reorth_passes=opts.reorth_passes,
                               device=op.device)
+        # λ is a view into the tridiagonal's eigenvalues: forward mode
+        # needs outputs that are not views of other tensors.
+        lam = lam.clone()
         ctx.op, ctx.opts = op, opts
         ctx.save_for_backward(lam, v)
+        ctx.save_for_forward(lam, v)
         return lam, v
+
+    @staticmethod
+    def jvp(ctx, _op, _opts, _v0, _generator, *dparams):
+        """The IFT tangents (dλ, dv) for the parameters' tangents
+        ``dparams`` (the JAX package's ``_pair_jvp``)."""
+        op, opts = ctx.op, ctx.opts
+        lam, v = ctx.saved_tensors
+        if all(t is None for t in dparams):
+            return torch.zeros_like(lam), torch.zeros_like(v)
+        dav = op.tangent_matvec(v, dparams)
+        dlam = hdot(v, dav)
+        sign = 1.0 if opts.extreme == "min" else -1.0
+        dv = solve_deflated(op, lam, v, -(dav - dlam * v), definite_sign=sign,
+                            tol=opts.tol, maxiter=opts.maxiter,
+                            device=op.device)
+        return dlam, dv
 
     @staticmethod
     def backward(ctx, lam_bar, v_bar):
@@ -116,13 +149,16 @@ def dominant_eigh(op, k: int = 128, *, extreme: str = "min",
                   reorth_passes: int = 2, v0: torch.Tensor | None = None,
                   generator: torch.Generator | None = None, device=None):
     """Extremal eigenpair ``(λ, v)`` of a symmetric operator,
-    differentiable (first order, reverse mode) in ``op.parameters()``.
+    differentiable to first order in ``op.parameters()``: reverse mode
+    (``backward``) and forward mode (``torch.autograd.forward_ad`` dual
+    tensors among the parameters; see the module docstring).
 
     op      : LinearOperator, or a dense symmetric tensor.
     k       : Lanczos steps (clamped to ``op.dim``).
     extreme : "min" or "max".
-    tol     : relative residual tolerance of the backward's deflated CG;
-              ``maxiter`` bounds its iterations (default 10 N).
+    tol     : relative residual tolerance of the deflated CG of the
+              backward (or of the forward-mode tangent); ``maxiter``
+              bounds its iterations (default 10 N).
     seed    : seeds the Lanczos start/restart generator when ``generator``
               is None; ``v0`` gives the start vector explicitly.
     device  : where the solve runs (CUDA when None); the operator must
@@ -169,7 +205,7 @@ def _multi_forward(op, opts, v0, generator):
     k = min(opts.k, op.dim)
     res = lanczos(op, k, v0=v0, generator=generator,
                   reorth_passes=opts.reorth_passes, device=op.device)
-    evals, evecs = torch.linalg.eigh(_tridiagonal(res.alphas, res.betas))
+    evals, evecs = _tridiagonal_eigh(res.alphas, res.betas)
     idx = torch.arange(opts.r, device=evals.device)
     if opts.extreme == "max":
         idx = k - 1 - idx
@@ -211,6 +247,12 @@ class _DominantEighMulti(torch.autograd.Function):
         ctx.save_for_backward(lams, v)
         ctx.mark_non_differentiable(*info)
         return (lams, v, *info)
+
+    @staticmethod
+    def jvp(ctx, *tangents):
+        raise NotImplementedError(
+            "forward mode of dominant_eigh_multi is not ported yet "
+            "(ROADMAP.md queue 1 item 1); use reverse mode")
 
     @staticmethod
     def backward(ctx, lams_bar, v_bar, *info_bar):

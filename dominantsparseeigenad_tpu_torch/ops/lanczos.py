@@ -61,6 +61,17 @@ def _tridiagonal(alphas, betas):
     return t
 
 
+def _tridiagonal_eigh(alphas, betas):
+    """Eigenpairs ``(evals, evecs)`` of the tridiagonal T, ascending,
+    computed in float64 and returned in the working dtype.  cuSOLVER's
+    float32 ``eigh`` of a 60 x 60 T on an H100 put λ_min 6.6e-6 (relative)
+    off the float64 eigenvalue of the same T, 50 times float32 round-off;
+    T is small, so the float64 solve costs nothing that matters."""
+    evals, evecs = torch.linalg.eigh(_tridiagonal(alphas.double(),
+                                                  betas.double()))
+    return evals.to(alphas.dtype), evecs.to(alphas.dtype)
+
+
 def _project_out(basis, w):
     """``w - Q Q^T w`` against the rows of ``basis``."""
     return w - hmatmul(basis.T, hmatmul(basis, w))
@@ -150,7 +161,7 @@ def lanczos_eigh(op, k: int, *, extreme: str = "both",
     res = lanczos(op, k, v0=v0, generator=generator,
                   reorthogonalize=reorthogonalize,
                   reorth_passes=reorth_passes, device=device)
-    evals, evecs = torch.linalg.eigh(_tridiagonal(res.alphas, res.betas))
+    evals, evecs = _tridiagonal_eigh(res.alphas, res.betas)
 
     def _pair(idx):
         v = hmatmul(res.basis, evecs[:, idx])

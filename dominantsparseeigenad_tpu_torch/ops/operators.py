@@ -7,9 +7,16 @@ the tensors that ``torch.autograd.grad`` differentiates the IFT rule of
 ``eigh.py`` into.
 
 Every operator implements ``matvec``, ``rmatvec``, ``dim``, ``dtype`` and
-``device``; ``matmat``/``rmatmat`` default to a loop over columns.  The
-operator algebra of the JAX module (sums, scalings, shifts, compositions,
-transposed views) is not ported yet.
+``device``; ``matmat``/``rmatmat`` default to a loop over columns, and
+``tangent_matvec`` is the operator's tangent product ``(dA) x`` that
+forward mode of ``dominant_eigh`` needs.  The operator algebra of the JAX
+module (sums, scalings, shifts, compositions, transposed views) is not
+ported yet.
+
+Complex dtypes are refused (:func:`refuse_complex`): the JAX package's
+complex Hermitian support (a conjugating ``hdot``, the phase gauge, real
+Lanczos coefficients) is not ported yet, and without it a complex input
+would fail with incidental errors or give wrong numbers.
 
 Precision policy: the JAX package pins HIGHEST precision on its internal
 dots and GEMMs (``hdot``/``hmatmul``) because a TPU otherwise rounds f32
@@ -51,6 +58,15 @@ def check_device(device, *items) -> torch.device:
                 f"input on {t.device} but the call runs on {dev}; pass "
                 f"device={t.device.type!r} or move the inputs")
     return dev
+
+
+def refuse_complex(dtype, what: str):
+    """Raise TypeError for a complex ``dtype``: complex Hermitian
+    operators wait for ROADMAP.md queue 1 item 5."""
+    if dtype is not None and dtype.is_complex:
+        raise TypeError(
+            f"{what} is {dtype}: complex operators are not supported by "
+            f"the port yet (ROADMAP.md queue 1 item 5)")
 
 
 def _check_no_tf32():
@@ -100,6 +116,26 @@ def _tensors_of(params) -> list:
     return []
 
 
+def _rebuild(params, tensors):
+    """``params`` with its tensors replaced by ``tensors``, taken in the
+    order of :func:`_tensors_of`."""
+    it = iter(tensors)
+
+    def go(p):
+        if isinstance(p, torch.Tensor):
+            return next(it)
+        if isinstance(p, dict):
+            return {k: go(v) for k, v in p.items()}
+        if isinstance(p, list):
+            return [go(q) for q in p]
+        if isinstance(p, tuple):
+            items = [go(q) for q in p]
+            return type(p)(*items) if hasattr(p, "_fields") else tuple(items)
+        return p
+
+    return go(params)
+
+
 class LinearOperator:
     """Abstract square linear operator."""
 
@@ -113,6 +149,14 @@ class LinearOperator:
     def parameters(self) -> list:
         """The tensors the operator is differentiable in."""
         raise NotImplementedError
+
+    def tangent_matvec(self, x: torch.Tensor, dparams) -> torch.Tensor:
+        """``(dA) x``: the derivative of ``A(θ) x`` along the tangents
+        ``dparams``, one per tensor of :meth:`parameters` (None for a
+        parameter that has none)."""
+        raise NotImplementedError(
+            f"{type(self).__name__} has no tangent product: forward mode "
+            f"through it is not ported")
 
     @property
     def dim(self) -> int:
@@ -148,6 +192,7 @@ class DenseOperator(LinearOperator):
         if a.ndim != 2 or a.shape[0] != a.shape[1]:
             raise ValueError(f"expected square matrix, got shape "
                              f"{tuple(a.shape)}")
+        refuse_complex(a.dtype, "the matrix")
         self.a = a
 
     def matvec(self, x):
@@ -161,6 +206,10 @@ class DenseOperator(LinearOperator):
 
     def rmatmat(self, X):
         return hmatmul(self.a.T, X)
+
+    def tangent_matvec(self, x, dparams):
+        (da,) = dparams
+        return hmatmul(da, x)
 
     def parameters(self):
         return [self.a]
@@ -195,6 +244,7 @@ class MatrixFreeOperator(LinearOperator):
         if rmatvec_fn is None and not symmetric:
             raise ValueError(
                 "non-symmetric MatrixFreeOperator requires rmatvec_fn")
+        refuse_complex(dtype, "dtype")
         self.matvec_fn = matvec_fn
         self.params = params
         self._dim = int(dim)
@@ -222,6 +272,29 @@ class MatrixFreeOperator(LinearOperator):
     def parameters(self):
         return _tensors_of(self.params)
 
+    def tangent_matvec(self, x, dparams):
+        """``(dA) x``, the JVP of ``matvec_fn`` in its parameters along
+        ``dparams``.  Taken by ``torch.autograd.functional.jvp`` (a
+        reverse product differentiated in its cotangent), not by forward
+        AD: forward AD is off inside a custom Function's ``jvp``, where
+        this is called, and dual levels do not nest."""
+        prims = [p.detach() for p in self.parameters()]
+        moving = [i for i, t in enumerate(dparams) if t is not None]
+        if not moving:
+            return torch.zeros_like(x)
+        x = x.detach()
+
+        def apply(*ts):
+            full = list(prims)
+            for i, t in zip(moving, ts):
+                full[i] = t
+            return self.matvec_fn(_rebuild(self.params, full), x)
+
+        _, dy = torch.autograd.functional.jvp(
+            apply, tuple(prims[i] for i in moving),
+            tuple(dparams[i] for i in moving))
+        return dy
+
     @property
     def dim(self):
         return self._dim
@@ -236,8 +309,10 @@ class MatrixFreeOperator(LinearOperator):
 
 
 def as_operator(a: Any) -> LinearOperator:
-    """Coerce a dense square tensor or an operator into a LinearOperator."""
+    """Coerce a dense square tensor or an operator into a LinearOperator;
+    complex dtypes are refused (:func:`refuse_complex`)."""
     if isinstance(a, LinearOperator):
+        refuse_complex(a.dtype, "the operator's dtype")
         return a
     if not isinstance(a, torch.Tensor):
         raise TypeError(f"expected a LinearOperator or a tensor, got "

@@ -5,19 +5,24 @@ Counterpart of the ``BellOperator`` and ``random_bell_operator`` of
 wait for a later slice.  The device decides the product's path: on a
 CUDA tensor every matvec launches the hand-written kernel of
 ``bell_spmv`` and every matmat the one of ``bell_spmm``, on a CPU tensor
-they take the plain versions.
+they take the plain versions.  An operator whose slots are ring bands
+(``random_bell_operator``'s all are) binds the banded slot plan, so its
+products run the kernels' banded mode, as the JAX operator's run the
+banded Pallas kernel.
 """
 
 from __future__ import annotations
 
+import copy
 import math
 
 import numpy as np
 import torch
 
-from .bell_spmv import (_bell_rmatmat_torch, _bell_rmatvec_torch,
-                        bell_spmm, bell_spmv)
-from .operators import LinearOperator, resolve_device
+from .bell_spmv import (_band_offsets, _bell_rmatmat_torch,
+                        _bell_rmatvec_torch, _BellProduct,
+                        _slot_plan_matches, detect_slot_plan)
+from .operators import LinearOperator, refuse_complex, resolve_device
 
 
 class BellOperator(LinearOperator):
@@ -31,10 +36,18 @@ class BellOperator(LinearOperator):
     in ``compute_dtype`` (float32 by default for bf16 storage) and the
     blocks are upcast at the product, so the only rounding is storage,
     ``||δA|| <= 2^-8 ||A||`` once at write time.
+
+    ``slot_plan`` (JAX's): "auto" detects the banded slot plan from
+    ``cols`` (``bell_spmv.detect_slot_plan``), None forces the gather
+    kernels, and an explicit tuple is checked against ``cols`` and
+    dropped (None) if it does not match or has the wrong length.  The
+    check reads ``cols`` to the host once, here, beside the range check;
+    the products never read it back.
     """
 
     def __init__(self, vals: torch.Tensor, cols: torch.Tensor, n: int, *,
-                 symmetric: bool = False, compute_dtype=None):
+                 symmetric: bool = False, compute_dtype=None,
+                 slot_plan="auto"):
         if vals.ndim != 4 or vals.shape[2] != vals.shape[3]:
             raise ValueError(f"vals must be (nb, max_blk, bs, bs), got "
                              f"{tuple(vals.shape)}")
@@ -47,17 +60,34 @@ class BellOperator(LinearOperator):
         if cols.device != vals.device:
             raise ValueError(f"cols on {cols.device}, vals on {vals.device}")
         cols = cols.to(torch.int32)
-        # The kernel trusts the indices: check the range once, here.
-        if cols.numel() and (int(cols.min()) < 0 or int(cols.max()) >= nb):
+        # The kernel trusts the indices: check the range once, here, on
+        # one host copy, which also gives the slot plan.
+        host = cols.cpu().numpy()
+        if host.size and (host.min() < 0 or host.max() >= nb):
             raise ValueError(f"cols must lie in [0, {nb})")
+        if isinstance(slot_plan, str):
+            if slot_plan != "auto":
+                raise ValueError(f"slot_plan must be 'auto', None or a "
+                                 f"tuple, got {slot_plan!r}")
+            slot_plan = detect_slot_plan(host, nb)
+        elif slot_plan is not None:
+            slot_plan = tuple((str(kind), int(o)) for kind, o in slot_plan)
+            if len(slot_plan) != max_blk or not _slot_plan_matches(
+                    host, nb, slot_plan):
+                slot_plan = None
+        if compute_dtype is None:
+            compute_dtype = (torch.float32 if vals.dtype == torch.bfloat16
+                             else vals.dtype)
+        refuse_complex(vals.dtype, "vals")
+        refuse_complex(compute_dtype, "compute_dtype")
         self.vals = vals
         self.cols = cols
         self.n = int(n)
         self.symmetric = bool(symmetric)
-        if compute_dtype is None:
-            compute_dtype = (torch.float32 if vals.dtype == torch.bfloat16
-                             else vals.dtype)
         self.compute_dtype = compute_dtype
+        self.slot_plan = slot_plan
+        if slot_plan is not None and vals.device.type == "cuda":
+            _band_offsets(slot_plan, nb, vals.device)   # built once, here
 
     @classmethod
     def from_dense(cls, a, bs: int = 128, *, symmetric: bool = False,
@@ -84,7 +114,10 @@ class BellOperator(LinearOperator):
                    torch.from_numpy(cols).to(dev), n, symmetric=symmetric)
 
     def matvec(self, x):
-        return bell_spmv(self.vals, self.cols, x)
+        if x.ndim != 1:
+            raise ValueError(f"matvec takes x of shape (N,), got "
+                             f"{tuple(x.shape)}")
+        return _BellProduct.apply(self.vals, self.cols, x, self.slot_plan)
 
     def rmatvec(self, x):
         if self.symmetric:
@@ -96,7 +129,17 @@ class BellOperator(LinearOperator):
     def matmat(self, X):
         """``A @ X`` for an (N, r) block: one SpMM streams the values once
         for all r columns (what the block solvers call)."""
-        return bell_spmm(self.vals, self.cols, X)
+        if X.ndim != 2:
+            raise ValueError(f"matmat takes X of shape (N, r), got "
+                             f"{tuple(X.shape)}")
+        return _BellProduct.apply(self.vals, self.cols, X, self.slot_plan)
+
+    def tangent_matvec(self, x, dparams):
+        """``(dA) x = A(dvals) x``: the same product on the tangent values
+        (on a CUDA tensor the kernel, banded under the plan)."""
+        (dvals,) = dparams
+        return _BellProduct.apply(dvals.contiguous(), self.cols, x,
+                                  self.slot_plan)
 
     def rmatmat(self, X):
         if self.symmetric:
@@ -125,9 +168,19 @@ class BellOperator(LinearOperator):
         return self.with_vals(self.vals.to(dtype))
 
     def with_vals(self, vals):
-        """Copy with new block values on the same sparsity pattern."""
-        return type(self)(vals, self.cols, self.n, symmetric=self.symmetric,
-                          compute_dtype=self.compute_dtype)
+        """Copy with new block values on the same sparsity pattern,
+        keeping every setting (compute dtype, slot plan); ``cols`` is not
+        checked again."""
+        if tuple(vals.shape) != tuple(self.vals.shape):
+            raise ValueError(f"vals must be {tuple(self.vals.shape)}, got "
+                             f"{tuple(vals.shape)}")
+        if vals.device != self.vals.device:
+            raise ValueError(f"vals on {vals.device}, cols on "
+                             f"{self.cols.device}")
+        refuse_complex(vals.dtype, "vals")
+        op = copy.copy(self)
+        op.vals = vals
+        return op
 
     @property
     def dim(self):
@@ -162,7 +215,8 @@ def random_bell_operator(n: int, bs: int, blocks_per_row: int, *,
     diagonal block (symmetrized) plus pairs of bands at offsets ±o drawn
     from ``np.random.default_rng(7)``, the -o band the transpose of the +o
     band, entries scaled by ``1/sqrt(blocks_per_row * bs)``.  So ``cols``
-    equals the JAX operator's.  The values come from ``generator`` (seeded
+    equals the JAX operator's, and every slot is a ring band: the
+    operator binds an all-band slot plan.  The values come from ``generator`` (seeded
     0 on the device when None) and are made on the device, one band at a
     time.
     """

@@ -71,6 +71,10 @@ class RowShardedBellOperator(LinearOperator):
     mode  : "all_gather" ("ring" raises NotImplementedError).
     symmetric : ``rmatvec``/``rmatmat`` alias ``matvec``/``matmat``.
     compute_dtype : dtype of the vectors (float32 for bfloat16 values).
+
+    The panels bind no slot plan: band offsets are defined on the square
+    ring, and JAX drops the plan on a row panel, so they run the gather
+    kernels.
     """
 
     def __init__(self, vals, cols, n: int, group=None, *,

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 import dominantsparseeigenad_tpu_torch as port
+from dominantsparseeigenad_tpu_torch import models
 from dominantsparseeigenad_tpu_torch.ops import operators
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -73,6 +74,24 @@ def test_import_scan_covers_the_parallel_package():
             ("mesh", "collectives", "sharded", "sharded_sparse")} <= walked
 
 
+def test_import_scan_covers_the_tfim_and_observables_modules():
+    """The scan below reads ``models/`` and ``ops/observables.py``, and
+    the import check imports them with JAX blocked."""
+    names = {p.relative_to(PKG).as_posix() for p in _sources()
+             if p.is_relative_to(PKG)}
+    assert {"models/__init__.py", "models/tfim.py",
+            "ops/observables.py"} <= names
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['dominantsparseeigenad_tpu'] = None\n"
+        "import dominantsparseeigenad_tpu_torch.models.tfim\n"
+        "import dominantsparseeigenad_tpu_torch.ops.observables\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+
+
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: p.name)
 def test_no_source_imports_the_jax_package(path):
     for no, line in enumerate(path.read_text().splitlines(), 1):
@@ -127,6 +146,18 @@ def _entry_points():
         "row_sharded_bell_operator_from_numpy":
             lambda: port.row_sharded_bell_operator_from_numpy(
                 vals.numpy(), cols.numpy(), 8),
+        "fidelity_susceptibility": lambda: port.fidelity_susceptibility(
+            lambda g: a + g * a, 0.5, k=4),
+        "tfim_zz_diagonal": lambda: models.tfim_zz_diagonal(4),
+        "tfim_operator": lambda: models.tfim_operator(4, 1.0),
+        "tfim_dense_hamiltonian": lambda: models.tfim_dense_hamiltonian(
+            4, 1.0),
+        "tfim_exact_e0": lambda: models.tfim_exact_e0(4, 1.0),
+        "tfim_ground_energy": lambda: models.tfim_ground_energy(4, 1.0),
+        "tfim_ground_state": lambda: models.tfim_ground_state(4, 1.0),
+        "tfim fidelity_susceptibility":
+            lambda: models.fidelity_susceptibility(4, 1.0),
+        "tfim_ed_observables": lambda: models.tfim_ed_observables(4, 1.0),
     }
 
 
@@ -179,3 +210,68 @@ def test_chip_smoke_gives_no_result_without_a_card(alone, tmp_path):
                          capture_output=True, text=True, timeout=300)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def _complex_hermitian():
+    """The input that showed the fault (ROADMAP.md queue 3, F1): a 16 x 16
+    complex128 Hermitian matrix."""
+    gen = torch.Generator().manual_seed(0)
+    a = torch.randn(16, 16, dtype=torch.complex128, generator=gen)
+    return (a + a.conj().T) / 2
+
+
+class _ComplexOperator(port.LinearOperator):
+    """An operator whose own constructor checks nothing."""
+
+    dim = 16
+    dtype = torch.complex128
+    device = torch.device("cpu")
+
+
+def _complex_calls():
+    h = _complex_hermitian()
+    v = torch.zeros(16, dtype=torch.complex128)
+    v[0] = 1.0
+    real = torch.eye(16, dtype=torch.float64)
+    e = torch.zeros(16, dtype=torch.float64)
+    e[0] = 1.0
+    vals = torch.zeros(2, 1, 8, 8, dtype=torch.complex128)
+    cols = torch.zeros(2, 1, dtype=torch.int32)
+    return {
+        "as_operator": lambda: port.as_operator(h),
+        "as_operator of an operator": lambda: port.as_operator(
+            _ComplexOperator()),
+        "DenseOperator": lambda: port.DenseOperator(h),
+        "MatrixFreeOperator": lambda: port.MatrixFreeOperator(
+            lambda p, x: h @ x, None, 16, dtype=torch.complex128,
+            device="cpu"),
+        "BellOperator vals": lambda: port.BellOperator(vals, cols, 16),
+        "BellOperator compute_dtype": lambda: port.BellOperator(
+            vals.real.contiguous(), cols, 16,
+            compute_dtype=torch.complex128),
+        "dominant_eigh": lambda: port.dominant_eigh(h, k=8, device="cpu"),
+        "dominant_eigh_multi": lambda: port.dominant_eigh_multi(
+            h, r=2, k=8, device="cpu"),
+        "lanczos": lambda: port.lanczos(h, 8, device="cpu"),
+        "cg": lambda: port.cg(lambda x: h @ x, v, device="cpu"),
+        "solve_deflated": lambda: port.solve_deflated(h, 0.0, v, v,
+                                                      device="cpu"),
+        "solve_deflated complex b": lambda: port.solve_deflated(
+            real, 0.0, e, v, device="cpu"),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_complex_calls()))
+def test_complex_input_is_refused(name):
+    """F1: complex dtypes are refused with a TypeError naming the ROADMAP
+    item that will lift the refusal, not failed with incidental errors."""
+    with pytest.raises(TypeError, match=r"ROADMAP\.md queue 1 item 5"):
+        _complex_calls()[name]()
+
+
+def test_hdot_fault_input_is_what_the_refusal_guards():
+    """The F1 observation: torch.dot does not conjugate, so a complex
+    <x, x> is not ||x||^2; the refusal keeps such inputs out."""
+    x = _complex_hermitian()[:, 0]
+    assert not torch.allclose(torch.dot(x, x).real,
+                              torch.linalg.vector_norm(x) ** 2)
