@@ -75,12 +75,37 @@ line each:
    the tangent's CG time and iterations; the same pass at N = 10 against
    a dense ``torch.linalg.eigh`` (ED) in float64.
 
+9. ``second_order``: derivatives of the second order through the IFT
+   rules, and forward mode of the block solver.  (a) ``energy_curvature``
+   of the TFIM at N = 20, g = 1.2, f32, k = 60 (CG tol 1e-5, at most 150
+   iterations): E0, dE0/dg and d²E0/dg² against the Jordan-Wigner closed
+   forms, the pass timed as its forward, first backward (``create_graph``)
+   and second backward, the second backward's solve re-run for its
+   iterations and residual.  (b) config #5 as a user's sparse
+   Hamiltonian with one coupling, H(g) = A0 + g A1 over two banded
+   operators (every product two K4b SpMVs), ``energy_curvature`` at
+   k = 100 with the CG capped at 3000: the launches of each step against
+   2 k, 2 and 2 (CG iterations + 1); dE/dg against v^T A1 v; and, since
+   the capped CG does not converge there, exact identities on the one
+   solve the second backward runs (recorded as it runs): its right-hand
+   side against the rule's, its x reproduced by the same CG, d²E/dg²
+   against <P x, A1 v>; peak memory, and the time of the plain transposed
+   product the second backward runs on the card.  (c) config #5,
+   ``dominant_eigh_multi`` (LOBPCG, r = 8, capped at 100) in forward mode
+   along random dvals with its tangent CG capped at 300: dΣλ against
+   <dvals, Σ v_i⊗v_i> on the pattern, the SpMM launches against LOBPCG's,
+   the tangent product and the CG's; then the Hessian-vector product of
+   Σλ_i + ΣV⁴ along dvals at the small shape (n = 4096, bs = 32, r = 3,
+   three spiked eigenvalues), kernel against plain banded SpMM.
+
 Then a ``kernels`` line, the ``nvidia-smi`` name and power-limit line, and
 as the last line ``{"ok": true, "device": {...}}``.  Any failed check
 raises, so the exit code is not 0.  Without a CUDA device it exits with
 code 1 before printing any result.
 """
 
+import contextlib
+import importlib
 import json
 import math
 import os
@@ -127,6 +152,16 @@ FWD_CG_MAXITER = 300                   # the forward-mode tangent's CG
 TFIM_N, TFIM_N_ED, TFIM_G, TFIM_K = 20, 10, 1.2, 60
 TFIM_CG_TOL, TFIM_CG_MAXITER, TFIM_REORTH_PASSES = 1e-5, 150, 1
 TFIM_RTOL = {"e0": 2e-5, "de0_dg": 1e-3, "chi_f": 5e-3}
+# The second_order phase.  (a) TFIM N = 20 through energy_curvature at
+# the tfim phase's k and CG settings, against the Jordan-Wigner closed
+# forms, at ~8x the JAX package's own float32 CPU errors at the same
+# settings (tools/jax_f32_curvature_errors.py: 7.3e-7, 4.6e-6, 6.0e-5).
+# (b) H(g) = A0 + g A1 at config #5.  (c) the small block HVP on three
+# spiked eigenvalues.
+SO_TFIM_RTOL = {"e0": 6e-6, "de0_dg": 4e-5, "d2e0_dg2": 5e-4}
+SO_G = 0.5
+SO_SMALL_R = 3
+SO_SPIKES = (4.0, 8.0, 12.0)
 
 
 def emit(obj):
@@ -1392,11 +1427,370 @@ def phase_tfim(pkg):
         raise AssertionError(f"tfim phase failed: {failed}")
 
 
+def curvature_split(pkg, spmv, make, g0, **kw):
+    """The three steps of ``value_d1_d2`` through ``dominant_eigh``, timed
+    apart: the forward, the first backward (``create_graph``) and the
+    second.  Returns ``(λ, v, d1, d2, op, [forward_s, backward1_s,
+    backward2_s], [SpMV launches of each step])``."""
+    g = torch.tensor(g0, dtype=torch.float64, device=DEVICE,
+                     requires_grad=True)
+    counts = spmv.launch_counts
+    times, launches = [], []
+
+    def step(fn):
+        before = counts["bell_spmv_banded_f32"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        launches.append(counts["bell_spmv_banded_f32"] - before)
+        return out
+
+    op = make(g)
+    lam, v = step(lambda: pkg.dominant_eigh(op, device=DEVICE, **kw))
+    (d1,) = step(lambda: torch.autograd.grad(lam, g, create_graph=True))
+    (d2,) = step(lambda: torch.autograd.grad(d1, g))
+    return lam, v, d1, d2, op, times, launches
+
+
+def second_order_tfim(pkg, spmv, models):
+    """Part (a): TFIM N = 20, f32, d²E0/dg² against Jordan-Wigner."""
+    from dominantsparseeigenad_tpu_torch.ops.cg import solve_deflated_info
+    n = TFIM_N
+
+    def make(g):
+        return models.tfim_operator(n, g, dtype=torch.float32, device=DEVICE)
+
+    kw = dict(k=TFIM_K, tol=TFIM_CG_TOL, maxiter=TFIM_CG_MAXITER)
+    # Warm-up at N = 10 through the same calls.
+    pkg.energy_curvature(lambda g: models.tfim_operator(
+        TFIM_N_ED, g, dtype=torch.float32, device=DEVICE), TFIM_G,
+        device=DEVICE, **kw)
+    lam, v, d1, d2, op, times, _ = curvature_split(pkg, spmv, make, TFIM_G,
+                                                   **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = [float(t) for t in pkg.energy_curvature(make, TFIM_G,
+                                                  device=DEVICE, **kw)]
+    torch.cuda.synchronize()
+    t_api = time.perf_counter() - t0
+    split = [float(t.detach()) for t in (lam, d1, d2)]
+    with torch.no_grad():
+        # The second backward's solve, by hand: its right-hand side is
+        # -(I - v v^T) v̄ with v̄ = 2 (dH/dg) v.
+        lam, v = lam.detach(), v.detach()
+        dav = op.tangent_matvec(v, [torch.ones((), device=DEVICE), None])
+        rhs = -2.0 * (dav - torch.dot(v, dav) * v)
+        _, cg_its, cg_res = solve_deflated_info(
+            op, lam, v, rhs, tol=TFIM_CG_TOL, maxiter=TFIM_CG_MAXITER,
+            device=DEVICE)
+    exact = (float(models.tfim_exact_e0(n, TFIM_G, device=DEVICE)),
+             models.tfim_exact_de0_dg(n, TFIM_G),
+             models.tfim_exact_d2e0_dg2(n, TFIM_G))
+    errs = dict(zip(SO_TFIM_RTOL, (abs(a - b) / abs(b)
+                                   for a, b in zip(got, exact))))
+    out = {"n": n, "g": TFIM_G, "dtype": "float32", "k": TFIM_K,
+           "cg_tol": TFIM_CG_TOL, "cg_maxiter": TFIM_CG_MAXITER,
+           "values": dict(zip(SO_TFIM_RTOL, got)),
+           "jordan_wigner": dict(zip(SO_TFIM_RTOL, exact)), "rel_err": errs,
+           "rtol": SO_TFIM_RTOL, "energy_curvature_s": t_api,
+           "forward_s": times[0], "backward1_s": times[1],
+           "backward2_s": times[2], "second_solve_cg_iterations": cg_its,
+           "second_solve_cg_rel_residual": cg_res}
+    api_vs_split = max(abs(a - b) / abs(b) for a, b in zip(got, split))
+    out["split_values"] = split
+    out["energy_curvature_vs_split_rel"] = api_vs_split
+    checks = {f"TFIM N={n} {name} vs Jordan-Wigner, rel {SO_TFIM_RTOL[name]}":
+              errs[name] <= SO_TFIM_RTOL[name] for name in SO_TFIM_RTOL}
+    # The same calls, whose CG converges (its tolerance is 1e-5).
+    checks["TFIM energy_curvature vs the timed split, rel 1e-6"] = \
+        api_vs_split <= 1e-6
+    return out, checks
+
+
+@contextlib.contextmanager
+def recorded_solves():
+    """Record ``(rhs, x)`` of every differentiable deflated solve that
+    runs inside the block (the forward of ``ops/cg.py::_DeflatedSolve``,
+    wrapped for the duration)."""
+    # The module, not the function of the same name that ops exports.
+    cg = importlib.import_module("dominantsparseeigenad_tpu_torch.ops.cg")
+    forward = cg._DeflatedSolve.forward
+    records = []
+
+    def record(ctx, op, sign, tol, maxiter, rhs, *rest):
+        x = forward(ctx, op, sign, tol, maxiter, rhs, *rest)
+        records.append((rhs.detach().clone(), x.detach().clone()))
+        return x
+
+    cg._DeflatedSolve.forward = staticmethod(record)
+    try:
+        yield records
+    finally:
+        cg._DeflatedSolve.forward = staticmethod(forward)
+
+
+def second_order_config5(pkg, spmv):
+    """Part (b): config #5, H(g) = A0 + g A1 over two banded operators."""
+    # The module, not the function of the same name that ops exports.
+    cg = importlib.import_module("dominantsparseeigenad_tpu_torch.ops.cg")
+    n, bs, bpr = CONFIG5
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    # A0 is the eigh phase's operator (the same seed), A1 another one.
+    a0 = pkg.random_bell_operator(
+        n, bs, bpr, generator=torch.Generator(device=DEVICE).manual_seed(7),
+        device=DEVICE)
+    a1 = pkg.random_bell_operator(
+        n, bs, bpr, generator=torch.Generator(device=DEVICE).manual_seed(8),
+        device=DEVICE)
+
+    def make(g):
+        return pkg.MatrixFreeOperator(
+            lambda g, x: a0.matvec(x) + g * a1.matvec(x), g, n,
+            dtype=torch.float32)
+
+    kw = dict(k=K, tol=CG_TOL, maxiter=CG_MAXITER)
+    # Warm-up: the same calls with a short CG.
+    curvature_split(pkg, spmv, make, SO_G, k=10, tol=CG_TOL, maxiter=10)
+    spmv.reset_launch_counts()
+    with recorded_solves() as solves:
+        lam, v, d1, d2, op, times, launches = curvature_split(
+            pkg, spmv, make, SO_G, **kw)
+    counts = dict(spmv.launch_counts)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = [float(t) for t in pkg.energy_curvature(make, SO_G, device=DEVICE,
+                                                  **kw)]
+    torch.cuda.synchronize()
+    t_api = time.perf_counter() - t0
+    split = [float(t.detach()) for t in (lam, d1, d2)]
+    with torch.no_grad():
+        lam, v = lam.detach(), v.detach()
+        a1v = a1.matvec(v)
+        d1_rule = float(torch.dot(v, a1v))
+        # The one solve of the second backward: its right-hand side
+        # against the rule written out, -(I - v v^T) 2 (A1 v - d1 v) (λ̄ v
+        # and A1 v bring v̄ = A1 v + A1^T v, the second by the plain
+        # transposed product); the CG run again on that right-hand side
+        # (no graph, the same iterations: the same x); and d2 = <P x, A1 v>,
+        # the rule's product.  Exact identities, whether the capped CG
+        # converged or not.
+        (rhs, x), = solves
+        rhs_rule = -2.0 * (a1v - d1_rule * v)
+        rhs_rule = rhs_rule - v * torch.dot(v, rhs_rule)
+        rhs_err = rel_err(rhs, rhs_rule)
+        x_again, cg_its = cg._cg_solve(op, lam, v, rhs, 1.0, CG_TOL,
+                                       CG_MAXITER)
+        px = x - v * torch.dot(v, x)
+        d2_rule = float(torch.dot(px, a1v))
+        d2_scale = float((px * a1v).abs().sum())
+        mv = cg._deflated_mv(op, lam, v, 1.0, False)
+        cg_res = float(torch.linalg.vector_norm(rhs - mv(x))
+                       / torch.linalg.vector_norm(rhs))
+        # The plain transposed product the second backward runs on the
+        # card: A1^T u (u = λ̄ v) through _bell_rmatmat_torch.
+        nb = a1.vals.shape[0]
+        rmat_ms = event_ms(lambda: spmv._bell_rmatmat_torch(
+            a1.vals, a1.cols, v[:, None], nb), samples=5)
+        spmv_ms = event_ms(lambda: op.matvec(v), samples=5)
+        ritz = float(torch.linalg.vector_norm(op.matvec(v) - lam * v)
+                     / abs(float(lam)))
+    d1_err = abs(split[1] - d1_rule) / abs(d1_rule)
+    # Relative to the sum of the terms' magnitudes: a capped CG's x can be
+    # large, and the f32 sum cancels.
+    d2_err = abs(split[2] - d2_rule) / d2_scale
+    # Every product of H is two banded SpMVs: k in the forward, one in the
+    # first backward (the rule's product; λ brings no eigenvector
+    # cotangent, so no solve), and in the second backward the CG's
+    # iterations and the rule's product.
+    out = {"n": n, "bs": bs, "blocks_per_row": bpr, "g": SO_G, "k": K,
+           "cg_tol": CG_TOL, "cg_maxiter": CG_MAXITER,
+           "values": dict(zip(("e", "de_dg", "d2e_dg2"), split)),
+           "energy_curvature": got, "energy_curvature_s": t_api,
+           "ritz_residual": ritz, "forward_s": times[0],
+           "backward1_s": times[1], "backward2_s": times[2],
+           "launches_per_step": launches, "launches": counts,
+           "second_backward_cg_iterations": cg_its,
+           "second_backward_cg_rel_residual": cg_res,
+           "rhs_vs_rule_rel_err": rhs_err, "d1_rule": d1_rule,
+           "d1_rel_err": d1_err, "d2_rule": d2_rule,
+           "d2_terms_abs_sum": d2_scale, "d2_err_of_terms": d2_err,
+           "peak_mem_gib": peak_gib, "h_matvec_ms": spmv_ms,
+           "plain_rmatmat_torch_ms": rmat_ms}
+    checks = {
+        "forward SpMV launches == 2 k": launches[0] == 2 * K,
+        "first backward SpMV launches == 2 (the rule's product)":
+            launches[1] == 2,
+        "second backward SpMV launches == 2 (CG iterations + 1)":
+            launches[2] == 2 * (cg_its + 1),
+        "no other kernel ran": all(
+            c == 0 for name, c in counts.items()
+            if name != "bell_spmv_banded_f32"),
+        "one deflated solve in the pass": len(solves) == 1,
+        # f32 products in another order (the plain transposed product
+        # against the kernel).
+        "second solve's rhs vs the rule's, rel 1e-5": rhs_err <= 1e-5,
+        "second solve's x reproduced bitwise": torch.equal(x_again, x),
+        # Both are v^T A1 v, and <P x, A1 v>: f32 sums in another order.
+        "d1 vs v^T A1 v, rel 1e-5": d1_err <= 1e-5,
+        "d2 vs <P x, A1 v>, 1e-5 of the sum of |terms|": d2_err <= 1e-5,
+        # The forward and the first backward are deterministic; the
+        # second is not (the plain transposed product's index_add sums
+        # with atomics, and the capped CG amplifies the difference).
+        "energy_curvature's E and dE/dg equal the split's, bitwise":
+            [t.hex() for t in got[:2]] == [t.hex() for t in split[:2]],
+        "config #5 values finite": all(math.isfinite(t)
+                                       for t in split + got),
+    }
+    return out, checks, counts
+
+
+def second_order_block(pkg, spmv):
+    """Part (c): forward mode of dominant_eigh_multi at config #5, and a
+    second-order block loss on the small shape, kernel against plain."""
+    from dominantsparseeigenad_tpu_torch.ops.cg import (CHECK_EVERY,
+                                                        solve_deflated_info)
+    n, bs, bpr = CONFIG5
+    r = MULTI_R
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=DEVICE).manual_seed(11)
+    op = pkg.random_bell_operator(n, bs, bpr, generator=gen, device=DEVICE)
+    x0 = torch.randn(n, r, generator=gen, device=DEVICE)
+    dvals = torch.randn(op.vals.shape, generator=gen, device=DEVICE)
+    solve = dict(r=r, k=LOBPCG_ITERS, method="lobpcg", tol=CG_TOL,
+                 maxiter=FWD_CG_MAXITER, x0=x0, with_info=True,
+                 device=DEVICE)
+    spmv.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad(), fwAD.dual_level():
+        lams_d, V_d, info = pkg.dominant_eigh_multi(
+            op.with_vals(fwAD.make_dual(op.vals, dvals)), **solve)
+        lams, dlams = fwAD.unpack_dual(lams_d)
+        V, dV = fwAD.unpack_dual(V_d)
+    torch.cuda.synchronize()
+    t_fm = time.perf_counter() - t0
+    counts = dict(spmv.launch_counts)
+    its = int(info.effective_k)
+    cols = op.cols
+    with torch.no_grad():
+        # The tangent's batched CG, by hand on the same right-hand side
+        # (the same products, so the same iterations), timed.
+        dav = spmv.bell_spmm(dvals, cols, V, op.slot_plan)
+        m = V.T @ dav
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, cg_its, cg_res = solve_deflated_info(
+            op, lams, V, -(dav - V @ m), tol=CG_TOL, maxiter=FWD_CG_MAXITER,
+            device=DEVICE)
+        torch.cuda.synchronize()
+        t_cg = time.perf_counter() - t0
+        loop = min(FWD_CG_MAXITER, -(-max(cg_its) // CHECK_EVERY)
+                   * CHECK_EVERY)
+        # <dvals, Σ_i v_i⊗v_i> on the pattern, formed a chunk of
+        # block-rows at a time, in float64.
+        vb = V.reshape(-1, bs, r)
+        expect = 0.0
+        for rows in torch.arange(n // bs, device=DEVICE).split(256):
+            outer = torch.matmul(vb[rows][:, None],
+                                 vb[cols[rows].long()].transpose(-1, -2))
+            expect += float((dvals[rows].double() * outer.double()).sum())
+        dsum = float(dlams.sum())
+        finite = bool(torch.isfinite(dV).all())
+    del op, dvals, dav
+    dsum_err = abs(dsum - expect) / abs(expect)
+
+    # The second-order block loss, kernel against plain, on the small
+    # shape.  Its three lowest eigenvalues are pulled apart by diagonal
+    # spikes: at the random operator's own block gap (8e-4) a 3e-7 change
+    # of the values moves this HVP by 5e-3 (a float32 CPU measurement),
+    # and the check would measure that condition, not the kernel.
+    sn, sbs, sbpr = SMALL_SHAPES[0]
+    sgen = torch.Generator(device=DEVICE).manual_seed(12)
+    small = pkg.random_bell_operator(sn, sbs, sbpr, generator=sgen,
+                                     device=DEVICE)
+    small.vals[0, 0, [0, 1, 2], [0, 1, 2]] -= torch.tensor(
+        SO_SPIKES, device=DEVICE)
+    sx0 = torch.randn(sn, SO_SMALL_R, generator=sgen, device=DEVICE)
+    sdv = torch.randn(small.vals.shape, generator=sgen, device=DEVICE)
+
+    class PlainBanded(pkg.MatrixFreeOperator):
+        """The small operator on the plain banded products (no kernel)."""
+
+        def matmat(self, X):
+            return spmv._bell_spmm_banded_torch(self.params, small.cols, X,
+                                                small.slot_plan)
+
+    def plain(vals):
+        return PlainBanded(lambda p, x: spmv._bell_spmv_banded_torch(
+            p, small.cols, x, small.slot_plan), vals, sn)
+
+    def hvp(make):
+        vals = small.vals.detach().clone().requires_grad_(True)
+        lams_s, V_s = pkg.dominant_eigh_multi(
+            make(vals), r=SO_SMALL_R, k=LOBPCG_ITERS, method="lobpcg",
+            tol=CG_TOL, maxiter=MULTI_CG_MAXITER, x0=sx0, device=DEVICE)
+        loss = lams_s.sum() + (V_s ** 4).sum()
+        (grad,) = torch.autograd.grad(loss, vals, create_graph=True)
+        (h,) = torch.autograd.grad(grad, vals, grad_outputs=sdv)
+        return h
+
+    t0 = time.perf_counter()
+    h_kernel = hvp(small.with_vals)
+    torch.cuda.synchronize()
+    t_hvp = time.perf_counter() - t0
+    h_plain = hvp(plain)
+    hvp_err = rel_err(h_kernel, h_plain)
+    out = {"n": n, "r": r, "lobpcg_iterations": its,
+           "forward_mode_s": t_fm, "tangent_cg_s": t_cg,
+           "forward_mode_minus_cg_s": t_fm - t_cg,
+           "tangent_cg_iterations": cg_its, "tangent_cg_loop": loop,
+           "tangent_cg_rel_residuals": cg_res, "launches": counts,
+           "dsumlam_forward_mode": dsum, "dsumlam_expected": expect,
+           "dsumlam_rel_err": dsum_err, "small_n": sn, "small_r": SO_SMALL_R,
+           "small_hvp_kernel_s": t_hvp, "small_hvp_rel_err": hvp_err}
+    checks = {
+        # LOBPCG: 1 + 2 x iterations; one SpMM on the tangent values; one
+        # per iteration of the tangent's batched CG.
+        "forward-mode SpMM launches == 1 + 2 its + 1 + CG loop":
+            counts["bell_spmm_banded_f32"] == 1 + 2 * its + 1 + loop,
+        "forward-mode SpMV launches == 0":
+            counts["bell_spmv_banded_f32"] == counts["bell_spmv_f32"] == 0,
+        # Both are Σ_i v_i^T A(dvals) v_i: f32 sums in other orders.
+        "dΣλ vs <dvals, Σ v_i⊗v_i>, rel 1e-5": dsum_err <= 1e-5,
+        # The same solves on products that differ by f32 rounding.
+        "small block HVP kernel vs plain, rel 1e-4": hvp_err <= 1e-4,
+        "block tangents and HVP finite":
+            finite and bool(torch.isfinite(h_kernel).all()),
+    }
+    return out, checks, counts
+
+
+def phase_second_order(pkg, spmv):
+    """Second order through the IFT rules, and forward mode of the block
+    solver (see the module docstring, phase 9)."""
+    from dominantsparseeigenad_tpu_torch import models
+    t0 = time.perf_counter()
+    tfim, checks = second_order_tfim(pkg, spmv, models)
+    c5, c5_checks, c5_counts = second_order_config5(pkg, spmv)
+    block, block_checks, block_counts = second_order_block(pkg, spmv)
+    checks.update(c5_checks)
+    checks.update(block_checks)
+    emit({"phase": "second_order", "tfim": tfim, "config5": c5,
+          "block": block, "phase_s": time.perf_counter() - t0})
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"second_order phase failed: {failed}")
+    return {k: c5_counts[k] + block_counts[k] for k in c5_counts}
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this script runs on the card")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    import importlib
     import dominantsparseeigenad_tpu_torch as pkg
     # The module, not the function of the same name that ops exports.
     spmv = importlib.import_module("dominantsparseeigenad_tpu_torch.ops."
@@ -1421,6 +1815,12 @@ def main():
     torch.cuda.empty_cache()
     panel_counts = phase_sharded()
     phase_tfim(pkg)
+    so_counts = phase_second_order(pkg, spmv)
+    for name in ("bell_spmv_banded_f32", "bell_spmm_banded_f32"):
+        if so_counts[name] < 1:
+            raise AssertionError(f"{name} never launched on the "
+                                 f"second_order path")
+    counts = {k: counts[k] + so_counts[k] for k in counts}
 
     csrc = "dominantsparseeigenad_tpu_torch/csrc/"
     # The Pallas kernel body, and the SpMM entry that runs it on (N, r).

@@ -2,8 +2,10 @@
 
 A package of its own beside the JAX one, with the same module layout.  It
 imports ``torch`` and ``numpy`` only.  So far it covers the sparse tier's
-eigensolver paths, with first-order gradients through the
-implicit-function-theorem rule: ``dominant_eigh`` (one extremal
+eigensolver paths, with derivatives to any order through the
+implicit-function-theorem rule (reverse mode; forward mode to first
+order), whose deflated solve is itself differentiable so that no
+derivative is taken through an iteration: ``dominant_eigh`` (one extremal
 eigenpair) on a ``BellOperator`` whose every SpMV runs the hand-written
 CUDA kernel of ``csrc/bell_spmv.cu``, and the block solver
 ``dominant_eigh_multi`` (the r extremal pairs, by Lanczos or
@@ -14,9 +16,9 @@ operator's rows over ranks, one process each, and both solvers run
 through it unchanged; each rank's row panel runs the same kernels.  An
 operator whose slots are ring bands (config #5's all are) binds the
 banded slot plan, and its products run the kernels' banded mode (K4b).
-``dominant_eigh`` has forward mode too (``torch.autograd.forward_ad``),
-and ``models/`` holds the matrix-free TFIM flagship with its
-Jordan-Wigner and ED oracles.
+``energy_curvature`` gives an eigenvalue's first and second derivative
+in a coupling, and ``models/`` holds the matrix-free TFIM flagship with
+its Jordan-Wigner and ED oracles.  The row-sharded tier is first order.
 
 Entry points run on CUDA unless called with ``device="cpu"``; without a
 card they raise rather than fall back.

@@ -9,8 +9,9 @@ matrix-free (a precomputed zz diagonal, and the transverse term as N
 single-spin flips of the state), as a dense matrix for exact
 diagonalization at small N, and the Jordan-Wigner closed forms for
 validation where ED is impossible (N = 20: dim 2^20).  The observables go
-through the eigensolver: E0 and dE0/dg from ``dominant_eigh`` in either
-AD mode, χ_F from one forward-mode pass.
+through the eigensolver: E0 and its derivatives from ``dominant_eigh``
+in either AD mode and to any order (d²E0/dg² by ``energy_curvature``),
+χ_F from one forward-mode pass.
 
 The JAX ``flip_sum`` contracts groups of up to 7 bits with hypercube
 adjacency matrices, a device for the TPU's matrix unit; here each flip is
@@ -130,6 +131,14 @@ def tfim_exact_de0_dg(n: int, g: float) -> float:
     return float(-np.sum((g - np.cos(k)) / eps))
 
 
+def tfim_exact_d2e0_dg2(n: int, g: float) -> float:
+    """d²E0/dg² of :func:`tfim_exact_e0` in numpy float64:
+    -Σ_k sin²k / ε_k³."""
+    k = _jw_momenta(n)
+    eps = np.sqrt(1.0 + g * g - 2.0 * g * np.cos(k))
+    return float(-np.sum(np.sin(k) ** 2 / eps ** 3))
+
+
 def tfim_exact_chi_f(n: int, g: float) -> float:
     """Fidelity susceptibility of the ground state in numpy float64:
     χ_F = ¼ Σ_{k ∈ (0, π)} sin²k / ε_k⁴ (equal to the ED χ_F of
@@ -147,7 +156,8 @@ def tfim_exact_chi_f(n: int, g: float) -> float:
 def tfim_ground_energy(n: int, g, *, k: int = 100, tol: float = 1e-10,
                        dtype=torch.float64, device=None):
     """E0(g) through the matrix-free Lanczos eigensolver, differentiable
-    to first order in ``g`` (reverse or forward mode)."""
+    in ``g`` to any order in reverse mode (``create_graph=True``), and to
+    first order in forward mode."""
     lam, _ = tfim_ground_state(n, g, k=k, tol=tol, dtype=dtype,
                                device=device)
     return lam
@@ -155,8 +165,8 @@ def tfim_ground_energy(n: int, g, *, k: int = 100, tol: float = 1e-10,
 
 def tfim_ground_state(n: int, g, *, k: int = 100, tol: float = 1e-10,
                       dtype=torch.float64, device=None):
-    """(E0, |ψ0>) through the eigensolver, differentiable to first
-    order."""
+    """(E0, |ψ0>) through the eigensolver, differentiable to any order
+    in reverse mode, to first order in forward mode."""
     dev = resolve_device(device)
     return dominant_eigh(tfim_operator(n, g, dtype=dtype, device=dev),
                          k=min(k, 1 << n), extreme="min", tol=tol,

@@ -5,7 +5,8 @@ from .cg import cg, solve_deflated, solve_deflated_info
 from .eigh import dominant_eigh, dominant_eigh_multi
 from .lanczos import LanczosInfo, LanczosResult, lanczos, lanczos_eigh
 from .lobpcg import LobpcgInfo, lobpcg_eigh
-from .observables import fidelity_susceptibility
+from .observables import (energy_curvature, fidelity_susceptibility,
+                          value_d1_d2)
 from .operators import (DenseOperator, LinearOperator, MatrixFreeOperator,
                         as_operator, hdot, hmatmul, pivot_gauge,
                         resolve_device, tol_floor)
@@ -15,8 +16,9 @@ __all__ = [
     "BellOperator", "DenseOperator", "LanczosInfo", "LanczosResult",
     "LinearOperator", "LobpcgInfo", "MatrixFreeOperator", "as_operator",
     "bell_spmm", "bell_spmv", "cg", "detect_slot_plan", "dominant_eigh",
-    "dominant_eigh_multi", "fidelity_susceptibility", "hdot", "hmatmul",
+    "dominant_eigh_multi", "energy_curvature", "fidelity_susceptibility",
+    "hdot", "hmatmul",
     "lanczos", "lanczos_eigh", "lobpcg_eigh",
     "pivot_gauge", "random_bell_operator", "resolve_device",
-    "solve_deflated", "solve_deflated_info", "tol_floor",
+    "solve_deflated", "solve_deflated_info", "tol_floor", "value_d1_d2",
 ]

@@ -7,10 +7,12 @@ right-hand side of shape (N, m) with one shift per column is solved by a
 batched CG over the columns, the written-out counterpart of the
 ``jax.vmap(solve_deflated)`` in the block eigensolver's tangent rule
 (``eigh.py::_multi_pair_tangents``): one operator ``matmat`` of width m
-per iteration.  The solve is not differentiable itself: the first-order
-backwards of ``eigh.py`` call it once and need no derivative of it.
-MINRES, preconditioning, BiCGSTAB, GMRES and the differentiable
-``custom_linear_solve`` wrapper wait for a later slice.
+per iteration.  ``solve_deflated`` is differentiable to any order, the
+counterpart of the ``lax.custom_linear_solve`` the JAX solve wraps its CG
+in: its backward is one more deflated solve and one deflated product
+(:class:`_DeflatedSolve`), so the IFT rules of ``eigh.py`` that call it
+differentiate again under ``create_graph``.  MINRES, preconditioning,
+BiCGSTAB and GMRES wait for a later slice.
 """
 
 from __future__ import annotations
@@ -20,14 +22,18 @@ from typing import Callable
 import torch
 
 from .operators import (as_operator, check_device, hdot, hmatmul,
-                        refuse_complex, tol_floor)
+                        partial_vjp, refuse_complex, tol_floor)
 
 # The JAX loop tests the residual on the device every iteration inside a
 # ``lax.while_loop``.  Eager PyTorch would have to read it on the host,
-# which waits for the card each time; instead the residual is read once
-# every CHECK_EVERY iterations, so a solve may run up to CHECK_EVERY - 1
-# iterations past the one that met the tolerance (each of them only
-# lowers the residual further).
+# which waits for the card each time; instead the host reads it once
+# every CHECK_EVERY iterations, and in between the device freezes the
+# state once the residual meets the tolerance (alpha = 0, p and rz kept),
+# so a solve may run up to CHECK_EVERY - 1 products past the one that
+# met it without changing x.  (An iteration past convergence is not
+# harmless: on a deflated system, singular on span(V), the round-off
+# residual's span(V) component makes p^T M p tiny, and one more step
+# with alpha = rz / p^T M p throws x off.)
 CHECK_EVERY = 10
 
 
@@ -40,7 +46,8 @@ def _project_out(V, x):
 
 
 def _cg_loop(matvec: Callable, b, tol: float, maxiter):
-    """Plain CG from x0 = 0; returns ``(x, iterations)``."""
+    """Plain CG from x0 = 0; returns ``(x, iterations run)``, the second
+    counting the products made (frozen iterations included)."""
     if maxiter is None:
         maxiter = 10 * b.shape[-1]
     x = torch.zeros_like(b)
@@ -48,24 +55,26 @@ def _cg_loop(matvec: Callable, b, tol: float, maxiter):
     p = r.clone()
     rz = hdot(r, r)
     tol = tol_floor(tol, b.dtype)
-    target2 = tol * tol * float(rz)
+    target2 = tol * tol * rz
+    zero = torch.zeros_like(rz)
     it = 0
     while it < maxiter:
-        if float(rz) <= target2:
+        if not bool(rz > target2):
             break
         for _ in range(min(CHECK_EVERY, maxiter - it)):
+            active = rz > target2
             ap = matvec(p)
             denom = hdot(p, ap)
-            alpha = torch.where(denom == 0, torch.zeros_like(rz),
+            alpha = torch.where(active & (denom != 0),
                                 rz / torch.where(denom == 0,
                                                  torch.ones_like(denom),
-                                                 denom))
+                                                 denom), zero)
             x = x + alpha * p
             r = r - alpha * ap
             rz_new = hdot(r, r)
             beta = rz_new / torch.where(rz == 0, torch.ones_like(rz), rz)
-            p = r + beta * p
-            rz = rz_new
+            p = torch.where(active, r + beta * p, p)
+            rz = torch.where(active, rz_new, rz)
             it += 1
     return x, it
 
@@ -128,68 +137,111 @@ def _cg_columns_loop(matmat: Callable, B, tol: float, maxiter):
     return X, its
 
 
-def _deflated_system(op, lam, V, b, definite_sign):
-    """The signed deflated operator and right-hand side.  ``b`` (N,) with
-    a scalar ``lam``, or (N, m) with one shift per column in ``lam``
-    (m,)."""
-    sign = float(definite_sign)
-    if b.ndim == 2:
-        lams = torch.as_tensor(lam, dtype=b.dtype, device=b.device)
-        if lams.shape != (b.shape[1],):
-            raise ValueError(f"a right-hand side of shape {tuple(b.shape)} "
-                             f"needs {b.shape[1]} shifts, got "
-                             f"{tuple(lams.shape)}")
-
-        def deflated_mv(x):
+def _deflated_mv(op, lam, V, sign, batched):
+    """``x -> sign * P (A - lam I) P x``, ``P = I - V V^T``: on (N,)
+    vectors with a scalar ``lam``, or on (N, m) blocks with one shift per
+    column in ``lam`` (m,)."""
+    if batched:
+        def mv(x):
             px = _project_out(V, x)
-            return sign * _project_out(V, op.matmat(px) - px * lams[None, :])
+            return sign * _project_out(V, op.matmat(px) - px * lam[None, :])
     else:
-        def deflated_mv(x):
+        def mv(x):
             px = _project_out(V, x)
             return sign * _project_out(V, op.matvec(px) - lam * px)
-
-    # Project the right-hand side onto V⊥: the deflated operator is
-    # singular on span(V), and a component along V (an eigenvector
-    # cotangent parallel to v) would make CG divide by round-off.  Twice,
-    # as the JAX solve does (once before its linear solve, once inside):
-    # for b nearly parallel to V one pass leaves a round-off remainder
-    # whose own component along V is still large, relative to itself.
-    return deflated_mv, sign * _project_out(V, _project_out(V, b))
+    return mv
 
 
-def _solve(op, lam, V, b, definite_sign, tol, maxiter):
-    mv, rhs = _deflated_system(op, lam, V, b, definite_sign)
-    if rhs.ndim == 2:
-        x, its = _cg_columns_loop(mv, rhs, tol, maxiter)
-    else:
-        x, its = _cg_loop(mv, rhs, tol, maxiter)
-    return mv, rhs, x, its
+def _cg_solve(op, lam, V, rhs, sign, tol, maxiter):
+    """``P cg(M, P rhs)``, the solver that the JAX package hands to
+    ``custom_linear_solve``: the right-hand side is projected onto V⊥
+    (a cotangent or tangent with a span(V) component would make CG
+    divide by round-off; M is singular there) and so is the result.
+    Returns ``(x, iterations)``, per column for an (N, m) ``rhs``."""
+    mv = _deflated_mv(op, lam, V, sign, rhs.ndim == 2)
+    loop = _cg_columns_loop if rhs.ndim == 2 else _cg_loop
+    x, its = loop(mv, _project_out(V, rhs), tol, maxiter)
+    return _project_out(V, x), its
+
+
+class _DeflatedSolve(torch.autograd.Function):
+    """``x = M^+ rhs`` for ``M = sign P (A(θ) - λ) P``, differentiable in
+    ``rhs``, ``λ``, ``V`` and the operator's parameters θ by the rule of
+    ``lax.custom_linear_solve`` (M is symmetric, so its transpose solve
+    is the same solve):
+
+        w = M^+ x̄,   rhs̄ = w,   (λ̄, V̄, θ̄) = -∂/∂(λ, V, θ) <w, M x>,
+
+    the last with x held constant: one more solve and one deflated
+    product per backward.  The forward runs the CG with no graph (no
+    iteration is ever recorded); the backward is built of this Function
+    and differentiable operations only, so under ``create_graph`` it
+    differentiates again, to any order."""
+
+    @staticmethod
+    def forward(ctx, op, sign, tol, maxiter, rhs, lam, V, *params):
+        x, _ = _cg_solve(op, lam, V, rhs, sign, tol, maxiter)
+        ctx.op, ctx.cfg = op, (sign, tol, maxiter)
+        ctx.save_for_backward(x, lam, V)
+        return x
+
+    @staticmethod
+    def backward(ctx, x_bar):
+        op, (sign, tol, maxiter) = ctx.op, ctx.cfg
+        x, lam, V = ctx.saved_tensors
+        w = _DeflatedSolve.apply(op, sign, tol, maxiter, x_bar, lam, V,
+                                 *op.parameters())
+        grads = partial_vjp(
+            op, lambda held, lam_, V_: _deflated_mv(held, lam_, V_, sign,
+                                                    x.ndim == 2)(x),
+            [lam, V], -w, ctx.needs_input_grad[5:])
+        rhs_bar = w if ctx.needs_input_grad[4] else None
+        return (None, None, None, None, rhs_bar, *grads)
+
+
+def _shifts(lam, b):
+    """``lam`` as a tensor of ``b``'s dtype and device (a tensor that is
+    one already stays itself, graph and all): a scalar for an (N,) ``b``,
+    one shift per column for an (N, m) ``b``."""
+    lam = torch.as_tensor(lam, dtype=b.dtype, device=b.device)
+    want = (b.shape[1],) if b.ndim == 2 else ()
+    if lam.shape != want:
+        raise ValueError(f"a right-hand side of shape {tuple(b.shape)} "
+                         f"needs shifts of shape {want}, got "
+                         f"{tuple(lam.shape)}")
+    return lam
 
 
 def solve_deflated_info(op, lam, V, b, *, definite_sign: float = 1.0,
                         tol: float = 1e-7, maxiter: int | None = None,
                         device=None):
-    """:func:`solve_deflated` that also returns ``(iterations,
-    relative_residual)`` of its CG, the residual taken on the deflated
-    system with one extra matvec (matmat).  For an (N, m) right-hand side
-    both are lists with one entry per column."""
+    """Forward-only :func:`solve_deflated` that also returns
+    ``(iterations, relative_residual)`` of its CG, the residual taken on
+    the deflated system with one extra matvec (matmat).  For an (N, m)
+    right-hand side both are lists with one entry per column."""
     op = as_operator(op)
     check_device(device, op, V, b)
     refuse_complex(b.dtype, "b")
-    mv, rhs, x, its = _solve(op, lam, V, b, definite_sign, tol, maxiter)
-    bnorm = torch.linalg.vector_norm(rhs, dim=0)
-    res = torch.linalg.vector_norm(rhs - mv(x), dim=0) / torch.where(
-        bnorm == 0, torch.ones_like(bnorm), bnorm)
-    if rhs.ndim == 2:
-        return _project_out(V, x), its.tolist(), res.tolist()
-    return _project_out(V, x), its, float(res)
+    sign = float(definite_sign)
+    with torch.no_grad():
+        lam = _shifts(lam, b)
+        rhs = sign * _project_out(V, b)
+        x, its = _cg_solve(op, lam, V, rhs, sign, tol, maxiter)
+        mv = _deflated_mv(op, lam, V, sign, b.ndim == 2)
+        rhs = _project_out(V, rhs)
+        bnorm = torch.linalg.vector_norm(rhs, dim=0)
+        res = torch.linalg.vector_norm(rhs - mv(x), dim=0) / torch.where(
+            bnorm == 0, torch.ones_like(bnorm), bnorm)
+    if b.ndim == 2:
+        return x, its.tolist(), res.tolist()
+    return x, its, float(res)
 
 
 def solve_deflated(op, lam, V, b, *, definite_sign: float = 1.0,
                    tol: float = 1e-7, maxiter: int | None = None,
                    device=None) -> torch.Tensor:
     """Solve ``P (A - lam I) P x = P b`` on ``span(V)⊥``,
-    ``P = I - V V^T``.
+    ``P = I - V V^T``, differentiably (see :class:`_DeflatedSolve`).
 
     ``V`` is the (N,) unit eigenvector being deflated, or an (N, r) block
     of orthonormal ones.  ``b`` is (N,) with a scalar ``lam``, or (N, m)
@@ -198,12 +250,21 @@ def solve_deflated(op, lam, V, b, *, definite_sign: float = 1.0,
     restricted operator positive definite for CG: +1 when ``lam`` is the
     algebraic minimum, -1 when it is the maximum (CG then runs on
     ``lam I - A``).  The returned x solves the unsigned equation and is
-    the solution orthogonal to V.
+    the solution orthogonal to V.  It is differentiable in ``b``,
+    ``lam``, ``V`` and ``op.parameters()``, to any order, and no
+    derivative is taken through the CG's iterations.
     """
     op = as_operator(op)
     check_device(device, op, V, b)
     refuse_complex(b.dtype, "b")
-    _, _, x, _ = _solve(op, lam, V, b, definite_sign, tol, maxiter)
-    # Keep x exactly in V⊥: round-off would leak a span(V) component into
-    # the gradients downstream.
+    sign = float(definite_sign)
+    lam = _shifts(lam, b)
+    # The two projections of the JAX solve: this one differentiable, the
+    # second inside the solver (a right-hand side nearly parallel to V
+    # leaves a round-off remainder whose own V component is large).
+    rhs = sign * _project_out(V, b)
+    x = _DeflatedSolve.apply(op, sign, tol, maxiter, rhs, lam, V,
+                             *op.parameters())
+    # Keep x exactly in V⊥, differentiably: round-off would leak a
+    # span(V) component into the gradients downstream.
     return _project_out(V, x)

@@ -1,7 +1,7 @@
 """Differentiable dominant eigensolver for symmetric operators.
 
-Counterpart of ``dominant_eigh`` in ``dominantsparseeigenad_tpu/ops/eigh.py``
-for one extremal eigenpair and first-order reverse mode.  The JAX package
+Counterpart of ``dominant_eigh`` and ``dominant_eigh_multi`` in
+``dominantsparseeigenad_tpu/ops/eigh.py``.  The JAX package
 registers the implicit-function-theorem rule as a JVP,
 
     dλ = v^T (dA) v,
@@ -15,7 +15,18 @@ backward of a ``torch.autograd.Function``, the design of the reference's
 
 and the gradient of every operator parameter θ is ``u^T (∂A/∂θ) v``, taken
 as ``torch.autograd.grad`` of one matvec ``A(θ) v`` with ``u`` as its
-output cotangent: one matvec's cost, with no N×N matrix built.
+output cotangent, v held constant (``operators.partial_vjp``): one
+matvec's cost, with no N×N matrix built.
+
+The rules work to any order.  The backward is built of differentiable
+operations on the saved (λ, v), of the differentiable deflated solve of
+``cg.py`` (whose own backward is one more solve) and of that one
+product; so under ``torch.autograd.grad(..., create_graph=True)`` it
+records a graph, and the cotangents of the saved λ and v flow back into
+this same rule (the JAX package's "recursive -> higher order OK").  No
+derivative is ever taken through the Lanczos, LOBPCG or CG iterations.
+An output the loss does not use brings no cotangent: the backward of
+``λ`` alone runs no solve.
 
 The block solver :func:`dominant_eigh_multi` (the r extremal pairs, by
 one Lanczos sweep or by LOBPCG) has the block counterpart of that rule:
@@ -33,23 +44,23 @@ per iteration; the gradient is ``autograd.grad`` of one ``A(θ) V`` with
 output cotangent U.  This is the transpose of the JAX package's
 ``_multi_pair_tangents``.
 
-Forward mode of :func:`dominant_eigh` (first order) is that JVP rule
-itself, the JAX package's ``_pair_jvp``, as the ``jvp`` of the same
-Function: under ``torch.autograd.forward_ad``, with dual tensors among
-the operator's parameters,
+Forward mode is that JVP rule itself, the JAX package's ``_pair_jvp``
+and ``_multi_pair_tangents``, as the ``jvp`` of the same Functions:
+under ``torch.autograd.forward_ad``, with dual tensors among the
+operator's parameters,
 
     dA v = op.tangent_matvec(v, dθ),   dλ = v^T (dA v),
     dv = solve_deflated(A, λ, v, -(dA v - dλ v)),
 
-one tangent product (on a ``BellOperator`` the same kernel as a matvec)
-and one deflated solve.  The Lanczos loop carries no tangents: forward
-AD is off inside a custom Function's forward.
+one tangent product (on a ``BellOperator`` the same kernel as a matvec;
+``tangent_matmat`` and one SpMM for a block) and one deflated solve
+(batched over the block's columns).  The Lanczos and LOBPCG loops carry
+no tangents: forward AD is off inside a custom Function's forward.
+PyTorch does not nest dual levels, so forward mode is first order.
 
-Second order, forward mode of :func:`dominant_eigh_multi`,
-``extreme="both"``, ``with_info`` of ``dominant_eigh``,
 ``restart_cycles``, ``early_exit_tol``, ``basis_dtype`` with
-``refine_eigenpair``, ``reorth_chunks`` and ``precond`` wait for later
-slices.
+``refine_eigenpair``, ``reorth_chunks``, ``precond`` and complex
+operators wait for later slices.
 """
 
 from __future__ import annotations
@@ -62,7 +73,7 @@ from .cg import solve_deflated
 from .lanczos import LanczosInfo, _tridiagonal_eigh, lanczos, lanczos_eigh
 from .lobpcg import lobpcg_eigh
 from .operators import (as_operator, check_device, hdot, hmatmul,
-                        pivot_gauge, tol_floor)
+                        partial_vjp, pivot_gauge, tol_floor)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,98 +88,137 @@ class EighOptions:
     reorth_passes: int = 2
 
 
+def _pair_info(op, opts, lam, v):
+    """The :class:`LanczosInfo` of one pair (the JAX ``_forward_info``
+    of the plain fixed-k forward): the true Ritz residual ``||A v - λ v||
+    / |λ|`` from one extra matvec, ``converged`` against ``tol`` clamped
+    to what the dtype reaches, ``effective_k`` the steps run."""
+    resid = torch.linalg.vector_norm(op.matvec(v) - lam * v) / torch.clamp(
+        lam.abs(), min=torch.finfo(v.dtype).tiny)
+    return LanczosInfo(
+        effective_k=torch.tensor(float(min(opts.k, op.dim)), dtype=v.dtype,
+                                 device=v.device),
+        residual=resid,
+        converged=(resid <= tol_floor(opts.tol, op.dtype)).to(v.dtype))
+
+
+def _signs(extreme):
+    """The definite sign of each pair's deflated solve: +1 for the
+    minimum, -1 for the maximum."""
+    return {"min": (1.0,), "max": (-1.0,), "both": (1.0, -1.0)}[extreme]
+
+
 class _DominantEigh(torch.autograd.Function):
+    """Outputs ``(λ, v)`` per pair (one, or two for "both", the minimum
+    first), then the three :class:`LanczosInfo` fields with
+    ``with_info``."""
 
     @staticmethod
-    def forward(ctx, op, opts, v0, generator, *params):
-        lam, v = lanczos_eigh(op, min(opts.k, op.dim), extreme=opts.extreme,
-                              v0=v0, generator=generator,
-                              reorthogonalize=opts.reorthogonalize,
-                              reorth_passes=opts.reorth_passes,
-                              device=op.device)
+    def forward(ctx, op, opts, v0, generator, with_info, *params):
+        out = lanczos_eigh(op, min(opts.k, op.dim), extreme=opts.extreme,
+                           v0=v0, generator=generator,
+                           reorthogonalize=opts.reorthogonalize,
+                           reorth_passes=opts.reorth_passes,
+                           device=op.device)
         # λ is a view into the tridiagonal's eigenvalues: forward mode
         # needs outputs that are not views of other tensors.
-        lam = lam.clone()
-        ctx.op, ctx.opts = op, opts
-        ctx.save_for_backward(lam, v)
-        ctx.save_for_forward(lam, v)
-        return lam, v
+        pairs = [t.clone() if i % 2 == 0 else t for i, t in enumerate(out)]
+        info = _pair_info(op, opts, *pairs) if with_info else ()
+        ctx.op, ctx.opts, ctx.n_info = op, opts, len(info)
+        ctx.save_for_backward(*pairs)
+        ctx.save_for_forward(*pairs)
+        ctx.mark_non_differentiable(*info)
+        # An output the loss does not use brings no cotangent (None),
+        # and costs no deflated solve.
+        ctx.set_materialize_grads(False)
+        return (*pairs, *info)
 
     @staticmethod
-    def jvp(ctx, _op, _opts, _v0, _generator, *dparams):
-        """The IFT tangents (dλ, dv) for the parameters' tangents
-        ``dparams`` (the JAX package's ``_pair_jvp``)."""
+    def jvp(ctx, _op, _opts, _v0, _generator, _with_info, *dparams):
+        """The IFT tangents (dλ, dv) of each pair for the parameters'
+        tangents ``dparams`` (the JAX package's ``_pair_jvp``); zero
+        tangents for the info fields (None: PyTorch's zero tangent of an
+        output marked non-differentiable)."""
         op, opts = ctx.op, ctx.opts
-        lam, v = ctx.saved_tensors
-        if all(t is None for t in dparams):
-            return torch.zeros_like(lam), torch.zeros_like(v)
-        dav = op.tangent_matvec(v, dparams)
-        dlam = hdot(v, dav)
-        sign = 1.0 if opts.extreme == "min" else -1.0
-        dv = solve_deflated(op, lam, v, -(dav - dlam * v), definite_sign=sign,
-                            tol=opts.tol, maxiter=opts.maxiter,
-                            device=op.device)
-        return dlam, dv
+        pairs = ctx.saved_tensors
+        moving = any(t is not None for t in dparams)
+        tangents = []
+        for sign, lam, v in zip(_signs(opts.extreme), pairs[::2],
+                                pairs[1::2]):
+            if not moving:
+                tangents += [torch.zeros_like(lam), torch.zeros_like(v)]
+                continue
+            dav = op.tangent_matvec(v, dparams)
+            dlam = hdot(v, dav)
+            dv = solve_deflated(op, lam, v, -(dav - dlam * v),
+                                definite_sign=sign, tol=opts.tol,
+                                maxiter=opts.maxiter, device=op.device)
+            tangents += [dlam, dv]
+        return (*tangents, *(None,) * ctx.n_info)
 
     @staticmethod
-    def backward(ctx, lam_bar, v_bar):
+    def backward(ctx, *bars):
         op, opts = ctx.op, ctx.opts
-        lam, v = ctx.saved_tensors
-        sign = 1.0 if opts.extreme == "min" else -1.0
-        b = -(v_bar - v * hdot(v, v_bar))                # -(I - v v^T) v̄
-        x = solve_deflated(op, lam, v, b, definite_sign=sign, tol=opts.tol,
-                           maxiter=opts.maxiter, device=op.device)
-        u = lam_bar * v + x
-        # u^T (dA/dθ) v: differentiate one matvec A(θ) v with output
-        # cotangent u.
-        grads = _parameter_grads(op, op.matvec, v, u,
-                                 ctx.needs_input_grad[4:])
-        return (None, None, None, None, *grads)
-
-
-def _parameter_grads(op, apply, v, u, needs):
-    """``u^T (∂A/∂θ) v`` for every parameter θ of ``op`` that ``needs``
-    marks: ``autograd.grad`` of one ``apply(v)`` (a matvec, or a matmat
-    for a block) with output cotangent ``u``."""
-    params = op.parameters()
-    wanted = [i for i, need in enumerate(needs) if need]
-    grads = [None] * len(params)
-    if wanted:
-        with torch.enable_grad():
-            av = apply(v.detach())
-        got = torch.autograd.grad(av, [params[i] for i in wanted],
-                                  grad_outputs=u, allow_unused=True)
-        for i, g in zip(wanted, got):
-            grads[i] = g
-    return grads
+        pairs = ctx.saved_tensors
+        grads = [None] * len(op.parameters())
+        for sign, lam, v, lam_bar, v_bar in zip(
+                _signs(opts.extreme), pairs[::2], pairs[1::2], bars[0::2],
+                bars[1::2]):
+            if lam_bar is None and v_bar is None:
+                continue
+            # u = λ̄ v + x, x = solve_deflated(A, λ, v, -(I - v v^T) v̄);
+            # a pair whose v̄ never arrived needs no solve.
+            u = torch.zeros_like(v) if lam_bar is None else lam_bar * v
+            if v_bar is not None:
+                b = -(v_bar - v * hdot(v, v_bar))
+                u = u + solve_deflated(op, lam, v, b, definite_sign=sign,
+                                       tol=opts.tol, maxiter=opts.maxiter,
+                                       device=op.device)
+            # u^T (dA/dθ) v: differentiate one matvec A(θ) v with output
+            # cotangent u, v held constant (under create_graph v's own
+            # history stays in the graph: "recursive, so higher order").
+            got = partial_vjp(op, lambda held: held.matvec(v), [], u,
+                              ctx.needs_input_grad[5:])
+            grads = [g if h is None else h if g is None else g + h
+                     for g, h in zip(grads, got)]
+        return (None, None, None, None, None, *grads)
 
 
 def dominant_eigh(op, k: int = 128, *, extreme: str = "min",
                   tol: float = 1e-8, maxiter: int | None = None,
                   seed: int = 0, reorthogonalize: bool = True,
-                  reorth_passes: int = 2, v0: torch.Tensor | None = None,
+                  reorth_passes: int = 2, with_info: bool = False,
+                  v0: torch.Tensor | None = None,
                   generator: torch.Generator | None = None, device=None):
-    """Extremal eigenpair ``(λ, v)`` of a symmetric operator,
-    differentiable to first order in ``op.parameters()``: reverse mode
-    (``backward``) and forward mode (``torch.autograd.forward_ad`` dual
-    tensors among the parameters; see the module docstring).
+    """Extremal eigenpair(s) of a symmetric operator, differentiable to
+    any order in ``op.parameters()``: reverse mode (``backward``, and
+    ``torch.autograd.grad(..., create_graph=True)`` again and again) and
+    forward mode (``torch.autograd.forward_ad`` dual tensors among the
+    parameters; see the module docstring).
 
     op      : LinearOperator, or a dense symmetric tensor.
     k       : Lanczos steps (clamped to ``op.dim``).
-    extreme : "min" or "max".
+    extreme : "min", "max", or "both" (one Lanczos run, both pairs).
     tol     : relative residual tolerance of the deflated CG of the
               backward (or of the forward-mode tangent); ``maxiter``
               bounds its iterations (default 10 N).
     seed    : seeds the Lanczos start/restart generator when ``generator``
               is None; ``v0`` gives the start vector explicitly.
+    with_info : also return a :class:`~.lanczos.LanczosInfo` (effective
+              k, the true Ritz residual ``||A v - λ v|| / |λ|`` from one
+              extra matvec, a converged flag against ``tol``), with zero
+              tangents and no gradient; "min" or "max" only.
     device  : where the solve runs (CUDA when None); the operator must
               live there.
 
-    ``v`` is normalized and sign-gauged (largest-magnitude entry
-    positive).
+    Returns ``(λ, v)``, ``(λ, v, info)`` with ``with_info``, or
+    ``(λmin, vmin, λmax, vmax)`` for "both".  ``v`` is normalized and
+    sign-gauged (largest-magnitude entry positive).
     """
-    if extreme not in ("min", "max"):
-        raise ValueError(f"extreme must be min|max, got {extreme!r}")
+    if extreme not in ("min", "max", "both"):
+        raise ValueError(f"extreme must be min|max|both, got {extreme!r}")
+    if with_info and extreme == "both":
+        raise ValueError("with_info requires extreme='min' or 'max'")
     op = as_operator(op)
     dev = check_device(device, op)
     if generator is None:
@@ -177,7 +227,11 @@ def dominant_eigh(op, k: int = 128, *, extreme: str = "min",
                        maxiter=None if maxiter is None else int(maxiter),
                        reorthogonalize=bool(reorthogonalize),
                        reorth_passes=int(reorth_passes))
-    return _DominantEigh.apply(op, opts, v0, generator, *op.parameters())
+    out = _DominantEigh.apply(op, opts, v0, generator, bool(with_info),
+                              *op.parameters())
+    if with_info:
+        return out[0], out[1], LanczosInfo(*out[2:])
+    return out
 
 
 @dataclasses.dataclass(frozen=True)
@@ -234,6 +288,15 @@ def _multi_forward_info(op, opts, v0, generator):
         residual=resid, converged=(resid <= ref_tol).to(v.dtype))
 
 
+def _gap_inverses(lams, opts):
+    """F[j, i] = g / (g² + gap_eps²), g = λ_i - λ_j, F[i, i] = 0: the
+    in-block rotations, finite on multiplets and exact for separated
+    pairs (differentiable in the saved λ)."""
+    gap = lams[None, :] - lams[:, None]
+    f = gap / (gap * gap + opts.gap_eps ** 2)
+    return f * (1.0 - torch.eye(opts.r, dtype=f.dtype, device=f.device))
+
+
 class _DominantEighMulti(torch.autograd.Function):
 
     @staticmethod
@@ -243,37 +306,62 @@ class _DominantEighMulti(torch.autograd.Function):
         else:
             lams, v = _multi_forward(op, opts, v0, generator)
             info = ()
-        ctx.op, ctx.opts = op, opts
+        ctx.op, ctx.opts, ctx.n_info = op, opts, len(info)
         ctx.save_for_backward(lams, v)
+        ctx.save_for_forward(lams, v)
         ctx.mark_non_differentiable(*info)
+        ctx.set_materialize_grads(False)
         return (lams, v, *info)
 
     @staticmethod
-    def jvp(ctx, *tangents):
-        raise NotImplementedError(
-            "forward mode of dominant_eigh_multi is not ported yet "
-            "(ROADMAP.md queue 1 item 1); use reverse mode")
+    def jvp(ctx, _op, _opts, _v0, _generator, _with_info, *dparams):
+        """The block IFT tangents (the JAX package's
+        ``_multi_pair_tangents``): with ``M = V^T dA V``,
+
+            dλ = diag(M),
+            dV = V (F ∘ M) + X,  X[:, i] = solve_deflated(A, λ_i, V,
+                                            -(dA V - V M)[:, i]),
+
+        one tangent product ``dA V`` (on a ``BellOperator`` one SpMM on
+        the tangent values) and one batched deflated solve.  For real
+        dtypes the pivot gauge needs no correction.  The info fields get
+        zero tangents (None, as in :class:`_DominantEigh`)."""
+        op, opts = ctx.op, ctx.opts
+        lams, v = ctx.saved_tensors
+        info = (None,) * ctx.n_info
+        if all(t is None for t in dparams):
+            return (torch.zeros_like(lams), torch.zeros_like(v), *info)
+        dav = op.tangent_matmat(v, dparams)
+        m = hmatmul(v.T, dav)
+        dlams = torch.diagonal(m).clone()
+        sign = 1.0 if opts.extreme == "min" else -1.0
+        dv_out = solve_deflated(op, lams, v, -(dav - hmatmul(v, m)),
+                                definite_sign=sign, tol=opts.tol,
+                                maxiter=opts.maxiter, device=op.device)
+        return (dlams, hmatmul(v, _gap_inverses(lams, opts) * m) + dv_out,
+                *info)
 
     @staticmethod
     def backward(ctx, lams_bar, v_bar, *info_bar):
         op, opts = ctx.op, ctx.opts
         lams, v = ctx.saved_tensors
-        # In-block rotations: F[j, i] = g / (g² + gap_eps²), g = λ_i - λ_j,
-        # finite on multiplets and exact for separated pairs.
-        gap = lams[None, :] - lams[:, None]
-        f = gap / (gap * gap + opts.gap_eps ** 2)
-        f = f * (1.0 - torch.eye(opts.r, dtype=f.dtype, device=f.device))
-        g = torch.diag(lams_bar) + f * hmatmul(v.T, v_bar)
-        # Out-of-block part: one deflated solve per pair on span(V)⊥,
-        # batched over the r columns.
-        sign = 1.0 if opts.extreme == "min" else -1.0
-        x = solve_deflated(op, lams, v, -(v_bar - hmatmul(v, hmatmul(v.T,
-                                                                     v_bar))),
-                           definite_sign=sign, tol=opts.tol,
-                           maxiter=opts.maxiter, device=op.device)
-        u = hmatmul(v, g) + x
-        grads = _parameter_grads(op, op.matmat, v, u,
-                                 ctx.needs_input_grad[5:])
+        if lams_bar is None and v_bar is None:
+            return (None,) * (5 + len(op.parameters()))
+        g = (torch.zeros((opts.r, opts.r), dtype=v.dtype, device=v.device)
+             if lams_bar is None else torch.diag(lams_bar))
+        u = hmatmul(v, g)
+        if v_bar is not None:
+            u = u + hmatmul(v, _gap_inverses(lams, opts)
+                            * hmatmul(v.T, v_bar))
+            # Out-of-block part: one deflated solve per pair on span(V)⊥,
+            # batched over the r columns.
+            sign = 1.0 if opts.extreme == "min" else -1.0
+            u = u + solve_deflated(
+                op, lams, v, -(v_bar - hmatmul(v, hmatmul(v.T, v_bar))),
+                definite_sign=sign, tol=opts.tol, maxiter=opts.maxiter,
+                device=op.device)
+        grads = partial_vjp(op, lambda held: held.matmat(v), [], u,
+                            ctx.needs_input_grad[5:])
         return (None, None, None, None, None, *grads)
 
 
@@ -288,7 +376,8 @@ def dominant_eigh_multi(op, r: int = 4, k: int = 128, *,
                         generator: torch.Generator | None = None,
                         device=None):
     """Top-r extremal eigenpairs of a symmetric operator, differentiable
-    (first order, reverse mode) in ``op.parameters()``.
+    to any order in ``op.parameters()``: reverse mode (again under
+    ``create_graph``) and forward mode (``torch.autograd.forward_ad``).
 
     method  : "lanczos" (one k-step sweep; ``k`` clamped to ``op.dim``,
               start vector ``v0`` (N,)) or "lobpcg" (up to ``k``
@@ -296,16 +385,17 @@ def dominant_eigh_multi(op, r: int = 4, k: int = 128, *,
               ``x0`` (N, r)); both drawn from ``generator`` (seeded
               ``seed`` on the device when None) if not given.
     extreme : "min" (ascending) or "max" (descending).
-    tol     : the LOBPCG residual target and the backward's CG tolerance;
-              ``maxiter`` bounds the CG's iterations (default 10 N).
+    tol     : the LOBPCG residual target and the tolerance of the
+              backward's (or the forward-mode tangent's) CG; ``maxiter``
+              bounds the CG's iterations (default 10 N).
     gap_eps : broadening of the in-block gap inverses.
     precond : not ported yet (raises NotImplementedError).
     device  : where the solve runs (CUDA when None).
 
     Returns ``(lams, V)``, lams (r,) and V (N, r) orthonormal and
     sign-gauged; with ``with_info``, ``(lams, V, info)`` where ``info`` is
-    a :class:`~.lanczos.LanczosInfo` (non-differentiable) whose residual
-    is the max-over-block ``||A v - lam v|| / max(|lam|, 1)``.
+    a :class:`~.lanczos.LanczosInfo` (zero tangents, no gradient) whose
+    residual is the max-over-block ``||A v - lam v|| / max(|lam|, 1)``.
     """
     if extreme not in ("min", "max"):
         raise ValueError(f"extreme must be min|max, got {extreme!r}")

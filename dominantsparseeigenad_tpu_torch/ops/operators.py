@@ -7,9 +7,12 @@ the tensors that ``torch.autograd.grad`` differentiates the IFT rule of
 ``eigh.py`` into.
 
 Every operator implements ``matvec``, ``rmatvec``, ``dim``, ``dtype`` and
-``device``; ``matmat``/``rmatmat`` default to a loop over columns, and
-``tangent_matvec`` is the operator's tangent product ``(dA) x`` that
-forward mode of ``dominant_eigh`` needs.  The operator algebra of the JAX
+``device``; ``matmat``/``rmatmat`` default to a loop over columns.
+``tangent_matvec`` and ``tangent_matmat`` are the operator's tangent
+products ``(dA) x`` and ``(dA) X`` that forward mode of the eigensolvers
+needs, and ``with_parameters`` rebuilds the operator on other tensors,
+which :func:`partial_vjp` (the derivative rules' ``u^T (∂A/∂θ) w``)
+differentiates into.  The operator algebra of the JAX
 module (sums, scalings, shifts, compositions, transposed views) is not
 ported yet.
 
@@ -27,6 +30,7 @@ three decimal digits.  This module turns TF32 off for matrix products and
 
 from __future__ import annotations
 
+import copy
 from typing import Any, Callable
 
 import torch
@@ -103,6 +107,40 @@ def tol_floor(tol: float, dtype) -> float:
     """Clamp a relative tolerance to 50 eps of ``dtype``, what a
     residual-stopped loop can reach (~6e-6 in f32, ~1.1e-14 in f64)."""
     return max(float(tol), 50.0 * float(torch.finfo(dtype).eps))
+
+
+def partial_vjp(op, apply, tensors, cot, needs) -> list:
+    """The partial derivatives of ``<cot, apply(op, *tensors)>`` in
+    ``tensors`` and then ``op.parameters()``, for those that ``needs``
+    marks (None for the others and for an unused one).
+
+    Each differentiated tensor enters ``apply`` as a variable of its own,
+    a view of it, on an operator rebuilt by ``op.with_parameters``: a
+    path through the history of something ``apply`` closes over (an
+    eigenvector, an earlier solve's output, itself a function of the
+    same parameters) is held constant, as a partial derivative must.
+    The derivative rules call this from a backward; when that backward
+    runs under ``create_graph`` (grad mode on), the result is built with
+    a graph and differentiates again, through those closed-over tensors'
+    histories too."""
+    create = torch.is_grad_enabled()
+    leaves = [*tensors, *op.parameters()]
+    wanted = [i for i, need in enumerate(needs) if need]
+    out = [None] * len(leaves)
+    if not wanted:
+        return out
+    with torch.enable_grad():
+        proxies = list(leaves)
+        for i in wanted:
+            proxies[i] = leaves[i].view_as(leaves[i])
+        held = op.with_parameters(proxies[len(tensors):])
+        y = apply(held, *proxies[:len(tensors)])
+    got = torch.autograd.grad(y, [proxies[i] for i in wanted],
+                              grad_outputs=cot, allow_unused=True,
+                              create_graph=create)
+    for i, g in zip(wanted, got):
+        out[i] = g
+    return out
 
 
 def _tensors_of(params) -> list:
@@ -211,8 +249,16 @@ class DenseOperator(LinearOperator):
         (da,) = dparams
         return hmatmul(da, x)
 
+    def tangent_matmat(self, X, dparams):
+        (da,) = dparams
+        return hmatmul(da, X)
+
     def parameters(self):
         return [self.a]
+
+    def with_parameters(self, tensors):
+        (a,) = tensors
+        return DenseOperator(a)
 
     @property
     def dim(self):
@@ -272,12 +318,25 @@ class MatrixFreeOperator(LinearOperator):
     def parameters(self):
         return _tensors_of(self.params)
 
+    def with_parameters(self, tensors):
+        op = copy.copy(self)
+        op.params = _rebuild(self.params, tensors)
+        return op
+
     def tangent_matvec(self, x, dparams):
         """``(dA) x``, the JVP of ``matvec_fn`` in its parameters along
         ``dparams``.  Taken by ``torch.autograd.functional.jvp`` (a
         reverse product differentiated in its cotangent), not by forward
         AD: forward AD is off inside a custom Function's ``jvp``, where
         this is called, and dual levels do not nest."""
+        return self._tangent(lambda op, z: op.matvec(z), x, dparams)
+
+    def tangent_matmat(self, X, dparams):
+        """``(dA) X`` for an (N, m) block: one JVP of the whole
+        :meth:`matmat` (see :meth:`tangent_matvec`)."""
+        return self._tangent(lambda op, z: op.matmat(z), X, dparams)
+
+    def _tangent(self, product, x, dparams):
         prims = [p.detach() for p in self.parameters()]
         moving = [i for i, t in enumerate(dparams) if t is not None]
         if not moving:
@@ -288,7 +347,7 @@ class MatrixFreeOperator(LinearOperator):
             full = list(prims)
             for i, t in zip(moving, ts):
                 full[i] = t
-            return self.matvec_fn(_rebuild(self.params, full), x)
+            return product(self.with_parameters(full), x)
 
         _, dy = torch.autograd.functional.jvp(
             apply, tuple(prims[i] for i in moving),

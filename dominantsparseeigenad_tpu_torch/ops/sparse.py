@@ -141,6 +141,11 @@ class BellOperator(LinearOperator):
         return _BellProduct.apply(dvals.contiguous(), self.cols, x,
                                   self.slot_plan)
 
+    def tangent_matmat(self, X, dparams):
+        """``(dA) X = A(dvals) X``: one SpMM on the tangent values (on a
+        CUDA tensor the kernel, banded under the plan)."""
+        return self.tangent_matvec(X, dparams)
+
     def rmatmat(self, X):
         if self.symmetric:
             return self.matmat(X)
@@ -149,6 +154,10 @@ class BellOperator(LinearOperator):
 
     def parameters(self):
         return [self.vals]
+
+    def with_parameters(self, tensors):
+        (vals,) = tensors
+        return self.with_vals(vals)
 
     def to_dense(self):
         """Dense (N, N) matrix in the compute dtype (test helper)."""

@@ -17,6 +17,10 @@ steps carry that layout (``sg`` is a :class:`~.mesh.ShardGroup`):
 * :func:`sum_over_ranks` (``all_reduce`` forward, identity backward):
   the transpose product's partial sums.
 
+Their backwards are first order: under ``create_graph`` they raise
+NotImplementedError (second order through the sharded operators is
+``ROADMAP.md`` queue 1 item 14).
+
 Host staging on gloo.  Gloo takes CUDA tensors in few collectives (not
 in ``all_gather``), so on a group whose backend is gloo every collective
 here copies a CUDA tensor to host memory, runs there, and copies the
@@ -57,6 +61,17 @@ def all_reduce_sum(t: torch.Tensor, sg) -> torch.Tensor:
     return buf.to(t.device) if staged else buf
 
 
+def _first_order_only():
+    """Refuse a backward that records a graph (``create_graph``): second
+    order through the sharded operators would run collectives in a
+    double backward whose lockstep across the ranks nothing checks."""
+    if torch.is_grad_enabled():
+        raise NotImplementedError(
+            "second-order derivatives through the row-sharded operators "
+            "are not ported yet (ROADMAP.md queue 1 item 14); use "
+            "create_graph=False")
+
+
 class _Replicate(torch.autograd.Function):
 
     @staticmethod
@@ -66,6 +81,7 @@ class _Replicate(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        _first_order_only()
         return all_reduce_sum(g, ctx.sg), None
 
 
@@ -78,6 +94,7 @@ class _GatherRows(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        _first_order_only()
         return g.narrow(0, ctx.rank * ctx.rows, ctx.rows), None
 
 
@@ -89,6 +106,7 @@ class _SumOverRanks(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        _first_order_only()
         return g, None
 
 

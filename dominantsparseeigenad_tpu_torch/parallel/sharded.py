@@ -15,6 +15,8 @@ Not ported yet (``ROADMAP.md``): ``mode="ring"``,
 
 from __future__ import annotations
 
+import copy
+
 from ..ops.operators import LinearOperator, hmatmul
 from .collectives import gather_rows, replicate, sum_over_ranks
 from .mesh import make_mesh
@@ -67,6 +69,17 @@ class RowShardedOperator(LinearOperator):
 
     def parameters(self):
         return [self.a]
+
+    def with_parameters(self, tensors):
+        """The same sharding with this rank's rows replaced by the one
+        tensor of ``tensors`` (same shape)."""
+        (a,) = tensors
+        if tuple(a.shape) != tuple(self.a.shape):
+            raise ValueError(f"rows must be {tuple(self.a.shape)}, got "
+                             f"{tuple(a.shape)}")
+        op = copy.copy(self)
+        op.a = a
+        return op
 
     @property
     def dim(self):

@@ -175,6 +175,10 @@ class RowShardedBellOperator(LinearOperator):
     def parameters(self):
         return [self.vals]
 
+    def with_parameters(self, tensors):
+        (vals,) = tensors
+        return self.with_vals(vals)
+
     @property
     def dim(self):
         return self.n

@@ -164,6 +164,11 @@ def test_gradient_is_not_accumulated_for_unused_inputs():
 
 
 def test_rejects_bad_extreme():
+    # "both" is supported since the second-order slice; an unknown name,
+    # and "both" with with_info (as in JAX), are refused.
     with pytest.raises(ValueError):
         port.dominant_eigh(torch.eye(4, dtype=torch.float64), k=4,
-                           extreme="both", device="cpu")
+                           extreme="middle", device="cpu")
+    with pytest.raises(ValueError):
+        port.dominant_eigh(torch.eye(4, dtype=torch.float64), k=4,
+                           extreme="both", with_info=True, device="cpu")

@@ -208,14 +208,6 @@ def test_bare_product_jvp_matches_jax(r, banded):
     assert np.abs(dy.numpy() - dy_j).max() <= 1e-12 * np.abs(dy_j).max()
 
 
-def test_dominant_eigh_multi_forward_mode_is_refused():
-    a, da, _ = _inputs("dense")
-    with fwAD.dual_level():
-        dual = fwAD.make_dual(torch.from_numpy(a), torch.from_numpy(da))
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            port.dominant_eigh_multi(dual, r=2, k=20, device="cpu")
-
-
 def test_no_tangent_gives_zero_tangents():
     """A dual start vector alone moves nothing: the eigenpair does not
     depend on where Lanczos starts."""
