@@ -98,6 +98,23 @@ line each:
    Σλ_i + ΣV⁴ along dvals at the small shape (n = 4096, bs = 32, r = 3,
    three spiked eigenvalues), kernel against plain banded SpMM.
 
+10. ``ising2d``: BASELINE config #4, the 2D classical Ising model at
+   β = 0.5 (``benchmarks/ising2d_bench.py:32-35``) against Onsager's
+   ln Z, u = -d lnZ/dβ and c_v = β² d² lnZ/dβ² (the port's quadrature on
+   the card, held against the JAX package's chip-test constants).  (a)
+   TRG, chi = 30, 20 steps, float64, the gram split: forward, first
+   backward (``create_graph``) and second backward timed apart, then
+   ``ising_observables`` whole; one 900 x 900 float64 ``eigh_safe``
+   timed.  (b) the same in float32 with the subspace split.  (c) the
+   lanczos split (``dominant_svd``, the block IFT rule; its CG capped at
+   1000 iterations), float64: ln Z and u against (a), every solve of the
+   backward recorded; u is read only if every solve converged.  (d) CTMRG, chi = 30, 30 steps,
+   float64, with the truncated and the lanczos corner solvers
+   (``dominant_eigh_multi`` on the 60 x 60 corner): ln Z, u, c_v and
+   their agreement.  Bars: ~8x the JAX package's own CPU errors
+   (``tools/jax_ising2d_errors.py``).  This path launches no
+   hand-written kernel (checked: the launch counts stay 0).
+
 Then a ``kernels`` line, the ``nvidia-smi`` name and power-limit line, and
 as the last line ``{"ok": true, "device": {...}}``.  Any failed check
 raises, so the exit code is not 0.  Without a CUDA device it exits with
@@ -162,6 +179,43 @@ SO_TFIM_RTOL = {"e0": 6e-6, "de0_dg": 4e-5, "d2e0_dg2": 5e-4}
 SO_G = 0.5
 SO_SMALL_R = 3
 SO_SPIKES = (4.0, 8.0, 12.0)
+# The ising2d phase (BASELINE config #4) at the bench's point, β = 0.5,
+# TRG chi = 30 and 20 steps (benchmarks/ising2d_bench.py:32-35), CTMRG
+# chi = 30 and 30 steps.  Onsager's ln Z, u and c_v there (the JAX
+# package's chip-test constants, tests/test_tpu.py:194-196).  The bars are
+# ~8x the JAX package's own errors at the same settings on a CPU
+# (tools/jax_ising2d_errors.py): TRG gram 6.1e-7 / 8.5e-7 / 1.2e-4, CTMRG
+# (either solver) 5.6e-8 / 6.6e-6 / 8.0e-4; in float32 the JAX package's
+# u is off 1.3e-3 and its c_v is not finite-valued in any useful sense
+# (7e11 relative), so the float32 bars are capped at its own float32
+# chip-test bars (1e-3 / 1e-3 / 1e-2, tests/test_tpu.py:172-174).  The
+# agreement bars are ~8x JAX's lanczos-against-gram (5.3e-14, 4.5e-12)
+# and lanczos-against-truncated differences (0, 2.0e-15, 2.9e-14); the
+# latter floored at 1e-12 (c_v 1e-11), float64 round-off carried through
+# 30 steps and two derivatives (the port's CPU run at chi = 8: c_v 4.5e-13).
+ISING_BETA = 0.5
+ISING_TRG = (30, 20)                    # chi, n_steps
+ISING_CTMRG = (30, 30)
+ISING_KEYS = ("lnz", "u", "cv")
+ISING_ONSAGER = (1.0257928127, -1.7455645753, 0.7248714486)
+ISING_RTOL = {
+    "trg_gram": {"lnz": 5e-6, "u": 7e-6, "cv": 1e-3},
+    "trg_subspace_f32": {"lnz": 4e-6, "u": 1e-3, "cv": 1e-2},
+    "ctmrg_truncated": {"lnz": 5e-7, "u": 5e-5, "cv": 6.4e-3},
+    "ctmrg_lanczos": {"lnz": 5e-7, "u": 5e-5, "cv": 6.4e-3},
+}
+ISING_AGREE = {
+    "trg_lanczos_vs_gram": {"lnz": 4.3e-13, "u": 3.6e-11},
+    "ctmrg_lanczos_vs_truncated": {"lnz": 1e-12, "u": 1e-12, "cv": 1e-11},
+}
+# The lanczos split's u is read only if every column of every backward
+# solve converged to this bar (the block CG's tolerance is 1e-8).  Its CG
+# is capped at 1000 iterations: the resolved columns converge in 10-50,
+# and the null columns of the early, rank-deficient splits (indefinite
+# shifted systems) ran to the default cap of 18000 in 44.5 s of a 63.7 s
+# phase on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md §6).
+ISING_RESIDUAL_BAR = 1e-6
+ISING_LANCZOS_MAXITER = 1000
 
 
 def emit(obj):
@@ -1511,17 +1565,18 @@ def second_order_tfim(pkg, spmv, models):
 
 @contextlib.contextmanager
 def recorded_solves():
-    """Record ``(rhs, x)`` of every differentiable deflated solve that
-    runs inside the block (the forward of ``ops/cg.py::_DeflatedSolve``,
-    wrapped for the duration)."""
+    """Record ``(rhs, x, op, sign, λ, V)`` of every differentiable
+    deflated solve that runs inside the block (the forward of
+    ``ops/cg.py::_DeflatedSolve``, wrapped for the duration)."""
     # The module, not the function of the same name that ops exports.
     cg = importlib.import_module("dominantsparseeigenad_tpu_torch.ops.cg")
     forward = cg._DeflatedSolve.forward
     records = []
 
-    def record(ctx, op, sign, tol, maxiter, rhs, *rest):
-        x = forward(ctx, op, sign, tol, maxiter, rhs, *rest)
-        records.append((rhs.detach().clone(), x.detach().clone()))
+    def record(ctx, op, sign, tol, maxiter, rhs, lam, V, *rest):
+        x = forward(ctx, op, sign, tol, maxiter, rhs, lam, V, *rest)
+        records.append((rhs.detach().clone(), x.detach().clone(), op, sign,
+                        lam.detach(), V.detach()))
         return x
 
     cg._DeflatedSolve.forward = staticmethod(record)
@@ -1578,7 +1633,7 @@ def second_order_config5(pkg, spmv):
         # (no graph, the same iterations: the same x); and d2 = <P x, A1 v>,
         # the rule's product.  Exact identities, whether the capped CG
         # converged or not.
-        (rhs, x), = solves
+        (rhs, x, *_), = solves
         rhs_rule = -2.0 * (a1v - d1_rule * v)
         rhs_rule = rhs_rule - v * torch.dot(v, rhs_rule)
         rhs_err = rel_err(rhs, rhs_rule)
@@ -1787,6 +1842,208 @@ def phase_second_order(pkg, spmv):
     return {k: c5_counts[k] + block_counts[k] for k in c5_counts}
 
 
+def ising_split(fn, dtype, beta=None, **kw):
+    """``(ln Z, u, c_v)`` of the flow ``fn`` (``trg_free_energy`` or
+    ``ctmrg_free_energy``) at ``beta`` (ISING_BETA when None), the three
+    steps of ``value_d1_d2`` timed apart: the forward, the first backward
+    (``create_graph``) and the second.  Returns the values, the times in
+    s and the peak device memory in GiB."""
+    b = torch.tensor(ISING_BETA if beta is None else beta, dtype=dtype,
+                     device=DEVICE, requires_grad=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+
+    def step(f):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = f()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        return out
+
+    lnz = step(lambda: fn(b, dtype=dtype, device=DEVICE, **kw))
+    (d1,) = step(lambda: torch.autograd.grad(lnz, b, create_graph=True))
+    (d2,) = step(lambda: torch.autograd.grad(d1, b))
+    vals = (float(lnz.detach()), -float(d1.detach()),
+            float((b * b * d2).detach()))
+    return vals, times, torch.cuda.max_memory_allocated() / 2**30
+
+
+def ising_errors(vals, exact):
+    return {k: abs(a - e) / abs(e) for k, a, e in zip(ISING_KEYS, vals,
+                                                     exact)}
+
+
+def ising_lanczos_split(models, cg):
+    """Part (c): TRG with the lanczos split (``dominant_svd``, the block
+    IFT rule) at chi = 30, float64: ln Z and one backward for u, every
+    deflated solve of the backward recorded.  Returns the values, the
+    times and the solves' report."""
+    chi, n_steps = ISING_TRG
+    b = torch.tensor(ISING_BETA, dtype=torch.float64, device=DEVICE,
+                     requires_grad=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lnz = models.trg_free_energy(b, chi=chi, n_steps=n_steps,
+                                 split_method="lanczos",
+                                 lanczos_maxiter=ISING_LANCZOS_MAXITER,
+                                 device=DEVICE)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    with recorded_solves() as solves:
+        (d1,) = torch.autograd.grad(lnz, b)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    # Each solve's relative residual per column on its own deflated
+    # system.  A column whose shift (its singular value) is below 1e-8 of
+    # the top one is a null column of a rank-deficient split: no singular
+    # triplet (ops/svd.py), and its shifted system is indefinite.
+    resolved, null, n_null_cols = 0.0, 0.0, 0
+    with torch.no_grad():
+        for rhs, x, op, sign, lam, V in solves:
+            mv = cg._deflated_mv(op, lam, V, sign, True)
+            prhs = cg._project_out(V, rhs)
+            res = (torch.linalg.vector_norm(prhs - mv(x), dim=0)
+                   / torch.linalg.vector_norm(prhs, dim=0).clamp_min(
+                       torch.finfo(rhs.dtype).tiny))
+            is_null = lam.abs() <= 1e-8 * lam.abs().max()
+            n_null_cols += int(is_null.sum())
+            if bool((~is_null).any()):
+                resolved = max(resolved, float(res[~is_null].max()))
+            if bool(is_null.any()):
+                null = max(null, float(res[is_null].max()))
+    report = {"solves": len(solves), "null_columns": n_null_cols,
+              "resolved_columns_max_rel_residual": resolved,
+              "null_columns_max_rel_residual": null}
+    return ((float(lnz.detach()), -float(d1)), [t1 - t0, t2 - t1],
+            report)
+
+
+def phase_ising2d(pkg, spmv):
+    """BASELINE config #4 (see the module docstring, phase 10)."""
+    from dominantsparseeigenad_tpu_torch import models
+    cg = importlib.import_module("dominantsparseeigenad_tpu_torch.ops.cg")
+    t_phase = time.perf_counter()
+    spmv.reset_launch_counts()
+    chi, n_steps = ISING_TRG
+    ctm_chi, ctm_steps = ISING_CTMRG
+    f64, f32 = torch.float64, torch.float32
+    # Onsager's values on the card (the port's quadrature, float64),
+    # against the JAX package's chip-test constants.
+    exact = tuple(float(t) for t in pkg.value_d1_d2(
+        lambda x: models.onsager_free_energy(x, n_quad=256, device=DEVICE),
+        ISING_BETA, device=DEVICE))
+    exact = (exact[0], -exact[1], ISING_BETA ** 2 * exact[2])
+    # Warm-up: the same calls at a small chi (library handles, first
+    # launches).
+    for dtype in (f64, f32):
+        ising_split(models.trg_free_energy, dtype, chi=8, n_steps=4)
+    ising_split(models.ctmrg_free_energy, f64, chi=4, n_steps=3,
+                eigh_solver="lanczos")
+    out, checks = {"exact": dict(zip(ISING_KEYS, exact))}, {}
+    checks["Onsager on the card vs the JAX chip-test constants, rel 1e-9"] = \
+        all(e <= 1e-9 for e in ising_errors(exact, ISING_ONSAGER).values())
+    # (a) TRG, float64, the gram split; the API call after the split.
+    vals, times, peak = ising_split(models.trg_free_energy, f64, chi=chi,
+                                    n_steps=n_steps, split_method="gram")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    api = [float(t) for t in models.ising_observables(
+        ISING_BETA, method="trg", chi=chi, n_steps=n_steps, device=DEVICE)]
+    torch.cuda.synchronize()
+    t_api = time.perf_counter() - t0
+    gen = torch.Generator(device=DEVICE).manual_seed(21)
+    a = torch.randn((chi * chi, chi * chi), dtype=f64, device=DEVICE,
+                    generator=gen)
+    eigh_ms = event_ms(lambda: pkg.eigh_safe(a, device=DEVICE), samples=5)
+    out["trg_gram"] = {
+        "chi": chi, "n_steps": n_steps, "dtype": "float64",
+        "values": dict(zip(ISING_KEYS, vals)),
+        "rel_err": ising_errors(vals, exact),
+        "rtol": ISING_RTOL["trg_gram"], "forward_s": times[0],
+        "backward1_s": times[1], "backward2_s": times[2],
+        "peak_mem_gib": peak, "ising_observables_s": t_api,
+        "ising_observables_vs_split_rel": max(
+            abs(x - y) / abs(y) for x, y in zip(api, vals)),
+        "eigh_safe_900_f64_ms": eigh_ms}
+    gram = vals
+    # (b) TRG, float32, the subspace split ("auto" in float32).
+    vals, times, peak = ising_split(models.trg_free_energy, f32, chi=chi,
+                                    n_steps=n_steps, split_method="auto")
+    out["trg_subspace_f32"] = {
+        "chi": chi, "n_steps": n_steps, "dtype": "float32",
+        "values": dict(zip(ISING_KEYS, vals)),
+        "rel_err": ising_errors(vals, exact),
+        "rtol": ISING_RTOL["trg_subspace_f32"], "forward_s": times[0],
+        "backward1_s": times[1], "backward2_s": times[2],
+        "peak_mem_gib": peak}
+    # (c) TRG, float64, the lanczos split: ln Z and u against (a).
+    (lnz, u), times, report = ising_lanczos_split(models, cg)
+    u_determined = max(report["resolved_columns_max_rel_residual"],
+                       report["null_columns_max_rel_residual"]) \
+        <= ISING_RESIDUAL_BAR
+    diff = {"lnz": abs(lnz - gram[0]) / abs(gram[0]),
+            "u": abs(u - gram[1]) / abs(gram[1])}
+    out["trg_lanczos"] = {
+        "chi": chi, "n_steps": n_steps, "dtype": "float64",
+        "cg_maxiter": ISING_LANCZOS_MAXITER,
+        "values": {"lnz": lnz, "u": u}, "rel_diff_vs_gram": diff,
+        "rtol_vs_gram": ISING_AGREE["trg_lanczos_vs_gram"],
+        "forward_s": times[0], "backward_s": times[1],
+        "residual_bar": ISING_RESIDUAL_BAR, "u_determined": u_determined,
+        **report}
+    # (d) CTMRG, float64, both corner solvers.
+    ctm = {}
+    for solver in ("truncated", "lanczos"):
+        vals, times, peak = ising_split(
+            models.ctmrg_free_energy, f64, chi=ctm_chi, n_steps=ctm_steps,
+            eigh_solver=solver)
+        ctm[solver] = vals
+        out[f"ctmrg_{solver}"] = {
+            "chi": ctm_chi, "n_steps": ctm_steps, "dtype": "float64",
+            "values": dict(zip(ISING_KEYS, vals)),
+            "rel_err": ising_errors(vals, exact),
+            "rtol": ISING_RTOL[f"ctmrg_{solver}"], "forward_s": times[0],
+            "backward1_s": times[1], "backward2_s": times[2],
+            "peak_mem_gib": peak}
+    agree = ising_errors(ctm["lanczos"], ctm["truncated"])
+    out["ctmrg_lanczos_vs_truncated"] = {
+        "rel_diff": agree, "rtol": ISING_AGREE["ctmrg_lanczos_vs_truncated"]}
+    launched = sum(spmv.launch_counts.values()) + sum(
+        spmv.panel_launch_counts.values())
+    out["hand_written_kernel_launches"] = launched
+    out["note"] = ("config #4 runs no hand-written kernel: dense eigh, "
+                   "svd, qr and einsum only")
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit({"phase": "ising2d", "beta": ISING_BETA, **out})
+    for part in ("trg_gram", "trg_subspace_f32", "ctmrg_truncated",
+                 "ctmrg_lanczos"):
+        errs, rtol = out[part]["rel_err"], ISING_RTOL[part]
+        for key in ISING_KEYS:
+            checks[f"{part} {key} vs Onsager, rel {rtol[key]}"] = \
+                errs[key] <= rtol[key]
+        checks[f"{part} values finite"] = all(
+            math.isfinite(t) for t in out[part]["values"].values())
+    checks["ising_observables vs the timed split, rel 1e-10"] = \
+        out["trg_gram"]["ising_observables_vs_split_rel"] <= 1e-10
+    bars = ISING_AGREE["trg_lanczos_vs_gram"]
+    checks[f"trg lanczos lnz vs gram, rel {bars['lnz']}"] = \
+        diff["lnz"] <= bars["lnz"]
+    if u_determined:
+        checks[f"trg lanczos u vs gram, rel {bars['u']}"] = \
+            diff["u"] <= bars["u"]
+    checks["trg lanczos values finite"] = all(
+        math.isfinite(t) for t in (lnz, u))
+    for key, bar in ISING_AGREE["ctmrg_lanczos_vs_truncated"].items():
+        checks[f"ctmrg lanczos vs truncated {key}, rel {bar}"] = \
+            agree[key] <= bar
+    checks["no hand-written kernel launched"] = launched == 0
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"ising2d phase failed: {failed}")
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this script runs on the card")
@@ -1821,6 +2078,7 @@ def main():
             raise AssertionError(f"{name} never launched on the "
                                  f"second_order path")
     counts = {k: counts[k] + so_counts[k] for k in counts}
+    phase_ising2d(pkg, spmv)
 
     csrc = "dominantsparseeigenad_tpu_torch/csrc/"
     # The Pallas kernel body, and the SpMM entry that runs it on (N, r).

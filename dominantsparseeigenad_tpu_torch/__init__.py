@@ -18,7 +18,13 @@ operator whose slots are ring bands (config #5's all are) binds the
 banded slot plan, and its products run the kernels' banded mode (K4b).
 ``energy_curvature`` gives an eigenvalue's first and second derivative
 in a coupling, and ``models/`` holds the matrix-free TFIM flagship with
-its Jordan-Wigner and ED oracles.  The row-sharded tier is first order.
+its Jordan-Wigner and ED oracles and the 2D classical Ising model
+(BASELINE config #4): TRG and CTMRG free energies, energy and specific
+heat differentiated through the renormalization flow, by the
+degeneracy-safe decompositions ``eigh_safe``, ``eigh_safe_truncated``,
+``svd_safe`` and ``svd_safe_truncated`` or by the block solver
+(``dominant_svd`` on the symmetric embedding, ``dominant_eigh_multi``),
+against Onsager's solution.  The row-sharded tier is first order.
 
 Entry points run on CUDA unless called with ``device="cpu"``; without a
 card they raise rather than fall back.

@@ -2,6 +2,8 @@
 
 from .bell_spmv import bell_spmm, bell_spmv, detect_slot_plan
 from .cg import cg, solve_deflated, solve_deflated_info
+from .decomp import (eigh_safe, eigh_safe_truncated, svd_safe,
+                     svd_safe_truncated)
 from .eigh import dominant_eigh, dominant_eigh_multi
 from .lanczos import LanczosInfo, LanczosResult, lanczos, lanczos_eigh
 from .lobpcg import LobpcgInfo, lobpcg_eigh
@@ -11,14 +13,17 @@ from .operators import (DenseOperator, LinearOperator, MatrixFreeOperator,
                         as_operator, hdot, hmatmul, pivot_gauge,
                         resolve_device, tol_floor)
 from .sparse import BellOperator, random_bell_operator
+from .svd import dominant_svd
 
 __all__ = [
     "BellOperator", "DenseOperator", "LanczosInfo", "LanczosResult",
     "LinearOperator", "LobpcgInfo", "MatrixFreeOperator", "as_operator",
     "bell_spmm", "bell_spmv", "cg", "detect_slot_plan", "dominant_eigh",
-    "dominant_eigh_multi", "energy_curvature", "fidelity_susceptibility",
+    "dominant_eigh_multi", "dominant_svd", "eigh_safe",
+    "eigh_safe_truncated", "energy_curvature", "fidelity_susceptibility",
     "hdot", "hmatmul",
     "lanczos", "lanczos_eigh", "lobpcg_eigh",
     "pivot_gauge", "random_bell_operator", "resolve_device",
-    "solve_deflated", "solve_deflated_info", "tol_floor", "value_d1_d2",
+    "solve_deflated", "solve_deflated_info", "svd_safe",
+    "svd_safe_truncated", "tol_floor", "value_d1_d2",
 ]

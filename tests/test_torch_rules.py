@@ -92,6 +92,25 @@ def test_import_scan_covers_the_tfim_and_observables_modules():
     assert out.returncode == 0, out.stderr
 
 
+def test_import_scan_covers_the_ising2d_modules():
+    """The scan below reads ``ops/decomp.py``, ``ops/svd.py`` and
+    ``models/ising2d.py``, and the import check imports them with JAX
+    blocked."""
+    names = {p.relative_to(PKG).as_posix() for p in _sources()
+             if p.is_relative_to(PKG)}
+    assert {"ops/decomp.py", "ops/svd.py", "models/ising2d.py"} <= names
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['dominantsparseeigenad_tpu'] = None\n"
+        "import dominantsparseeigenad_tpu_torch.ops.decomp\n"
+        "import dominantsparseeigenad_tpu_torch.ops.svd\n"
+        "import dominantsparseeigenad_tpu_torch.models.ising2d\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+
+
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: p.name)
 def test_no_source_imports_the_jax_package(path):
     for no, line in enumerate(path.read_text().splitlines(), 1):
@@ -158,6 +177,26 @@ def _entry_points():
         "tfim fidelity_susceptibility":
             lambda: models.fidelity_susceptibility(4, 1.0),
         "tfim_ed_observables": lambda: models.tfim_ed_observables(4, 1.0),
+        "value_d1_d2": lambda: port.value_d1_d2(lambda x: x * x, 0.5),
+        "energy_curvature": lambda: port.energy_curvature(
+            lambda g: port.DenseOperator(a + g * a), 0.5, k=4),
+        "eigh_safe": lambda: port.eigh_safe(a),
+        "eigh_safe_truncated": lambda: port.eigh_safe_truncated(a, 2),
+        "svd_safe": lambda: port.svd_safe(a),
+        "svd_safe_truncated": lambda: port.svd_safe_truncated(a, 2),
+        "dominant_svd": lambda: port.dominant_svd(a, r=2, k=8),
+        "ising_vertex_tensor": lambda: models.ising_vertex_tensor(0.5),
+        "onsager_free_energy": lambda: models.onsager_free_energy(0.5),
+        "trg_free_energy": lambda: models.trg_free_energy(0.5, chi=4,
+                                                          n_steps=2),
+        "ctmrg_environment": lambda: models.ctmrg_environment(
+            0.5, chi=4, n_steps=2),
+        "ctmrg_free_energy": lambda: models.ctmrg_free_energy(
+            0.5, chi=4, n_steps=2),
+        "transfer_operator": lambda: models.transfer_operator(
+            torch.eye(2), torch.ones(2, 2, 2), torch.ones(2, 2, 2, 2)),
+        "ising_observables": lambda: models.ising_observables(
+            0.5, chi=4, n_steps=2),
     }
 
 
@@ -258,6 +297,25 @@ def _complex_calls():
                                                       device="cpu"),
         "solve_deflated complex b": lambda: port.solve_deflated(
             real, 0.0, e, v, device="cpu"),
+        "eigh_safe": lambda: port.eigh_safe(h, device="cpu"),
+        "eigh_safe_truncated": lambda: port.eigh_safe_truncated(
+            h, 2, device="cpu"),
+        "svd_safe": lambda: port.svd_safe(h, device="cpu"),
+        "svd_safe_truncated": lambda: port.svd_safe_truncated(
+            h, 2, device="cpu"),
+        "dominant_svd": lambda: port.dominant_svd(h, r=2, k=8, device="cpu"),
+        "dominant_svd rectangular": lambda: port.dominant_svd(
+            h[:, :8].contiguous(), r=2, k=8, device="cpu"),
+        "ising_vertex_tensor": lambda: models.ising_vertex_tensor(
+            0.5, dtype=torch.complex128, device="cpu"),
+        "onsager_free_energy": lambda: models.onsager_free_energy(
+            0.5, dtype=torch.complex128, device="cpu"),
+        "trg_free_energy": lambda: models.trg_free_energy(
+            0.5, chi=4, n_steps=2, dtype=torch.complex128, device="cpu"),
+        "ctmrg_free_energy": lambda: models.ctmrg_free_energy(
+            0.5, chi=4, n_steps=2, dtype=torch.complex128, device="cpu"),
+        "ising_observables": lambda: models.ising_observables(
+            0.5, chi=4, n_steps=2, dtype=torch.complex128, device="cpu"),
     }
 
 
