@@ -29,6 +29,15 @@ line each:
    same start vector, ∂λ/∂vals against v⊗v on the pattern, a dot-product
    test of the full gradient against the forward IFT tangent, the
    forward-mode dλ against ⟨dvals, ∂λ/∂vals⟩, the launches of each part).
+   In the same counted run: the forward again with the float32
+   basis and with the bfloat16 basis and ``reorth_chunks=4`` (the time and
+   the peak memory each adds; the bf16 Ritz value against the float32 λ,
+   the polished pair's λ and Ritz residual; the extra peak below the size
+   of a float32 basis: no float32 copy made), the gradient with
+   ``precond=jacobi_precond(op, shift=λ)`` (its CG's iterations, time and
+   dot-product identity beside the plain one's), and MINRES against CG
+   on one definite deflated system (shift λ - 1); then the block-Jacobi
+   build (4096 batched ``eigh``s of 128 x 128) and one apply, timed.
 4. ``spmm``: the blocked-ELL SpMM kernel against its plain version and
    against r chained SpMV launches, float32 and bfloat16 values, at
    config #5 with r = 8 and r = 4, and at small odd shapes (r = 8; r = 3
@@ -66,16 +75,24 @@ line each:
    solvers made, bf16 against f32).  Its times are those of two ranks
    sharing one card over gloo, not a multi-GPU number.
 8. ``tfim``: the paper's flagship at the bench's headline settings
-   (``bench.py:36-43``): the matrix-free TFIM at N = 20, g = 1.2, f32,
-   ``dominant_eigh`` with k = 60, one reorthogonalization pass, CG tol
-   1e-5 and at most 150 iterations, and one forward-mode pass giving E0,
-   dE0/dg and χ_F, against the Jordan-Wigner closed forms; the plain
-   forward's time per Lanczos step, the cost of its per-step host read
-   of β (the same steps' device work without the read, timed beside it),
-   the tangent's CG time and iterations; the same pass at N = 10 against
-   a dense ``torch.linalg.eigh`` (ED) in float64.
+   (``bench.py:36-43``, ``:87-91``): the matrix-free TFIM at N = 20,
+   g = 1.2, f32, ``dominant_eigh`` with k = 60, one reorthogonalization
+   pass, CG tol 1e-5 and at most 150 iterations, and one forward-mode
+   pass giving E0, dE0/dg and χ_F, against the Jordan-Wigner closed
+   forms: with the bench's bfloat16 basis and ``reorth_chunks=4``, and
+   with the float32 basis as its twin (each pass timed twice, with the
+   peak memory it adds); the plain forward's time, the Lanczos step in
+   restart mode "cond" (a host read of β per step) and "carry" (none),
+   with either basis; the tangent's CG time and iterations without and
+   with a Jacobi preconditioner on H's diagonal (the zz term); the same
+   pass at N = 10 against a dense ``torch.linalg.eigh`` (ED) in float64.
+9. ``sweep``: ``tfim_observables_sweep`` at the bench's sweep tier
+   (``bench.py:113-120``): N = 20, 8 couplings in [1.1, 1.45], k = 60,
+   the bfloat16 basis, 8 chunks, restart mode "carry"; each point's E0,
+   dE0/dg and χ_F against Jordan-Wigner at the ``tfim`` bars; the whole
+   time and the time per point, twice.
 
-9. ``second_order``: derivatives of the second order through the IFT
+10. ``second_order``: derivatives of the second order through the IFT
    rules, and forward mode of the block solver.  (a) ``energy_curvature``
    of the TFIM at N = 20, g = 1.2, f32, k = 60 (CG tol 1e-5, at most 150
    iterations): E0, dE0/dg and d²E0/dg² against the Jordan-Wigner closed
@@ -98,7 +115,7 @@ line each:
    Σλ_i + ΣV⁴ along dvals at the small shape (n = 4096, bs = 32, r = 3,
    three spiked eigenvalues), kernel against plain banded SpMM.
 
-10. ``ising2d``: BASELINE config #4, the 2D classical Ising model at
+11. ``ising2d``: BASELINE config #4, the 2D classical Ising model at
    β = 0.5 (``benchmarks/ising2d_bench.py:32-35``) against Onsager's
    ln Z, u = -d lnZ/dβ and c_v = β² d² lnZ/dβ² (the port's quadrature on
    the card, held against the JAX package's chip-test constants).  (a)
@@ -163,12 +180,23 @@ SHARDED_RANKS = 2                      # ranks sharing the one card
 SHARDED_CG_MAXITER = 1000
 SHARDED_TIMEOUT_S = 600                # a rank's whole run
 FWD_CG_MAXITER = 300                   # the forward-mode tangent's CG
+# The bf16 basis's polish held against a float64 Newton step from the same
+# Ritz pair: both CGs capped at this many iterations, where a float32 CG
+# on the step's indefinite system still tracks a float64 one (at the full
+# cap it does not; see the eigh phase).
+POLISH_CHECK_MAXITER = 20
+POLISH_CHECK_RTOL = 1e-6
 # The TFIM headline (bench.py:36-43), f32, and its tolerances against the
 # Jordan-Wigner closed forms (the JAX package's own f32 errors at these
 # settings, on a CPU: 6.7e-7, 1.2e-4, 6.3e-4).
 TFIM_N, TFIM_N_ED, TFIM_G, TFIM_K = 20, 10, 1.2, 60
 TFIM_CG_TOL, TFIM_CG_MAXITER, TFIM_REORTH_PASSES = 1e-5, 150, 1
 TFIM_RTOL = {"e0": 2e-5, "de0_dg": 1e-3, "chi_f": 5e-3}
+# The bench's headline options (bench.py:87-91): chunked reorthogonalization
+# and the bfloat16 basis; its sweep tier (bench.py:113-120): 8 couplings in
+# [1.1, 1.45], 8 chunks, the same basis, held at TFIM_RTOL too.
+TFIM_HEADLINE = {"reorth_chunks": 4, "basis_dtype": torch.bfloat16}
+SWEEP_G, SWEEP_POINTS, SWEEP_CHUNKS = (1.1, 1.45), 8, 8
 # The second_order phase.  (a) TFIM N = 20 through energy_curvature at
 # the tfim phase's k and CG settings, against the Jordan-Wigner closed
 # forms, at ~8x the JAX package's own float32 CPU errors at the same
@@ -615,8 +643,9 @@ def phase_eigh(pkg, spmv):
     torch.cuda.synchronize()
     t_fm = time.perf_counter() - t0
     fm_launches = counts["bell_spmv_banded_f32"] - before
-    counts = dict(counts)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    krylov = eigh_krylov_options(pkg, spmv, op, solve, c, counts)
+    counts = dict(counts)
     # ---- end of the counted run -----------------------------------------
 
     lam, v = lam.detach(), v.detach()
@@ -661,12 +690,30 @@ def phase_eigh(pkg, spmv):
         torch.cuda.synchronize()
         t_fm_cg = time.perf_counter() - t0
 
-        # Dot-product test of the full gradient (see ift_dot_test).
+        # Dot-product test of the full gradient (see ift_dot_test), and
+        # of the preconditioned backward's (its x by the same solve).
         g_full = op.vals.grad
         lhs = grad_dot(g_full, dvals)
+        lhs_pc = grad_dot(krylov.pop("grad"), dvals)
         del dvals
         terms, dot_err, dv_its, dv_res = ift_dot_test(
             op, lam, v, c, b, x, lhs, dav, CG_MAXITER)
+        x_pc, pc_its, pc_res = solve_deflated_info(
+            op, lam, v, b, definite_sign=1.0, tol=CG_TOL,
+            maxiter=CG_MAXITER, precond=krylov.pop("jacobi"), device=DEVICE)
+        _, pc_dot_err, _, _ = ift_dot_test(op, lam, v, c, b, x_pc, lhs_pc,
+                                           dav, CG_MAXITER)
+        del x_pc
+        # Block-Jacobi at this size (not on any default path): one batched
+        # eigh of the 4096 diagonal blocks, 128 x 128, then one apply.
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        block = pkg.block_jacobi_precond(op, shift=lam)
+        torch.cuda.synchronize()
+        krylov["block_jacobi_build_s"] = time.perf_counter() - t0
+        krylov["block_jacobi_apply_ms"] = event_ms(lambda: block(v),
+                                                   samples=5)
+        del block
         finite = all(bool(torch.isfinite(t).all())
                      for t in (v, g_full, g_lam_bf, v_bf.detach(), dv_fm))
     bf_err = abs(lam_bf_f - lam_f) / abs(lam_f)
@@ -694,7 +741,10 @@ def phase_eigh(pkg, spmv):
           "dot_test_rel_err": dot_err, "tangent_cg_iterations": dv_its,
           "tangent_cg_rel_residual": dv_res,
           "lam_bf16vals": lam_bf_f, "lam_bf16vals_rel": bf_err,
-          "peak_mem_gib": peak_gib})
+          "peak_mem_gib": peak_gib,
+          "precond_backward_cg_iterations": pc_its,
+          "precond_backward_cg_rel_residual": pc_res,
+          "precond_dot_test_rel_err": pc_dot_err, **krylov})
 
     checks = {
         # The forward is k SpMVs; the backward one per CG iteration plus
@@ -726,11 +776,237 @@ def phase_eigh(pkg, spmv):
         # Weyl: bf16 storage moves λ by at most 2^-8 ||A|| ≈ 2^-8 |λ_min|.
         "bf16-values λ within 2^-8 rel": bf_err <= 2.0 ** -8,
         "finite": finite,
+        # The bf16 basis: its forward is k SpMVs, two of the
+        # polish's Rayleigh quotients and its CG's; the preconditioned
+        # backward one per CG iteration plus one; both solves of the
+        # MINRES/CG pair converge on their definite shifted system.
+        "bf16-basis forward launches in k + 2 + [0, CG cap]":
+            K + 2 <= krylov["bf16_basis_forward_launches"]
+            <= K + 2 + CG_MAXITER,
+        # What the basis storage decides is the Ritz value (T is
+        # accumulated in float32 either way).
+        "bf16-basis Ritz value vs f32-basis λ, rel 1e-5":
+            krylov["bf16_basis_ritz_value_rel"] <= 1e-5,
+        # The polish is one Newton step on an indefinite deflated system
+        # (this k = 100 Ritz value lies above other eigenvalues).  At
+        # POLISH_CHECK_MAXITER CG iterations it must be the float64 step
+        # from the same Ritz pair; that step moves λ by far more than the
+        # bar.  (At the full cap the float32 CG fails where the float64
+        # one converges: read, not checked; ROADMAP.md queue 3, F6.)
+        "polish vs float64 Newton step: λ within POLISH_CHECK_RTOL":
+            krylov["polish_vs_f64_step_lam_rel"] <= POLISH_CHECK_RTOL,
+        "polish vs float64 Newton step: 1 - |<v, v64>| <= POLISH_CHECK_RTOL":
+            krylov["polish_vs_f64_step_one_minus_overlap"]
+            <= POLISH_CHECK_RTOL,
+        "the checked step moves λ by > 10 POLISH_CHECK_RTOL":
+            krylov["polish_check_moved_rel"] > 10 * POLISH_CHECK_RTOL,
+        "no float32 copy of the basis: bf16 run's extra peak < f32 basis":
+            krylov["bf16_basis_extra_peak_mib"]
+            < krylov["f32_basis_mib"],
+        "preconditioned backward launches == k + CG iterations + 1":
+            krylov["precond_launches"] == K + pc_its + 1,
+        "preconditioned dot-product test, rel 1e-3": pc_dot_err <= 1e-3,
+        "MINRES x vs CG x, rel 1e-4":
+            krylov["shifted_minres_vs_cg_rel"] <= 1e-4,
+        "MINRES and CG converged":
+            max(krylov["shifted_minres_rel_residual"],
+                krylov["shifted_cg_rel_residual"])
+            <= 2 * tol_floor_f32(CG_TOL),
+        # MINRES on the indefinite block system diag(A - s, s - A): its
+        # true residual at the target, its x the definite solve's [x; -x].
+        "indefinite MINRES converged":
+            krylov["indefinite_minres_rel_residual"]
+            <= 2 * tol_floor_f32(CG_TOL),
+        "indefinite MINRES x vs [x_cg; -x_cg], rel 1e-4":
+            krylov["indefinite_minres_vs_cg_rel"] <= 1e-4,
     }
     failed = [name for name, ok in checks.items() if not ok]
     if failed:
         raise AssertionError(f"eigh phase failed: {failed}")
     return counts
+
+
+def tol_floor_f32(tol):
+    """A solver's relative tolerance as float32 clamps it (50 eps)."""
+    return max(tol, 50.0 * float(torch.finfo(torch.float32).eps))
+
+
+def newton_step_f64(spmv, op, u, maxiter, tol):
+    """One Newton step of the polish from the unit vector ``u``, written
+    out in float64 through the plain SpMV: the Rayleigh quotient λ0, a
+    plain CG on ``P (A - λ0) P x = -P (A u - λ0 u)``, ``P = I - u u^T``,
+    stopped at ``||r|| <= tol ||b||`` or ``maxiter``, then ``v = u + P x``
+    normalized and its Rayleigh quotient.  Returns (λ, v, iterations,
+    the relative Ritz residual of (λ, v))."""
+    vals = op.vals.detach().double()
+    a_mv = lambda z: spmv._bell_spmv_torch(vals, op.cols, z)  # noqa: E731
+    u = u.double() / torch.linalg.vector_norm(u.double())
+
+    def proj(x):
+        return x - u * torch.dot(u, x)
+
+    au = a_mv(u)
+    lam0 = torch.dot(u, au)
+    b = proj(lam0 * u - au)
+    x, r = torch.zeros_like(b), b.clone()
+    p, rr = r.clone(), torch.dot(r, r)
+    target, its = tol * tol * torch.dot(b, b), 0
+    while its < maxiter and bool(rr > target):
+        px = proj(p)
+        ap = proj(a_mv(px) - lam0 * px)
+        alpha = rr / torch.dot(p, ap)
+        x, r = x + alpha * p, r - alpha * ap
+        rr_new = torch.dot(r, r)
+        p, rr, its = r + (rr_new / rr) * p, rr_new, its + 1
+    v = u + proj(x)
+    v = v / torch.linalg.vector_norm(v)
+    av = a_mv(v)
+    lam = torch.dot(v, av)
+    resid = torch.linalg.vector_norm(av - lam * v) / lam.abs()
+    return float(lam), v, its, float(resid)
+
+
+def eigh_krylov_options(pkg, spmv, op, solve, c, counts):
+    """The eigh phase's runs of the Krylov options on config #5, inside
+    its counted run (K4b): the bf16 basis with reorth_chunks=4 beside the
+    float32 basis (λ, time, the peak memory each adds over what was
+    allocated before it, the polished pair's Ritz residual); the polish
+    against a float64 Newton step from the same Ritz pair, at a short CG
+    cap (checked) and at the full one (read); the gradient of
+    λ + Σ c⊙v with a Jacobi preconditioner in the backward's CG; MINRES
+    against CG on one definite deflated system (the eigenvector
+    deflated, λ - 1 as the shift, the backward's right-hand side); and
+    MINRES on the indefinite block system diag(A - s, s - A) built from
+    the same operator, shift and right-hand side."""
+    name = "bell_spmv_banded_f32"
+    n = op.dim
+    out = {"f32_basis_mib": (K + 1) * n * 4 / 2**20}
+    with torch.no_grad():
+        runs = {}
+        for basis, kw in (("f32", {}),
+                          ("bf16", {"basis_dtype": torch.bfloat16,
+                                    "reorth_chunks": 4})):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            before = counts[name]
+            t0 = time.perf_counter()
+            lam_b, v_b = pkg.dominant_eigh(op, **solve, **kw)
+            torch.cuda.synchronize()
+            out[f"{basis}_basis_forward_s"] = time.perf_counter() - t0
+            out[f"{basis}_basis_extra_peak_mib"] = (
+                torch.cuda.max_memory_allocated() - base) / 2**20
+            out[f"{basis}_basis_forward_launches"] = counts[name] - before
+            out[f"{basis}_basis_ritz_residual"] = float(
+                torch.linalg.vector_norm(op.matvec(v_b) - lam_b * v_b)
+                / lam_b.abs())
+            runs[basis] = float(lam_b)
+        # The bf16 basis's own Ritz pair, before the polish.
+        theta, u = pkg.lanczos_eigh(op, K, extreme="min", v0=solve["v0"],
+                                    basis_dtype=torch.bfloat16,
+                                    reorth_chunks=4, device=DEVICE)
+        # The polish against the float64 step from the same pair (the
+        # Lanczos run is deterministic, so the polish starts from u).
+        lam_s, v_s = pkg.dominant_eigh(
+            op, **dict(solve, maxiter=POLISH_CHECK_MAXITER),
+            basis_dtype=torch.bfloat16, reorth_chunks=4)
+        lam_r, v_r, its_r, _ = newton_step_f64(spmv, op, u,
+                                               POLISH_CHECK_MAXITER,
+                                               tol_floor_f32(CG_TOL))
+        out["polish_check_lam"], out["polish_check_f64_lam"] = (
+            float(lam_s), lam_r)
+        out["polish_check_f64_cg_iterations"] = its_r
+        out["polish_vs_f64_step_lam_rel"] = abs(float(lam_s) - lam_r) / abs(
+            lam_r)
+        out["polish_vs_f64_step_one_minus_overlap"] = 1.0 - abs(float(
+            torch.dot(v_s.double(), v_r)))
+        out["polish_check_moved_rel"] = abs(float(lam_s) - float(theta)) / abs(
+            lam_r)
+        # The same float64 step at the polish's full cap: where the
+        # float32 CG of the polish above ends unconverged.
+        t0 = time.perf_counter()
+        (out["f64_step_full_cap_lam"], _,
+         out["f64_step_full_cap_cg_iterations"],
+         out["f64_step_full_cap_ritz_residual"]) = newton_step_f64(
+            spmv, op, u, CG_MAXITER, tol_floor_f32(CG_TOL))
+        out["f64_step_full_cap_s"] = time.perf_counter() - t0
+        del v_r, v_s
+    out["f32_basis_lam"], out["bf16_basis_lam"] = runs["f32"], runs["bf16"]
+    out["bf16_basis_ritz_value"] = float(theta)
+    out["bf16_basis_ritz_value_rel"] = abs(float(theta) - runs["f32"]) / abs(
+        runs["f32"])
+    out["bf16_basis_lam_rel"] = abs(runs["bf16"] - runs["f32"]) / abs(
+        runs["f32"])
+
+    lam = torch.tensor(runs["f32"], device=DEVICE)
+    out["jacobi"] = pkg.jacobi_precond(op, shift=lam)
+    before = counts[name]
+    t0 = time.perf_counter()
+    lam_p, v_p = pkg.dominant_eigh(op, precond=out["jacobi"], **solve)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    (out["grad"],) = torch.autograd.grad(lam_p + (c * v_p).sum(), op.vals)
+    torch.cuda.synchronize()
+    out["precond_backward_s"] = time.perf_counter() - t1
+    out["precond_forward_s"] = t1 - t0
+    out["precond_launches"] = counts[name] - before
+    del lam_p, v_p
+
+    with torch.no_grad():
+        lam_v, v = pkg.dominant_eigh(op, **solve)
+        shift = lam_v - 1.0
+        b = -(c - v * torch.dot(v, c))
+        mv = importlib.import_module(
+            "dominantsparseeigenad_tpu_torch.ops.cg")._deflated_mv(
+            op, shift, v, 1.0, False)
+        xs = {}
+        for method in ("cg", "minres"):
+            before = counts[name]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            xs[method] = pkg.solve_deflated(op, shift, v, b, tol=CG_TOL,
+                                            maxiter=CG_MAXITER,
+                                            method=method, device=DEVICE)
+            torch.cuda.synchronize()
+            out[f"shifted_{method}_s"] = time.perf_counter() - t0
+            out[f"shifted_{method}_launches"] = counts[name] - before
+            pb = b - v * torch.dot(v, b)
+            out[f"shifted_{method}_rel_residual"] = float(
+                torch.linalg.vector_norm(pb - mv(xs[method]))
+                / torch.linalg.vector_norm(pb))
+        out["shifted_minres_vs_cg_rel"] = float(
+            torch.linalg.vector_norm(xs["minres"] - xs["cg"])
+            / torch.linalg.vector_norm(xs["cg"]))
+
+        # diag(A, 2s - A) shifted by s is diag(A - s, s - A): indefinite,
+        # as well conditioned as the definite system, solved by [x; -x].
+        blk = pkg.MatrixFreeOperator(
+            lambda p, z: torch.cat([op.matvec(z[:n]),
+                                    2 * shift * z[n:] - op.matvec(z[n:])]),
+            op.vals.detach(), 2 * n)
+        v2 = torch.zeros(2 * n, 2, device=DEVICE)
+        v2[:n, 0], v2[n:, 1] = v, v
+        b2 = torch.cat([b, b])
+        before = counts[name]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x2 = pkg.solve_deflated(blk, shift, v2, b2, tol=CG_TOL,
+                                maxiter=CG_MAXITER, method="minres",
+                                device=DEVICE)
+        torch.cuda.synchronize()
+        out["indefinite_minres_s"] = time.perf_counter() - t0
+        out["indefinite_minres_launches"] = counts[name] - before
+        mv2 = importlib.import_module(
+            "dominantsparseeigenad_tpu_torch.ops.cg")._deflated_mv(
+            blk, shift, v2, 1.0, False)
+        pb2 = b2 - v2 @ (v2.T @ b2)
+        out["indefinite_minres_rel_residual"] = float(
+            torch.linalg.vector_norm(pb2 - mv2(x2))
+            / torch.linalg.vector_norm(pb2))
+        out["indefinite_minres_vs_cg_rel"] = float(
+            torch.linalg.vector_norm(x2 - torch.cat([xs["cg"], -xs["cg"]]))
+            / (math.sqrt(2.0) * torch.linalg.vector_norm(xs["cg"])))
+    return out
 
 
 def phase_eigh_multi(pkg, spmv):
@@ -1326,9 +1602,10 @@ def phase_sharded():
     return total
 
 
-def tfim_pass(pkg, models, n, dtype):
-    """One forward-mode pass at the headline settings: (E0, dE0/dg, χ_F,
-    ψ), with χ_F = <∂ψ|∂ψ> - <ψ|∂ψ>² from the tangent of ψ."""
+def tfim_pass(pkg, models, n, dtype, **extra):
+    """One forward-mode pass at the headline settings (``extra``: more
+    ``dominant_eigh`` options): (E0, dE0/dg, χ_F, ψ), with
+    χ_F = <∂ψ|∂ψ> - <ψ|∂ψ>² from the tangent of ψ."""
     with torch.no_grad(), fwAD.dual_level():
         g = fwAD.make_dual(torch.tensor(TFIM_G, dtype=dtype, device=DEVICE),
                            torch.ones((), dtype=dtype, device=DEVICE))
@@ -1336,42 +1613,20 @@ def tfim_pass(pkg, models, n, dtype):
             models.tfim_operator(n, g, dtype=dtype, device=DEVICE),
             k=min(TFIM_K, 1 << n), extreme="min", tol=TFIM_CG_TOL,
             maxiter=TFIM_CG_MAXITER, reorth_passes=TFIM_REORTH_PASSES,
-            device=DEVICE)
+            device=DEVICE, **extra)
         e0, de0 = fwAD.unpack_dual(lam)
         psi, dpsi = fwAD.unpack_dual(v)
     chi = torch.dot(dpsi, dpsi) - torch.dot(psi, dpsi) ** 2
     return float(e0), float(de0), float(chi), psi
 
 
-def lanczos_without_host_reads(op, k, v0):
-    """The device work of ``ops/lanczos.py::lanczos`` with one
-    reorthogonalization pass, step for step, without its per-step host
-    read of β (and so without the breakdown branch it decides): timed
-    beside the real loop, the difference is what the read costs."""
-    from dominantsparseeigenad_tpu_torch.ops.lanczos import _project_out
-    n, dtype = op.dim, op.dtype
-    q = v0 / torch.linalg.vector_norm(v0)
-    basis = torch.zeros((k + 1, n), dtype=dtype, device=DEVICE)
-    basis[0] = q
-    alphas = torch.zeros(k, dtype=dtype, device=DEVICE)
-    betas = torch.zeros(k, dtype=dtype, device=DEVICE)
-    q_prev = torch.zeros_like(q)
-    beta_prev = torch.zeros((), dtype=dtype, device=DEVICE)
-    for i in range(k):
-        w = op.matvec(q)
-        alpha = torch.dot(q, w)
-        w = w - alpha * q - beta_prev * q_prev
-        w = _project_out(basis[:i + 1], w)
-        beta = torch.linalg.vector_norm(w)
-        # The breakdown test's device work, left unread.
-        scale = torch.sqrt(alpha * alpha + beta_prev * beta_prev) + 1.0
-        _ = beta <= 1e-5 * scale
-        q_next = w / beta
-        alphas[i] = alpha
-        betas[i] = beta
-        basis[i + 1] = q_next
-        q_prev, q, beta_prev = q, q_next, beta
-    return alphas, betas
+def jw_errors(models, n, g, e0, de0, chi):
+    """Relative errors of (E0, dE0/dg, χ_F) against the Jordan-Wigner
+    closed forms at ``g``, and those values."""
+    jw = (float(models.tfim_exact_e0(n, g, device=DEVICE)),
+          models.tfim_exact_de0_dg(n, g), models.tfim_exact_chi_f(n, g))
+    return dict(zip(TFIM_RTOL, (abs(a - b) / abs(b) for a, b in
+                                zip((e0, de0, chi), jw)))), jw
 
 
 def phase_tfim(pkg):
@@ -1383,54 +1638,65 @@ def phase_tfim(pkg):
     # N = 10 first: the oracle checks, and the warm-up of every call.
     t0 = time.perf_counter()
     small = tfim_pass(pkg, models, TFIM_N_ED, f32)
+    tfim_pass(pkg, models, TFIM_N_ED, f32, **TFIM_HEADLINE)
     ed = [float(t) for t in models.tfim_ed_observables(
         TFIM_N_ED, TFIM_G, dtype=torch.float64, device=DEVICE)]
     torch.cuda.synchronize()
     t_small = time.perf_counter() - t0
-    jw_small = (float(models.tfim_exact_e0(TFIM_N_ED, TFIM_G, device=DEVICE)),
-                models.tfim_exact_de0_dg(TFIM_N_ED, TFIM_G),
-                models.tfim_exact_chi_f(TFIM_N_ED, TFIM_G))
+    _, jw_small = jw_errors(models, TFIM_N_ED, TFIM_G, *small[:3])
     ed_vs_jw = max(abs(a - b) / abs(b) for a, b in
                    zip((ed[0], ed[1], ed[3]), jw_small))
     small_vs_ed = dict(zip(TFIM_RTOL, (abs(a - b) / abs(b) for a, b in
                                        zip(small[:3], (ed[0], ed[1], ed[3])))))
 
-    # N = 20, the headline: one forward-mode pass, the first at this size
-    # and a second one (the same numbers, without one-time costs).
+    # N = 20, the headline: forward-mode passes with the float32 basis and
+    # with the bench's bf16 basis and chunked reorthogonalization, each
+    # twice (the first at this size carries one-time costs), with the
+    # peak device memory each adds over what was allocated before it.
     n = TFIM_N
-    t_passes = []
-    for _ in range(2):
+    passes = {"f32_basis": {}, "bf16_basis": TFIM_HEADLINE}
+    t_passes = {name: [] for name in passes}
+    peak_mib = {name: [] for name in passes}
+    out = {}
+    for name in ("f32_basis", "f32_basis", "bf16_basis", "bf16_basis"):
         torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        e0, de0, chi, psi = tfim_pass(pkg, models, n, f32)
+        out[name] = tfim_pass(pkg, models, n, f32, **passes[name])
         torch.cuda.synchronize()
-        t_passes.append(time.perf_counter() - t0)
-    jw = (float(models.tfim_exact_e0(n, TFIM_G, device=DEVICE)),
-          models.tfim_exact_de0_dg(n, TFIM_G),
-          models.tfim_exact_chi_f(n, TFIM_G))
-    errs = dict(zip(TFIM_RTOL, (abs(a - b) / abs(b) for a, b in
-                                zip((e0, de0, chi), jw))))
+        t_passes[name].append(time.perf_counter() - t0)
+        peak_mib[name].append(
+            (torch.cuda.max_memory_allocated() - base) / 2**20)
+    errs = {name: jw_errors(models, n, TFIM_G, *o[:3])[0]
+            for name, o in out.items()}
+    _, jw = jw_errors(models, n, TFIM_G, *out["f32_basis"][:3])
 
-    # Where the pass's time goes: the plain forward, its steps with and
-    # without the host read of β, one matvec, the tangent's CG.
+    # Where the pass's time goes: the plain forward, the Lanczos step in
+    # restart mode "cond" (a host read of β every step) and "carry" (no
+    # host read), with either basis, one matvec, the tangent's CG with
+    # and without a Jacobi preconditioner (H's diagonal is the zz term).
     op = models.tfim_operator(n, TFIM_G, dtype=f32, device=DEVICE)
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     v0 = torch.randn(op.dim, generator=gen, device=DEVICE)
     forward = dict(k=TFIM_K, extreme="min", reorth_passes=TFIM_REORTH_PASSES,
                    v0=v0, device=DEVICE)
+    variants = {f"{basis}_{mode}": dict(basis_kw, restart_mode=mode)
+                for basis, basis_kw in (("f32", {}),
+                                        ("bf16", TFIM_HEADLINE))
+                for mode in ("cond", "carry")}
     with torch.no_grad():
-        pkg.lanczos(op, 5, v0=v0, reorth_passes=1, device=DEVICE)
-        lanczos_without_host_reads(op, 5, v0)
-        times = {"with": [], "without": []}
-        for kind in ("with", "without", "without", "with") * 3:
+        coeffs = {name: pkg.lanczos(op, TFIM_K, v0=v0, reorth_passes=1,
+                                    device=DEVICE, **kw)
+                  for name, kw in variants.items()}
+        step_ms = {name: [] for name in variants}
+        for name in [*variants, *reversed(variants)] * 2:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            if kind == "with":
-                pkg.lanczos(op, TFIM_K, v0=v0, reorth_passes=1, device=DEVICE)
-            else:
-                lanczos_without_host_reads(op, TFIM_K, v0)
+            pkg.lanczos(op, TFIM_K, v0=v0, reorth_passes=1, device=DEVICE,
+                        **variants[name])
             torch.cuda.synchronize()
-            times[kind].append((time.perf_counter() - t0) / TFIM_K * 1e3)
+            step_ms[name].append((time.perf_counter() - t0) / TFIM_K * 1e3)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         lam, v = pkg.dominant_eigh(op, **forward)
@@ -1439,46 +1705,97 @@ def phase_tfim(pkg):
         matvec_ms = event_ms(lambda: op.matvec(v), samples=12, batch=10)
         dav = op.tangent_matvec(v, [torch.ones((), device=DEVICE), None])
         rhs = -(dav - torch.dot(v, dav) * v)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        _, cg_its, cg_res = solve_deflated_info(
-            op, lam, v, rhs, definite_sign=1.0, tol=TFIM_CG_TOL,
-            maxiter=TFIM_CG_MAXITER, device=DEVICE)
-        torch.cuda.synchronize()
-        t_cg = time.perf_counter() - t0
-    step_with = statistics.median(times["with"])
-    step_without = statistics.median(times["without"])
+        jacobi = pkg.jacobi_precond(
+            diag=models.tfim_zz_diagonal(n, dtype=f32, device=DEVICE),
+            shift=lam)
+        tangent = {}
+        for name, precond in (("plain", None), ("jacobi", jacobi)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, its, res = solve_deflated_info(
+                op, lam, v, rhs, definite_sign=1.0, tol=TFIM_CG_TOL,
+                maxiter=TFIM_CG_MAXITER, precond=precond, device=DEVICE)
+            torch.cuda.synchronize()
+            tangent[name] = {"s": time.perf_counter() - t0,
+                             "iterations": its, "rel_residual": res}
+    step = {name: statistics.median(t) for name, t in step_ms.items()}
+    e0, de0, chi, psi = out["f32_basis"]
     emit({"phase": "tfim", "n": n, "g": TFIM_G, "dtype": "float32",
           "k": TFIM_K, "reorth_passes": TFIM_REORTH_PASSES,
           "cg_tol": TFIM_CG_TOL, "cg_maxiter": TFIM_CG_MAXITER,
+          "headline_options": {k: str(v) for k, v in TFIM_HEADLINE.items()},
           "e0": e0, "de0_dg": de0, "chi_f": chi,
+          "bf16_basis": dict(zip(TFIM_RTOL, out["bf16_basis"][:3])),
           "jordan_wigner": dict(zip(TFIM_RTOL, jw)), "rel_err": errs,
-          "rtol": TFIM_RTOL, "pass_s": t_passes, "forward_s": t_fwd,
-          "forward_step_ms": t_fwd / TFIM_K * 1e3, "matvec_ms": matvec_ms,
-          "lanczos_step_ms_with_host_read": times["with"],
-          "lanczos_step_ms_without_host_read": times["without"],
-          "host_read_ms_per_step": step_with - step_without,
-          "tangent_cg_s": t_cg, "tangent_cg_iterations": cg_its,
-          "tangent_cg_rel_residual": cg_res,
+          "rtol": TFIM_RTOL, "pass_s": t_passes, "pass_peak_mib": peak_mib,
+          "forward_s": t_fwd, "forward_step_ms": t_fwd / TFIM_K * 1e3,
+          "matvec_ms": matvec_ms, "lanczos_step_ms": step_ms,
+          "lanczos_step_ms_median": step,
+          "host_read_ms_per_step": {
+              basis: step[f"{basis}_cond"] - step[f"{basis}_carry"]
+              for basis in ("f32", "bf16")},
+          "tangent_cg": tangent,
           "n_ed": TFIM_N_ED, "small_pass_and_ed_s": t_small,
           "small": dict(zip(TFIM_RTOL, small[:3])),
           "ed": {"e0": ed[0], "de0_dg": ed[1], "d2e0_dg2": ed[2],
                  "chi_f": ed[3]},
           "small_rel_err_vs_ed": small_vs_ed, "ed_vs_jw_rel": ed_vs_jw})
 
-    checks = {f"N={n} {name} vs Jordan-Wigner, rel {TFIM_RTOL[name]}":
-              errs[name] <= TFIM_RTOL[name] for name in TFIM_RTOL}
+    checks = {f"N={n} {basis} {name} vs Jordan-Wigner, rel "
+              f"{TFIM_RTOL[name]}": errs[basis][name] <= TFIM_RTOL[name]
+              for basis in errs for name in TFIM_RTOL}
     checks.update({f"N={TFIM_N_ED} {name} vs ED, rel {TFIM_RTOL[name]}":
                    small_vs_ed[name] <= TFIM_RTOL[name] for name in TFIM_RTOL})
     checks.update({
         # Two float64 oracles of the same quantities.
         f"N={TFIM_N_ED} ED vs Jordan-Wigner, rel 1e-10": ed_vs_jw <= 1e-10,
-        "finite": all(math.isfinite(t) for t in (e0, de0, chi))
-        and bool(torch.isfinite(psi).all()),
+        # No breakdown in these runs: the carried restart direction is
+        # never selected, so carry gives cond's α and β bit for bit.
+        "carry α, β == cond α, β (each basis)": all(
+            torch.equal(coeffs[f"{b}_carry"].alphas, coeffs[f"{b}_cond"].alphas)
+            and torch.equal(coeffs[f"{b}_carry"].betas,
+                            coeffs[f"{b}_cond"].betas)
+            for b in ("f32", "bf16")),
+        "bf16 basis stored narrow": coeffs["bf16_cond"].basis.dtype
+            == torch.bfloat16,
+        "finite": all(math.isfinite(t) for o in out.values()
+                      for t in o[:3])
+        and all(bool(torch.isfinite(o[3]).all()) for o in out.values()),
     })
     failed = [name for name, ok in checks.items() if not ok]
     if failed:
         raise AssertionError(f"tfim phase failed: {failed}")
+
+
+def phase_sweep(pkg):
+    """χ_F(g) over the bench's sweep (see the module docstring, phase 9)."""
+    from dominantsparseeigenad_tpu_torch import models
+    f32 = torch.float32
+    gs = torch.linspace(*SWEEP_G, SWEEP_POINTS, dtype=f32)
+    kw = dict(k=TFIM_K, tol=TFIM_CG_TOL, maxiter=TFIM_CG_MAXITER, dtype=f32,
+              reorth_passes=TFIM_REORTH_PASSES, reorth_chunks=SWEEP_CHUNKS,
+              basis_dtype=torch.bfloat16, device=DEVICE)
+    times = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rows = models.tfim_observables_sweep(TFIM_N, gs, **kw).cpu()
+        times.append(time.perf_counter() - t0)
+    errs = [jw_errors(models, TFIM_N, g, *map(float, row))[0]
+            for g, row in zip(gs.tolist(), rows)]
+    emit({"phase": "sweep", "n": TFIM_N, "gs": gs.tolist(),
+          "k": TFIM_K, "reorth_chunks": SWEEP_CHUNKS,
+          "basis_dtype": "bfloat16", "restart_mode": "carry",
+          "rows": rows.tolist(), "rel_err": errs, "rtol": TFIM_RTOL,
+          "sweep_s": times,
+          "per_point_s": [t / SWEEP_POINTS for t in times]})
+    checks = {f"g={g:.4f} {name} vs Jordan-Wigner, rel {TFIM_RTOL[name]}":
+              err[name] <= TFIM_RTOL[name]
+              for g, err in zip(gs.tolist(), errs) for name in TFIM_RTOL}
+    checks["finite"] = bool(torch.isfinite(rows).all())
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"sweep phase failed: {failed}")
 
 
 def curvature_split(pkg, spmv, make, g0, **kw):
@@ -1573,8 +1890,10 @@ def recorded_solves():
     forward = cg._DeflatedSolve.forward
     records = []
 
-    def record(ctx, op, sign, tol, maxiter, rhs, lam, V, *rest):
-        x = forward(ctx, op, sign, tol, maxiter, rhs, lam, V, *rest)
+    def record(ctx, op, sign, tol, maxiter, method, precond, rhs, lam, V,
+               *rest):
+        x = forward(ctx, op, sign, tol, maxiter, method, precond, rhs, lam,
+                    V, *rest)
         records.append((rhs.detach().clone(), x.detach().clone(), op, sign,
                         lam.detach(), V.detach()))
         return x
@@ -1637,8 +1956,8 @@ def second_order_config5(pkg, spmv):
         rhs_rule = -2.0 * (a1v - d1_rule * v)
         rhs_rule = rhs_rule - v * torch.dot(v, rhs_rule)
         rhs_err = rel_err(rhs, rhs_rule)
-        x_again, cg_its = cg._cg_solve(op, lam, v, rhs, 1.0, CG_TOL,
-                                       CG_MAXITER)
+        x_again, cg_its = cg._deflated_solve(op, lam, v, rhs, 1.0, CG_TOL,
+                                             CG_MAXITER)
         px = x - v * torch.dot(v, x)
         d2_rule = float(torch.dot(px, a1v))
         d2_scale = float((px * a1v).abs().sum())
@@ -1826,7 +2145,7 @@ def second_order_block(pkg, spmv):
 
 def phase_second_order(pkg, spmv):
     """Second order through the IFT rules, and forward mode of the block
-    solver (see the module docstring, phase 9)."""
+    solver (see the module docstring, phase 10)."""
     from dominantsparseeigenad_tpu_torch import models
     t0 = time.perf_counter()
     tfim, checks = second_order_tfim(pkg, spmv, models)
@@ -1921,7 +2240,7 @@ def ising_lanczos_split(models, cg):
 
 
 def phase_ising2d(pkg, spmv):
-    """BASELINE config #4 (see the module docstring, phase 10)."""
+    """BASELINE config #4 (see the module docstring, phase 11)."""
     from dominantsparseeigenad_tpu_torch import models
     cg = importlib.import_module("dominantsparseeigenad_tpu_torch.ops.cg")
     t_phase = time.perf_counter()
@@ -2072,6 +2391,7 @@ def main():
     torch.cuda.empty_cache()
     panel_counts = phase_sharded()
     phase_tfim(pkg)
+    phase_sweep(pkg)
     so_counts = phase_second_order(pkg, spmv)
     for name in ("bell_spmv_banded_f32", "bell_spmm_banded_f32"):
         if so_counts[name] < 1:

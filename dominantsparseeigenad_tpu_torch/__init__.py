@@ -25,6 +25,11 @@ degeneracy-safe decompositions ``eigh_safe``, ``eigh_safe_truncated``,
 ``svd_safe`` and ``svd_safe_truncated`` or by the block solver
 (``dominant_svd`` on the symmetric embedding, ``dominant_eigh_multi``),
 against Onsager's solution.  The row-sharded tier is first order.
+The Krylov engine has the JAX package's options: chunked
+reorthogonalization, a bfloat16 basis polished by a Newton step
+(``refine_eigenpair``), a carried restart direction that needs no host
+read, early exit (``lanczos_adaptive``), MINRES and preconditioned
+deflated solves (``ops/precond.py``), and the TFIM χ_F(g) sweep.
 
 Entry points run on CUDA unless called with ``device="cpu"``; without a
 card they raise rather than fall back.

@@ -6,17 +6,19 @@ from .ising2d import (ctmrg_environment, ctmrg_free_energy,
                       onsager_free_energy, transfer_operator, trg_free_energy,
                       trg_step)
 from .tfim import (fidelity_susceptibility, flip_sum, tfim_dense_hamiltonian,
-                   tfim_ed_observables, tfim_exact_chi_f, tfim_exact_d2e0_dg2,
-                   tfim_exact_de0_dg, tfim_exact_e0, tfim_ground_energy, tfim_ground_state,
-                   tfim_matvec, tfim_operator, tfim_zz_diagonal)
+                   tfim_ed_observables, tfim_energy_gap, tfim_exact_chi_f,
+                   tfim_exact_d2e0_dg2, tfim_exact_de0_dg, tfim_exact_e0,
+                   tfim_ground_energy, tfim_ground_state, tfim_matvec,
+                   tfim_observables_sweep, tfim_operator, tfim_zz_diagonal)
 
 __all__ = [
     "ctmrg_environment", "ctmrg_free_energy", "ising_observables",
     "ising_vertex_tensor", "onsager_free_energy", "transfer_operator",
     "trg_free_energy", "trg_step",
     "fidelity_susceptibility", "flip_sum", "tfim_dense_hamiltonian",
-    "tfim_ed_observables", "tfim_exact_chi_f", "tfim_exact_d2e0_dg2",
+    "tfim_ed_observables", "tfim_energy_gap", "tfim_exact_chi_f", "tfim_exact_d2e0_dg2",
     "tfim_exact_de0_dg",
     "tfim_exact_e0", "tfim_ground_energy", "tfim_ground_state",
-    "tfim_matvec", "tfim_operator", "tfim_zz_diagonal",
+    "tfim_matvec", "tfim_observables_sweep", "tfim_operator",
+    "tfim_zz_diagonal",
 ]

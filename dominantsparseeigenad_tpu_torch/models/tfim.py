@@ -18,18 +18,21 @@ adjacency matrices, a device for the TPU's matrix unit; here each flip is
 a reversed view, ``x.view(2**(n-1-i), 2, 2**i).flip(1)``.  No Pallas
 kernel is on this path, so none is owed.
 
-Not ported yet: ``tfim_observables_sweep``, ``tfim_energy_gap``, the 2D
-model and ``tfim_sharded_operator`` (``ROADMAP.md``).
+``tfim_observables_sweep`` runs one forward-mode pass per coupling (a
+loop over g: the JAX function vmaps it) and ``tfim_energy_gap`` the block
+solver with r = 2.  Not ported yet: the 2D model and
+``tfim_sharded_operator`` (``ROADMAP.md`` queue 1 items 13 and 14).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.autograd.forward_ad as fwAD
 
-from ..ops.eigh import dominant_eigh
+from ..ops.eigh import dominant_eigh, dominant_eigh_multi
 from ..ops.observables import fidelity_susceptibility as _chi
-from ..ops.operators import MatrixFreeOperator, resolve_device
+from ..ops.operators import MatrixFreeOperator, hdot, resolve_device
 
 
 def tfim_zz_diagonal(n: int, dtype=torch.float64, device=None):
@@ -182,6 +185,54 @@ def fidelity_susceptibility(n: int, g, *, k: int = 100, tol: float = 1e-10,
     return _chi(lambda gg: tfim_operator(n, gg, dtype=dtype, device=dev),
                 _coupling(g, dtype, dev), k=min(k, 1 << n), tol=tol,
                 device=dev)
+
+
+def tfim_energy_gap(n: int, g, *, k: int = 100, tol: float = 1e-10,
+                    dtype=torch.float64, device=None):
+    """Many-body gap E1 - E0 by the block solver (r = 2), matrix-free and
+    differentiable in ``g``; it closes at the critical point g = 1."""
+    dev = resolve_device(device)
+    lams, _ = dominant_eigh_multi(
+        tfim_operator(n, g, dtype=dtype, device=dev), r=2,
+        k=min(k, 1 << n), tol=tol, device=dev)
+    return lams[1] - lams[0]
+
+
+def tfim_observables_sweep(n: int, gs, *, k: int = 100, tol: float = 1e-10,
+                           maxiter: int | None = None, dtype=torch.float64,
+                           device=None, **eigh_kwargs):
+    """(E0, dE0/dg, χ_F) over a sequence of couplings ``gs``: one
+    forward-mode pass through ``dominant_eigh`` per point (its IFT
+    tangent gives dE0/dg and ∂ψ/∂g), χ_F = <∂ψ|∂ψ> - <ψ|∂ψ>².
+
+    Returns a (len(gs), 3) tensor on the device, stacked there and read
+    by nothing here.  Other keyword arguments go to
+    :func:`~..ops.eigh.dominant_eigh` (e.g. ``basis_dtype=torch.bfloat16,
+    reorth_chunks=8``); ``restart_mode`` defaults to "carry", as in the
+    JAX function, wherever ``dominant_eigh`` accepts it (not with
+    ``restart_cycles`` or ``early_exit_tol``).  The zz diagonal is built
+    once for the whole sweep.
+    """
+    dev = resolve_device(device)
+    diag = tfim_zz_diagonal(n, dtype=dtype, device=dev)
+    if (not eigh_kwargs.get("restart_cycles")
+            and eigh_kwargs.get("early_exit_tol") is None):
+        eigh_kwargs.setdefault("restart_mode", "carry")
+    rows = []
+    with torch.no_grad(), fwAD.dual_level():
+        for g in torch.as_tensor(gs, dtype=dtype).tolist():
+            gd = fwAD.make_dual(torch.tensor(g, dtype=dtype, device=dev),
+                                torch.ones((), dtype=dtype, device=dev))
+            op = MatrixFreeOperator(tfim_matvec, (gd, diag), dim=1 << n,
+                                    dtype=dtype)
+            lam, v = dominant_eigh(op, k=min(k, 1 << n), extreme="min",
+                                   tol=tol, maxiter=maxiter, device=dev,
+                                   **eigh_kwargs)
+            e0, de0 = fwAD.unpack_dual(lam)
+            psi, dpsi = fwAD.unpack_dual(v)
+            rows.append(torch.stack(
+                [e0, de0, hdot(dpsi, dpsi) - hdot(psi, dpsi) ** 2]))
+    return torch.stack(rows)
 
 
 def tfim_ed_observables(n: int, g, dtype=torch.float64, device=None):

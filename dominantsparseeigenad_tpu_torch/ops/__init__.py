@@ -1,29 +1,35 @@
 """Operators, kernels and solvers of the port (see the package docstring)."""
 
 from .bell_spmv import bell_spmm, bell_spmv, detect_slot_plan
-from .cg import cg, solve_deflated, solve_deflated_info
+from .cg import (cg, cg_info, minres, solve_deflated, solve_deflated_info,
+                 solve_spd, solve_symmetric)
 from .decomp import (eigh_safe, eigh_safe_truncated, svd_safe,
                      svd_safe_truncated)
-from .eigh import dominant_eigh, dominant_eigh_multi
-from .lanczos import LanczosInfo, LanczosResult, lanczos, lanczos_eigh
+from .eigh import dominant_eigh, dominant_eigh_multi, refine_eigenpair
+from .lanczos import (LanczosInfo, LanczosResult, lanczos,
+                      lanczos_adaptive, lanczos_eigh, power_iteration)
 from .lobpcg import LobpcgInfo, lobpcg_eigh
 from .observables import (energy_curvature, fidelity_susceptibility,
                           value_d1_d2)
 from .operators import (DenseOperator, LinearOperator, MatrixFreeOperator,
                         as_operator, hdot, hmatmul, pivot_gauge,
                         resolve_device, tol_floor)
+from .precond import block_jacobi_precond, jacobi_precond, operator_diagonal
 from .sparse import BellOperator, random_bell_operator
 from .svd import dominant_svd
 
 __all__ = [
     "BellOperator", "DenseOperator", "LanczosInfo", "LanczosResult",
     "LinearOperator", "LobpcgInfo", "MatrixFreeOperator", "as_operator",
-    "bell_spmm", "bell_spmv", "cg", "detect_slot_plan", "dominant_eigh",
+    "bell_spmm", "bell_spmv", "block_jacobi_precond", "cg", "cg_info",
+    "detect_slot_plan", "dominant_eigh",
     "dominant_eigh_multi", "dominant_svd", "eigh_safe",
     "eigh_safe_truncated", "energy_curvature", "fidelity_susceptibility",
-    "hdot", "hmatmul",
-    "lanczos", "lanczos_eigh", "lobpcg_eigh",
-    "pivot_gauge", "random_bell_operator", "resolve_device",
-    "solve_deflated", "solve_deflated_info", "svd_safe",
+    "hdot", "hmatmul", "jacobi_precond",
+    "lanczos", "lanczos_adaptive", "lanczos_eigh", "lobpcg_eigh", "minres",
+    "operator_diagonal", "pivot_gauge", "power_iteration",
+    "random_bell_operator", "refine_eigenpair", "resolve_device",
+    "solve_deflated", "solve_deflated_info", "solve_spd", "solve_symmetric",
+    "svd_safe",
     "svd_safe_truncated", "tol_floor", "value_d1_d2",
 ]

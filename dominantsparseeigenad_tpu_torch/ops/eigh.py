@@ -58,9 +58,14 @@ one tangent product (on a ``BellOperator`` the same kernel as a matvec;
 no tangents: forward AD is off inside a custom Function's forward.
 PyTorch does not nest dual levels, so forward mode is first order.
 
-``restart_cycles``, ``early_exit_tol``, ``basis_dtype`` with
-``refine_eigenpair``, ``reorth_chunks``, ``precond`` and complex
-operators wait for later slices.
+The forward of :func:`dominant_eigh` runs the options of the JAX
+``_forward``: ``early_exit_tol`` (``lanczos_adaptive``), a narrow
+``basis_dtype`` with its one-step Newton polish (:func:`refine_eigenpair`,
+inside the Function's forward, so it records no graph), ``reorth_chunks``
+and ``restart_mode``.  ``precond`` reaches every deflated solve of the
+rules, of either solver, and the LOBPCG forward of the block solver.
+``restart_cycles`` (``ops/restart.py``) and complex operators wait for
+later slices (``ROADMAP.md`` queue 1 items 10 and 5).
 """
 
 from __future__ import annotations
@@ -70,10 +75,12 @@ import dataclasses
 import torch
 
 from .cg import solve_deflated
-from .lanczos import LanczosInfo, _tridiagonal_eigh, lanczos, lanczos_eigh
+from .lanczos import (LanczosInfo, _tridiagonal_eigh, lanczos,
+                      lanczos_adaptive, lanczos_eigh)
 from .lobpcg import lobpcg_eigh
 from .operators import (as_operator, check_device, hdot, hmatmul,
                         partial_vjp, pivot_gauge, tol_floor)
+from .precond import _apply_columns
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,6 +93,12 @@ class EighOptions:
     maxiter: int | None = None
     reorthogonalize: bool = True
     reorth_passes: int = 2
+    reorth_chunks: int = 0
+    early_exit_tol: float | None = None
+    basis_dtype: torch.dtype | None = None
+    restart_mode: str = "cond"
+    # An SPD approximate inverse z = M^{-1} r for the deflated solves.
+    precond: object = None
 
 
 def _pair_info(op, opts, lam, v):
@@ -108,6 +121,39 @@ def _signs(extreme):
     return {"min": (1.0,), "max": (-1.0,), "both": (1.0, -1.0)}[extreme]
 
 
+def _forward(op, opts, v0, generator):
+    """``(pairs, info)``: the pair(s) of the JAX ``_forward``, and
+    ``lanczos_adaptive``'s own report under ``early_exit_tol`` (None
+    otherwise: the caller measures the true residual)."""
+    k = min(opts.k, op.dim)
+    if opts.early_exit_tol is not None:
+        lam, v, info = lanczos_adaptive(
+            op, k, extreme=opts.extreme, tol=opts.early_exit_tol, v0=v0,
+            generator=generator, reorthogonalize=opts.reorthogonalize,
+            reorth_passes=opts.reorth_passes, device=op.device)
+        return (lam, v), info
+    out = lanczos_eigh(op, k, extreme=opts.extreme, v0=v0,
+                       generator=generator,
+                       reorthogonalize=opts.reorthogonalize,
+                       reorth_passes=opts.reorth_passes,
+                       reorth_chunks=opts.reorth_chunks,
+                       basis_dtype=opts.basis_dtype,
+                       restart_mode=opts.restart_mode, device=op.device)
+    if opts.basis_dtype in (None, op.dtype):
+        return out, None
+    # A narrow basis leaves its storage rounding (~eps_bf16 / sqrt(3) in
+    # norm) in the Ritz vector: one Newton step against the operator in
+    # its own precision (quadratic: ~4e-3 -> ~1e-6 residual) cleans the
+    # pair the IFT tangents use; then the pivot gauge again.
+    polished = []
+    for sign, lam, v in zip(_signs(opts.extreme), out[::2], out[1::2]):
+        lam, v = refine_eigenpair(op, lam, v, iters=1, tol=opts.tol,
+                                  maxiter=opts.maxiter, definite_sign=sign,
+                                  device=op.device)
+        polished += [lam, pivot_gauge(v)]
+    return tuple(polished), None
+
+
 class _DominantEigh(torch.autograd.Function):
     """Outputs ``(λ, v)`` per pair (one, or two for "both", the minimum
     first), then the three :class:`LanczosInfo` fields with
@@ -115,15 +161,14 @@ class _DominantEigh(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, op, opts, v0, generator, with_info, *params):
-        out = lanczos_eigh(op, min(opts.k, op.dim), extreme=opts.extreme,
-                           v0=v0, generator=generator,
-                           reorthogonalize=opts.reorthogonalize,
-                           reorth_passes=opts.reorth_passes,
-                           device=op.device)
+        out, info = _forward(op, opts, v0, generator)
         # λ is a view into the tridiagonal's eigenvalues: forward mode
         # needs outputs that are not views of other tensors.
         pairs = [t.clone() if i % 2 == 0 else t for i, t in enumerate(out)]
-        info = _pair_info(op, opts, *pairs) if with_info else ()
+        if not with_info:
+            info = ()
+        elif info is None:
+            info = _pair_info(op, opts, *pairs)
         ctx.op, ctx.opts, ctx.n_info = op, opts, len(info)
         ctx.save_for_backward(*pairs)
         ctx.save_for_forward(*pairs)
@@ -152,7 +197,8 @@ class _DominantEigh(torch.autograd.Function):
             dlam = hdot(v, dav)
             dv = solve_deflated(op, lam, v, -(dav - dlam * v),
                                 definite_sign=sign, tol=opts.tol,
-                                maxiter=opts.maxiter, device=op.device)
+                                maxiter=opts.maxiter, precond=opts.precond,
+                                device=op.device)
             tangents += [dlam, dv]
         return (*tangents, *(None,) * ctx.n_info)
 
@@ -173,6 +219,7 @@ class _DominantEigh(torch.autograd.Function):
                 b = -(v_bar - v * hdot(v, v_bar))
                 u = u + solve_deflated(op, lam, v, b, definite_sign=sign,
                                        tol=opts.tol, maxiter=opts.maxiter,
+                                       precond=opts.precond,
                                        device=op.device)
             # u^T (dA/dθ) v: differentiate one matvec A(θ) v with output
             # cotangent u, v held constant (under create_graph v's own
@@ -187,7 +234,11 @@ class _DominantEigh(torch.autograd.Function):
 def dominant_eigh(op, k: int = 128, *, extreme: str = "min",
                   tol: float = 1e-8, maxiter: int | None = None,
                   seed: int = 0, reorthogonalize: bool = True,
-                  reorth_passes: int = 2, with_info: bool = False,
+                  reorth_passes: int = 2, reorth_chunks: int = 0,
+                  restart_cycles: int = 0,
+                  early_exit_tol: float | None = None,
+                  with_info: bool = False, precond=None, basis_dtype=None,
+                  restart_mode: str = "cond",
                   v0: torch.Tensor | None = None,
                   generator: torch.Generator | None = None, device=None):
     """Extremal eigenpair(s) of a symmetric operator, differentiable to
@@ -200,13 +251,29 @@ def dominant_eigh(op, k: int = 128, *, extreme: str = "min",
     k       : Lanczos steps (clamped to ``op.dim``).
     extreme : "min", "max", or "both" (one Lanczos run, both pairs).
     tol     : relative residual tolerance of the deflated CG of the
-              backward (or of the forward-mode tangent); ``maxiter``
-              bounds its iterations (default 10 N).
+              backward (or of the forward-mode tangent, or of the polish);
+              ``maxiter`` bounds its iterations (default 10 N).
     seed    : seeds the Lanczos start/restart generator when ``generator``
               is None; ``v0`` gives the start vector explicitly.
+    reorth_chunks, restart_mode : as in :func:`~.lanczos.lanczos`.
+    restart_cycles : thick restarts; not ported yet (> 0 raises
+              NotImplementedError, ``ROADMAP.md`` queue 1 item 10).
+    early_exit_tol : when set ("min"/"max"), the forward is
+              :func:`~.lanczos.lanczos_adaptive`, which stops once its
+              Ritz residual estimate meets this relative tolerance.
+    precond : an SPD approximate inverse ``z = M^{-1} r`` (vector
+              convention, e.g. :func:`~.precond.jacobi_precond`) used,
+              projected, by every deflated solve of the derivative rules.
+    basis_dtype : storage dtype of the Lanczos basis (e.g.
+              ``torch.bfloat16`` on a float32 operator): the eigenvalue
+              comes from the full-precision tridiagonal, and the
+              eigenvector is polished by one Newton step of
+              :func:`refine_eigenpair` (CG at ``tol``, ``maxiter``).
+              Plain fixed-k forward only.
     with_info : also return a :class:`~.lanczos.LanczosInfo` (effective
               k, the true Ritz residual ``||A v - λ v|| / |λ|`` from one
-              extra matvec, a converged flag against ``tol``), with zero
+              extra matvec, a converged flag against ``tol``; under
+              ``early_exit_tol`` the adaptive run's own report), with zero
               tangents and no gradient; "min" or "max" only.
     device  : where the solve runs (CUDA when None); the operator must
               live there.
@@ -217,8 +284,35 @@ def dominant_eigh(op, k: int = 128, *, extreme: str = "min",
     """
     if extreme not in ("min", "max", "both"):
         raise ValueError(f"extreme must be min|max|both, got {extreme!r}")
-    if with_info and extreme == "both":
-        raise ValueError("with_info requires extreme='min' or 'max'")
+    # The JAX package's guards, with its messages.
+    if restart_cycles and extreme == "both":
+        raise ValueError("restart_cycles requires extreme='min' or 'max'")
+    if restart_cycles and early_exit_tol is not None:
+        raise ValueError("early_exit_tol is not supported with "
+                         "restart_cycles (the restart loop has its own "
+                         "convergence control)")
+    if int(reorth_chunks) > 1 and (restart_cycles
+                                   or early_exit_tol is not None):
+        raise ValueError("reorth_chunks is only implemented for the "
+                         "plain fixed-k forward; it would be silently "
+                         "ignored with restart_cycles/early_exit_tol")
+    if (with_info or early_exit_tol is not None) and extreme == "both":
+        raise ValueError("with_info/early_exit_tol require extreme='min' "
+                         "or 'max'")
+    if basis_dtype is not None and (restart_cycles
+                                    or early_exit_tol is not None):
+        raise ValueError("basis_dtype is only implemented for the plain "
+                         "fixed-k forward (it would be silently ignored "
+                         "with restart_cycles/early_exit_tol)")
+    if restart_mode != "cond" and (restart_cycles
+                                   or early_exit_tol is not None):
+        raise ValueError("restart_mode is only implemented for the plain "
+                         "fixed-k forward (it would be silently ignored "
+                         "with restart_cycles/early_exit_tol)")
+    if restart_cycles:
+        raise NotImplementedError(
+            "restart_cycles (thick-restart Lanczos, ops/restart.py) is not "
+            "ported yet (ROADMAP.md queue 1 item 10)")
     op = as_operator(op)
     dev = check_device(device, op)
     if generator is None:
@@ -226,12 +320,48 @@ def dominant_eigh(op, k: int = 128, *, extreme: str = "min",
     opts = EighOptions(k=int(k), extreme=extreme, tol=float(tol),
                        maxiter=None if maxiter is None else int(maxiter),
                        reorthogonalize=bool(reorthogonalize),
-                       reorth_passes=int(reorth_passes))
+                       reorth_passes=int(reorth_passes),
+                       reorth_chunks=int(reorth_chunks),
+                       early_exit_tol=None if early_exit_tol is None
+                       else float(early_exit_tol),
+                       basis_dtype=basis_dtype, restart_mode=restart_mode,
+                       precond=precond)
     out = _DominantEigh.apply(op, opts, v0, generator, bool(with_info),
                               *op.parameters())
     if with_info:
         return out[0], out[1], LanczosInfo(*out[2:])
     return out
+
+
+def refine_eigenpair(op, lam, v, *, iters: int = 2, tol: float = 1e-12,
+                     maxiter: int | None = None,
+                     definite_sign: float | None = None, device=None):
+    """Newton refinement of a symmetric eigenpair against ``op`` in its
+    own (target) precision: each step is a Rayleigh quotient and one
+    deflated solve of ``(A - λ) dv = -(A v - λ v)`` on v⊥, by CG with
+    ``definite_sign`` (+1 for the algebraic minimum, -1 for the maximum)
+    or by MINRES when it is None (any eigenvalue, interior too).
+    Convergence is quadratic: ``iters=2`` takes a float32-accurate pair
+    to float64 round-off.  ``lam`` and ``v`` are cast to the operator's
+    dtype; built of differentiable operations.
+
+    Returns ``(lam, v)`` in the operator's dtype, ``||v|| = 1``.
+    """
+    op = as_operator(op)
+    dev = check_device(device, op)
+    v = torch.as_tensor(v).to(device=dev, dtype=op.dtype)
+    v = v / torch.linalg.vector_norm(v)
+    method = "minres" if definite_sign is None else "cg"
+    sign = 1.0 if definite_sign is None else float(definite_sign)
+    for _ in range(int(iters)):
+        av = op.matvec(v)
+        lam = hdot(v, av)
+        dv = solve_deflated(op, lam, v, -(av - lam * v), definite_sign=sign,
+                            method=method, tol=tol, maxiter=maxiter,
+                            device=dev)
+        v = v + dv
+        v = v / torch.linalg.vector_norm(v)
+    return hdot(v, op.matvec(v)), v
 
 
 @dataclasses.dataclass(frozen=True)
@@ -246,6 +376,15 @@ class EighMultiOptions:
     reorth_passes: int = 2
     gap_eps: float = 1e-12
     method: str = "lanczos"
+    # An SPD approximate inverse (vector convention) for the LOBPCG
+    # forward, column by column, and the deflated solves.
+    precond: object = None
+
+
+def _lobpcg_precond(opts):
+    """The preconditioner of :class:`EighMultiOptions`, applied column by
+    column to LOBPCG's (N, r) residual block (the JAX ``_columnwise``)."""
+    return None if opts.precond is None else _apply_columns(opts.precond)
 
 
 def _multi_forward(op, opts, v0, generator):
@@ -255,7 +394,8 @@ def _multi_forward(op, opts, v0, generator):
         # iteration cap, unclamped.
         return lobpcg_eigh(op, opts.r, extreme=opts.extreme,
                            maxiter=opts.k, tol=opts.tol, x0=v0,
-                           generator=generator, device=op.device)
+                           generator=generator,
+                           precond=_lobpcg_precond(opts), device=op.device)
     k = min(opts.k, op.dim)
     res = lanczos(op, k, v0=v0, generator=generator,
                   reorth_passes=opts.reorth_passes, device=op.device)
@@ -274,7 +414,8 @@ def _multi_forward_info(op, opts, v0, generator):
     if opts.method == "lobpcg":
         lams, v, linfo = lobpcg_eigh(
             op, opts.r, extreme=opts.extreme, maxiter=opts.k, tol=opts.tol,
-            x0=v0, generator=generator, with_info=True, device=op.device)
+            x0=v0, generator=generator, precond=_lobpcg_precond(opts),
+            with_info=True, device=op.device)
         return lams, v, LanczosInfo(effective_k=linfo.iterations,
                                     residual=linfo.residual,
                                     converged=linfo.converged)
@@ -337,7 +478,8 @@ class _DominantEighMulti(torch.autograd.Function):
         sign = 1.0 if opts.extreme == "min" else -1.0
         dv_out = solve_deflated(op, lams, v, -(dav - hmatmul(v, m)),
                                 definite_sign=sign, tol=opts.tol,
-                                maxiter=opts.maxiter, device=op.device)
+                                maxiter=opts.maxiter, precond=opts.precond,
+                                device=op.device)
         return (dlams, hmatmul(v, _gap_inverses(lams, opts) * m) + dv_out,
                 *info)
 
@@ -359,7 +501,7 @@ class _DominantEighMulti(torch.autograd.Function):
             u = u + solve_deflated(
                 op, lams, v, -(v_bar - hmatmul(v, hmatmul(v.T, v_bar))),
                 definite_sign=sign, tol=opts.tol, maxiter=opts.maxiter,
-                device=op.device)
+                precond=opts.precond, device=op.device)
         grads = partial_vjp(op, lambda held: held.matmat(v), [], u,
                             ctx.needs_input_grad[5:])
         return (None, None, None, None, None, *grads)
@@ -389,7 +531,10 @@ def dominant_eigh_multi(op, r: int = 4, k: int = 128, *,
               backward's (or the forward-mode tangent's) CG; ``maxiter``
               bounds the CG's iterations (default 10 N).
     gap_eps : broadening of the in-block gap inverses.
-    precond : not ported yet (raises NotImplementedError).
+    precond : an SPD approximate inverse ``z = M^{-1} r`` (vector
+              convention) used by the LOBPCG forward on its residual
+              block, column by column, and by the batched deflated CG of
+              the derivative rules.
     device  : where the solve runs (CUDA when None).
 
     Returns ``(lams, V)``, lams (r,) and V (N, r) orthonormal and
@@ -401,10 +546,6 @@ def dominant_eigh_multi(op, r: int = 4, k: int = 128, *,
         raise ValueError(f"extreme must be min|max, got {extreme!r}")
     if method not in ("lanczos", "lobpcg"):
         raise ValueError(f"method must be lanczos|lobpcg, got {method!r}")
-    if precond is not None:
-        raise NotImplementedError(
-            "precond in dominant_eigh_multi waits for the preconditioned "
-            "CG of a later slice")
     start = x0 if method == "lobpcg" else v0
     if (v0 if method == "lobpcg" else x0) is not None:
         raise ValueError("pass v0 (N,) for method='lanczos' and x0 (N, r) "
@@ -421,7 +562,7 @@ def dominant_eigh_multi(op, r: int = 4, k: int = 128, *,
         r=r, k=k, extreme=extreme, tol=float(tol),
         maxiter=None if maxiter is None else int(maxiter),
         reorth_passes=int(reorth_passes), gap_eps=float(gap_eps),
-        method=method)
+        method=method, precond=precond)
     out = _DominantEighMulti.apply(op, opts, start, generator,
                                    bool(with_info), *op.parameters())
     if with_info:

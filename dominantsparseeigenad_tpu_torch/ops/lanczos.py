@@ -1,16 +1,16 @@
-"""k-step Lanczos with full reorthogonalization.
+"""Krylov forward engines: k-step Lanczos with full reorthogonalization,
+its early-exit form, and power iteration.
 
-Counterpart of ``lanczos``/``lanczos_eigh`` in
-``dominantsparseeigenad_tpu/ops/lanczos.py``.  The JAX loop is a
-``lax.scan`` with static shapes; here it is a Python loop over steps
-that writes each new basis vector into a preallocated (k+1, N) buffer.
-Gradients never flow through this loop: ``eigh.py`` wraps it in an
-implicit-function-theorem rule.
+Counterpart of ``lanczos``, ``lanczos_eigh``, ``lanczos_adaptive`` and
+``power_iteration`` in ``dominantsparseeigenad_tpu/ops/lanczos.py``.  The
+JAX loop is a ``lax.scan`` with static shapes; here it is a Python loop
+over steps that writes each new basis vector into a preallocated
+(k+1, N) buffer.  Gradients never flow through these loops: ``eigh.py``
+wraps them in an implicit-function-theorem rule.
 
-Not ported yet: ``reorth_chunks``, ``basis_dtype``,
-``restart_mode="carry"``, ``lanczos_adaptive``, ``power_iteration`` and
-``arnoldi_step``.  ``LanczosInfo`` is here for the block eigensolver's
-convergence report.
+``arnoldi_step`` comes with GMRES and the non-symmetric solver
+(``ROADMAP.md`` queue 1 item 8).  ``LanczosInfo`` is also the block
+eigensolver's convergence report.
 """
 
 from __future__ import annotations
@@ -19,7 +19,8 @@ from typing import NamedTuple
 
 import torch
 
-from .operators import as_operator, check_device, hdot, hmatmul, pivot_gauge
+from .operators import (as_operator, check_device, hdot, hmatmul,
+                        pivot_gauge, refuse_complex, tol_floor)
 
 
 def _breakdown_rel_tol(real_dtype) -> float:
@@ -33,7 +34,7 @@ class LanczosResult(NamedTuple):
 
     alphas : (k,)   diagonal of the tridiagonal T
     betas  : (k-1,) off-diagonal of T (0 where a breakdown restarted)
-    basis  : (N, k) orthonormal Lanczos vectors Q
+    basis  : (N, k) orthonormal Lanczos vectors Q, in the storage dtype
     """
 
     alphas: torch.Tensor
@@ -72,74 +73,172 @@ def _tridiagonal_eigh(alphas, betas):
     return evals.to(alphas.dtype), evecs.to(alphas.dtype)
 
 
+def _narrow_mm(a, b):
+    """``a @ b`` for a 2-D ``a`` stored narrow (bfloat16) and a 2-D ``b``
+    in the working dtype: ``b`` is rounded to ``a``'s dtype and the
+    products accumulate in ``b``'s, as the JAX package's
+    ``preferred_element_type`` GEMMs do.  On the card one
+    ``torch.mm(..., out_dtype=)`` on the narrow operands (no widened copy
+    of ``a``, which would cost back the traffic the narrow storage
+    saves); it raises where cuBLAS has no such GEMM.  On the CPU, which
+    has no such GEMM, the plain path widens both."""
+    b_narrow = b.to(a.dtype)
+    if a.device.type == "cuda":
+        return torch.mm(a, b_narrow, out_dtype=b.dtype)
+    return a.to(b.dtype) @ b_narrow.to(b.dtype)
+
+
 def _project_out(basis, w):
-    """``w - Q Q^T w`` against the rows of ``basis``."""
-    return w - hmatmul(basis.T, hmatmul(basis, w))
+    """``w - Q Q^T w`` against the rows of ``basis``; a narrow-stored
+    basis projects by :func:`_narrow_mm` (w and the coefficients rounded
+    to the storage dtype, both products accumulated in w's)."""
+    if basis.dtype == w.dtype:
+        return w - hmatmul(basis.T, hmatmul(basis, w))
+    coeffs = _narrow_mm(basis, w[:, None])
+    return w - _narrow_mm(basis.T, coeffs)[:, 0]
 
 
-def lanczos(op, k: int, *, v0: torch.Tensor | None = None,
-            generator: torch.Generator | None = None,
-            reorthogonalize: bool = True, reorth_passes: int = 2,
-            device=None) -> LanczosResult:
-    """Run k steps of Lanczos on a symmetric operator.
-
-    ``v0`` is the start vector (drawn from ``generator`` when None);
-    ``generator`` (seeded 0 on the device when None) also draws the restart
-    vector after a breakdown.  With ``reorthogonalize`` each step projects
-    the new vector ``reorth_passes`` times against the vectors written so
-    far, ``basis[:i+1]``: the JAX loop projects against the whole
-    zero-padded buffer, which gives the same sums.
-
-    Each step reads ``beta`` on the host (one synchronization) to choose
-    between the next Lanczos vector and a breakdown restart, the choice
-    the JAX loop makes with ``lax.cond``.  The read waits for the step's
-    own work, so the card idles for the host time of the next step's
-    launches, small against a step's SpMV at the sizes this targets.
-    """
-    op = as_operator(op)
-    dev = check_device(device, op)
-    n, dtype = op.dim, op.dtype
-    k = int(k)
-    if k < 1:
-        raise ValueError("k must be >= 1")
-    if generator is None:
-        generator = torch.Generator(device=dev).manual_seed(0)
-    if v0 is None:
-        q = torch.randn(n, generator=generator, dtype=dtype, device=dev)
+def _ritz_vector(basis, y):
+    """``Q y`` normalized, for a (N, m) ``basis`` (of any storage dtype)
+    and coefficients ``y`` in the working dtype."""
+    if basis.dtype == y.dtype:
+        v = hmatmul(basis, y)
     else:
-        q = torch.as_tensor(v0).to(device=dev, dtype=dtype)
-    q = q / torch.linalg.vector_norm(q)
+        v = _narrow_mm(basis, y[:, None])[:, 0]
+    return v / torch.linalg.vector_norm(v)
 
-    basis = torch.zeros((k + 1, n), dtype=dtype, device=dev)
-    basis[0] = q
-    alphas = torch.zeros(k, dtype=dtype, device=dev)
-    betas = torch.zeros(k, dtype=dtype, device=dev)
-    q_prev = torch.zeros_like(q)
-    beta_prev = torch.zeros((), dtype=dtype, device=dev)
-    rel_tol = _breakdown_rel_tol(dtype)
-    for i in range(k):
-        w = op.matvec(q)
-        alpha = hdot(q, w)
-        w = w - alpha * q - beta_prev * q_prev
-        if reorthogonalize:
-            for _ in range(reorth_passes):
-                w = _project_out(basis[:i + 1], w)
-        beta = torch.linalg.vector_norm(w)
-        scale = torch.sqrt(alpha * alpha + beta_prev * beta_prev) + 1.0
-        if bool(beta <= rel_tol * scale):
-            # Breakdown: an invariant subspace was found.  Go on with a
-            # random vector orthogonal to the basis, and a zero beta.
-            r = torch.randn(n, generator=generator, dtype=dtype, device=dev)
+
+def _start(op, v0, generator, dev):
+    """The unit start vector: ``v0``, or a draw from ``generator``."""
+    if v0 is None:
+        q = torch.randn(op.dim, generator=generator, dtype=op.dtype,
+                        device=dev)
+    else:
+        q = torch.as_tensor(v0).to(device=dev, dtype=op.dtype)
+    return q / torch.linalg.vector_norm(q)
+
+
+def _step(op, basis, i, q, q_prev, beta_prev, generator, reorthogonalize,
+          reorth_passes, r_perp):
+    """One Lanczos step at index ``i``: writes ``basis[i + 1]`` and
+    returns ``(q_next, alpha, beta, r_perp)``.  Shared by :func:`lanczos`
+    and :func:`lanczos_adaptive`.
+
+    The projections run against the rows written so far,
+    ``basis[:i + 1]``: the JAX loop projects against the whole
+    zero-padded buffer (or a chunk's slab of it), which gives the same
+    sums.  The three-term recurrence (q, α, β) stays in the operator's
+    dtype whatever the basis is stored in.
+
+    On a breakdown (β ~ 0, an invariant subspace found) the run goes on
+    with a vector orthogonal to the basis and a zero β.  With ``r_perp``
+    None (restart mode "cond") the host reads β (one synchronization per
+    step, the JAX ``lax.cond``) and only then draws a fresh vector from
+    ``generator`` and projects it.  With a carried ``r_perp`` (mode
+    "carry") the restart direction is kept orthogonal to the basis by one
+    dot and one axpy per step, and the step is a ``torch.where`` select:
+    no host read.
+    """
+    dtype = q.dtype
+    w = op.matvec(q)
+    alpha = hdot(q, w)
+    w = w - alpha * q - beta_prev * q_prev
+    if reorthogonalize:
+        for _ in range(reorth_passes):
+            w = _project_out(basis[:i + 1], w)
+    beta = torch.linalg.vector_norm(w)
+    scale = torch.sqrt(alpha * alpha + beta_prev * beta_prev) + 1.0
+    broke = beta <= _breakdown_rel_tol(dtype) * scale
+    if r_perp is None:
+        if bool(broke):
+            r = torch.randn(op.dim, generator=generator, dtype=dtype,
+                            device=q.device)
             r = _project_out(basis[:i + 1], r)
             q_next = r / (torch.linalg.vector_norm(r)
                           + torch.finfo(dtype).tiny)
             beta = torch.zeros_like(beta)
         else:
             q_next = w / beta
-        alphas[i] = alpha
-        betas[i] = beta
-        basis[i + 1] = q_next
-        q_prev, q, beta_prev = q, q_next, beta
+    else:
+        # A second breakdown finds r_perp consumed by its own deflation,
+        # rounding junk only: the threshold turns it into a zero vector,
+        # whose zero rows the caller's residual check reports (the JAX
+        # package's contract; "cond" handles any number of breakdowns).
+        rnorm = torch.linalg.vector_norm(r_perp)
+        alive = rnorm > (float(torch.finfo(dtype).eps) * op.dim) ** 0.5
+        restart = torch.where(alive, r_perp, torch.zeros_like(r_perp)) \
+            / torch.clamp(rnorm, min=torch.finfo(dtype).tiny)
+        q_next = torch.where(broke, restart,
+                             w / torch.where(broke, torch.ones_like(beta),
+                                             beta))
+        r_perp = r_perp - q_next * hdot(q_next, r_perp)
+        beta = torch.where(broke, torch.zeros_like(beta), beta)
+    basis[i + 1] = q_next
+    return q_next, alpha, beta, r_perp
+
+
+def lanczos(op, k: int, *, v0: torch.Tensor | None = None,
+            generator: torch.Generator | None = None,
+            reorthogonalize: bool = True, reorth_passes: int = 2,
+            reorth_chunks: int = 0, basis_dtype=None,
+            restart_mode: str = "cond", device=None) -> LanczosResult:
+    """Run k steps of Lanczos on a symmetric operator.
+
+    ``v0`` is the start vector (drawn from ``generator`` when None);
+    ``generator`` (seeded 0 on the device when None) also draws the
+    restart vector after a breakdown ("cond"), or the carried restart
+    direction ("carry").  With ``reorthogonalize`` each step projects the
+    new vector ``reorth_passes`` times against the vectors written so far.
+
+    reorth_chunks : accepted for the JAX package's signature, where C > 1
+          projects per chunk of a padded buffer; the projections here
+          read only the rows written so far, which gives those sums with
+          no chunks and no padding.
+    basis_dtype : storage dtype of the basis history (e.g.
+          ``torch.bfloat16`` on a float32 operator), the run's dominant
+          memory traffic.  q, α and β stay in the operator's dtype; each
+          projection takes the narrow basis and accumulates in the
+          operator's dtype (:func:`_narrow_mm`).  The returned basis is
+          the narrow one.
+    restart_mode : "cond" (default) reads β on the host every step to
+          choose the breakdown restart, "carry" keeps one restart
+          direction orthogonal to the basis instead and never
+          synchronizes (identical results with at most one breakdown in
+          the run; a second one gives zero vectors, which the caller's
+          residual check reports).
+    """
+    op = as_operator(op)
+    dev = check_device(device, op)
+    dtype = op.dtype
+    k = int(k)
+    if k < 1:
+        raise ValueError("k must be >= 1")
+    if restart_mode not in ("cond", "carry"):
+        raise ValueError(f"restart_mode must be 'cond'|'carry', got "
+                         f"{restart_mode!r}")
+    storage = dtype if basis_dtype is None else basis_dtype
+    refuse_complex(storage, "basis_dtype")
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    q = _start(op, v0, generator, dev)
+    int(reorth_chunks)              # the JAX package's only check
+    # Row k is a scratch slot for the last step's q_next.
+    basis = torch.zeros((k + 1, op.dim), dtype=storage, device=dev)
+    basis[0] = q
+    r_perp = None
+    if restart_mode == "carry":
+        r0 = torch.randn(op.dim, generator=generator, dtype=dtype,
+                         device=dev)
+        r_perp = r0 - q * hdot(q, r0)
+    alphas = torch.zeros(k, dtype=dtype, device=dev)
+    betas = torch.zeros(k, dtype=dtype, device=dev)
+    q_prev = torch.zeros_like(q)
+    beta_prev = torch.zeros((), dtype=dtype, device=dev)
+    for i in range(k):
+        q_next, alphas[i], betas[i], r_perp = _step(
+            op, basis, i, q, q_prev, beta_prev, generator, reorthogonalize,
+            reorth_passes, r_perp)
+        q_prev, q, beta_prev = q, q_next, betas[i]
     return LanczosResult(alphas=alphas, betas=betas[:-1],
                          basis=basis[:k].T)
 
@@ -148,27 +247,126 @@ def lanczos_eigh(op, k: int, *, extreme: str = "both",
                  v0: torch.Tensor | None = None,
                  generator: torch.Generator | None = None,
                  reorthogonalize: bool = True, reorth_passes: int = 2,
-                 device=None):
-    """Extremal eigenpair(s) of a symmetric operator via k-step Lanczos.
+                 reorth_chunks: int = 0, basis_dtype=None,
+                 restart_mode: str = "cond", device=None):
+    """Extremal eigenpair(s) of a symmetric operator via k-step Lanczos
+    (options as :func:`lanczos`).
 
     Returns ``(lambda, v)`` for ``extreme`` "min" or "max", and
     ``(lambda_min, v_min, lambda_max, v_max)`` for "both"; each ``v`` is
-    normalized and sign-gauged (largest-magnitude entry positive).
+    normalized and sign-gauged (largest-magnitude entry positive).  With
+    a narrow ``basis_dtype`` the eigenvalue keeps the operator's
+    precision (it comes from T), but the eigenvector carries the
+    storage rounding (~eps_bf16 / sqrt(3)): ``dominant_eigh`` polishes it
+    with one step of :func:`~.eigh.refine_eigenpair`.
     """
     if extreme not in ("min", "max", "both"):
         raise ValueError(f"extreme must be min|max|both, got {extreme!r}")
     op = as_operator(op)
     res = lanczos(op, k, v0=v0, generator=generator,
                   reorthogonalize=reorthogonalize,
-                  reorth_passes=reorth_passes, device=device)
+                  reorth_passes=reorth_passes, reorth_chunks=reorth_chunks,
+                  basis_dtype=basis_dtype, restart_mode=restart_mode,
+                  device=device)
     evals, evecs = _tridiagonal_eigh(res.alphas, res.betas)
 
     def _pair(idx):
-        v = hmatmul(res.basis, evecs[:, idx])
-        return evals[idx], pivot_gauge(v / torch.linalg.vector_norm(v))
+        return evals[idx], pivot_gauge(_ritz_vector(res.basis, evecs[:, idx]))
 
     if extreme == "min":
         return _pair(0)
     if extreme == "max":
         return _pair(k - 1)
     return _pair(0) + _pair(k - 1)
+
+
+def lanczos_adaptive(op, k: int, *, extreme: str = "min",
+                     tol: float = 1e-10, v0: torch.Tensor | None = None,
+                     generator: torch.Generator | None = None,
+                     reorthogonalize: bool = True, reorth_passes: int = 2,
+                     checkpoints: tuple[int, ...] | None = None,
+                     device=None):
+    """Early-exit Lanczos: run until the extremal Ritz residual converges.
+
+    The k steps are cut at ``checkpoints`` (default 16, 24, 36, ... and
+    k).  At each, the extremal Ritz pair (θ, y) of the leading m × m
+    tridiagonal block gives the residual estimate ``β_m |y_m| / |θ|``;
+    one host read (the JAX ``lax.cond``) stops the run once it is at most
+    ``tol`` (clamped to what the dtype reaches), so a conservative ``k``
+    pays only the matvecs it needs.  An unconverged run is reported, not
+    silent.  The (k+1, N) basis is allocated for the whole budget.
+
+    Returns ``(lam, v, LanczosInfo)``: ``effective_k`` the steps run,
+    ``residual`` the last estimate, ``converged`` 1.0 if it met ``tol``.
+    """
+    if extreme not in ("min", "max"):
+        raise ValueError("lanczos_adaptive supports extreme='min'|'max' "
+                         f"only, got {extreme!r}")
+    op = as_operator(op)
+    dev = check_device(device, op)
+    dtype = op.dtype
+    tol = tol_floor(tol, dtype)
+    k = int(k)
+    if k < 1:
+        raise ValueError("k must be >= 1")
+    if checkpoints is None:
+        checkpoints, c = [], 16
+        while c < k:
+            checkpoints.append(c)
+            c = max(c + 1, int(c * 3 // 2))
+    cps = sorted({int(c) for c in checkpoints if 0 < int(c) < k} | {k})
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    q = _start(op, v0, generator, dev)
+    basis = torch.zeros((k + 1, op.dim), dtype=dtype, device=dev)
+    basis[0] = q
+    alphas = torch.zeros(k, dtype=dtype, device=dev)
+    betas = torch.zeros(k, dtype=dtype, device=dev)
+    q_prev = torch.zeros_like(q)
+    beta_prev = torch.zeros((), dtype=dtype, device=dev)
+    done = 0
+    for cp in cps:
+        for i in range(done, cp):
+            q_next, alphas[i], betas[i], _ = _step(
+                op, basis, i, q, q_prev, beta_prev, generator,
+                reorthogonalize, reorth_passes, None)
+            q_prev, q, beta_prev = q, q_next, betas[i]
+        done = cp
+        # betas[cp - 1] couples out of the leading block: it is the
+        # residual factor, not part of T.
+        w, yv = _tridiagonal_eigh(alphas[:cp], betas[:cp - 1])
+        j = 0 if extreme == "min" else cp - 1
+        theta, y = w[j], yv[:, j]
+        resid = betas[cp - 1] * torch.abs(y[cp - 1]) / torch.clamp(
+            torch.abs(theta), min=torch.finfo(dtype).tiny)
+        converged = resid <= tol
+        if bool(converged):
+            break
+    v = pivot_gauge(_ritz_vector(basis[:done].T, y))
+    info = LanczosInfo(
+        effective_k=torch.tensor(float(done), dtype=dtype, device=dev),
+        residual=resid, converged=converged.to(dtype))
+    return theta, v, info
+
+
+def power_iteration(op, num_iters: int = 100, *,
+                    v0: torch.Tensor | None = None,
+                    generator: torch.Generator | None = None,
+                    shift: float | torch.Tensor = 0.0, device=None):
+    """Dominant (largest |λ|) eigenpair by ``num_iters`` steps of power
+    iteration on ``A + shift I`` (a shift turns "algebraically largest"
+    into "largest magnitude" for a negative definite A).
+
+    Returns ``(lam, v)``: ``lam`` the Rayleigh quotient of ``A``, ``v``
+    sign-gauged.
+    """
+    op = as_operator(op)
+    dev = check_device(device, op)
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    q = _start(op, v0, generator, dev)
+    shift = torch.as_tensor(shift, dtype=op.dtype, device=dev)
+    for _ in range(int(num_iters)):
+        w = op.matvec(q) + shift * q
+        q = w / torch.linalg.vector_norm(w)
+    return hdot(q, op.matvec(q)), pivot_gauge(q)

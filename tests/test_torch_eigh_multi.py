@@ -188,9 +188,12 @@ def test_with_info_matches_jax_and_is_not_differentiable(method):
 
 def test_argument_errors():
     a = torch.eye(8, dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="precond"):
-        port.dominant_eigh_multi(a, r=2, k=8, precond=lambda x: x,
-                                 device="cpu")
+    # precond is accepted (it raised NotImplementedError before it was
+    # ported): with the identity, the pairs are the unpreconditioned ones.
+    lams, _ = port.dominant_eigh_multi(a, r=2, k=8, precond=lambda x: x,
+                                       device="cpu")
+    assert torch.equal(lams, port.dominant_eigh_multi(a, r=2, k=8,
+                                                      device="cpu")[0])
     with pytest.raises(ValueError, match="k >= r"):
         port.dominant_eigh_multi(a, r=4, k=3, device="cpu")
     with pytest.raises(ValueError, match="x0"):

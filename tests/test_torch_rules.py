@@ -92,6 +92,22 @@ def test_import_scan_covers_the_tfim_and_observables_modules():
     assert out.returncode == 0, out.stderr
 
 
+def test_import_scan_covers_the_precond_module():
+    """The scan below reads ``ops/precond.py``, and the import check
+    imports it with JAX blocked."""
+    names = {p.relative_to(PKG).as_posix() for p in _sources()
+             if p.is_relative_to(PKG)}
+    assert {"ops/precond.py", "ops/cg.py", "ops/lanczos.py"} <= names
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['dominantsparseeigenad_tpu'] = None\n"
+        "import dominantsparseeigenad_tpu_torch.ops.precond\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+
+
 def test_import_scan_covers_the_ising2d_modules():
     """The scan below reads ``ops/decomp.py``, ``ops/svd.py`` and
     ``models/ising2d.py``, and the import check imports them with JAX
@@ -197,6 +213,37 @@ def _entry_points():
             torch.eye(2), torch.ones(2, 2, 2), torch.ones(2, 2, 2, 2)),
         "ising_observables": lambda: models.ising_observables(
             0.5, chi=4, n_steps=2),
+        "cg_info": lambda: port.cg_info(lambda x: x, v),
+        "minres": lambda: port.minres(lambda x: x, v),
+        "solve_spd": lambda: port.solve_spd(a, v),
+        "solve_symmetric": lambda: port.solve_symmetric(a, v),
+        "solve_deflated minres": lambda: port.solve_deflated(
+            a, 1.0, v, v, method="minres"),
+        "lanczos carry": lambda: port.lanczos(a, 4, restart_mode="carry"),
+        "lanczos bf16 basis": lambda: port.lanczos(
+            a.float(), 4, basis_dtype=torch.bfloat16),
+        "lanczos_adaptive": lambda: port.lanczos_adaptive(a, 4),
+        "power_iteration": lambda: port.power_iteration(a, 4),
+        "refine_eigenpair": lambda: port.refine_eigenpair(a, 1.0, v),
+        "dominant_eigh bf16 basis": lambda: port.dominant_eigh(
+            a.float(), k=4, basis_dtype=torch.bfloat16, reorth_chunks=4),
+        "dominant_eigh early_exit_tol": lambda: port.dominant_eigh(
+            a, k=4, early_exit_tol=1e-8),
+        "dominant_eigh precond": lambda: port.dominant_eigh(
+            a, k=4, precond=lambda x: x),
+        "dominant_eigh_multi precond": lambda: port.dominant_eigh_multi(
+            a, r=2, k=4, precond=lambda x: x),
+        # A preconditioner's device is its operator's, made on CUDA unless
+        # asked otherwise.
+        "operator_diagonal": lambda: port.operator_diagonal(
+            port.BellOperator.from_dense(a.numpy(), bs=8)),
+        "jacobi_precond": lambda: port.jacobi_precond(
+            port.BellOperator.from_dense(a.numpy(), bs=8)),
+        "block_jacobi_precond": lambda: port.block_jacobi_precond(
+            port.BellOperator.from_dense(a.numpy(), bs=8)),
+        "tfim_energy_gap": lambda: models.tfim_energy_gap(4, 1.0),
+        "tfim_observables_sweep": lambda: models.tfim_observables_sweep(
+            4, [1.0]),
     }
 
 
