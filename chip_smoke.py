@@ -132,6 +132,30 @@ line each:
    (``tools/jax_ising2d_errors.py``).  This path launches no
    hand-written kernel (checked: the launch counts stay 0).
 
+12. ``eig``: the non-symmetric solver (``dominant_eig``,
+   ``dominant_eig_multi``), float64 unless stated.  (a) Config #4's
+   transfer observables at chi = 30, 30 CTMRG steps: at β = 0.35
+   ``correlation_length`` and dξ/dβ (forward and backward timed, with
+   their matvecs and BiCGStab iterations and the peak memory) against
+   Onsager's row-to-row ξ = 1 / (-ln tanh β - 2β), ξ against
+   ``torch.linalg.eigvals`` of the same 1800 x 1800 transfer matrix, and
+   d/dβ of ``transfer_spectral_gap`` against a central difference; at
+   β = 0.5 (ordered) ξ > 100 and against eigvals, at chi = 30 and at
+   chi = 10 (the JAX test's size).  Bars: ~8x the JAX package's own CPU
+   errors (``tools/jax_transfer_errors.py``).  (b) A dense positive
+   matrix, n = 2048, float64 and float32: λ against eigvals; the
+   gradient of ``λ + <c_l, l> + <c_r, r>`` against the forward-mode
+   derivative along a random D (dot-product identity, relative to
+   ||G|| ||D||); the second derivative along D, in float64 against a
+   central difference of the first, in float32 against the float64 one
+   of the same inputs.
+   (c) ``dominant_eig(method="arnoldi", arnoldi_k=64)`` on a
+   non-symmetric BellOperator with positive values (n = 4096, bs = 32, 5
+   ring bands; |λ2|/λ1 = 0.9964), float32: its report, both
+   one-sided residuals, λ against a twin through the plain product,
+   ∂λ/∂vals against l⊗r on the pattern; its matvecs run the banded SpMV
+   kernel (K4b), counted (the counts join the ``kernels`` line).
+
 Then a ``kernels`` line, the ``nvidia-smi`` name and power-limit line, and
 as the last line ``{"ok": true, "device": {...}}``.  Any failed check
 raises, so the exit code is not 0.  Without a CUDA device it exits with
@@ -244,6 +268,38 @@ ISING_AGREE = {
 # phase on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md §6).
 ISING_RESIDUAL_BAR = 1e-6
 ISING_LANCZOS_MAXITER = 1000
+
+# The eig phase: config #4's transfer observables at its BASELINE width
+# (CTMRG chi = 30, 30 steps, float64) in the disordered phase (β = 0.35)
+# and at the bench's β = 0.5 (ordered), then the non-symmetric solver on a
+# dense positive matrix and on a non-symmetric BellOperator.  The Onsager
+# bars are ~8x the JAX package's own CPU errors at the same chi, steps and
+# β (tools/jax_transfer_errors.py: ξ 1.24e-2, dξ/dβ 2.35e-2, both the
+# finite-chi truncation).  ξ against eigvals of the same transfer matrix:
+# 1e-6 at β = 0.35 (the JAX test's bar); at β = 0.5 and chi = 30 (ξ ~ 4e6,
+# a gap of ~2e-7 between the top moduli) the JAX package itself is
+# 1.19e-4 from eigvals, so the bar there is 1e-3 (~8x), and the JAX
+# test's 1e-4 is held at that test's own size, chi = 10 and 15 steps.
+EIG_CHI, EIG_STEPS = 30, 30
+EIG_BETA_DISORDERED = 0.35
+EIG_ONSAGER_RTOL = {"xi": 0.1, "dxi": 0.19}
+EIG_EIGVALS_RTOL = {"disordered": 1e-6, "ordered": 1e-3,
+                    "ordered_chi10": 1e-4}
+EIG_GAP_FD = (1e-4, 1e-2)               # central-difference step, rtol
+EIG_DENSE_N = 2048
+# The dot-product identity is held relative to ||G||_F ||D||_F (its
+# Cauchy-Schwarz scale): <G, D> sums 4.2M terms of both signs to ~1e-3
+# of that scale for a random D, so an error relative to <G, D> itself
+# measures the cancellation, not the rule.
+EIG_DENSE_RTOL = {torch.float64: {"lam": 1e-10, "dot": 1e-10, "d2": 1e-5},
+                  torch.float32: {"lam": 1e-5, "dot": 1e-6, "d2": 1e-4}}
+EIG_BELL = (4096, 32, 5)                # n, bs, blocks per row
+# Its ring of 128 block-rows gives a near-degenerate transfer-like top
+# (|λ2|/λ1 = 0.9964 on the CPU, numpy eigvals): 32 Arnoldi steps leave
+# the polish 500 power steps short of float32's residual floor, 64 do not.
+EIG_BELL_ARNOLDI_K = 64
+EIG_BELL_RESIDUAL = 1e-4                # relative, float32
+EIG_BELL_TWIN_RTOL = 1e-5
 
 
 def emit(obj):
@@ -2363,6 +2419,309 @@ def phase_ising2d(pkg, spmv):
         raise AssertionError(f"ising2d phase failed: {failed}")
 
 
+@contextlib.contextmanager
+def counted_products(pkg, cg):
+    """Count the products that run inside the block: every matvec and
+    rmatvec of a ``DenseOperator`` or a ``BellOperator``, and the
+    iterations of every BiCGStab (``ops/cg.py::_bicgstab_loop``, wrapped
+    for the duration; its count stays on the device until read)."""
+    counts = {"matvec": 0, "rmatvec": 0, "bicgstab_iterations": []}
+    saved = []
+    for cls in (pkg.DenseOperator, pkg.BellOperator):
+        for name in ("matvec", "rmatvec"):
+            fn = getattr(cls, name)
+
+            def wrapped(self, x, fn=fn, name=name):
+                counts[name] += 1
+                return fn(self, x)
+            saved.append((cls, name, fn))
+            setattr(cls, name, wrapped)
+    loop = cg._bicgstab_loop
+
+    def bicgstab(*args, **kw):
+        x, its = loop(*args, **kw)
+        counts["bicgstab_iterations"].append(its)
+        return x, its
+
+    cg._bicgstab_loop = bicgstab
+    try:
+        yield counts
+    finally:
+        cg._bicgstab_loop = loop
+        for cls, name, fn in saved:
+            setattr(cls, name, fn)
+
+
+def _read_counts(counts):
+    its = counts["bicgstab_iterations"]
+    return {"matvecs": counts["matvec"], "rmatvecs": counts["rmatvec"],
+            "bicgstab_solves": len(its),
+            "bicgstab_iterations": int(sum(int(t) for t in its))}
+
+
+def timed(fn):
+    """``(fn(), seconds)``, synchronized on both sides."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def transfer_xi_eigvals(models, beta, chi, n_steps):
+    """ξ from the two leading moduli of ``torch.linalg.eigvals`` of the
+    transfer matrix of the same environment (float64, on the card)."""
+    c, e, t = models.ctmrg_environment(beta, chi=chi, n_steps=n_steps,
+                                       device=DEVICE)
+    m = models.transfer_operator(c, e, t, device=DEVICE).a
+    w = torch.sort(torch.linalg.eigvals(m).abs(), descending=True).values
+    return float(1.0 / torch.log(w[0] / w[1])), m.shape[0]
+
+
+def eig_transfer(pkg, models, cg):
+    """Part (a): ξ, dξ/dβ and the dominant transfer eigenvalue with its
+    β-derivative at chi = 30, against Onsager, eigvals and a central
+    difference."""
+    out, checks = {}, {}
+    b = EIG_BETA_DISORDERED
+    xi_o = 1.0 / (-math.log(math.tanh(b)) - 2.0 * b)
+    dxi_o = xi_o * xi_o * (2.0 / math.sinh(2.0 * b) + 2.0)
+    beta = torch.tensor(b, dtype=torch.float64, device=DEVICE,
+                        requires_grad=True)
+    torch.cuda.reset_peak_memory_stats()
+    with counted_products(pkg, cg) as fwd_counts:
+        xi, fwd_s = timed(lambda: models.correlation_length(
+            beta, chi=EIG_CHI, n_steps=EIG_STEPS, device=DEVICE))
+    with counted_products(pkg, cg) as bwd_counts:
+        (dxi,), bwd_s = timed(lambda: torch.autograd.grad(xi, beta))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    xi, dxi = float(xi.detach()), float(dxi)
+    xi_dense, dim = transfer_xi_eigvals(models, b, EIG_CHI, EIG_STEPS)
+    lam = models.transfer_spectral_gap(beta, chi=EIG_CHI, n_steps=EIG_STEPS,
+                                       device=DEVICE)
+    (dlam,) = torch.autograd.grad(lam, beta)
+    eps, fd_rtol = EIG_GAP_FD
+    fd = (float(models.transfer_spectral_gap(
+        b + eps, chi=EIG_CHI, n_steps=EIG_STEPS, device=DEVICE))
+        - float(models.transfer_spectral_gap(
+            b - eps, chi=EIG_CHI, n_steps=EIG_STEPS, device=DEVICE))) \
+        / (2 * eps)
+    errs = {"xi_vs_onsager": abs(xi - xi_o) / xi_o,
+            "dxi_vs_onsager": abs(dxi - dxi_o) / dxi_o,
+            "xi_vs_eigvals": abs(xi - xi_dense) / xi_dense,
+            "dlam_vs_fd": abs(float(dlam) - fd) / abs(fd)}
+    out["disordered"] = {
+        "beta": b, "chi": EIG_CHI, "n_steps": EIG_STEPS, "dim": dim,
+        "xi": xi, "dxi_dbeta": dxi, "xi_onsager": xi_o,
+        "dxi_onsager": dxi_o, "xi_eigvals": xi_dense,
+        "lam": float(lam.detach()), "dlam_dbeta": float(dlam),
+        "dlam_fd": fd, "rel_err": errs, "forward_s": fwd_s,
+        "backward_s": bwd_s, "peak_mem_gib": peak,
+        "forward_products": _read_counts(fwd_counts),
+        "backward_products": _read_counts(bwd_counts)}
+    checks[f"xi vs Onsager, rel {EIG_ONSAGER_RTOL['xi']}"] = \
+        errs["xi_vs_onsager"] <= EIG_ONSAGER_RTOL["xi"]
+    checks[f"dxi/dbeta vs Onsager, rel {EIG_ONSAGER_RTOL['dxi']}"] = \
+        errs["dxi_vs_onsager"] <= EIG_ONSAGER_RTOL["dxi"]
+    checks[f"xi vs eigvals (beta {b}), rel "
+           f"{EIG_EIGVALS_RTOL['disordered']}"] = \
+        errs["xi_vs_eigvals"] <= EIG_EIGVALS_RTOL["disordered"]
+    checks[f"dlam/dbeta vs central difference, rel {fd_rtol}"] = \
+        errs["dlam_vs_fd"] <= fd_rtol
+    # The ordered phase, the bench's β: a quasi-degenerate top pair.
+    for key, chi, n_steps in (("ordered", EIG_CHI, EIG_STEPS),
+                              ("ordered_chi10", 10, 15)):
+        xi, fwd_s = timed(lambda: float(models.correlation_length(
+            ISING_BETA, chi=chi, n_steps=n_steps, device=DEVICE)))
+        xi_dense, _ = transfer_xi_eigvals(models, ISING_BETA, chi, n_steps)
+        err = abs(xi - xi_dense) / xi_dense
+        out[key] = {"beta": ISING_BETA, "chi": chi, "n_steps": n_steps,
+                    "xi": xi, "xi_eigvals": xi_dense,
+                    "xi_vs_eigvals_rel": err, "forward_s": fwd_s}
+        checks[f"{key}: xi > 100"] = xi > 100
+        checks[f"{key}: xi vs eigvals, rel {EIG_EIGVALS_RTOL[key]}"] = \
+            err <= EIG_EIGVALS_RTOL[key]
+    return out, checks
+
+
+def eig_dense(pkg, cg, dtype):
+    """Part (b): a dense non-symmetric positive matrix, n = 2048: λ
+    against eigvals; the reverse-mode gradient of ``λ + <c_l, l> +
+    <c_r, r>`` against the forward-mode derivative along D (dot-product
+    identity); in float64 also its second derivative along D against a
+    central difference of the first."""
+    n = EIG_DENSE_N
+    bars = EIG_DENSE_RTOL[dtype]
+    gen = torch.Generator(device=DEVICE).manual_seed(31)
+    a = torch.rand((n, n), dtype=dtype, device=DEVICE, generator=gen) + 0.1
+    d = torch.randn((n, n), dtype=dtype, device=DEVICE, generator=gen)
+    cl = torch.randn(n, dtype=dtype, device=DEVICE, generator=gen)
+    cr = torch.randn(n, dtype=dtype, device=DEVICE, generator=gen)
+
+    def loss(m, cl=cl, cr=cr):
+        lam, l, r = pkg.dominant_eig(m, device=DEVICE)
+        return lam + l @ cl + r @ cr, lam
+
+    def second(m, d, **kw):
+        """d²L along d (a double backward), and its seconds."""
+        x = m.clone().requires_grad_(True)
+        (g1,) = torch.autograd.grad(loss(x, **kw)[0], x, create_graph=True)
+        (g2,), d2_s = timed(lambda: torch.autograd.grad((g1 * d).sum(), x))
+        return float((g2 * d).sum()), d2_s
+
+    torch.cuda.reset_peak_memory_stats()
+    x = a.clone().requires_grad_(True)
+    with counted_products(pkg, cg) as fwd_counts:
+        (f, lam), fwd_s = timed(lambda: loss(x))
+    with counted_products(pkg, cg) as bwd_counts:
+        (g,), bwd_s = timed(lambda: torch.autograd.grad(f, x))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    w = torch.linalg.eigvals(a.double()).real.max()
+    lam = lam.detach()
+    lam_err = abs(float(lam) - float(w)) / abs(float(w))
+    with fwAD.dual_level():
+        (fd_, _), jvp_s = timed(lambda: loss(fwAD.make_dual(a, d)))
+        df = float(fwAD.unpack_dual(fd_).tangent)
+    gd = float((g * d).sum())
+    scale = float(torch.linalg.matrix_norm(g) * torch.linalg.matrix_norm(d))
+    dot = abs(gd - df) / scale
+    out = {"n": n, "dtype": str(dtype).split(".")[-1], "lam": float(lam),
+           "lam_eigvals": float(w), "lam_rel_err": lam_err,
+           "grad_dot_d": gd, "forward_mode_df": df,
+           "dot_rel_to_df": abs(gd - df) / abs(df),
+           "grad_norm_x_d_norm": scale, "dot_rel": dot,
+           "forward_s": fwd_s, "backward_s": bwd_s,
+           "forward_mode_s": jvp_s, "peak_mem_gib": peak,
+           "forward_products": _read_counts(fwd_counts),
+           "backward_products": _read_counts(bwd_counts)}
+    checks = {f"{out['dtype']} lam vs eigvals, rel {bars['lam']}":
+              lam_err <= bars["lam"],
+              f"{out['dtype']} grad . D vs forward-mode dL, rel to "
+              f"|G| |D| {bars['dot']}": dot <= bars["dot"]}
+    d2, d2_s = second(a, d)
+    out.update({"d2": d2, "second_backward_s": d2_s})
+    if dtype == torch.float32:
+        # A central difference of float32 first derivatives is noise at
+        # this size (their solves stop at 6e-6): hold d² against the
+        # float64 one of the same inputs instead.
+        d2_64, _ = second(a.double(), d.double(), cl=cl.double(),
+                          cr=cr.double())
+        out.update({"d2_float64_same_inputs": d2_64,
+                    "d2_rel": abs(d2 - d2_64) / abs(d2_64)})
+        checks[f"float32 d2 along D vs float64 d2 of the same inputs, "
+               f"rel {bars['d2']}"] = out["d2_rel"] <= bars["d2"]
+    else:
+        eps = 1e-4
+
+        def first(m):
+            m = m.clone().requires_grad_(True)
+            (gm,) = torch.autograd.grad(loss(m)[0], m)
+            return float((gm * d).sum())
+
+        fd = (first(a + eps * d) - first(a - eps * d)) / (2 * eps)
+        out.update({"d2_fd": fd, "d2_rel": abs(d2 - fd) / abs(fd)})
+        checks[f"d2 along D vs central difference, rel {bars['d2']}"] = \
+            out["d2_rel"] <= bars["d2"]
+    return out, checks
+
+
+def eig_bell(pkg, spmv, sparse, cg):
+    """Part (c): ``dominant_eig(method="arnoldi")`` on a non-symmetric
+    BellOperator with positive values (config #5's ring-band pattern at
+    the small shape), float32: both one-sided residuals, λ against a
+    twin solve through the plain product, ∂λ/∂vals against l⊗r on the
+    pattern, and the kernel launches of that run."""
+    n, bs, bpr = EIG_BELL
+    base = sparse.random_bell_operator(n, bs, bpr, device=DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(41)
+    vals = torch.rand(base.vals.shape, device=DEVICE, generator=gen) + 0.01
+    op = pkg.BellOperator(vals, base.cols, n, symmetric=False)
+    plain = pkg.MatrixFreeOperator(
+        lambda p, x: spmv._bell_spmv_torch(p, op.cols, x), vals, n,
+        dtype=torch.float32, symmetric=False,
+        rmatvec_fn=lambda p, x: spmv._bell_rmatvec_torch(p, op.cols, x,
+                                                         vals.shape[0]))
+    kw = dict(method="arnoldi", arnoldi_k=EIG_BELL_ARNOLDI_K, device=DEVICE)
+    pkg.dominant_eig(op, **kw)                              # warm-up
+    spmv.reset_launch_counts()
+    x = vals.clone().requires_grad_(True)
+    with counted_products(pkg, cg) as counts:
+        (lam, l, r, info), fwd_s = timed(lambda: pkg.dominant_eig(
+            op.with_vals(x), with_info=True, **kw))
+        (g,), bwd_s = timed(lambda: torch.autograd.grad(lam, x))
+    counted = dict(spmv.launch_counts)
+    launches = {k: v for k, v in counted.items() if v}
+    lam, l, r = lam.detach(), l.detach(), r.detach()
+    lam_t, _, _ = pkg.dominant_eig(plain, **kw)
+    res_r = float(torch.linalg.vector_norm(op.matvec(r) - lam * r)
+                  / lam.abs())
+    res_l = float(torch.linalg.vector_norm(op.rmatvec(l) - lam * l)
+                  / (lam.abs() * torch.linalg.vector_norm(l)))
+    nb = n // bs
+    lr = l.reshape(nb, 1, bs, 1) * r.reshape(nb, bs)[op.cols.long()][
+        :, :, None, :]
+    twin = abs(float(lam) - float(lam_t)) / abs(float(lam_t))
+    out = {"n": n, "bs": bs, "blocks_per_row": bpr, "lam": float(lam),
+           "lam_plain_twin": float(lam_t), "twin_rel": twin,
+           "residual_right": res_r, "residual_left": res_l,
+           "grad_vs_l_r_rel": rel_err(g, lr), "forward_s": fwd_s,
+           "backward_s": bwd_s, "launches": launches,
+           "arnoldi_k": EIG_BELL_ARNOLDI_K,
+           "power_iterations": float(info.iterations),
+           "converged": float(info.converged),
+           "rank1_defect": float(info.rank1_defect),
+           "products": _read_counts(counts),
+           "slot_plan_banded": op.slot_plan is not None}
+    checks = {"bell power loop converged": out["converged"] == 1.0,
+              f"bell residuals, rel {EIG_BELL_RESIDUAL}":
+              max(res_r, res_l) <= EIG_BELL_RESIDUAL,
+              f"bell lam vs plain-product twin, rel {EIG_BELL_TWIN_RTOL}":
+              twin <= EIG_BELL_TWIN_RTOL,
+              "bell dlam/dvals vs l r^T on the pattern, rel 1e-4":
+              out["grad_vs_l_r_rel"] <= 1e-4,
+              "bell solve launched the banded SpMV kernel":
+              launches.get("bell_spmv_banded_f32", 0) > 0}
+    return out, checks, counted
+
+
+def phase_eig(pkg, spmv):
+    """The non-symmetric solver (see the module docstring, phase 12).
+    Returns the kernel launch counts of its counted BellOperator run."""
+    from dominantsparseeigenad_tpu_torch import models
+    cg = importlib.import_module("dominantsparseeigenad_tpu_torch.ops.cg")
+    sparse = importlib.import_module("dominantsparseeigenad_tpu_torch.ops."
+                                     "sparse")
+    t_phase = time.perf_counter()
+    # Warm-up: the same calls at a small chi (library handles, first
+    # launches of eigvals, svdvals and qr).
+    b = torch.tensor(EIG_BETA_DISORDERED, dtype=torch.float64, device=DEVICE,
+                     requires_grad=True)
+    torch.autograd.grad(models.correlation_length(b, chi=4, n_steps=3,
+                                                  device=DEVICE), b)
+    transfer_xi_eigvals(models, EIG_BETA_DISORDERED, 4, 3)
+    for dtype in (torch.float64, torch.float32):
+        a = torch.rand((64, 64), dtype=dtype, device=DEVICE) + 0.1
+        x = a.clone().requires_grad_(True)
+        torch.autograd.grad(pkg.dominant_eig(x, device=DEVICE)[1].sum(), x)
+        with fwAD.dual_level():
+            pkg.dominant_eig(fwAD.make_dual(a, torch.ones_like(a)),
+                             device=DEVICE)
+        torch.linalg.eigvals(a.double())
+    out, checks = eig_transfer(pkg, models, cg)
+    for dtype in (torch.float64, torch.float32):
+        part, more = eig_dense(pkg, cg, dtype)
+        out[f"dense_{part['dtype']}"] = part
+        checks.update(more)
+    out["bell"], more, counts = eig_bell(pkg, spmv, sparse, cg)
+    checks.update(more)
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit({"phase": "eig", **out})
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"eig phase failed: {failed}")
+    return counts
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this script runs on the card")
@@ -2399,6 +2758,8 @@ def main():
                                  f"second_order path")
     counts = {k: counts[k] + so_counts[k] for k in counts}
     phase_ising2d(pkg, spmv)
+    eig_counts = phase_eig(pkg, spmv)
+    counts = {k: counts[k] + eig_counts[k] for k in counts}
 
     csrc = "dominantsparseeigenad_tpu_torch/csrc/"
     # The Pallas kernel body, and the SpMM entry that runs it on (N, r).

@@ -29,7 +29,12 @@ The Krylov engine has the JAX package's options: chunked
 reorthogonalization, a bfloat16 basis polished by a Newton step
 (``refine_eigenpair``), a carried restart direction that needs no host
 read, early exit (``lanczos_adaptive``), MINRES and preconditioned
-deflated solves (``ops/precond.py``), and the TFIM χ_F(g) sweep.
+deflated solves (``ops/precond.py``), and the TFIM χ_F(g) sweep.  The
+non-symmetric dominant eigensolver (``dominant_eig``,
+``dominant_eig_multi``: a two-sided power iteration, Arnoldi-seeded on
+request, whose IFT rule solves bordered systems by BiCGStab, GMRES or
+CGNR) gives config #4's transfer observables, ``transfer_spectral_gap``
+and ``correlation_length``.
 
 Entry points run on CUDA unless called with ``device="cpu"``; without a
 card they raise rather than fall back.

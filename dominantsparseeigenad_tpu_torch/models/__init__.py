@@ -1,10 +1,12 @@
 """Physics models of the port: the TFIM flagship (``models/tfim.py``) and
-the 2D classical Ising TRG/CTMRG flows (``models/ising2d.py``)."""
+the 2D classical Ising TRG/CTMRG flows with their transfer observables
+(``models/ising2d.py``)."""
 
-from .ising2d import (ctmrg_environment, ctmrg_free_energy,
-                      ising_observables, ising_vertex_tensor,
-                      onsager_free_energy, transfer_operator, trg_free_energy,
-                      trg_step)
+from .ising2d import (correlation_length, ctmrg_environment,
+                      ctmrg_free_energy, ising_observables,
+                      ising_vertex_tensor, onsager_free_energy,
+                      transfer_operator, transfer_spectral_gap,
+                      trg_free_energy, trg_step)
 from .tfim import (fidelity_susceptibility, flip_sum, tfim_dense_hamiltonian,
                    tfim_ed_observables, tfim_energy_gap, tfim_exact_chi_f,
                    tfim_exact_d2e0_dg2, tfim_exact_de0_dg, tfim_exact_e0,
@@ -12,9 +14,10 @@ from .tfim import (fidelity_susceptibility, flip_sum, tfim_dense_hamiltonian,
                    tfim_observables_sweep, tfim_operator, tfim_zz_diagonal)
 
 __all__ = [
-    "ctmrg_environment", "ctmrg_free_energy", "ising_observables",
-    "ising_vertex_tensor", "onsager_free_energy", "transfer_operator",
-    "trg_free_energy", "trg_step",
+    "correlation_length", "ctmrg_environment", "ctmrg_free_energy",
+    "ising_observables", "ising_vertex_tensor", "onsager_free_energy",
+    "transfer_operator", "transfer_spectral_gap", "trg_free_energy",
+    "trg_step",
     "fidelity_susceptibility", "flip_sum", "tfim_dense_hamiltonian",
     "tfim_ed_observables", "tfim_energy_gap", "tfim_exact_chi_f", "tfim_exact_d2e0_dg2",
     "tfim_exact_de0_dg",

@@ -26,9 +26,12 @@ heat), and hold it against Onsager's exact solution.
   at import), the counterpart of the JAX package's HIGHEST precision.
 
 Conventions: vertex tensor ``T[u, r, d, l]`` (up, right, down, left); the
-coupling is J = 1, inverse temperature ``beta``.  Not ported yet:
-``transfer_spectral_gap`` and ``correlation_length``, which need the
-non-symmetric eigensolver (ROADMAP.md queue 1 item 8).
+coupling is J = 1, inverse temperature ``beta``.  The row-to-row
+transfer operator of the CTMRG environment gives the two transfer
+observables, ``transfer_spectral_gap`` (its dominant eigenvalue) and
+``correlation_length`` (from its two leading eigenvalues), through the
+non-symmetric solver of ``ops/eig.py``, differentiable in beta through
+the whole environment.
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ import torch
 
 from ..ops.decomp import (eigh_safe, eigh_safe_truncated, svd_safe,
                           svd_safe_truncated)
+from ..ops.eig import dominant_eig, dominant_eig_multi
 from ..ops.eigh import dominant_eigh_multi
 from ..ops.observables import value_d1_d2
 from ..ops.operators import (DenseOperator, check_device, hmatmul,
@@ -293,6 +297,44 @@ def transfer_operator(c, e, t, *, device=None) -> DenseOperator:
 # ---------------------------------------------------------------------------
 # Observables
 # ---------------------------------------------------------------------------
+
+def transfer_spectral_gap(beta, *, chi: int = 16, n_steps: int = 30,
+                          num_iters: int = 400, dtype=torch.float64,
+                          method: str = "arnoldi", device=None):
+    """The dominant eigenvalue of the transfer operator of the converged
+    CTMRG environment, by :func:`~..ops.eig.dominant_eig`
+    (Arnoldi-seeded by default, ``arnoldi_k = min(48, dim)``: near
+    criticality the transfer spectrum is nearly degenerate);
+    differentiable in beta."""
+    dev = resolve_device(device)
+    c, e, t = ctmrg_environment(beta, chi=chi, n_steps=n_steps, dtype=dtype,
+                                device=dev)
+    op = transfer_operator(c, e, t, device=dev)
+    lam, _, _ = dominant_eig(op, num_iters=num_iters, method=method,
+                             arnoldi_k=min(48, op.dim), device=dev)
+    return lam
+
+
+def correlation_length(beta, *, chi: int = 16, n_steps: int = 30,
+                       num_iters: int = 600, dtype=torch.float64,
+                       device=None):
+    """``ξ = 1 / ln(λ1 / |λ2|)`` from the two leading transfer
+    eigenvalues (:func:`~..ops.eig.dominant_eig_multi`, m = 2, Wielandt
+    deflation, Arnoldi-seeded, ``arnoldi_k = min(48, dim)``),
+    differentiable in beta through the whole chain.  Meant for the
+    disordered phase; in the ordered phase the top pair is nearly
+    degenerate, and the gap is clamped at machine epsilon so that ξ
+    saturates at a large positive value (~1/eps) instead of turning
+    negative."""
+    dev = resolve_device(device)
+    c, e, t = ctmrg_environment(beta, chi=chi, n_steps=n_steps, dtype=dtype,
+                                device=dev)
+    op = transfer_operator(c, e, t, device=dev)
+    lams, _, _ = dominant_eig_multi(op, m=2, num_iters=num_iters,
+                                    arnoldi_k=min(48, op.dim), device=dev)
+    gap = torch.log(lams[0] / torch.abs(lams[1]))
+    return 1.0 / torch.clamp(gap, min=torch.finfo(lams.dtype).eps)
+
 
 def ising_observables(beta, *, method: str = "trg", chi: int = 24,
                       n_steps: int = 24, dtype=torch.float64, device=None):

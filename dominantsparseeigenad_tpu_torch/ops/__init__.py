@@ -1,12 +1,14 @@
 """Operators, kernels and solvers of the port (see the package docstring)."""
 
 from .bell_spmv import bell_spmm, bell_spmv, detect_slot_plan
-from .cg import (cg, cg_info, minres, solve_deflated, solve_deflated_info,
-                 solve_spd, solve_symmetric)
+from .cg import (bicgstab, cg, cg_info, gmres, minres, solve_deflated,
+                 solve_deflated_info, solve_general, solve_spd,
+                 solve_symmetric)
 from .decomp import (eigh_safe, eigh_safe_truncated, svd_safe,
                      svd_safe_truncated)
+from .eig import EigOptions, PowerInfo, dominant_eig, dominant_eig_multi
 from .eigh import dominant_eigh, dominant_eigh_multi, refine_eigenpair
-from .lanczos import (LanczosInfo, LanczosResult, lanczos,
+from .lanczos import (LanczosInfo, LanczosResult, arnoldi_step, lanczos,
                       lanczos_adaptive, lanczos_eigh, power_iteration)
 from .lobpcg import LobpcgInfo, lobpcg_eigh
 from .observables import (energy_curvature, fidelity_susceptibility,
@@ -19,17 +21,20 @@ from .sparse import BellOperator, random_bell_operator
 from .svd import dominant_svd
 
 __all__ = [
-    "BellOperator", "DenseOperator", "LanczosInfo", "LanczosResult",
-    "LinearOperator", "LobpcgInfo", "MatrixFreeOperator", "as_operator",
-    "bell_spmm", "bell_spmv", "block_jacobi_precond", "cg", "cg_info",
-    "detect_slot_plan", "dominant_eigh",
+    "BellOperator", "DenseOperator", "EigOptions", "LanczosInfo",
+    "LanczosResult", "LinearOperator", "LobpcgInfo", "MatrixFreeOperator",
+    "PowerInfo", "arnoldi_step", "as_operator", "bell_spmm", "bell_spmv",
+    "bicgstab", "block_jacobi_precond", "cg", "cg_info",
+    "detect_slot_plan", "dominant_eig", "dominant_eig_multi",
+    "dominant_eigh",
     "dominant_eigh_multi", "dominant_svd", "eigh_safe",
     "eigh_safe_truncated", "energy_curvature", "fidelity_susceptibility",
-    "hdot", "hmatmul", "jacobi_precond",
+    "gmres", "hdot", "hmatmul", "jacobi_precond",
     "lanczos", "lanczos_adaptive", "lanczos_eigh", "lobpcg_eigh", "minres",
     "operator_diagonal", "pivot_gauge", "power_iteration",
     "random_bell_operator", "refine_eigenpair", "resolve_device",
-    "solve_deflated", "solve_deflated_info", "solve_spd", "solve_symmetric",
+    "solve_deflated", "solve_deflated_info", "solve_general", "solve_spd",
+    "solve_symmetric",
     "svd_safe",
     "svd_safe_truncated", "tol_floor", "value_d1_d2",
 ]

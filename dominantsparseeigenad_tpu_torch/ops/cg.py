@@ -14,8 +14,15 @@ backward is one more deflated solve, by the same method and with the
 same preconditioner, and one deflated product (:class:`_DeflatedSolve`),
 so the IFT rules of ``eigh.py`` that call it differentiate again under
 ``create_graph``.  ``solve_spd`` and ``solve_symmetric`` are the same
-Function with nothing deflated.  BiCGSTAB, GMRES and ``solve_general``
-come with the non-symmetric solver (``ROADMAP.md`` queue 1 item 8).
+Function with nothing deflated.
+
+The non-symmetric solvers: ``bicgstab``, ``gmres`` (restarted, its small
+Hessenberg least squares solved on the device by a QR and a masked
+triangular solve) and ``solve_general``, whose Function
+(:class:`_GeneralSolve`) also solves the bordered systems of the
+non-symmetric eigensolver's rule (``eig.py``): its backward is the same
+solve on the transposed system, the counterpart of the JAX package's
+``custom_linear_solve`` with ``transpose_solve``.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ from typing import Callable
 
 import torch
 
+from .lanczos import arnoldi_step
 from .operators import (LinearOperator, as_operator, check_device, hdot,
                         hmatmul, partial_vjp, refuse_complex, tol_floor)
 from .precond import _apply_columns
@@ -95,6 +103,176 @@ def _cg_loop(matvec: Callable, b, tol: float, maxiter, x0=None,
             rr = torch.where(active, rr_new, rr)
             it += 1
     return x, it
+
+
+def _bicgstab_loop(matvec: Callable, b, tol: float, maxiter, x0=None,
+                   atol: float = 0.0):
+    """BiCGStab (van der Vorst), the JAX ``bicgstab`` recurrence with its
+    breakdown guards; returns ``(x, iterations)``, the second a device
+    tensor counting the iterations that ran unfrozen (what the JAX
+    ``while_loop`` counts).  The state freezes once the residual meets
+    the target or the iteration stops (a near-zero ``rho`` or
+    ``<rhat, v>``, ``omega = 0``, or a non-finite step, which is
+    discarded); the host reads that every ``CHECK_EVERY`` iterations."""
+    if maxiter is None:
+        maxiter = 10 * b.shape[-1]
+    if x0 is None:
+        x = torch.zeros_like(b)
+        r = b.clone()
+    else:
+        x = x0.to(b.dtype).clone()
+        r = b - matvec(x)
+    tol = tol_floor(tol, b.dtype)
+    target2 = torch.clamp(tol * tol * hdot(b, b), min=float(atol) ** 2)
+    # scipy's near-breakdown test |rho| <= eps ||rhat|| ||r||: an exact
+    # zero test lets |rho| ~ eps^2 through and beta ~ 1/rho overflows.
+    eps = float(torch.finfo(b.dtype).eps)
+    rhat = r.clone()
+    rhat_norm = torch.linalg.vector_norm(rhat)
+    one = torch.ones((), dtype=b.dtype, device=b.device)
+    zero = torch.zeros_like(one)
+    p, v = torch.zeros_like(b), torch.zeros_like(b)
+    rho = alpha = omega = one
+    rr = hdot(r, r)
+    stop = torch.zeros((), dtype=torch.bool, device=b.device)
+    its = torch.zeros((), dtype=torch.int64, device=b.device)
+    it = 0
+    while it < maxiter:
+        if not bool((rr > target2) & ~stop):
+            break
+        for _ in range(min(CHECK_EVERY, maxiter - it)):
+            active = (rr > target2) & ~stop
+            rho_new = hdot(rhat, r)
+            broke = rho_new.abs() <= eps * rhat_norm \
+                * torch.linalg.vector_norm(r)
+            beta = torch.where(broke, zero,
+                               (rho_new / torch.where(broke, one, rho))
+                               * (alpha / torch.where(omega == 0, one,
+                                                      omega)))
+            p_new = r + beta * (p - omega * v)
+            v_new = matvec(p_new)
+            denom = hdot(rhat, v_new)
+            broke = broke | (denom.abs() <= eps * rhat_norm
+                             * torch.linalg.vector_norm(v_new))
+            alpha_new = torch.where(broke, zero,
+                                    rho_new / torch.where(broke, one, denom))
+            s = r - alpha_new * v_new
+            t = matvec(s)
+            tt = hdot(t, t)
+            omega_new = torch.where(tt == 0, zero,
+                                    hdot(t, s) / torch.where(tt == 0, one,
+                                                             tt))
+            x_new = x + alpha_new * p_new + omega_new * s
+            r_new = s - omega_new * t
+            rr_new = hdot(r_new, r_new)
+            # A non-finite step (an overflow past the guards) is
+            # discarded: the loop stops on the last good iterate.
+            bad = ~torch.isfinite(rr_new)
+            x_new = torch.where(bad, x, x_new)
+            r_new = torch.where(bad, r, r_new)
+            rr_new = torch.where(bad, rr, rr_new)
+            stop_new = broke | bad | (omega_new == 0)
+            x = torch.where(active, x_new, x)
+            r = torch.where(active, r_new, r)
+            p = torch.where(active, p_new, p)
+            v = torch.where(active, v_new, v)
+            rho = torch.where(active, rho_new, rho)
+            alpha = torch.where(active, alpha_new, alpha)
+            omega = torch.where(active, omega_new, omega)
+            rr = torch.where(active, rr_new, rr)
+            stop = torch.where(active, stop_new, stop)
+            its = its + active
+            it += 1
+    return x, its
+
+
+def bicgstab(matvec: Callable, b: torch.Tensor, *,
+             x0: torch.Tensor | None = None, tol: float = 1e-7,
+             atol: float = 0.0, maxiter: int | None = None,
+             device=None) -> torch.Tensor:
+    """BiCGStab for a general square ``matvec``: two products per
+    iteration, at κ(A) cost where CG on the normal equations pays κ².
+
+    Stops once ``||r|| <= max(tol ||b||, atol)`` (``tol`` clamped to what
+    the dtype can reach), on a breakdown (a near-zero ``rho`` or
+    ``<rhat, v>``, scaled by eps, or ``omega = 0``; x stays the last
+    finite iterate), or after ``maxiter`` iterations (default 10 N).
+    """
+    check_device(device, b)
+    refuse_complex(b.dtype, "b")
+    return _bicgstab_loop(matvec, b, tol, maxiter, x0, atol)[0]
+
+
+def _hessenberg_lstsq(h, rhs):
+    """``argmin ||h y - rhs||`` for the (m+1, m) Hessenberg ``h`` of a
+    GMRES cycle, on the device: a QR, then the triangular solve with
+    y = 0 for each column whose diagonal entry of R is at most
+    ``(m+1) eps max|diag R|``.  After a happy breakdown every later
+    column of ``h`` is zero, and this is the minimum-norm solution that
+    the JAX ``lstsq`` gives (a CUDA ``lstsq`` has only the full-rank
+    ``gels`` routine, which gives NaN there)."""
+    q, rt = torch.linalg.qr(h)
+    c = hmatmul(q.T, rhs)
+    d = torch.diagonal(rt).abs()
+    floor = h.shape[0] * torch.finfo(h.dtype).eps \
+        * torch.clamp(d.max(), min=torch.finfo(h.dtype).tiny)
+    dead = d <= floor
+    eye = torch.eye(rt.shape[0], dtype=rt.dtype, device=rt.device)
+    rt = torch.where(dead[:, None], eye, rt)
+    c = torch.where(dead, torch.zeros_like(c), c)
+    return torch.linalg.solve_triangular(rt, c[:, None], upper=True)[:, 0]
+
+
+def _gmres_loop(matvec: Callable, b, tol: float, maxiter, x0=None,
+                atol: float = 0.0, restart: int = 32):
+    """Restarted GMRES(m), the JAX ``gmres`` cycle; returns ``(x, inner
+    steps run)``.  The host reads the residual once a cycle (m products),
+    which is the JAX loop's own test, so nothing runs past it."""
+    n = b.shape[-1]
+    m = max(1, min(int(restart), n))
+    if maxiter is None:
+        maxiter = 10 * n
+    max_cycles = -(-int(maxiter) // m)
+    if x0 is None:
+        x = torch.zeros_like(b)
+        r = b.clone()
+    else:
+        x = x0.to(b.dtype).clone()
+        r = b - matvec(x)
+    tol = tol_floor(tol, b.dtype)
+    target2 = torch.clamp(tol * tol * hdot(b, b), min=float(atol) ** 2)
+    tiny = torch.finfo(b.dtype).tiny
+    cycles = 0
+    while cycles < max_cycles and bool(hdot(r, r) > target2):
+        beta = torch.linalg.vector_norm(r)
+        basis = torch.zeros((m + 1, n), dtype=b.dtype, device=b.device)
+        basis[0] = r / torch.clamp(beta, min=tiny)
+        h = torch.zeros((m + 1, m), dtype=b.dtype, device=b.device)
+        for j in range(m):
+            arnoldi_step(matvec, basis, h, j)
+        rhs = torch.zeros(m + 1, dtype=b.dtype, device=b.device)
+        rhs[0] = beta
+        y = _hessenberg_lstsq(h, rhs)
+        x = x + hmatmul(basis[:m].T, y)
+        # The Arnoldi relation A V_m y = V_{m+1} (H y): no extra product.
+        r = r - hmatmul(basis.T, hmatmul(h, y))
+        cycles += 1
+    return x, cycles * m
+
+
+def gmres(matvec: Callable, b: torch.Tensor, *,
+          x0: torch.Tensor | None = None, tol: float = 1e-7,
+          atol: float = 0.0, restart: int = 32, maxiter: int | None = None,
+          device=None) -> torch.Tensor:
+    """Restarted GMRES(``restart``) for a general square ``matvec``: a
+    residual that never grows within a cycle (no BiCGStab breakdown), at
+    the cost of an (m+1, N) basis.  ``maxiter`` bounds the inner
+    (Arnoldi) steps, default 10 N; the test ``||r|| <= max(tol ||b||,
+    atol)`` is made once a cycle, on the residual of the Arnoldi
+    relation."""
+    check_device(device, b)
+    refuse_complex(b.dtype, "b")
+    return _gmres_loop(matvec, b, tol, maxiter, x0, atol, restart)[0]
 
 
 def cg(matvec: Callable, b: torch.Tensor, *, x0: torch.Tensor | None = None,
@@ -428,10 +606,9 @@ def solve_deflated(op, lam, V, b, *, definite_sign: float = 1.0,
     return _project_out(V, x)
 
 
-def _undeflated(op, b, tol, maxiter, method, device):
-    """``A^{-1} b`` through :class:`_DeflatedSolve` with nothing deflated
-    (an empty (N, 0) V, λ = 0): gradients to ``b`` and
-    ``op.parameters()``."""
+def _solve_operator(op, b, device):
+    """The operator of a differentiable solve, on the call's device: a
+    ``LinearOperator`` or a dense tensor, never a bare callable."""
     if callable(op) and not isinstance(op, (LinearOperator, torch.Tensor)):
         # The JAX solve differentiates into whatever its matvec closes
         # over; an autograd Function cannot see a closure's tensors and
@@ -443,6 +620,14 @@ def _undeflated(op, b, tol, maxiter, method, device):
     op = as_operator(op)
     check_device(device, op, b)
     refuse_complex(b.dtype, "b")
+    return op
+
+
+def _undeflated(op, b, tol, maxiter, method, device):
+    """``A^{-1} b`` through :class:`_DeflatedSolve` with nothing deflated
+    (an empty (N, 0) V, λ = 0): gradients to ``b`` and
+    ``op.parameters()``."""
+    op = _solve_operator(op, b, device)
     empty = torch.zeros((op.dim, 0), dtype=b.dtype, device=b.device)
     zero = torch.zeros((), dtype=b.dtype, device=b.device)
     return _DeflatedSolve.apply(op, 1.0, tol, maxiter, method, None, b,
@@ -463,3 +648,102 @@ def solve_symmetric(op, b: torch.Tensor, *, tol: float = 1e-7,
     by MINRES, to any order in ``b`` and ``op.parameters()`` (as
     :func:`solve_spd`)."""
     return _undeflated(op, b, tol, maxiter, "minres", device)
+
+
+def _bordered_mv(op, transpose, lam, U, W):
+    """``z = (x; ν) -> (M x + conj(U) ν; conj(W)^T x)``, ``M = A - λ I``
+    (``A^T - λ I`` with ``transpose``): the bordered matrix of the JAX
+    ``_bordered_solve``, U and W of shape (N, k), k = 1 for a border and
+    0 for a plain system.  The border vectors are conjugated as the JAX
+    code writes them (a complex pair's isotropic eigenvectors need it);
+    for real dtypes that is the identity.  Its transpose is the same map
+    on ``A^T`` with U and W swapped."""
+    apply = op.rmatvec if transpose else op.matvec
+    n = op.dim
+    uc, wc = U.conj(), W.conj()
+
+    def mv(z):
+        x, nu = z[:n], z[n:]
+        return torch.cat([apply(x) - lam * x + hmatmul(uc, nu),
+                          hmatmul(wc.T, x)])
+    return mv
+
+
+def _general_loop(mv, rmv, rhs, tol, maxiter, method):
+    """The solver of :class:`_GeneralSolve` on ``mv`` (``rmv``, its
+    transpose, only CGNR uses)."""
+    if method == "bicgstab":
+        return _bicgstab_loop(mv, rhs, tol, maxiter)[0]
+    if method == "gmres":
+        return _gmres_loop(mv, rhs, tol, maxiter)[0]
+
+    # CG on the normal equations needs the adjoint B^H, not the bilinear
+    # transpose: B^H x = conj(B^T conj(x)), the identity for real dtypes.
+    def adj(x):
+        return rmv(x.conj()).conj()
+    return _cg_loop(lambda x: adj(mv(x)), adj(rhs), tol, maxiter)[0]
+
+
+class _GeneralSolve(torch.autograd.Function):
+    """``z = B^{-1} rhs`` for the bordered matrix B of
+    :func:`_bordered_mv` (A itself when the border is empty and λ = 0),
+    by BiCGStab, GMRES or CGNR; differentiable in ``rhs``, ``λ``, ``U``,
+    ``W`` and the operator's parameters θ by the rule of
+    ``lax.custom_linear_solve`` with ``transpose_solve``:
+
+        y = B^{-T} z̄,  rhs̄ = y,  (λ̄, Ū, W̄, θ̄) = -∂/∂(λ, U, W, θ) <y, B z>,
+
+    the transposed solve being this Function on ``A^T`` with U and W
+    swapped, and the last term one bordered product with z held
+    constant.  The forward records no graph; the backward is built of
+    this Function and differentiable operations, so it differentiates
+    again under ``create_graph``."""
+
+    @staticmethod
+    def forward(ctx, op, transpose, tol, maxiter, method, rhs, lam, U, W,
+                *params):
+        mv = _bordered_mv(op, transpose, lam, U, W)
+        rmv = _bordered_mv(op, not transpose, lam, W, U)
+        z = _general_loop(mv, rmv, rhs, tol, maxiter, method)
+        ctx.op, ctx.cfg = op, (transpose, tol, maxiter, method)
+        ctx.save_for_backward(z, lam, U, W)
+        return z
+
+    @staticmethod
+    def backward(ctx, z_bar):
+        op = ctx.op
+        transpose, tol, maxiter, method = ctx.cfg
+        z, lam, U, W = ctx.saved_tensors
+        y = _GeneralSolve.apply(op, not transpose, tol, maxiter, method,
+                                z_bar, lam, W, U, *op.parameters())
+        grads = partial_vjp(
+            op, lambda held, lam_, U_, W_: _bordered_mv(
+                held, transpose, lam_, U_, W_)(z),
+            [lam, U, W], -y, ctx.needs_input_grad[6:])
+        rhs_bar = y if ctx.needs_input_grad[5] else None
+        return (None,) * 5 + (rhs_bar, *grads)
+
+
+def solve_general(op, b: torch.Tensor, *, tol: float = 1e-7,
+                  maxiter: int | None = None, method: str = "bicgstab",
+                  device=None) -> torch.Tensor:
+    """Differentiable solve ``A x = b`` for a general (non-symmetric)
+    operator, to any order in ``b`` and ``op.parameters()``.
+
+    ``method``: "bicgstab" (default, κ(A) cost), "gmres" (restarted
+    every 32 steps) or "cgnr" (CG on ``A^T A x = A^T b``, at κ² cost: a
+    fallback when BiCGStab stagnates on a wildly non-normal system).
+    The backward is the same solve on ``op.rmatvec``
+    (:class:`_GeneralSolve`).  Where the JAX function takes a matvec and
+    an rmatvec, this one takes a :class:`~.operators.LinearOperator` (or
+    a dense tensor), which carries both and exposes the tensors the
+    gradients go to; a bare callable raises TypeError.
+    """
+    if method not in ("bicgstab", "cgnr", "gmres"):
+        raise ValueError(
+            f"method must be bicgstab|cgnr|gmres, got {method!r}")
+    op = _solve_operator(op, b, device)
+    empty = torch.zeros((op.dim, 0), dtype=b.dtype, device=b.device)
+    zero = torch.zeros((), dtype=b.dtype, device=b.device)
+    return _GeneralSolve.apply(op, False, tol, maxiter, method, b, zero,
+                               empty, empty, *op.parameters())

@@ -8,9 +8,9 @@ over steps that writes each new basis vector into a preallocated
 (k+1, N) buffer.  Gradients never flow through these loops: ``eigh.py``
 wraps them in an implicit-function-theorem rule.
 
-``arnoldi_step`` comes with GMRES and the non-symmetric solver
-(``ROADMAP.md`` queue 1 item 8).  ``LanczosInfo`` is also the block
-eigensolver's convergence report.
+``arnoldi_step`` is the step shared by GMRES (``cg.py``) and the
+Arnoldi-seeded non-symmetric solver (``eig.py``).  ``LanczosInfo`` is
+also the block eigensolver's convergence report.
 """
 
 from __future__ import annotations
@@ -53,6 +53,33 @@ class LanczosInfo(NamedTuple):
     effective_k: torch.Tensor
     residual: torch.Tensor
     converged: torch.Tensor
+
+
+def arnoldi_step(mv, basis, h, j: int):
+    """One Arnoldi step: ``basis`` is (k+1, N) with rows > j zero, ``h``
+    the (k+1, k) Hessenberg matrix; writes basis row ``j + 1`` and
+    column ``j`` of ``h`` in place and returns ``(basis, h)``.
+
+    Two-pass block Gram-Schmidt ("twice is enough") as products with the
+    whole basis (the zero rows project out nothing), through
+    :func:`~.operators.hmatmul`.  A happy breakdown (a residual of norm
+    <= tiny) leaves the next row zero, and the GMRES least squares and
+    the Ritz extraction see zero columns after it, as in the JAX step.
+    """
+    tiny = torch.finfo(basis.dtype).tiny
+    w = mv(basis[j])
+    coeffs = hmatmul(basis.conj(), w)
+    w = w - hmatmul(basis.T, coeffs)
+    extra = hmatmul(basis.conj(), w)
+    w = w - hmatmul(basis.T, extra)
+    coeffs = coeffs + extra
+    hj = torch.linalg.vector_norm(w)
+    w = torch.where(hj > tiny, w / torch.clamp(hj, min=tiny),
+                    torch.zeros_like(w))
+    basis[j + 1] = w
+    coeffs[j + 1] = hj.to(coeffs.dtype)
+    h[:, j] = coeffs
+    return basis, h
 
 
 def _tridiagonal(alphas, betas):

@@ -8,11 +8,13 @@ the tensors that ``torch.autograd.grad`` differentiates the IFT rule of
 
 Every operator implements ``matvec``, ``rmatvec``, ``dim``, ``dtype`` and
 ``device``; ``matmat``/``rmatmat`` default to a loop over columns.
-``tangent_matvec`` and ``tangent_matmat`` are the operator's tangent
-products ``(dA) x`` and ``(dA) X`` that forward mode of the eigensolvers
-needs, and ``with_parameters`` rebuilds the operator on other tensors,
+``tangent_matvec``, ``tangent_matmat`` and ``tangent_rmatvec`` are the
+operator's tangent products ``(dA) x``, ``(dA) X`` and ``(dA)^T x`` that
+forward mode of the eigensolvers needs, and ``with_parameters`` rebuilds the operator on other tensors,
 which :func:`partial_vjp` (the derivative rules' ``u^T (∂A/∂θ) w``)
-differentiates into.  The operator algebra of the JAX
+differentiates into.  A ``MatrixFreeOperator`` may hold another operator
+among its params (the Wielandt deflation of ``eig.py`` wraps the stage
+before it): its parameters are then the inner operator's too.  The operator algebra of the JAX
 module (sums, scalings, shifts, compositions, transposed views) is not
 ported yet.
 
@@ -144,9 +146,13 @@ def partial_vjp(op, apply, tensors, cot, needs) -> list:
 
 
 def _tensors_of(params) -> list:
-    """Flatten a tensor, or a (nested) list/tuple/dict of them."""
+    """Flatten a tensor, or a (nested) list/tuple/dict of them; an
+    operator among them contributes its :meth:`LinearOperator.parameters`
+    (a deflated stage nests the operator it deflates)."""
     if isinstance(params, torch.Tensor):
         return [params]
+    if isinstance(params, LinearOperator):
+        return list(params.parameters())
     if isinstance(params, dict):
         params = list(params.values())
     if isinstance(params, (list, tuple)):
@@ -162,6 +168,9 @@ def _rebuild(params, tensors):
     def go(p):
         if isinstance(p, torch.Tensor):
             return next(it)
+        if isinstance(p, LinearOperator):
+            return p.with_parameters(
+                [next(it) for _ in range(len(p.parameters()))])
         if isinstance(p, dict):
             return {k: go(v) for k, v in p.items()}
         if isinstance(p, list):
@@ -195,6 +204,14 @@ class LinearOperator:
         raise NotImplementedError(
             f"{type(self).__name__} has no tangent product: forward mode "
             f"through it is not ported")
+
+    def tangent_rmatvec(self, x: torch.Tensor, dparams) -> torch.Tensor:
+        """``(dA)^T x``, the tangent of :meth:`rmatvec` (forward mode of
+        the non-symmetric solver)."""
+        raise NotImplementedError(
+            f"{type(self).__name__} has no transposed tangent product: "
+            f"forward mode of the non-symmetric solver through it is not "
+            f"ported")
 
     @property
     def dim(self) -> int:
@@ -253,6 +270,10 @@ class DenseOperator(LinearOperator):
         (da,) = dparams
         return hmatmul(da, X)
 
+    def tangent_rmatvec(self, x, dparams):
+        (da,) = dparams
+        return hmatmul(da.T, x)
+
     def parameters(self):
         return [self.a]
 
@@ -276,7 +297,8 @@ class DenseOperator(LinearOperator):
 class MatrixFreeOperator(LinearOperator):
     """Matrix-free operator ``A(params) @ x = matvec_fn(params, x)``.
 
-    ``params`` is a tensor or a list/tuple/dict of tensors; gradients with
+    ``params`` is a tensor or a list/tuple/dict of tensors and operators
+    (an operator stands for its ``parameters()``); gradients with
     respect to them come from ``torch.autograd.grad`` of ``matvec_fn``,
     which is the lazy ``u^T (dA/dθ) w`` contraction of the reference: no
     N×N matrix is built.  ``rmatvec_fn`` defaults to ``matvec_fn``
@@ -335,6 +357,11 @@ class MatrixFreeOperator(LinearOperator):
         """``(dA) X`` for an (N, m) block: one JVP of the whole
         :meth:`matmat` (see :meth:`tangent_matvec`)."""
         return self._tangent(lambda op, z: op.matmat(z), X, dparams)
+
+    def tangent_rmatvec(self, x, dparams):
+        """``(dA)^T x``, the JVP of :meth:`rmatvec` (as
+        :meth:`tangent_matvec`)."""
+        return self._tangent(lambda op, z: op.rmatvec(z), x, dparams)
 
     def _tangent(self, product, x, dparams):
         prims = [p.detach() for p in self.parameters()]

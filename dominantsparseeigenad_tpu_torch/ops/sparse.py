@@ -146,6 +146,13 @@ class BellOperator(LinearOperator):
         CUDA tensor the kernel, banded under the plan)."""
         return self.tangent_matvec(X, dparams)
 
+    def tangent_rmatvec(self, x, dparams):
+        """``(dA)^T x = A(dvals)^T x`` (plain PyTorch, as :meth:`rmatvec`)."""
+        if self.symmetric:
+            return self.tangent_matvec(x, dparams)
+        (dvals,) = dparams
+        return _bell_rmatvec_torch(dvals, self.cols, x, self.vals.shape[0])
+
     def rmatmat(self, X):
         if self.symmetric:
             return self.matmat(X)

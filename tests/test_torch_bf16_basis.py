@@ -14,6 +14,8 @@ import torch.autograd.forward_ad as fwAD
 from dominantsparseeigenad_tpu.models import (
     tfim_dense_hamiltonian as jax_tfim_dense)
 from dominantsparseeigenad_tpu.models import tfim_operator as jax_tfim
+from dominantsparseeigenad_tpu.ops.cg import (
+    solve_deflated_info as jax_solve_info)
 from dominantsparseeigenad_tpu.ops.eigh import dominant_eigh as jax_eigh
 from dominantsparseeigenad_tpu.ops.eigh import (
     refine_eigenpair as jax_refine)
@@ -91,6 +93,76 @@ def test_polish_of_an_unconverged_pair_matches_jax(maxiter):
     if maxiter == 5:
         assert float(lam) > float(lam0)
         assert resid(float(lam), v.numpy()) > resid(float(lam0), v0.numpy())
+
+
+def _f6_case():
+    """A float32 symmetric operator (n = 256) whose two lowest eigenvalues
+    0 and 1e-4 sit below a gap (the rest from 1e-2 to 10), and the Ritz
+    pair of a 40-step Lanczos with a bfloat16 basis: not converged, its
+    value above the lowest few eigenvalues, so the polish's deflated
+    system is indefinite and ill-conditioned."""
+    rng = np.random.default_rng(11)
+    q, _ = np.linalg.qr(rng.standard_normal((256, 256)))
+    d = np.concatenate([[0.0, 1e-4], np.geomspace(1e-2, 10.0, 254)])
+    a = ((q * d) @ q.T).astype(np.float32)
+    a = (a + a.T) / 2
+    lam0, v0 = port.lanczos_eigh(
+        torch.from_numpy(a), 40, extreme="min",
+        v0=torch.from_numpy(rng.standard_normal(256).astype(np.float32)),
+        basis_dtype=torch.bfloat16, device="cpu")
+    return a, float(lam0), v0
+
+
+def test_float32_polish_of_an_unconverged_pair_is_the_reference_behaviour():
+    """F6 (ROADMAP.md): the float32 polish of an unconverged bf16 Ritz
+    pair runs its CG to the cap on an indefinite system and ends far
+    from the float64 step.  The JAX package's float32 polish does the
+    same from the same pair, at the same tolerance (1e-6, clamped to
+    6e-6) and cap: the two take the same steps (5 iterations: equal to
+    float32 round-off), and at a cap of 3000 both CGs run to the cap
+    without meeting the tolerance and both leave a Ritz residual over
+    10 times the float64 step's."""
+    a, lam0, v0 = _f6_case()
+    a64 = a.astype(np.float64)
+    w = np.linalg.eigvalsh(a64)
+    assert lam0 > w[1]                 # above other eigenvalues
+
+    def resid(lam, v):
+        v = np.asarray(v, np.float64)
+        return np.linalg.norm(a64 @ v - float(lam) * v)
+
+    def polish(maxiter):
+        lam, v = port.refine_eigenpair(torch.from_numpy(a), lam0, v0,
+                                       iters=1, tol=1e-6, maxiter=maxiter,
+                                       definite_sign=1.0, device="cpu")
+        lam_j, v_j = jax.jit(lambda m, l, x: jax_refine(
+            JaxDense(m), l, x, iters=1, tol=1e-6, maxiter=maxiter,
+            definite_sign=1.0))(jnp.asarray(a), jnp.float32(lam0),
+                                jnp.asarray(v0.numpy()))
+        return (float(lam), v.numpy()), (float(lam_j), np.asarray(v_j))
+
+    (lam, v), (lam_j, v_j) = polish(5)
+    np.testing.assert_allclose(lam, lam_j, rtol=1e-5)
+    np.testing.assert_allclose(v, v_j, atol=1e-5)
+    lam64, v64 = port.refine_eigenpair(torch.from_numpy(a64), lam0, v0,
+                                       iters=1, tol=1e-6, maxiter=3000,
+                                       definite_sign=1.0, device="cpu")
+    floor = resid(lam64, v64.numpy())
+    assert floor < 1e-2 * resid(lam0, v0.numpy())   # it converges
+    for lam_p, v_p in polish(3000):
+        assert resid(lam_p, v_p) > 10 * floor
+    # The CG of the step itself: to the cap, the tolerance not met.
+    u = v0 / torch.linalg.vector_norm(v0)
+    at = torch.from_numpy(a)
+    lam_u = u @ at @ u
+    _, its, res = port.solve_deflated_info(at, lam_u, u, -(at @ u - lam_u * u),
+                                           tol=1e-6, maxiter=3000,
+                                           device="cpu")
+    _, its_j, res_j = jax.jit(lambda m, l, x: jax_solve_info(
+        JaxDense(m), l, x, -(m @ x - l * x), tol=1e-6, maxiter=3000))(
+            jnp.asarray(a), jnp.float32(float(lam_u)), jnp.asarray(u.numpy()))
+    assert its == int(its_j) == 3000
+    assert res > 1e-2 and float(res_j) > 1e-2
 
 
 def _narrow_inputs():

@@ -108,6 +108,22 @@ def test_import_scan_covers_the_precond_module():
     assert out.returncode == 0, out.stderr
 
 
+def test_import_scan_covers_the_eig_module():
+    """The scan below reads ``ops/eig.py``, and the import check imports
+    it with JAX blocked."""
+    names = {p.relative_to(PKG).as_posix() for p in _sources()
+             if p.is_relative_to(PKG)}
+    assert "ops/eig.py" in names
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['dominantsparseeigenad_tpu'] = None\n"
+        "import dominantsparseeigenad_tpu_torch.ops.eig\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+
+
 def test_import_scan_covers_the_ising2d_modules():
     """The scan below reads ``ops/decomp.py``, ``ops/svd.py`` and
     ``models/ising2d.py``, and the import check imports them with JAX
@@ -244,6 +260,17 @@ def _entry_points():
         "tfim_energy_gap": lambda: models.tfim_energy_gap(4, 1.0),
         "tfim_observables_sweep": lambda: models.tfim_observables_sweep(
             4, [1.0]),
+        "dominant_eig": lambda: port.dominant_eig(a),
+        "dominant_eig arnoldi": lambda: port.dominant_eig(a,
+                                                          method="arnoldi"),
+        "dominant_eig_multi": lambda: port.dominant_eig_multi(a),
+        "solve_general": lambda: port.solve_general(a, v),
+        "bicgstab": lambda: port.bicgstab(lambda x: x, v),
+        "gmres": lambda: port.gmres(lambda x: x, v),
+        "transfer_spectral_gap": lambda: models.transfer_spectral_gap(
+            0.5, chi=4, n_steps=2),
+        "correlation_length": lambda: models.correlation_length(
+            0.5, chi=4, n_steps=2),
     }
 
 
@@ -362,6 +389,18 @@ def _complex_calls():
         "ctmrg_free_energy": lambda: models.ctmrg_free_energy(
             0.5, chi=4, n_steps=2, dtype=torch.complex128, device="cpu"),
         "ising_observables": lambda: models.ising_observables(
+            0.5, chi=4, n_steps=2, dtype=torch.complex128, device="cpu"),
+        "dominant_eig": lambda: port.dominant_eig(h, device="cpu"),
+        "dominant_eig_multi": lambda: port.dominant_eig_multi(
+            h, device="cpu"),
+        "solve_general": lambda: port.solve_general(h, v, device="cpu"),
+        "solve_general complex b": lambda: port.solve_general(
+            real, v, device="cpu"),
+        "bicgstab": lambda: port.bicgstab(lambda x: h @ x, v, device="cpu"),
+        "gmres": lambda: port.gmres(lambda x: h @ x, v, device="cpu"),
+        "transfer_spectral_gap": lambda: models.transfer_spectral_gap(
+            0.5, chi=4, n_steps=2, dtype=torch.complex128, device="cpu"),
+        "correlation_length": lambda: models.correlation_length(
             0.5, chi=4, n_steps=2, dtype=torch.complex128, device="cpu"),
     }
 
