@@ -156,6 +156,35 @@ line each:
    ∂λ/∂vals against l⊗r on the pattern; its matvecs run the banded SpMV
    kernel (K4b), counted (the counts join the ``kernels`` line).
 
+13. ``complex``: complex operators through the solvers and derivative
+   rules, at full width.  (a) The TFIM N = 20 headline (the ``tfim``
+   phase's settings) in a complex gauge, H' = D H D^H with D = diag(e^{iφ})
+   and φ from a seeded generator, a complex64 ``MatrixFreeOperator``
+   around ``tfim_matvec``: complex Hermitian with the real spectrum, so
+   E0, dE0/dg and χ_F (one forward-mode pass) must meet the ``tfim``
+   phase's Jordan-Wigner bars; χ_F is gauge-invariant only if the rule's
+   pivot-phase projection is right.  Its ground state against D ψ of the
+   real pass (|<D ψ, ψ'>| >= 1 - 1e-5), and ``energy_curvature``'s
+   d²E0/dg² at the ``second_order`` phase's bar.  (b) A dense complex
+   Hermitian matrix, n = 4096, complex128 (ten spiked eigenvalues below a
+   Gaussian bulk): ``dominant_eigh`` (k = 100) and the gradient of
+   ``λ + Re<c, v>`` (CG tol 1e-12), held against ``torch.linalg.eigh``
+   (an oracle in the check, not on the path), by the dot-product
+   identity against the forward-mode derivative along a Hermitian D, and
+   the phase-sensitive ``Im v[5] + Re v[3]``'s gradient against a central
+   difference; ``dominant_eigh_multi`` by LOBPCG (r = 8).  (c)
+   ``examples/complex_spectrum.py``'s biased transfer operator, n = 2048,
+   float64: ``dominant_eig_spectrum(m=5)`` and ``spectrum_structure``
+   against ``eigvals``, and d arg λ₂ / db = 1 (exact) through the replayed
+   cascade.  (d) ``dominant_eig`` on a complex non-symmetric matrix,
+   n = 2048, complex128: λ against eigvals, and the gradient of
+   ``|λ|² + |Σ w r|² + |Σ w l|²`` by BiCGStab, GMRES and CGNR, each
+   against the others.  Forward and backward times, peak memory and
+   product counts; the card's name and power limit on the phase's line.
+   Bars (b)-(d): ~8x the JAX package's own CPU errors on the same inputs
+   (``tools/jax_complex_errors.py``).  This path launches no hand-written
+   kernel (checked: the launch counts stay 0).
+
 Then a ``kernels`` line, the ``nvidia-smi`` name and power-limit line, and
 as the last line ``{"ok": true, "device": {...}}``.  Any failed check
 raises, so the exit code is not 0.  Without a CUDA device it exits with
@@ -177,6 +206,7 @@ import time
 import traceback
 import warnings
 
+import numpy as np
 import torch
 import torch.autograd.forward_ad as fwAD
 import torch.multiprocessing
@@ -300,10 +330,98 @@ EIG_BELL = (4096, 32, 5)                # n, bs, blocks per row
 EIG_BELL_ARNOLDI_K = 64
 EIG_BELL_RESIDUAL = 1e-4                # relative, float32
 EIG_BELL_TWIN_RTOL = 1e-5
+# The complex phase, at full width: (a) the TFIM N = 20 headline
+# (tfim-phase settings and bars) in a complex gauge H' = D H D^H, D =
+# diag(e^{iφ}) with φ from this seed, complex64; the overlap of its ground
+# state with D ψ of the real pass, and d²E0/dg² at the second_order
+# phase's bar; (b) a dense complex Hermitian matrix, complex128: ``r``
+# pairs by LOBPCG (at most ``k`` iterations) and one by Lanczos (``k``
+# steps), the deflated CG at ``CX_TOL``; (c) ``examples/complex_spectrum.py``'s
+# biased transfer operator, float64, the top ``m`` by
+# ``dominant_eig_spectrum``; (d) ``dominant_eig`` on a complex
+# non-symmetric matrix, complex128, its gradient by each tangent solver.
+CX_GAUGE_SEED = 61
+CX_OVERLAP_BAR = 1e-5                   # 1 - |<D ψ, ψ'>|
+CX_DENSE = (4096, 8, 100, 62)           # n, r, k, seed
+CX_TOL = 1e-12
+CX_FD_EPS = 1e-5
+CX_SPECTRUM = (2048, 5, 0.25, 1500)     # n, m, bias, power budget
+CX_EIG = (2048, 63)                     # n, seed
+# Bars: ~8x the JAX package's own CPU errors on the same inputs
+# (tools/jax_complex_errors.py): dense λ 1.0e-15, 1 - |<v, v*>| 1.3e-15,
+# dot identity 7.6e-18, phase-sensitive gradient vs the central
+# difference 1.9e-9, LOBPCG λ 1.2e-15 (29 iterations); spectrum 3.4e-5
+# (the fifth, a "pair_real" stage whose subspace iteration does not
+# converge within 1500 steps: its top moduli are 0.9986 apart), dθ/db
+# 2.2e-16; complex dominant_eig λ 1.2e-15, gradients by GMRES and CGNR
+# 5.2e-11 and 9.1e-11 from BiCGStab's.  Where JAX's error is float64
+# round-off the bar is floored: 1e-13 for eigenvalues and overlaps (two
+# float64 eigensolvers of the same matrix), 1e-12 for the dot identity
+# (the CG tolerance) and for dθ/db.
+CX_RTOL = {
+    "dense": {"lam_rel": 1e-13, "overlap_defect": 1e-13, "dot_rel": 1e-12,
+              "phase_grad_vs_fd_rel": 1.5e-8, "lobpcg_rel": 1e-13},
+    "spectrum": {"max_rel_err_vs_eigvals": 2.7e-4, "dtheta_db_err": 1e-12},
+    "eig": {"lam_rel": 1e-13, "grad": 8e-10},
+}
 
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
+
+
+# The complex phase's inputs, numpy and seeded, built the same way by
+# tools/jax_complex_errors.py, which measures the JAX package's own errors
+# on them.
+
+def complex_hermitian_input(n, seed):
+    """``(H, D, c)``: H = W + P S P^H, W a complex Hermitian Gaussian
+    matrix scaled to the spectrum [-1, 1], P (n, 10) orthonormal, S =
+    -(1.5, 2.0, ..., 6.0): ten eigenvalues below the bulk about 0.5
+    apart (θ + 1/(4θ) for a spike θ).  D a Hermitian direction of the
+    same scale as W, c a complex vector."""
+    rng = np.random.default_rng(seed)
+
+    def gauss(*shape):
+        return (rng.standard_normal(shape)
+                + 1j * rng.standard_normal(shape)) / np.sqrt(2.0)
+
+    def wigner():
+        b = gauss(n, n)
+        return (b + b.conj().T) / (2.0 * np.sqrt(2.0 * n))
+
+    p, _ = np.linalg.qr(gauss(n, 10))
+    spikes = -np.arange(1.5, 6.01, 0.5)
+    h = wigner() + (p * spikes[None, :]) @ p.conj().T
+    return h, wigner(), gauss(n)
+
+
+def biased_transfer_input(n, seed=0):
+    """``examples/complex_spectrum.py``'s ``biased_transfer`` as ``(blk,
+    Q)``: A(b) = Q blk(b) Qᵀ with the Perron root 2, the pair 1.5 e^{±ib}
+    in blk[1:3, 1:3] (set by the caller), the level 1.05 and the bulk
+    0.6 U(0, 1), drawn in the example's order."""
+    rng = np.random.default_rng(seed)
+    blk = np.zeros((n, n))
+    blk[0, 0] = 2.0
+    blk[3, 3] = 1.05
+    blk[4:, 4:] = np.diag(0.6 * rng.random(n - 4))
+    q, _ = np.linalg.qr(rng.standard_normal((n, n)))
+    return blk, q
+
+
+def complex_nonsymmetric_input(n, seed):
+    """``(A, w)``: a complex non-symmetric A with an isolated dominant
+    eigenvalue near 3 + 0.7i (the diagonal 3 + 0.7i, then 0.4 times
+    complex Gaussians, plus a Gaussian of spectral radius ~0.5), and a
+    complex probe vector w."""
+    rng = np.random.default_rng(seed)
+    d = np.concatenate([[3.0 + 0.7j], 0.4 * (rng.standard_normal(n - 1)
+                                             + 1j * rng.standard_normal(
+                                                 n - 1))])
+    noise = (rng.standard_normal((n, n)) + 1j * rng.standard_normal((n, n)))
+    a = np.diag(d) + noise * (0.5 / np.sqrt(2.0 * n))
+    return a, rng.standard_normal(n) + 1j * rng.standard_normal(n)
 
 
 def nvidia_smi_name_power() -> str:
@@ -2722,6 +2840,288 @@ def phase_eig(pkg, spmv):
     return counts
 
 
+def cx_tfim_operator(pkg, models, n, g, phase):
+    """H' = D H(g) D^H, D = diag(phase), as a complex64 MatrixFreeOperator
+    around the port's ``tfim_matvec``: complex Hermitian, with the real
+    TFIM's spectrum; its ground state is D ψ up to a phase."""
+    diag = models.tfim_zz_diagonal(n, dtype=torch.float32, device=DEVICE)
+    g = torch.as_tensor(g, dtype=torch.float32, device=DEVICE)
+
+    def mv(p, x):
+        gg, d, ph = p
+        return ph * models.tfim_matvec((gg, d), ph.conj() * x)
+
+    return pkg.MatrixFreeOperator(mv, (g, diag, phase), dim=1 << n,
+                                  dtype=torch.complex64)
+
+
+def cx_tfim(pkg, models):
+    """Part (a): the TFIM N = 20 headline in a complex gauge."""
+    n = TFIM_N
+    gen = torch.Generator(device=DEVICE).manual_seed(CX_GAUGE_SEED)
+    phi = 2 * math.pi * torch.rand(1 << n, generator=gen, device=DEVICE)
+    phase = torch.polar(torch.ones_like(phi), phi)
+    kw = dict(k=TFIM_K, tol=TFIM_CG_TOL, maxiter=TFIM_CG_MAXITER,
+              device=DEVICE)
+
+    def forward_mode():
+        with torch.no_grad(), fwAD.dual_level():
+            g = fwAD.make_dual(
+                torch.tensor(TFIM_G, dtype=torch.float32, device=DEVICE),
+                torch.ones((), dtype=torch.float32, device=DEVICE))
+            lam, v = pkg.dominant_eigh(
+                cx_tfim_operator(pkg, models, n, g, phase),
+                reorth_passes=TFIM_REORTH_PASSES, **kw)
+            e0, de0 = fwAD.unpack_dual(lam)
+            psi, dpsi = fwAD.unpack_dual(v)
+        chi = (torch.vdot(dpsi, dpsi).real
+               - torch.vdot(psi, dpsi).abs() ** 2)
+        return float(e0), float(de0), float(chi), psi
+
+    real = tfim_pass(pkg, models, n, torch.float32)
+    times, peaks = [], []
+    for _ in range(2):           # the first carries one-time costs
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out, sec = timed(forward_mode)
+        times.append(sec)
+        peaks.append((torch.cuda.max_memory_allocated() - base) / 2**20)
+    e0, de0, chi, psi = out
+    overlap = float(torch.vdot(phase * real[3].to(psi.dtype), psi).abs())
+    errs, jw = jw_errors(models, n, TFIM_G, e0, de0, chi)
+    real_errs, _ = jw_errors(models, n, TFIM_G, *real[:3])
+    curv, curv_s = timed(lambda: [float(t) for t in pkg.energy_curvature(
+        lambda g: cx_tfim_operator(pkg, models, n, g, phase), TFIM_G,
+        **kw)])
+    d2_jw = models.tfim_exact_d2e0_dg2(n, TFIM_G)
+    d2_err = abs(curv[2] - d2_jw) / abs(d2_jw)
+    part = {"n": n, "g": TFIM_G, "dtype": "complex64", "k": TFIM_K,
+            "e0": e0, "de0_dg": de0, "chi_f": chi,
+            "jordan_wigner": dict(zip(TFIM_RTOL, jw)), "rel_err": errs,
+            "real_gauge_rel_err": real_errs,
+            "overlap_with_gauged_real_state": overlap,
+            "forward_mode_pass_s": times, "pass_peak_mib": peaks,
+            "energy_curvature": dict(zip(SO_TFIM_RTOL, curv)),
+            "d2e0_dg2_jordan_wigner": d2_jw, "d2e0_dg2_rel_err": d2_err,
+            "energy_curvature_s": curv_s}
+    checks = {f"complex gauge {name} vs Jordan-Wigner, rel "
+              f"{TFIM_RTOL[name]}": errs[name] <= TFIM_RTOL[name]
+              for name in TFIM_RTOL}
+    checks[f"1 - |<D psi, psi'>| <= {CX_OVERLAP_BAR}"] = \
+        1.0 - overlap <= CX_OVERLAP_BAR
+    checks[f"complex gauge d2E0/dg2 vs Jordan-Wigner, rel "
+           f"{SO_TFIM_RTOL['d2e0_dg2']}"] = d2_err <= SO_TFIM_RTOL["d2e0_dg2"]
+    return part, checks
+
+
+def cx_dense(pkg):
+    """Part (b): a dense complex Hermitian matrix, complex128."""
+    n, r, k, seed = CX_DENSE
+    h, d, c = (torch.from_numpy(x).to(DEVICE)
+               for x in complex_hermitian_input(n, seed))
+    # The oracle, on the card: not on the path.
+    (w_all, v_all), eigh_s = timed(lambda: torch.linalg.eigh(h))
+    kw = dict(k=k, tol=CX_TOL, device=DEVICE)
+
+    def loss(a):
+        lam, v = pkg.dominant_eigh(a, **kw)
+        return lam + torch.vdot(c, v).real, lam, v
+
+    torch.cuda.reset_peak_memory_stats()
+    x = h.clone().requires_grad_(True)
+    (f, lam, v), fwd_s = timed(lambda: loss(x))
+    (g,), bwd_s = timed(lambda: torch.autograd.grad(f, x))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    with fwAD.dual_level():
+        (fd_, _, _), jvp_s = timed(lambda: loss(fwAD.make_dual(h, d)))
+        dl = float(fwAD.unpack_dual(fd_).tangent)
+    dot = abs(float((g.conj() * d).sum().real) - dl) / float(
+        torch.linalg.vector_norm(g) * torch.linalg.vector_norm(d))
+
+    def comp(t):
+        v = pkg.dominant_eigh(h + t * d, **kw)[1]
+        return v[5].imag + v[3].real
+
+    t = torch.zeros((), dtype=torch.float64, device=DEVICE,
+                    requires_grad=True)
+    (g_comp,) = torch.autograd.grad(comp(t), t)
+    eps = CX_FD_EPS
+    fd = (float(comp(eps)) - float(comp(-eps))) / (2 * eps)
+    torch.cuda.reset_peak_memory_stats()
+    (lams, vv, info), lobpcg_s = timed(lambda: pkg.dominant_eigh_multi(
+        h, r=r, k=k, method="lobpcg", tol=CX_TOL, with_info=True,
+        device=DEVICE))
+    lobpcg_peak = torch.cuda.max_memory_allocated() / 2**30
+    lam = float(lam.detach())
+    part = {"n": n, "dtype": "complex128", "k": k, "r": r,
+            "lam": lam, "lam_eigh": float(w_all[0]),
+            "lam_rel": abs(lam - float(w_all[0])) / abs(float(w_all[0])),
+            "overlap_defect": 1.0 - float(torch.vdot(v_all[:, 0],
+                                                     v.detach()).abs()),
+            "dot_rel": dot, "phase_grad": float(g_comp), "phase_fd": fd,
+            "phase_grad_vs_fd_rel": abs(float(g_comp) - fd) / abs(fd),
+            "lobpcg_rel": float(((lams - w_all[:r]).abs()
+                                 / w_all[:r].abs()).max()),
+            "lobpcg_iterations": float(info.effective_k),
+            "lobpcg_residual": float(info.residual),
+            "lobpcg_gram_defect": float((vv.mH @ vv - torch.eye(
+                r, dtype=vv.dtype, device=DEVICE)).abs().max()),
+            "forward_s": fwd_s, "backward_s": bwd_s,
+            "forward_mode_s": jvp_s, "peak_mem_gib": peak,
+            "lobpcg_s": lobpcg_s, "lobpcg_peak_mem_gib": lobpcg_peak,
+            "eigh_oracle_s": eigh_s}
+    bars = CX_RTOL["dense"]
+    checks = {f"dense {key}, {bars[key]}": part[key] <= bars[key]
+              for key in bars}
+    checks["dense LOBPCG converged"] = float(info.converged) == 1.0
+    return part, checks
+
+
+def cx_spectrum(pkg):
+    """Part (c): the biased transfer operator's mixed spectrum, float64."""
+    n, m, bias, iters = CX_SPECTRUM
+    blk, q = (torch.from_numpy(x).to(DEVICE)
+              for x in biased_transfer_input(n))
+
+    def a_of(b):
+        cs_, sn = torch.cos(b), torch.sin(b)
+        a = blk.clone()
+        a[1:3, 1:3] = 1.5 * torch.stack([torch.stack([cs_, -sn]),
+                                         torch.stack([sn, cs_])])
+        return q @ a @ q.T
+
+    kw = dict(m=m, num_iters=iters, power_tol=1e-12, device=DEVICE)
+    b0 = torch.tensor(bias, dtype=torch.float64, device=DEVICE)
+    a = a_of(b0)
+    (lams, ls, rs, structure), disc_s = timed(
+        lambda: pkg.dominant_eig_spectrum(a, **kw))
+    structure2, struct_s = timed(lambda: pkg.spectrum_structure(a, **kw))
+    w = torch.linalg.eigvals(a).cpu().numpy()
+    got = lams.cpu().numpy()
+    w = w[np.argsort(-np.abs(w))][:got.size]
+    errs = np.abs(np.sort_complex(got) - np.sort_complex(w)) / np.abs(
+        np.sort_complex(w))
+    resid = max(float(torch.linalg.vector_norm(
+        a.to(lams.dtype) @ rs[:, j] - lams[j] * rs[:, j])) for j in
+        range(got.size))
+
+    def phase(b):
+        lam2 = pkg.dominant_eig_spectrum(a_of(b), structure=structure,
+                                         **kw)[0][1]
+        return torch.atan2(lam2.imag.abs(), lam2.real)
+
+    b = b0.clone().requires_grad_(True)
+    torch.cuda.reset_peak_memory_stats()
+    theta, replay_s = timed(lambda: phase(b))
+    (g,), bwd_s = timed(lambda: torch.autograd.grad(theta, b))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    part = {"n": n, "m": m, "bias": bias, "dtype": "float64",
+            "structure": structure, "structure_again": structure2,
+            "lams": [[z.real, z.imag] for z in got.tolist()],
+            "rel_err_vs_eigvals": errs.tolist(),
+            "max_rel_err_vs_eigvals": float(errs.max()),
+            "max_residual": resid, "theta": float(theta.detach()),
+            "dtheta_db": float(g), "dtheta_db_err": abs(float(g) - 1.0),
+            "discovery_s": disc_s, "spectrum_structure_s": struct_s,
+            "replay_s": replay_s, "backward_s": bwd_s,
+            "peak_mem_gib": peak}
+    bars = CX_RTOL["spectrum"]
+    checks = {f"spectrum {key}, {bars[key]}": part[key] <= bars[key]
+              for key in bars}
+    checks["spectrum_structure == the discovery's structure"] = \
+        structure2 == structure
+    checks["spectrum structure starts real, pair, real"] = \
+        structure[:3] == ("real", "pair", "real")
+    return part, checks
+
+
+def cx_eig(pkg, cg):
+    """Part (d): ``dominant_eig`` on a complex non-symmetric matrix,
+    complex128, its gradient by each tangent solver."""
+    n, seed = CX_EIG
+    a, wv = (torch.from_numpy(x).to(DEVICE)
+             for x in complex_nonsymmetric_input(n, seed))
+    w = torch.linalg.eigvals(a)
+    lam_ref = complex(w[torch.argmax(w.abs())])
+    grads, timing, lam = {}, {}, None
+    for solver in ("bicgstab", "gmres", "cgnr"):
+        x = a.clone().requires_grad_(True)
+        torch.cuda.reset_peak_memory_stats()
+        with counted_products(pkg, cg) as counts:
+            (lam, l, r), fwd_s = timed(lambda: pkg.dominant_eig(
+                x, solver=solver, device=DEVICE))
+            f = (lam.abs() ** 2 + (wv * r).sum().abs() ** 2
+                 + (wv * l).sum().abs() ** 2)
+            (grads[solver],), bwd_s = timed(
+                lambda: torch.autograd.grad(f, x))
+        timing[solver] = {"forward_s": fwd_s, "backward_s": bwd_s,
+                          "peak_mem_gib":
+                          torch.cuda.max_memory_allocated() / 2**30,
+                          "products": _read_counts(counts)}
+    base = grads["bicgstab"]
+    nb = float(torch.linalg.vector_norm(base))
+    diff = {s: float(torch.linalg.vector_norm(g - base)) / nb
+            for s, g in grads.items() if s != "bicgstab"}
+    diff["gmres_vs_cgnr"] = float(torch.linalg.vector_norm(
+        grads["gmres"] - grads["cgnr"])) / nb
+    lam = complex(lam.detach())
+    part = {"n": n, "dtype": "complex128", "lam": [lam.real, lam.imag],
+            "lam_eigvals": [lam_ref.real, lam_ref.imag],
+            "lam_rel": abs(lam - lam_ref) / abs(lam_ref),
+            "grad_rel_to_bicgstab": diff, "solvers": timing}
+    bars = CX_RTOL["eig"]
+    checks = {f"eig lam vs eigvals, rel {bars['lam_rel']}":
+              part["lam_rel"] <= bars["lam_rel"]}
+    checks.update({f"eig gradient {s} vs bicgstab, rel {bars['grad']}":
+                   v <= bars["grad"] for s, v in diff.items()})
+    return part, checks
+
+
+def phase_complex(pkg, spmv):
+    """Complex operators through the solvers and derivative rules (see
+    the module docstring, phase 13).  Runs no hand-written kernel
+    (checked: the launch counts stay 0)."""
+    from dominantsparseeigenad_tpu_torch import models
+    cg = importlib.import_module("dominantsparseeigenad_tpu_torch.ops.cg")
+    t_phase = time.perf_counter()
+    spmv.reset_launch_counts()
+    # Warm-up: the complex calls at small sizes (library handles, first
+    # launches of the complex kernels of eigh, eigvals, qr and GEMM).
+    hw, dw, cw = (torch.from_numpy(x).to(DEVICE)
+                  for x in complex_hermitian_input(64, 0))
+    xw = hw.clone().requires_grad_(True)
+    lw, vw = pkg.dominant_eigh(xw, k=32, device=DEVICE)
+    torch.autograd.grad(lw + torch.vdot(cw, vw).real, xw)
+    with fwAD.dual_level():
+        pkg.dominant_eigh(fwAD.make_dual(hw, dw), k=32, device=DEVICE)
+    pkg.dominant_eigh_multi(hw, r=2, k=20, method="lobpcg", device=DEVICE)
+    torch.linalg.eigh(hw)
+    aw = torch.from_numpy(complex_nonsymmetric_input(64, 0)[0]).to(DEVICE)
+    for solver in ("bicgstab", "gmres", "cgnr"):
+        xw = aw.clone().requires_grad_(True)
+        torch.autograd.grad(pkg.dominant_eig(xw, solver=solver,
+                                             device=DEVICE)[0].abs(), xw)
+    torch.linalg.eigvals(aw)
+    out, checks = {}, {}
+    for name, part in (("tfim_gauge", lambda: cx_tfim(pkg, models)),
+                       ("dense", lambda: cx_dense(pkg)),
+                       ("spectrum", lambda: cx_spectrum(pkg)),
+                       ("eig", lambda: cx_eig(pkg, cg))):
+        out[name], more = part()
+        checks.update(more)
+    launched = sum(spmv.launch_counts.values()) + sum(
+        spmv.panel_launch_counts.values())
+    checks["no hand-written kernel launched"] = launched == 0
+    out["hand_written_kernel_launches"] = launched
+    out["card"] = nvidia_smi_name_power()
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit({"phase": "complex", **out})
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"complex phase failed: {failed}")
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this script runs on the card")
@@ -2760,6 +3160,7 @@ def main():
     phase_ising2d(pkg, spmv)
     eig_counts = phase_eig(pkg, spmv)
     counts = {k: counts[k] + eig_counts[k] for k in counts}
+    phase_complex(pkg, spmv)
 
     csrc = "dominantsparseeigenad_tpu_torch/csrc/"
     # The Pallas kernel body, and the SpMM entry that runs it on (N, r).

@@ -34,7 +34,14 @@ non-symmetric dominant eigensolver (``dominant_eig``,
 ``dominant_eig_multi``: a two-sided power iteration, Arnoldi-seeded on
 request, whose IFT rule solves bordered systems by BiCGStab, GMRES or
 CGNR) gives config #4's transfer observables, ``transfer_spectral_gap``
-and ``correlation_length``.
+and ``correlation_length``.  Complex operators run through every solver
+and derivative rule above but the blocked-ELL kernels and the row-sharded
+tier: complex Hermitian ones through the symmetric solvers (real
+eigenvalues, the eigenvectors' pivot phase gauge carried into the
+rules), complex non-symmetric ones through ``dominant_eig``; and the
+complex half of the non-symmetric solver (``dominant_eig_pair``,
+``dominant_eig_spectrum``, ``spectrum_structure``) gives a real
+operator's complex-conjugate eigenvalue pairs and their derivatives.
 
 Entry points run on CUDA unless called with ``device="cpu"``; without a
 card they raise rather than fall back.

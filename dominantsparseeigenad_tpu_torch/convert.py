@@ -54,5 +54,6 @@ def row_sharded_bell_operator_from_numpy(
 
 def dense_operator_from_numpy(a, *, device=None) -> DenseOperator:
     """The port's ``DenseOperator`` for a JAX ``DenseOperator``'s
-    ``np.asarray(op.a)``."""
+    ``np.asarray(op.a)``, in the same dtype (complex64 and complex128
+    too)."""
     return DenseOperator(_tensor_from_numpy(a).to(resolve_device(device)))

@@ -56,7 +56,10 @@ _EPS = 1e-12
 def _beta(beta, dtype, dev):
     """``beta`` as a scalar tensor of ``dtype`` on ``dev``; a tensor keeps
     its graph."""
-    refuse_complex(dtype, "dtype")
+    refuse_complex(dtype, "dtype", "the 2D Ising model at real beta has "
+                   "real weights, tensors and transfer matrices; a complex "
+                   "dtype would only carry zero imaginary parts (no "
+                   "ROADMAP.md item)")
     if isinstance(beta, torch.Tensor):
         check_device(dev, beta)
         return beta.to(dtype=dtype)

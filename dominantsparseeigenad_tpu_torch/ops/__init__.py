@@ -6,8 +6,11 @@ from .cg import (bicgstab, cg, cg_info, gmres, minres, solve_deflated,
                  solve_symmetric)
 from .decomp import (eigh_safe, eigh_safe_truncated, svd_safe,
                      svd_safe_truncated)
-from .eig import EigOptions, PowerInfo, dominant_eig, dominant_eig_multi
-from .eigh import dominant_eigh, dominant_eigh_multi, refine_eigenpair
+from .eig import (EigOptions, PowerInfo, dominant_eig, dominant_eig_multi,
+                  dominant_eig_pair, dominant_eig_spectrum,
+                  spectrum_structure)
+from .eigh import (EighMultiOptions, EighOptions, dominant_eigh,
+                   dominant_eigh_multi, refine_eigenpair)
 from .lanczos import (LanczosInfo, LanczosResult, arnoldi_step, lanczos,
                       lanczos_adaptive, lanczos_eigh, power_iteration)
 from .lobpcg import LobpcgInfo, lobpcg_eigh
@@ -21,12 +24,13 @@ from .sparse import BellOperator, random_bell_operator
 from .svd import dominant_svd
 
 __all__ = [
-    "BellOperator", "DenseOperator", "EigOptions", "LanczosInfo",
+    "BellOperator", "DenseOperator", "EigOptions", "EighMultiOptions",
+    "EighOptions", "LanczosInfo",
     "LanczosResult", "LinearOperator", "LobpcgInfo", "MatrixFreeOperator",
     "PowerInfo", "arnoldi_step", "as_operator", "bell_spmm", "bell_spmv",
     "bicgstab", "block_jacobi_precond", "cg", "cg_info",
     "detect_slot_plan", "dominant_eig", "dominant_eig_multi",
-    "dominant_eigh",
+    "dominant_eig_pair", "dominant_eig_spectrum", "dominant_eigh",
     "dominant_eigh_multi", "dominant_svd", "eigh_safe",
     "eigh_safe_truncated", "energy_curvature", "fidelity_susceptibility",
     "gmres", "hdot", "hmatmul", "jacobi_precond",
@@ -34,7 +38,6 @@ __all__ = [
     "operator_diagonal", "pivot_gauge", "power_iteration",
     "random_bell_operator", "refine_eigenpair", "resolve_device",
     "solve_deflated", "solve_deflated_info", "solve_general", "solve_spd",
-    "solve_symmetric",
-    "svd_safe",
+    "solve_symmetric", "spectrum_structure", "svd_safe",
     "svd_safe_truncated", "tol_floor", "value_d1_d2",
 ]

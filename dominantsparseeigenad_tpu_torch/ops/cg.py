@@ -23,6 +23,14 @@ triangular solve) and ``solve_general``, whose Function
 non-symmetric eigensolver's rule (``eig.py``): its backward is the same
 solve on the transposed system, the counterpart of the JAX package's
 ``custom_linear_solve`` with ``transpose_solve``.
+
+Complex operators: every inner product conjugates (``hdot``), and CG's
+and MINRES's step sizes are real for a Hermitian system.  PyTorch's
+gradient of a complex tensor is the conjugate of JAX's cotangent, so a
+backward solves with the adjoint, not the transpose: for a Hermitian
+deflated system that is the same solve (where the JAX package needs
+``conj(A^{-1} conj(b))``), and for a general one it is the transposed
+solve between two conjugations.
 """
 
 from __future__ import annotations
@@ -33,7 +41,7 @@ import torch
 
 from .lanczos import arnoldi_step
 from .operators import (LinearOperator, as_operator, check_device, hdot,
-                        hmatmul, partial_vjp, refuse_complex, tol_floor)
+                        hmatmul, partial_vjp, tol_floor)
 from .precond import _apply_columns
 
 # The JAX loops test the residual on the device every iteration inside a
@@ -51,10 +59,17 @@ CHECK_EVERY = 10
 
 def _project_out(V, x):
     """``x - V <V, x>`` for a unit vector V and x of shape (N,), or for
-    an (N, r) V with orthonormal columns and x of shape (N,) or (N, m)."""
+    an (N, r) V with orthonormal columns and x of shape (N,) or (N, m)
+    (``x - V V^H x``)."""
     if V.ndim == 1:
         return x - V * hdot(V, x)
-    return x - hmatmul(V, hmatmul(V.T, x))
+    return x - hmatmul(V, hmatmul(V.mH, x))
+
+
+def _coldot(a, b):
+    """The real parts of the column inner products ``<a_j, b_j>`` of two
+    (N, m) blocks (the real step sizes of a Hermitian system)."""
+    return (a.conj() * b).real.sum(dim=0)
 
 
 def _nonzero(t):
@@ -77,10 +92,10 @@ def _cg_loop(matvec: Callable, b, tol: float, maxiter, x0=None,
         r = b - matvec(x)
     z = r if precond is None else precond(r)
     p = z.clone()
-    rr = hdot(r, r)
-    rz = rr if precond is None else hdot(r, z)
+    rr = hdot(r, r).real
+    rz = rr if precond is None else hdot(r, z).real
     tol = tol_floor(tol, b.dtype)
-    target2 = torch.clamp(tol * tol * hdot(b, b), min=float(atol) ** 2)
+    target2 = torch.clamp(tol * tol * hdot(b, b).real, min=float(atol) ** 2)
     zero = torch.zeros_like(rz)
     it = 0
     while it < maxiter:
@@ -89,14 +104,14 @@ def _cg_loop(matvec: Callable, b, tol: float, maxiter, x0=None,
         for _ in range(min(CHECK_EVERY, maxiter - it)):
             active = rr > target2
             ap = matvec(p)
-            denom = hdot(p, ap)
+            denom = hdot(p, ap).real
             alpha = torch.where(active & (denom != 0), rz / _nonzero(denom),
                                 zero)
             x = x + alpha * p
             r = r - alpha * ap
             z = r if precond is None else precond(r)
-            rr_new = hdot(r, r)
-            rz_new = rr_new if precond is None else hdot(r, z)
+            rr_new = hdot(r, r).real
+            rz_new = rr_new if precond is None else hdot(r, z).real
             beta = rz_new / _nonzero(rz)
             p = torch.where(active, z + beta * p, p)
             rz = torch.where(active, rz_new, rz)
@@ -123,7 +138,7 @@ def _bicgstab_loop(matvec: Callable, b, tol: float, maxiter, x0=None,
         x = x0.to(b.dtype).clone()
         r = b - matvec(x)
     tol = tol_floor(tol, b.dtype)
-    target2 = torch.clamp(tol * tol * hdot(b, b), min=float(atol) ** 2)
+    target2 = torch.clamp(tol * tol * hdot(b, b).real, min=float(atol) ** 2)
     # scipy's near-breakdown test |rho| <= eps ||rhat|| ||r||: an exact
     # zero test lets |rho| ~ eps^2 through and beta ~ 1/rho overflows.
     eps = float(torch.finfo(b.dtype).eps)
@@ -133,7 +148,7 @@ def _bicgstab_loop(matvec: Callable, b, tol: float, maxiter, x0=None,
     zero = torch.zeros_like(one)
     p, v = torch.zeros_like(b), torch.zeros_like(b)
     rho = alpha = omega = one
-    rr = hdot(r, r)
+    rr = hdot(r, r).real
     stop = torch.zeros((), dtype=torch.bool, device=b.device)
     its = torch.zeros((), dtype=torch.int64, device=b.device)
     it = 0
@@ -164,7 +179,7 @@ def _bicgstab_loop(matvec: Callable, b, tol: float, maxiter, x0=None,
                                                              tt))
             x_new = x + alpha_new * p_new + omega_new * s
             r_new = s - omega_new * t
-            rr_new = hdot(r_new, r_new)
+            rr_new = hdot(r_new, r_new).real
             # A non-finite step (an overflow past the guards) is
             # discarded: the loop stops on the last good iterate.
             bad = ~torch.isfinite(rr_new)
@@ -199,7 +214,6 @@ def bicgstab(matvec: Callable, b: torch.Tensor, *,
     finite iterate), or after ``maxiter`` iterations (default 10 N).
     """
     check_device(device, b)
-    refuse_complex(b.dtype, "b")
     return _bicgstab_loop(matvec, b, tol, maxiter, x0, atol)[0]
 
 
@@ -212,7 +226,7 @@ def _hessenberg_lstsq(h, rhs):
     the JAX ``lstsq`` gives (a CUDA ``lstsq`` has only the full-rank
     ``gels`` routine, which gives NaN there)."""
     q, rt = torch.linalg.qr(h)
-    c = hmatmul(q.T, rhs)
+    c = hmatmul(q.mH, rhs)
     d = torch.diagonal(rt).abs()
     floor = h.shape[0] * torch.finfo(h.dtype).eps \
         * torch.clamp(d.max(), min=torch.finfo(h.dtype).tiny)
@@ -240,10 +254,10 @@ def _gmres_loop(matvec: Callable, b, tol: float, maxiter, x0=None,
         x = x0.to(b.dtype).clone()
         r = b - matvec(x)
     tol = tol_floor(tol, b.dtype)
-    target2 = torch.clamp(tol * tol * hdot(b, b), min=float(atol) ** 2)
+    target2 = torch.clamp(tol * tol * hdot(b, b).real, min=float(atol) ** 2)
     tiny = torch.finfo(b.dtype).tiny
     cycles = 0
-    while cycles < max_cycles and bool(hdot(r, r) > target2):
+    while cycles < max_cycles and bool(hdot(r, r).real > target2):
         beta = torch.linalg.vector_norm(r)
         basis = torch.zeros((m + 1, n), dtype=b.dtype, device=b.device)
         basis[0] = r / torch.clamp(beta, min=tiny)
@@ -271,7 +285,6 @@ def gmres(matvec: Callable, b: torch.Tensor, *,
     atol)`` is made once a cycle, on the residual of the Arnoldi
     relation."""
     check_device(device, b)
-    refuse_complex(b.dtype, "b")
     return _gmres_loop(matvec, b, tol, maxiter, x0, atol, restart)[0]
 
 
@@ -287,7 +300,6 @@ def cg(matvec: Callable, b: torch.Tensor, *, x0: torch.Tensor | None = None,
     ``z = M^{-1} r`` (see :mod:`~.precond`).
     """
     check_device(device, b)
-    refuse_complex(b.dtype, "b")
     return _cg_loop(matvec, b, tol, maxiter, x0, atol, precond)[0]
 
 
@@ -300,7 +312,6 @@ def cg_info(matvec: Callable, b: torch.Tensor, *,
     met the tolerance, whose steps are frozen) and ``||b - A x|| /
     ||b||`` from one extra matvec.  Forward-only."""
     check_device(device, b)
-    refuse_complex(b.dtype, "b")
     with torch.no_grad():
         x, it = _cg_loop(matvec, b, tol, maxiter, x0, atol, precond)
         res = torch.linalg.vector_norm(b - matvec(x)) \
@@ -319,7 +330,7 @@ def _minres_loop(matvec: Callable, b, tol: float, maxiter, x0=None,
     x = torch.zeros_like(b) if x0 is None else x0.to(b.dtype).clone()
     r = b.clone() if x0 is None else b - matvec(x)
     yv = r if precond is None else precond(r)
-    beta1 = torch.sqrt(torch.clamp(hdot(r, yv), min=0.0))
+    beta1 = torch.sqrt(torch.clamp(hdot(r, yv).real, min=0.0))
     tol = tol_floor(tol, b.dtype)
     # The M^{-1} norm phibar tracks; for M = I and x0 = 0, tol ||b||.
     target = tol * (torch.linalg.vector_norm(b) if precond is None
@@ -341,12 +352,13 @@ def _minres_loop(matvec: Callable, b, tol: float, maxiter, x0=None,
             y = matvec(v)
             if it >= 1:
                 y = y - (beta / _nonzero(oldb)) * r1
-            alfa = hdot(v, y)
+            # <v, A v> is real for a Hermitian A: the rotations stay real.
+            alfa = hdot(v, y).real
             y = y - (alfa / _nonzero(beta)) * r2
             r1, r2 = r2, y
             yv = y if precond is None else precond(y)
             oldb = beta
-            beta_new = torch.sqrt(torch.clamp(hdot(y, yv), min=0.0))
+            beta_new = torch.sqrt(torch.clamp(hdot(y, yv).real, min=0.0))
             oldeps = epsln
             delta = cs * dbar + sn * alfa
             gbar = sn * dbar - cs * alfa
@@ -384,12 +396,11 @@ def minres(matvec: Callable, b: torch.Tensor, *,
     the unpreconditioned recurrence.
     """
     check_device(device, b)
-    refuse_complex(b.dtype, "b")
     return _minres_loop(matvec, b, tol, maxiter, x0, precond)[0]
 
 
 def _deflated_mv(op, lam, V, sign, batched):
-    """``x -> sign * P (A - lam I) P x``, ``P = I - V V^T``: on (N,)
+    """``x -> sign * P (A - lam I) P x``, ``P = I - V V^H``: on (N,)
     vectors with a scalar ``lam``, or on (N, m) blocks with one shift per
     column in ``lam`` (m,)."""
     if batched:
@@ -458,8 +469,8 @@ def _cg_columns_loop(matmat: Callable, B, tol: float, maxiter,
     R = B.clone()
     Z = R if precond is None else precond(R)
     P = Z.clone()
-    rr = (R * R).sum(dim=0)
-    rz = rr if precond is None else (R * Z).sum(dim=0)
+    rr = _coldot(R, R)
+    rz = rr if precond is None else _coldot(R, Z)
     tol = tol_floor(tol, B.dtype)
     target2 = tol * tol * rr
     its = torch.zeros(m, dtype=torch.int64, device=B.device)
@@ -471,14 +482,14 @@ def _cg_columns_loop(matmat: Callable, B, tol: float, maxiter,
         for _ in range(min(CHECK_EVERY, maxiter - it)):
             active = rr > target2
             AP = matmat(P)
-            denom = (P * AP).sum(dim=0)
+            denom = _coldot(P, AP)
             alpha = torch.where(active & (denom != 0), rz / _nonzero(denom),
                                 zero)
             X = X + alpha * P
             R = R - alpha * AP
             Z = R if precond is None else precond(R)
-            rr_new = (R * R).sum(dim=0)
-            rz_new = rr_new if precond is None else (R * Z).sum(dim=0)
+            rr_new = _coldot(R, R)
+            rz_new = rr_new if precond is None else _coldot(R, Z)
             beta = rz_new / _nonzero(rz)
             P = torch.where(active, Z + beta * P, P)
             rz = torch.where(active, rz_new, rz)
@@ -497,7 +508,9 @@ class _DeflatedSolve(torch.autograd.Function):
         w = M^+ x̄,   rhs̄ = w,   (λ̄, V̄, θ̄) = -∂/∂(λ, V, θ) <w, M x>,
 
     the last with x held constant: one more solve (the same ``method``
-    and preconditioner) and one deflated product per backward.  The
+    and preconditioner) and one deflated product per backward.  For a
+    complex Hermitian M, ``x̄`` is PyTorch's (conjugate) gradient and the
+    solve it needs is by ``M^H = M``, so the rule is the same.  The
     forward runs the solver with no graph (no iteration is ever
     recorded); the backward is built of this Function and differentiable
     operations only, so under ``create_graph`` it differentiates again,
@@ -549,7 +562,6 @@ def solve_deflated_info(op, lam, V, b, *, definite_sign: float = 1.0,
     right-hand side both are lists with one entry per column."""
     op = as_operator(op)
     check_device(device, op, V, b)
-    refuse_complex(b.dtype, "b")
     sign = float(definite_sign)
     with torch.no_grad():
         lam = _shifts(lam, b)
@@ -570,7 +582,7 @@ def solve_deflated(op, lam, V, b, *, definite_sign: float = 1.0,
                    method: str = "cg", precond: Callable | None = None,
                    device=None) -> torch.Tensor:
     """Solve ``P (A - lam I) P x = P b`` on ``span(V)⊥``,
-    ``P = I - V V^T``, differentiably (see :class:`_DeflatedSolve`).
+    ``P = I - V V^H``, differentiably (see :class:`_DeflatedSolve`).
 
     ``V`` is the (N,) unit eigenvector being deflated, or an (N, r) block
     of orthonormal ones.  ``b`` is (N,) with a scalar ``lam``, or (N, m)
@@ -592,7 +604,6 @@ def solve_deflated(op, lam, V, b, *, definite_sign: float = 1.0,
         raise ValueError(f"method must be cg|minres, got {method!r}")
     op = as_operator(op)
     check_device(device, op, V, b)
-    refuse_complex(b.dtype, "b")
     sign = 1.0 if method == "minres" else float(definite_sign)
     lam = _shifts(lam, b)
     # The two projections of the JAX solve: this one differentiable, the
@@ -619,7 +630,6 @@ def _solve_operator(op, b, device):
             "the tensors it uses (params) get their gradients")
     op = as_operator(op)
     check_device(device, op, b)
-    refuse_complex(b.dtype, "b")
     return op
 
 
@@ -689,15 +699,18 @@ class _GeneralSolve(torch.autograd.Function):
     :func:`_bordered_mv` (A itself when the border is empty and λ = 0),
     by BiCGStab, GMRES or CGNR; differentiable in ``rhs``, ``λ``, ``U``,
     ``W`` and the operator's parameters θ by the rule of
-    ``lax.custom_linear_solve`` with ``transpose_solve``:
+    ``lax.custom_linear_solve`` with ``transpose_solve``, in PyTorch's
+    conjugate convention:
 
-        y = B^{-T} z̄,  rhs̄ = y,  (λ̄, Ū, W̄, θ̄) = -∂/∂(λ, U, W, θ) <y, B z>,
+        y = B^{-H} z̄ = conj(B^{-T} conj(z̄)),  rhs̄ = y,
+        (λ̄, Ū, W̄, θ̄) = -∂/∂(λ, U, W, θ) <y, B z>,
 
     the transposed solve being this Function on ``A^T`` with U and W
-    swapped, and the last term one bordered product with z held
-    constant.  The forward records no graph; the backward is built of
-    this Function and differentiable operations, so it differentiates
-    again under ``create_graph``."""
+    swapped (between two conjugations, the identity for real dtypes), and
+    the last term one bordered product with z held constant.  The forward
+    records no graph; the backward is built of this Function and
+    differentiable operations, so it differentiates again under
+    ``create_graph``."""
 
     @staticmethod
     def forward(ctx, op, transpose, tol, maxiter, method, rhs, lam, U, W,
@@ -715,7 +728,8 @@ class _GeneralSolve(torch.autograd.Function):
         transpose, tol, maxiter, method = ctx.cfg
         z, lam, U, W = ctx.saved_tensors
         y = _GeneralSolve.apply(op, not transpose, tol, maxiter, method,
-                                z_bar, lam, W, U, *op.parameters())
+                                z_bar.conj(), lam, W, U,
+                                *op.parameters()).conj()
         grads = partial_vjp(
             op, lambda held, lam_, U_, W_: _bordered_mv(
                 held, transpose, lam_, U_, W_)(z),
@@ -731,7 +745,7 @@ def solve_general(op, b: torch.Tensor, *, tol: float = 1e-7,
     operator, to any order in ``b`` and ``op.parameters()``.
 
     ``method``: "bicgstab" (default, κ(A) cost), "gmres" (restarted
-    every 32 steps) or "cgnr" (CG on ``A^T A x = A^T b``, at κ² cost: a
+    every 32 steps) or "cgnr" (CG on ``A^H A x = A^H b``, at κ² cost: a
     fallback when BiCGStab stagnates on a wildly non-normal system).
     The backward is the same solve on ``op.rmatvec``
     (:class:`_GeneralSolve`).  Where the JAX function takes a matvec and

@@ -34,8 +34,14 @@ a decomposition:
 The truncated SVD sketches with a fixed Gaussian Ω.  JAX draws it from
 ``PRNGKey(0x5eed)``; here it comes from a CPU ``torch.Generator`` seeded
 0x5eed, in the working dtype, moved to the device (deterministic for each
-shape), unless the caller passes ``omega=``.  Complex inputs are refused
-(ROADMAP.md queue 1 item 5).
+shape), unless the caller passes ``omega=``.
+
+Complex matrices follow the JAX rules, which are Hermitian throughout:
+``eigh_safe`` decomposes ``(a + a^H)/2``, every transpose of the rules
+is a conjugate transpose, dw and ds are real, and the SVD rules carry
+the relative phase of each (u_i, v_i) pair, ``Im<u_i, dA v_i> / σ_i``,
+on du (the JAX convention).  The backwards are written for PyTorch's
+gradient of a complex tensor, the conjugate of JAX's cotangent.
 """
 
 from __future__ import annotations
@@ -44,7 +50,7 @@ import functools
 
 import torch
 
-from .operators import check_device, hmatmul, refuse_complex
+from .operators import check_device, hmatmul
 
 _SEED = 0x5eed
 
@@ -63,7 +69,18 @@ def _lorentzian(gap, eps):
 
 
 def _sym(a):
-    return (a + a.T) / 2
+    """The Hermitian part ``(a + a^H)/2`` (symmetric for a real a)."""
+    return (a + a.mH) / 2
+
+
+def _phase_diag(p, scale):
+    """``diag(i Im(p_ii) scale_i)``'s diagonal for a complex square-ish
+    ``p`` (its leading r x r block, r = len(scale)), zero for a real one:
+    the relative-phase term of the SVD rules."""
+    if not p.is_complex():
+        return None
+    r = scale.shape[0]
+    return 1j * torch.diagonal(p[:r, :r]).imag * scale
 
 
 def _flip_top(w_full, v_full, r):
@@ -81,9 +98,9 @@ def _kept_mask(rows: int, r: int, diagonal, device):
 
 
 class _EighSafe(torch.autograd.Function):
-    """``(w, v) = eigh((a + aᵀ)/2)``, ascending, with broadened tangents
-    ``dw = diag(M)``, ``dv = V (F ∘ M)``, ``M = Vᵀ sym(dA) V``; backward
-    ``ā = sym(V (diag(w̄) + F ∘ Vᵀ v̄) Vᵀ)``."""
+    """``(w, v) = eigh((a + aᴴ)/2)``, ascending, with broadened tangents
+    ``dw = Re diag(M)``, ``dv = V (F ∘ M)``, ``M = Vᴴ sym(dA) V``;
+    backward ``ā = sym(V (diag(w̄) + F ∘ Vᴴ v̄) Vᴴ)``."""
 
     @staticmethod
     def forward(ctx, a, eps):
@@ -102,17 +119,18 @@ class _EighSafe(torch.autograd.Function):
     @staticmethod
     def jvp(ctx, da, _eps):
         w, v = ctx.saved_tensors
-        m = hmatmul(hmatmul(v.T, _sym(da)), v)
-        return (torch.diagonal(m).clone(),
-                hmatmul(v, _EighSafe._f(w, ctx.eps) * m))
+        m = hmatmul(hmatmul(v.mH, _sym(da)), v)
+        return (torch.diagonal(m).real.clone(),
+                hmatmul(v, _EighSafe._f(w, ctx.eps).to(m.dtype) * m))
 
     @staticmethod
     def backward(ctx, w_bar, v_bar):
         # w and v are this Function's outputs: under create_graph their
         # cotangents come back into this same rule.
         w, v = ctx.saved_tensors
-        g = torch.diag(w_bar) + _EighSafe._f(w, ctx.eps) * hmatmul(v.T, v_bar)
-        return _sym(hmatmul(hmatmul(v, g), v.T)), None
+        g = (torch.diag(w_bar).to(v.dtype)
+             + _EighSafe._f(w, ctx.eps).to(v.dtype) * hmatmul(v.mH, v_bar))
+        return _sym(hmatmul(hmatmul(v, g), v.mH)), None
 
 
 def _eigh_truncated_tangent(w_full, v_full, r, eps):
@@ -145,8 +163,8 @@ class _EighSafeTruncated(torch.autograd.Function):
         w_full, v_full = torch.linalg.eigh(_sym(a))
         _, v, f = _eigh_truncated_tangent(w_full, v_full, ctx.r, ctx.eps)
         da_v = hmatmul(_sym(da), v)
-        dw = (v * da_v).sum(dim=0)
-        return dw, hmatmul(v_full, f * hmatmul(v_full.T, da_v))
+        dw = (v.conj() * da_v).real.sum(dim=0)
+        return dw, hmatmul(v_full, f.to(v.dtype) * hmatmul(v_full.mH, da_v))
 
     @staticmethod
     def backward(ctx, w_bar, v_bar):
@@ -155,8 +173,9 @@ class _EighSafeTruncated(torch.autograd.Function):
         # input, so that a create_graph backward stays degeneracy-safe.
         w_full, v_full = _EighSafe.apply(a, ctx.eps)
         _, v, f = _eigh_truncated_tangent(w_full, v_full, ctx.r, ctx.eps)
-        k = hmatmul(v_full, f * hmatmul(v_full.T, v_bar)) + v * w_bar[None, :]
-        return _sym(hmatmul(k, v.T)), None, None
+        k = (hmatmul(v_full, f.to(v.dtype) * hmatmul(v_full.mH, v_bar))
+             + v * w_bar[None, :])
+        return _sym(hmatmul(k, v.mH)), None, None
 
 
 class _SvdSafe(torch.autograd.Function):
@@ -179,23 +198,35 @@ class _SvdSafe(torch.autograd.Function):
                                     device=s.device))
 
     @staticmethod
+    def _sinv(s):
+        return 1.0 / torch.clamp(s, min=torch.finfo(s.dtype).tiny)
+
+    @staticmethod
     def jvp(ctx, da, _eps):
         u, s, vt = ctx.saved_tensors
-        v = vt.T
-        dp = hmatmul(hmatmul(u.T, da), v)
-        f = _SvdSafe._f(s, ctx.eps)
-        du = hmatmul(u, f * (dp * s[None, :] + s[:, None] * dp.T))
-        dv = hmatmul(v, f * (s[:, None] * dp + dp.T * s[None, :]))
-        return du, torch.diagonal(dp).clone(), dv.T.contiguous()
+        v = vt.mH
+        dp = hmatmul(hmatmul(u.mH, da), v)
+        f = _SvdSafe._f(s, ctx.eps).to(dp.dtype)
+        du = hmatmul(u, f * (dp * s[None, :] + s[:, None] * dp.mH))
+        dv = hmatmul(v, f * (s[:, None] * dp + dp.mH * s[None, :]))
+        phase = _phase_diag(dp, _SvdSafe._sinv(s))
+        if phase is not None:
+            du = du + u * phase[None, :]
+        return (du, torch.diagonal(dp).real.clone(),
+                dv.mH.contiguous())
 
     @staticmethod
     def backward(ctx, u_bar, s_bar, vt_bar):
         u, s, vt = ctx.saved_tensors
-        f = _SvdSafe._f(s, ctx.eps)
-        au = f * hmatmul(u.T, u_bar)
-        av = f * hmatmul(vt, vt_bar.T)
-        p_bar = (torch.diag(s_bar) + (au + au.T) * s[None, :]
-                 + s[:, None] * (av + av.T))
+        f = _SvdSafe._f(s, ctx.eps).to(u.dtype)
+        uu = hmatmul(u.mH, u_bar)
+        au = f * uu
+        av = f * hmatmul(vt, vt_bar.mH)
+        p_bar = (torch.diag(s_bar).to(u.dtype) + (au + au.mH) * s[None, :]
+                 + s[:, None] * (av + av.mH))
+        phase = _phase_diag(uu, _SvdSafe._sinv(s))
+        if phase is not None:
+            p_bar = p_bar + torch.diag(phase)
         return hmatmul(hmatmul(u, p_bar), vt), None
 
 
@@ -208,14 +239,14 @@ def _default_omega(m: int, k: int, dtype, device) -> torch.Tensor:
 
 
 def _sketch_svd(a, r, power_iters, omega):
-    """Halko-Martinsson-Tropp: ``Y = (A Aᵀ)^q A Ω``, orthonormalized, and
-    the exact SVD of the small projection ``Qᵀ A``; the top r triplets."""
+    """Halko-Martinsson-Tropp: ``Y = (A Aᴴ)^q A Ω``, orthonormalized, and
+    the exact SVD of the small projection ``Qᴴ A``; the top r triplets."""
     y = hmatmul(a, omega)
     for _ in range(power_iters):
         q, _ = torch.linalg.qr(y)
-        y = hmatmul(a, hmatmul(a.T, q))
+        y = hmatmul(a, hmatmul(a.mH, q))
     q, _ = torch.linalg.qr(y)
-    ub, s, vt = torch.linalg.svd(hmatmul(q.T, a), full_matrices=False)
+    ub, s, vt = torch.linalg.svd(hmatmul(q.mH, a), full_matrices=False)
     u = hmatmul(q, ub)
     return u[:, :r], s[:r], vt[:r]
 
@@ -228,7 +259,7 @@ def _svd_truncated_parts(uk, sk, vtk, r, eps):
     """``(u, s, v, vk, f, sinv)`` of the truncated rule from the k-window
     triplets: ``f[j, i] = 1/(σ_i² - σ_j²)`` broadened, zero on the
     diagonal; ``sinv`` the guarded ``1/σ`` of the kept values."""
-    vk = vtk.T
+    vk = vtk.mH
     u, s, v = uk[:, :r], sk[:r], vk[:, :r]
     f = _lorentzian(s[None, :] ** 2 - sk[:, None] ** 2, eps)
     mask = _kept_mask(sk.shape[0], r, lambda j: j, f.device)
@@ -245,7 +276,8 @@ class _SvdSafeTruncated(torch.autograd.Function):
     """Top-r SVD by a randomized subspace sketch, with the truncated
     tangent rule (kept-block rotations against the k-window through
     broadened ``1/(σ_j² - σ_i²)``, plus the complement terms
-    ``(I - U_k U_kᵀ) dA V Σ⁻¹`` and ``(I - V_k V_kᵀ) dAᵀ U Σ⁻¹``)."""
+    ``(I - U_k U_kᴴ) dA V Σ⁻¹`` and ``(I - V_k V_kᴴ) dAᴴ U Σ⁻¹``, and for
+    a complex matrix the relative-phase term on du)."""
 
     @staticmethod
     def forward(ctx, a, r, eps, oversample, power_iters, omega):
@@ -263,15 +295,19 @@ class _SvdSafeTruncated(torch.autograd.Function):
         uk, sk, vtk = _sketch_svd(a, k, power_iters, omega)
         u, s, v, vk, f, sinv = _svd_truncated_parts(uk, sk, vtk, r, eps)
         da_v = hmatmul(da, v)
-        dat_u = hmatmul(da.T, u)
-        p1 = hmatmul(uk.T, da_v)
-        p2 = hmatmul(vk.T, dat_u)
-        ds = torch.diagonal(p1[:r]).clone()
+        dat_u = hmatmul(da.mH, u)
+        p1 = hmatmul(uk.mH, da_v)
+        p2 = hmatmul(vk.mH, dat_u)
+        f = f.to(p1.dtype)
+        ds = torch.diagonal(p1[:r]).real.clone()
         du = hmatmul(uk, f * (p1 * s[None, :] + sk[:, None] * p2))
         dv = hmatmul(vk, f * (p2 * s[None, :] + sk[:, None] * p1))
-        du = du + (da_v - hmatmul(uk, hmatmul(uk.T, da_v))) * sinv[None, :]
-        dv = dv + (dat_u - hmatmul(vk, hmatmul(vk.T, dat_u))) * sinv[None, :]
-        return du, ds, dv.T.contiguous()
+        du = du + (da_v - hmatmul(uk, hmatmul(uk.mH, da_v))) * sinv[None, :]
+        dv = dv + (dat_u - hmatmul(vk, hmatmul(vk.mH, dat_u))) * sinv[None, :]
+        phase = _phase_diag(p1, sinv)
+        if phase is not None:
+            du = du + u * phase[None, :]
+        return du, ds, dv.mH.contiguous()
 
     @staticmethod
     def backward(ctx, u_bar, s_bar, vt_bar):
@@ -283,31 +319,35 @@ class _SvdSafeTruncated(torch.autograd.Function):
         uk, sk, vtk = _SvdSafeTruncated.apply(a, k, eps, 0, power_iters,
                                               omega)
         u, s, v, vk, f, sinv = _svd_truncated_parts(uk, sk, vtk, r, eps)
-        v_bar = vt_bar.T
-        x = f * hmatmul(uk.T, u_bar)
-        y = f * hmatmul(vk.T, v_bar)
+        v_bar = vt_bar.mH
+        uu = hmatmul(uk.mH, u_bar)
+        f = f.to(uu.dtype)
+        x = f * uu
+        y = f * hmatmul(vk.mH, v_bar)
         p1_bar = x * s[None, :] + sk[:, None] * y
         p2_bar = sk[:, None] * x + y * s[None, :]
         u_sinv = u_bar * sinv[None, :]
         v_sinv = v_bar * sinv[None, :]
         left = (u * s_bar[None, :] + hmatmul(uk, p1_bar)
-                + u_sinv - hmatmul(uk, hmatmul(uk.T, u_sinv)))
+                + u_sinv - hmatmul(uk, hmatmul(uk.mH, u_sinv)))
+        phase = _phase_diag(uu, sinv)
+        if phase is not None:
+            left = left + u * phase[None, :]
         right = (hmatmul(vk, p2_bar)
-                 + v_sinv - hmatmul(vk, hmatmul(vk.T, v_sinv)))
-        a_bar = hmatmul(left, v.T) + hmatmul(u, right.T)
+                 + v_sinv - hmatmul(vk, hmatmul(vk.mH, v_sinv)))
+        a_bar = hmatmul(left, v.mH) + hmatmul(u, right.mH)
         return a_bar, None, None, None, None, None
 
 
 def _check_matrix(a, device, what, square=False):
     check_device(device, a)
-    refuse_complex(a.dtype, what)
     if a.ndim != 2 or (square and a.shape[0] != a.shape[1]):
         raise ValueError(f"{what} must be a {'square ' if square else ''}"
                          f"matrix, got shape {tuple(a.shape)}")
 
 
 def eigh_safe(a: torch.Tensor, eps: float = 1e-12, *, device=None):
-    """Full symmetric eigendecomposition ``(w, v)`` of ``(a + aᵀ)/2``,
+    """Full Hermitian eigendecomposition ``(w, v)`` of ``(a + aᴴ)/2``,
     ascending, with degeneracy-safe derivatives of any order: a gap
     ``|λi - λj| >> eps`` gives the exact derivative, a multiplet
     contributes ~0 instead of NaN.  ``device`` is where the call runs

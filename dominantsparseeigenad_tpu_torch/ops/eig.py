@@ -1,16 +1,19 @@
 """Differentiable dominant eigensolver for general (non-symmetric) operators.
 
-Counterpart of the real-arithmetic half of
-``dominantsparseeigenad_tpu/ops/eig.py``: ``dominant_eig``,
-``dominant_eig_multi``, ``EigOptions`` and ``PowerInfo``.  The solver is
-for transfer matrices, whose dominant eigenvalue is real, positive and
-simple (Perron-Frobenius); it measures that assumption
-(``PowerInfo.rank1_defect``) rather than trusting it.
+Counterpart of ``dominantsparseeigenad_tpu/ops/eig.py``: ``dominant_eig``,
+``dominant_eig_multi``, ``EigOptions`` and ``PowerInfo``, and its complex
+half, ``dominant_eig_pair``, ``dominant_eig_spectrum`` and
+``spectrum_structure``.  ``dominant_eig`` is for transfer matrices, whose
+dominant eigenvalue is real, positive and simple (Perron-Frobenius); it
+measures that assumption (``PowerInfo.rank1_defect``) rather than
+trusting it.  It also takes a complex non-symmetric operator, whose
+dominant eigenvalue is then complex.
 
 Forward: a two-sided power iteration (A for the right vector r, A^T for
 the left vector l), stopped on the scale-free residual, optionally seeded
 by the dominant Ritz vectors of a k-step Arnoldi sweep; gauge ``||r|| =
-1``, the largest-magnitude entry of r positive, ``l^T r = 1``.
+1``, the largest-magnitude entry of r real and positive, ``l^T r = 1``
+(bilinear, for complex vectors too).
 
 The JAX package registers the implicit-function-theorem tangents as a
 JVP and lets JAX transpose it.  Here the JVP is the Function's ``jvp``
@@ -21,7 +24,9 @@ JVP and lets JAX transpose it.  Here the JVP is the Function's ``jvp``
     dl0 = S_l b_l,  b_l = -((dA)^T l - dλ l),
     dl  = dl0 + c l,  c = -l^T dr - r^T dl0,
 
-where ``S_r`` solves the bordered system ``[[A - λI, l], [r^T, 0]]`` and
+(for a complex r, dr first moves along r to keep ``Re <r, dr> = 0`` and
+the pivot entry real: ``dr += (-Re<r, dr> - i Im dr[p] / r[p]) r``), where
+``S_r`` solves the bordered system ``[[A - λI, l], [r^T, 0]]`` and
 ``S_l`` the one ``[[A^T - λI, r], [l^T, 0]]`` (Nelson's method: the
 singular tangent systems made nonsingular at their own condition number),
 by BiCGStab, GMRES or CGNR.  The backward is that map transposed.  The
@@ -41,12 +46,32 @@ built of differentiable operations on the saved (λ, l, r), so under
 ``create_graph`` it differentiates again, to any order.  The pairings of
 l with r are bilinear, as in the JAX code.
 
+For complex (λ, l, r) the backward is the same map in PyTorch's
+conjugate convention: every cotangent that the formulas above pair
+bilinearly with l or r is conjugated (``g_l0 = l̄ - conj(l^H l̄) conj(r)``,
+``b̄_r = conj(S_l conj(g_r))``, ``λ̄_tot = λ̄ + <r, b̄_r> + <l, b̄_l>``,
+output cotangent ``λ̄_tot conj(l) - b̄_r``), and the pivot gauge's shift
+of dr is transposed onto g_r first (``g_r += i (Im<g_r, r> / r[p]) e_p``;
+its part along r is dropped with the border component).
+
 ``dominant_eig_multi`` deflates each converged triple out of the operator
 (Wielandt, ``M - λ r l^T``) through a ``MatrixFreeOperator`` that holds
 the operator before it, so the gradients of every stage reach the
-innermost operator's tensors.  The complex half of the JAX module
-(``dominant_eig_pair``, ``dominant_eig_spectrum``, ``spectrum_structure``)
-waits for complex operators (``ROADMAP.md`` queue 1 item 5).
+innermost operator's tensors.
+
+The complex half.  ``dominant_eig_pair`` takes a REAL operator whose
+dominant eigenvalue may be one of a complex-conjugate pair: a block power
+iteration finds the dominant 2-D invariant subspace (once for A, once for
+A^T), the 2 x 2 restriction gives λ (``Im λ >= 0``) and its eigenvectors
+in closed form, and the same IFT rule runs in complex arithmetic on the
+real operator lifted to complex vectors (``_ComplexifiedOperator``), so
+the gradients land on the real operator's tensors.  ``dominant_eig_spectrum``
+runs the top-m spectrum of a real operator as a cascade of stages, each a
+real simple eigenvalue (``dominant_eig``) or a conjugate pair
+(``dominant_eig_pair``), deflating pairs by ``M - 2 Re(λ r l^T)`` so that
+every stage's operator stays real.  The structure of the cascade is
+found on the host from concrete values; ``spectrum_structure`` returns it
+so that a derivative run can replay it.
 """
 
 from __future__ import annotations
@@ -58,8 +83,9 @@ import torch
 
 from .cg import CHECK_EVERY, _GeneralSolve
 from .lanczos import arnoldi_step
-from .operators import (MatrixFreeOperator, as_operator, check_device, hdot,
-                        hmatmul, partial_vjp, tol_floor)
+from .operators import (LinearOperator, MatrixFreeOperator, as_operator,
+                        check_device, hdot, hmatmul, partial_vjp, pivot_gauge,
+                        real_dtype, tol_floor)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -179,6 +205,7 @@ def _power_pair(op, opts: EigOptions):
     so the iterate and the step count are those of the JAX
     ``while_loop``."""
     n, dtype = op.dim, op.dtype
+    rdt = real_dtype(dtype)
     tiny = torch.finfo(dtype).tiny
     generator = torch.Generator(device=op.device).manual_seed(opts.seed)
     r0, l0 = _unit(n, dtype, generator), _unit(n, dtype, generator)
@@ -192,7 +219,7 @@ def _power_pair(op, opts: EigOptions):
         defect = torch.maximum(defect_r, defect_l)
     ptol = tol_floor(opts.power_tol, dtype)
     r, l = r0, l0
-    resid = torch.full((), float("inf"), dtype=dtype, device=r.device)
+    resid = torch.full((), float("inf"), dtype=rdt, device=r.device)
     its = torch.zeros((), dtype=torch.int64, device=r.device)
     it = 0
     while it < opts.num_iters:
@@ -219,13 +246,13 @@ def _power_pair(op, opts: EigOptions):
         kd = max(2, min(6, n))
         defect = torch.maximum(_probe_defect(op.matvec, n, kd, r, dtype),
                                _probe_defect(op.rmatvec, n, kd, l, dtype))
-    r = r * torch.sign(r[torch.argmax(r.abs())]).conj()
+    r = pivot_gauge(r)
     ln = _bdot(l, r)
     lam = _bdot(l, op.matvec(r)) / ln
     l = l / ln
-    info = PowerInfo(iterations=its.to(dtype), residual=resid,
-                     converged=(resid <= ptol).to(dtype),
-                     rank1_defect=defect.to(dtype))
+    info = PowerInfo(iterations=its.to(rdt), residual=resid,
+                     converged=(resid <= ptol).to(rdt),
+                     rank1_defect=defect.to(rdt))
     return lam, l, r, info
 
 
@@ -242,22 +269,49 @@ def _bordered_solve(op, transpose, u, w, b, lam, opts):
     return z[:op.dim]
 
 
+def _phase_shift(r, dr):
+    """The JAX ``_eig_tangents``' shift of a complex dr along r:
+    ``dr + (-Re<r, dr> - i Im dr[p] / r[p]) r`` keeps ``||r||`` and the
+    pivot entry's phase; the identity for a real dtype."""
+    if not r.is_complex():
+        return dr
+    p = torch.argmax(r.abs())
+    return dr + (-hdot(r, dr).real - 1j * dr[p].imag / r[p].real) * r
+
+
+def _phase_shift_cotangent(r, g):
+    """The transpose of :func:`_phase_shift` on a cotangent of dr, up to
+    a multiple of r (which the caller drops: the solve it feeds annihilates
+    r): ``g + i (Im<g, r> / r[p]) e_p``."""
+    if not r.is_complex():
+        return g
+    p = torch.argmax(r.abs())
+    e = torch.nn.functional.one_hot(p, r.shape[0]).to(r.dtype)
+    return g + 1j * (hdot(g, r).imag / r[p].real) * e
+
+
+def _save(ctx, op, opts, with_info, lam, l, r, info):
+    """The forward's bookkeeping, shared by :class:`_DominantEig` and
+    :class:`_DominantEigPair`: ``op`` is the operator the rules apply
+    (lifted to complex vectors for a pair)."""
+    info = tuple(info) if with_info else ()
+    ctx.op, ctx.opts, ctx.n_info = op, opts, len(info)
+    ctx.save_for_backward(lam, l, r)
+    ctx.save_for_forward(lam, l, r)
+    ctx.mark_non_differentiable(*info)
+    # An output the loss does not use brings no cotangent (None) and
+    # costs no solve.
+    ctx.set_materialize_grads(False)
+    return (lam, l, r, *info)
+
+
 class _DominantEig(torch.autograd.Function):
     """Outputs ``(λ, l, r)``, then the four :class:`PowerInfo` fields
     with ``with_info`` (see the module docstring for the rules)."""
 
     @staticmethod
     def forward(ctx, op, opts, with_info, *params):
-        lam, l, r, info = _power_pair(op, opts)
-        info = tuple(info) if with_info else ()
-        ctx.op, ctx.opts, ctx.n_info = op, opts, len(info)
-        ctx.save_for_backward(lam, l, r)
-        ctx.save_for_forward(lam, l, r)
-        ctx.mark_non_differentiable(*info)
-        # An output the loss does not use brings no cotangent (None) and
-        # costs no solve.
-        ctx.set_materialize_grads(False)
-        return (lam, l, r, *info)
+        return _save(ctx, op, opts, with_info, *_power_pair(op, opts))
 
     @staticmethod
     def jvp(ctx, _op, _opts, _with_info, *dparams):
@@ -273,6 +327,7 @@ class _DominantEig(torch.autograd.Function):
         datl = op.tangent_rmatvec(l, dparams)
         dlam = _bdot(l, dar)
         dr = _bordered_solve(op, False, l, r, -(dar - dlam * r), lam, opts)
+        dr = _phase_shift(r, dr)
         dl0 = _bordered_solve(op, True, r, l, -(datl - dlam * l), lam, opts)
         c = -_bdot(l, dr) - _bdot(r, dl0)
         return (dlam, dl0 + c * l, dr, *info)
@@ -285,36 +340,41 @@ class _DominantEig(torch.autograd.Function):
             return (None,) * (3 + len(op.parameters()))
         lam_tot = torch.zeros_like(lam) if lam_bar is None else lam_bar
         # Through dl = dl0 + c l, c = -l^T dr - r^T dl0: the l-cotangent
-        # reaches dl0 and dr.
+        # reaches dl0 and dr (conj(l^H l̄) is l̄ . l for real dtypes).
         g_l0 = g_r = None
         if l_bar is not None:
-            c_bar = _bdot(l_bar, l)
-            g_l0 = l_bar - c_bar * r
-            g_r = -c_bar * l
+            c_bar = hdot(l, l_bar)
+            g_l0 = l_bar - c_bar * r.conj()
+            g_r = -c_bar * l.conj()
         if r_bar is not None:
             g_r = r_bar if g_r is None else g_r + r_bar
         # S_r^T = S_l and S_l^T = S_r (the bordered systems transpose
-        # into each other).  S_l r = 0 and S_r l = 0, so the right-hand
-        # sides lose their components along r and l first (the range of
-        # A^T - λ is r⊥, that of A - λ is l⊥).  That changes no solution,
-        # and keeps BiCGStab off a breakdown: for g_r ∥ l (an l̄ alone),
-        # B (g_r; 0) = (0; l^T g_r) is orthogonal to (g_r; 0), and the
-        # first step would divide by round-off.
+        # into each other); PyTorch's cotangents take the adjoints,
+        # conj(S_l conj(.)) and conj(S_r conj(.)).  S_r^H r = 0 and
+        # S_l^H l = 0, so the right-hand sides lose their components
+        # along r and l first.  That changes no solution, and keeps
+        # BiCGStab off a breakdown: for g_r ∥ l (an l̄ alone, real
+        # dtypes), B (g_r; 0) = (0; l^T g_r) is orthogonal to (g_r; 0),
+        # and the first step would divide by round-off.
         cot_ar = None
         if g_r is not None:
-            g_r = g_r - _bdot(r, g_r) / _bdot(r, r) * r
-            bb_r = _bordered_solve(op, True, r, l, g_r, lam, opts)
-            lam_tot = lam_tot + _bdot(bb_r, r)
+            g_r = _phase_shift_cotangent(r, g_r)
+            g_r = g_r - hdot(r, g_r) / hdot(r, r) * r
+            bb_r = _bordered_solve(op, True, r, l, g_r.conj(), lam,
+                                   opts).conj()
+            lam_tot = lam_tot + hdot(r, bb_r)
             cot_ar = -bb_r
         cot_atl = None
         if g_l0 is not None:
-            g_l0 = g_l0 - _bdot(l, g_l0) / _bdot(l, l) * l
-            bb_l = _bordered_solve(op, False, l, r, g_l0, lam, opts)
-            lam_tot = lam_tot + _bdot(bb_l, l)
+            g_l0 = g_l0 - hdot(l, g_l0) / hdot(l, l) * l
+            bb_l = _bordered_solve(op, False, l, r, g_l0.conj(), lam,
+                                   opts).conj()
+            lam_tot = lam_tot + hdot(l, bb_l)
             cot_atl = -bb_l
-        cot_ar = lam_tot * l if cot_ar is None else lam_tot * l + cot_ar
-        # Ā = cot_ar r^T + l cot_atl^T, applied as the partials of one
-        # matvec(r) and one rmatvec(l), r and l held constant.
+        cot_ar = lam_tot * l.conj() + (0 if cot_ar is None else cot_ar)
+        # The gradient of Re<cot_ar, A r> + Re<cot_atl, A^T l>: the
+        # partials of one matvec(r) and one rmatvec(l), r and l held
+        # constant.
         if cot_atl is None:
             grads = partial_vjp(op, lambda held: held.matvec(r), [], cot_ar,
                                 ctx.needs_input_grad[3:])
@@ -337,8 +397,9 @@ def dominant_eig(op, num_iters: int = 500, *, tol: float = 1e-10,
     forward mode (``torch.autograd.forward_ad``; the operator needs
     ``tangent_matvec`` and ``tangent_rmatvec``).
 
-    Assumes the dominant eigenvalue is real, positive and simple (the
-    Perron-Frobenius setting of transfer matrices), and measures it:
+    Assumes the dominant eigenvalue is simple and, for a real operator,
+    real (the Perron-Frobenius setting of transfer matrices; a complex
+    dominant pair needs :func:`dominant_eig_pair`), and measures it:
     ``PowerInfo.rank1_defect`` (``with_info=True``) is ~0 when that holds
     and O(1) when a complex or degenerate pair dominates (treat ≳ 1e-2 as
     "untrustworthy"); ``converged`` stays 0 when the residual oscillates.
@@ -357,8 +418,9 @@ def dominant_eig(op, num_iters: int = 500, *, tol: float = 1e-10,
     device    : where the solve runs (CUDA when None).
 
     Returns ``(λ, l, r)`` with ``||r|| = 1``, the largest-magnitude entry
-    of r positive and ``l^T r = 1``; with ``with_info`` also a
-    :class:`PowerInfo`.
+    of r real and positive and ``l^T r = 1`` (bilinear: for a complex
+    operator l is the transpose left eigenvector, ``A^T l = λ l``); with
+    ``with_info`` also a :class:`PowerInfo`.
     """
     if solver not in ("bicgstab", "cgnr", "gmres"):
         raise ValueError(
@@ -441,3 +503,361 @@ def dominant_eig_multi(op, m: int = 2, *, num_iters: int = 500,
     if with_info:
         return out + (PowerInfo(*(torch.stack(f) for f in zip(*infos))),)
     return out
+
+
+class _ComplexifiedOperator(LinearOperator):
+    """A real operator lifted to complex vectors, ``A x = A Re x + i A Im
+    x`` (and so for the transpose and the tangent products), so that the
+    complex-pair rules run the generic machinery while the gradients go
+    to the real operator's own tensors; its inner matvec never sees a
+    complex vector."""
+
+    def __init__(self, inner):
+        self.inner = inner
+
+    def _lift(self, f, x):
+        if not x.is_complex():
+            return f(x).to(self.dtype)
+        return torch.complex(f(x.real), f(x.imag))
+
+    def matvec(self, x):
+        return self._lift(self.inner.matvec, x)
+
+    def rmatvec(self, x):
+        return self._lift(self.inner.rmatvec, x)
+
+    def tangent_matvec(self, x, dparams):
+        return self._lift(lambda z: self.inner.tangent_matvec(z, dparams),
+                          x)
+
+    def tangent_rmatvec(self, x, dparams):
+        return self._lift(lambda z: self.inner.tangent_rmatvec(z, dparams),
+                          x)
+
+    def parameters(self):
+        return self.inner.parameters()
+
+    def with_parameters(self, tensors):
+        return _ComplexifiedOperator(self.inner.with_parameters(tensors))
+
+    @property
+    def dim(self):
+        return self.inner.dim
+
+    @property
+    def dtype(self):
+        return (torch.complex128 if self.inner.dtype == torch.float64
+                else torch.complex64)
+
+    @property
+    def device(self):
+        return self.inner.device
+
+
+def _block_eigvec(b, lam):
+    """The right eigenvector of the 2 x 2 block ``b`` for ``lam`` in
+    closed form, from the better-conditioned of its two rows; ``e_0``
+    where that row is zero (a diagonal b with lam in slot 0)."""
+    b = b.to(lam.dtype)
+    y1 = torch.stack([b[0, 1], lam - b[0, 0]])
+    y2 = torch.stack([lam - b[1, 1], b[1, 0]])
+    y = torch.where(b[0, 1].abs() >= b[1, 0].abs(), y1, y2)
+    nrm = torch.linalg.vector_norm(y)
+    tiny = torch.finfo(lam.dtype).tiny
+    e0 = torch.zeros_like(y)
+    e0[0] = 1.0
+    return torch.where(nrm > tiny, y / torch.clamp(nrm, min=tiny), e0)
+
+
+def _subspace_2(mm, n, dtype, generator, num_iters, tol):
+    """The dominant 2-D invariant subspace of a real operator by
+    orthogonal (block power) iteration on its (N, 2) products ``mm``:
+    ``(Q (N, 2), B = Q^T A Q, residual, iterations)``, the residual that
+    of ``A Q = Q B`` relative to ||B||.  Stops once the residual is at
+    most ``tol`` (read on the host every ``CHECK_EVERY`` steps, the state
+    frozen on the device in between, as in :func:`_power_pair`) or after
+    ``num_iters`` steps; then one more product gives the returned B and
+    residual on the returned Q."""
+    tiny = torch.finfo(dtype).tiny
+    q, _ = torch.linalg.qr(torch.randn((n, 2), dtype=dtype,
+                                       device=generator.device,
+                                       generator=generator))
+
+    def step(q):
+        z = mm(q)
+        b = hmatmul(q.T, z)
+        resid = (torch.linalg.matrix_norm(z - hmatmul(q, b))
+                 / torch.clamp(torch.linalg.matrix_norm(b), min=tiny))
+        qn, rr = torch.linalg.qr(z)
+        # QR's sign ambiguity fixed, so the iteration converges pointwise.
+        d = torch.diagonal(rr)
+        sgn = torch.sign(torch.where(d == 0, torch.ones_like(d), d))
+        return qn * sgn[None, :], b, resid
+
+    resid = torch.full((), float("inf"), dtype=dtype, device=q.device)
+    its = torch.zeros((), dtype=torch.int64, device=q.device)
+    it = 0
+    while it < num_iters:
+        if not bool(resid > tol):
+            break
+        for _ in range(min(CHECK_EVERY, num_iters - it)):
+            active = resid > tol
+            qn, _, res_new = step(q)
+            q = torch.where(active, qn, q)
+            resid = torch.where(active, res_new, resid)
+            its = its + active
+            it += 1
+    _, b, resid = step(q)
+    return q, b, resid, its
+
+
+def _pair_forward(op, opts: EigOptions):
+    """``(λ, l, r, PowerInfo)`` of the dominant eigenvalue of a real
+    operator, allowing a complex-conjugate pair: λ from the 2 x 2
+    restriction of the dominant invariant subspace (``Im λ >= 0``), r its
+    eigenvector in that subspace (unit, pivot entry real positive), l the
+    one of the transpose's, ``l^T r = 1``.  A numerically defective pair
+    (``|l^T r|`` of the unit vectors below 100 eps) keeps l unit instead
+    and reports ``converged = 0``."""
+    n, dtype = op.dim, op.dtype
+    ptol = tol_floor(opts.power_tol, dtype)
+    generator = torch.Generator(device=op.device).manual_seed(opts.seed)
+    qr_, br, resid_r, it_r = _subspace_2(op.matmat, n, dtype, generator,
+                                         opts.num_iters, ptol)
+    ql_, bl, resid_l, it_l = _subspace_2(op.rmatmat, n, dtype, generator,
+                                         opts.num_iters, ptol)
+    resid = torch.maximum(resid_r, resid_l)
+    cdtype = _ComplexifiedOperator(op).dtype
+    tr = br[0, 0] + br[1, 1]
+    det = br[0, 0] * br[1, 1] - br[0, 1] * br[1, 0]
+    disc = tr * tr / 4 - det
+    # A complex pair when disc < 0 (Im λ >= 0).  Otherwise the dominant
+    # REAL eigenvalue is the larger-magnitude root, tr/2 ± sqrt(disc) as
+    # the sign of tr says (a plain + would return the subdominant root
+    # of a negative dominant eigenvalue: spectrum {-5, 2} -> 2).
+    root = torch.sqrt(torch.clamp(disc.abs(), min=0.0))
+    sgn = torch.where(tr >= 0, torch.ones_like(tr), -torch.ones_like(tr))
+    lam = torch.where(disc < 0, torch.complex(tr / 2, root),
+                      torch.complex(tr / 2 + sgn * root,
+                                    torch.zeros_like(tr)))
+    r = hmatmul(qr_.to(cdtype), _block_eigvec(br, lam))
+    r = pivot_gauge(r / torch.linalg.vector_norm(r))
+    # The left vector: A^T l = λ l, the same eigenvalue of B_l (the real
+    # operator's spectrum is that of its transpose).  Unit first, so that
+    # |l^T r| is the left/right cosine, and the bilinear scale only where
+    # it is finite.
+    l = hmatmul(ql_.to(cdtype), _block_eigvec(bl, lam))
+    rtiny = torch.finfo(dtype).tiny
+    l = l / torch.clamp(torch.linalg.vector_norm(l), min=rtiny)
+    s = _bdot(l, r)
+    well_cond = s.abs() >= 100 * torch.finfo(dtype).eps
+    l = l / torch.where(well_cond, s, torch.ones_like(s))
+    info = PowerInfo(
+        iterations=torch.maximum(it_r, it_l).to(dtype), residual=resid,
+        converged=((resid <= ptol) & well_cond).to(dtype),
+        # The 2-D subspace represents a dominant pair exactly: no rank-1
+        # collapse to measure.
+        rank1_defect=torch.zeros((), dtype=dtype, device=r.device))
+    return lam, l, r, info
+
+
+class _DominantEigPair(_DominantEig):
+    """:class:`_DominantEig`'s rules on the real operator lifted to
+    complex vectors, around the pair forward."""
+
+    @staticmethod
+    def forward(ctx, op, opts, with_info, *params):
+        return _save(ctx, _ComplexifiedOperator(op), opts, with_info,
+                     *_pair_forward(op, opts))
+
+
+def _check_real(op, name):
+    if op.dtype.is_complex:
+        raise ValueError(f"{name} expects a REAL operator; complex "
+                         f"operators are handled by dominant_eig")
+
+
+def dominant_eig_pair(op, num_iters: int = 500, *, tol: float = 1e-10,
+                      maxiter: int | None = None, seed: int = 0,
+                      power_tol: float = 1e-12, solver: str = "bicgstab",
+                      with_info: bool = False, device=None):
+    """The dominant eigenvalue of a REAL square operator, allowing a
+    complex-conjugate dominant pair (the case :func:`dominant_eig`'s
+    Perron guard diagnoses but cannot solve), with its left and right
+    eigenvectors, differentiable to any order in ``op.parameters()``
+    (reverse mode; forward mode to first order).
+
+    A block power iteration of ``num_iters`` steps at most, stopped at
+    ``power_tol``, finds the dominant 2-D invariant subspace of A and of
+    A^T (the subspaces' seed is ``seed``); λ is ``a + bi`` with ``b >= 0``
+    (the other member is ``conj(λ)`` with ``conj(l)``, ``conj(r)``), and a
+    dominant real simple eigenvalue comes out as in :func:`dominant_eig`.
+    The derivatives are :func:`dominant_eig`'s bordered IFT rule (``tol``,
+    ``maxiter``, ``solver``) in complex arithmetic on the real operator.
+
+    Returns complex ``(λ, l, r)`` with ``||r|| = 1``, the pivot entry of r
+    real and positive and ``l^T r = 1`` (bilinear), except for a
+    numerically defective pair (left/right cosine below ~100 eps, e.g. a
+    perturbed Jordan block): l is then unit, and ``with_info=True``
+    reports ``converged = 0``; consumers of the bilinear contract must
+    treat that as "no usable pair" (:func:`dominant_eig_spectrum` raises
+    on it).  With ``with_info`` also a :class:`PowerInfo` of the two
+    subspace iterations (their larger residual and step count;
+    ``rank1_defect`` 0).
+    """
+    if solver not in ("bicgstab", "cgnr", "gmres"):
+        raise ValueError(
+            f"solver must be bicgstab|cgnr|gmres, got {solver!r}")
+    op = as_operator(op)
+    check_device(device, op)
+    _check_real(op, "dominant_eig_pair")
+    opts = EigOptions(num_iters=int(num_iters), tol=float(tol),
+                      maxiter=None if maxiter is None else int(maxiter),
+                      seed=int(seed), power_tol=float(power_tol),
+                      solver=solver)
+    out = _DominantEigPair.apply(op, opts, bool(with_info),
+                                 *op.parameters())
+    if with_info:
+        return out[0], out[1], out[2], PowerInfo(*out[3:])
+    return out
+
+
+def _real_pair_deflate_mv(params, x):
+    """``(M - 2 Re(λ r l^T)) x``, real: a conjugate pair deflated at once,
+    with ``a = Re(λ r)``, ``b = Im(λ r)``, ``l = lr + i li``."""
+    a, b, lr, li, inner = params
+    return inner.matvec(x) - 2.0 * (a * _bdot(lr, x) - b * _bdot(li, x))
+
+
+def _real_pair_deflate_rmv(params, x):
+    a, b, lr, li, inner = params
+    return inner.rmatvec(x) - 2.0 * (lr * _bdot(a, x) - li * _bdot(b, x))
+
+
+def dominant_eig_spectrum(op, m: int = 4, *, num_iters: int = 500,
+                          tol: float = 1e-10, maxiter: int | None = None,
+                          seed: int = 0, power_tol: float = 1e-12,
+                          solver: str = "bicgstab", imag_tol: float = 1e-8,
+                          structure: tuple | None = None, device=None):
+    """The top-m eigenvalues (by modulus) of a REAL operator, complex
+    conjugate pairs allowed anywhere, with their left and right vectors.
+
+    A cascade of stages.  Stage s first measures the Perron defect of an
+    Arnoldi sweep of 32 steps per side (seeded ``seed + s``); below 1e-2
+    it runs :func:`dominant_eig` (``method="arnoldi"``), and if that
+    converges with a defect below 1e-2 the stage is ``"real"``.  Any
+    other stage runs :func:`dominant_eig_pair`: a genuinely complex λ
+    (``|Im λ| > imag_tol |λ|``) is ``"pair"``, takes two slots (λ, conj λ)
+    and deflates both at once by ``M - 2 Re(λ r l^T)``; a real one (a
+    tied-modulus real cluster) is ``"pair_real"``, one slot, deflated
+    rank-1 as a ``"real"`` stage is (Wielandt).  Every stage's operator
+    is real.  Discovery raises RuntimeError on a numerically defective
+    pair (left/right cosine below 1000 eps), whose projector has no
+    finite deflation.
+
+    With ``structure=None`` the kinds are decided on the host from
+    concrete values.  For derivatives, find ``structure`` once
+    (:func:`spectrum_structure`) and pass it back: each stage is then
+    replayed by the same solver, with no decision, and the cascade is
+    differentiable to any order in ``op.parameters()``.
+
+    Returns ``(lams, ls, rs, structure)``: complex ``lams`` by descending
+    |λ| (conjugate members adjacent) and (N, len(lams)) ``ls``, ``rs``
+    with ``||r_j|| = 1`` and ``l_j^T r_j = 1``.  A pair is never split:
+    when the m-th slot falls on its first member both are returned, and
+    ``lams`` has m + 1 entries.
+    """
+    op = as_operator(op)
+    dev = check_device(device, op)
+    _check_real(op, "dominant_eig_spectrum")
+    cdtype = _ComplexifiedOperator(op).dtype
+    kw = dict(num_iters=num_iters, tol=tol, maxiter=maxiter,
+              power_tol=power_tol, solver=solver, device=dev)
+    lams, ls, rs, built = [], [], [], []
+    cur = op
+    stage = 0
+    while len(lams) < m:
+        probe = None
+        if structure is not None:
+            kind = structure[stage]
+        else:
+            # The Arnoldi sweep's defect alone decides a complex-dominant
+            # stage in ~64 products, before the 1-D solve would burn its
+            # whole budget on it.
+            gen = torch.Generator(device=dev).manual_seed(seed + stage)
+            kk = max(2, min(32, op.dim))
+            d_r = _arnoldi_ritz_vector(cur.matvec, cur.dim, kk,
+                                       _unit(cur.dim, cur.dtype, gen),
+                                       cur.dtype)[1]
+            d_l = _arnoldi_ritz_vector(cur.rmatvec, cur.dim, kk,
+                                       _unit(cur.dim, cur.dtype, gen),
+                                       cur.dtype)[1]
+            kind = "pair"
+            if float(torch.maximum(d_r, d_l)) < 1e-2:
+                probe = dominant_eig(cur, seed=seed + stage,
+                                     method="arnoldi", with_info=True, **kw)
+                info = probe[3]
+                if bool((info.converged == 1.0)
+                        & (info.rank1_defect < 1e-2)):
+                    kind = "real"
+        built.append(kind)
+        if kind == "real":
+            if probe is None:
+                probe = dominant_eig(cur, seed=seed + stage,
+                                     method="arnoldi", **kw)
+            lam, l, r = (t.to(cdtype) for t in probe[:3])
+        else:
+            lam, l, r = dominant_eig_pair(cur, seed=seed + stage, **kw)
+            if structure is None:
+                tiny = torch.finfo(op.dtype).tiny
+                cos_lr = float(_bdot(l, r).abs() / torch.clamp(
+                    torch.linalg.vector_norm(l)
+                    * torch.linalg.vector_norm(r), min=tiny))
+                # 10x the solver's own floor: below it l's scale is
+                # unusable and the deflation would not remove the pair.
+                if cos_lr < 1000 * float(torch.finfo(op.dtype).eps):
+                    raise RuntimeError(
+                        f"dominant_eig_spectrum stage {stage}: the "
+                        f"dominant pair is numerically defective "
+                        f"(left/right cosine {cos_lr:.2e}); its spectral "
+                        f"projector has no finite Wielandt deflation, so "
+                        f"the remaining spectrum cannot be extracted")
+                # A real result (a tied-modulus real cluster stalls the
+                # probe too) takes one slot, deflated rank-1, and is
+                # replayed by this same solver.
+                lam_c = complex(lam)
+                if abs(lam_c.imag) <= imag_tol * max(abs(lam_c), tiny):
+                    kind = built[-1] = "pair_real"
+        if kind == "pair":
+            lams += [lam, lam.conj()]
+            ls += [l, l.conj()]
+            rs += [r, r.conj()]
+            lr_ = lam * r
+            cur = MatrixFreeOperator(
+                _real_pair_deflate_mv,
+                (lr_.real, lr_.imag, l.real, l.imag, cur), dim=op.dim,
+                dtype=op.dtype, rmatvec_fn=_real_pair_deflate_rmv,
+                symmetric=False, device=dev)
+        else:
+            lam_r, l_r, r_r = lam.real, l.real, r.real
+            lams.append(lam_r.to(cdtype))
+            ls.append(l_r.to(cdtype))
+            rs.append(r_r.to(cdtype))
+            cur = MatrixFreeOperator(
+                _wielandt_deflate_mv, (lam_r, l_r, r_r, cur), dim=op.dim,
+                dtype=op.dtype, rmatvec_fn=_wielandt_deflate_rmv,
+                symmetric=False, device=dev)
+        stage += 1
+    return (torch.stack(lams), torch.stack(ls, dim=-1),
+            torch.stack(rs, dim=-1), tuple(built))
+
+
+def spectrum_structure(op, m: int = 4, **kwargs) -> tuple:
+    """The ``structure`` of :func:`dominant_eig_spectrum` (one discovery
+    run, on the host), to pass back for a replay that derivatives can
+    run through.  It depends only on the layout of real and pair slots
+    in modulus order, so one discovery serves a sweep of parameters
+    until a real eigenvalue collides into a pair.  Takes the keyword
+    arguments of :func:`dominant_eig_spectrum`."""
+    kwargs.pop("structure", None)
+    return dominant_eig_spectrum(op, m, **kwargs)[3]

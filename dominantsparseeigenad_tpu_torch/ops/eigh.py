@@ -64,8 +64,26 @@ The forward of :func:`dominant_eigh` runs the options of the JAX
 inside the Function's forward, so it records no graph), ``reorth_chunks``
 and ``restart_mode``.  ``precond`` reaches every deflated solve of the
 rules, of either solver, and the LOBPCG forward of the block solver.
-``restart_cycles`` (``ops/restart.py``) and complex operators wait for
-later slices (``ROADMAP.md`` queue 1 items 10 and 5).
+``restart_cycles`` (``ops/restart.py``) waits for a later slice
+(``ROADMAP.md`` queue 1 item 10).
+
+Complex Hermitian operators: λ and dλ = Re<v, dA v> are real, every
+transpose above is a conjugate transpose, and the forward's pivot gauge
+(the largest-magnitude entry of each eigenvector real and positive)
+enters the rules.  The raw IFT tangent keeps <v, dv> = 0, which fixes
+dv's phase the wrong way; the JAX package's ``_pivot_phase_project``
+shifts it along i v so that the pivot entry stays real:
+
+    dv += i α v,   α = -Im(dv[p]) / v[p].
+
+The backward applies the transpose of that shift to the cotangent,
+
+    v̄ += i (Im<v̄, v> / v[p]) e_p,
+
+before the deflated solve (column by column for the block rule).  For a
+real dtype both are the identity.  PyTorch's gradient of a complex
+tensor is the conjugate of JAX's cotangent; the rules above are written
+for PyTorch's.
 """
 
 from __future__ import annotations
@@ -109,10 +127,51 @@ def _pair_info(op, opts, lam, v):
     resid = torch.linalg.vector_norm(op.matvec(v) - lam * v) / torch.clamp(
         lam.abs(), min=torch.finfo(v.dtype).tiny)
     return LanczosInfo(
-        effective_k=torch.tensor(float(min(opts.k, op.dim)), dtype=v.dtype,
-                                 device=v.device),
+        effective_k=torch.tensor(float(min(opts.k, op.dim)),
+                                 dtype=resid.dtype, device=v.device),
         residual=resid,
-        converged=(resid <= tol_floor(opts.tol, op.dtype)).to(v.dtype))
+        converged=(resid <= tol_floor(opts.tol, op.dtype)).to(resid.dtype))
+
+
+def _pivots(v):
+    """The pivot index of each column of ``v`` (an (N,) vector or an
+    (N, r) block): its largest-magnitude entry, real and positive after
+    :func:`~.operators.pivot_gauge`."""
+    return torch.argmax(torch.abs(v), dim=0)
+
+
+def _pivot_phase_project(v, dv):
+    """The JAX package's ``_pivot_phase_project``: ``dv + i α v`` with
+    ``α = -Im(dv[p]) / v[p]`` per column, the tangent that keeps each
+    pivot entry real (the forward's gauge); the identity for a real
+    dtype."""
+    if not v.is_complex():
+        return dv
+    idx = _pivots(v)
+    if v.ndim == 1:
+        alpha = -dv[idx].imag / v[idx].real
+    else:
+        alpha = (-torch.gather(dv, 0, idx[None])[0].imag
+                 / torch.gather(v, 0, idx[None])[0].real)
+    return dv + 1j * alpha * v
+
+
+def _pivot_phase_cotangent(v, v_bar):
+    """The transpose of :func:`_pivot_phase_project` applied to the
+    cotangent ``v̄`` (PyTorch's convention): ``v̄ + i (Im<v̄, v> / v[p])
+    e_p`` per column, so that ``Re<v̄, P dv> = Re<P^T v̄, dv>``; the
+    identity for a real dtype."""
+    if not v.is_complex():
+        return v_bar
+    idx = _pivots(v)
+    if v.ndim == 1:
+        c = hdot(v_bar, v).imag / v[idx].real
+        return v_bar + 1j * c * torch.nn.functional.one_hot(
+            idx, v.shape[0]).to(v.dtype)
+    c = ((v_bar.conj() * v).sum(dim=0).imag
+         / torch.gather(v, 0, idx[None])[0].real)
+    e = torch.nn.functional.one_hot(idx, v.shape[0]).T.to(v.dtype)
+    return v_bar + 1j * c[None, :] * e
 
 
 def _signs(extreme):
@@ -194,12 +253,13 @@ class _DominantEigh(torch.autograd.Function):
                 tangents += [torch.zeros_like(lam), torch.zeros_like(v)]
                 continue
             dav = op.tangent_matvec(v, dparams)
-            dlam = hdot(v, dav)
+            # <v, dA v> is real for a Hermitian dA, as λ is.
+            dlam = hdot(v, dav).real
             dv = solve_deflated(op, lam, v, -(dav - dlam * v),
                                 definite_sign=sign, tol=opts.tol,
                                 maxiter=opts.maxiter, precond=opts.precond,
                                 device=op.device)
-            tangents += [dlam, dv]
+            tangents += [dlam, _pivot_phase_project(v, dv)]
         return (*tangents, *(None,) * ctx.n_info)
 
     @staticmethod
@@ -212,16 +272,17 @@ class _DominantEigh(torch.autograd.Function):
                 bars[1::2]):
             if lam_bar is None and v_bar is None:
                 continue
-            # u = λ̄ v + x, x = solve_deflated(A, λ, v, -(I - v v^T) v̄);
+            # u = λ̄ v + x, x = solve_deflated(A, λ, v, -(I - v v^H) v̄);
             # a pair whose v̄ never arrived needs no solve.
             u = torch.zeros_like(v) if lam_bar is None else lam_bar * v
             if v_bar is not None:
+                v_bar = _pivot_phase_cotangent(v, v_bar)
                 b = -(v_bar - v * hdot(v, v_bar))
                 u = u + solve_deflated(op, lam, v, b, definite_sign=sign,
                                        tol=opts.tol, maxiter=opts.maxiter,
                                        precond=opts.precond,
                                        device=op.device)
-            # u^T (dA/dθ) v: differentiate one matvec A(θ) v with output
+            # u^H (dA/dθ) v: differentiate one matvec A(θ) v with output
             # cotangent u, v held constant (under create_graph v's own
             # history stays in the graph: "recursive, so higher order").
             got = partial_vjp(op, lambda held: held.matvec(v), [], u,
@@ -280,7 +341,7 @@ def dominant_eigh(op, k: int = 128, *, extreme: str = "min",
 
     Returns ``(λ, v)``, ``(λ, v, info)`` with ``with_info``, or
     ``(λmin, vmin, λmax, vmax)`` for "both".  ``v`` is normalized and
-    sign-gauged (largest-magnitude entry positive).
+    pivot-gauged (largest-magnitude entry real and positive).
     """
     if extreme not in ("min", "max", "both"):
         raise ValueError(f"extreme must be min|max|both, got {extreme!r}")
@@ -345,7 +406,8 @@ def refine_eigenpair(op, lam, v, *, iters: int = 2, tol: float = 1e-12,
     to float64 round-off.  ``lam`` and ``v`` are cast to the operator's
     dtype; built of differentiable operations.
 
-    Returns ``(lam, v)`` in the operator's dtype, ``||v|| = 1``.
+    Returns ``(lam, v)``: ``lam`` real (the operator's real dtype), ``v``
+    in the operator's dtype, ``||v|| = 1``.
     """
     op = as_operator(op)
     dev = check_device(device, op)
@@ -355,13 +417,13 @@ def refine_eigenpair(op, lam, v, *, iters: int = 2, tol: float = 1e-12,
     sign = 1.0 if definite_sign is None else float(definite_sign)
     for _ in range(int(iters)):
         av = op.matvec(v)
-        lam = hdot(v, av)
+        lam = hdot(v, av).real
         dv = solve_deflated(op, lam, v, -(av - lam * v), definite_sign=sign,
                             method=method, tol=tol, maxiter=maxiter,
                             device=dev)
         v = v + dv
         v = v / torch.linalg.vector_norm(v)
-    return hdot(v, op.matvec(v)), v
+    return hdot(v, op.matvec(v)).real, v
 
 
 @dataclasses.dataclass(frozen=True)
@@ -388,7 +450,7 @@ def _lobpcg_precond(opts):
 
 
 def _multi_forward(op, opts, v0, generator):
-    """``(lams, V)``: the r extremal pairs, V sign-gauged."""
+    """``(lams, V)``: the r extremal pairs, V pivot-gauged."""
     if opts.method == "lobpcg":
         # LOBPCG iterations are not bounded by the dimension: k is the
         # iteration cap, unclamped.
@@ -403,7 +465,8 @@ def _multi_forward(op, opts, v0, generator):
     idx = torch.arange(opts.r, device=evals.device)
     if opts.extreme == "max":
         idx = k - 1 - idx
-    return evals[idx], pivot_gauge(hmatmul(res.basis, evecs[:, idx]))
+    y = evecs[:, idx].to(res.basis.dtype)
+    return evals[idx], pivot_gauge(hmatmul(res.basis, y))
 
 
 def _multi_forward_info(op, opts, v0, generator):
@@ -424,9 +487,9 @@ def _multi_forward_info(op, opts, v0, generator):
     resid = torch.max(resid / torch.clamp(lams.abs(), min=1.0))
     ref_tol = tol_floor(opts.tol, op.dtype)
     return lams, v, LanczosInfo(
-        effective_k=torch.tensor(float(min(opts.k, op.dim)), dtype=v.dtype,
-                                 device=v.device),
-        residual=resid, converged=(resid <= ref_tol).to(v.dtype))
+        effective_k=torch.tensor(float(min(opts.k, op.dim)),
+                                 dtype=lams.dtype, device=v.device),
+        residual=resid, converged=(resid <= ref_tol).to(lams.dtype))
 
 
 def _gap_inverses(lams, opts):
@@ -457,31 +520,32 @@ class _DominantEighMulti(torch.autograd.Function):
     @staticmethod
     def jvp(ctx, _op, _opts, _v0, _generator, _with_info, *dparams):
         """The block IFT tangents (the JAX package's
-        ``_multi_pair_tangents``): with ``M = V^T dA V``,
+        ``_multi_pair_tangents``): with ``M = V^H dA V``,
 
-            dλ = diag(M),
+            dλ = Re diag(M),
             dV = V (F ∘ M) + X,  X[:, i] = solve_deflated(A, λ_i, V,
                                             -(dA V - V M)[:, i]),
 
-        one tangent product ``dA V`` (on a ``BellOperator`` one SpMM on
-        the tangent values) and one batched deflated solve.  For real
-        dtypes the pivot gauge needs no correction.  The info fields get
-        zero tangents (None, as in :class:`_DominantEigh`)."""
+        then the pivot-phase projection of each column (the identity for
+        real dtypes): one tangent product ``dA V`` (on a ``BellOperator``
+        one SpMM on the tangent values) and one batched deflated solve.
+        The info fields get zero tangents (None, as in
+        :class:`_DominantEigh`)."""
         op, opts = ctx.op, ctx.opts
         lams, v = ctx.saved_tensors
         info = (None,) * ctx.n_info
         if all(t is None for t in dparams):
             return (torch.zeros_like(lams), torch.zeros_like(v), *info)
         dav = op.tangent_matmat(v, dparams)
-        m = hmatmul(v.T, dav)
-        dlams = torch.diagonal(m).clone()
+        m = hmatmul(v.mH, dav)
+        dlams = torch.diagonal(m).real.clone()
         sign = 1.0 if opts.extreme == "min" else -1.0
         dv_out = solve_deflated(op, lams, v, -(dav - hmatmul(v, m)),
                                 definite_sign=sign, tol=opts.tol,
                                 maxiter=opts.maxiter, precond=opts.precond,
                                 device=op.device)
-        return (dlams, hmatmul(v, _gap_inverses(lams, opts) * m) + dv_out,
-                *info)
+        dv = hmatmul(v, _gap_inverses(lams, opts).to(m.dtype) * m) + dv_out
+        return (dlams, _pivot_phase_project(v, dv), *info)
 
     @staticmethod
     def backward(ctx, lams_bar, v_bar, *info_bar):
@@ -490,16 +554,17 @@ class _DominantEighMulti(torch.autograd.Function):
         if lams_bar is None and v_bar is None:
             return (None,) * (5 + len(op.parameters()))
         g = (torch.zeros((opts.r, opts.r), dtype=v.dtype, device=v.device)
-             if lams_bar is None else torch.diag(lams_bar))
+             if lams_bar is None else torch.diag(lams_bar).to(v.dtype))
         u = hmatmul(v, g)
         if v_bar is not None:
-            u = u + hmatmul(v, _gap_inverses(lams, opts)
-                            * hmatmul(v.T, v_bar))
+            v_bar = _pivot_phase_cotangent(v, v_bar)
+            u = u + hmatmul(v, _gap_inverses(lams, opts).to(v.dtype)
+                            * hmatmul(v.mH, v_bar))
             # Out-of-block part: one deflated solve per pair on span(V)⊥,
             # batched over the r columns.
             sign = 1.0 if opts.extreme == "min" else -1.0
             u = u + solve_deflated(
-                op, lams, v, -(v_bar - hmatmul(v, hmatmul(v.T, v_bar))),
+                op, lams, v, -(v_bar - hmatmul(v, hmatmul(v.mH, v_bar))),
                 definite_sign=sign, tol=opts.tol, maxiter=opts.maxiter,
                 precond=opts.precond, device=op.device)
         grads = partial_vjp(op, lambda held: held.matmat(v), [], u,
@@ -538,7 +603,7 @@ def dominant_eigh_multi(op, r: int = 4, k: int = 128, *,
     device  : where the solve runs (CUDA when None).
 
     Returns ``(lams, V)``, lams (r,) and V (N, r) orthonormal and
-    sign-gauged; with ``with_info``, ``(lams, V, info)`` where ``info`` is
+    pivot-gauged; with ``with_info``, ``(lams, V, info)`` where ``info`` is
     a :class:`~.lanczos.LanczosInfo` (zero tangents, no gradient) whose
     residual is the max-over-block ``||A v - lam v|| / max(|lam|, 1)``.
     """

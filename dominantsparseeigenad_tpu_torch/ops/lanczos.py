@@ -11,6 +11,11 @@ wraps them in an implicit-function-theorem rule.
 ``arnoldi_step`` is the step shared by GMRES (``cg.py``) and the
 Arnoldi-seeded non-symmetric solver (``eig.py``).  ``LanczosInfo`` is
 also the block eigensolver's convergence report.
+
+A complex Hermitian operator runs the same loops: the projections
+conjugate the basis, α = Re<q, A q> and β = ||w|| are real, so the
+tridiagonal T stays real (solved in float64) and the Ritz values are
+real; a complex basis cannot be stored narrower (no complex bfloat16).
 """
 
 from __future__ import annotations
@@ -20,7 +25,7 @@ from typing import NamedTuple
 import torch
 
 from .operators import (as_operator, check_device, hdot, hmatmul,
-                        pivot_gauge, refuse_complex, tol_floor)
+                        pivot_gauge, real_dtype, tol_floor)
 
 
 def _breakdown_rel_tol(real_dtype) -> float:
@@ -116,19 +121,21 @@ def _narrow_mm(a, b):
 
 
 def _project_out(basis, w):
-    """``w - Q Q^T w`` against the rows of ``basis``; a narrow-stored
+    """``w - Q Q^H w`` against the rows of ``basis``; a narrow-stored
     basis projects by :func:`_narrow_mm` (w and the coefficients rounded
     to the storage dtype, both products accumulated in w's)."""
     if basis.dtype == w.dtype:
-        return w - hmatmul(basis.T, hmatmul(basis, w))
+        return w - hmatmul(basis.T, hmatmul(basis.conj(), w))
     coeffs = _narrow_mm(basis, w[:, None])
     return w - _narrow_mm(basis.T, coeffs)[:, 0]
 
 
 def _ritz_vector(basis, y):
     """``Q y`` normalized, for a (N, m) ``basis`` (of any storage dtype)
-    and coefficients ``y`` in the working dtype."""
-    if basis.dtype == y.dtype:
+    and real coefficients ``y`` in the working precision."""
+    if basis.dtype.is_complex:
+        v = hmatmul(basis, y.to(basis.dtype))
+    elif basis.dtype == y.dtype:
         v = hmatmul(basis, y)
     else:
         v = _narrow_mm(basis, y[:, None])[:, 0]
@@ -166,9 +173,10 @@ def _step(op, basis, i, q, q_prev, beta_prev, generator, reorthogonalize,
     dot and one axpy per step, and the step is a ``torch.where`` select:
     no host read.
     """
-    dtype = q.dtype
+    dtype = real_dtype(q.dtype)
     w = op.matvec(q)
-    alpha = hdot(q, w)
+    # <q, A q> is real for a Hermitian A: T stays real.
+    alpha = hdot(q, w).real
     w = w - alpha * q - beta_prev * q_prev
     if reorthogonalize:
         for _ in range(reorth_passes):
@@ -178,7 +186,7 @@ def _step(op, basis, i, q, q_prev, beta_prev, generator, reorthogonalize,
     broke = beta <= _breakdown_rel_tol(dtype) * scale
     if r_perp is None:
         if bool(broke):
-            r = torch.randn(op.dim, generator=generator, dtype=dtype,
+            r = torch.randn(op.dim, generator=generator, dtype=q.dtype,
                             device=q.device)
             r = _project_out(basis[:i + 1], r)
             q_next = r / (torch.linalg.vector_norm(r)
@@ -244,7 +252,11 @@ def lanczos(op, k: int, *, v0: torch.Tensor | None = None,
         raise ValueError(f"restart_mode must be 'cond'|'carry', got "
                          f"{restart_mode!r}")
     storage = dtype if basis_dtype is None else basis_dtype
-    refuse_complex(storage, "basis_dtype")
+    # The operator's own dtype is a no-op; only a narrowing of a complex
+    # basis is refused (the JAX package's guard and message).
+    if storage != dtype and dtype.is_complex:
+        raise ValueError("basis_dtype is only supported for real "
+                         "operators (no complex bfloat16)")
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
     q = _start(op, v0, generator, dev)
@@ -257,10 +269,11 @@ def lanczos(op, k: int, *, v0: torch.Tensor | None = None,
         r0 = torch.randn(op.dim, generator=generator, dtype=dtype,
                          device=dev)
         r_perp = r0 - q * hdot(q, r0)
-    alphas = torch.zeros(k, dtype=dtype, device=dev)
-    betas = torch.zeros(k, dtype=dtype, device=dev)
+    rdt = real_dtype(dtype)
+    alphas = torch.zeros(k, dtype=rdt, device=dev)
+    betas = torch.zeros(k, dtype=rdt, device=dev)
     q_prev = torch.zeros_like(q)
-    beta_prev = torch.zeros((), dtype=dtype, device=dev)
+    beta_prev = torch.zeros((), dtype=rdt, device=dev)
     for i in range(k):
         q_next, alphas[i], betas[i], r_perp = _step(
             op, basis, i, q, q_prev, beta_prev, generator, reorthogonalize,
@@ -281,11 +294,11 @@ def lanczos_eigh(op, k: int, *, extreme: str = "both",
 
     Returns ``(lambda, v)`` for ``extreme`` "min" or "max", and
     ``(lambda_min, v_min, lambda_max, v_max)`` for "both"; each ``v`` is
-    normalized and sign-gauged (largest-magnitude entry positive).  With
-    a narrow ``basis_dtype`` the eigenvalue keeps the operator's
-    precision (it comes from T), but the eigenvector carries the
-    storage rounding (~eps_bf16 / sqrt(3)): ``dominant_eigh`` polishes it
-    with one step of :func:`~.eigh.refine_eigenpair`.
+    normalized and pivot-gauged (largest-magnitude entry real and
+    positive).  With a narrow ``basis_dtype`` the eigenvalue keeps the
+    operator's precision (it comes from T), but the eigenvector carries
+    the storage rounding (~eps_bf16 / sqrt(3)): ``dominant_eigh`` polishes
+    it with one step of :func:`~.eigh.refine_eigenpair`.
     """
     if extreme not in ("min", "max", "both"):
         raise ValueError(f"extreme must be min|max|both, got {extreme!r}")
@@ -347,10 +360,11 @@ def lanczos_adaptive(op, k: int, *, extreme: str = "min",
     q = _start(op, v0, generator, dev)
     basis = torch.zeros((k + 1, op.dim), dtype=dtype, device=dev)
     basis[0] = q
-    alphas = torch.zeros(k, dtype=dtype, device=dev)
-    betas = torch.zeros(k, dtype=dtype, device=dev)
+    rdt = real_dtype(dtype)
+    alphas = torch.zeros(k, dtype=rdt, device=dev)
+    betas = torch.zeros(k, dtype=rdt, device=dev)
     q_prev = torch.zeros_like(q)
-    beta_prev = torch.zeros((), dtype=dtype, device=dev)
+    beta_prev = torch.zeros((), dtype=rdt, device=dev)
     done = 0
     for cp in cps:
         for i in range(done, cp):
@@ -365,14 +379,14 @@ def lanczos_adaptive(op, k: int, *, extreme: str = "min",
         j = 0 if extreme == "min" else cp - 1
         theta, y = w[j], yv[:, j]
         resid = betas[cp - 1] * torch.abs(y[cp - 1]) / torch.clamp(
-            torch.abs(theta), min=torch.finfo(dtype).tiny)
+            torch.abs(theta), min=torch.finfo(rdt).tiny)
         converged = resid <= tol
         if bool(converged):
             break
     v = pivot_gauge(_ritz_vector(basis[:done].T, y))
     info = LanczosInfo(
-        effective_k=torch.tensor(float(done), dtype=dtype, device=dev),
-        residual=resid, converged=converged.to(dtype))
+        effective_k=torch.tensor(float(done), dtype=rdt, device=dev),
+        residual=resid, converged=converged.to(rdt))
     return theta, v, info
 
 
@@ -384,8 +398,9 @@ def power_iteration(op, num_iters: int = 100, *,
     iteration on ``A + shift I`` (a shift turns "algebraically largest"
     into "largest magnitude" for a negative definite A).
 
-    Returns ``(lam, v)``: ``lam`` the Rayleigh quotient of ``A``, ``v``
-    sign-gauged.
+    Returns ``(lam, v)``: ``lam`` the Rayleigh quotient ``<v, A v>`` of
+    ``A`` (complex for a complex operator, as in the JAX function), ``v``
+    pivot-gauged.
     """
     op = as_operator(op)
     dev = check_device(device, op)

@@ -20,6 +20,9 @@ iterating past it can destabilize LOBPCG (the whitened Gram matrix turns
 ill-conditioned once the residual block is at round-off), and one read
 is small next to two SpMMs.
 
+A complex Hermitian operator runs the same iteration with Hermitian Gram
+matrices and conjugated projections; the Ritz values are real.
+
 Forward only: gradients come from the implicit-function-theorem rule of
 ``eigh.py`` (``dominant_eigh_multi(..., method="lobpcg")``).
 ``lobpcg_eigh_general`` waits for the generalized-pencil slice.
@@ -32,7 +35,7 @@ from typing import NamedTuple
 import torch
 
 from .operators import (as_operator, check_device, hmatmul, pivot_gauge,
-                        tol_floor)
+                        real_dtype, tol_floor)
 
 
 class LobpcgInfo(NamedTuple):
@@ -67,14 +70,14 @@ def _whiten_metric(S, MS, companions, drop_tol):
     (their columns zeroed, ``keep`` returned) instead of shrinking
     shapes.  ``t`` maps whitened coefficients back to the columns of
     ``S`` (``S_white = S t``)."""
-    g = hmatmul(S.T, MS)
-    g = 0.5 * (g + g.T)
+    g = hmatmul(S.mH, MS)
+    g = 0.5 * (g + g.mH)
     d, u = torch.linalg.eigh(g)
     tiny = torch.finfo(d.dtype).tiny
     keep = d > drop_tol * torch.clamp(d[-1], min=tiny)
     scale = torch.where(keep, torch.rsqrt(torch.clamp(d, min=tiny)),
                         torch.zeros_like(d))
-    t = u * scale[None, :]
+    t = u * scale.to(u.dtype)[None, :]
     return tuple(hmatmul(c, t) for c in companions), keep, t
 
 
@@ -89,11 +92,11 @@ def _rayleigh_ritz(So, ASo, keep, r):
     dropped directions get an eigenvalue above the spectrum (about
     2·||T||_F, not a huge constant: eigh's absolute error scales with the
     matrix norm)."""
-    t = hmatmul(So.T, ASo)
-    t = 0.5 * (t + t.T)
+    t = hmatmul(So.mH, ASo)
+    t = 0.5 * (t + t.mH)
     big = 2.0 * torch.linalg.matrix_norm(t) + 1.0
     penalty = torch.where(keep, torch.zeros_like(big), big)
-    evals, evecs = torch.linalg.eigh(t + torch.diag(penalty))
+    evals, evecs = torch.linalg.eigh(t + torch.diag(penalty).to(t.dtype))
     return evals[:r], evecs[:, :r]
 
 
@@ -131,6 +134,7 @@ def lobpcg_eigh(op, r: int = 4, *, extreme: str = "min", maxiter: int = 200,
             f"LOBPCG needs dim >= 3*r for its [X, W, P] subspace; got "
             f"dim={n}, r={r} — use dominant_eigh_multi(method='lanczos')")
     dtype = op.dtype
+    rdt = real_dtype(dtype)
     sign = 1.0 if extreme == "min" else -1.0
     tol = tol_floor(tol, dtype)
     # Whitening drop threshold: directions this far below the dominant
@@ -143,8 +147,9 @@ def lobpcg_eigh(op, r: int = 4, *, extreme: str = "min", maxiter: int = 200,
     if x0 is None:
         if generator is None:
             generator = torch.Generator(device=dev).manual_seed(0)
-        x0 = torch.randn((n, r), generator=generator, dtype=dtype,
-                         device=dev)
+        # A real draw, cast (the JAX package's start block).
+        x0 = torch.randn((n, r), generator=generator, dtype=rdt,
+                         device=dev).to(dtype)
     else:
         x0 = torch.as_tensor(x0).to(device=dev, dtype=dtype)
         if x0.shape != (n, r):
@@ -154,7 +159,7 @@ def lobpcg_eigh(op, r: int = 4, *, extreme: str = "min", maxiter: int = 200,
     # whitening mask is all-keep here.
     x, _, _, _ = _whiten(x0, zeros, drop_tol)
     ax = amat(x)
-    lams = (x * ax).sum(dim=0)
+    lams = (x.conj() * ax).real.sum(dim=0)
 
     def resid_norm(x, ax, lams):
         nrm = torch.linalg.vector_norm(ax - x * lams[None, :], dim=0)
@@ -169,7 +174,7 @@ def lobpcg_eigh(op, r: int = 4, *, extreme: str = "min", maxiter: int = 200,
         # Project W off span(X) twice and unit-normalize its columns, so
         # the 3r x 3r Gram stays well scaled as the residuals shrink.
         for _ in range(2):
-            w = w - hmatmul(x, hmatmul(x.T, w))
+            w = w - hmatmul(x, hmatmul(x.mH, w))
         aw = amat(w)
         w, aw = _colnormalize((w, aw))
         s = torch.cat([x, w, p], dim=1)
@@ -186,7 +191,7 @@ def lobpcg_eigh(op, r: int = 4, *, extreme: str = "min", maxiter: int = 200,
         c_wp = hmatmul(t, y)
         c_wp[:r] = 0
         p_raw = hmatmul(s, c_wp)
-        p_raw = p_raw - hmatmul(x_new, hmatmul(x_new.T, p_raw))
+        p_raw = p_raw - hmatmul(x_new, hmatmul(x_new.mH, p_raw))
         (p,), _, _ = _whiten_metric(p_raw, p_raw, (p_raw,), drop_tol)
         ap = amat(p)
         x = x_new
@@ -198,6 +203,6 @@ def lobpcg_eigh(op, r: int = 4, *, extreme: str = "min", maxiter: int = 200,
     if not with_info:
         return lams, x
     info = LobpcgInfo(
-        iterations=torch.tensor(float(it), dtype=dtype, device=dev),
-        residual=res, converged=(res <= tol).to(dtype))
+        iterations=torch.tensor(float(it), dtype=rdt, device=dev),
+        residual=res, converged=(res <= tol).to(rdt))
     return lams, x, info

@@ -18,10 +18,13 @@ before it): its parameters are then the inner operator's too.  The operator alge
 module (sums, scalings, shifts, compositions, transposed views) is not
 ported yet.
 
-Complex dtypes are refused (:func:`refuse_complex`): the JAX package's
-complex Hermitian support (a conjugating ``hdot``, the phase gauge, real
-Lanczos coefficients) is not ported yet, and without it a complex input
-would fail with incidental errors or give wrong numbers.
+Complex dtypes are supported as in the JAX package: ``hdot`` conjugates
+its first argument, :func:`pivot_gauge` fixes the phase (not only the
+sign) of an eigenvector, and ``rmatvec`` is the bilinear transpose
+``A^T x`` (not the adjoint ``A^H x = conj(A^T conj(x))``, which the
+solvers that need it build themselves).  :func:`refuse_complex` remains
+for the operators whose hand-written kernels or physics have no complex
+form (``BellOperator``, the row-sharded tier, the 2D Ising model).
 
 Precision policy: the JAX package pins HIGHEST precision on its internal
 dots and GEMMs (``hdot``/``hmatmul``) because a TPU otherwise rounds f32
@@ -66,13 +69,18 @@ def check_device(device, *items) -> torch.device:
     return dev
 
 
-def refuse_complex(dtype, what: str):
-    """Raise TypeError for a complex ``dtype``: complex Hermitian
-    operators wait for ROADMAP.md queue 1 item 5."""
+def refuse_complex(dtype, what: str, why: str):
+    """Raise TypeError for a complex ``dtype`` where the port has no
+    complex form; ``why`` names the reason (and its ROADMAP.md item)."""
     if dtype is not None and dtype.is_complex:
-        raise TypeError(
-            f"{what} is {dtype}: complex operators are not supported by "
-            f"the port yet (ROADMAP.md queue 1 item 5)")
+        raise TypeError(f"{what} is {dtype}: {why}")
+
+
+def real_dtype(dtype) -> torch.dtype:
+    """The real dtype of ``dtype`` (float64 for complex128, float32 for
+    complex64, ``dtype`` itself when real): the dtype of norms, of the
+    Lanczos coefficients and of a Hermitian operator's eigenvalues."""
+    return dtype.to_real() if dtype.is_complex else dtype
 
 
 def _check_no_tf32():
@@ -82,27 +90,43 @@ def _check_no_tf32():
             "reductions need true fp32 (set it back to False)")
 
 
+def _promoted(a, b):
+    """``a`` and ``b`` in their common dtype (a real operand meets a
+    complex one as complex, as JAX promotes)."""
+    if a.dtype == b.dtype:
+        return a, b
+    dtype = torch.promote_types(a.dtype, b.dtype)
+    return a.to(dtype), b.to(dtype)
+
+
 def hmatmul(a, b):
-    """``torch.matmul`` in true fp32/fp64 (never TF32)."""
+    """``torch.matmul`` in true fp32/fp64 (never TF32), the operands
+    promoted to their common dtype."""
     _check_no_tf32()
-    return torch.matmul(a, b)
+    return torch.matmul(*_promoted(a, b))
 
 
 def hdot(a, b):
-    """Inner product ``<a, b>`` of two real vectors, accumulated in the
-    vectors' own dtype (cuBLAS ``dot`` has no TF32 mode)."""
-    return torch.dot(a, b)
+    """Inner product ``<a, b> = sum(conj(a) * b)`` of two vectors (the JAX
+    ``jnp.vdot``), accumulated in the vectors' own dtype (cuBLAS ``dot``
+    has no TF32 mode).  For real vectors it is ``torch.dot``."""
+    return torch.vdot(*_promoted(a, b))
 
 
-def pivot_gauge(v):
-    """Scale ``v`` (an (N,) vector, or the columns of an (N, r) block) so
-    that its largest-magnitude entry is positive: the sign gauge every
-    forward of the JAX package applies and its derivative rules assume."""
+def pivot_gauge(v, *companions):
+    """Scale ``v`` (an (N,) vector, or the columns of an (N, r) block) by
+    the phase ``conj(sgn(pivot))`` that makes its largest-magnitude entry
+    real and positive: the gauge every forward of the JAX package applies
+    and its derivative rules assume (for a real dtype, a sign).
+    ``companions`` (e.g. a tracked ``A v``) get the same phase; with
+    companions the return is a tuple ``(v', *companions')``."""
     if v.ndim == 1:
-        return v * torch.sign(v[torch.argmax(torch.abs(v))])
-    idx = torch.argmax(torch.abs(v), dim=0)
-    pivots = torch.gather(v, 0, idx[None])[0]
-    return v * torch.sign(pivots)[None, :]
+        phase = torch.sgn(v[torch.argmax(torch.abs(v))]).conj()
+    else:
+        idx = torch.argmax(torch.abs(v), dim=0)
+        phase = torch.sgn(torch.gather(v, 0, idx[None])[0]).conj()[None, :]
+    out = (v * phase,) + tuple(c * phase for c in companions)
+    return out if companions else out[0]
 
 
 def tol_floor(tol: float, dtype) -> float:
@@ -190,7 +214,7 @@ class LinearOperator:
         raise NotImplementedError
 
     def rmatvec(self, x: torch.Tensor) -> torch.Tensor:
-        """Transpose matvec ``A.T @ x``."""
+        """Transpose matvec ``A.T @ x`` (bilinear: not conjugated)."""
         raise NotImplementedError
 
     def parameters(self) -> list:
@@ -247,7 +271,6 @@ class DenseOperator(LinearOperator):
         if a.ndim != 2 or a.shape[0] != a.shape[1]:
             raise ValueError(f"expected square matrix, got shape "
                              f"{tuple(a.shape)}")
-        refuse_complex(a.dtype, "the matrix")
         self.a = a
 
     def matvec(self, x):
@@ -312,7 +335,6 @@ class MatrixFreeOperator(LinearOperator):
         if rmatvec_fn is None and not symmetric:
             raise ValueError(
                 "non-symmetric MatrixFreeOperator requires rmatvec_fn")
-        refuse_complex(dtype, "dtype")
         self.matvec_fn = matvec_fn
         self.params = params
         self._dim = int(dim)
@@ -395,10 +417,8 @@ class MatrixFreeOperator(LinearOperator):
 
 
 def as_operator(a: Any) -> LinearOperator:
-    """Coerce a dense square tensor or an operator into a LinearOperator;
-    complex dtypes are refused (:func:`refuse_complex`)."""
+    """Coerce a dense square tensor or an operator into a LinearOperator."""
     if isinstance(a, LinearOperator):
-        refuse_complex(a.dtype, "the operator's dtype")
         return a
     if not isinstance(a, torch.Tensor):
         raise TypeError(f"expected a LinearOperator or a tensor, got "

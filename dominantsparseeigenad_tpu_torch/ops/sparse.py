@@ -24,6 +24,11 @@ from .bell_spmv import (_band_offsets, _bell_rmatmat_torch,
                         _slot_plan_matches, detect_slot_plan)
 from .operators import LinearOperator, refuse_complex, resolve_device
 
+# The JAX package's XLA path multiplies complex blocks, its Pallas kernel
+# does not; neither do the hand-written kernels here.
+BELL_COMPLEX = ("the blocked-ELL kernels (csrc/bell_spmv.cu, bell_spmm.cu) "
+                "have no complex dtype (ROADMAP.md queue 1 item 17)")
+
 
 class BellOperator(LinearOperator):
     """Blocked-ELLPACK sparse operator.
@@ -78,8 +83,8 @@ class BellOperator(LinearOperator):
         if compute_dtype is None:
             compute_dtype = (torch.float32 if vals.dtype == torch.bfloat16
                              else vals.dtype)
-        refuse_complex(vals.dtype, "vals")
-        refuse_complex(compute_dtype, "compute_dtype")
+        refuse_complex(vals.dtype, "vals", BELL_COMPLEX)
+        refuse_complex(compute_dtype, "compute_dtype", BELL_COMPLEX)
         self.vals = vals
         self.cols = cols
         self.n = int(n)
@@ -193,7 +198,7 @@ class BellOperator(LinearOperator):
         if vals.device != self.vals.device:
             raise ValueError(f"vals on {vals.device}, cols on "
                              f"{self.cols.device}")
-        refuse_complex(vals.dtype, "vals")
+        refuse_complex(vals.dtype, "vals", BELL_COMPLEX)
         op = copy.copy(self)
         op.vals = vals
         return op

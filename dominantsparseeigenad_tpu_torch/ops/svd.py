@@ -2,17 +2,20 @@
 
 Counterpart of ``dominantsparseeigenad_tpu/ops/svd.py``.  The top-r
 singular triplets of a (possibly rectangular, possibly matrix-free)
-operator come from the block eigensolver run on the symmetric embedding
+operator come from the block eigensolver run on the Hermitian embedding
 
-    H = [[0, A], [Aᵀ, 0]],   H (u; v) = (A v; Aᵀ u),
+    H = [[0, A], [Aᴴ, 0]],   H (u; v) = (A v; Aᴴ u),
 
-whose top-r eigenpairs are (σ_i, (u_i; v_i)/√2).  The embedding is a
-:class:`~.operators.MatrixFreeOperator` whose parameters are the inner
-operator's, so every derivative, to any order and in either mode, is the
-block IFT rule of :func:`~.eigh.dominant_eigh_multi`; this module only
-builds the embedding and unpacks the halves.  TRG's ``split_method=
-"lanczos"`` (``models/ising2d.py``) differentiates the free energy through
-it.
+whose top-r eigenpairs are (σ_i, (u_i; v_i)/√2).  For a complex A the
+embedding must be Hermitian, with the adjoint ``Aᴴ u = conj(Aᵀ conj(u))``
+built from the operator's bilinear ``rmatvec``: with the plain transpose
+it is complex-symmetric and the singular values come out wrong.  The
+embedding is a :class:`~.operators.MatrixFreeOperator` whose parameters
+are the inner operator's, so every derivative, to any order and in either
+mode, is the block IFT rule of :func:`~.eigh.dominant_eigh_multi`; this
+module only builds the embedding and unpacks the halves.  TRG's
+``split_method="lanczos"`` (``models/ising2d.py``) differentiates the free
+energy through it.
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ import torch
 
 from .eigh import dominant_eigh_multi
 from .operators import (LinearOperator, MatrixFreeOperator, as_operator,
-                        hmatmul, refuse_complex)
+                        hmatmul)
 
 
 class _RectOperator(LinearOperator):
@@ -62,7 +65,7 @@ class _RectOperator(LinearOperator):
 
 
 class _Embedding(MatrixFreeOperator):
-    """The symmetric embedding of ``inner`` (m, n); its block products
+    """The Hermitian embedding of ``inner`` (m, n); its block products
     apply ``inner.matmat``/``rmatmat`` once instead of column by column."""
 
     def matmat(self, X):
@@ -76,8 +79,8 @@ def _embed(op: LinearOperator, m: int, n: int) -> MatrixFreeOperator:
         inner = op.with_parameters(params)
         u, v = w[:m], w[m:]
         if w.ndim == 1:
-            return torch.cat([inner.matvec(v), inner.rmatvec(u)])
-        return torch.cat([inner.matmat(v), inner.rmatmat(u)])
+            return torch.cat([inner.matvec(v), inner.rmatvec(u.conj()).conj()])
+        return torch.cat([inner.matmat(v), inner.rmatmat(u.conj()).conj()])
 
     return _Embedding(apply, list(op.parameters()), dim=m + n,
                       dtype=op.dtype, device=op.device)
@@ -117,7 +120,6 @@ def dominant_svd(a, r: int = 4, k: int = 128, *, tol: float = 1e-8,
                             f"{type(a).__name__}")
         if a.ndim != 2:
             raise ValueError(f"expected a matrix, got shape {tuple(a.shape)}")
-        refuse_complex(a.dtype, "the matrix")
         m, n = a.shape
         op = as_operator(a) if m == n else _RectOperator(a)
     out = dominant_eigh_multi(_embed(op, m, n), r=r, k=k, extreme="max",

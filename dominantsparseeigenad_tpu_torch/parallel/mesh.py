@@ -94,7 +94,7 @@ def make_mesh(n_shards: int | None = None, n_batch: int = 1,
     if n_batch != 1:
         raise NotImplementedError(
             "make_mesh: only n_batch=1; the batch axis waits (ROADMAP.md, "
-            "queue 1 item 12)")
+            "queue 1 item 14)")
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs a process group: call "
                            "init_distributed first")

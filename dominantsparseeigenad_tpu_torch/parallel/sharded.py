@@ -17,10 +17,10 @@ from __future__ import annotations
 
 import copy
 
-from ..ops.operators import LinearOperator, hmatmul
+from ..ops.operators import LinearOperator, hmatmul, refuse_complex
 from .collectives import gather_rows, replicate, sum_over_ranks
 from .mesh import make_mesh
-from .sharded_sparse import _check_mode
+from .sharded_sparse import SHARDED_COMPLEX, _check_mode
 
 
 class RowShardedOperator(LinearOperator):
@@ -34,6 +34,7 @@ class RowShardedOperator(LinearOperator):
 
     def __init__(self, a, group=None, *, mode: str = "all_gather"):
         _check_mode(mode)
+        refuse_complex(a.dtype, "the matrix", SHARDED_COMPLEX)
         if a.ndim != 2 or a.shape[0] != a.shape[1]:
             raise ValueError(f"expected square matrix, got shape "
                              f"{tuple(a.shape)}")

@@ -45,16 +45,22 @@ import math
 import torch
 
 from ..ops.bell_spmv import _bell_rmatmat_torch, bell_spmm, bell_spmv
-from ..ops.operators import LinearOperator
+from ..ops.operators import LinearOperator, refuse_complex
 from .collectives import gather_rows, replicate, sum_over_ranks
 from .mesh import make_mesh
+
+# The JAX package row-shards complex Hermitian matrices too
+# (tests/test_parallel.py::test_sharded_complex_hermitian_eigh); here the
+# collectives and the panels' kernels are real only.
+SHARDED_COMPLEX = ("the row-sharded tier is real only so far (ROADMAP.md "
+                   "queue 1 item 14)")
 
 
 def _check_mode(mode):
     if mode == "ring":
         raise NotImplementedError(
             "mode='ring' needs vectors sharded over the ranks and is not "
-            "ported yet (ROADMAP.md, queue 1 item 12); use 'all_gather'")
+            "ported yet (ROADMAP.md, queue 1 item 14); use 'all_gather'")
     if mode != "all_gather":
         raise ValueError(f"unknown mode {mode!r}")
 
@@ -81,6 +87,7 @@ class RowShardedBellOperator(LinearOperator):
                  mode: str = "all_gather", symmetric: bool = False,
                  compute_dtype=None):
         _check_mode(mode)
+        refuse_complex(vals.dtype, "vals", SHARDED_COMPLEX)
         if vals.ndim != 4:
             raise ValueError(f"vals must be (nb, max_blk, bs, bs), got "
                              f"{tuple(vals.shape)}")

@@ -373,11 +373,86 @@ def test_truncated_forms_are_the_top_of_the_full_ones():
         port.svd_safe(_t(_inputs("svd_truncated")), device="cpu")
 
 
+def _crel(a, b):
+    """``_rel`` for complex arrays (imaginary parts compared too)."""
+    a, b = np.asarray(a), np.asarray(b)
+    return np.abs(a - b).max() / np.abs(b).max()
+
+
+def _complex_input(case):
+    """A complex128 input: Hermitian for eigh, square or (for the
+    truncated SVD) rectangular otherwise."""
+    rng = np.random.default_rng(300 + CASES.index(case))
+    shape = RECT if case == "svd_truncated" else (N, N)
+    b = rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+    return (b + b.conj().T) / 2 if case.startswith("eigh") else b
+
+
+def _complex_invariants(case, out):
+    """The values and the projectors v_i v_iᴴ (eigh) or u_i v_iᴴ (svd)."""
+    if case.startswith("eigh"):
+        w, v = out
+        return w, v[:, None, :] * v.conj()[None, :, :]
+    u, s, vt = out
+    return s, u[:, None, :] * vt.T[None, :, :]
+
+
+def _complex_loss(case, out, p, q):
+    """A real loss of the outputs, invariant under each pair's phase."""
+    if case.startswith("eigh"):
+        w, v = out
+        top = v[:, -2:] if case == "eigh" else v[:, :2]
+        return ((w ** 3).sum() + ((top @ top.conj().T) * q).sum().real
+                + (abs(v) ** 4).sum())
+    u, s, vt = out
+    u2 = u[:, :2]
+    return ((s ** 3).sum() + (((u2 * s[:2]) @ vt[:2]) * p).sum().real
+            + ((u2 @ u2.conj().T) * q).sum().real + (abs(u) ** 4).sum()
+            + (abs(vt) ** 4).sum())
+
+
 @pytest.mark.parametrize("case", CASES)
-def test_complex_input_is_refused(case):
-    a = torch.eye(6, dtype=torch.complex128)
-    with pytest.raises(TypeError, match=r"ROADMAP\.md queue 1 item 5"):
-        _call(pd, case, a, device="cpu")
+def test_complex_input_matches_jax(case):
+    """Complex input, once refused: the forward's invariants, the
+    gradient of a real phase-invariant loss (PyTorch's is the conjugate
+    of JAX's) and the forward-mode tangents of the invariants, against
+    the JAX rules (Hermitian throughout), to 1e-10 relative."""
+    a = _complex_input(case)
+    rng = np.random.default_rng(400 + CASES.index(case))
+    n, m = a.shape
+    p = rng.standard_normal((n, m)) + 1j * rng.standard_normal((n, m))
+    q = rng.standard_normal((n, n)) + 1j * rng.standard_normal((n, n))
+    da = rng.standard_normal(a.shape) + 1j * rng.standard_normal(a.shape)
+    kw = {}
+    if case == "svd_truncated":
+        kw["omega"] = _jax_omega(m, min(R_RECT + 16, n, m), jnp.complex128)
+
+    def dec(x):
+        return _call(jd, case, x)
+
+    fwd, grad, (_, jvp) = jax.jit(lambda x, dx: (
+        _complex_invariants(case, dec(x)),
+        jax.grad(lambda y: _complex_loss(case, dec(y), p, q))(x),
+        jax.jvp(lambda y: _complex_invariants(case, dec(y)), (x,),
+                (dx,))))(jnp.asarray(a), jnp.asarray(da))
+
+    def dec_port(x):
+        return _call(pd, case, x, device="cpu", **kw)
+
+    x = torch.tensor(a, requires_grad=True)
+    got = _complex_invariants(case, dec_port(x))
+    for g, w in zip(got, fwd):
+        assert _crel(g.detach().numpy(), w) <= 1e-10
+    (g,) = torch.autograd.grad(
+        _complex_loss(case, dec_port(x), torch.tensor(p), torch.tensor(q)),
+        x)
+    assert _crel(g.numpy(), np.conj(np.asarray(grad))) <= 1e-10
+    with fwAD.dual_level():
+        dual = fwAD.make_dual(torch.tensor(a), torch.tensor(da))
+        tangents = [fwAD.unpack_dual(t).tangent
+                    for t in _complex_invariants(case, dec_port(dual))]
+    for g, w in zip(tangents, jvp):
+        assert _crel(g.numpy(), w) <= 1e-10
 
 
 @pytest.fixture(scope="module", autouse=True)

@@ -286,7 +286,7 @@ def test_options_and_refusals():
     with pytest.raises(ValueError, match="eigh_solver"):
         models.ctmrg_free_energy(BETA, eigh_solver="qr", chi=4, n_steps=2,
                                  device="cpu")
-    with pytest.raises(TypeError, match=r"ROADMAP\.md queue 1 item 5"):
+    with pytest.raises(TypeError, match="real weights"):
         models.trg_free_energy(BETA, dtype=torch.complex128, **f64)
 
 

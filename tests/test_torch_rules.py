@@ -2,6 +2,7 @@
 entry points never run on the CPU unless asked, its reductions never run
 in TF32, and ``chip_smoke.py`` gives no result without a card."""
 
+import importlib
 import os
 import pathlib
 import re
@@ -271,6 +272,9 @@ def _entry_points():
             0.5, chi=4, n_steps=2),
         "correlation_length": lambda: models.correlation_length(
             0.5, chi=4, n_steps=2),
+        "dominant_eig_pair": lambda: port.dominant_eig_pair(a),
+        "dominant_eig_spectrum": lambda: port.dominant_eig_spectrum(a),
+        "spectrum_structure": lambda: port.spectrum_structure(a),
     }
 
 
@@ -333,89 +337,110 @@ def _complex_hermitian():
     return (a + a.conj().T) / 2
 
 
-class _ComplexOperator(port.LinearOperator):
-    """An operator whose own constructor checks nothing."""
-
-    dim = 16
-    dtype = torch.complex128
-    device = torch.device("cpu")
+_BELL = (r"blocked-ELL kernels .* have no complex dtype "
+         r"\(ROADMAP\.md queue 1 item 17\)")
+_SHARDED = r"row-sharded tier is real only .*\(ROADMAP\.md queue 1 item 14\)"
+_ISING = r"real weights, tensors and transfer matrices"
 
 
 def _complex_calls():
+    """The calls that still refuse complex input, each with the reason
+    its message must name.  Every other entry point takes complex input
+    now and is held against the JAX package in
+    ``tests/test_torch_complex.py::test_complex_input_matches_jax``."""
     h = _complex_hermitian()
-    v = torch.zeros(16, dtype=torch.complex128)
-    v[0] = 1.0
-    real = torch.eye(16, dtype=torch.float64)
-    e = torch.zeros(16, dtype=torch.float64)
-    e[0] = 1.0
     vals = torch.zeros(2, 1, 8, 8, dtype=torch.complex128)
     cols = torch.zeros(2, 1, dtype=torch.int32)
+    real_vals = vals.real.contiguous()
+    ising = dict(dtype=torch.complex128, device="cpu")
+    flow = dict(chi=4, n_steps=2, **ising)
     return {
-        "as_operator": lambda: port.as_operator(h),
-        "as_operator of an operator": lambda: port.as_operator(
-            _ComplexOperator()),
-        "DenseOperator": lambda: port.DenseOperator(h),
-        "MatrixFreeOperator": lambda: port.MatrixFreeOperator(
-            lambda p, x: h @ x, None, 16, dtype=torch.complex128,
-            device="cpu"),
-        "BellOperator vals": lambda: port.BellOperator(vals, cols, 16),
-        "BellOperator compute_dtype": lambda: port.BellOperator(
-            vals.real.contiguous(), cols, 16,
-            compute_dtype=torch.complex128),
-        "dominant_eigh": lambda: port.dominant_eigh(h, k=8, device="cpu"),
-        "dominant_eigh_multi": lambda: port.dominant_eigh_multi(
-            h, r=2, k=8, device="cpu"),
-        "lanczos": lambda: port.lanczos(h, 8, device="cpu"),
-        "cg": lambda: port.cg(lambda x: h @ x, v, device="cpu"),
-        "solve_deflated": lambda: port.solve_deflated(h, 0.0, v, v,
-                                                      device="cpu"),
-        "solve_deflated complex b": lambda: port.solve_deflated(
-            real, 0.0, e, v, device="cpu"),
-        "eigh_safe": lambda: port.eigh_safe(h, device="cpu"),
-        "eigh_safe_truncated": lambda: port.eigh_safe_truncated(
-            h, 2, device="cpu"),
-        "svd_safe": lambda: port.svd_safe(h, device="cpu"),
-        "svd_safe_truncated": lambda: port.svd_safe_truncated(
-            h, 2, device="cpu"),
-        "dominant_svd": lambda: port.dominant_svd(h, r=2, k=8, device="cpu"),
-        "dominant_svd rectangular": lambda: port.dominant_svd(
-            h[:, :8].contiguous(), r=2, k=8, device="cpu"),
-        "ising_vertex_tensor": lambda: models.ising_vertex_tensor(
-            0.5, dtype=torch.complex128, device="cpu"),
-        "onsager_free_energy": lambda: models.onsager_free_energy(
-            0.5, dtype=torch.complex128, device="cpu"),
-        "trg_free_energy": lambda: models.trg_free_energy(
-            0.5, chi=4, n_steps=2, dtype=torch.complex128, device="cpu"),
-        "ctmrg_free_energy": lambda: models.ctmrg_free_energy(
-            0.5, chi=4, n_steps=2, dtype=torch.complex128, device="cpu"),
-        "ising_observables": lambda: models.ising_observables(
-            0.5, chi=4, n_steps=2, dtype=torch.complex128, device="cpu"),
-        "dominant_eig": lambda: port.dominant_eig(h, device="cpu"),
-        "dominant_eig_multi": lambda: port.dominant_eig_multi(
-            h, device="cpu"),
-        "solve_general": lambda: port.solve_general(h, v, device="cpu"),
-        "solve_general complex b": lambda: port.solve_general(
-            real, v, device="cpu"),
-        "bicgstab": lambda: port.bicgstab(lambda x: h @ x, v, device="cpu"),
-        "gmres": lambda: port.gmres(lambda x: h @ x, v, device="cpu"),
-        "transfer_spectral_gap": lambda: models.transfer_spectral_gap(
-            0.5, chi=4, n_steps=2, dtype=torch.complex128, device="cpu"),
-        "correlation_length": lambda: models.correlation_length(
-            0.5, chi=4, n_steps=2, dtype=torch.complex128, device="cpu"),
+        "BellOperator vals": (
+            lambda: port.BellOperator(vals, cols, 16), _BELL),
+        "BellOperator compute_dtype": (
+            lambda: port.BellOperator(real_vals, cols, 16,
+                                      compute_dtype=torch.complex128),
+            _BELL),
+        "BellOperator.with_vals": (
+            lambda: port.BellOperator(real_vals, cols, 16).with_vals(vals),
+            _BELL),
+        "RowShardedOperator": (lambda: port.RowShardedOperator(h), _SHARDED),
+        "RowShardedBellOperator": (
+            lambda: port.RowShardedBellOperator(vals, cols, 16), _SHARDED),
+        "ising_vertex_tensor": (
+            lambda: models.ising_vertex_tensor(0.5, **ising), _ISING),
+        "onsager_free_energy": (
+            lambda: models.onsager_free_energy(0.5, **ising), _ISING),
+        "trg_free_energy": (
+            lambda: models.trg_free_energy(0.5, **flow), _ISING),
+        "ctmrg_free_energy": (
+            lambda: models.ctmrg_free_energy(0.5, **flow), _ISING),
+        "ising_observables": (
+            lambda: models.ising_observables(0.5, **flow), _ISING),
+        "transfer_spectral_gap": (
+            lambda: models.transfer_spectral_gap(0.5, **flow), _ISING),
+        "correlation_length": (
+            lambda: models.correlation_length(0.5, **flow), _ISING),
     }
 
 
 @pytest.mark.parametrize("name", sorted(_complex_calls()))
 def test_complex_input_is_refused(name):
-    """F1: complex dtypes are refused with a TypeError naming the ROADMAP
-    item that will lift the refusal, not failed with incidental errors."""
-    with pytest.raises(TypeError, match=r"ROADMAP\.md queue 1 item 5"):
-        _complex_calls()[name]()
+    """Where the port has no complex form (the blocked-ELL kernels, the
+    row-sharded tier, the real Ising model) complex input is refused with
+    a TypeError that names the reason and its ROADMAP.md item, not failed
+    with incidental errors."""
+    call, reason = _complex_calls()[name]
+    with pytest.raises(TypeError, match=reason):
+        call()
+
+
+def test_no_message_names_the_finished_or_a_wrong_item():
+    """The complex item (5) is done, and the sharded tier's refusals name
+    item 14, not item 12 (the spectral tiers)."""
+    for path in _sources():
+        text = path.read_text()
+        assert "queue 1 item 5)" not in text, path.name
+        if path.parent.name == "parallel":
+            assert "queue 1 item 12)" not in text, path.name
 
 
 def test_hdot_fault_input_is_what_the_refusal_guards():
     """The F1 observation: torch.dot does not conjugate, so a complex
-    <x, x> is not ||x||^2; the refusal keeps such inputs out."""
+    <x, x> is not ||x||^2.  ``hdot`` conjugates now (``torch.vdot``, the
+    JAX package's ``jnp.vdot``) and gives ||x||^2 on that same input."""
     x = _complex_hermitian()[:, 0]
     assert not torch.allclose(torch.dot(x, x).real,
                               torch.linalg.vector_norm(x) ** 2)
+    assert torch.allclose(port.hdot(x, x),
+                          torch.linalg.vector_norm(x).to(x.dtype) ** 2)
+
+
+@pytest.mark.parametrize("call", [
+    lambda: port.make_mesh(n_batch=2),
+    lambda: port.RowShardedOperator(torch.eye(4), mode="ring"),
+    lambda: port.RowShardedBellOperator(
+        torch.zeros(1, 1, 4, 4), torch.zeros(1, 1, dtype=torch.int32), 4,
+        mode="ring"),
+], ids=["make_mesh n_batch", "RowShardedOperator ring",
+        "RowShardedBellOperator ring"])
+def test_sharded_refusals_name_item_14(call):
+    """F7: the batch axis and mode="ring" wait for the rest of
+    ``parallel/``, queue 1 item 14."""
+    with pytest.raises(NotImplementedError,
+                       match=r"ROADMAP\.md, queue 1 item 14\)"):
+        call()
+
+
+def test_option_classes_and_pair_solvers_are_exported():
+    """F8: the option classes and the complex half of ``ops/eig.py`` are
+    exported by ``ops`` and by the package, as the JAX package's
+    ``__init__`` exports them."""
+    ops_pkg = importlib.import_module("dominantsparseeigenad_tpu_torch.ops")
+    for name in ("EighOptions", "EighMultiOptions", "EigOptions",
+                 "PowerInfo", "dominant_eig_pair", "dominant_eig_spectrum",
+                 "spectrum_structure"):
+        assert name in port.__all__ and name in ops_pkg.__all__, name
+        assert getattr(port, name) is getattr(ops_pkg, name)
+    assert port.EighOptions().k == 128
+    assert port.EighMultiOptions().r == 4

@@ -207,9 +207,54 @@ def test_bad_inputs_are_refused():
         port.dominant_svd(torch.zeros(4, dtype=torch.float64), device="cpu")
     with pytest.raises(TypeError, match="LinearOperator or a tensor"):
         port.dominant_svd(np.eye(4), device="cpu")
-    with pytest.raises(TypeError, match=r"ROADMAP\.md queue 1 item 5"):
-        port.dominant_svd(torch.eye(4, dtype=torch.complex128), r=2, k=8,
-                          device="cpu")
+
+
+def _complex_matrix(shape, seed=5):
+    """A complex matrix with well separated top singular values."""
+    rng = np.random.default_rng(seed)
+    m, n = shape
+    q1, _ = np.linalg.qr(rng.standard_normal((m, m))
+                         + 1j * rng.standard_normal((m, m)))
+    q2, _ = np.linalg.qr(rng.standard_normal((n, n))
+                         + 1j * rng.standard_normal((n, n)))
+    s = 3.0 * 0.7 ** np.arange(min(m, n))
+    return (q1[:, :s.size] * s[None, :]) @ q2[:, :s.size].conj().T
+
+
+def test_complex_matches_jax():
+    """A complex tall matrix, once refused: the embedding is the Hermitian
+    [[0, A], [Aᴴ, 0]] (with Aᵀ the singular values come out wrong), so
+    s, the pairs u_i v_iᴴ and the gradient of Σ c_i s_i + Re Σ u_iᴴ P v_i
+    (PyTorch's the conjugate of JAX's) match the JAX package's, from
+    JAX's complex start draw, to 1e-8 relative (s to 1e-10)."""
+    a = _complex_matrix(SHAPES["tall"])
+    dim = sum(a.shape)
+    c = np.arange(1.0, R + 1.0)
+    p = _probe(a.shape) + 1j * _probe(a.shape, seed=3)
+
+    def loss(u, s, v, c, p):
+        return (c * s).sum() + ((u.conj().T @ p) * v.T).sum().real
+
+    def run(x):
+        return jax_svd(x, r=R, k=dim, tol=TOL)
+
+    u_j, s_j, v_j = jax.jit(run)(jnp.asarray(a))
+    grad = jax.jit(jax.grad(lambda x: loss(*run(x), jnp.asarray(c),
+                                           jnp.asarray(p))))(jnp.asarray(a))
+    v0 = torch.from_numpy(np.array(jax.random.normal(
+        jax.random.PRNGKey(0), (dim,), jnp.complex128)))
+    x = torch.tensor(a, requires_grad=True)
+    u, s, v = port.dominant_svd(x, r=R, k=dim, tol=TOL, v0=v0,
+                                device="cpu")
+    assert _rel(s.detach(), s_j) <= 1e-10
+    assert _rel(s.detach(), np.linalg.svd(a, compute_uv=False)[:R]) <= 1e-10
+    pairs = (u[:, None, :] * v.conj()[None, :, :]).detach().numpy()
+    want = np.asarray(u_j)[:, None, :] * np.conj(np.asarray(v_j))[None, :, :]
+    assert np.abs(pairs - want).max() / np.abs(want).max() <= 1e-8
+    (g,) = torch.autograd.grad(loss(u, s, v, torch.tensor(c),
+                                    torch.tensor(p)), x)
+    want = np.conj(np.asarray(grad))
+    assert np.abs(g.numpy() - want).max() / np.abs(want).max() <= 1e-8
 
 
 @pytest.fixture(scope="module", autouse=True)
