@@ -96,9 +96,11 @@ line each:
    rules, and forward mode of the block solver.  (a) ``energy_curvature``
    of the TFIM at N = 20, g = 1.2, f32, k = 60 (CG tol 1e-5, at most 150
    iterations): E0, dE0/dg and d²E0/dg² against the Jordan-Wigner closed
-   forms, the pass timed as its forward, first backward (``create_graph``)
-   and second backward, the second backward's solve re-run for its
-   iterations and residual.  (b) config #5 as a user's sparse
+   forms, the reverse route timed as its forward, first backward
+   (``create_graph``) and second backward, the second backward's solve
+   re-run for its iterations and residual; ``energy_curvature`` itself
+   (a jvp of a jvp) against that route (E equal, the rest 1e-4).
+   (b) config #5 as a user's sparse
    Hamiltonian with one coupling, H(g) = A0 + g A1 over two banded
    operators (every product two K4b SpMVs), ``energy_curvature`` at
    k = 100 with the CG capped at 3000: the launches of each step against
@@ -115,7 +117,29 @@ line each:
    Σλ_i + ΣV⁴ along dvals at the small shape (n = 4096, bs = 32, r = 3,
    three spiked eigenvalues), kernel against plain banded SpMM.
 
-11. ``ising2d``: BASELINE config #4, the 2D classical Ising model at
+11. ``forward_n``: forward mode to any order, the ``torch.func``
+   transforms and ``vmap``.  (a) TFIM N = 20 (the ``tfim`` phase's
+   settings): ``energy_curvature``, now a jvp of a jvp, against the
+   Jordan-Wigner closed forms (2e-5 / 1e-3 / 5e-4), its d²E0/dg² against
+   the reverse-over-reverse route of the same settings (1e-4), both
+   timed, with the iterations of each deflated solve.  (b) The sweep at
+   the bench's settings (4 of its couplings) by ``vmap`` of one jvp pass
+   against the per-point loop of the same pass, in restart modes "cond"
+   and "carry", each at the ``tfim`` bars and timed a point.  (c) Config
+   #5's H(g) = A0 + g A1: one nested pass (its CGs capped at 3000, as the
+   reverse route's; d² printed beside the reverse route's with the
+   iterations of every solve, not gated), its K4b SpMV launches counted
+   (> 0), dE/dg against the first-order jvp's (1e-6), its time beside the
+   reverse route's.  (d) A small spiked shape (n = 4096, bs = 32, the
+   inputs of ``tools/jax_forward_n_errors.py``): E, dE/dg and d²E/dg² by
+   one nested pass against the float64 sum over states of its dense H,
+   at ~8x the JAX package's own float32 CPU errors.  (e) ``vmap`` of a
+   config-#5 matvec over 8 vectors: ``matmat`` bit for bit, exactly one
+   ``bell_spmm_banded_f32`` launch and no SpMV; ``vmap`` of
+   ``solve_deflated`` over 8 right-hand sides and shifts against the
+   block solve (1e-5).  The card's name and power limit on the line.
+
+12. ``ising2d``: BASELINE config #4, the 2D classical Ising model at
    β = 0.5 (``benchmarks/ising2d_bench.py:32-35``) against Onsager's
    ln Z, u = -d lnZ/dβ and c_v = β² d² lnZ/dβ² (the port's quadrature on
    the card, held against the JAX package's chip-test constants).  (a)
@@ -132,7 +156,7 @@ line each:
    (``tools/jax_ising2d_errors.py``).  This path launches no
    hand-written kernel (checked: the launch counts stay 0).
 
-12. ``eig``: the non-symmetric solver (``dominant_eig``,
+13. ``eig``: the non-symmetric solver (``dominant_eig``,
    ``dominant_eig_multi``), float64 unless stated.  (a) Config #4's
    transfer observables at chi = 30, 30 CTMRG steps: at β = 0.35
    ``correlation_length`` and dξ/dβ (forward and backward timed, with
@@ -156,7 +180,7 @@ line each:
    ∂λ/∂vals against l⊗r on the pattern; its matvecs run the banded SpMV
    kernel (K4b), counted (the counts join the ``kernels`` line).
 
-13. ``complex``: complex operators through the solvers and derivative
+14. ``complex``: complex operators through the solvers and derivative
    rules, at full width.  (a) The TFIM N = 20 headline (the ``tfim``
    phase's settings) in a complex gauge, H' = D H D^H with D = diag(e^{iφ})
    and φ from a seeded generator, a complex64 ``MatrixFreeOperator``
@@ -261,6 +285,27 @@ SO_TFIM_RTOL = {"e0": 6e-6, "de0_dg": 4e-5, "d2e0_dg2": 5e-4}
 SO_G = 0.5
 SO_SMALL_R = 3
 SO_SPIKES = (4.0, 8.0, 12.0)
+# The forward_n phase.  (a) TFIM N = 20 by forward over forward at the
+# tfim and second_order phases' Jordan-Wigner bars, and its d²E0/dg²
+# against the reverse route of the same settings (the same CG on the same
+# system, its right-hand side scaled by 2).  (b) the sweep (the bench's
+# settings, 4 of its couplings) by vmap against the per-point loop, at
+# TFIM_RTOL.  (c) config #5's H(g) by one nested pass: its CGs run to the
+# 3000 cap there (PERF.md §7), so d² is printed, not gated; dE/dg against
+# the first-order jvp's.  (d) the small spiked shape, whose inputs
+# tools/jax_forward_n_errors.py builds the same way: d² gated at ~8x the
+# JAX package's own float32 CPU errors there (E 1.8e-7, dE/dg 6.8e-7,
+# d²E/dg² 7.5e-7).  (e) vmap of a matvec and of a deflated solve on config #5.
+FWDN_TFIM_RTOL = {"e0": 2e-5, "de0_dg": 1e-3, "d2e0_dg2": 5e-4}
+FWDN_ROUTE_RTOL = 1e-4
+FWDN_SWEEP_POINTS = 4
+FWDN_SMALL = (4096, 32, 5)
+FWDN_SEEDS = (21, 22)
+FWDN_SMALL_RTOL = {"e": 1.5e-6, "de_dg": 5.5e-6, "d2e_dg2": 6e-6}
+FWDN_D1_RTOL = 1e-6
+FWDN_VMAP_R = 8
+FWDN_SOLVE_MAXITER = 200
+FWDN_SOLVE_RTOL = 1e-5
 # The ising2d phase (BASELINE config #4) at the bench's point, β = 0.5,
 # TRG chi = 30 and 20 steps (benchmarks/ising2d_bench.py:32-35), CTMRG
 # chi = 30 and 30 steps.  Onsager's ln Z, u and c_v there (the JAX
@@ -2048,9 +2093,12 @@ def second_order_tfim(pkg, spmv, models):
     out["energy_curvature_vs_split_rel"] = api_vs_split
     checks = {f"TFIM N={n} {name} vs Jordan-Wigner, rel {SO_TFIM_RTOL[name]}":
               errs[name] <= SO_TFIM_RTOL[name] for name in SO_TFIM_RTOL}
-    # The same calls, whose CG converges (its tolerance is 1e-5).
-    checks["TFIM energy_curvature vs the timed split, rel 1e-6"] = \
-        api_vs_split <= 1e-6
+    # energy_curvature is forward over forward, the split reverse over
+    # reverse: the same forward (E0 equal), and the same CG on the same
+    # system (its right-hand side scaled by 2), which converges here.
+    checks["TFIM energy_curvature (forward over forward) vs the timed "
+           f"reverse split, rel {FWDN_ROUTE_RTOL}"] = \
+        api_vs_split <= FWDN_ROUTE_RTOL and got[0] == split[0]
     return out, checks
 
 
@@ -2064,10 +2112,9 @@ def recorded_solves():
     forward = cg._DeflatedSolve.forward
     records = []
 
-    def record(ctx, op, sign, tol, maxiter, method, precond, rhs, lam, V,
-               *rest):
-        x = forward(ctx, op, sign, tol, maxiter, method, precond, rhs, lam,
-                    V, *rest)
+    def record(op, sign, tol, maxiter, method, precond, rhs, lam, V, *rest):
+        x = forward(op, sign, tol, maxiter, method, precond, rhs, lam, V,
+                    *rest)
         records.append((rhs.detach().clone(), x.detach().clone(), op, sign,
                         lam.detach(), V.detach()))
         return x
@@ -2185,11 +2232,14 @@ def second_order_config5(pkg, spmv):
         # Both are v^T A1 v, and <P x, A1 v>: f32 sums in another order.
         "d1 vs v^T A1 v, rel 1e-5": d1_err <= 1e-5,
         "d2 vs <P x, A1 v>, 1e-5 of the sum of |terms|": d2_err <= 1e-5,
-        # The forward and the first backward are deterministic; the
-        # second is not (the plain transposed product's index_add sums
-        # with atomics, and the capped CG amplifies the difference).
-        "energy_curvature's E and dE/dg equal the split's, bitwise":
-            [t.hex() for t in got[:2]] == [t.hex() for t in split[:2]],
+        # The forward is deterministic: E bit for bit.  dE/dg is v^T A1 v
+        # both ways, a forward-mode dot against a reverse product: float32
+        # sums in other orders.  The second derivative is not compared
+        # (the capped CGs do not converge).
+        "energy_curvature's E equals the split's, bitwise":
+            got[0].hex() == split[0].hex(),
+        "energy_curvature's dE/dg vs the split's, rel 1e-5":
+            abs(got[1] - split[1]) <= 1e-5 * abs(split[1]),
         "config #5 values finite": all(math.isfinite(t)
                                        for t in split + got),
     }
@@ -2332,7 +2382,301 @@ def phase_second_order(pkg, spmv):
     failed = [name for name, ok in checks.items() if not ok]
     if failed:
         raise AssertionError(f"second_order phase failed: {failed}")
-    return {k: c5_counts[k] + block_counts[k] for k in c5_counts}
+    reverse_c5 = {"s": c5["forward_s"] + c5["backward1_s"]
+                  + c5["backward2_s"], "d2e_dg2": c5["values"]["d2e_dg2"],
+                  "cg_iterations": c5["second_backward_cg_iterations"]}
+    return {k: c5_counts[k] + block_counts[k] for k in c5_counts}, reverse_c5
+
+
+def spiked_bell(n, bs, bpr, seed, spikes=()):
+    """``(vals, cols)`` of a symmetric ring-banded blocked-ELL operator,
+    as ``tools/jax_forward_n_errors.py`` builds it (line for line): the
+    pattern of ``random_bell_operator``, values from
+    ``numpy.random.default_rng(seed)`` scaled by ``1/sqrt(bpr bs)``, the
+    diagonal block symmetrized and its first entries lowered by
+    ``spikes``; float32 values, int32 columns."""
+    nb, n_off = n // bs, (bpr - 1) // 2
+    offs = np.random.default_rng(7).permutation(np.arange(1, nb))[:n_off]
+    rng = np.random.default_rng(seed)
+    scale = 1.0 / np.sqrt(bpr * bs)
+    i = np.arange(nb)
+    d = rng.standard_normal((nb, bs, bs)) * scale
+    vals, cols = [(d + d.transpose(0, 2, 1)) / 2], [i]
+    for o in offs:
+        b = rng.standard_normal((nb, bs, bs)) * scale
+        vals += [b, b[(i - o) % nb].transpose(0, 2, 1)]
+        cols += [(i + o) % nb, (i - o) % nb]
+    vals = np.stack(vals, axis=1)
+    for j, sp in enumerate(spikes):
+        vals[0, 0, j, j] -= sp
+    return vals.astype(np.float32), np.stack(cols, axis=1).astype(np.int32)
+
+
+def coupled(pkg, a0, a1):
+    """``g -> H(g) = A0 + g A1``, a ``MatrixFreeOperator`` over two
+    operators (every product two SpMVs)."""
+    def make(g):
+        return pkg.MatrixFreeOperator(
+            lambda g, x: a0.matvec(x) + g * a1.matvec(x), g, a0.dim,
+            dtype=torch.float32)
+    return make
+
+
+@contextlib.contextmanager
+def solve_iterations():
+    """Record the iteration count of every deflated solve inside the
+    block (``ops/cg.py::_deflated_solve``, wrapped for the duration)."""
+    cg = importlib.import_module("dominantsparseeigenad_tpu_torch.ops.cg")
+    solve = cg._deflated_solve
+    its = []
+
+    def counted(*args, **kw):
+        x, n = solve(*args, **kw)
+        its.append(n)
+        return x, n
+
+    cg._deflated_solve = counted
+    try:
+        yield its
+    finally:
+        cg._deflated_solve = solve
+
+
+def tfim_point(pkg, models, g, **kw):
+    """One coupling's (E0, dE0/dg, χ_F) by one ``torch.func.jvp`` pass
+    (the sweep's per-lane computation, called alone)."""
+    g = torch.tensor(g, dtype=torch.float32, device=DEVICE)
+
+    def ground(gg):
+        return pkg.dominant_eigh(models.tfim_operator(
+            TFIM_N, gg, dtype=torch.float32, device=DEVICE), extreme="min",
+            device=DEVICE, **kw)
+
+    (lam, v), (dlam, dv) = torch.func.jvp(ground, (g,), (torch.ones_like(g),))
+    return torch.stack([lam, dlam, torch.dot(dv, dv) - torch.dot(v, dv) ** 2])
+
+
+def forward_n_tfim(pkg, spmv, models):
+    """Part (a): TFIM N = 20 by forward over forward, and the reverse
+    route of the same settings, each timed."""
+    n = TFIM_N
+
+    def make(g):
+        return models.tfim_operator(n, g, dtype=torch.float32, device=DEVICE)
+
+    kw = dict(k=TFIM_K, tol=TFIM_CG_TOL, maxiter=TFIM_CG_MAXITER)
+    # Warm-up at N = 10 through the same call.
+    pkg.energy_curvature(lambda g: models.tfim_operator(
+        TFIM_N_ED, g, dtype=torch.float32, device=DEVICE), TFIM_G,
+        device=DEVICE, **kw)
+    with solve_iterations() as its:
+        got, t_fwd = timed(lambda: [float(t) for t in pkg.energy_curvature(
+            make, TFIM_G, device=DEVICE, **kw)])
+    fwd_its = [int(i) for i in its]
+    lam, _, d1, d2, _, times, _ = curvature_split(pkg, spmv, make, TFIM_G,
+                                                  **kw)
+    rev = [float(t.detach()) for t in (lam, d1, d2)]
+    exact = (float(models.tfim_exact_e0(n, TFIM_G, device=DEVICE)),
+             models.tfim_exact_de0_dg(n, TFIM_G),
+             models.tfim_exact_d2e0_dg2(n, TFIM_G))
+    errs = dict(zip(FWDN_TFIM_RTOL, (abs(a - b) / abs(b)
+                                     for a, b in zip(got, exact))))
+    route = abs(got[2] - rev[2]) / abs(rev[2])
+    out = {"n": n, "g": TFIM_G, "k": TFIM_K, "cg_tol": TFIM_CG_TOL,
+           "cg_maxiter": TFIM_CG_MAXITER,
+           "forward_over_forward": dict(zip(FWDN_TFIM_RTOL, got)),
+           "reverse_over_reverse": dict(zip(FWDN_TFIM_RTOL, rev)),
+           "jordan_wigner": dict(zip(FWDN_TFIM_RTOL, exact)),
+           "rel_err": errs, "d2_forward_vs_reverse_rel": route,
+           "forward_over_forward_s": t_fwd,
+           "reverse_over_reverse_s": sum(times),
+           "reverse_steps_s": times, "forward_solve_iterations": fwd_its}
+    checks = {f"TFIM N={n} forward over forward {name} vs Jordan-Wigner, "
+              f"rel {FWDN_TFIM_RTOL[name]}": errs[name] <= FWDN_TFIM_RTOL[name]
+              for name in FWDN_TFIM_RTOL}
+    checks[f"TFIM d2 forward over forward vs reverse over reverse, rel "
+           f"{FWDN_ROUTE_RTOL}"] = route <= FWDN_ROUTE_RTOL
+    # The same forward: E0 is the reverse route's bit for bit.
+    checks["TFIM E0 of both routes equal"] = got[0] == rev[0]
+    return out, checks
+
+
+def forward_n_sweep(pkg, models):
+    """Part (b): the sweep by vmap against the per-point loop, in both
+    restart modes, each timed."""
+    gs = torch.linspace(*SWEEP_G, FWDN_SWEEP_POINTS, dtype=torch.float32)
+    kw = dict(k=TFIM_K, tol=TFIM_CG_TOL, maxiter=TFIM_CG_MAXITER,
+              reorth_passes=TFIM_REORTH_PASSES, reorth_chunks=SWEEP_CHUNKS,
+              basis_dtype=torch.bfloat16)
+    # Warm-up of the transforms at N = 10.
+    models.tfim_observables_sweep(TFIM_N_ED, gs[:2], dtype=torch.float32,
+                                  device=DEVICE, **kw)
+    out, checks = {}, {}
+    for mode in ("cond", "carry"):
+        rows, t_vmap = timed(lambda: models.tfim_observables_sweep(
+            TFIM_N, gs, dtype=torch.float32, device=DEVICE,
+            restart_mode=mode, **kw))
+        loop, t_loop = timed(lambda: torch.stack([
+            tfim_point(pkg, models, g, restart_mode=mode, **kw)
+            for g in gs.tolist()]))
+        rows, loop = rows.cpu(), loop.cpu()
+        vs_loop = {name: float(((rows[:, j] - loop[:, j]).abs()
+                                / loop[:, j].abs()).max())
+                   for j, name in enumerate(TFIM_RTOL)}
+        errs = [jw_errors(models, TFIM_N, g, *map(float, row))[0]
+                for g, row in zip(gs.tolist(), rows)]
+        out[mode] = {"vmap_per_point_s": t_vmap / len(gs),
+                     "loop_per_point_s": t_loop / len(gs),
+                     "vmap_vs_loop_rel": vs_loop,
+                     "max_rel_err_vs_jw": {
+                         name: max(e[name] for e in errs)
+                         for name in TFIM_RTOL},
+                     "bitwise_equal": bool(torch.equal(rows, loop))}
+        checks.update({
+            f"sweep {mode} vmap vs loop {name}, rel {TFIM_RTOL[name]}":
+            vs_loop[name] <= TFIM_RTOL[name] for name in TFIM_RTOL})
+        checks.update({
+            f"sweep {mode} {name} vs Jordan-Wigner, rel {TFIM_RTOL[name]}":
+            max(e[name] for e in errs) <= TFIM_RTOL[name]
+            for name in TFIM_RTOL})
+    out["gs"] = gs.tolist()
+    return out, checks
+
+
+def forward_n_config5(pkg, spmv, reverse):
+    """Parts (c) and (e): config #5's H(g) by one nested pass, and vmap
+    on its operator."""
+    n, bs, bpr = CONFIG5
+    torch.cuda.empty_cache()
+    a0 = pkg.random_bell_operator(
+        n, bs, bpr, generator=torch.Generator(device=DEVICE).manual_seed(7),
+        device=DEVICE)
+    a1 = pkg.random_bell_operator(
+        n, bs, bpr, generator=torch.Generator(device=DEVICE).manual_seed(8),
+        device=DEVICE)
+    make = coupled(pkg, a0, a1)
+    kw = dict(k=K, tol=CG_TOL, maxiter=CG_MAXITER)
+    before = dict(spmv.launch_counts)
+    with solve_iterations() as its:
+        got, t_nested = timed(lambda: [float(t) for t in
+                                            pkg.energy_curvature(
+                                                make, SO_G, device=DEVICE,
+                                                **kw)])
+    nested_its = [int(i) for i in its]
+    launches = {k: spmv.launch_counts[k] - before[k] for k in before}
+    # The first-order jvp's dE/dg (v^T A1 v, formed before its solve, which
+    # is capped short: the tangent of v is not read).
+    g = torch.tensor(SO_G, dtype=torch.float64, device=DEVICE)
+    _, d1_first = torch.func.jvp(
+        lambda gg: pkg.dominant_eigh(make(gg), k=K, tol=CG_TOL, maxiter=10,
+                                     device=DEVICE)[0],
+        (g,), (torch.ones_like(g),))
+    d1_first = float(d1_first)
+    d1_err = abs(got[1] - d1_first) / abs(d1_first)
+
+    # (e) vmap of a matvec: one SpMM launch, matmat bit for bit.
+    gen = torch.Generator(device=DEVICE).manual_seed(13)
+    X = torch.randn(FWDN_VMAP_R, n, generator=gen, device=DEVICE)
+    before = dict(spmv.launch_counts)
+    Y = torch.func.vmap(a0.matvec)(X)
+    torch.cuda.synchronize()
+    vmap_launches = {k: spmv.launch_counts[k] - before[k] for k in before}
+    Z = a0.matmat(X.T.contiguous())
+    # Timed apart: these launches are not the path's, and are not counted.
+    counted = dict(spmv.launch_counts)
+    vmap_ms = event_ms(lambda: torch.func.vmap(a0.matvec)(X), samples=5)
+    loop_ms = event_ms(lambda: [a0.matvec(x) for x in X], samples=5)
+    spmv.launch_counts.update(counted)
+    # vmap of a deflated solve over right-hand sides and shifts: the block
+    # CG over columns, against the block solve.
+    lam, v = pkg.dominant_eigh(a0, k=K, device=DEVICE)
+    lams = lam - 1e-2 * torch.arange(1, FWDN_VMAP_R + 1, device=DEVICE)
+    B = torch.randn(FWDN_VMAP_R, n, generator=gen, device=DEVICE)
+    solve = dict(tol=CG_TOL, maxiter=FWDN_SOLVE_MAXITER, device=DEVICE)
+    xs, t_vsolve = timed(lambda: torch.func.vmap(
+        lambda b, s: pkg.solve_deflated(a0, s, v, b, **solve))(B, lams))
+    block, t_block = timed(lambda: pkg.solve_deflated(
+        a0, lams, v[:, None], B.T.contiguous(), **solve).T)
+    solve_err = rel_err(xs, block)
+    out = {"n": n, "bs": bs, "blocks_per_row": bpr, "g": SO_G, "k": K,
+           "cg_tol": CG_TOL, "cg_maxiter": CG_MAXITER,
+           "nested": dict(zip(("e", "de_dg", "d2e_dg2"), got)),
+           "nested_s": t_nested, "nested_solve_iterations": nested_its,
+           "nested_launches": launches,
+           "reverse": reverse, "de_dg_first_order_jvp": d1_first,
+           "de_dg_rel_err": d1_err,
+           "vmap_matvec_launches": vmap_launches,
+           "vmap_matvec_ms": vmap_ms, "loop_of_matvecs_ms": loop_ms,
+           "vmap_solve_s": t_vsolve, "block_solve_s": t_block,
+           "vmap_solve_vs_block_rel": solve_err}
+    checks = {
+        "config #5 nested pass launched the banded SpMV (K4b)":
+            launches["bell_spmv_banded_f32"] > 0,
+        f"config #5 nested dE/dg vs the first-order jvp's, rel "
+        f"{FWDN_D1_RTOL}": d1_err <= FWDN_D1_RTOL,
+        "config #5 nested values finite": all(math.isfinite(t) for t in got),
+        "vmap(matvec) == matmat bit for bit": torch.equal(Y, Z.T),
+        "vmap(matvec) is one bell_spmm_banded_f32 launch and no SpMV":
+            vmap_launches["bell_spmm_banded_f32"] == 1 and all(
+                c == 0 for name, c in vmap_launches.items()
+                if name != "bell_spmm_banded_f32"),
+        f"vmap(solve_deflated) vs the block solve, rel {FWDN_SOLVE_RTOL}":
+            solve_err <= FWDN_SOLVE_RTOL,
+    }
+    del a0, a1, make
+    return out, checks
+
+
+def forward_n_small(pkg):
+    """Part (d): the small spiked shape by one nested pass against the
+    float64 sum over states of its dense H."""
+    n, bs, bpr = FWDN_SMALL
+    ops = [pkg.bell_operator_from_numpy(*spiked_bell(
+        n, bs, bpr, seed, SO_SPIKES if i == 0 else ()), n, symmetric=True,
+        device=DEVICE) for i, seed in enumerate(FWDN_SEEDS)]
+    got, t = timed(lambda: [float(x) for x in pkg.energy_curvature(
+        coupled(pkg, *ops), SO_G, k=K, tol=CG_TOL, maxiter=CG_MAXITER,
+        device=DEVICE)])
+    with torch.no_grad():
+        h0, h1 = (o.to_dense().double() for o in ops)
+        w, vec = torch.linalg.eigh(h0 + SO_G * h1)
+        m = vec.T @ (h1 @ vec[:, 0])
+        want = (float(w[0]), float(m[0]),
+                float(2.0 * torch.sum(m[1:] ** 2 / (w[0] - w[1:]))))
+    errs = dict(zip(FWDN_SMALL_RTOL, (abs(a - b) / abs(b)
+                                      for a, b in zip(got, want))))
+    out = {"n": n, "bs": bs, "blocks_per_row": bpr, "seeds": FWDN_SEEDS,
+           "spikes": SO_SPIKES, "nested": dict(zip(FWDN_SMALL_RTOL, got)),
+           "float64_sum_over_states": dict(zip(FWDN_SMALL_RTOL, want)),
+           "rel_err": errs, "rtol": FWDN_SMALL_RTOL, "nested_s": t}
+    checks = {f"small spiked {name} vs float64 sum over states, rel "
+              f"{FWDN_SMALL_RTOL[name]}": errs[name] <= FWDN_SMALL_RTOL[name]
+              for name in FWDN_SMALL_RTOL}
+    return out, checks
+
+
+def phase_forward_n(pkg, spmv, reverse_c5):
+    """Forward mode to any order, torch.func and vmap (see the module
+    docstring, phase 11); ``reverse_c5`` is the second_order phase's
+    reverse route at config #5 (time, d², CG iterations), printed beside
+    the nested pass.  Returns the phase's kernel launch counts."""
+    from dominantsparseeigenad_tpu_torch import models
+    t0 = time.perf_counter()
+    spmv.reset_launch_counts()
+    tfim, checks = forward_n_tfim(pkg, spmv, models)
+    sweep, sweep_checks = forward_n_sweep(pkg, models)
+    c5, c5_checks = forward_n_config5(pkg, spmv, reverse_c5)
+    small, small_checks = forward_n_small(pkg)
+    counts = dict(spmv.launch_counts)
+    for part in (sweep_checks, c5_checks, small_checks):
+        checks.update(part)
+    emit({"phase": "forward_n", "card": nvidia_smi_name_power(),
+          "tfim": tfim, "sweep": sweep, "config5": c5, "small": small,
+          "launches": counts, "phase_s": time.perf_counter() - t0})
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"forward_n phase failed: {failed}")
+    return counts
 
 
 def ising_split(fn, dtype, beta=None, **kw):
@@ -2414,7 +2758,7 @@ def ising_lanczos_split(models, cg):
 
 
 def phase_ising2d(pkg, spmv):
-    """BASELINE config #4 (see the module docstring, phase 11)."""
+    """BASELINE config #4 (see the module docstring, phase 12)."""
     from dominantsparseeigenad_tpu_torch import models
     cg = importlib.import_module("dominantsparseeigenad_tpu_torch.ops.cg")
     t_phase = time.perf_counter()
@@ -2518,8 +2862,12 @@ def phase_ising2d(pkg, spmv):
                 errs[key] <= rtol[key]
         checks[f"{part} values finite"] = all(
             math.isfinite(t) for t in out[part]["values"].values())
-    checks["ising_observables vs the timed split, rel 1e-10"] = \
-        out["trg_gram"]["ising_observables_vs_split_rel"] <= 1e-10
+    # ising_observables is a jvp of a jvp, the split reverse over reverse:
+    # the JAX test's bar between those two routes (tests/test_ising2d.py:
+    # 312, rtol 1e-6).
+    checks["ising_observables (forward over forward) vs the timed reverse "
+           "split, rel 1e-6"] = \
+        out["trg_gram"]["ising_observables_vs_split_rel"] <= 1e-6
     bars = ISING_AGREE["trg_lanczos_vs_gram"]
     checks[f"trg lanczos lnz vs gram, rel {bars['lnz']}"] = \
         diff["lnz"] <= bars["lnz"]
@@ -2803,7 +3151,7 @@ def eig_bell(pkg, spmv, sparse, cg):
 
 
 def phase_eig(pkg, spmv):
-    """The non-symmetric solver (see the module docstring, phase 12).
+    """The non-symmetric solver (see the module docstring, phase 13).
     Returns the kernel launch counts of its counted BellOperator run."""
     from dominantsparseeigenad_tpu_torch import models
     cg = importlib.import_module("dominantsparseeigenad_tpu_torch.ops.cg")
@@ -3080,7 +3428,7 @@ def cx_eig(pkg, cg):
 
 def phase_complex(pkg, spmv):
     """Complex operators through the solvers and derivative rules (see
-    the module docstring, phase 13).  Runs no hand-written kernel
+    the module docstring, phase 14).  Runs no hand-written kernel
     (checked: the launch counts stay 0)."""
     from dominantsparseeigenad_tpu_torch import models
     cg = importlib.import_module("dominantsparseeigenad_tpu_torch.ops.cg")
@@ -3151,12 +3499,18 @@ def main():
     panel_counts = phase_sharded()
     phase_tfim(pkg)
     phase_sweep(pkg)
-    so_counts = phase_second_order(pkg, spmv)
+    so_counts, reverse_c5 = phase_second_order(pkg, spmv)
     for name in ("bell_spmv_banded_f32", "bell_spmm_banded_f32"):
         if so_counts[name] < 1:
             raise AssertionError(f"{name} never launched on the "
                                  f"second_order path")
     counts = {k: counts[k] + so_counts[k] for k in counts}
+    fn_counts = phase_forward_n(pkg, spmv, reverse_c5)
+    for name in ("bell_spmv_banded_f32", "bell_spmm_banded_f32"):
+        if fn_counts[name] < 1:
+            raise AssertionError(f"{name} never launched on the "
+                                 f"forward_n path")
+    counts = {k: counts[k] + fn_counts[k] for k in counts}
     phase_ising2d(pkg, spmv)
     eig_counts = phase_eig(pkg, spmv)
     counts = {k: counts[k] + eig_counts[k] for k in counts}

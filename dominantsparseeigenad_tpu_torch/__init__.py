@@ -3,9 +3,13 @@
 A package of its own beside the JAX one, with the same module layout.  It
 imports ``torch`` and ``numpy`` only.  So far it covers the sparse tier's
 eigensolver paths, with derivatives to any order through the
-implicit-function-theorem rule (reverse mode; forward mode to first
-order), whose deflated solve is itself differentiable so that no
-derivative is taken through an iteration: ``dominant_eigh`` (one extremal
+implicit-function-theorem rule, in reverse mode, in forward mode
+(``torch.func.jvp`` nested to any order) and in the ``torch.func``
+transforms that mix them (``hessian``, ``jacfwd``, ``grad∘jacfwd``),
+whose deflated solve is itself differentiable so that no derivative is
+taken through an iteration; ``torch.func.vmap`` batches every solver
+(a Bell matvec becomes one SpMM, a deflated solve one block CG, the
+rest lane by lane): ``dominant_eigh`` (one extremal
 eigenpair) on a ``BellOperator`` whose every SpMV runs the hand-written
 CUDA kernel of ``csrc/bell_spmv.cu``, and the block solver
 ``dominant_eigh_multi`` (the r extremal pairs, by Lanczos or
@@ -24,7 +28,8 @@ heat differentiated through the renormalization flow, by the
 degeneracy-safe decompositions ``eigh_safe``, ``eigh_safe_truncated``,
 ``svd_safe`` and ``svd_safe_truncated`` or by the block solver
 (``dominant_svd`` on the symmetric embedding, ``dominant_eigh_multi``),
-against Onsager's solution.  The row-sharded tier is first order.
+against Onsager's solution.  The row-sharded tier is first order in
+reverse mode (its collectives carry forward mode to any order).
 The Krylov engine has the JAX package's options: chunked
 reorthogonalization, a bfloat16 basis polished by a Newton step
 (``refine_eigenpair``), a carried restart direction that needs no host

@@ -15,9 +15,10 @@ heat), and hold it against Onsager's exact solution.
   step is a Python loop, so the graph is always unrolled and
   reverse-over-reverse keeps the nested rules (``unroll=`` is accepted
   and changes nothing).
-* The specific heat is ``value_d1_d2``'s two reverse passes (PyTorch
-  does not nest forward-AD levels), where the JAX package nests two
-  forward passes.
+* The specific heat is ``value_d1_d2``'s jvp of a jvp, as the JAX
+  package nests two forward passes; ``torch.func.grad`` of
+  ``torch.func.jacfwd`` (forward over reverse) and reverse over reverse
+  give it too.
 * ``max |t|`` normalizations hit exact ties in the symmetric Ising
   tensors: ``amax`` splits the derivative evenly among them, as JAX's
   ``max`` does.  Square roots at exact zero modes are guarded by the
@@ -344,8 +345,7 @@ def ising_observables(beta, *, method: str = "trg", chi: int = 24,
     """``(ln Z/N, u, c_v)`` at ``beta``: the energy per site
     ``u = -d lnZ/dβ`` and the specific heat ``c_v = β² d² lnZ/dβ²``,
     differentiated through the whole renormalization flow
-    (:func:`~..ops.observables.value_d1_d2`: one forward and two
-    backwards, the second through the first's graph)."""
+    (:func:`~..ops.observables.value_d1_d2`: a jvp of a jvp, one pass)."""
     f = {"trg": trg_free_energy, "ctmrg": ctmrg_free_energy}[method]
     dev = resolve_device(device)
     beta = _beta(beta, dtype, dev).detach()

@@ -10,17 +10,17 @@ single-spin flips of the state), as a dense matrix for exact
 diagonalization at small N, and the Jordan-Wigner closed forms for
 validation where ED is impossible (N = 20: dim 2^20).  The observables go
 through the eigensolver: E0 and its derivatives from ``dominant_eigh``
-in either AD mode and to any order (d²E0/dg² by ``energy_curvature``),
-χ_F from one forward-mode pass.
+in either AD mode and to any order (d²E0/dg² by ``energy_curvature``, a
+jvp of a jvp), χ_F from one forward-mode pass.
 
 The JAX ``flip_sum`` contracts groups of up to 7 bits with hypercube
 adjacency matrices, a device for the TPU's matrix unit; here each flip is
 a reversed view, ``x.view(2**(n-1-i), 2, 2**i).flip(1)``.  No Pallas
 kernel is on this path, so none is owed.
 
-``tfim_observables_sweep`` runs one forward-mode pass per coupling (a
-loop over g: the JAX function vmaps it) and ``tfim_energy_gap`` the block
-solver with r = 2.  Not ported yet: the 2D model and
+``tfim_observables_sweep`` is ``torch.func.vmap`` of one forward-mode
+pass, as the JAX function, and ``tfim_energy_gap`` the block solver with
+r = 2.  Not ported yet: the 2D model and
 ``tfim_sharded_operator`` (``ROADMAP.md`` queue 1 items 13 and 14).
 """
 
@@ -28,7 +28,6 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-import torch.autograd.forward_ad as fwAD
 
 from ..ops.eigh import dominant_eigh, dominant_eigh_multi
 from ..ops.observables import fidelity_susceptibility as _chi
@@ -159,8 +158,8 @@ def tfim_exact_chi_f(n: int, g: float) -> float:
 def tfim_ground_energy(n: int, g, *, k: int = 100, tol: float = 1e-10,
                        dtype=torch.float64, device=None):
     """E0(g) through the matrix-free Lanczos eigensolver, differentiable
-    in ``g`` to any order in reverse mode (``create_graph=True``), and to
-    first order in forward mode."""
+    in ``g`` to any order in either mode (``create_graph=True``, or
+    ``torch.func`` transforms nested at will)."""
     lam, _ = tfim_ground_state(n, g, k=k, tol=tol, dtype=dtype,
                                device=device)
     return lam
@@ -169,7 +168,7 @@ def tfim_ground_energy(n: int, g, *, k: int = 100, tol: float = 1e-10,
 def tfim_ground_state(n: int, g, *, k: int = 100, tol: float = 1e-10,
                       dtype=torch.float64, device=None):
     """(E0, |ψ0>) through the eigensolver, differentiable to any order
-    in reverse mode, to first order in forward mode."""
+    in either mode."""
     dev = resolve_device(device)
     return dominant_eigh(tfim_operator(n, g, dtype=dtype, device=dev),
                          k=min(k, 1 << n), extreme="min", tol=tol,
@@ -201,38 +200,40 @@ def tfim_energy_gap(n: int, g, *, k: int = 100, tol: float = 1e-10,
 def tfim_observables_sweep(n: int, gs, *, k: int = 100, tol: float = 1e-10,
                            maxiter: int | None = None, dtype=torch.float64,
                            device=None, **eigh_kwargs):
-    """(E0, dE0/dg, χ_F) over a sequence of couplings ``gs``: one
-    forward-mode pass through ``dominant_eigh`` per point (its IFT
-    tangent gives dE0/dg and ∂ψ/∂g), χ_F = <∂ψ|∂ψ> - <ψ|∂ψ>².
+    """(E0, dE0/dg, χ_F) over a sequence of couplings ``gs``, as the JAX
+    function computes it: ``torch.func.vmap`` of one ``torch.func.jvp``
+    pass through ``dominant_eigh`` (its IFT tangent gives dE0/dg and
+    ∂ψ/∂g), χ_F = <∂ψ|∂ψ> - |<ψ|∂ψ>|².
 
     Returns a (len(gs), 3) tensor on the device, stacked there and read
     by nothing here.  Other keyword arguments go to
     :func:`~..ops.eigh.dominant_eigh` (e.g. ``basis_dtype=torch.bfloat16,
-    reorth_chunks=8``); ``restart_mode`` defaults to "carry", as in the
-    JAX function, wherever ``dominant_eigh`` accepts it (not with
-    ``restart_cycles`` or ``early_exit_tol``).  The zz diagonal is built
-    once for the whole sweep.
+    reorth_chunks=8``).  ``restart_mode`` keeps ``dominant_eigh``'s
+    default, "cond", where the JAX function sets "carry": the solver's
+    ``vmap`` rule runs each lane's Lanczos on its own (the host reads of
+    "cond" are allowed there, and no lane pays the other mode's per-step
+    work), and on the H100 "carry" was the slower step in all four of
+    PR 9's readings (launch-bound steps, ``PERF.md``).  The zz diagonal
+    is built once for the whole sweep.
     """
     dev = resolve_device(device)
     diag = tfim_zz_diagonal(n, dtype=dtype, device=dev)
-    if (not eigh_kwargs.get("restart_cycles")
-            and eigh_kwargs.get("early_exit_tol") is None):
-        eigh_kwargs.setdefault("restart_mode", "carry")
-    rows = []
-    with torch.no_grad(), fwAD.dual_level():
-        for g in torch.as_tensor(gs, dtype=dtype).tolist():
-            gd = fwAD.make_dual(torch.tensor(g, dtype=dtype, device=dev),
-                                torch.ones((), dtype=dtype, device=dev))
-            op = MatrixFreeOperator(tfim_matvec, (gd, diag), dim=1 << n,
+    gs = torch.as_tensor(gs, dtype=dtype).to(dev)
+    kk = min(k, 1 << n)
+
+    def one(g):
+        def ground(gg):
+            op = MatrixFreeOperator(tfim_matvec, (gg, diag), dim=1 << n,
                                     dtype=dtype)
-            lam, v = dominant_eigh(op, k=min(k, 1 << n), extreme="min",
-                                   tol=tol, maxiter=maxiter, device=dev,
-                                   **eigh_kwargs)
-            e0, de0 = fwAD.unpack_dual(lam)
-            psi, dpsi = fwAD.unpack_dual(v)
-            rows.append(torch.stack(
-                [e0, de0, hdot(dpsi, dpsi) - hdot(psi, dpsi) ** 2]))
-    return torch.stack(rows)
+            return dominant_eigh(op, k=kk, extreme="min", tol=tol,
+                                 maxiter=maxiter, device=dev, **eigh_kwargs)
+
+        (lam, v), (dlam, dv) = torch.func.jvp(ground, (g,),
+                                              (torch.ones_like(g),))
+        chi = hdot(dv, dv).real - hdot(v, dv).abs() ** 2
+        return torch.stack([lam, dlam, chi])
+
+    return torch.func.vmap(one)(gs)
 
 
 def tfim_ed_observables(n: int, g, dtype=torch.float64, device=None):

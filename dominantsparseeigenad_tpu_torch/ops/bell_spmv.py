@@ -39,7 +39,8 @@ once, when it binds the plan, and its products never read ``cols`` back.
 The kernels run forward only.  Gradients come from the plain math in the
 backward of :class:`_BellProduct`, as the JAX kernels' JVPs go through
 XLA; its forward-mode ``jvp`` runs the kernels on the tangents (the map is
-bilinear).
+bilinear), to any order, and its ``vmap`` turns a batch of vectors into
+one SpMM, as JAX's ``bell_spmm`` is the batched ``bell_spmv``.
 
 The kernels are compiled on first use with ``nvcc``, one process per
 source started together, and linked into one shared library with a plain
@@ -61,6 +62,8 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+from .operators import _per_lane, nestable_jvp
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _SRC = _CSRC / "bell_spmv.cu"          # the SpMV kernel's source
@@ -432,24 +435,34 @@ def _product(vals, cols, x, plan):
 class _BellProduct(torch.autograd.Function):
     """Kernel forward for ``x`` (N,) or ``X`` (N, r); backward in plain
     PyTorch; forward mode on the kernels, ``dy = A(dvals) x + A(vals) dx``
-    (the map is bilinear in ``vals`` and ``x``)."""
+    (the map is bilinear in ``vals`` and ``x``), each term this Function
+    again, so an outer jvp level differentiates it too.  Under
+    ``torch.func.vmap`` a batch of vectors over shared values is one
+    SpMM: B vectors x (N,) become X (N, B) (an (N, r) block, (N, r B)),
+    the call ``matmat`` makes; batched values go lane by lane."""
 
     @staticmethod
-    def forward(ctx, vals, cols, x, plan):
-        ctx.save_for_backward(vals, cols, x)
-        ctx.save_for_forward(vals, cols, x)
-        ctx.plan = plan
+    def forward(vals, cols, x, plan):
         return _product(vals, cols, x, plan)
 
     @staticmethod
+    def setup_context(ctx, inputs, output):
+        vals, cols, x, plan = inputs
+        ctx.save_for_backward(vals, cols, x)
+        ctx.save_for_forward(vals, cols, x)
+        ctx.plan = plan
+
+    @staticmethod
+    @nestable_jvp
     def jvp(ctx, dvals, _, dx, __):
         vals, cols, x = ctx.saved_tensors
-        dy = torch.zeros_like(_output(vals, x))
+        dy = None
         if dvals is not None:
-            dy = dy + _product(dvals.contiguous(), cols, x, ctx.plan)
+            dy = _BellProduct.apply(dvals.contiguous(), cols, x, ctx.plan)
         if dx is not None:
-            dy = dy + _product(vals, cols, dx.contiguous(), ctx.plan)
-        return dy
+            term = _BellProduct.apply(vals, cols, dx.contiguous(), ctx.plan)
+            dy = term if dy is None else dy + term
+        return torch.zeros_like(_output(vals, x)) if dy is None else dy
 
     @staticmethod
     def backward(ctx, y_bar):
@@ -468,6 +481,17 @@ class _BellProduct(torch.autograd.Function):
                 vals, cols, y_bar.reshape(nb * bs, -1),
                 x.shape[0] // bs).reshape(x.shape)
         return vals_bar, None, x_bar, None
+
+    @staticmethod
+    def vmap(info, in_dims, vals, cols, x, plan):
+        vals_dim, cols_dim, x_dim, _ = in_dims
+        if vals_dim is not None or cols_dim is not None:
+            return _per_lane(_BellProduct, info, in_dims,
+                             (vals, cols, x, plan))
+        lanes = x.movedim(x_dim, -1)            # (N, B) or (N, r, B)
+        y = _BellProduct.apply(
+            vals, cols, lanes.reshape(lanes.shape[0], -1).contiguous(), plan)
+        return y.reshape(y.shape[0], *lanes.shape[1:]), lanes.ndim - 1
 
 
 def _bare_plan(vals, cols, x, slot_plan):

@@ -13,8 +13,10 @@ differentiable to any order, the counterpart of the
 backward is one more deflated solve, by the same method and with the
 same preconditioner, and one deflated product (:class:`_DeflatedSolve`),
 so the IFT rules of ``eigh.py`` that call it differentiate again under
-``create_graph``.  ``solve_spd`` and ``solve_symmetric`` are the same
-Function with nothing deflated.
+``create_graph``; its ``jvp`` is one more solve too (forward mode to any
+order), and under ``torch.func.vmap`` a batch of right-hand sides is
+one batched CG over the columns.  ``solve_spd`` and ``solve_symmetric``
+are the same Function with nothing deflated.
 
 The non-symmetric solvers: ``bicgstab``, ``gmres`` (restarted, its small
 Hessenberg least squares solved on the device by a QR and a masked
@@ -40,8 +42,9 @@ from typing import Callable
 import torch
 
 from .lanczos import arnoldi_step
-from .operators import (LinearOperator, as_operator, check_device, hdot,
-                        hmatmul, partial_vjp, tol_floor)
+from .operators import (LinearOperator, _per_lane, as_operator,
+                        check_device, hdot, hmatmul, nestable_jvp,
+                        partial_vjp, per_lane_vmap, rebind, tol_floor)
 from .precond import _apply_columns
 
 # The JAX loops test the residual on the device every iteration inside a
@@ -499,6 +502,54 @@ def _cg_columns_loop(matmat: Callable, B, tol: float, maxiter,
     return X, its
 
 
+def _tangent_product(op, x, dparams, transpose=False):
+    """``(dA) x`` (``(dA)^T x`` with ``transpose``; ``x`` (N,) or (N, m))
+    along the parameters' tangents, or None when none moves."""
+    if all(t is None for t in dparams):
+        return None
+    if transpose:
+        return op.tangent_rmatvec(x, dparams)
+    if x.ndim == 2:
+        return op.tangent_matmat(x, dparams)
+    return op.tangent_matvec(x, dparams)
+
+
+def _add(a, b):
+    """``a + b`` where either may be None (a zero)."""
+    return b if a is None else a if b is None else a + b
+
+
+def _projector_tangent(V, dV, z):
+    """``(dP) z`` for ``P = I - V V^H``: ``-(dV V^H z + V dV^H z)``."""
+    if V.ndim == 1:
+        V, dV = V[:, None], dV[:, None]
+    return -(hmatmul(dV, hmatmul(V.mH, z)) + hmatmul(V, hmatmul(dV.mH, z)))
+
+
+def _deflated_mv_tangent(op, lam, V, sign, x, dlam, dV, dparams):
+    """The tangent of ``x -> sign P (A - λ) P x`` at a fixed ``x`` along
+    ``(dλ, dV, dθ)`` (the ``Ṁ x`` of the solve's JVP), or None when
+    nothing moves:
+
+        y = P x,  u = A y - λ y,
+        Ṁ x = sign (dP u + P (dA y + A dP x - dλ y - λ dP x))."""
+    batched = x.ndim == 2
+    y = _project_out(V, x)
+    dy = None if dV is None else _projector_tangent(V, dV, x)
+    du = _tangent_product(op, y, dparams)
+    if dlam is not None:
+        du = _add(du, -(y * dlam[None, :] if batched else dlam * y))
+    if dy is not None:
+        a_dy = op.matmat(dy) if batched else op.matvec(dy)
+        du = _add(du, a_dy - (dy * lam[None, :] if batched else lam * dy))
+    out = None if du is None else _project_out(V, du)
+    if dV is not None:
+        u = (op.matmat(y) - y * lam[None, :]) if batched \
+            else op.matvec(y) - lam * y
+        out = _add(out, _projector_tangent(V, dV, u))
+    return None if out is None else sign * out
+
+
 class _DeflatedSolve(torch.autograd.Function):
     """``x = M^+ rhs`` for ``M = sign P (A(θ) - λ) P``, differentiable in
     ``rhs``, ``λ``, ``V`` and the operator's parameters θ by the rule of
@@ -508,36 +559,86 @@ class _DeflatedSolve(torch.autograd.Function):
         w = M^+ x̄,   rhs̄ = w,   (λ̄, V̄, θ̄) = -∂/∂(λ, V, θ) <w, M x>,
 
     the last with x held constant: one more solve (the same ``method``
-    and preconditioner) and one deflated product per backward.  For a
-    complex Hermitian M, ``x̄`` is PyTorch's (conjugate) gradient and the
-    solve it needs is by ``M^H = M``, so the rule is the same.  The
-    forward runs the solver with no graph (no iteration is ever
-    recorded); the backward is built of this Function and differentiable
-    operations only, so under ``create_graph`` it differentiates again,
-    to any order.  An empty (N, 0) ``V`` deflates nothing: that is
-    :func:`solve_spd` and :func:`solve_symmetric`."""
+    and preconditioner) and one deflated product per backward.  Forward
+    mode is the JVP of the same rule, one more solve of this Function,
+
+        ẋ = M^+ (rhs̊ - Ṁ x),
+
+    ``Ṁ x`` carrying the tangents of λ, V and θ (:func:`_deflated_mv_tangent`).
+    For a complex Hermitian M, ``x̄`` is PyTorch's (conjugate) gradient
+    and the solve it needs is by ``M^H = M``, so the rule is the same.
+    The forward runs the solver with no graph (no iteration is ever
+    recorded); the rules are built of this Function and differentiable
+    operations only, on the operator rebuilt from the parameters they are
+    handed, so they differentiate again, in either mode, to any order.
+    Under ``torch.func.vmap`` a batch of right-hand sides (and shifts)
+    over a shared operator and V is one batched CG over the columns, one
+    matmat per iteration (the vmapped solve of JAX's block rule);
+    anything else goes lane by lane.  An empty (N, 0) ``V`` deflates
+    nothing: that is :func:`solve_spd` and :func:`solve_symmetric`."""
 
     @staticmethod
-    def forward(ctx, op, sign, tol, maxiter, method, precond, rhs, lam, V,
+    def forward(op, sign, tol, maxiter, method, precond, rhs, lam, V,
                 *params):
-        x, _ = _deflated_solve(op, lam, V, rhs, sign, tol, maxiter, method,
-                               precond)
-        ctx.op, ctx.cfg = op, (sign, tol, maxiter, method, precond)
-        ctx.save_for_backward(x, lam, V)
+        x, _ = _deflated_solve(rebind(op, params), lam, V, rhs, sign,
+                               tol, maxiter, method, precond)
         return x
 
     @staticmethod
+    def setup_context(ctx, inputs, output):
+        op, sign, tol, maxiter, method, precond, rhs, lam, V, *params = inputs
+        ctx.op, ctx.cfg = op, (sign, tol, maxiter, method, precond)
+        ctx.save_for_backward(output, lam, V, *params)
+        ctx.save_for_forward(output, lam, V, *params)
+
+    @staticmethod
+    @nestable_jvp
+    def jvp(ctx, _op, _sign, _tol, _maxiter, _method, _precond, drhs, dlam,
+            dV, *dparams):
+        x, lam, V, *params = ctx.saved_tensors
+        op = rebind(ctx.op, params)
+        mdot = _deflated_mv_tangent(op, lam, V, ctx.cfg[0], x, dlam, dV,
+                                    dparams)
+        b = drhs if mdot is None else \
+            -mdot if drhs is None else drhs - mdot
+        if b is None:
+            return torch.zeros_like(x)
+        return _DeflatedSolve.apply(ctx.op, *ctx.cfg, b, lam, V, *params)
+
+    @staticmethod
     def backward(ctx, x_bar):
-        op, cfg = ctx.op, ctx.cfg
-        sign = cfg[0]
-        x, lam, V = ctx.saved_tensors
-        w = _DeflatedSolve.apply(op, *cfg, x_bar, lam, V, *op.parameters())
+        sign = ctx.cfg[0]
+        x, lam, V, *params = ctx.saved_tensors
+        op = rebind(ctx.op, params)
+        w = _DeflatedSolve.apply(ctx.op, *ctx.cfg, x_bar, lam, V, *params)
         grads = partial_vjp(
             op, lambda held, lam_, V_: _deflated_mv(held, lam_, V_, sign,
                                                     x.ndim == 2)(x),
             [lam, V], -w, ctx.needs_input_grad[7:])
         rhs_bar = w if ctx.needs_input_grad[6] else None
         return (None,) * 6 + (rhs_bar, *grads)
+
+    @staticmethod
+    def vmap(info, in_dims, op, sign, tol, maxiter, method, precond, rhs,
+             lam, V, *params):
+        rhs_dim, lam_dim, v_dim = in_dims[6:9]
+        if method != "cg" or v_dim is not None or any(
+                d is not None for d in in_dims[9:]):
+            return _per_lane(_DeflatedSolve, info, in_dims,
+                             (op, sign, tol, maxiter, method, precond, rhs,
+                              lam, V, *params))
+        # The lanes become columns: rhs (N[, m]) -> (N, [m *] B), one
+        # shift per column.
+        nb = info.batch_size
+        rhs = rhs.unsqueeze(-1).expand(*rhs.shape, nb) if rhs_dim is None \
+            else rhs.movedim(rhs_dim, -1)
+        lam = lam.unsqueeze(-1).expand(*lam.shape, nb) if lam_dim is None \
+            else lam.movedim(lam_dim, -1)
+        cols = rhs.reshape(rhs.shape[0], -1).contiguous()
+        x = _DeflatedSolve.apply(op, sign, tol, maxiter, method, precond,
+                                 cols, lam.reshape(-1),
+                                 V[:, None] if V.ndim == 1 else V, *params)
+        return x.reshape(rhs.shape), rhs.ndim - 1
 
 
 def _shifts(lam, b):
@@ -597,8 +698,10 @@ def solve_deflated(op, lam, V, b, *, definite_sign: float = 1.0,
     projected (``P M P``) by either solver and, for an (N, m) ``b``,
     column by column.  The returned x solves the unsigned equation and is
     the solution orthogonal to V.  It is differentiable in ``b``,
-    ``lam``, ``V`` and ``op.parameters()``, to any order, and no
-    derivative is taken through the solver's iterations.
+    ``lam``, ``V`` and ``op.parameters()``, to any order in either mode
+    (``torch.func`` transforms included), and no derivative is taken
+    through the solver's iterations.  Under ``torch.func.vmap`` over
+    ``b`` and ``lam`` (a shared operator and V) it is one batched CG.
     """
     if method not in ("cg", "minres"):
         raise ValueError(f"method must be cg|minres, got {method!r}")
@@ -694,6 +797,29 @@ def _general_loop(mv, rmv, rhs, tol, maxiter, method):
     return _cg_loop(lambda x: adj(mv(x)), adj(rhs), tol, maxiter)[0]
 
 
+def _bordered_mv_tangent(op, transpose, lam, U, W, z, dlam, dU, dW,
+                         dparams):
+    """The tangent of ``z -> B z`` (:func:`_bordered_mv`) at a fixed
+    ``z = (x; ν)`` along ``(dλ, dU, dW, dθ)``, or None when nothing
+    moves: ``(dA x - dλ x + conj(dU) ν; conj(dW)^T x)``."""
+    n = op.dim
+    x, nu = z[:n], z[n:]
+    top = _tangent_product(op, x, dparams, transpose)
+    if dlam is not None:
+        top = _add(top, -dlam * x)
+    if dU is not None:
+        top = _add(top, hmatmul(dU.conj(), nu))
+    bottom = None if dW is None else hmatmul(dW.conj().T, x)
+    if top is None and bottom is None:
+        return None
+    if top is None:
+        top = torch.zeros_like(x)
+    if bottom is None:
+        bottom = torch.zeros_like(nu)
+    return torch.cat([top, bottom])
+
+
+@per_lane_vmap
 class _GeneralSolve(torch.autograd.Function):
     """``z = B^{-1} rhs`` for the bordered matrix B of
     :func:`_bordered_mv` (A itself when the border is empty and λ = 0),
@@ -707,29 +833,50 @@ class _GeneralSolve(torch.autograd.Function):
 
     the transposed solve being this Function on ``A^T`` with U and W
     swapped (between two conjugations, the identity for real dtypes), and
-    the last term one bordered product with z held constant.  The forward
-    records no graph; the backward is built of this Function and
-    differentiable operations, so it differentiates again under
-    ``create_graph``."""
+    the last term one bordered product with z held constant.  Forward
+    mode is one more solve of this Function, ``ż = B^{-1} (rhs̊ - Ḃ z)``
+    (:func:`_bordered_mv_tangent`).  The forward records no graph; the
+    rules are built of this Function and differentiable operations on
+    the operator rebuilt from their parameters, so they differentiate
+    again, in either mode; ``vmap`` goes lane by lane."""
 
     @staticmethod
-    def forward(ctx, op, transpose, tol, maxiter, method, rhs, lam, U, W,
+    def forward(op, transpose, tol, maxiter, method, rhs, lam, U, W,
                 *params):
+        op = rebind(op, params)
         mv = _bordered_mv(op, transpose, lam, U, W)
         rmv = _bordered_mv(op, not transpose, lam, W, U)
-        z = _general_loop(mv, rmv, rhs, tol, maxiter, method)
+        return _general_loop(mv, rmv, rhs, tol, maxiter, method)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        op, transpose, tol, maxiter, method, rhs, lam, U, W, *params = inputs
         ctx.op, ctx.cfg = op, (transpose, tol, maxiter, method)
-        ctx.save_for_backward(z, lam, U, W)
-        return z
+        ctx.save_for_backward(output, lam, U, W, *params)
+        ctx.save_for_forward(output, lam, U, W, *params)
+
+    @staticmethod
+    @nestable_jvp
+    def jvp(ctx, _op, _transpose, _tol, _maxiter, _method, drhs, dlam, dU,
+            dW, *dparams):
+        z, lam, U, W, *params = ctx.saved_tensors
+        transpose = ctx.cfg[0]
+        op = rebind(ctx.op, params)
+        bdot = _bordered_mv_tangent(op, transpose, lam, U, W, z, dlam, dU,
+                                    dW, dparams)
+        b = drhs if bdot is None else \
+            -bdot if drhs is None else drhs - bdot
+        if b is None:
+            return torch.zeros_like(z)
+        return _GeneralSolve.apply(ctx.op, *ctx.cfg, b, lam, U, W, *params)
 
     @staticmethod
     def backward(ctx, z_bar):
-        op = ctx.op
         transpose, tol, maxiter, method = ctx.cfg
-        z, lam, U, W = ctx.saved_tensors
-        y = _GeneralSolve.apply(op, not transpose, tol, maxiter, method,
-                                z_bar.conj(), lam, W, U,
-                                *op.parameters()).conj()
+        z, lam, U, W, *params = ctx.saved_tensors
+        op = rebind(ctx.op, params)
+        y = _GeneralSolve.apply(ctx.op, not transpose, tol, maxiter, method,
+                                z_bar.conj(), lam, W, U, *params).conj()
         grads = partial_vjp(
             op, lambda held, lam_, U_, W_: _bordered_mv(
                 held, transpose, lam_, U_, W_)(z),

@@ -17,19 +17,22 @@ energy, specific heat) lose nothing by it.
 Each decomposition is a ``torch.autograd.Function``.  Its forward runs
 ``torch.linalg.eigh``, ``svd`` or ``qr`` on the detached input; its
 ``jvp`` is the JAX package's tangent rule (for
-``torch.autograd.forward_ad``); its ``backward`` is the transpose of that
-rule, written in differentiable tensor operations, so that a
-``create_graph`` backward records a graph that differentiates again,
-degeneracy-safe to any order, never reaching PyTorch's own derivative of
-a decomposition:
+``torch.autograd.forward_ad`` and ``torch.func.jvp``, nested to any
+order); its ``backward`` is the transpose of that rule.  Both are
+written in differentiable tensor operations and the safe Functions
+themselves, so that either differentiates again, in either mode
+(``grad∘jacfwd`` and ``hessian`` included), degeneracy-safe to any
+order, never reaching PyTorch's own derivative of a decomposition;
+``vmap`` goes lane by lane:
 
 * ``eigh_safe`` and ``svd_safe`` build their backward on the Function's
   saved outputs, so the second derivative flows back into the same rule
   (the JAX rule calls ``eigh_safe``/``svd_safe`` again);
 * the truncated forms need the full basis (or the sketch window), which
-  is not an output: their backward computes it again from the saved
-  input through the safe decomposition, ``eigh_safe(a)`` and the k-window
-  ``svd_safe_truncated(a, k, eps, 0, power_iters)``, as the JAX rules do.
+  is not an output: their backward and their jvp compute it again from
+  the saved input through the safe decomposition, ``eigh_safe(a)`` and
+  the k-window ``svd_safe_truncated(a, k, eps, 0, power_iters)``, as the
+  JAX rules do.
 
 The truncated SVD sketches with a fixed Gaussian Ω.  JAX draws it from
 ``PRNGKey(0x5eed)``; here it comes from a CPU ``torch.Generator`` seeded
@@ -50,7 +53,8 @@ import functools
 
 import torch
 
-from .operators import check_device, hmatmul
+from .operators import (check_device, hmatmul, nestable_jvp,
+                        outside_transforms, per_lane_vmap)
 
 _SEED = 0x5eed
 
@@ -97,18 +101,23 @@ def _kept_mask(rows: int, r: int, diagonal, device):
     return i == diagonal(j)
 
 
+@per_lane_vmap
 class _EighSafe(torch.autograd.Function):
     """``(w, v) = eigh((a + aᴴ)/2)``, ascending, with broadened tangents
     ``dw = Re diag(M)``, ``dv = V (F ∘ M)``, ``M = Vᴴ sym(dA) V``;
     backward ``ā = sym(V (diag(w̄) + F ∘ Vᴴ v̄) Vᴴ)``."""
 
     @staticmethod
-    def forward(ctx, a, eps):
+    def forward(a, eps):
         w, v = torch.linalg.eigh(_sym(a))
-        ctx.eps = _eps_floor(eps, a.dtype)
-        ctx.save_for_backward(w, v)
-        ctx.save_for_forward(w, v)
         return w, v
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        a, eps = inputs
+        ctx.eps = _eps_floor(eps, a.dtype)
+        ctx.save_for_backward(*output)
+        ctx.save_for_forward(*output)
 
     @staticmethod
     def _f(w, eps):
@@ -117,6 +126,7 @@ class _EighSafe(torch.autograd.Function):
                                     device=w.device))
 
     @staticmethod
+    @nestable_jvp
     def jvp(ctx, da, _eps):
         w, v = ctx.saved_tensors
         m = hmatmul(hmatmul(v.mH, _sym(da)), v)
@@ -144,23 +154,31 @@ def _eigh_truncated_tangent(w_full, v_full, r, eps):
     return w, v, torch.where(mask, torch.zeros_like(f), f)
 
 
+@per_lane_vmap
 class _EighSafeTruncated(torch.autograd.Function):
     """The r largest eigenpairs, descending, with tangents only for the
     kept columns (O(n² r) rule)."""
 
     @staticmethod
-    def forward(ctx, a, r, eps):
+    def forward(a, r, eps):
         w_full, v_full = torch.linalg.eigh(_sym(a))
         w, v = _flip_top(w_full, v_full, r)
-        ctx.r, ctx.eps = r, _eps_floor(eps, a.dtype)
-        ctx.save_for_backward(a)
-        ctx.save_for_forward(a)
         return w.clone(), v.clone()
 
     @staticmethod
+    def setup_context(ctx, inputs, output):
+        a, r, eps = inputs
+        ctx.r, ctx.eps = r, _eps_floor(eps, a.dtype)
+        ctx.save_for_backward(a)
+        ctx.save_for_forward(a)
+
+    @staticmethod
+    @nestable_jvp
     def jvp(ctx, da, _r, _eps):
         (a,) = ctx.saved_tensors
-        w_full, v_full = torch.linalg.eigh(_sym(a))
+        # The full basis through the safe decomposition, so that the
+        # tangent differentiates again (reverse or forward) safely.
+        w_full, v_full = _EighSafe.apply(a, ctx.eps)
         _, v, f = _eigh_truncated_tangent(w_full, v_full, ctx.r, ctx.eps)
         da_v = hmatmul(_sym(da), v)
         dw = (v.conj() * da_v).real.sum(dim=0)
@@ -178,17 +196,22 @@ class _EighSafeTruncated(torch.autograd.Function):
         return _sym(hmatmul(k, v.mH)), None, None
 
 
+@per_lane_vmap
 class _SvdSafe(torch.autograd.Function):
     """Economy SVD of a square matrix, descending, with broadened
     ``1/(s_j² - s_i²)`` factors."""
 
     @staticmethod
-    def forward(ctx, a, eps):
+    def forward(a, eps):
         u, s, vt = torch.linalg.svd(a, full_matrices=False)
-        ctx.eps = _eps_floor(eps, a.dtype)
-        ctx.save_for_backward(u, s, vt)
-        ctx.save_for_forward(u, s, vt)
         return u, s, vt
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        a, eps = inputs
+        ctx.eps = _eps_floor(eps, a.dtype)
+        ctx.save_for_backward(*output)
+        ctx.save_for_forward(*output)
 
     @staticmethod
     def _f(s, eps):
@@ -202,6 +225,7 @@ class _SvdSafe(torch.autograd.Function):
         return 1.0 / torch.clamp(s, min=torch.finfo(s.dtype).tiny)
 
     @staticmethod
+    @nestable_jvp
     def jvp(ctx, da, _eps):
         u, s, vt = ctx.saved_tensors
         v = vt.mH
@@ -235,7 +259,9 @@ def _default_omega(m: int, k: int, dtype, device) -> torch.Tensor:
     """The fixed Gaussian sketch (m, k): drawn on the CPU from a generator
     seeded 0x5eed in ``dtype``, then moved to ``device``."""
     gen = torch.Generator().manual_seed(_SEED)
-    return torch.randn((m, k), generator=gen, dtype=dtype).to(device)
+    # A draw that depends on no input: under vmap, one Ω for every lane.
+    with outside_transforms():
+        return torch.randn((m, k), generator=gen, dtype=dtype).to(device)
 
 
 def _sketch_svd(a, r, power_iters, omega):
@@ -272,6 +298,7 @@ def _svd_truncated_parts(uk, sk, vtk, r, eps):
     return u, s, v, vk, f, sinv
 
 
+@per_lane_vmap
 class _SvdSafeTruncated(torch.autograd.Function):
     """Top-r SVD by a randomized subspace sketch, with the truncated
     tangent rule (kept-block rotations against the k-window through
@@ -280,19 +307,27 @@ class _SvdSafeTruncated(torch.autograd.Function):
     a complex matrix the relative-phase term on du)."""
 
     @staticmethod
-    def forward(ctx, a, r, eps, oversample, power_iters, omega):
+    def forward(a, r, eps, oversample, power_iters, omega):
         u, s, vt = _sketch_svd(a, r, power_iters, omega)
+        return u.clone(), s.clone(), vt.clone()
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        a, r, eps, oversample, power_iters, omega = inputs
         ctx.cfg = (r, _eps_floor(eps, a.dtype), power_iters,
                    _sketch_rank(a, r, oversample))
         ctx.save_for_backward(a, omega)
         ctx.save_for_forward(a, omega)
-        return u.clone(), s.clone(), vt.clone()
 
     @staticmethod
+    @nestable_jvp
     def jvp(ctx, da, *_):
         r, eps, power_iters, k = ctx.cfg
         a, omega = ctx.saved_tensors
-        uk, sk, vtk = _sketch_svd(a, k, power_iters, omega)
+        # The sketch window through this same Function (as the backward
+        # takes it), so that the tangent differentiates again safely.
+        uk, sk, vtk = _SvdSafeTruncated.apply(a, k, eps, 0, power_iters,
+                                              omega)
         u, s, v, vk, f, sinv = _svd_truncated_parts(uk, sk, vtk, r, eps)
         da_v = hmatmul(da, v)
         dat_u = hmatmul(da.mH, u)

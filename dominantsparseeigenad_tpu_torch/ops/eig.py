@@ -84,8 +84,9 @@ import torch
 from .cg import CHECK_EVERY, _GeneralSolve
 from .lanczos import arnoldi_step
 from .operators import (LinearOperator, MatrixFreeOperator, as_operator,
-                        check_device, hdot, hmatmul, partial_vjp, pivot_gauge,
-                        real_dtype, tol_floor)
+                        check_device, hdot, hmatmul, nestable_jvp,
+                        partial_vjp, per_lane_vmap, pivot_gauge, real_dtype,
+                        rebind, tol_floor)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -290,35 +291,53 @@ def _phase_shift_cotangent(r, g):
     return g + 1j * (hdot(g, r).imag / r[p].real) * e
 
 
-def _save(ctx, op, opts, with_info, lam, l, r, info):
-    """The forward's bookkeeping, shared by :class:`_DominantEig` and
+def _outputs(with_info, lam, l, r, info):
+    """The Function's outputs: ``(λ, l, r)``, then the info fields."""
+    return (lam, l, r, *(tuple(info) if with_info else ()))
+
+
+def _setup(ctx, inputs, output, op):
+    """The bookkeeping of :class:`_DominantEig` and
     :class:`_DominantEigPair`: ``op`` is the operator the rules apply
-    (lifted to complex vectors for a pair)."""
-    info = tuple(info) if with_info else ()
-    ctx.op, ctx.opts, ctx.n_info = op, opts, len(info)
-    ctx.save_for_backward(lam, l, r)
-    ctx.save_for_forward(lam, l, r)
-    ctx.mark_non_differentiable(*info)
+    (lifted to complex vectors for a pair), rebuilt by the rules on the
+    saved parameters."""
+    _, opts, _, *params = inputs
+    ctx.op, ctx.opts, ctx.n_info = op, opts, len(output) - 3
+    ctx.save_for_backward(*output[:3], *params)
+    ctx.save_for_forward(*output[:3], *params)
+    ctx.mark_non_differentiable(*output[3:])
     # An output the loss does not use brings no cotangent (None) and
     # costs no solve.
     ctx.set_materialize_grads(False)
-    return (lam, l, r, *info)
 
 
+def _saved(ctx):
+    """``(op, λ, l, r)``: the rules' operator on the saved parameters."""
+    lam, l, r, *params = ctx.saved_tensors
+    return rebind(ctx.op, params), lam, l, r
+
+
+@per_lane_vmap
 class _DominantEig(torch.autograd.Function):
     """Outputs ``(λ, l, r)``, then the four :class:`PowerInfo` fields
     with ``with_info`` (see the module docstring for the rules)."""
 
     @staticmethod
-    def forward(ctx, op, opts, with_info, *params):
-        return _save(ctx, op, opts, with_info, *_power_pair(op, opts))
+    def forward(op, opts, with_info, *params):
+        return _outputs(with_info,
+                        *_power_pair(rebind(op, params), opts))
 
     @staticmethod
+    def setup_context(ctx, inputs, output):
+        _setup(ctx, inputs, output, inputs[0])
+
+    @staticmethod
+    @nestable_jvp
     def jvp(ctx, _op, _opts, _with_info, *dparams):
         """The JAX package's ``_eig_tangents``: two tangent products and
         two bordered solves; zero tangents (None) for the info fields."""
-        op, opts = ctx.op, ctx.opts
-        lam, l, r = ctx.saved_tensors
+        opts = ctx.opts
+        op, lam, l, r = _saved(ctx)
         info = (None,) * ctx.n_info
         if all(t is None for t in dparams):
             return (torch.zeros_like(lam), torch.zeros_like(l),
@@ -334,8 +353,8 @@ class _DominantEig(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, lam_bar, l_bar, r_bar, *info_bar):
-        op, opts = ctx.op, ctx.opts
-        lam, l, r = ctx.saved_tensors
+        opts = ctx.opts
+        op, lam, l, r = _saved(ctx)
         if lam_bar is None and l_bar is None and r_bar is None:
             return (None,) * (3 + len(op.parameters()))
         lam_tot = torch.zeros_like(lam) if lam_bar is None else lam_bar
@@ -394,7 +413,8 @@ def dominant_eig(op, num_iters: int = 500, *, tol: float = 1e-10,
     """Dominant eigenvalue of a general square operator with its left and
     right eigenvectors, differentiable to any order in
     ``op.parameters()``: reverse mode (again under ``create_graph``) and
-    forward mode (``torch.autograd.forward_ad``; the operator needs
+    forward mode to any order (``torch.func.jvp``, or
+    ``torch.autograd.forward_ad``; the operator needs
     ``tangent_matvec`` and ``tangent_rmatvec``).
 
     Assumes the dominant eigenvalue is simple and, for a real operator,
@@ -661,14 +681,19 @@ def _pair_forward(op, opts: EigOptions):
     return lam, l, r, info
 
 
+@per_lane_vmap
 class _DominantEigPair(_DominantEig):
     """:class:`_DominantEig`'s rules on the real operator lifted to
     complex vectors, around the pair forward."""
 
     @staticmethod
-    def forward(ctx, op, opts, with_info, *params):
-        return _save(ctx, _ComplexifiedOperator(op), opts, with_info,
-                     *_pair_forward(op, opts))
+    def forward(op, opts, with_info, *params):
+        return _outputs(with_info,
+                        *_pair_forward(rebind(op, params), opts))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        _setup(ctx, inputs, output, _ComplexifiedOperator(inputs[0]))
 
 
 def _check_real(op, name):
@@ -685,7 +710,7 @@ def dominant_eig_pair(op, num_iters: int = 500, *, tol: float = 1e-10,
     complex-conjugate dominant pair (the case :func:`dominant_eig`'s
     Perron guard diagnoses but cannot solve), with its left and right
     eigenvectors, differentiable to any order in ``op.parameters()``
-    (reverse mode; forward mode to first order).
+    in either mode.
 
     A block power iteration of ``num_iters`` steps at most, stopped at
     ``power_tol``, finds the dominant 2-D invariant subspace of A and of

@@ -46,8 +46,8 @@ output cotangent U.  This is the transpose of the JAX package's
 
 Forward mode is that JVP rule itself, the JAX package's ``_pair_jvp``
 and ``_multi_pair_tangents``, as the ``jvp`` of the same Functions:
-under ``torch.autograd.forward_ad``, with dual tensors among the
-operator's parameters,
+under ``torch.func.jvp`` (or ``torch.autograd.forward_ad``), with
+tangents on the operator's parameters,
 
     dA v = op.tangent_matvec(v, dθ),   dλ = v^T (dA v),
     dv = solve_deflated(A, λ, v, -(dA v - dλ v)),
@@ -56,7 +56,17 @@ one tangent product (on a ``BellOperator`` the same kernel as a matvec;
 ``tangent_matmat`` and one SpMM for a block) and one deflated solve
 (batched over the block's columns).  The Lanczos and LOBPCG loops carry
 no tangents: forward AD is off inside a custom Function's forward.
-PyTorch does not nest dual levels, so forward mode is first order.
+The rule is built of this module's Functions, the deflated solve's and
+the operator's tangent product, each with its own ``jvp`` and
+differentiable backward, so under nested ``torch.func.jvp`` it
+differentiates again (``operators.nestable_jvp`` runs it one level down
+with forward grad on): forward mode to any order, as the JAX package
+nests ``jax.jvp``, and ``hessian``, ``jacfwd∘jacrev`` and
+``grad∘jvp`` mix the two modes.  Every rule rebuilds the operator from
+the parameters it is handed (``rebind``), never from tensors the
+operator object holds.  ``torch.func.vmap`` runs each lane's solve on
+its own (``operators.per_lane_vmap``): the Lanczos and LOBPCG loops read
+the host.
 
 The forward of :func:`dominant_eigh` runs the options of the JAX
 ``_forward``: ``early_exit_tol`` (``lanczos_adaptive``), a narrow
@@ -97,7 +107,8 @@ from .lanczos import (LanczosInfo, _tridiagonal_eigh, lanczos,
                       lanczos_adaptive, lanczos_eigh)
 from .lobpcg import lobpcg_eigh
 from .operators import (as_operator, check_device, hdot, hmatmul,
-                        partial_vjp, pivot_gauge, tol_floor)
+                        nestable_jvp, partial_vjp, per_lane_vmap,
+                        pivot_gauge, rebind, tol_floor)
 from .precond import _apply_columns
 
 
@@ -213,13 +224,15 @@ def _forward(op, opts, v0, generator):
     return tuple(polished), None
 
 
+@per_lane_vmap
 class _DominantEigh(torch.autograd.Function):
     """Outputs ``(λ, v)`` per pair (one, or two for "both", the minimum
     first), then the three :class:`LanczosInfo` fields with
     ``with_info``."""
 
     @staticmethod
-    def forward(ctx, op, opts, v0, generator, with_info, *params):
+    def forward(op, opts, v0, generator, with_info, *params):
+        op = rebind(op, params)
         out, info = _forward(op, opts, v0, generator)
         # λ is a view into the tridiagonal's eigenvalues: forward mode
         # needs outputs that are not views of other tensors.
@@ -228,23 +241,38 @@ class _DominantEigh(torch.autograd.Function):
             info = ()
         elif info is None:
             info = _pair_info(op, opts, *pairs)
-        ctx.op, ctx.opts, ctx.n_info = op, opts, len(info)
-        ctx.save_for_backward(*pairs)
-        ctx.save_for_forward(*pairs)
-        ctx.mark_non_differentiable(*info)
-        # An output the loss does not use brings no cotangent (None),
-        # and costs no deflated solve.
-        ctx.set_materialize_grads(False)
         return (*pairs, *info)
 
     @staticmethod
+    def setup_context(ctx, inputs, output):
+        op, opts, _, _, with_info, *params = inputs
+        ctx.op, ctx.opts = op, opts
+        ctx.n_info = 3 if with_info else 0
+        pairs = output[:len(output) - ctx.n_info]
+        ctx.save_for_backward(*pairs, *params)
+        ctx.save_for_forward(*pairs, *params)
+        ctx.mark_non_differentiable(*output[len(pairs):])
+        # An output the loss does not use brings no cotangent (None),
+        # and costs no deflated solve.
+        ctx.set_materialize_grads(False)
+
+    @staticmethod
+    def _saved(ctx):
+        """``(op, pairs)``: the operator rebuilt on the saved parameters
+        and the saved (λ, v) pairs."""
+        saved = ctx.saved_tensors
+        n = 4 if ctx.opts.extreme == "both" else 2
+        return rebind(ctx.op, saved[n:]), saved[:n]
+
+    @staticmethod
+    @nestable_jvp
     def jvp(ctx, _op, _opts, _v0, _generator, _with_info, *dparams):
         """The IFT tangents (dλ, dv) of each pair for the parameters'
         tangents ``dparams`` (the JAX package's ``_pair_jvp``); zero
         tangents for the info fields (None: PyTorch's zero tangent of an
         output marked non-differentiable)."""
-        op, opts = ctx.op, ctx.opts
-        pairs = ctx.saved_tensors
+        opts = ctx.opts
+        op, pairs = _DominantEigh._saved(ctx)
         moving = any(t is not None for t in dparams)
         tangents = []
         for sign, lam, v in zip(_signs(opts.extreme), pairs[::2],
@@ -264,8 +292,8 @@ class _DominantEigh(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, *bars):
-        op, opts = ctx.op, ctx.opts
-        pairs = ctx.saved_tensors
+        opts = ctx.opts
+        op, pairs = _DominantEigh._saved(ctx)
         grads = [None] * len(op.parameters())
         for sign, lam, v, lam_bar, v_bar in zip(
                 _signs(opts.extreme), pairs[::2], pairs[1::2], bars[0::2],
@@ -304,9 +332,11 @@ def dominant_eigh(op, k: int = 128, *, extreme: str = "min",
                   generator: torch.Generator | None = None, device=None):
     """Extremal eigenpair(s) of a symmetric operator, differentiable to
     any order in ``op.parameters()``: reverse mode (``backward``, and
-    ``torch.autograd.grad(..., create_graph=True)`` again and again) and
-    forward mode (``torch.autograd.forward_ad`` dual tensors among the
-    parameters; see the module docstring).
+    ``torch.autograd.grad(..., create_graph=True)`` again and again),
+    forward mode (``torch.func.jvp``, nested to any order, or
+    ``torch.autograd.forward_ad`` dual tensors among the parameters),
+    the ``torch.func`` transforms that mix them, and ``vmap`` (see the
+    module docstring).
 
     op      : LinearOperator, or a dense symmetric tensor.
     k       : Lanczos steps (clamped to ``op.dim``).
@@ -501,23 +531,36 @@ def _gap_inverses(lams, opts):
     return f * (1.0 - torch.eye(opts.r, dtype=f.dtype, device=f.device))
 
 
+@per_lane_vmap
 class _DominantEighMulti(torch.autograd.Function):
+    """Outputs ``(λ (r,), V (N, r))``, then the three
+    :class:`LanczosInfo` fields with ``with_info``."""
 
     @staticmethod
-    def forward(ctx, op, opts, v0, generator, with_info, *params):
+    def forward(op, opts, v0, generator, with_info, *params):
+        op = rebind(op, params)
         if with_info:
             lams, v, info = _multi_forward_info(op, opts, v0, generator)
-        else:
-            lams, v = _multi_forward(op, opts, v0, generator)
-            info = ()
-        ctx.op, ctx.opts, ctx.n_info = op, opts, len(info)
-        ctx.save_for_backward(lams, v)
-        ctx.save_for_forward(lams, v)
-        ctx.mark_non_differentiable(*info)
-        ctx.set_materialize_grads(False)
-        return (lams, v, *info)
+            return (lams, v, *info)
+        return _multi_forward(op, opts, v0, generator)
 
     @staticmethod
+    def setup_context(ctx, inputs, output):
+        op, opts, _, _, with_info, *params = inputs
+        ctx.op, ctx.opts = op, opts
+        ctx.n_info = 3 if with_info else 0
+        ctx.save_for_backward(*output[:2], *params)
+        ctx.save_for_forward(*output[:2], *params)
+        ctx.mark_non_differentiable(*output[2:])
+        ctx.set_materialize_grads(False)
+
+    @staticmethod
+    def _saved(ctx):
+        lams, v, *params = ctx.saved_tensors
+        return rebind(ctx.op, params), lams, v
+
+    @staticmethod
+    @nestable_jvp
     def jvp(ctx, _op, _opts, _v0, _generator, _with_info, *dparams):
         """The block IFT tangents (the JAX package's
         ``_multi_pair_tangents``): with ``M = V^H dA V``,
@@ -531,8 +574,8 @@ class _DominantEighMulti(torch.autograd.Function):
         one SpMM on the tangent values) and one batched deflated solve.
         The info fields get zero tangents (None, as in
         :class:`_DominantEigh`)."""
-        op, opts = ctx.op, ctx.opts
-        lams, v = ctx.saved_tensors
+        opts = ctx.opts
+        op, lams, v = _DominantEighMulti._saved(ctx)
         info = (None,) * ctx.n_info
         if all(t is None for t in dparams):
             return (torch.zeros_like(lams), torch.zeros_like(v), *info)
@@ -549,8 +592,8 @@ class _DominantEighMulti(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, lams_bar, v_bar, *info_bar):
-        op, opts = ctx.op, ctx.opts
-        lams, v = ctx.saved_tensors
+        opts = ctx.opts
+        op, lams, v = _DominantEighMulti._saved(ctx)
         if lams_bar is None and v_bar is None:
             return (None,) * (5 + len(op.parameters()))
         g = (torch.zeros((opts.r, opts.r), dtype=v.dtype, device=v.device)
@@ -584,7 +627,8 @@ def dominant_eigh_multi(op, r: int = 4, k: int = 128, *,
                         device=None):
     """Top-r extremal eigenpairs of a symmetric operator, differentiable
     to any order in ``op.parameters()``: reverse mode (again under
-    ``create_graph``) and forward mode (``torch.autograd.forward_ad``).
+    ``create_graph``), forward mode to any order (``torch.func.jvp``, or
+    ``torch.autograd.forward_ad``), and ``torch.func.vmap``.
 
     method  : "lanczos" (one k-step sweep; ``k`` clamped to ``op.dim``,
               start vector ``v0`` (N,)) or "lobpcg" (up to ``k``

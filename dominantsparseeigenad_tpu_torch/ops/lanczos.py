@@ -25,7 +25,8 @@ from typing import NamedTuple
 import torch
 
 from .operators import (as_operator, check_device, hdot, hmatmul,
-                        pivot_gauge, real_dtype, tol_floor)
+                        outside_transforms, pivot_gauge, real_dtype,
+                        tol_floor, under_vmap)
 
 
 def _breakdown_rel_tol(real_dtype) -> float:
@@ -142,11 +143,40 @@ def _ritz_vector(basis, y):
     return v / torch.linalg.vector_norm(v)
 
 
+def _draw(n, generator, dtype, dev):
+    """``n`` normal numbers from ``generator``: one plain tensor, outside
+    any ``torch.func`` transform (every lane of a ``vmap`` draws the same,
+    as an unbatched JAX key gives)."""
+    with outside_transforms():
+        return torch.randn(n, generator=generator, dtype=dtype, device=dev)
+
+
+def _refuse_host_reads(what: str):
+    """Raise under ``torch.func.vmap``, where a host read of a batched
+    test cannot run."""
+    if under_vmap():
+        raise RuntimeError(
+            f"{what} reads a breakdown or convergence test on the host "
+            f"every step, which torch.func.vmap cannot batch; call "
+            f"lanczos/lanczos_eigh with restart_mode='carry' under vmap "
+            f"(dominant_eigh runs each lane on its own and takes either "
+            f"mode)")
+
+
+def _put(buf, i: int, value, batched: bool):
+    """``buf`` with row ``i`` set to ``value``: in place, or out of place
+    under ``torch.func.vmap`` (``batched``), where a lane's value cannot
+    be written into an unbatched buffer."""
+    if batched:
+        return torch.cat([buf[:i], value[None].to(buf.dtype), buf[i + 1:]])
+    buf[i] = value
+    return buf
+
+
 def _start(op, v0, generator, dev):
     """The unit start vector: ``v0``, or a draw from ``generator``."""
     if v0 is None:
-        q = torch.randn(op.dim, generator=generator, dtype=op.dtype,
-                        device=dev)
+        q = _draw(op.dim, generator, op.dtype, dev)
     else:
         q = torch.as_tensor(v0).to(device=dev, dtype=op.dtype)
     return q / torch.linalg.vector_norm(q)
@@ -154,9 +184,9 @@ def _start(op, v0, generator, dev):
 
 def _step(op, basis, i, q, q_prev, beta_prev, generator, reorthogonalize,
           reorth_passes, r_perp):
-    """One Lanczos step at index ``i``: writes ``basis[i + 1]`` and
-    returns ``(q_next, alpha, beta, r_perp)``.  Shared by :func:`lanczos`
-    and :func:`lanczos_adaptive`.
+    """One Lanczos step at index ``i``: returns ``(q_next, alpha, beta,
+    r_perp)``, ``q_next`` the caller's ``basis[i + 1]``.  Shared by
+    :func:`lanczos` and :func:`lanczos_adaptive`.
 
     The projections run against the rows written so far,
     ``basis[:i + 1]``: the JAX loop projects against the whole
@@ -186,8 +216,7 @@ def _step(op, basis, i, q, q_prev, beta_prev, generator, reorthogonalize,
     broke = beta <= _breakdown_rel_tol(dtype) * scale
     if r_perp is None:
         if bool(broke):
-            r = torch.randn(op.dim, generator=generator, dtype=q.dtype,
-                            device=q.device)
+            r = _draw(op.dim, generator, q.dtype, q.device)
             r = _project_out(basis[:i + 1], r)
             q_next = r / (torch.linalg.vector_norm(r)
                           + torch.finfo(dtype).tiny)
@@ -208,7 +237,6 @@ def _step(op, basis, i, q, q_prev, beta_prev, generator, reorthogonalize,
                                              beta))
         r_perp = r_perp - q_next * hdot(q_next, r_perp)
         beta = torch.where(broke, torch.zeros_like(beta), beta)
-    basis[i + 1] = q_next
     return q_next, alpha, beta, r_perp
 
 
@@ -251,6 +279,8 @@ def lanczos(op, k: int, *, v0: torch.Tensor | None = None,
     if restart_mode not in ("cond", "carry"):
         raise ValueError(f"restart_mode must be 'cond'|'carry', got "
                          f"{restart_mode!r}")
+    if restart_mode == "cond":
+        _refuse_host_reads("lanczos(restart_mode='cond')")
     storage = dtype if basis_dtype is None else basis_dtype
     # The operator's own dtype is a no-op; only a narrowing of a complex
     # basis is refused (the JAX package's guard and message).
@@ -262,12 +292,12 @@ def lanczos(op, k: int, *, v0: torch.Tensor | None = None,
     q = _start(op, v0, generator, dev)
     int(reorth_chunks)              # the JAX package's only check
     # Row k is a scratch slot for the last step's q_next.
-    basis = torch.zeros((k + 1, op.dim), dtype=storage, device=dev)
-    basis[0] = q
+    batched = under_vmap()
+    basis = _put(torch.zeros((k + 1, op.dim), dtype=storage, device=dev), 0,
+                 q, batched)
     r_perp = None
     if restart_mode == "carry":
-        r0 = torch.randn(op.dim, generator=generator, dtype=dtype,
-                         device=dev)
+        r0 = _draw(op.dim, generator, dtype, dev)
         r_perp = r0 - q * hdot(q, r0)
     rdt = real_dtype(dtype)
     alphas = torch.zeros(k, dtype=rdt, device=dev)
@@ -275,9 +305,12 @@ def lanczos(op, k: int, *, v0: torch.Tensor | None = None,
     q_prev = torch.zeros_like(q)
     beta_prev = torch.zeros((), dtype=rdt, device=dev)
     for i in range(k):
-        q_next, alphas[i], betas[i], r_perp = _step(
+        q_next, alpha, beta, r_perp = _step(
             op, basis, i, q, q_prev, beta_prev, generator, reorthogonalize,
             reorth_passes, r_perp)
+        basis = _put(basis, i + 1, q_next, batched)
+        alphas = _put(alphas, i, alpha, batched)
+        betas = _put(betas, i, beta, batched)
         q_prev, q, beta_prev = q, q_next, betas[i]
     return LanczosResult(alphas=alphas, betas=betas[:-1],
                          basis=basis[:k].T)
@@ -342,6 +375,7 @@ def lanczos_adaptive(op, k: int, *, extreme: str = "min",
     if extreme not in ("min", "max"):
         raise ValueError("lanczos_adaptive supports extreme='min'|'max' "
                          f"only, got {extreme!r}")
+    _refuse_host_reads("lanczos_adaptive")
     op = as_operator(op)
     dev = check_device(device, op)
     dtype = op.dtype
@@ -371,6 +405,7 @@ def lanczos_adaptive(op, k: int, *, extreme: str = "min",
             q_next, alphas[i], betas[i], _ = _step(
                 op, basis, i, q, q_prev, beta_prev, generator,
                 reorthogonalize, reorth_passes, None)
+            basis[i + 1] = q_next
             q_prev, q, beta_prev = q, q_next, betas[i]
         done = cp
         # betas[cp - 1] couples out of the leading block: it is the

@@ -26,6 +26,20 @@ solvers that need it build themselves).  :func:`refuse_complex` remains
 for the operators whose hand-written kernels or physics have no complex
 form (``BellOperator``, the row-sharded tier, the 2D Ising model).
 
+Transforms.  Every ``torch.autograd.Function`` of the port takes the
+operator's structure as a Python object and its tensors as explicit
+inputs (``*op.parameters()``), and its rules rebuild the operator from
+the tensors they are handed (:func:`rebind`), never from tensors the
+Python object holds: under ``torch.func`` a rule runs one transform level
+below the caller, and a held tensor would leak the caller's level into
+it.  Two helpers make the Functions compose with ``torch.func``:
+:func:`nestable_jvp` runs a ``jvp`` rule one level down with forward
+grad on, so that an outer ``torch.func.jvp`` sees the rule's own
+operations (forward mode to any order), and :func:`per_lane_vmap` gives
+a Function the ``vmap`` rule that slices each batched input and applies
+the Function once per lane (no Function uses ``generate_vmap_rule``: the
+solvers read the host).
+
 Precision policy: the JAX package pins HIGHEST precision on its internal
 dots and GEMMs (``hdot``/``hmatmul``) because a TPU otherwise rounds f32
 operands to bf16.  The hazard on an NVIDIA card is TF32, which keeps about
@@ -35,10 +49,16 @@ three decimal digits.  This module turns TF32 off for matrix products and
 
 from __future__ import annotations
 
+import contextlib
 import copy
+import functools
 from typing import Any, Callable
 
 import torch
+import torch.autograd.forward_ad as fwAD
+from torch._C import _functorch
+from torch._functorch.pyfunctorch import (
+    retrieve_current_functorch_interpreter)
 
 torch.backends.cuda.matmul.allow_tf32 = False
 
@@ -155,6 +175,24 @@ def partial_vjp(op, apply, tensors, cot, needs) -> list:
     out = [None] * len(leaves)
     if not wanted:
         return out
+    if transforms_active() or any(
+            _functorch.is_functorch_wrapped_tensor(t) for t in leaves):
+        # Under torch.func (a rule run inside grad, jvp or vmap, or the
+        # vjp function of a torch.func.vjp called after its level exited)
+        # the partials are a torch.func.vjp, which every outer level
+        # differentiates: the tensors here may be wrappers of a level
+        # that has already exited, which torch.autograd.grad cannot see.
+        def held_apply(*ts):
+            full = list(leaves)
+            for i, t in zip(wanted, ts):
+                full[i] = t
+            return apply(op.with_parameters(full[len(tensors):]),
+                         *full[:len(tensors)])
+
+        _, vjp_fn = torch.func.vjp(held_apply, *[leaves[i] for i in wanted])
+        for i, g in zip(wanted, vjp_fn(cot)):
+            out[i] = g
+        return out
     with torch.enable_grad():
         proxies = list(leaves)
         for i in wanted:
@@ -167,6 +205,127 @@ def partial_vjp(op, apply, tensors, cot, needs) -> list:
     for i, g in zip(wanted, got):
         out[i] = g
     return out
+
+
+def transforms_active() -> bool:
+    """Whether a ``torch.func`` transform (grad, jvp, vmap) is active."""
+    return _functorch.peek_interpreter_stack() is not None
+
+
+def under_vmap() -> bool:
+    """Whether a ``torch.func.vmap`` is among the active transforms."""
+    stack = _functorch.get_interpreter_stack() or []
+    return any(i.key() == _functorch.TransformType.Vmap for i in stack)
+
+
+@contextlib.contextmanager
+def outside_transforms():
+    """Run the block with every ``torch.func`` level popped, so that a
+    draw from a generator (which depends on no input) is one plain
+    tensor shared by every lane, as an unbatched JAX key gives, where
+    ``vmap`` would refuse a random operation."""
+    stack = []
+    try:
+        while _functorch.peek_interpreter_stack() is not None:
+            stack.append(_functorch.pop_dynamic_layer_stack())
+        yield
+    finally:
+        while stack:
+            _functorch.push_dynamic_layer_stack(stack.pop())
+
+
+class _LevelDown:
+    """A Function's ``ctx`` whose saved tensors are those of one
+    ``torch.func`` level down; every other attribute is the ctx's."""
+
+    def __init__(self, ctx, saved):
+        self._ctx = ctx
+        self.saved_tensors = saved
+
+    def __getattr__(self, name):
+        return getattr(self._ctx, name)
+
+
+def nestable_jvp(rule):
+    """Decorator for a ``torch.autograd.Function``'s ``jvp``: forward
+    mode to any order under ``torch.func.jvp``.
+
+    PyTorch runs a Function's ``jvp`` with forward grad off, which at a
+    ``torch.func.jvp`` level also hides the rule's operations from every
+    outer jvp level.  Under a jvp level this runs the rule as that
+    level's own forward runs: its saved tensors and tangents unwrapped
+    one level down, the level popped, forward grad on; the tangents it
+    returns are wrapped back.  The rule's operations (this and other
+    Functions, and differentiable tensor operations) then carry the
+    outer levels' tangents, and a ``grad`` level's too.  Elsewhere (no
+    transform, or ``torch.autograd.forward_ad``) the rule runs as is."""
+
+    @functools.wraps(rule)
+    def jvp(ctx, *tangents):
+        if not transforms_active():
+            return rule(ctx, *tangents)
+        interp = retrieve_current_functorch_interpreter()
+        if interp.key() != _functorch.TransformType.Jvp:
+            return rule(ctx, *tangents)
+        level = interp.level()
+
+        def down(t):
+            return _functorch._unwrap_for_grad(t, level) \
+                if isinstance(t, torch.Tensor) else t
+
+        def up(t):
+            return _functorch._wrap_for_grad(t, level) \
+                if isinstance(t, torch.Tensor) else t
+
+        saved = tuple(down(t) for t in ctx.saved_tensors)
+        with interp.lower(), fwAD._set_fwd_grad_enabled(True):
+            out = rule(_LevelDown(ctx, saved), *map(down, tangents))
+        return tuple(map(up, out)) if isinstance(out, tuple) else up(out)
+
+    return jvp
+
+
+def per_lane_vmap(cls):
+    """Class decorator: give the Function ``cls`` its ``vmap`` rule as a
+    loop over lanes.  Each batched input is sliced on its ``in_dim``,
+    ``cls.apply`` runs once per lane (one transform level down, where
+    the forward's host reads are allowed), and each output is stacked on
+    dim 0.  A ``torch.Generator`` among the inputs is reset to its state
+    before every lane, so each lane draws what an unbatched call draws.
+    It is the correctness baseline; a Function with a batched rule
+    (``_BellProduct``, ``_DeflatedSolve``) falls back to it."""
+
+    def vmap(info, in_dims, *args):
+        return _per_lane(cls, info, in_dims, args)
+
+    cls.vmap = staticmethod(vmap)
+    return cls
+
+
+def _per_lane(cls, info, in_dims, args):
+    gens = [(a, a.get_state()) for a in args
+            if isinstance(a, torch.Generator)]
+    outs = []
+    for i in range(info.batch_size):
+        for gen, state in gens:
+            gen.set_state(state)
+        lane = [a.select(d, i) if isinstance(a, torch.Tensor)
+                and d is not None else a for a, d in zip(args, in_dims)]
+        outs.append(cls.apply(*lane))
+    if isinstance(outs[0], tuple):
+        return tuple(torch.stack(o) for o in zip(*outs)), 0
+    return torch.stack(outs), 0
+
+
+def rebind(op, params):
+    """``op`` on the tensors ``params`` (one per :meth:`parameters`), as a
+    Function's forward and rules take it: ``op`` itself where they are its
+    own tensors (plain autograd), else ``op.with_parameters(params)``
+    (under a transform, where they are one level down)."""
+    own = op.parameters()
+    if len(own) == len(params) and all(a is b for a, b in zip(own, params)):
+        return op
+    return op.with_parameters(params)
 
 
 def _tensors_of(params) -> list:
@@ -228,6 +387,12 @@ class LinearOperator:
         raise NotImplementedError(
             f"{type(self).__name__} has no tangent product: forward mode "
             f"through it is not ported")
+
+    def tangent_matmat(self, X: torch.Tensor, dparams) -> torch.Tensor:
+        """``(dA) X`` for an (N, m) block, one tangent product per
+        column."""
+        return torch.stack([self.tangent_matvec(X[:, j], dparams)
+                            for j in range(X.shape[1])], dim=1)
 
     def tangent_rmatvec(self, x: torch.Tensor, dparams) -> torch.Tensor:
         """``(dA)^T x``, the tangent of :meth:`rmatvec` (forward mode of
@@ -369,10 +534,13 @@ class MatrixFreeOperator(LinearOperator):
 
     def tangent_matvec(self, x, dparams):
         """``(dA) x``, the JVP of ``matvec_fn`` in its parameters along
-        ``dparams``.  Taken by ``torch.autograd.functional.jvp`` (a
-        reverse product differentiated in its cotangent), not by forward
-        AD: forward AD is off inside a custom Function's ``jvp``, where
-        this is called, and dual levels do not nest."""
+        ``dparams``.  Under a ``torch.func`` transform it is a
+        ``torch.func.jvp`` of the product, itself differentiable at every
+        outer level (forward and reverse), so a tangent product can
+        carry a tangent.  Otherwise (inside a ``torch.autograd.forward_ad``
+        rule, where forward AD is off and dual levels do not nest) it is
+        ``torch.autograd.functional.jvp``, a reverse product
+        differentiated in its cotangent, first order."""
         return self._tangent(lambda op, z: op.matvec(z), x, dparams)
 
     def tangent_matmat(self, X, dparams):
@@ -386,11 +554,13 @@ class MatrixFreeOperator(LinearOperator):
         return self._tangent(lambda op, z: op.rmatvec(z), x, dparams)
 
     def _tangent(self, product, x, dparams):
-        prims = [p.detach() for p in self.parameters()]
         moving = [i for i, t in enumerate(dparams) if t is not None]
         if not moving:
             return torch.zeros_like(x)
-        x = x.detach()
+        nested = transforms_active()
+        prims = [p if nested else p.detach() for p in self.parameters()]
+        if not nested:
+            x = x.detach()
 
         def apply(*ts):
             full = list(prims)
@@ -398,10 +568,11 @@ class MatrixFreeOperator(LinearOperator):
                 full[i] = t
             return product(self.with_parameters(full), x)
 
-        _, dy = torch.autograd.functional.jvp(
-            apply, tuple(prims[i] for i in moving),
-            tuple(dparams[i] for i in moving))
-        return dy
+        args = (apply, tuple(prims[i] for i in moving),
+                tuple(dparams[i] for i in moving))
+        if nested:
+            return torch.func.jvp(*args)[1]
+        return torch.autograd.functional.jvp(*args)[1]
 
     @property
     def dim(self):

@@ -19,7 +19,10 @@ steps carry that layout (``sg`` is a :class:`~.mesh.ShardGroup`):
 
 Their backwards are first order: under ``create_graph`` they raise
 NotImplementedError (second order through the sharded operators is
-``ROADMAP.md`` queue 1 item 14).
+``ROADMAP.md`` queue 1 item 14).  Each is linear, so its ``jvp`` is the
+same collective on the tangent (this Function again, so forward mode
+nests); ``vmap`` runs one collective per lane, in the same order on every
+rank.
 
 Host staging on gloo.  Gloo takes CUDA tensors in few collectives (not
 in ``all_gather``), so on a group whose backend is gloo every collective
@@ -33,6 +36,8 @@ from __future__ import annotations
 
 import torch
 import torch.distributed as dist
+
+from ..ops.operators import nestable_jvp, per_lane_vmap
 
 
 def _staged(sg, t) -> bool:
@@ -72,25 +77,45 @@ def _first_order_only():
             "create_graph=False")
 
 
+@per_lane_vmap
 class _Replicate(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, x, sg):
-        ctx.sg = sg
+    def forward(x, sg):
         return x.view_as(x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.sg = inputs[1]
+
+    @staticmethod
+    @nestable_jvp
+    def jvp(ctx, dx, _):
+        return _Replicate.apply(dx, ctx.sg)
 
     @staticmethod
     def backward(ctx, g):
         _first_order_only()
-        return all_reduce_sum(g, ctx.sg), None
+        # Through the Function, so a vmap over the backward batches it.
+        return _SumOverRanks.apply(g, ctx.sg), None
 
 
+@per_lane_vmap
 class _GatherRows(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, y, sg):
-        ctx.rank, ctx.rows = sg.rank, y.shape[0]
+    def forward(y, sg):
         return all_gather_rows(y, sg)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        y, sg = inputs
+        ctx.sg, ctx.rank, ctx.rows = sg, sg.rank, y.shape[0]
+
+    @staticmethod
+    @nestable_jvp
+    def jvp(ctx, dy, _):
+        return _GatherRows.apply(dy, ctx.sg)
 
     @staticmethod
     def backward(ctx, g):
@@ -98,11 +123,21 @@ class _GatherRows(torch.autograd.Function):
         return g.narrow(0, ctx.rank * ctx.rows, ctx.rows), None
 
 
+@per_lane_vmap
 class _SumOverRanks(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, y, sg):
+    def forward(y, sg):
         return all_reduce_sum(y, sg)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.sg = inputs[1]
+
+    @staticmethod
+    @nestable_jvp
+    def jvp(ctx, dy, _):
+        return _SumOverRanks.apply(dy, ctx.sg)
 
     @staticmethod
     def backward(ctx, g):

@@ -348,13 +348,20 @@ def test_dominant_eig_spectrum_never_splits_a_pair():
     assert _port_spectrum(a, 2, structure=structure)[0].shape == (3,)
 
 
-def test_spectrum_structure_replay_order2_mixed():
+def _reverse_over_reverse(f, x):
+    """``(f(x), f'(x), f''(x))`` by two reverse passes."""
+    x = torch.tensor(x, dtype=torch.float64, requires_grad=True)
+    val = f(x)
+    (d1,) = torch.autograd.grad(val, x, create_graph=True)
+    (d2,) = torch.autograd.grad(d1, x)
+    return val.detach(), d1.detach(), d2
+
+
+def _order2_mixed(derivatives):
     """``spectrum_structure`` once, then the replay of a mixed structure
-    to second order: d/dt and d²/dt² of Σ|λ_j|² (top 4) against JAX's jvp
-    of a jvp (1e-7, 1e-6) and the dense oracle's differences (1e-6,
-    1e-3).  JAX nests forward mode; PyTorch does not nest dual levels,
-    so here it is reverse over reverse (forward mode past first order is
-    ROADMAP.md queue 1 item 16)."""
+    to second order by ``derivatives(f, 0.0)``: d/dt and d²/dt² of
+    Σ|λ_j|² (top 4) against JAX's jvp of a jvp (1e-7, 1e-6) and the dense
+    oracle's differences (1e-6, 1e-3)."""
     blk = np.zeros((N, N))
     blk[0, 0] = 6.0
     blk[1:3, 1:3] = np.array([[4.0, 3.0], [-3.0, 4.0]])
@@ -372,7 +379,7 @@ def test_spectrum_structure_replay_order2_mixed():
                               4, structure=structure)[0]
         return (lams.abs() ** 2).sum()
 
-    val, d1, d2 = port.value_d1_d2(f, 0.0, device="cpu")
+    val, d1, d2 = derivatives(f, 0.0)
 
     def fj(t):
         lams = jx.dominant_eig_spectrum(
@@ -395,6 +402,18 @@ def test_spectrum_structure_replay_order2_mixed():
     assert abs(float(d2) - float(d2_j)) <= 1e-6 * abs(num2)
     assert abs(float(d1) - num1) <= 1e-6 * abs(num1)
     assert abs(float(d2) - num2) <= 1e-3 * abs(num2)
+
+
+def test_spectrum_structure_replay_order2_mixed():
+    """The replay to second order by reverse over reverse (see
+    :func:`_order2_mixed`)."""
+    _order2_mixed(_reverse_over_reverse)
+
+
+def test_spectrum_structure_replay_order2_mixed_forward():
+    """Its twin by forward over forward, as JAX nests forward mode:
+    ``value_d1_d2``, a ``torch.func.jvp`` of a ``torch.func.jvp``."""
+    _order2_mixed(lambda f, x: port.value_d1_d2(f, x, device="cpu"))
 
 
 def test_spectrum_raises_on_a_defective_pair(monkeypatch):

@@ -444,3 +444,38 @@ def test_option_classes_and_pair_solvers_are_exported():
         assert getattr(port, name) is getattr(ops_pkg, name)
     assert port.EighOptions().k == 128
     assert port.EighMultiOptions().r == 4
+
+
+def _port_functions():
+    """Every ``torch.autograd.Function`` the port defines, by name."""
+    found = {}
+    for path in sorted(PKG.rglob("*.py")):
+        rel = path.relative_to(ROOT).with_suffix("")
+        mod = importlib.import_module(".".join(rel.parts))
+        for name, obj in vars(mod).items():
+            if (isinstance(obj, type)
+                    and issubclass(obj, torch.autograd.Function)
+                    and obj.__module__ == mod.__name__):
+                found[f"{mod.__name__}.{name}"] = obj
+    return found
+
+
+def test_every_function_composes_with_torch_func():
+    """All 14 Functions (the 13 of the solvers, decompositions and
+    collectives, and the pair solver's subclass) use the
+    ``setup_context`` form (a forward without ctx), define a ``jvp`` and
+    a ``vmap`` of their own, and none asks PyTorch to generate its vmap
+    rule (the solvers read the host)."""
+    import inspect
+    functions = _port_functions()
+    assert len(functions) == 14, sorted(functions)
+    base = torch.autograd.Function
+    for name, cls in functions.items():
+        assert cls.setup_context is not base.setup_context, name
+        assert "ctx" not in inspect.signature(cls.forward).parameters, name
+        assert cls.jvp is not base.jvp, name
+        assert cls.vmap is not base.vmap, name
+        assert not cls.generate_vmap_rule, name
+        # A subclass gets a vmap rule that applies itself, not its base.
+        for sub in cls.__subclasses__():
+            assert sub.vmap is not cls.vmap, sub.__name__
