@@ -209,6 +209,34 @@ line each:
    (``tools/jax_complex_errors.py``).  This path launches no hand-written
    kernel (checked: the launch counts stay 0).
 
+15. ``formats``: the COO, CSR and BCOO formats and the operator algebra.
+   (a) The TFIM N = 20 as sparse matrices built from host COO triplets
+   (the zz diagonal, 2^20 entries, and the transverse term, 20 · 2^20),
+   H(g) = CSR_zz + (-g) CSR_x through ``SumOperator`` and
+   ``ScaledOperator``, at the ``tfim`` phase's settings: E0 and dE0/dg
+   (forward and backward timed, with the peak memory), dE0/dg by
+   ``torch.func.jvp``, ``energy_curvature`` and ``fidelity_susceptibility``
+   against the Jordan-Wigner closed forms at the ``tfim`` and
+   ``second_order`` bars; E0 against the matrix-free run and the COO
+   form's run; the COO, BCOO, matrix-free and cuSPARSE CSR matvecs
+   against the CSR one; each matvec timed beside its least bytes over
+   3.35 TB/s; whether ten CSR matvecs equal the first bit for bit
+   (``index_add`` adds with atomics).  (b) Config #5 (the ``eigh``
+   phase's operator and start vector) through the composites: each
+   composite's ``matmat`` one ``bell_spmm_banded_f32`` launch a Bell
+   child (no SpMV); ``dominant_eigh`` of A - σ and of c A against the
+   ``eigh`` phase's λ; H(g) = A0 + g A1 by the algebra against the
+   coupled ``MatrixFreeOperator`` route (dE/dg); LOBPCG (r = 8) on A - σ
+   (1 + 2 x iterations SpMMs, no SpMV; λ against the Rayleigh
+   quotients); ``operator_diagonal`` and ``jacobi_precond`` of A - σ.
+   (c) ``dominant_eig`` of the ``eig`` phase's non-symmetric Bell and of
+   its transpose: λ at that phase's bars, A.T's vectors A's swapped (by
+   their residuals).  (d) Config #5 as one CSR (1.14e9 entries, built on
+   the card from the Bell's values): its matvec against K4b, timed in
+   turns with K4b and cuSPARSE CSR on the same arrays, with each one's
+   bound and the peak memory.  Its K4b launches join the ``kernels``
+   line.
+
 Then a ``kernels`` line, the ``nvidia-smi`` name and power-limit line, and
 as the last line ``{"ok": true, "device": {...}}``.  Any failed check
 raises, so the exit code is not 0.  Without a CUDA device it exits with
@@ -375,6 +403,29 @@ EIG_BELL = (4096, 32, 5)                # n, bs, blocks per row
 EIG_BELL_ARNOLDI_K = 64
 EIG_BELL_RESIDUAL = 1e-4                # relative, float32
 EIG_BELL_TWIN_RTOL = 1e-5
+# The formats phase: the COO, CSR and BCOO formats and the operator algebra
+# on the card.  (a) The TFIM N = 20 as sparse matrices at the tfim phase's
+# settings, H(g) = CSR_zz + (-g) CSR_x, against Jordan-Wigner at the tfim
+# and second_order phases' bars, and against the matrix-free run of the
+# same point (E0 within FMT_ROUTE_RTOL); its COO and BCOO forms against
+# the CSR one (matvec within FMT_ROUTE_RTOL, atomics' order apart).  (b)
+# config #5 through the composites: A - σ and c A against the eigh phase's
+# λ (the same operator and start vector; a shifted or scaled Krylov space
+# is the same space, so only round-off differs), H(g) = A0 + g A1 by the
+# algebra against the coupled MatrixFreeOperator route (dE/dg within
+# FMT_ROUTE_RTOL), LOBPCG on A - σ, one SpMM per block product.  (c) the
+# eig phase's non-symmetric Bell transposed, at the eig phase's bars.  (d)
+# config #5 as one CSR: its matvec against K4b (f32 sums of 2176 products
+# a row in another order).
+FMT_ROUTE_RTOL = 1e-6
+FMT_SHIFT, FMT_SCALE = 0.5, 1.5
+FMT_COMPOSITE_RTOL = 1e-5
+FMT_CSR_RTOL = 1e-5
+# What the triplet product (ops/sparse.py::_segment_product) moves for
+# each entry as written: the gather reads an index and x and writes a
+# temporary, the product reads it and the value and writes another, the
+# index_add reads an index and that (its atomics on y stay in L2 here).
+TRIPLET_CODE_BYTES_PER_NNZ = 32
 # The complex phase, at full width: (a) the TFIM N = 20 headline
 # (tfim-phase settings and bars) in a complex gauge H' = D H D^H, D =
 # diag(e^{iφ}) with φ from this seed, complex64; the overlap of its ground
@@ -1042,7 +1093,7 @@ def phase_eigh(pkg, spmv):
     failed = [name for name, ok in checks.items() if not ok]
     if failed:
         raise AssertionError(f"eigh phase failed: {failed}")
-    return counts
+    return counts, lam_f
 
 
 def tol_floor_f32(tol):
@@ -3091,6 +3142,16 @@ def eig_dense(pkg, cg, dtype):
     return out, checks
 
 
+def positive_ring_bell(pkg, sparse):
+    """A non-symmetric BellOperator with positive values on config #5's
+    ring-band pattern at the small shape ``EIG_BELL`` (banded: K4b)."""
+    n, bs, bpr = EIG_BELL
+    base = sparse.random_bell_operator(n, bs, bpr, device=DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(41)
+    vals = torch.rand(base.vals.shape, device=DEVICE, generator=gen) + 0.01
+    return pkg.BellOperator(vals, base.cols, n, symmetric=False)
+
+
 def eig_bell(pkg, spmv, sparse, cg):
     """Part (c): ``dominant_eig(method="arnoldi")`` on a non-symmetric
     BellOperator with positive values (config #5's ring-band pattern at
@@ -3098,10 +3159,8 @@ def eig_bell(pkg, spmv, sparse, cg):
     twin solve through the plain product, ∂λ/∂vals against l⊗r on the
     pattern, and the kernel launches of that run."""
     n, bs, bpr = EIG_BELL
-    base = sparse.random_bell_operator(n, bs, bpr, device=DEVICE)
-    gen = torch.Generator(device=DEVICE).manual_seed(41)
-    vals = torch.rand(base.vals.shape, device=DEVICE, generator=gen) + 0.01
-    op = pkg.BellOperator(vals, base.cols, n, symmetric=False)
+    op = positive_ring_bell(pkg, sparse)
+    vals = op.vals
     plain = pkg.MatrixFreeOperator(
         lambda p, x: spmv._bell_spmv_torch(p, op.cols, x), vals, n,
         dtype=torch.float32, symmetric=False,
@@ -3470,6 +3529,414 @@ def phase_complex(pkg, spmv):
         raise AssertionError(f"complex phase failed: {failed}")
 
 
+def least_ms(nbytes):
+    """Least time (ms) to move ``nbytes`` at the published memory rate."""
+    return nbytes / PEAK_BYTES_PER_S * 1e3
+
+
+def csr_library_call(indptr, indices, data, n):
+    """One PyTorch call for the same product: a cuSPARSE CSR matrix on the
+    same arrays.  A yardstick only."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        a = torch.sparse_csr_tensor(indptr, indices, data, size=(n, n),
+                                    check_invariants=False)
+    return lambda x: a @ x
+
+
+def tfim_sparse_parts(pkg, n):
+    """The N-spin TFIM's two terms as float32 sparse operators from host
+    COO triplets, row-major: the zz diagonal (2^N entries) and the
+    transverse term (N 2^N entries, state s to s ^ (1 << i), value 1).
+    Returns ``{"csr": (zz, x), "coo": (zz, x), "bcoo": (zz, x)}`` and the
+    transverse term's (rows, cols) on the card."""
+    dim = 1 << n
+    s = np.arange(dim, dtype=np.int64)
+    bits = (s[:, None] >> np.arange(n)) & 1
+    zz = (2 * (bits ^ np.roll(bits, -1, axis=1)).sum(axis=1) - n)
+    flips = (s[:, None] ^ (1 << np.arange(n))).reshape(-1)
+
+    def card(a, dtype=np.int32):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(DEVICE)
+
+    diag, zz = card(s), card(zz, np.float32)
+    rows, cols = card(np.repeat(s, n)), card(flips)
+    ones = torch.ones(n * dim, device=DEVICE)
+    steps = torch.arange(dim + 1, dtype=torch.int32, device=DEVICE)
+    parts = {
+        "csr": (pkg.CSROperator(steps, diag, zz, dim),
+                pkg.CSROperator(steps * n, cols, ones, dim)),
+        "coo": (pkg.COOOperator(diag, diag, zz, dim),
+                pkg.COOOperator(rows, cols, ones, dim)),
+        "bcoo": tuple(pkg.BCOOOperator(torch.sparse_coo_tensor(
+            torch.stack([r, c]).long(), v, (dim, dim),
+            check_invariants=False))
+            for r, c, v in ((diag, diag, zz), (rows, cols, ones))),
+    }
+    return parts, (rows, cols)
+
+
+def sparse_tfim(parts):
+    """``g -> H(g) = ZZ + (-g) X`` through the operator algebra, g a
+    tensor (a float32 parameter of the ScaledOperator)."""
+    zz, x = parts
+    return lambda g: zz + (-g.to(torch.float32)) * x
+
+
+def formats_tfim(pkg, models):
+    """Part (a): TFIM N = 20 as sparse matrices (module docstring, phase
+    15)."""
+    n, f32 = TFIM_N, torch.float32
+    kw = dict(k=TFIM_K, tol=TFIM_CG_TOL, maxiter=TFIM_CG_MAXITER,
+              device=DEVICE)
+    one = torch.ones((), device=DEVICE)
+
+    def jvp_e0(make, g):
+        return torch.func.jvp(lambda gg: pkg.dominant_eigh(
+            make(gg), reorth_passes=TFIM_REORTH_PASSES, **kw)[0], (g,),
+            (torch.ones_like(g),))
+
+    # Warm-up at N = 10 through the same calls.
+    small, _ = tfim_sparse_parts(pkg, TFIM_N_ED)
+    for name in ("csr", "coo", "bcoo"):
+        make = sparse_tfim(small[name])
+        g = torch.tensor(TFIM_G, device=DEVICE, requires_grad=True)
+        lam, _ = pkg.dominant_eigh(make(g), **kw)
+        torch.autograd.grad(lam, g)
+    make = sparse_tfim(small["csr"])
+    jvp_e0(make, torch.tensor(TFIM_G, device=DEVICE))
+    pkg.energy_curvature(make, TFIM_G, **kw)
+    pkg.fidelity_susceptibility(make, TFIM_G, **kw)
+    del small, make
+
+    (parts, (rows, cols)), t_build = timed(lambda: tfim_sparse_parts(pkg, n))
+    make_csr = sparse_tfim(parts["csr"])
+    dim, nnz = 1 << n, (n + 1) << n
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    g = torch.tensor(TFIM_G, dtype=f32, device=DEVICE, requires_grad=True)
+    (lam, v), t_fwd = timed(lambda: pkg.dominant_eigh(
+        make_csr(g), reorth_passes=TFIM_REORTH_PASSES, **kw))
+    (d1,), t_bwd = timed(lambda: torch.autograd.grad(lam, g))
+    peak_mib = (torch.cuda.max_memory_allocated() - base) / 2**20
+    g0 = torch.tensor(TFIM_G, dtype=f32, device=DEVICE)
+    (_, d1_fwd), t_jvp = timed(lambda: jvp_e0(make_csr, g0))
+    curv, t_curv = timed(lambda: [float(t) for t in pkg.energy_curvature(
+        make_csr, TFIM_G, **kw)])
+    chi, t_chi = timed(lambda: float(pkg.fidelity_susceptibility(
+        make_csr, TFIM_G, **kw)))
+    e0, d1, d1_fwd = float(lam.detach()), float(d1), float(d1_fwd)
+    errs, jw = jw_errors(models, n, TFIM_G, e0, d1, chi)
+    errs["de0_dg_forward_mode"] = abs(d1_fwd - jw[1]) / abs(jw[1])
+    d2_exact = models.tfim_exact_d2e0_dg2(n, TFIM_G)
+    errs["d2e0_dg2"] = abs(curv[2] - d2_exact) / abs(d2_exact)
+    errs["energy_curvature_e0"] = abs(curv[0] - jw[0]) / abs(jw[0])
+    errs["energy_curvature_de0_dg"] = abs(curv[1] - jw[1]) / abs(jw[1])
+
+    with torch.no_grad():
+        h = {"csr": make_csr(g0),
+             "coo": sparse_tfim(parts["coo"])(g0),
+             "bcoo": sparse_tfim(parts["bcoo"])(g0),
+             "matrix_free": models.tfim_operator(n, TFIM_G, dtype=f32,
+                                                 device=DEVICE)}
+        e0_of = {name: float(pkg.dominant_eigh(
+            h[name], reorth_passes=TFIM_REORTH_PASSES, **kw)[0])
+            for name in ("coo", "matrix_free")}
+        v = v.detach()
+        y = {name: op.matvec(v) for name, op in h.items()}
+        repeats = [h["csr"].matvec(v) for _ in range(10)]
+        bitwise = sum(bool(torch.equal(t, y["csr"])) for t in repeats)
+        # cuSPARSE on the same matrix as one CSR: 21 entries a row.
+        zz = parts["csr"][0].data
+        lib = csr_library_call(
+            torch.arange(dim + 1, dtype=torch.int32, device=DEVICE) * (n + 1),
+            torch.cat([parts["csr"][0].indices[:, None],
+                       cols.view(dim, n)], dim=1).reshape(-1),
+            torch.cat([zz[:, None], torch.full((dim, n), -TFIM_G,
+                                               device=DEVICE)],
+                      dim=1).reshape(-1), dim)
+        y["cusparse_csr"] = lib(v)
+        ms = {name: event_ms(lambda op=op: op.matvec(v), samples=12,
+                             batch=10) for name, op in h.items()}
+        ms["cusparse_csr"] = event_ms(lambda: lib(v), samples=12, batch=10)
+    triplet_bytes = nnz * 12 + 2 * dim * 4
+    least = {"csr": triplet_bytes, "coo": triplet_bytes,
+             "bcoo": triplet_bytes, "matrix_free": 3 * dim * 4,
+             "cusparse_csr": nnz * 8 + (dim + 1) * 4 + 2 * dim * 4}
+    matvec = {name: {"ms": ms[name], "least_bytes": least[name],
+                     "bound_ms": least_ms(least[name]),
+                     "rel_err_vs_csr": rel_err(y[name], y["csr"])}
+              for name in ms}
+    for name in ("csr", "coo", "bcoo"):
+        matvec[name]["code_bytes"] = nnz * TRIPLET_CODE_BYTES_PER_NNZ
+        matvec[name]["code_bytes_ms"] = least_ms(
+            nnz * TRIPLET_CODE_BYTES_PER_NNZ)
+    route = {name: abs(e0_of[name] - e0) / abs(e0_of[name])
+             for name in e0_of}
+    out = {"n": n, "g": TFIM_G, "dtype": "float32", "k": TFIM_K,
+           "cg_tol": TFIM_CG_TOL, "cg_maxiter": TFIM_CG_MAXITER, "nnz": nnz,
+           "e0": e0, "de0_dg": d1, "de0_dg_forward_mode": d1_fwd,
+           "d2e0_dg2": curv[2], "chi_f": chi, "energy_curvature": curv,
+           "jordan_wigner": {"e0": jw[0], "de0_dg": jw[1],
+                             "d2e0_dg2": d2_exact, "chi_f": jw[2]},
+           "rel_err": errs, "e0_of": e0_of, "e0_rel_vs_csr": route,
+           "build_s": t_build, "forward_s": t_fwd, "backward_s": t_bwd,
+           "forward_backward_peak_mib": peak_mib, "forward_mode_s": t_jvp,
+           "energy_curvature_s": t_curv, "fidelity_susceptibility_s": t_chi,
+           "matvec": matvec, "csr_matvec_bitwise_repeats": bitwise,
+           "csr_matvec_bit_reproducible": bitwise == len(repeats)}
+    bars = {**TFIM_RTOL, "de0_dg_forward_mode": TFIM_RTOL["de0_dg"],
+            "d2e0_dg2": SO_TFIM_RTOL["d2e0_dg2"],
+            "energy_curvature_e0": TFIM_RTOL["e0"],
+            "energy_curvature_de0_dg": TFIM_RTOL["de0_dg"]}
+    checks = {f"TFIM N={n} CSR {name} vs Jordan-Wigner, rel {bar}":
+              errs[name] <= bar for name, bar in bars.items()}
+    checks.update({
+        f"TFIM N={n} CSR E0 vs the {name} run, rel {FMT_ROUTE_RTOL}":
+            route[name] <= FMT_ROUTE_RTOL for name in route})
+    checks.update({
+        f"TFIM N={n} {name} matvec vs CSR, rel {FMT_ROUTE_RTOL}":
+            matvec[name]["rel_err_vs_csr"] <= FMT_ROUTE_RTOL
+        for name in ("coo", "bcoo", "matrix_free", "cusparse_csr")})
+    checks["TFIM CSR values finite"] = all(
+        math.isfinite(t) for t in (e0, d1, d1_fwd, chi, *curv))
+    del parts, h, y, repeats, lib, rows, cols
+    return out, checks
+
+
+def formats_config5(pkg, spmv, lam_eigh):
+    """Part (b): config #5 through the composites, and part (d), config
+    #5 as one CSR (module docstring, phase 15)."""
+    n, bs, bpr = CONFIG5
+    counts = spmv.launch_counts
+    torch.cuda.empty_cache()
+    # The eigh phase's operator and start vector (the same seed and draws).
+    gen = torch.Generator(device=DEVICE).manual_seed(7)
+    a0 = pkg.random_bell_operator(n, bs, bpr, generator=gen, device=DEVICE)
+    v0 = torch.randn(n, generator=gen, device=DEVICE)
+    a1 = pkg.random_bell_operator(
+        n, bs, bpr, generator=torch.Generator(device=DEVICE).manual_seed(8),
+        device=DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(17)
+    X = torch.randn(n, MULTI_R, generator=gen, device=DEVICE)
+    u = torch.nn.functional.normalize(torch.randn(n, generator=gen,
+                                                  device=DEVICE), dim=0)
+    shifted = pkg.ShiftedOperator(a0, FMT_SHIFT)
+    g64 = torch.tensor(SO_G, dtype=torch.float64, device=DEVICE)
+    composites = {"shifted": (shifted, 1),
+                  "scaled": (pkg.ScaledOperator(a0, FMT_SCALE), 1),
+                  "sum_of_scaled": (a0 + g64 * a1, 2),
+                  "deflated": (pkg.DeflatedOperator(a0, u), 1),
+                  "transposed": (a0.T, 1)}
+    out, checks = {"n": n, "bs": bs, "blocks_per_row": bpr, "k": K,
+                   "shift": FMT_SHIFT, "scale": FMT_SCALE}, {}
+    with torch.no_grad():
+        block = {}
+        for name, (op, children) in composites.items():
+            before = dict(counts)
+            Y = op.matmat(X)
+            torch.cuda.synchronize()
+            block[name] = {k: counts[k] - before[k] for k in before
+                           if counts[k] != before[k]}
+            checks[f"{name}.matmat: {children} bell_spmm_banded_f32 "
+                   f"launch(es), no SpMV"] = block[name] == {
+                       "bell_spmm_banded_f32": children} and bool(
+                           torch.isfinite(Y).all())
+        out["block_product_launches"] = block
+        fwd = dict(k=K, extreme="min", v0=v0, device=DEVICE)
+        (lam_s, _), t_s = timed(lambda: pkg.dominant_eigh(shifted, **fwd))
+        (lam_c, _), t_c = timed(lambda: pkg.dominant_eigh(
+            composites["scaled"][0], **fwd))
+    lam_s, lam_c = float(lam_s), float(lam_c)
+    shift_err = abs(lam_s - (lam_eigh - FMT_SHIFT)) / abs(lam_eigh)
+    scale_err = abs(lam_c - FMT_SCALE * lam_eigh) / abs(FMT_SCALE * lam_eigh)
+    out.update({"lam_eigh_phase": lam_eigh, "lam_shifted": lam_s,
+                "lam_scaled": lam_c, "shifted_rel_err": shift_err,
+                "scaled_rel_err": scale_err, "shifted_forward_s": t_s,
+                "scaled_forward_s": t_c})
+    checks[f"dominant_eigh(A - σ) == λ - σ, rel {FMT_COMPOSITE_RTOL}"] = \
+        shift_err <= FMT_COMPOSITE_RTOL
+    checks[f"dominant_eigh(c A) == c λ, rel {FMT_COMPOSITE_RTOL}"] = \
+        scale_err <= FMT_COMPOSITE_RTOL
+
+    # H(g) = A0 + g A1 by the algebra and by the coupled matrix-free
+    # route: the first-order jvp's dE/dg (v^T A1 v, formed before its
+    # solve, which is capped short: the tangent of v is not read).
+    d1 = {}
+    for name, make in (("algebra", lambda gg: pkg.SumOperator(
+            a0, pkg.ScaledOperator(a1, gg))),
+                       ("matrix_free", coupled(pkg, a0, a1))):
+        (_, d), t = timed(lambda make=make: torch.func.jvp(
+            lambda gg: pkg.dominant_eigh(make(gg), k=K, tol=CG_TOL,
+                                         maxiter=10, device=DEVICE)[0],
+            (g64,), (torch.ones_like(g64),)))
+        d1[name] = {"de_dg": float(d), "s": t}
+    d1_err = abs(d1["algebra"]["de_dg"] - d1["matrix_free"]["de_dg"]) \
+        / abs(d1["matrix_free"]["de_dg"])
+    out["h_of_g"] = {"g": SO_G, **d1, "rel_err": d1_err}
+    checks[f"H(g) by the algebra: dE/dg vs the matrix-free route, rel "
+           f"{FMT_ROUTE_RTOL}"] = d1_err <= FMT_ROUTE_RTOL
+    del a1, composites
+    torch.cuda.empty_cache()
+
+    # The block solver on A - σ: one SpMM per block product.
+    before = dict(counts)
+    with torch.no_grad():
+        (lams, V, info), t_lob = timed(lambda: pkg.dominant_eigh_multi(
+            shifted, r=MULTI_R, k=LOBPCG_ITERS, method="lobpcg", x0=X,
+            with_info=True, device=DEVICE))
+        lob = {k: counts[k] - before[k] for k in before}
+        its = int(info.effective_k)
+        rq = torch.stack([torch.dot(V[:, i], shifted.matvec(
+            V[:, i].contiguous())) for i in range(MULTI_R)])
+    rq_err = float((rq - lams).abs().max() / lams.abs().max())
+    out["lobpcg"] = {"r": MULTI_R, "iterations": its, "lams": lams.tolist(),
+                     "residual": float(info.residual), "s": t_lob,
+                     "launches": {k: c for k, c in lob.items() if c},
+                     "rayleigh_quotient_rel_err": rq_err}
+    checks["LOBPCG on A - σ: banded SpMM launches == 1 + 2 x iterations, "
+           "no SpMV"] = lob["bell_spmm_banded_f32"] == 1 + 2 * its and all(
+               c == 0 for k, c in lob.items() if k != "bell_spmm_banded_f32")
+    checks["LOBPCG on A - σ: λ vs Rayleigh quotients, rel 1e-5"] = \
+        rq_err <= 1e-5
+
+    # The preconditioner of the shifted operator.
+    with torch.no_grad():
+        (d, jac), t_pc = timed(lambda: (pkg.operator_diagonal(shifted),
+                                        pkg.jacobi_precond(shifted,
+                                                           shift=lam_s)))
+        d0 = pkg.operator_diagonal(a0)
+        ref = pkg.jacobi_precond(diag=d0 - FMT_SHIFT, shift=lam_s)
+        same = bool(torch.equal(d, d0 - FMT_SHIFT)) and bool(
+            torch.equal(jac(X), ref(X)))
+    out["precond_build_s"] = t_pc
+    checks["operator_diagonal(A - σ) == diag(A) - σ, Jacobi equal"] = same
+    del V, X, shifted, d, d0, jac, ref
+
+    # Part (d): config #5 as one CSR, row-major (block-row i, row a in the
+    # block, slot j, column b): 2176 entries a row.
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    nb, max_blk = a0.cols.shape
+    row_nnz = max_blk * bs
+
+    def build():
+        b = torch.arange(bs, dtype=torch.int32, device=DEVICE)
+        return pkg.CSROperator(
+            torch.arange(n + 1, dtype=torch.int32, device=DEVICE) * row_nnz,
+            (a0.cols[:, None, :, None] * bs + b).expand(
+                nb, bs, max_blk, bs).reshape(-1),
+            a0.vals.permute(0, 2, 1, 3).reshape(-1), n,
+            torch.arange(n, dtype=torch.int32, device=DEVICE)[:, None]
+            .expand(n, row_nnz).reshape(-1))
+
+    torch.cuda.reset_peak_memory_stats()
+    csr, t_build = timed(build)
+    x = torch.randn(n, generator=gen, device=DEVICE)
+    counted = dict(counts)                  # comparison launches: uncounted
+    with torch.no_grad():
+        y_csr = csr.matvec(x)
+        y_k4b = a0.matvec(x)
+        lib = csr_library_call(csr.indptr, csr.indices, csr.data, n)
+        lib_err = rel_err(lib(x), y_k4b)
+        ms = {}
+        for name in ("k4b", "csr", "cusparse_csr", "cusparse_csr", "csr",
+                     "k4b"):
+            fn = {"k4b": lambda: a0.matvec(x), "csr": lambda: csr.matvec(x),
+                  "cusparse_csr": lambda: lib(x)}[name]
+            ms.setdefault(name, []).append(event_ms(fn, samples=5))
+    counts.update(counted)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    nnz = csr.nnz
+    err = rel_err(y_csr, y_k4b)
+    least = {"csr": nnz * 12 + 2 * n * 4,
+             "cusparse_csr": nnz * 8 + (n + 1) * 4 + 2 * n * 4,
+             "k4b": nnz * 4 + nb * max_blk * 4 + 2 * n * 4}
+    out["config5_csr"] = {
+        "nnz": nnz, "build_s": t_build, "peak_gib": peak_gib,
+        "rel_err_vs_k4b": err, "cusparse_rel_err_vs_k4b": lib_err,
+        "ms": ms, "ms_median": {k: statistics.median(t)
+                                for k, t in ms.items()},
+        "least_bytes": least,
+        "bound_ms": {k: least_ms(b) for k, b in least.items()},
+        "code_bytes_ms": least_ms(nnz * TRIPLET_CODE_BYTES_PER_NNZ)}
+    checks[f"config #5 CSR matvec vs K4b, rel {FMT_CSR_RTOL}"] = \
+        err <= FMT_CSR_RTOL
+    checks[f"config #5 cuSPARSE CSR vs K4b, rel {FMT_CSR_RTOL}"] = \
+        lib_err <= FMT_CSR_RTOL
+    del csr, lib, a0, y_csr, y_k4b
+    torch.cuda.empty_cache()
+    return out, checks
+
+
+def formats_transpose(pkg, sparse):
+    """Part (c): ``dominant_eig`` of the eig phase's non-symmetric Bell
+    and of its transpose (module docstring, phase 15)."""
+    op = positive_ring_bell(pkg, sparse)
+    kw = dict(method="arnoldi", arnoldi_k=EIG_BELL_ARNOLDI_K, with_info=True,
+              device=DEVICE)
+    with torch.no_grad():
+        (lam, l, r, info), t = timed(lambda: pkg.dominant_eig(op, **kw))
+        (lam_t, l_t, r_t, info_t), t_t = timed(lambda: pkg.dominant_eig(
+            op.T, **kw))
+        # A^T's right vector is A's left one, and its left A's right.
+        res_left = float(torch.linalg.vector_norm(
+            op.rmatvec(r_t) - lam_t * r_t) / lam_t.abs())
+        res_right = float(torch.linalg.vector_norm(
+            op.matvec(l_t) - lam_t * l_t)
+            / (lam_t.abs() * torch.linalg.vector_norm(l_t)))
+
+        def cos(a, b):
+            return float(torch.dot(a, b) / (torch.linalg.vector_norm(a)
+                                            * torch.linalg.vector_norm(b)))
+
+    twin = abs(float(lam_t) - float(lam)) / abs(float(lam))
+    out = {"n": EIG_BELL[0], "lam": float(lam), "lam_transposed":
+           float(lam_t), "rel": twin, "residual_left_of_a": res_left,
+           "residual_right_of_a": res_right,
+           "cos_r_transposed_l": cos(r_t, l), "cos_l_transposed_r":
+           cos(l_t, r), "converged": [float(info.converged),
+                                      float(info_t.converged)],
+           "forward_s": t, "transposed_forward_s": t_t}
+    checks = {
+        f"dominant_eig(A.T) λ vs dominant_eig(A), rel {EIG_BELL_TWIN_RTOL}":
+            twin <= EIG_BELL_TWIN_RTOL,
+        f"A.T's r is A's left vector and its l A's right, residuals "
+        f"{EIG_BELL_RESIDUAL}": max(res_left, res_right) <= EIG_BELL_RESIDUAL,
+        "both power loops converged": out["converged"] == [1.0, 1.0]}
+    return out, checks
+
+
+def phase_formats(pkg, spmv, lam_eigh):
+    """The COO, CSR and BCOO formats and the operator algebra (module
+    docstring, phase 15).  Returns the phase's kernel launch counts."""
+    from dominantsparseeigenad_tpu_torch import models
+    sparse = importlib.import_module("dominantsparseeigenad_tpu_torch.ops."
+                                     "sparse")
+    t_phase = time.perf_counter()
+    spmv.reset_launch_counts()
+    out, checks = {}, {}
+    for name, part in (("tfim", lambda: formats_tfim(pkg, models)),
+                       ("config5", lambda: formats_config5(pkg, spmv,
+                                                           lam_eigh)),
+                       ("transpose", lambda: formats_transpose(pkg,
+                                                               sparse))):
+        out[name], more = part()
+        checks.update(more)
+    counts = dict(spmv.launch_counts)
+    for name in ("bell_spmv_banded_f32", "bell_spmm_banded_f32"):
+        checks[f"{name} launched on the formats path"] = counts[name] > 0
+    out["launches"] = {k: c for k, c in counts.items() if c}
+    out["card"] = nvidia_smi_name_power()
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit({"phase": "formats", **out})
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"formats phase failed: {failed}")
+    return counts
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this script runs on the card")
@@ -3486,7 +3953,7 @@ def main():
     spmv_case(spmv, sparse, *SMALL_SHAPES[0], copy_gbps, seed=2)
     spmv_case(spmv, sparse, *SMALL_SHAPES[1], copy_gbps, seed=3,
               unaligned=True)
-    counts = phase_eigh(pkg, spmv)
+    counts, lam_eigh = phase_eigh(pkg, spmv)
     spmm = [spmm_case(spmv, sparse, *shape, r, seed=4 + i,
                       unaligned=unaligned)
             for i, (shape, r, unaligned) in enumerate(SPMM_SHAPES)]
@@ -3515,6 +3982,8 @@ def main():
     eig_counts = phase_eig(pkg, spmv)
     counts = {k: counts[k] + eig_counts[k] for k in counts}
     phase_complex(pkg, spmv)
+    fmt_counts = phase_formats(pkg, spmv, lam_eigh)
+    counts = {k: counts[k] + fmt_counts[k] for k in counts}
 
     csrc = "dominantsparseeigenad_tpu_torch/csrc/"
     # The Pallas kernel body, and the SpMM entry that runs it on (N, r).

@@ -52,13 +52,17 @@ Entry points run on CUDA unless called with ``device="cpu"``; without a
 card they raise rather than fall back.
 """
 
-from .convert import (bell_operator_from_numpy, dense_operator_from_numpy,
+from .convert import (bcoo_operator_from_numpy, bell_operator_from_numpy,
+                      coo_operator_from_numpy, csr_operator_from_numpy,
+                      dense_operator_from_numpy,
                       row_sharded_bell_operator_from_numpy)
 from .ops import *  # noqa: F401,F403
 from .ops import __all__ as _ops_all
 from .parallel import *  # noqa: F401,F403
 from .parallel import __all__ as _parallel_all
 
-__all__ = ["bell_operator_from_numpy", "dense_operator_from_numpy",
+__all__ = ["bcoo_operator_from_numpy", "bell_operator_from_numpy",
+           "coo_operator_from_numpy", "csr_operator_from_numpy",
+           "dense_operator_from_numpy",
            "row_sharded_bell_operator_from_numpy", *_ops_all,
            *_parallel_all]

@@ -1,9 +1,10 @@
 """Carry operators of the JAX package across as numpy arrays.
 
-The JAX package's ``BellOperator`` and ``DenseOperator`` hold their data
-in JAX arrays; ``np.asarray`` turns them into numpy arrays (bfloat16
-values come as numpy's ``bfloat16`` extension dtype), and these functions
-build the port's operator from them, so both packages compute the same
+The JAX package's ``BellOperator``, ``DenseOperator``, ``COOOperator``,
+``CSROperator`` and ``BCOOOperator`` hold their data in JAX arrays;
+``np.asarray`` turns them into numpy arrays (bfloat16 values come as
+numpy's ``bfloat16`` extension dtype), and these functions build the
+port's operator from them, so both packages compute the same
 thing.
 """
 
@@ -13,7 +14,7 @@ import numpy as np
 import torch
 
 from .ops.operators import DenseOperator, resolve_device
-from .ops.sparse import BellOperator
+from .ops.sparse import BCOOOperator, BellOperator, COOOperator, CSROperator
 from .parallel.sharded_sparse import RowShardedBellOperator
 
 
@@ -57,3 +58,38 @@ def dense_operator_from_numpy(a, *, device=None) -> DenseOperator:
     ``np.asarray(op.a)``, in the same dtype (complex64 and complex128
     too)."""
     return DenseOperator(_tensor_from_numpy(a).to(resolve_device(device)))
+
+
+def coo_operator_from_numpy(rows, cols, vals, n: int, *,
+                            device=None) -> COOOperator:
+    """The port's ``COOOperator`` for a JAX ``COOOperator``'s
+    ``np.asarray(op.rows)``, ``np.asarray(op.cols)``,
+    ``np.asarray(op.vals)`` and ``op.n``."""
+    dev = resolve_device(device)
+    return COOOperator(_tensor_from_numpy(np.asarray(rows, np.int32)).to(dev),
+                       _tensor_from_numpy(np.asarray(cols, np.int32)).to(dev),
+                       _tensor_from_numpy(vals).to(dev), n)
+
+
+def csr_operator_from_numpy(indptr, indices, data, n: int, *,
+                            device=None) -> CSROperator:
+    """The port's ``CSROperator`` for a JAX ``CSROperator``'s
+    ``np.asarray(op.indptr)``, ``np.asarray(op.indices)``,
+    ``np.asarray(op.data)`` and ``op.n``."""
+    dev = resolve_device(device)
+    return CSROperator(
+        _tensor_from_numpy(np.asarray(indptr, np.int32)).to(dev),
+        _tensor_from_numpy(np.asarray(indices, np.int32)).to(dev),
+        _tensor_from_numpy(data).to(dev), n)
+
+
+def bcoo_operator_from_numpy(indices, data, n: int, *,
+                             device=None) -> BCOOOperator:
+    """The port's ``BCOOOperator`` for a JAX ``BCOOOperator``'s
+    ``np.asarray(op.mat.indices)`` (shape (nnz, 2)),
+    ``np.asarray(op.mat.data)`` and ``op.dim``."""
+    dev = resolve_device(device)
+    idx = _tensor_from_numpy(np.asarray(indices, np.int64)).T
+    return BCOOOperator(torch.sparse_coo_tensor(
+        idx.to(dev), _tensor_from_numpy(data).to(dev), (n, n),
+        check_invariants=True))

@@ -16,18 +16,24 @@ from .lanczos import (LanczosInfo, LanczosResult, arnoldi_step, lanczos,
 from .lobpcg import LobpcgInfo, lobpcg_eigh
 from .observables import (energy_curvature, fidelity_susceptibility,
                           value_d1_d2)
-from .operators import (DenseOperator, LinearOperator, MatrixFreeOperator,
+from .operators import (ComposedOperator, DeflatedOperator, DenseOperator,
+                        LinearOperator, MatrixFreeOperator, ScaledOperator,
+                        ShiftedOperator, SumOperator, TransposedOperator,
                         as_operator, hdot, hmatmul, pivot_gauge,
                         resolve_device, tol_floor)
 from .precond import block_jacobi_precond, jacobi_precond, operator_diagonal
-from .sparse import BellOperator, random_bell_operator
+from .sparse import (BCOOOperator, BellOperator, COOOperator, CSROperator,
+                     random_bell_operator)
 from .svd import dominant_svd
 
 __all__ = [
-    "BellOperator", "DenseOperator", "EigOptions", "EighMultiOptions",
-    "EighOptions", "LanczosInfo",
+    "BCOOOperator", "BellOperator", "COOOperator", "CSROperator",
+    "ComposedOperator", "DeflatedOperator", "DenseOperator", "EigOptions",
+    "EighMultiOptions", "EighOptions", "LanczosInfo",
     "LanczosResult", "LinearOperator", "LobpcgInfo", "MatrixFreeOperator",
-    "PowerInfo", "arnoldi_step", "as_operator", "bell_spmm", "bell_spmv",
+    "PowerInfo", "ScaledOperator", "ShiftedOperator", "SumOperator",
+    "TransposedOperator", "arnoldi_step", "as_operator", "bell_spmm",
+    "bell_spmv",
     "bicgstab", "block_jacobi_precond", "cg", "cg_info",
     "detect_slot_plan", "dominant_eig", "dominant_eig_multi",
     "dominant_eig_pair", "dominant_eig_spectrum", "dominant_eigh",

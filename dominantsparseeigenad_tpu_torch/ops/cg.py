@@ -42,7 +42,8 @@ from typing import Callable
 import torch
 
 from .lanczos import arnoldi_step
-from .operators import (LinearOperator, _per_lane, as_operator,
+from .operators import (LinearOperator, _add, _per_lane, _project_out,
+                        _projector_tangent, _tangent_product, as_operator,
                         check_device, hdot, hmatmul, nestable_jvp,
                         partial_vjp, per_lane_vmap, rebind, tol_floor)
 from .precond import _apply_columns
@@ -58,15 +59,6 @@ from .precond import _apply_columns
 # singular on span(V), the round-off residual's span(V) component makes
 # p^T M p tiny, and one more step with alpha = rz / p^T M p throws x off.)
 CHECK_EVERY = 10
-
-
-def _project_out(V, x):
-    """``x - V <V, x>`` for a unit vector V and x of shape (N,), or for
-    an (N, r) V with orthonormal columns and x of shape (N,) or (N, m)
-    (``x - V V^H x``)."""
-    if V.ndim == 1:
-        return x - V * hdot(V, x)
-    return x - hmatmul(V, hmatmul(V.mH, x))
 
 
 def _coldot(a, b):
@@ -500,30 +492,6 @@ def _cg_columns_loop(matmat: Callable, B, tol: float, maxiter,
             its += active
             it += 1
     return X, its
-
-
-def _tangent_product(op, x, dparams, transpose=False):
-    """``(dA) x`` (``(dA)^T x`` with ``transpose``; ``x`` (N,) or (N, m))
-    along the parameters' tangents, or None when none moves."""
-    if all(t is None for t in dparams):
-        return None
-    if transpose:
-        return op.tangent_rmatvec(x, dparams)
-    if x.ndim == 2:
-        return op.tangent_matmat(x, dparams)
-    return op.tangent_matvec(x, dparams)
-
-
-def _add(a, b):
-    """``a + b`` where either may be None (a zero)."""
-    return b if a is None else a if b is None else a + b
-
-
-def _projector_tangent(V, dV, z):
-    """``(dP) z`` for ``P = I - V V^H``: ``-(dV V^H z + V dV^H z)``."""
-    if V.ndim == 1:
-        V, dV = V[:, None], dV[:, None]
-    return -(hmatmul(dV, hmatmul(V.mH, z)) + hmatmul(V, hmatmul(dV.mH, z)))
 
 
 def _deflated_mv_tangent(op, lam, V, sign, x, dlam, dV, dparams):

@@ -8,15 +8,25 @@ the tensors that ``torch.autograd.grad`` differentiates the IFT rule of
 
 Every operator implements ``matvec``, ``rmatvec``, ``dim``, ``dtype`` and
 ``device``; ``matmat``/``rmatmat`` default to a loop over columns.
-``tangent_matvec``, ``tangent_matmat`` and ``tangent_rmatvec`` are the
-operator's tangent products ``(dA) x``, ``(dA) X`` and ``(dA)^T x`` that
-forward mode of the eigensolvers needs, and ``with_parameters`` rebuilds the operator on other tensors,
-which :func:`partial_vjp` (the derivative rules' ``u^T (∂A/∂θ) w``)
-differentiates into.  A ``MatrixFreeOperator`` may hold another operator
-among its params (the Wielandt deflation of ``eig.py`` wraps the stage
-before it): its parameters are then the inner operator's too.  The operator algebra of the JAX
-module (sums, scalings, shifts, compositions, transposed views) is not
-ported yet.
+``tangent_matvec``, ``tangent_matmat``, ``tangent_rmatvec`` and
+``tangent_rmatmat`` are the operator's tangent products ``(dA) x``,
+``(dA) X``, ``(dA)^T x`` and ``(dA)^T X`` that forward mode of the
+eigensolvers needs, and ``with_parameters`` rebuilds the operator on
+other tensors, which :func:`partial_vjp` (the derivative rules'
+``u^T (∂A/∂θ) w``) differentiates into.  A ``MatrixFreeOperator`` may
+hold another operator among its params (the Wielandt deflation of
+``eig.py`` wraps the stage before it): its parameters are then the inner
+operator's too.
+
+The operator algebra is the JAX module's: ``A @ B`` (or ``A @ x``), ``A.T``,
+``A + B``, ``c * A``, ``A - B`` and ``-A`` build the lazy composites
+:class:`TransposedOperator`, :class:`ShiftedOperator` (``A - shift I``),
+:class:`DeflatedOperator` (``P A P``, ``P = I - V V^H``),
+:class:`SumOperator`, :class:`ScaledOperator` and
+:class:`ComposedOperator`.  A composite's parameters are its children's,
+in order, then its own ``shift``, ``c`` or ``V`` where that is a tensor
+(a Python number is a constant); its block products call its children's
+block products, so a blocked-ELL child still runs one SpMM for a block.
 
 Complex dtypes are supported as in the JAX package: ``hdot`` conjugates
 its first argument, :func:`pivot_gauge` fixes the phase (not only the
@@ -402,6 +412,12 @@ class LinearOperator:
             f"forward mode of the non-symmetric solver through it is not "
             f"ported")
 
+    def tangent_rmatmat(self, X: torch.Tensor, dparams) -> torch.Tensor:
+        """``(dA)^T X`` for an (N, m) block, one transposed tangent product
+        per column."""
+        return torch.stack([self.tangent_rmatvec(X[:, j], dparams)
+                            for j in range(X.shape[1])], dim=1)
+
     @property
     def dim(self) -> int:
         raise NotImplementedError
@@ -427,6 +443,40 @@ class LinearOperator:
         """``A.T @ X`` for an (N, m) block, one rmatvec per column."""
         return torch.stack([self.rmatvec(X[:, j])
                             for j in range(X.shape[1])], dim=1)
+
+    def to_dense(self) -> torch.Tensor:
+        """The dense (N, N) matrix, ``A @ I`` (a test helper)."""
+        return self.matmat(torch.eye(self.dim, dtype=self.dtype,
+                                     device=self.device))
+
+    def __matmul__(self, x):
+        if isinstance(x, LinearOperator):
+            return ComposedOperator(self, x)
+        if x.ndim == 1:
+            return self.matvec(x)
+        return self.matmat(x)
+
+    @property
+    def T(self) -> "TransposedOperator":
+        return TransposedOperator(self)
+
+    def __add__(self, other):
+        if isinstance(other, LinearOperator):
+            return SumOperator(self, other)
+        return NotImplemented
+
+    def __mul__(self, scalar):
+        return ScaledOperator(self, scalar)
+
+    __rmul__ = __mul__
+
+    def __sub__(self, other):
+        if isinstance(other, LinearOperator):
+            return SumOperator(self, ScaledOperator(other, -1.0))
+        return NotImplemented
+
+    def __neg__(self):
+        return ScaledOperator(self, -1.0)
 
 
 class DenseOperator(LinearOperator):
@@ -461,6 +511,11 @@ class DenseOperator(LinearOperator):
     def tangent_rmatvec(self, x, dparams):
         (da,) = dparams
         return hmatmul(da.T, x)
+
+    tangent_rmatmat = tangent_rmatvec
+
+    def to_dense(self):
+        return self.a
 
     def parameters(self):
         return [self.a]
@@ -553,6 +608,10 @@ class MatrixFreeOperator(LinearOperator):
         :meth:`tangent_matvec`)."""
         return self._tangent(lambda op, z: op.rmatvec(z), x, dparams)
 
+    def tangent_rmatmat(self, X, dparams):
+        """``(dA)^T X``: one JVP of the whole :meth:`rmatmat`."""
+        return self._tangent(lambda op, z: op.rmatmat(z), X, dparams)
+
     def _tangent(self, product, x, dparams):
         moving = [i for i, t in enumerate(dparams) if t is not None]
         if not moving:
@@ -585,6 +644,299 @@ class MatrixFreeOperator(LinearOperator):
     @property
     def device(self):
         return self._device
+
+
+def _add(a, b):
+    """``a + b`` where either may be None (a zero)."""
+    return b if a is None else a if b is None else a + b
+
+
+def _product(op, x, transpose=False):
+    """``A x`` (``A^T x`` with ``transpose``) for ``x`` of shape (N,), and
+    for an (N, m) block the operator's block product (one ``matmat`` or
+    ``rmatmat``, not a loop over columns)."""
+    if x.ndim == 2:
+        return op.rmatmat(x) if transpose else op.matmat(x)
+    return op.rmatvec(x) if transpose else op.matvec(x)
+
+
+def _tangent_product(op, x, dparams, transpose=False):
+    """``(dA) x`` (``(dA)^T x`` with ``transpose``; ``x`` (N,) or (N, m))
+    along the parameters' tangents, or None when none moves."""
+    if all(t is None for t in dparams):
+        return None
+    if transpose:
+        if x.ndim == 2:
+            return op.tangent_rmatmat(x, dparams)
+        return op.tangent_rmatvec(x, dparams)
+    if x.ndim == 2:
+        return op.tangent_matmat(x, dparams)
+    return op.tangent_matvec(x, dparams)
+
+
+def _project_out(V, x):
+    """``x - V <V, x>`` for a unit vector V and x of shape (N,), or
+    ``x - V V^H x`` for V of shape (N,) or (N, r) with orthonormal
+    columns and x of shape (N,) or (N, m)."""
+    if V.ndim == 1:
+        if x.ndim == 1:
+            return x - V * hdot(V, x)
+        V = V[:, None]
+    return x - hmatmul(V, hmatmul(V.mH, x))
+
+
+def _projector_tangent(V, dV, z):
+    """``(dP) z`` for ``P = I - V V^H``: ``-(dV V^H z + V dV^H z)``."""
+    if V.ndim == 1:
+        V, dV = V[:, None], dV[:, None]
+    return -(hmatmul(dV, hmatmul(V.mH, z)) + hmatmul(V, hmatmul(dV.mH, z)))
+
+
+def _scaled_dtype(dtype, c):
+    """The dtype of ``c * y`` for ``y`` of ``dtype`` and a scalar ``c`` (a
+    number or a 0-dim tensor): a complex ``c`` makes a real operator's
+    products complex, a real one keeps ``dtype``."""
+    return torch.result_type(torch.empty(1, dtype=dtype), c)
+
+
+class _Composite(LinearOperator):
+    """An operator built from others.  ``_fields`` names its child
+    operators and then its own scalars or tensors, in the order of
+    :meth:`parameters`.  A subclass gives ``_product(x, transpose)`` and
+    ``_tangent(x, parts, transpose)`` (``parts``: the tangents cut into
+    one list per field; None where nothing moves), for ``x`` of shape
+    (N,) or (N, m); the four products and four tangent products follow
+    from them, a block always as a block."""
+
+    _fields: tuple = ()
+
+    def _items(self):
+        return [getattr(self, f) for f in self._fields]
+
+    def parameters(self):
+        return _tensors_of(self._items())
+
+    def with_parameters(self, tensors):
+        op = copy.copy(self)
+        for f, item in zip(self._fields, _rebuild(self._items(), tensors)):
+            setattr(op, f, item)
+        return op
+
+    def _split(self, dparams):
+        parts, i = [], 0
+        for item in self._items():
+            n = len(_tensors_of(item))
+            parts.append(list(dparams[i:i + n]))
+            i += n
+        return parts
+
+    def matvec(self, x):
+        return self._product(x, False)
+
+    def rmatvec(self, x):
+        return self._product(x, True)
+
+    matmat, rmatmat = matvec, rmatvec
+
+    def tangent_matvec(self, x, dparams):
+        return self._tangent_or_zero(x, dparams, False)
+
+    def tangent_rmatvec(self, x, dparams):
+        return self._tangent_or_zero(x, dparams, True)
+
+    tangent_matmat, tangent_rmatmat = tangent_matvec, tangent_rmatvec
+
+    def _tangent_or_zero(self, x, dparams, transpose):
+        out = self._tangent(x, self._split(dparams), transpose)
+        if out is None:
+            return torch.zeros(x.shape, device=x.device,
+                               dtype=torch.promote_types(x.dtype, self.dtype))
+        return out
+
+    @property
+    def dim(self):
+        return self._items()[0].dim
+
+    @property
+    def device(self):
+        return self._items()[0].device
+
+
+def _check_conforming(a, b):
+    if a.dim != b.dim:
+        raise ValueError(f"operators of dimensions {a.dim} and {b.dim} do "
+                         f"not conform")
+
+
+class TransposedOperator(_Composite):
+    """Lazy transpose view ``A^T`` of another operator (bilinear, not
+    conjugated)."""
+
+    _fields = ("op",)
+
+    def __init__(self, op: LinearOperator):
+        self.op = op
+
+    def _product(self, x, transpose):
+        return _product(self.op, x, not transpose)
+
+    def _tangent(self, x, parts, transpose):
+        return _tangent_product(self.op, x, parts[0], not transpose)
+
+    @property
+    def dtype(self):
+        return self.op.dtype
+
+
+class ShiftedOperator(_Composite):
+    """``A - shift * I``, the resolvent convention of the derivative
+    solves (``ops/precond.py``'s diagonal subtracts ``shift``).  A tensor
+    ``shift`` is a parameter, a number a constant."""
+
+    _fields = ("op", "shift")
+
+    def __init__(self, op: LinearOperator, shift):
+        self.op = op
+        self.shift = shift
+
+    def _product(self, x, transpose):
+        return _product(self.op, x, transpose) - self.shift * x
+
+    def _tangent(self, x, parts, transpose):
+        d_op, d_shift = parts
+        out = _tangent_product(self.op, x, d_op, transpose)
+        if d_shift and d_shift[0] is not None:
+            out = _add(out, -d_shift[0] * x)
+        return out
+
+    @property
+    def dtype(self):
+        return _scaled_dtype(self.op.dtype, self.shift)
+
+
+class DeflatedOperator(_Composite):
+    """``P A P`` with ``P = I - V V^H`` (V of shape (N,), or (N, r) with
+    orthonormal columns): ``A`` restricted to the complement of
+    ``span(V)``.  ``V`` is a parameter.  Its transpose products are the
+    bilinear ``P^T A^T P^T``, ``P^T = I - conj(V) V^T`` (for a real V the
+    same P)."""
+
+    _fields = ("op", "V")
+
+    def __init__(self, op: LinearOperator, V: torch.Tensor):
+        if V.shape[0] != op.dim:
+            raise ValueError(f"V has {V.shape[0]} rows, the operator "
+                             f"dimension {op.dim}")
+        self.op = op
+        self.V = V
+
+    def _product(self, x, transpose):
+        V = self.V.conj() if transpose else self.V
+        y = _product(self.op, _project_out(V, x), transpose)
+        return _project_out(V, y)
+
+    def _tangent(self, x, parts, transpose):
+        """``P dA P x + dP A P x + P A dP x``, ``dP z = -(dV V^H z + V
+        dV^H z)``."""
+        d_op, (dV,) = parts
+        V = self.V.conj() if transpose else self.V
+        y = _project_out(V, x)
+        out = _tangent_product(self.op, y, d_op, transpose)
+        out = None if out is None else _project_out(V, out)
+        if dV is not None:
+            dV = dV.conj() if transpose else dV
+            a_y = _product(self.op, y, transpose)
+            a_dpx = _product(self.op, _projector_tangent(V, dV, x),
+                             transpose)
+            out = _add(out, _projector_tangent(V, dV, a_y)
+                       + _project_out(V, a_dpx))
+        return out
+
+    @property
+    def dtype(self):
+        return torch.promote_types(self.op.dtype, self.V.dtype)
+
+
+class SumOperator(_Composite):
+    """``A + B`` of two conforming operators (lazy)."""
+
+    _fields = ("a", "b")
+
+    def __init__(self, a: LinearOperator, b: LinearOperator):
+        _check_conforming(a, b)
+        self.a, self.b = a, b
+
+    def _product(self, x, transpose):
+        return _product(self.a, x, transpose) + _product(self.b, x, transpose)
+
+    def _tangent(self, x, parts, transpose):
+        return _add(_tangent_product(self.a, x, parts[0], transpose),
+                    _tangent_product(self.b, x, parts[1], transpose))
+
+    @property
+    def dtype(self):
+        return torch.promote_types(self.a.dtype, self.b.dtype)
+
+
+class ScaledOperator(_Composite):
+    """``c * A`` for a scalar ``c``: a tensor (real or complex) is a
+    parameter, a number a constant."""
+
+    _fields = ("op", "c")
+
+    def __init__(self, op: LinearOperator, c):
+        self.op = op
+        self.c = c
+
+    def _product(self, x, transpose):
+        return self.c * _product(self.op, x, transpose)
+
+    def _tangent(self, x, parts, transpose):
+        d_op, d_c = parts
+        out = _tangent_product(self.op, x, d_op, transpose)
+        out = None if out is None else self.c * out
+        if d_c and d_c[0] is not None:
+            out = _add(out, d_c[0] * _product(self.op, x, transpose))
+        return out
+
+    @property
+    def dtype(self):
+        return _scaled_dtype(self.op.dtype, self.c)
+
+
+class ComposedOperator(_Composite):
+    """``A @ B`` (lazy): ``A (B x)``, and ``B^T (A^T x)`` transposed."""
+
+    _fields = ("a", "b")
+
+    def __init__(self, a: LinearOperator, b: LinearOperator):
+        _check_conforming(a, b)
+        self.a, self.b = a, b
+
+    def _product(self, x, transpose):
+        if transpose:
+            return _product(self.b, _product(self.a, x, True), True)
+        return _product(self.a, _product(self.b, x))
+
+    def _tangent(self, x, parts, transpose):
+        """``dA (B x) + A (dB x)``, transposed ``dB^T (A^T x) + B^T (dA^T
+        x)``: the operator applied second, differentiated at what the
+        first gives, plus the second applied to the first's tangent."""
+        first, second = (0, 1) if transpose else (1, 0)
+        ops = (self.a, self.b)
+        out = None
+        if any(t is not None for t in parts[second]):
+            out = _tangent_product(ops[second],
+                                   _product(ops[first], x, transpose),
+                                   parts[second], transpose)
+        d_first = _tangent_product(ops[first], x, parts[first], transpose)
+        if d_first is not None:
+            out = _add(out, _product(ops[second], d_first, transpose))
+        return out
+
+    @property
+    def dtype(self):
+        return torch.promote_types(self.a.dtype, self.b.dtype)
 
 
 def as_operator(a: Any) -> LinearOperator:

@@ -2,9 +2,10 @@
 
 Counterpart of ``dominantsparseeigenad_tpu/ops/precond.py``:
 
-* :func:`operator_diagonal`: ``diag(A)`` of a :class:`DenseOperator` or a
-  :class:`BellOperator` (gather or banded slot plan alike: the diagonal
-  blocks are the slots whose column is their own block-row);
+* :func:`operator_diagonal`: ``diag(A)`` of a dense, COO, CSR, BCOO or
+  blocked-ELL operator (gather or banded slot plan alike: the diagonal
+  blocks are the slots whose column is their own block-row), and of the
+  shift, scale and sum composites over them;
 * :func:`jacobi_precond`: ``z = r / max(|diag(A) - shift|, floor)``, one
   elementwise product per apply;
 * :func:`block_jacobi_precond`: the (bs, bs) diagonal blocks inverted by
@@ -12,35 +13,45 @@ Counterpart of ``dominantsparseeigenad_tpu/ops/precond.py``:
   is SPD even where ``A - shift`` is indefinite (the CG contract).
 
 Every returned preconditioner takes an (N,) vector or an (N, m) block
-(:func:`_apply_columns`).  The COO, CSR and composite operator types, and
-their diagonals, come with ``ROADMAP.md`` queue 1 items 6 and 7.
+(:func:`_apply_columns`).
 """
 
 from __future__ import annotations
 
 import torch
 
-from .operators import DenseOperator, as_operator
-from .sparse import BellOperator
-
-_LATER = ("(the COO, CSR and composite operator types come with ROADMAP.md "
-          "queue 1 items 6 and 7)")
+from .operators import (DenseOperator, ScaledOperator, ShiftedOperator,
+                        SumOperator, as_operator)
+from .sparse import BellOperator, _TripletOperator
 
 
 def operator_diagonal(op) -> torch.Tensor:
-    """``diag(A)`` read from the structure of a :class:`DenseOperator` or
-    a :class:`BellOperator` (in its compute dtype).  A matrix-free
-    operator has none: pass ``diag=`` to the constructors instead (for a
-    physics operator it is usually known, e.g. ``tfim_zz_diagonal``)."""
+    """``diag(A)`` read from the structure of a :class:`DenseOperator`, a
+    COO, CSR or BCOO operator (the segment sum of the entries on the
+    diagonal), a :class:`BellOperator` (in its compute dtype), or a
+    shift, scale or sum composite over them.  A matrix-free operator has
+    none: pass ``diag=`` to the constructors instead (for a physics
+    operator it is usually known, e.g. ``tfim_zz_diagonal``)."""
     op = as_operator(op)
     if isinstance(op, DenseOperator):
         return torch.diagonal(op.a)
+    if isinstance(op, _TripletOperator):
+        rows, cols, vals = op._triplets()
+        on_diag = torch.where(rows == cols, vals, torch.zeros_like(vals))
+        return vals.new_zeros(op.n).index_add(0, rows, on_diag)
     if isinstance(op, BellOperator):
         return torch.diagonal(_bell_diag_blocks(op), dim1=1,
                               dim2=2).reshape(-1)
+    if isinstance(op, ShiftedOperator):
+        # A - shift I, not A + shift I.
+        return operator_diagonal(op.op) - op.shift
+    if isinstance(op, ScaledOperator):
+        return op.c * operator_diagonal(op.op)
+    if isinstance(op, SumOperator):
+        return operator_diagonal(op.a) + operator_diagonal(op.b)
     raise TypeError(
         f"no structural diagonal for {type(op).__name__}; pass an explicit "
-        f"diag= tensor to the preconditioner constructor {_LATER}")
+        "diag= tensor to the preconditioner constructor")
 
 
 def _bell_diag_blocks(op: BellOperator) -> torch.Tensor:
@@ -143,7 +154,7 @@ def block_jacobi_precond(op=None, *, blocks=None, bs: int | None = None,
         else:
             raise TypeError(
                 f"no structural diagonal blocks for {type(op).__name__}; "
-                f"pass explicit blocks= {_LATER}")
+                "pass explicit blocks=")
     blocks = _constant(torch.as_tensor(blocks))
     nb, bsz, _ = blocks.shape
     d = blocks - _constant(shift) * torch.eye(bsz, dtype=blocks.dtype,

@@ -1,14 +1,27 @@
-"""Blocked-ELL sparse operator.
+"""Sparse operators: COO, CSR and BCOO triplets, and blocked-ELL.
 
-Counterpart of the ``BellOperator`` and ``random_bell_operator`` of
-``dominantsparseeigenad_tpu/ops/sparse.py``.  The COO/CSR/BCOO formats
-wait for a later slice.  The device decides the product's path: on a
-CUDA tensor every matvec launches the hand-written kernel of
-``bell_spmv`` and every matmat the one of ``bell_spmm``, on a CPU tensor
-they take the plain versions.  An operator whose slots are ring bands
-(``random_bell_operator``'s all are) binds the banded slot plan, so its
-products run the kernels' banded mode, as the JAX operator's run the
-banded Pallas kernel.
+Counterpart of ``dominantsparseeigenad_tpu/ops/sparse.py``.
+
+* :class:`COOOperator`, :class:`CSROperator` and :class:`BCOOOperator`
+  store (row, column, value) triplets (CSR derives its row of each entry
+  from ``indptr`` once, at construction) and share one product, a gather
+  and a segment sum, ``zeros(n).index_add(0, rows, vals * x[cols])``, as
+  the JAX operators' ``segment_sum`` and ``BCOO @ x`` are.  No Pallas
+  kernel is on these paths in the JAX package, so none is owed here; on
+  CUDA, ``index_add`` adds with atomics, so the order of a row's sum (and
+  its last bits) may change from one call to the next.  The index arrays
+  are int32 constants; the values are the operator's one parameter, and
+  the product is plain differentiable PyTorch (both AD modes, any order,
+  ``torch.func.vmap``).  ``BCOOOperator`` builds no sparse tensor on its
+  products (a sparse COO tensor has no forward-mode AD): ``.mat`` is made
+  when it is read, for interop.
+* :class:`BellOperator`: the device decides the product's path: on a
+  CUDA tensor every matvec launches the hand-written kernel of
+  ``bell_spmv`` and every matmat the one of ``bell_spmm``, on a CPU
+  tensor they take the plain versions.  An operator whose slots are ring
+  bands (``random_bell_operator``'s all are) binds the banded slot plan,
+  so its products run the kernels' banded mode, as the JAX operator's
+  run the banded Pallas kernel.
 """
 
 from __future__ import annotations
@@ -22,7 +35,241 @@ import torch
 from .bell_spmv import (_band_offsets, _bell_rmatmat_torch,
                         _bell_rmatvec_torch, _BellProduct,
                         _slot_plan_matches, detect_slot_plan)
-from .operators import LinearOperator, refuse_complex, resolve_device
+from .operators import (LinearOperator, outside_transforms, refuse_complex,
+                        resolve_device)
+
+
+def _segment_product(vals, src, dst, x, n):
+    """``y[dst[j]] += vals[j] x[src[j]]`` over the entries j, for ``x`` of
+    shape (N,) or (N, m): the triplet formats' product (``A x`` with
+    ``(src, dst) = (cols, rows)``, ``A^T x`` with them swapped).  Out of
+    place, so it differentiates in both modes and batches under
+    ``torch.func.vmap``."""
+    prod = (vals[:, None] if x.ndim == 2 else vals) * x[src]
+    return prod.new_zeros((n, *x.shape[1:])).index_add(0, dst, prod)
+
+
+def _plain_index(t):
+    """An index tensor as a plain int32 tensor.  One made under a
+    ``torch.func`` grad or jvp level (even by ``arange``) is that level's
+    wrapper, which the derivative rules, run one level down, cannot read
+    from the operator; converted with the levels popped it is the plain
+    tensor beneath (an integer tensor carries no tangent)."""
+    with outside_transforms():
+        return t.to(torch.int32)
+
+
+def _index_tensor(a, dev):
+    return torch.as_tensor(np.asarray(a, np.int32), device=dev)
+
+
+def _nonzero_triplets(a, tol):
+    """``(rows, cols, vals)`` of the entries of the dense square ``a`` (a
+    tensor or an array) with ``|a_ij| > tol``, row-major."""
+    a = a.detach().cpu().numpy() if isinstance(a, torch.Tensor) \
+        else np.asarray(a)
+    if a.ndim != 2 or a.shape[0] != a.shape[1]:
+        raise ValueError(f"expected square matrix, got shape {a.shape}")
+    rows, cols = np.nonzero(np.abs(a) > tol)
+    return rows, cols, a[rows, cols]
+
+
+class _TripletOperator(LinearOperator):
+    """Products of a sparse operator stored as (row, column, value)
+    triplets; a subclass gives :meth:`_triplets` ``(rows, cols, vals)``,
+    the size ``n``, :meth:`parameters` (the values) and
+    :meth:`with_parameters`."""
+
+    def _triplets(self):
+        raise NotImplementedError
+
+    def matvec(self, x):
+        rows, cols, vals = self._triplets()
+        return _segment_product(vals, cols, rows, x, self.n)
+
+    def rmatvec(self, x):
+        rows, cols, vals = self._triplets()
+        return _segment_product(vals, rows, cols, x, self.n)
+
+    matmat = matvec
+    rmatmat = rmatvec
+
+    def tangent_matvec(self, x, dparams):
+        """``(dA) x``: the same product on the tangent values."""
+        rows, cols, _ = self._triplets()
+        (dvals,) = dparams
+        return _segment_product(dvals, cols, rows, x, self.n)
+
+    tangent_matmat = tangent_matvec
+
+    def tangent_rmatvec(self, x, dparams):
+        rows, cols, _ = self._triplets()
+        (dvals,) = dparams
+        return _segment_product(dvals, rows, cols, x, self.n)
+
+    tangent_rmatmat = tangent_rmatvec
+
+    def to_dense(self):
+        rows, cols, vals = self._triplets()
+        return vals.new_zeros((self.n, self.n)).index_put(
+            (rows.long(), cols.long()), vals, accumulate=True)
+
+    @property
+    def dim(self):
+        return self.n
+
+    @property
+    def dtype(self):
+        return self._triplets()[2].dtype
+
+    @property
+    def device(self):
+        return self._triplets()[2].device
+
+    @property
+    def nnz(self):
+        return self._triplets()[2].shape[0]
+
+
+class COOOperator(_TripletOperator):
+    """COO sparse operator: entry j is ``vals[j]`` at ``(rows[j],
+    cols[j])``; duplicates add.  The product is a gather and a segment
+    sum (``index_add``)."""
+
+    def __init__(self, rows: torch.Tensor, cols: torch.Tensor,
+                 vals: torch.Tensor, n: int):
+        self.rows = _plain_index(rows)
+        self.cols = _plain_index(cols)
+        self.vals = vals
+        self.n = int(n)
+
+    def _triplets(self):
+        return self.rows, self.cols, self.vals
+
+    def parameters(self):
+        return [self.vals]
+
+    def with_parameters(self, tensors):
+        (vals,) = tensors
+        op = copy.copy(self)
+        op.vals = vals
+        return op
+
+    @classmethod
+    def from_dense(cls, a, *, tol: float = 0.0, device=None):
+        """The entries of the dense (N, N) ``a`` with ``|a_ij| > tol``,
+        read on the host and moved to ``device``."""
+        dev = resolve_device(device)
+        rows, cols, vals = _nonzero_triplets(a, tol)
+        return cls(_index_tensor(rows, dev), _index_tensor(cols, dev),
+                   torch.from_numpy(vals).to(dev), a.shape[0])
+
+
+class CSROperator(_TripletOperator):
+    """CSR sparse operator (``indptr``, ``indices``, ``data``).  The row
+    of each entry is derived from ``indptr`` once, here, by
+    ``torch.searchsorted`` (no host read, so an operator may be built
+    under a transform), unless given as ``rows``; the products are COO's
+    on ``(rows, indices, data)``."""
+
+    def __init__(self, indptr: torch.Tensor, indices: torch.Tensor,
+                 data: torch.Tensor, n: int, rows: torch.Tensor | None = None):
+        self.indptr = _plain_index(indptr)
+        self.indices = _plain_index(indices)
+        self.data = data
+        self.n = int(n)
+        if rows is None:
+            # The row of entry j: the row boundaries at or before j.
+            rows = torch.searchsorted(
+                self.indptr, torch.arange(self.indices.shape[0],
+                                          dtype=torch.int32,
+                                          device=self.indptr.device),
+                right=True, out_int32=True) - 1
+        self._rows = _plain_index(rows)
+
+    def _triplets(self):
+        return self._rows, self.indices, self.data
+
+    def parameters(self):
+        return [self.data]
+
+    def with_parameters(self, tensors):
+        (data,) = tensors
+        op = copy.copy(self)
+        op.data = data
+        return op
+
+    def to_coo(self) -> COOOperator:
+        return COOOperator(self._rows, self.indices, self.data, self.n)
+
+    @classmethod
+    def from_dense(cls, a, *, tol: float = 0.0, device=None):
+        """The entries of the dense (N, N) ``a`` with ``|a_ij| > tol``, in
+        row-major order, read on the host and moved to ``device``."""
+        dev = resolve_device(device)
+        rows, cols, vals = _nonzero_triplets(a, tol)
+        order = np.lexsort((cols, rows))
+        rows, cols, vals = rows[order], cols[order], vals[order]
+        n = len(a)
+        indptr = np.zeros(n + 1, np.int64)
+        np.add.at(indptr, rows + 1, 1)
+        return cls(_index_tensor(np.cumsum(indptr), dev),
+                   _index_tensor(cols, dev), torch.from_numpy(vals).to(dev),
+                   n, _index_tensor(rows, dev))
+
+    @classmethod
+    def from_scipy(cls, m, *, device=None):
+        """From any scipy.sparse matrix, as canonical CSR (duplicates
+        summed)."""
+        if m.shape[0] != m.shape[1]:
+            # Square only: a rectangular one would index out of range.
+            raise ValueError(f"CSROperator is square-only, got {m.shape}")
+        dev = resolve_device(device)
+        m = m.tocsr()
+        m.sum_duplicates()
+        return cls(_index_tensor(m.indptr, dev), _index_tensor(m.indices, dev),
+                   torch.from_numpy(np.array(m.data)).to(dev), m.shape[0])
+
+
+class BCOOOperator(_TripletOperator):
+    """Operator on a sparse COO tensor (the counterpart of the JAX
+    operator on ``jax.experimental.sparse.BCOO``).  ``mat`` is a dense
+    square tensor or a ``torch.sparse_coo_tensor``; its coalesced
+    indices (as int32) and values are kept, the values its parameter.
+    The products run on them as COO's do, not through ``torch.sparse``
+    (no forward-mode AD, and a loop per lane under ``vmap``)."""
+
+    def __init__(self, mat: torch.Tensor):
+        if mat.ndim != 2 or mat.shape[0] != mat.shape[1]:
+            raise ValueError(f"expected square matrix, got shape "
+                             f"{tuple(mat.shape)}")
+        if not mat.is_sparse:
+            mat = mat.to_sparse()
+        mat = mat.coalesce()
+        self.indices = _plain_index(mat.indices())        # (2, nnz)
+        self.values = mat.values()
+        self.n = int(mat.shape[0])
+
+    @property
+    def mat(self) -> torch.Tensor:
+        """The coalesced sparse COO tensor (for interop; no product uses
+        it)."""
+        return torch.sparse_coo_tensor(
+            self.indices.long(), self.values, (self.n, self.n),
+            is_coalesced=True, check_invariants=False)
+
+    def _triplets(self):
+        return self.indices[0], self.indices[1], self.values
+
+    def parameters(self):
+        return [self.values]
+
+    def with_parameters(self, tensors):
+        (values,) = tensors
+        op = copy.copy(self)
+        op.values = values
+        return op
+
 
 # The JAX package's XLA path multiplies complex blocks, its Pallas kernel
 # does not; neither do the hand-written kernels here.
@@ -157,6 +404,13 @@ class BellOperator(LinearOperator):
             return self.tangent_matvec(x, dparams)
         (dvals,) = dparams
         return _bell_rmatvec_torch(dvals, self.cols, x, self.vals.shape[0])
+
+    def tangent_rmatmat(self, X, dparams):
+        """``(dA)^T X`` (plain PyTorch, as :meth:`rmatmat`)."""
+        if self.symmetric:
+            return self.tangent_matmat(X, dparams)
+        (dvals,) = dparams
+        return _bell_rmatmat_torch(dvals, self.cols, X, self.vals.shape[0])
 
     def rmatmat(self, X):
         if self.symmetric:

@@ -82,12 +82,16 @@ def test_matrix_free_operator_has_no_diagonal():
                                  dtype=torch.float64, device="cpu")
     with pytest.raises(TypeError, match="diag="):
         port.operator_diagonal(op)
-    with pytest.raises(TypeError, match="items 6 and 7"):
+    with pytest.raises(TypeError, match="no structural diagonal blocks for "
+                       "MatrixFreeOperator; pass explicit blocks="):
         port.block_jacobi_precond(op)
-    # JAX refuses it with the same TypeError.
+    # JAX refuses both with the same TypeErrors.
     from dominantsparseeigenad_tpu.ops.operators import MatrixFreeOperator
+    jop = MatrixFreeOperator(lambda p, x: 2.0 * x, None, 8)
     with pytest.raises(TypeError, match="diag="):
-        jax_diagonal(MatrixFreeOperator(lambda p, x: 2.0 * x, None, 8))
+        jax_diagonal(jop)
+    with pytest.raises(TypeError, match="pass explicit blocks="):
+        jax_block_jacobi(jop)
 
 
 def _preconds(kind, shift):

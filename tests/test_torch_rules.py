@@ -10,7 +10,9 @@ import shutil
 import subprocess
 import sys
 
+import numpy as np
 import pytest
+import scipy.sparse
 import torch
 
 import dominantsparseeigenad_tpu_torch as port
@@ -275,6 +277,23 @@ def _entry_points():
         "dominant_eig_pair": lambda: port.dominant_eig_pair(a),
         "dominant_eig_spectrum": lambda: port.dominant_eig_spectrum(a),
         "spectrum_structure": lambda: port.spectrum_structure(a),
+        # The sparse formats' constructors from host data, made on CUDA
+        # unless asked otherwise; an operator built from tensors lives
+        # where its tensors do.
+        "COOOperator.from_dense": lambda: port.COOOperator.from_dense(
+            a.numpy()),
+        "CSROperator.from_dense": lambda: port.CSROperator.from_dense(
+            a.numpy()),
+        "CSROperator.from_scipy": lambda: port.CSROperator.from_scipy(
+            scipy.sparse.csr_matrix(a.numpy())),
+        "BCOOOperator": lambda: port.BCOOOperator(
+            a.to(port.resolve_device())),
+        "coo_operator_from_numpy": lambda: port.coo_operator_from_numpy(
+            np.arange(8), np.arange(8), np.ones(8), 8),
+        "csr_operator_from_numpy": lambda: port.csr_operator_from_numpy(
+            np.arange(9), np.arange(8), np.ones(8), 8),
+        "bcoo_operator_from_numpy": lambda: port.bcoo_operator_from_numpy(
+            np.stack([np.arange(8)] * 2, axis=1), np.ones(8), 8),
     }
 
 
@@ -396,11 +415,13 @@ def test_complex_input_is_refused(name):
 
 
 def test_no_message_names_the_finished_or_a_wrong_item():
-    """The complex item (5) is done, and the sharded tier's refusals name
-    item 14, not item 12 (the spectral tiers)."""
+    """The complex item (5) and the formats and algebra (items 6 and 7)
+    are done, and the sharded tier's refusals name item 14, not item 12
+    (the spectral tiers)."""
     for path in _sources():
         text = path.read_text()
         assert "queue 1 item 5)" not in text, path.name
+        assert not re.search(r"items\s+6\s+and\s+7", text), path.name
         if path.parent.name == "parallel":
             assert "queue 1 item 12)" not in text, path.name
 
@@ -479,3 +500,55 @@ def test_every_function_composes_with_torch_func():
         # A subclass gets a vmap rule that applies itself, not its base.
         for sub in cls.__subclasses__():
             assert sub.vmap is not cls.vmap, sub.__name__
+
+
+def _family(kind):
+    """``g -> A + g B`` for a 16 x 16 symmetric pair (B sparse) as a COO,
+    a CSR (each built inside the transforms from its host arrays) or a
+    composite (Shifted(Sum(Dense, Scaled(CSR, g)), σ)), float64."""
+    gen = torch.Generator().manual_seed(5)
+    a, b = torch.randn(2, 16, 16, dtype=torch.float64, generator=gen)
+    b = b * (torch.rand(16, 16, generator=gen) < 0.4)
+    a, b = (a + a.T) / 2, (b + b.T) / 2
+    rows, cols = np.nonzero(a.numpy())
+    csr = port.CSROperator.from_dense(b, device="cpu")
+    if kind == "coo":
+        return lambda g: port.COOOperator(
+            torch.from_numpy(rows).to(torch.int32),
+            torch.from_numpy(cols).to(torch.int32),
+            a[rows, cols] + g * b[rows, cols], 16)
+    if kind == "csr":
+        dense = port.CSROperator.from_dense(a, device="cpu")
+        return lambda g: port.CSROperator(
+            dense.indptr.long(), dense.indices.long(),
+            a[rows, cols] + g * b[rows, cols], 16)
+    return lambda g: port.ShiftedOperator(
+        port.DenseOperator(a) + g * csr, 0.25)
+
+
+@pytest.mark.parametrize("kind", ["coo", "csr", "composite"])
+def test_every_operator_format_composes_with_torch_func(kind):
+    """The sparse formats and the composites hold the same ``torch.func``
+    contract as the Functions above: through ``dominant_eigh``,
+    ``grad`` equals ``jvp``, ``hessian`` equals a jvp of a jvp, and
+    ``vmap`` over couplings equals the loop."""
+    make = _family(kind)
+
+    def e0(g):
+        return port.dominant_eigh(make(g), k=16, tol=1e-12,
+                                  device="cpu")[0]
+
+    g = torch.tensor(0.7, dtype=torch.float64)
+    one = torch.ones_like(g)
+    d1 = torch.func.grad(e0)(g)
+    _, d1_fwd = torch.func.jvp(e0, (g,), (one,))
+    d2 = torch.func.hessian(e0)(g)
+    _, d2_fwd = torch.func.jvp(lambda s: torch.func.jvp(e0, (s,), (one,))[1],
+                               (g,), (one,))
+    gs = torch.tensor([0.5, 0.7, 1.1], dtype=torch.float64)
+    lanes = torch.func.vmap(e0)(gs)
+    loop = torch.stack([e0(x) for x in gs])
+    torch.testing.assert_close(d1, d1_fwd, rtol=1e-8, atol=0)
+    torch.testing.assert_close(d2, d2_fwd, rtol=1e-6, atol=0)
+    torch.testing.assert_close(lanes, loop, rtol=1e-12, atol=0)
+
