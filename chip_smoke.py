@@ -237,6 +237,40 @@ line each:
    bound and the peak memory.  Its K4b launches join the ``kernels``
    line.
 
+16. ``restart``: thick-restart Lanczos.  (a) Config #5, the ``eigh``
+   phase's operator and start vector: ``dominant_eigh`` with a window of
+   k = 32 and 8 restart cycles, λ and ∂λ/∂vals; its K4b SpMV launches
+   against 32 + 1 + 8 × 24 = 225 and one for ∂λ; λ against the plain
+   k = 100 forward within the sum of the two Ritz residual norms (both
+   printed), the peak memory of each (a 33-row window against a 101-row
+   basis); ``restart_init``, 3 cycles, ``utils.save_pytree``,
+   ``load_pytree`` into a fresh state, 5 more cycles: bit for bit the
+   uninterrupted 8-cycle state.  (b) ``benchmarks/restart_bench.py``'s
+   default cell, the matrix-free TFIM at N = 24, g = 1.2, f32, k = 32,
+   8 cycles, one reorthogonalization pass, E0 and dE0/dg through
+   ``dominant_eigh`` (run twice, timed) against Jordan-Wigner at that
+   script's bars (rel 1e-4 / 1e-3).  (c) N = 27 (134M dimensions, a
+   16.5 GiB window) by the cycle-stepped driver (``restart_init``,
+   ``restart_cycle``, ``restart_extract``), dE0/dg by Hellmann-Feynman,
+   the same bars; the time of each cycle, a matvec's, the peak memory.
+
+17. ``gen``: the generalized pencil.  (a) Config #5's A with B = diag(m),
+   m in [1, 2) from a seed, a ``MatrixFreeOperator`` in m:
+   ``dominant_eigh_gen`` (r = 8, at most 100 LOBPCG iterations,
+   preconditioner M^{-1}) and the gradient of Σ c_i λ_i + <C, X> in the
+   values and in m (its pencil CG capped at 1000, recorded as it runs):
+   the K4b SpMM launches against the iterations (1 + 2 a LOBPCG
+   iteration, CG iterations + 1 for the backward), X^T B X = I within
+   1e-5, the residual; against the standard problem D A D, D = M^{-1/2}
+   by ``ComposedOperator``, unpreconditioned LOBPCG from M^{1/2} x0 (the
+   routes' iterates correspond in exact arithmetic): λ and ∂Σλ/∂m (with
+   the term an unconverged block leaves between the two rules).  (b)
+   ``examples/vibrational_modes.py``'s chain (n = 150, r = 3, float64,
+   K^{-1} preconditioner) against ``scipy.linalg.eigh(K, M)`` and
+   d(ω0²)/dm against a central difference.  (c)
+   ``dominant_eigh_multi(reorth_chunks=4)`` at config #5 against the
+   unchunked run.  Both phases' K4b launches join the ``kernels`` line.
+
 Then a ``kernels`` line, the ``nvidia-smi`` name and power-limit line, and
 as the last line ``{"ok": true, "device": {...}}``.  Any failed check
 raises, so the exit code is not 0.  Without a CUDA device it exits with
@@ -460,6 +494,46 @@ CX_RTOL = {
     "spectrum": {"max_rel_err_vs_eigvals": 2.7e-4, "dtheta_db_err": 1e-12},
     "eig": {"lam_rel": 1e-13, "grad": 8e-10},
 }
+
+# The restart phase: thick-restart Lanczos.  (a) Config #5 (the eigh
+# phase's operator and start vector): dominant_eigh with a window of
+# RESTART_K and RESTART_CYCLES cycles, its λ and ∂λ/∂vals, against the
+# plain k = K forward (the two λ within the sum of their Ritz residual
+# norms), the peak memory of each; the cycle-stepped driver checkpointed
+# after RESTART_RESUME_AT cycles, reloaded into a fresh state and
+# finished, against an uninterrupted run (bit for bit).  (b) The TFIM
+# cell of benchmarks/restart_bench.py (its defaults: g = 1.2, f32,
+# k = 32, 8 cycles, one reorthogonalization pass) at N = RESTART_TFIM_N
+# through dominant_eigh: E0 and dE0/dg against Jordan-Wigner at that
+# script's bars; (c) N = RESTART_STEPPED_N by the stepped driver
+# (restart_init, restart_cycle, restart_extract), dE0/dg by
+# Hellmann-Feynman, the same bars.
+RESTART_K, RESTART_CYCLES, RESTART_RESUME_AT = 32, 8, 3
+RESTART_TFIM_N, RESTART_STEPPED_N = 24, 27
+RESTART_TFIM = dict(g=1.2, k=32, cycles=8, reorth_passes=1)
+RESTART_RTOL = {"e0": 1e-4, "de0_dg": 1e-3}   # restart_bench.py:106-107
+# The gen phase: the generalized pencil.  (a) Config #5's A (the eigh
+# phase's operator) with B = diag(m), m in [1, 2) from GEN_SEED, a
+# MatrixFreeOperator in m: dominant_eigh_gen with r = MULTI_R, at most
+# LOBPCG_ITERS iterations, precond M^{-1}, the gradient of Σ c_i λ_i +
+# <C, X> in the values and in m (its pencil CG capped at
+# MULTI_CG_MAXITER); X^T B X = I; against the standard problem D A D,
+# D = M^{-1/2} by the operator algebra, LOBPCG unpreconditioned from
+# M^{1/2} x0 (the two routes' iterates correspond in exact arithmetic):
+# λ and ∂Σλ/∂m within GEN_ROUTE_RTOL, the latter once the term an
+# unconverged block leaves between the two rules is added.  Measured on
+# the H100 (100 iterations each, f32): λ 8.4e-7 apart, ∂Σλ/∂m 3.0e-4 (a
+# Ritz vector is first-order accurate where its value is second-order:
+# the square root of λ's gap).  (b) examples/vibrational_modes.py's
+# chain (n = 150, r = 3, f64, K^{-1} preconditioner) against
+# scipy.linalg.eigh(K, M) and a central difference.  (c)
+# dominant_eigh_multi(reorth_chunks=4) at config #5 against the
+# unchunked run.
+GEN_SEED = 23
+GEN_ROUTE_RTOL = {"lam": 1e-5, "dsumlam_dm": 1e-3}
+GEN_BORTHO_BAR = 1e-5
+VIB = dict(n=150, r=3, maxiter=100, fd_eps=1e-4)
+VIB_RTOL = {"omega2": 1e-9, "grad_vs_fd": 1e-5}
 
 
 def emit(obj):
@@ -3711,10 +3785,7 @@ def formats_config5(pkg, spmv, lam_eigh):
     n, bs, bpr = CONFIG5
     counts = spmv.launch_counts
     torch.cuda.empty_cache()
-    # The eigh phase's operator and start vector (the same seed and draws).
-    gen = torch.Generator(device=DEVICE).manual_seed(7)
-    a0 = pkg.random_bell_operator(n, bs, bpr, generator=gen, device=DEVICE)
-    v0 = torch.randn(n, generator=gen, device=DEVICE)
+    a0, v0 = config5_operator(pkg)
     a1 = pkg.random_bell_operator(
         n, bs, bpr, generator=torch.Generator(device=DEVICE).manual_seed(8),
         device=DEVICE)
@@ -3937,6 +4008,405 @@ def phase_formats(pkg, spmv, lam_eigh):
     return counts
 
 
+def config5_operator(pkg):
+    """The eigh phase's operator and start vector (the same seed and
+    draws)."""
+    n, bs, bpr = CONFIG5
+    gen = torch.Generator(device=DEVICE).manual_seed(7)
+    op = pkg.random_bell_operator(n, bs, bpr, generator=gen, device=DEVICE)
+    return op, torch.randn(n, generator=gen, device=DEVICE)
+
+
+def peak_since(fn):
+    """``(fn(), seconds, MiB)``: the MiB the call's peak adds to what was
+    allocated before it."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out, seconds = timed(fn)
+    return out, seconds, (torch.cuda.max_memory_allocated() - base) / 2**20
+
+
+def restart_resume(pkg, op, v0):
+    """The cycle-stepped driver at config #5: RESTART_RESUME_AT cycles, a
+    checkpoint written and read back into a fresh state, the remaining
+    cycles; against the uninterrupted run, field by field."""
+    from dominantsparseeigenad_tpu_torch.utils import load_pytree, save_pytree
+    k = RESTART_K
+    init = pkg.restart_init(op, k, v0=v0, device=DEVICE)
+    full = init
+    for _ in range(RESTART_CYCLES):
+        full, _ = pkg.restart_cycle(op, full, k)
+    state = init
+    for _ in range(RESTART_RESUME_AT):
+        state, _ = pkg.restart_cycle(op, state, k)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "restart_state")
+        save_pytree(path, state)
+        fresh = pkg.RestartState(*(torch.empty_like(t) for t in state))
+        del state
+        state = load_pytree(path, fresh)
+    for _ in range(RESTART_CYCLES - RESTART_RESUME_AT):
+        state, _ = pkg.restart_cycle(op, state, k)
+    return {"bitwise": {f: torch.equal(getattr(state, f), getattr(full, f))
+                        for f in state._fields},
+            "max_abs_diff": {f: float((getattr(state, f)
+                                       - getattr(full, f)).abs().max())
+                             for f in state._fields},
+            "lam": float(pkg.restart_extract(state)[0])}
+
+
+def restart_config5(pkg, spmv, lam_eigh):
+    """Part (a) of the restart phase (module docstring, phase 16)."""
+    n, bs, bpr = CONFIG5
+    k, cycles = RESTART_K, RESTART_CYCLES
+    kernel = "bell_spmv_banded_f32"
+    counts = spmv.launch_counts
+    op, v0 = config5_operator(pkg)
+    op.vals.requires_grad_(True)
+    before = counts[kernel]
+    (lam, v), t_fwd, peak_r = peak_since(lambda: pkg.dominant_eigh(
+        op, k=k, restart_cycles=cycles, v0=v0, device=DEVICE))
+    fwd_launches = counts[kernel] - before
+    before = counts[kernel]
+    (g,), t_bwd = timed(lambda: torch.autograd.grad(lam, op.vals))
+    bwd_launches = counts[kernel] - before
+    lam, v = lam.detach(), v.detach()
+    with torch.no_grad():
+        resid = float(torch.linalg.vector_norm(op.matvec(v) - lam * v))
+        (lam_p, v_p), t_plain, peak_p = peak_since(lambda: pkg.dominant_eigh(
+            op, k=K, v0=v0, device=DEVICE))
+        resid_p = float(torch.linalg.vector_norm(op.matvec(v_p)
+                                                 - lam_p * v_p))
+        vb = v.reshape(-1, bs)
+        expect = vb[:, None, :, None] * vb[op.cols.long()][:, :, None, :]
+        dlam_err = rel_err(g, expect)
+        del expect, g
+        (resume, t_resume) = timed(lambda: restart_resume(pkg, op, v0))
+    lam_f, lam_pf = float(lam), float(lam_p)
+    expected = k + 1 + cycles * (k - max(1, k // 4))
+    vec_mib = n * 4 / 2**20
+    out = {"n": n, "k": k, "cycles": cycles, "lam": lam_f,
+           "ritz_residual": resid, "forward_s": t_fwd, "backward_s": t_bwd,
+           "forward_launches": fwd_launches, "expected_launches": expected,
+           "backward_launches": bwd_launches, "peak_mib": peak_r,
+           "window_mib": (k + 1) * vec_mib, "dlam_dvals_rel_err": dlam_err,
+           "plain_k": K, "plain_lam": lam_pf, "plain_ritz_residual": resid_p,
+           "plain_forward_s": t_plain, "plain_peak_mib": peak_p,
+           "plain_basis_mib": (K + 1) * vec_mib,
+           "plain_lam_equals_eigh_phase": lam_pf.hex() == lam_eigh.hex(),
+           "lam_gap": abs(lam_f - lam_pf), "resume": resume,
+           "resume_cycles": [RESTART_RESUME_AT,
+                             cycles - RESTART_RESUME_AT],
+           "resume_run_s": t_resume,
+           "resumed_lam_equals_dominant_eigh": resume["lam"] == lam_f}
+    checks = {
+        # restart_init: k SpMVs and one for q_{k+1}; each cycle k - l.
+        "restart forward launches == k + 1 + cycles (k - k/4)":
+            fwd_launches == expected,
+        # ∂λ alone: one matvec differentiated, no solve.
+        "∂λ backward launches == 1": bwd_launches == 1,
+        "|λ_restart - λ_plain| <= sum of their Ritz residual norms":
+            abs(lam_f - lam_pf) <= resid + resid_p,
+        "∂λ/∂vals vs v⊗v, rel 1e-5": dlam_err <= 1e-5,
+        "restart window below the plain basis: peak_mib < plain_peak_mib":
+            peak_r < peak_p,
+        "resumed state == uninterrupted state, bit for bit":
+            all(resume["bitwise"].values()),
+        "finite": math.isfinite(lam_f) and math.isfinite(resid),
+    }
+    return out, checks
+
+
+def restart_tfim(pkg, models):
+    """Part (b): restart_bench.py's cell through dominant_eigh."""
+    n, p = RESTART_TFIM_N, RESTART_TFIM
+
+    def value_and_grad():
+        g = torch.tensor(p["g"], dtype=torch.float32, device=DEVICE,
+                         requires_grad=True)
+        lam, _ = pkg.dominant_eigh(
+            models.tfim_operator(n, g, dtype=torch.float32, device=DEVICE),
+            k=p["k"], restart_cycles=p["cycles"],
+            reorth_passes=p["reorth_passes"], device=DEVICE)
+        (d,) = torch.autograd.grad(lam, g)
+        return float(lam.detach()), float(d)
+
+    runs = [peak_since(value_and_grad) for _ in range(2)]
+    (e0, de0), _, peak = runs[-1]
+    jw = (float(models.tfim_exact_e0(n, p["g"], device=DEVICE)),
+          models.tfim_exact_de0_dg(n, p["g"]))
+    errs = dict(zip(RESTART_RTOL, (abs(a - b) / abs(b) for a, b in
+                                   zip((e0, de0), jw))))
+    out = {"n": n, "dim": 1 << n, **p, "e0": e0, "de0_dg": de0,
+           "jw": jw, "rel_err": errs,
+           "value_and_grad_s": [t for _, t, _ in runs], "peak_mib": peak,
+           "window_mib": (p["k"] + 1) * (1 << n) * 4 / 2**20}
+    checks = {f"TFIM N={n} {key} vs Jordan-Wigner, rel {bar}":
+              errs[key] <= bar for key, bar in RESTART_RTOL.items()}
+    return out, checks
+
+
+def restart_stepped(pkg, models):
+    """Part (c): the cycle-stepped driver at RESTART_STEPPED_N."""
+    from dominantsparseeigenad_tpu_torch.models.tfim import flip_sum
+    n, p = RESTART_STEPPED_N, RESTART_TFIM
+    k, passes = p["k"], p["reorth_passes"]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    op = models.tfim_operator(n, p["g"], dtype=torch.float32, device=DEVICE)
+    matvec_ms = event_ms(lambda: op.matvec(op.params[1]), samples=3)
+    state, t_init = timed(lambda: pkg.restart_init(
+        op, k, reorth_passes=passes, device=DEVICE))
+    cycle_s, resids = [], []
+    for _ in range(p["cycles"]):
+        (state, resid), t = timed(lambda: pkg.restart_cycle(
+            op, state, k, reorth_passes=passes))
+        cycle_s.append(t)
+        resids.append(float(resid))
+    lam, v, _ = pkg.restart_extract(state)
+    del state
+    # Hellmann-Feynman: dE0/dg = <v| dH/dg |v> = -<v| Σ_i X_i |v>.
+    de0 = -float(torch.dot(v, flip_sum(v, n)))
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    e0 = float(lam)
+    jw = (float(models.tfim_exact_e0(n, p["g"], device=DEVICE)),
+          models.tfim_exact_de0_dg(n, p["g"]))
+    errs = dict(zip(RESTART_RTOL, (abs(a - b) / abs(b) for a, b in
+                                   zip((e0, de0), jw))))
+    out = {"n": n, "dim": 1 << n, **p, "e0": e0, "de0_dg": de0, "jw": jw,
+           "rel_err": errs, "init_s": t_init, "cycle_s": cycle_s,
+           "cycle_residuals": resids, "matvec_ms": matvec_ms,
+           "peak_gib": peak,
+           "window_gib": (k + 1) * (1 << n) * 4 / 2**30}
+    checks = {f"TFIM N={n} stepped {key} vs Jordan-Wigner, rel {bar}":
+              errs[key] <= bar for key, bar in RESTART_RTOL.items()}
+    del op, v
+    return out, checks
+
+
+def phase_restart(pkg, spmv, lam_eigh):
+    """Thick-restart Lanczos (module docstring, phase 16).  Returns the
+    phase's kernel launch counts."""
+    from dominantsparseeigenad_tpu_torch import models
+    t_phase = time.perf_counter()
+    spmv.reset_launch_counts()
+    out, checks = {}, {}
+    for name, part in (("config5", lambda: restart_config5(pkg, spmv,
+                                                           lam_eigh)),
+                       ("tfim", lambda: restart_tfim(pkg, models)),
+                       ("stepped", lambda: restart_stepped(pkg, models))):
+        out[name], more = part()
+        checks.update(more)
+        torch.cuda.empty_cache()
+    counts = dict(spmv.launch_counts)
+    checks["bell_spmv_banded_f32 launched on the restart path"] = \
+        counts["bell_spmv_banded_f32"] > 0
+    out["launches"] = {k: c for k, c in counts.items() if c}
+    out["card"] = nvidia_smi_name_power()
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit({"phase": "restart", **out})
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"restart phase failed: {failed}")
+    return counts
+
+
+def diagonal_operator(pkg, w, n, dtype=torch.float32):
+    """diag(w) as a MatrixFreeOperator whose parameter is ``w``."""
+    return pkg.MatrixFreeOperator(lambda d, x: d * x, w, n, dtype=dtype)
+
+
+def gen_config5(pkg, spmv):
+    """Part (a) of the gen phase, and (c) (module docstring, phase 17)."""
+    from dominantsparseeigenad_tpu_torch.ops import gen as gen_module
+    from dominantsparseeigenad_tpu_torch.ops.cg import CHECK_EVERY
+    n, bs, bpr = CONFIG5
+    r = MULTI_R
+    kernel = "bell_spmm_banded_f32"
+    counts = spmv.launch_counts
+    a, v0 = config5_operator(pkg)
+    a.vals.requires_grad_(True)
+    gen = torch.Generator(device=DEVICE).manual_seed(GEN_SEED)
+    m = (1.0 + torch.rand(n, generator=gen, device=DEVICE)).requires_grad_()
+    x0 = torch.randn(n, r, generator=gen, device=DEVICE)
+    c = torch.randn(r, generator=gen, device=DEVICE)
+    C = torch.randn(n, r, generator=gen, device=DEVICE) / math.sqrt(n)
+    m_d = m.detach()
+    b = diagonal_operator(pkg, m, n)
+    before = dict(counts)
+    (lams, X, info), t_fwd, peak = peak_since(lambda: pkg.dominant_eigh_gen(
+        a, b, r=r, maxiter=LOBPCG_ITERS, tol=CG_TOL,
+        solve_maxiter=MULTI_CG_MAXITER, precond=lambda z: z / m_d, x0=x0,
+        with_info=True, device=DEVICE))
+    fwd = {key: counts[key] - before[key] for key in counts
+           if counts[key] != before[key]}
+    its = int(info.effective_k)
+    before = counts[kernel]
+    (g_m_lam,), t_lam = timed(lambda: torch.autograd.grad(
+        lams.sum(), m, retain_graph=True))
+    lam_bwd = counts[kernel] - before
+    # The full loss' gradient; its one pencil CG is recorded as it runs.
+    loop, cg_its = gen_module._cg_columns_loop, []
+
+    def recorded(*args, **kw):
+        out = loop(*args, **kw)
+        cg_its.append(int(out[1].max()))
+        return out
+
+    gen_module._cg_columns_loop = recorded
+    try:
+        before = counts[kernel]
+        loss = (c * lams).sum() + (C * X).sum()
+        (g_vals, g_m), t_bwd = timed(lambda: torch.autograd.grad(
+            loss, (a.vals, m)))
+        bwd = counts[kernel] - before
+    finally:
+        gen_module._cg_columns_loop = loop
+    lams_d, X_d = lams.detach(), X.detach().double()
+    with torch.no_grad():
+        gram = X_d.T @ (m_d.double()[:, None] * X_d)
+        bortho = float((gram - torch.eye(r, dtype=gram.dtype,
+                                         device=DEVICE)).abs().max())
+        finite = all(bool(torch.isfinite(t).all())
+                     for t in (lams_d, X_d, g_vals, g_m))
+        # The two routes' ∂λ_i/∂m are -λ_i x_i² (the pencil rule) and
+        # -x_i ⊙ (A x_i) / m (the standard rule through D): they differ by
+        # -x_i ⊙ r_i / m, r_i = A x_i - λ_i M x_i, which an unconverged
+        # block leaves.
+        Xf = X.detach()
+        resid_blk = a.matmat(Xf) - m_d[:, None] * Xf * lams_d[None, :]
+        corr = -(Xf * resid_blk).sum(dim=1) / m_d
+        del g_vals, g_m, gram, resid_blk
+    # The standard problem D A D, D = M^{-1/2}, by the operator algebra;
+    # unpreconditioned LOBPCG from M^{1/2} x0.
+    m2 = m_d.clone().requires_grad_(True)
+    d = diagonal_operator(pkg, m2.rsqrt(), n)
+    dad = d @ (a.with_vals(a.vals.detach()) @ d)
+    before = counts[kernel]
+    (lams_s, _, info_s), t_std = timed(lambda: pkg.dominant_eigh_multi(
+        dad, r=r, k=LOBPCG_ITERS, method="lobpcg", tol=CG_TOL,
+        x0=x0 * m_d.sqrt()[:, None], with_info=True, device=DEVICE))
+    std_launches = counts[kernel] - before
+    (g_m_std,) = torch.autograd.grad(lams_s.sum(), m2)
+    its_std = int(info_s.effective_k)
+    route_lam = rel_err(lams_s.detach(), lams_d)
+    route_grad = rel_err(g_m_std, g_m_lam + corr)
+    route_grad_raw = rel_err(g_m_std, g_m_lam)
+    del g_m_std, g_m_lam, corr
+    # (c) reorth_chunks in the block solver's Lanczos sweep.
+    with torch.no_grad():
+        (lams_c, _), t_chunks = timed(lambda: pkg.dominant_eigh_multi(
+            a, r=r, k=K, reorth_chunks=4, v0=v0, device=DEVICE))
+        lams_u, _ = pkg.dominant_eigh_multi(a, r=r, k=K, v0=v0,
+                                            device=DEVICE)
+    out = {"n": n, "r": r, "lams": lams_d.tolist(),
+           "lobpcg_iterations": its, "residual": float(info.residual),
+           "forward_s": t_fwd, "forward_launches": fwd, "peak_mib": peak,
+           "lam_backward_s": t_lam, "lam_backward_launches": lam_bwd,
+           "backward_s": t_bwd, "backward_launches": bwd,
+           "backward_cg_iterations": cg_its,
+           "b_orthonormality_defect": bortho,
+           "dad_lams": lams_s.detach().tolist(),
+           "dad_lobpcg_iterations": its_std,
+           "dad_residual": float(info_s.residual), "dad_forward_s": t_std,
+           "dad_launches": std_launches, "route_lam_rel": route_lam,
+           "route_dsumlam_dm_rel": route_grad,
+           "route_dsumlam_dm_rel_uncorrected": route_grad_raw,
+           "chunked_lams": lams_c.tolist(), "chunked_forward_s": t_chunks,
+           "chunked_vs_unchunked_rel": rel_err(lams_c, lams_u)}
+    checks = {
+        # One A product of the start block, then A W and A P an iteration;
+        # B is matrix-free, and no SpMV.
+        "pencil forward: SpMMs == 1 + 2 iterations, no SpMV":
+            fwd == {kernel: 1 + 2 * its},
+        "∂Σλ backward: one SpMM (A V), no solve": lam_bwd == 1,
+        # The pencil CG's matmats (a column frozen once it meets the
+        # tolerance, the host checking every CHECK_EVERY) and one A V.
+        "backward SpMMs - 1 in [CG iterations, + CHECK_EVERY)":
+            len(cg_its) == 1
+            and cg_its[0] <= bwd - 1 < cg_its[0] + CHECK_EVERY,
+        f"X^T B X = I within {GEN_BORTHO_BAR}": bortho <= GEN_BORTHO_BAR,
+        "D A D forward: SpMMs == 1 + 2 iterations": std_launches
+            == 1 + 2 * its_std,
+        f"pencil λ vs D A D λ, rel {GEN_ROUTE_RTOL['lam']}":
+            route_lam <= GEN_ROUTE_RTOL["lam"],
+        f"∂Σλ/∂m pencil + residual term vs D A D, rel "
+        f"{GEN_ROUTE_RTOL['dsumlam_dm']}":
+            route_grad <= GEN_ROUTE_RTOL["dsumlam_dm"],
+        "reorth_chunks=4 λ == unchunked λ": torch.equal(lams_c, lams_u),
+        "finite": finite,
+    }
+    return out, checks
+
+
+def gen_vibrational(pkg):
+    """Part (b): examples/vibrational_modes.py's chain, float64."""
+    import scipy.linalg
+    n, r = VIB["n"], VIB["r"]
+    rng = np.random.default_rng(0)
+    ks = 1.0 + rng.random(n + 1)
+    kmat = (np.diag(ks[:-1] + ks[1:]) - np.diag(ks[1:-1], 1)
+            - np.diag(ks[1:-1], -1))
+    masses = 0.5 + rng.random(n)
+    kt = torch.tensor(kmat, device=DEVICE)
+    kinv = torch.tensor(np.linalg.inv(kmat), device=DEVICE)
+    m = torch.tensor(masses, device=DEVICE, requires_grad=True)
+    (lams, _, info), t_fwd = timed(lambda: pkg.dominant_eigh_gen(
+        kt, diagonal_operator(pkg, m, n, torch.float64), r=r,
+        maxiter=VIB["maxiter"], tol=1e-12, precond=lambda v: kinv @ v,
+        with_info=True, device=DEVICE))
+    (grad,), t_bwd = timed(lambda: torch.autograd.grad(lams[0], m))
+    ew = scipy.linalg.eigh(kmat, np.diag(masses), eigvals_only=True)
+    j = int(torch.argmin(grad))
+    eps = VIB["fd_eps"]
+    mp, mm = masses.copy(), masses.copy()
+    mp[j] += eps
+    mm[j] -= eps
+    fd = (scipy.linalg.eigh(kmat, np.diag(mp), eigvals_only=True)[0]
+          - scipy.linalg.eigh(kmat, np.diag(mm), eigvals_only=True)[0]) \
+        / (2 * eps)
+    lam_err = float(np.abs(lams.detach().cpu().numpy() / ew[:r] - 1).max())
+    grad_err = abs(float(grad[j]) - fd) / abs(fd)
+    out = {"n": n, "r": r, "omega2": lams.detach().tolist(),
+           "lobpcg_iterations": float(info.effective_k),
+           "omega2_rel_err": lam_err, "site": j, "grad": float(grad[j]),
+           "fd": fd, "grad_vs_fd_rel": grad_err, "forward_s": t_fwd,
+           "backward_s": t_bwd}
+    checks = {"chain LOBPCG converged": float(info.converged) == 1.0,
+              f"ω² vs scipy.linalg.eigh(K, M), rel {VIB_RTOL['omega2']}":
+                  lam_err <= VIB_RTOL["omega2"],
+              f"d(ω0²)/dm vs central difference, rel "
+              f"{VIB_RTOL['grad_vs_fd']}": grad_err <= VIB_RTOL["grad_vs_fd"]}
+    return out, checks
+
+
+def phase_gen(pkg, spmv):
+    """The generalized pencil (module docstring, phase 17).  Returns the
+    phase's kernel launch counts."""
+    t_phase = time.perf_counter()
+    spmv.reset_launch_counts()
+    out, checks = {}, {}
+    for name, part in (("config5", lambda: gen_config5(pkg, spmv)),
+                       ("vibrational", lambda: gen_vibrational(pkg))):
+        out[name], more = part()
+        checks.update(more)
+        torch.cuda.empty_cache()
+    counts = dict(spmv.launch_counts)
+    for name in ("bell_spmv_banded_f32", "bell_spmm_banded_f32"):
+        checks[f"{name} launched on the gen path"] = counts[name] > 0
+    out["launches"] = {k: c for k, c in counts.items() if c}
+    out["card"] = nvidia_smi_name_power()
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit({"phase": "gen", **out})
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"gen phase failed: {failed}")
+    return counts
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this script runs on the card")
@@ -3984,6 +4454,11 @@ def main():
     phase_complex(pkg, spmv)
     fmt_counts = phase_formats(pkg, spmv, lam_eigh)
     counts = {k: counts[k] + fmt_counts[k] for k in counts}
+    torch.cuda.empty_cache()
+    rs_counts = phase_restart(pkg, spmv, lam_eigh)
+    counts = {k: counts[k] + rs_counts[k] for k in counts}
+    gen_counts = phase_gen(pkg, spmv)
+    counts = {k: counts[k] + gen_counts[k] for k in counts}
 
     csrc = "dominantsparseeigenad_tpu_torch/csrc/"
     # The Pallas kernel body, and the SpMM entry that runs it on (N, r).

@@ -47,6 +47,13 @@ rules), complex non-symmetric ones through ``dominant_eig``; and the
 complex half of the non-symmetric solver (``dominant_eig_pair``,
 ``dominant_eig_spectrum``, ``spectrum_structure``) gives a real
 operator's complex-conjugate eigenvalue pairs and their derivatives.
+Thick-restart Lanczos (``lanczos_restarted``, ``restart_init``,
+``restart_cycle``, ``restart_extract``; ``dominant_eigh(restart_cycles=
+...)``) bounds the Krylov memory by a (k+1, N) window, and its state is
+checkpointed by ``utils.save_pytree`` in the JAX package's file format;
+``dominant_eigh_gen`` solves the generalized pencil A x = λ B x by
+B-metric LOBPCG (``lobpcg_eigh_general``), differentiable in both
+operators through ``solve_deflated_pencil``.
 
 Entry points run on CUDA unless called with ``device="cpu"``; without a
 card they raise rather than fall back.
@@ -54,7 +61,7 @@ card they raise rather than fall back.
 
 from .convert import (bcoo_operator_from_numpy, bell_operator_from_numpy,
                       coo_operator_from_numpy, csr_operator_from_numpy,
-                      dense_operator_from_numpy,
+                      dense_operator_from_numpy, restart_state_from_numpy,
                       row_sharded_bell_operator_from_numpy)
 from .ops import *  # noqa: F401,F403
 from .ops import __all__ as _ops_all
@@ -63,6 +70,6 @@ from .parallel import __all__ as _parallel_all
 
 __all__ = ["bcoo_operator_from_numpy", "bell_operator_from_numpy",
            "coo_operator_from_numpy", "csr_operator_from_numpy",
-           "dense_operator_from_numpy",
+           "dense_operator_from_numpy", "restart_state_from_numpy",
            "row_sharded_bell_operator_from_numpy", *_ops_all,
            *_parallel_all]

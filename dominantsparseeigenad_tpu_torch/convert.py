@@ -5,7 +5,9 @@ The JAX package's ``BellOperator``, ``DenseOperator``, ``COOOperator``,
 ``np.asarray`` turns them into numpy arrays (bfloat16 values come as
 numpy's ``bfloat16`` extension dtype), and these functions build the
 port's operator from them, so both packages compute the same
-thing.
+thing.  ``restart_state_from_numpy`` does the same for a thick-restart
+``RestartState`` (``utils.load_pytree`` reads one from a checkpoint
+file).
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import numpy as np
 import torch
 
 from .ops.operators import DenseOperator, resolve_device
+from .ops.restart import RestartState
 from .ops.sparse import BCOOOperator, BellOperator, COOOperator, CSROperator
 from .parallel.sharded_sparse import RowShardedBellOperator
 
@@ -93,3 +96,11 @@ def bcoo_operator_from_numpy(indices, data, n: int, *,
     return BCOOOperator(torch.sparse_coo_tensor(
         idx.to(dev), _tensor_from_numpy(data).to(dev), (n, n),
         check_invariants=True))
+
+
+def restart_state_from_numpy(theta, y, s, q, *, device=None) -> RestartState:
+    """The port's ``RestartState`` for a JAX ``RestartState``'s
+    ``np.asarray`` fields, in the same dtypes."""
+    dev = resolve_device(device)
+    return RestartState(*(_tensor_from_numpy(a).to(dev)
+                          for a in (theta, y, s, q)))

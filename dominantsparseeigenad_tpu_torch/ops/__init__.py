@@ -13,7 +13,8 @@ from .eigh import (EighMultiOptions, EighOptions, dominant_eigh,
                    dominant_eigh_multi, refine_eigenpair)
 from .lanczos import (LanczosInfo, LanczosResult, arnoldi_step, lanczos,
                       lanczos_adaptive, lanczos_eigh, power_iteration)
-from .lobpcg import LobpcgInfo, lobpcg_eigh
+from .gen import EighGenOptions, dominant_eigh_gen, solve_deflated_pencil
+from .lobpcg import LobpcgInfo, lobpcg_eigh, lobpcg_eigh_general
 from .observables import (energy_curvature, fidelity_susceptibility,
                           value_d1_d2)
 from .operators import (ComposedOperator, DeflatedOperator, DenseOperator,
@@ -22,6 +23,8 @@ from .operators import (ComposedOperator, DeflatedOperator, DenseOperator,
                         as_operator, hdot, hmatmul, pivot_gauge,
                         resolve_device, tol_floor)
 from .precond import block_jacobi_precond, jacobi_precond, operator_diagonal
+from .restart import (RestartState, lanczos_restarted, restart_cycle,
+                      restart_extract, restart_init)
 from .sparse import (BCOOOperator, BellOperator, COOOperator, CSROperator,
                      random_bell_operator)
 from .svd import dominant_svd
@@ -29,21 +32,25 @@ from .svd import dominant_svd
 __all__ = [
     "BCOOOperator", "BellOperator", "COOOperator", "CSROperator",
     "ComposedOperator", "DeflatedOperator", "DenseOperator", "EigOptions",
-    "EighMultiOptions", "EighOptions", "LanczosInfo",
+    "EighGenOptions", "EighMultiOptions", "EighOptions", "LanczosInfo",
     "LanczosResult", "LinearOperator", "LobpcgInfo", "MatrixFreeOperator",
-    "PowerInfo", "ScaledOperator", "ShiftedOperator", "SumOperator",
+    "PowerInfo", "RestartState", "ScaledOperator", "ShiftedOperator",
+    "SumOperator",
     "TransposedOperator", "arnoldi_step", "as_operator", "bell_spmm",
     "bell_spmv",
     "bicgstab", "block_jacobi_precond", "cg", "cg_info",
     "detect_slot_plan", "dominant_eig", "dominant_eig_multi",
     "dominant_eig_pair", "dominant_eig_spectrum", "dominant_eigh",
-    "dominant_eigh_multi", "dominant_svd", "eigh_safe",
+    "dominant_eigh_gen", "dominant_eigh_multi", "dominant_svd", "eigh_safe",
     "eigh_safe_truncated", "energy_curvature", "fidelity_susceptibility",
     "gmres", "hdot", "hmatmul", "jacobi_precond",
-    "lanczos", "lanczos_adaptive", "lanczos_eigh", "lobpcg_eigh", "minres",
+    "lanczos", "lanczos_adaptive", "lanczos_eigh", "lanczos_restarted",
+    "lobpcg_eigh", "lobpcg_eigh_general", "minres",
     "operator_diagonal", "pivot_gauge", "power_iteration",
     "random_bell_operator", "refine_eigenpair", "resolve_device",
-    "solve_deflated", "solve_deflated_info", "solve_general", "solve_spd",
+    "restart_cycle", "restart_extract", "restart_init",
+    "solve_deflated", "solve_deflated_info", "solve_deflated_pencil",
+    "solve_general", "solve_spd",
     "solve_symmetric", "spectrum_structure", "svd_safe",
     "svd_safe_truncated", "tol_floor", "value_d1_d2",
 ]

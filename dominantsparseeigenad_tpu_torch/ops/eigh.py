@@ -69,13 +69,14 @@ its own (``operators.per_lane_vmap``): the Lanczos and LOBPCG loops read
 the host.
 
 The forward of :func:`dominant_eigh` runs the options of the JAX
-``_forward``: ``early_exit_tol`` (``lanczos_adaptive``), a narrow
-``basis_dtype`` with its one-step Newton polish (:func:`refine_eigenpair`,
-inside the Function's forward, so it records no graph), ``reorth_chunks``
-and ``restart_mode``.  ``precond`` reaches every deflated solve of the
-rules, of either solver, and the LOBPCG forward of the block solver.
-``restart_cycles`` (``ops/restart.py``) waits for a later slice
-(``ROADMAP.md`` queue 1 item 10).
+``_forward``: ``restart_cycles`` (thick restart, ``restart.py``, whose
+(k+1, N) window bounds the memory), ``early_exit_tol``
+(``lanczos_adaptive``), a narrow ``basis_dtype`` with its one-step Newton
+polish (:func:`refine_eigenpair`, inside the Function's forward, so it
+records no graph), ``reorth_chunks`` and ``restart_mode``.  The rules
+need only the converged pair, whichever engine found it.  ``precond``
+reaches every deflated solve of the rules, of either solver, and the
+LOBPCG forward of the block solver.
 
 Complex Hermitian operators: λ and dλ = Re<v, dA v> are real, every
 transpose above is a conjugate transpose, and the forward's pivot gauge
@@ -110,6 +111,7 @@ from .operators import (as_operator, check_device, hdot, hmatmul,
                         nestable_jvp, partial_vjp, per_lane_vmap,
                         pivot_gauge, rebind, tol_floor)
 from .precond import _apply_columns
+from .restart import lanczos_restarted
 
 
 @dataclasses.dataclass(frozen=True)
@@ -123,6 +125,7 @@ class EighOptions:
     reorthogonalize: bool = True
     reorth_passes: int = 2
     reorth_chunks: int = 0
+    restart_cycles: int = 0
     early_exit_tol: float | None = None
     basis_dtype: torch.dtype | None = None
     restart_mode: str = "cond"
@@ -134,12 +137,15 @@ def _pair_info(op, opts, lam, v):
     """The :class:`LanczosInfo` of one pair (the JAX ``_forward_info``
     of the plain fixed-k forward): the true Ritz residual ``||A v - λ v||
     / |λ|`` from one extra matvec, ``converged`` against ``tol`` clamped
-    to what the dtype reaches, ``effective_k`` the steps run."""
+    to what the dtype reaches, ``effective_k`` the steps run (the
+    restart tier: k, then k - max(1, k // 4) a cycle)."""
     resid = torch.linalg.vector_norm(op.matvec(v) - lam * v) / torch.clamp(
         lam.abs(), min=torch.finfo(v.dtype).tiny)
+    k = min(opts.k, op.dim)
+    steps = k + max(opts.restart_cycles, 0) * (k - max(1, k // 4))
     return LanczosInfo(
-        effective_k=torch.tensor(float(min(opts.k, op.dim)),
-                                 dtype=resid.dtype, device=v.device),
+        effective_k=torch.tensor(float(steps), dtype=resid.dtype,
+                                 device=v.device),
         residual=resid,
         converged=(resid <= tol_floor(opts.tol, op.dtype)).to(resid.dtype))
 
@@ -196,6 +202,12 @@ def _forward(op, opts, v0, generator):
     ``lanczos_adaptive``'s own report under ``early_exit_tol`` (None
     otherwise: the caller measures the true residual)."""
     k = min(opts.k, op.dim)
+    if opts.restart_cycles > 0:
+        lam, v, _ = lanczos_restarted(
+            op, k, n_restarts=opts.restart_cycles, extreme=opts.extreme,
+            v0=v0, generator=generator, reorth_passes=opts.reorth_passes,
+            device=op.device)
+        return (lam, v), None
     if opts.early_exit_tol is not None:
         lam, v, info = lanczos_adaptive(
             op, k, extreme=opts.extreme, tol=opts.early_exit_tol, v0=v0,
@@ -347,8 +359,10 @@ def dominant_eigh(op, k: int = 128, *, extreme: str = "min",
     seed    : seeds the Lanczos start/restart generator when ``generator``
               is None; ``v0`` gives the start vector explicitly.
     reorth_chunks, restart_mode : as in :func:`~.lanczos.lanczos`.
-    restart_cycles : thick restarts; not ported yet (> 0 raises
-              NotImplementedError, ``ROADMAP.md`` queue 1 item 10).
+    restart_cycles : when > 0 ("min"/"max"), the forward is
+              :func:`~.restart.lanczos_restarted` with a window of ``k``
+              and this many restart cycles: memory bounded by the
+              (k+1, N) window, not by the steps run.
     early_exit_tol : when set ("min"/"max"), the forward is
               :func:`~.lanczos.lanczos_adaptive`, which stops once its
               Ritz residual estimate meets this relative tolerance.
@@ -400,10 +414,6 @@ def dominant_eigh(op, k: int = 128, *, extreme: str = "min",
         raise ValueError("restart_mode is only implemented for the plain "
                          "fixed-k forward (it would be silently ignored "
                          "with restart_cycles/early_exit_tol)")
-    if restart_cycles:
-        raise NotImplementedError(
-            "restart_cycles (thick-restart Lanczos, ops/restart.py) is not "
-            "ported yet (ROADMAP.md queue 1 item 10)")
     op = as_operator(op)
     dev = check_device(device, op)
     if generator is None:
@@ -413,6 +423,7 @@ def dominant_eigh(op, k: int = 128, *, extreme: str = "min",
                        reorthogonalize=bool(reorthogonalize),
                        reorth_passes=int(reorth_passes),
                        reorth_chunks=int(reorth_chunks),
+                       restart_cycles=int(restart_cycles),
                        early_exit_tol=None if early_exit_tol is None
                        else float(early_exit_tol),
                        basis_dtype=basis_dtype, restart_mode=restart_mode,
@@ -466,6 +477,7 @@ class EighMultiOptions:
     tol: float = 1e-8
     maxiter: int | None = None
     reorth_passes: int = 2
+    reorth_chunks: int = 0
     gap_eps: float = 1e-12
     method: str = "lanczos"
     # An SPD approximate inverse (vector convention) for the LOBPCG
@@ -490,7 +502,8 @@ def _multi_forward(op, opts, v0, generator):
                            precond=_lobpcg_precond(opts), device=op.device)
     k = min(opts.k, op.dim)
     res = lanczos(op, k, v0=v0, generator=generator,
-                  reorth_passes=opts.reorth_passes, device=op.device)
+                  reorth_passes=opts.reorth_passes,
+                  reorth_chunks=opts.reorth_chunks, device=op.device)
     evals, evecs = _tridiagonal_eigh(res.alphas, res.betas)
     idx = torch.arange(opts.r, device=evals.device)
     if opts.extreme == "max":
@@ -618,7 +631,8 @@ class _DominantEighMulti(torch.autograd.Function):
 def dominant_eigh_multi(op, r: int = 4, k: int = 128, *,
                         extreme: str = "min", tol: float = 1e-8,
                         maxiter: int | None = None, seed: int = 0,
-                        reorth_passes: int = 2, gap_eps: float = 1e-12,
+                        reorth_passes: int = 2, reorth_chunks: int = 0,
+                        gap_eps: float = 1e-12,
                         method: str = "lanczos", precond=None,
                         with_info: bool = False,
                         v0: torch.Tensor | None = None,
@@ -636,6 +650,7 @@ def dominant_eigh_multi(op, r: int = 4, k: int = 128, *,
               ``x0`` (N, r)); both drawn from ``generator`` (seeded
               ``seed`` on the device when None) if not given.
     extreme : "min" (ascending) or "max" (descending).
+    reorth_chunks : as in :func:`~.lanczos.lanczos` (the Lanczos sweep).
     tol     : the LOBPCG residual target and the tolerance of the
               backward's (or the forward-mode tangent's) CG; ``maxiter``
               bounds the CG's iterations (default 10 N).
@@ -670,8 +685,8 @@ def dominant_eigh_multi(op, r: int = 4, k: int = 128, *,
     opts = EighMultiOptions(
         r=r, k=k, extreme=extreme, tol=float(tol),
         maxiter=None if maxiter is None else int(maxiter),
-        reorth_passes=int(reorth_passes), gap_eps=float(gap_eps),
-        method=method, precond=precond)
+        reorth_passes=int(reorth_passes), reorth_chunks=int(reorth_chunks),
+        gap_eps=float(gap_eps), method=method, precond=precond)
     out = _DominantEighMulti.apply(op, opts, start, generator,
                                    bool(with_info), *op.parameters())
     if with_info:

@@ -23,9 +23,14 @@ is small next to two SpMMs.
 A complex Hermitian operator runs the same iteration with Hermitian Gram
 matrices and conjugated projections; the Ritz values are real.
 
-Forward only: gradients come from the implicit-function-theorem rule of
-``eigh.py`` (``dominant_eigh_multi(..., method="lobpcg")``).
-``lobpcg_eigh_general`` waits for the generalized-pencil slice.
+``lobpcg_eigh_general`` solves the generalized pencil ``A x = lam B x``
+(``B`` Hermitian positive definite) by the same scheme in the B metric:
+one ``A`` and one ``B`` block product per iteration, plus both applied
+again to the conjugate directions.
+
+Forward only: gradients come from the implicit-function-theorem rules of
+``eigh.py`` (``dominant_eigh_multi(..., method="lobpcg")``) and
+``gen.py`` (``dominant_eigh_gen``).
 """
 
 from __future__ import annotations
@@ -100,6 +105,20 @@ def _rayleigh_ritz(So, ASo, keep, r):
     return evals[:r], evecs[:, :r]
 
 
+def _start_block(n, r, dtype, x0, generator, dev):
+    """The (N, r) start block: ``x0``, or a real draw from ``generator``
+    (seeded 0 on the device when None), cast (the JAX package's)."""
+    if x0 is None:
+        if generator is None:
+            generator = torch.Generator(device=dev).manual_seed(0)
+        return torch.randn((n, r), generator=generator,
+                           dtype=real_dtype(dtype), device=dev).to(dtype)
+    x0 = torch.as_tensor(x0).to(device=dev, dtype=dtype)
+    if x0.shape != (n, r):
+        raise ValueError(f"x0 must be ({n}, {r}), got {tuple(x0.shape)}")
+    return x0
+
+
 def lobpcg_eigh(op, r: int = 4, *, extreme: str = "min", maxiter: int = 200,
                 tol: float = 1e-8, x0: torch.Tensor | None = None,
                 generator: torch.Generator | None = None, precond=None,
@@ -144,16 +163,7 @@ def lobpcg_eigh(op, r: int = 4, *, extreme: str = "min", maxiter: int = 200,
     def amat(X):
         return sign * op.matmat(X)
 
-    if x0 is None:
-        if generator is None:
-            generator = torch.Generator(device=dev).manual_seed(0)
-        # A real draw, cast (the JAX package's start block).
-        x0 = torch.randn((n, r), generator=generator, dtype=rdt,
-                         device=dev).to(dtype)
-    else:
-        x0 = torch.as_tensor(x0).to(device=dev, dtype=dtype)
-        if x0.shape != (n, r):
-            raise ValueError(f"x0 must be ({n}, {r}), got {tuple(x0.shape)}")
+    x0 = _start_block(n, r, dtype, x0, generator, dev)
     zeros = torch.zeros((n, r), dtype=dtype, device=dev)
     # A random (n, r) block is full rank at working precision, so the
     # whitening mask is all-keep here.
@@ -196,6 +206,105 @@ def lobpcg_eigh(op, r: int = 4, *, extreme: str = "min", maxiter: int = 200,
         ap = amat(p)
         x = x_new
         res = resid_norm(x, ax, lams)
+        it += 1
+
+    lams = sign * lams
+    x = pivot_gauge(x)
+    if not with_info:
+        return lams, x
+    info = LobpcgInfo(
+        iterations=torch.tensor(float(it), dtype=rdt, device=dev),
+        residual=res, converged=(res <= tol).to(rdt))
+    return lams, x, info
+
+
+def lobpcg_eigh_general(a, b, r: int = 4, *, extreme: str = "min",
+                        maxiter: int = 200, tol: float = 1e-8,
+                        x0: torch.Tensor | None = None,
+                        generator: torch.Generator | None = None,
+                        precond=None, with_info: bool = False, device=None):
+    """Extremal eigenpairs of the generalized symmetric-definite pencil
+    ``A x = lam B x`` (``B`` Hermitian positive definite) by LOBPCG with
+    B-inner products (the JAX package's ``lobpcg_eigh_general``).
+
+    The scheme of :func:`lobpcg_eigh` with the Gram whitening taken in the
+    B metric (the Rayleigh-Ritz basis is B-orthonormal, so the small
+    projected problem stays standard) and the residual ``R = A X - B X
+    Λ``.  Each iteration is one ``A`` and one ``B`` block product of the
+    new directions and both again on the conjugate directions (applied,
+    not tracked).  ``x0``, ``generator``, ``precond`` (on the (N, r)
+    residual block), ``with_info`` and ``device`` as in
+    :func:`lobpcg_eigh`; the residual is read on the host every iteration.
+
+    Returns ``(lams, X)`` (ascending for "min", descending for "max") with
+    ``X^H B X = I`` and the pivot phase gauge, or ``(lams, X, info)``;
+    ``info.residual`` is ``max_i ||A x_i - lam_i B x_i|| / max(|lam_i|,
+    1)``.
+    """
+    a = as_operator(a)
+    b = as_operator(b)
+    if extreme not in ("min", "max"):
+        raise ValueError(f"extreme must be min|max, got {extreme!r}")
+    if a.dim != b.dim:
+        raise ValueError(f"pencil dims differ: A {a.dim} vs B {b.dim}")
+    dev = check_device(device, a, b)
+    r = int(r)
+    n = a.dim
+    if n < 3 * r:
+        raise ValueError(f"LOBPCG needs dim >= 3*r; got dim={n}, r={r}")
+    dtype = a.dtype
+    rdt = real_dtype(dtype)
+    sign = 1.0 if extreme == "min" else -1.0
+    tol = tol_floor(tol, dtype)
+    drop_tol = 50.0 * float(torch.finfo(dtype).eps)
+
+    def amat(X):
+        return sign * a.matmat(X)
+
+    x0 = _start_block(n, r, dtype, x0, generator, dev)
+    zeros = torch.zeros((n, r), dtype=dtype, device=dev)
+    # B-metric whitening; B(S t) = (B S) t, so the whitened block's B
+    # image comes with it.
+    bx0 = b.matmat(x0)
+    (x, bx), _, _ = _whiten_metric(x0, bx0, (x0, bx0), drop_tol)
+    ax = amat(x)
+    lams = (x.conj() * ax).real.sum(dim=0)
+
+    def resid_norm(ax, bx, lams):
+        nrm = torch.linalg.vector_norm(ax - bx * lams[None, :], dim=0)
+        return torch.max(nrm / torch.clamp(lams.abs(), min=1.0))
+
+    res = resid_norm(ax, bx, lams)
+    p = ap = bp = zeros
+    it = 0
+    while it < maxiter and float(res) > tol:
+        rblk = ax - bx * lams[None, :]
+        w = precond(rblk) if precond is not None else rblk
+        # B-project W off span(X) twice, then unit-normalize its columns.
+        for _ in range(2):
+            w = w - hmatmul(x, hmatmul(bx.mH, w))
+        aw = amat(w)
+        bw = b.matmat(w)
+        w, aw, bw = _colnormalize((w, aw, bw))
+        s = torch.cat([x, w, p], dim=1)
+        a_s = torch.cat([ax, aw, ap], dim=1)
+        b_s = torch.cat([bx, bw, bp], dim=1)
+        (so, aso, bso), keep, t = _whiten_metric(s, b_s, (s, a_s, b_s),
+                                                 drop_tol)
+        lams, y = _rayleigh_ritz(so, aso, keep, r)
+        x_new, ax, bx_new = hmatmul(so, y), hmatmul(aso, y), hmatmul(bso, y)
+        # The W/P part of the update in the original [X, W, P]
+        # coordinates, B-projected off the new X, Euclidean-whitened for
+        # scale, and both operators applied again (as in lobpcg_eigh).
+        c_wp = hmatmul(t, y)
+        c_wp[:r] = 0
+        p_raw = hmatmul(s, c_wp)
+        p_raw = p_raw - hmatmul(x_new, hmatmul(bx_new.mH, p_raw))
+        (p,), _, _ = _whiten_metric(p_raw, p_raw, (p_raw,), drop_tol)
+        ap = amat(p)
+        bp = b.matmat(p)
+        x, bx = x_new, bx_new
+        res = resid_norm(ax, bx, lams)
         it += 1
 
     lams = sign * lams

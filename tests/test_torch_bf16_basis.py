@@ -341,9 +341,24 @@ def test_guards_raise_the_jax_value_errors(kw):
 
 
 def test_restart_cycles_wait_for_item_10():
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        port.dominant_eigh(torch.eye(8, dtype=torch.float64), k=4,
-                           restart_cycles=1, device="cpu")
+    """Thick restart is in (``ROADMAP.md`` item 10, once refused here):
+    ``restart_cycles=1`` from JAX's own start vector (``normal(PRNGKey(0))``,
+    what its ``seed=0`` draws) gives JAX's λ, v and info."""
+    rng = np.random.default_rng(4)
+    s = rng.standard_normal((16, 16))
+    a = np.diag(np.arange(1.0, 17.0)) + 0.1 * (s + s.T)
+    lam_j, v_j, info_j = jax.jit(lambda m: jax_eigh(
+        JaxDense(m), k=6, restart_cycles=1, with_info=True))(jnp.asarray(a))
+    v0 = torch.from_numpy(np.array(jax.random.normal(
+        jax.random.PRNGKey(0), (16,), jnp.float64)))
+    lam, v, info = port.dominant_eigh(torch.from_numpy(a), k=6,
+                                      restart_cycles=1, with_info=True,
+                                      v0=v0, device="cpu")
+    np.testing.assert_allclose(float(lam), float(lam_j), rtol=1e-12)
+    np.testing.assert_allclose(v.numpy(), np.asarray(v_j), atol=1e-10)
+    assert float(info.effective_k) == float(info_j.effective_k) == 11.0
+    np.testing.assert_allclose(float(info.residual), float(info_j.residual),
+                               rtol=1e-6)
 
 
 @functools.lru_cache(maxsize=None)

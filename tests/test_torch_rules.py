@@ -111,6 +111,25 @@ def test_import_scan_covers_the_precond_module():
     assert out.returncode == 0, out.stderr
 
 
+def test_import_scan_covers_the_restart_gen_and_utils_modules():
+    """The scan below reads ``ops/restart.py``, ``ops/gen.py`` and
+    ``utils/``, and the import check imports them with JAX blocked."""
+    names = {p.relative_to(PKG).as_posix() for p in _sources()
+             if p.is_relative_to(PKG)}
+    assert {"ops/restart.py", "ops/gen.py", "utils/__init__.py",
+            "utils/checkpoint.py"} <= names
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['dominantsparseeigenad_tpu'] = None\n"
+        "import dominantsparseeigenad_tpu_torch.ops.restart\n"
+        "import dominantsparseeigenad_tpu_torch.ops.gen\n"
+        "import dominantsparseeigenad_tpu_torch.utils.checkpoint\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+
+
 def test_import_scan_covers_the_eig_module():
     """The scan below reads ``ops/eig.py``, and the import check imports
     it with JAX blocked."""
@@ -467,6 +486,24 @@ def test_option_classes_and_pair_solvers_are_exported():
     assert port.EighMultiOptions().r == 4
 
 
+def test_restart_and_pencil_solvers_are_exported():
+    """Items 10 and 11: the thick-restart and generalized-pencil names
+    that JAX's ``ops/__init__.py`` exports are exported by the port's
+    ``ops`` and package, and ``utils`` has the checkpoint functions."""
+    ops_pkg = importlib.import_module("dominantsparseeigenad_tpu_torch.ops")
+    utils = importlib.import_module("dominantsparseeigenad_tpu_torch.utils")
+    for name in ("lanczos_restarted", "RestartState", "restart_init",
+                 "restart_cycle", "restart_extract", "lobpcg_eigh_general",
+                 "dominant_eigh_gen", "EighGenOptions",
+                 "solve_deflated_pencil"):
+        assert name in port.__all__ and name in ops_pkg.__all__, name
+        assert getattr(port, name) is getattr(ops_pkg, name)
+    for name in ("save_pytree", "load_pytree", "save_orbax", "load_orbax"):
+        assert name in utils.__all__, name
+    assert port.EighGenOptions().r == 4
+    assert port.RestartState._fields == ("theta", "y", "s", "q")
+
+
 def _port_functions():
     """Every ``torch.autograd.Function`` the port defines, by name."""
     found = {}
@@ -482,14 +519,14 @@ def _port_functions():
 
 
 def test_every_function_composes_with_torch_func():
-    """All 14 Functions (the 13 of the solvers, decompositions and
-    collectives, and the pair solver's subclass) use the
-    ``setup_context`` form (a forward without ctx), define a ``jvp`` and
-    a ``vmap`` of their own, and none asks PyTorch to generate its vmap
-    rule (the solvers read the host)."""
+    """All 16 Functions (the 15 of the solvers, decompositions and
+    collectives, the generalized pencil's two among them, and the pair
+    solver's subclass) use the ``setup_context`` form (a forward without
+    ctx), define a ``jvp`` and a ``vmap`` of their own, and none asks
+    PyTorch to generate its vmap rule (the solvers read the host)."""
     import inspect
     functions = _port_functions()
-    assert len(functions) == 14, sorted(functions)
+    assert len(functions) == 16, sorted(functions)
     base = torch.autograd.Function
     for name, cls in functions.items():
         assert cls.setup_context is not base.setup_context, name

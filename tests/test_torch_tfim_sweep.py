@@ -53,13 +53,24 @@ def test_sweep_matches_pointwise_passes_and_jax():
     np.testing.assert_allclose(out.numpy(), ed[:, [0, 1, 3]], rtol=1e-6)
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_restart_sweep():
+    return np.asarray(jax.jit(lambda z: jax_sweep(
+        6, z, k=16, tol=1e-12, restart_cycles=2))(jnp.asarray([0.8, 1.3])))
+
+
 def test_sweep_forwards_restart_cycles_to_their_refusal():
-    """The sweep sets restart_mode="carry" only where dominant_eigh takes
-    it, so a forwarded restart_cycles meets its own refusal, not a
-    restart_mode guard the caller never asked for."""
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        models.tfim_observables_sweep(6, [0.8, 1.3], k=12, tol=1e-12,
-                                      restart_cycles=2, device="cpu")
+    """The sweep forwards ``restart_cycles`` to ``dominant_eigh`` (where
+    it once met its refusal): with the thick-restart forward, each lane
+    on its own under ``vmap``, (E0, dE0/dg, χ_F) equal JAX's sweep and
+    ED's (the starts differ, the converged values do not)."""
+    out = models.tfim_observables_sweep(6, [0.8, 1.3], k=16, tol=1e-12,
+                                        restart_cycles=2, device="cpu")
+    ed = np.array([[float(t) for t in models.tfim_ed_observables(
+        6, g, device="cpu")] for g in (0.8, 1.3)])[:, [0, 1, 3]]
+    np.testing.assert_allclose(out.numpy(), ed, rtol=1e-9)
+    np.testing.assert_allclose(out.numpy(), _jax_restart_sweep(),
+                               rtol=1e-9)
 
 
 @functools.lru_cache(maxsize=None)
