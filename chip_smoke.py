@@ -40,7 +40,8 @@ line each:
    build (4096 batched ``eigh``s of 128 x 128) and one apply, timed.
 4. ``spmm``: the blocked-ELL SpMM kernel against its plain version and
    against r chained SpMV launches, float32 and bfloat16 values, at
-   config #5 with r = 8 and r = 4, and at small odd shapes (r = 8; r = 3
+   config #5 with r = 8, 4 and 16 (the KPM probe block: the kernel runs
+   two 8-column chunks), and at small odd shapes (r = 8; r = 3
    with an X that is not 16-byte aligned); then its banded mode as in
    ``spmv``; kernel, plain, chained-SpMV, bound and library (cuSPARSE BSR,
    float32 only) times.
@@ -271,6 +272,38 @@ line each:
    ``dominant_eigh_multi(reorth_chunks=4)`` at config #5 against the
    unchunked run.  Both phases' K4b launches join the ``kernels`` line.
 
+18. ``spectral``: the spectral tiers.  (a) Config #5 (the ``eigh``
+   phase's operator, K4b, f32 values): ``spectral_bounds`` (30 SpMVs);
+   ``spectral_density`` and ``trace_function(exp)`` at the JAX defaults
+   (degree 120, 16 probes: one r = 16 SpMM a degree, with their own
+   enclosures), the moments μ0 = 1, μ1 and μ2 against Tr(Ã)/N and
+   2 ||Ã||_F²/N − 1 exact from the values within 5 standard errors;
+   ``logdet`` of A − lo with its auto-bounds (two ``dominant_eigh``
+   runs) under Jensen's bound; ``spectral_slice`` (r = 8) on a window at
+   the top edge, degree 40 and 30 LOBPCG iterations (cuts of the
+   defaults 80 and 150), the gradient of Σ c_i λ_i + <C, V> through one
+   batched MINRES capped at 1000, against the forward-mode tangent of
+   the same rule by the dot-product identity (each solve's residual term
+   included), λ_i = v_i^T A v_i, ∂Σλ/∂vals against Σ v_i⊗v_i;
+   ``spectral_function`` at 8 frequencies as one batched CG, against the
+   per-frequency loop at two; every call's SpMV and SpMM launches against
+   the iterations it reports.  (b) The TFIM: ``examples/spectrum_slice.py``'s
+   case (N = 10, g = 0.3, r = 14, degree 200, f64) against dense
+   ``eigvalsh`` and a central difference of d(centroid)/dg;
+   ``interior_eigh`` in that window (against the slice's λ) and at
+   N = 12 against dense ``eigvalsh``; ``spectral_function`` at N = 20
+   (``examples/spectral.py``'s probe, g = 1.2, η = 0.2, 8 frequencies,
+   f32) through the block TFIM product: S >= 0, batched against the loop
+   at two frequencies, the block product against the column loop (bit
+   for bit and timed).  Its K4b launches join the ``kernels`` line.
+
+19. ``models``: the XXZ chain at N = 20, f32, isotropic, through
+   ``dominant_eigh`` (k = 200): E0, ∂E0/∂j and ∂E0/∂jz, Euler's identity
+   E0 = j ∂E0/∂j + jz ∂E0/∂jz, the SU(2) identity ∂E0/∂j = 2 ∂E0/∂jz and
+   E0/N against the Bethe value 1/4 − ln 2 (0.02); the 2D TFIM on the
+   4 × 5 torus (2^20 states) at g = 3.04, f32: E0 and dE0/dg against
+   −<ψ|Σσˣ|ψ> by ``flip_sum``.  No hand-written kernel is on this path.
+
 Then a ``kernels`` line, the ``nvidia-smi`` name and power-limit line, and
 as the last line ``{"ok": true, "device": {...}}``.  Any failed check
 raises, so the exit code is not 0.  Without a CUDA device it exits with
@@ -308,7 +341,7 @@ K = 100
 DEVICE = "cuda"
 CG_TOL = 1e-6                          # clamped to 50 eps(f32) = 6e-6
 CG_MAXITER = 3000
-SPMM_SHAPES = ((CONFIG5, 8, False), (CONFIG5, 4, False),
+SPMM_SHAPES = ((CONFIG5, 8, False), (CONFIG5, 4, False), (CONFIG5, 16, False),
                (SMALL_SHAPES[0], 8, False), (SMALL_SHAPES[1], 3, True))
 MULTI_R = 8
 LOBPCG_ITERS = 100
@@ -534,6 +567,64 @@ GEN_ROUTE_RTOL = {"lam": 1e-5, "dsumlam_dm": 1e-3}
 GEN_BORTHO_BAR = 1e-5
 VIB = dict(n=150, r=3, maxiter=100, fd_eps=1e-4)
 VIB_RTOL = {"omega2": 1e-9, "grad_vs_fd": 1e-5}
+# The spectral phase.  (a) Config #5 (the eigh phase's operator, K4b, f32
+# values): spectral_bounds with SPEC_BOUNDS_K Lanczos steps (its SpMVs);
+# spectral_density and trace_function(exp) at the JAX defaults (degree
+# KPM_DEGREE, KPM_PROBES Rademacher probes: one r = 16 SpMM a degree),
+# their auto-enclosure SPEC_BOUNDS_K SpMVs; the moments μ0 = 1, μ1 and
+# μ2 against Tr(Ã)/N and 2 ||Ã||_F^2/N - 1, exact from the values, within
+# KPM_SE_BAR standard errors of the probes; logdet of A - lo (lo the
+# enclosure's bottom, so SPD) with its auto-bounds (two dominant_eigh
+# runs of k = 2 SPEC_BOUNDS_K) and degree LOGDET_DEGREE, below ln of the
+# mean eigenvalue (Jensen); spectral_slice with r = MULTI_R on the
+# window [θ_max - SLICE_WINDOW, hi] (θ_max the top Ritz value of a
+# SPEC_BOUNDS_K-step Lanczos), degree SLICE_DEGREE and maxiter
+# SLICE_MAXITER (cut from the defaults 80 and 150), the gradient of
+# Σ c_i λ_i + <C, V> through its batched MINRES capped at
+# SLICE_SOLVE_MAXITER, held against the forward-mode tangent of the same
+# rule by the dot-product identity with each solve's residual term;
+# spectral_function at SPECFN_POINTS frequencies over the enclosure, η =
+# SPECFN_ETA_REL of its width, one batched CG capped at SPECFN_MAXITER,
+# against the per-frequency loop at two of them.  (b) The TFIM:
+# examples/spectrum_slice.py's case (SLICE_TFIM, f64) against dense
+# eigvalsh and a central difference, the example's own bars;
+# interior_eigh in that window (N = 10, against the slice's λ) and at N =
+# INTERIOR_TFIM_N, σ in its own window, against dense eigvalsh (f64);
+# spectral_function at N = SPECFN_TFIM["n"] (examples/spectral.py: g =
+# 1.2, η = 0.2, the probe flip_sum(ψ0), frequencies E0 + [0, wmax]) at
+# SPECFN_POINTS frequencies, f32, through the block TFIM product: S >= 0,
+# the batched result against the loop at two frequencies; the block
+# product at m = SPECFN_POINTS timed against the column loop.
+SPEC_SEED = 31
+SPEC_BOUNDS_K = 30
+KPM_DEGREE, KPM_PROBES, LOGDET_DEGREE = 120, 16, 160
+KPM_SE_BAR = 5.0
+SLICE_DEGREE, SLICE_MAXITER, SLICE_SOLVE_MAXITER = 40, 30, 1000
+SLICE_WINDOW = 0.05
+SLICE_RTOL = {"pair": 1e-5, "dsumlam_dvals": 1e-5, "dot": 1e-4}
+SPECFN_POINTS, SPECFN_ETA_REL, SPECFN_MAXITER, SPECFN_TOL = 8, 0.05, 500, 1e-5
+SPECFN_LOOP_RTOL = 1e-5
+SLICE_TFIM = dict(n=10, g=0.3, r=14, degree=200, maxiter=300, tol=1e-9,
+                  window=(1.5, 3.37))
+SLICE_TFIM_RTOL = {"lam": 1e-8, "dcentroid_vs_fd": 1e-5, "fd_eps": 1e-5}
+INTERIOR_TFIM_N, INTERIOR_RTOL = 12, 1e-10
+SPECFN_TFIM = dict(n=20, g=1.2, eta=0.2, wmax=12.0, k=150, maxiter=2000)
+# The models phase, f32.  (a) The isotropic XXZ chain at N = XXZ_N through
+# dominant_eigh (k = XXZ_K): E0 and its gradient in (j, jz); Euler's
+# identity E0 = j ∂E0/∂j + jz ∂E0/∂jz (E0 is homogeneous of degree 1),
+# the SU(2) identity ∂E0/∂j = 2 ∂E0/∂jz of the singlet, E0/N against the
+# Bethe value 1/4 - ln 2 within the JAX test's 0.02.  (b) The 2D TFIM on
+# the TFIM2D torus (2^20 states) at g = TFIM2D_G (k = TFIM2D_K): E0 and
+# dE0/dg against -<ψ|Σ σˣ|ψ> by flip_sum.  tools/jax_models_errors.py
+# measures the JAX package's own f32 errors at N = 16 and on the 4 x 4
+# torus (the sizes a CPU run takes): Euler 2.3e-7 and SU(2) 1.0e-7 (bars
+# ~8x: 2e-6, and the SU(2) bar the looser 1e-4, since at N = 20 the
+# ground state's gap is smaller than at N = 16); the 2D gradient against
+# flip_sum 6.2e-5 in JAX, two Lanczos runs apart, one run here (bar 1e-5).
+XXZ_N, XXZ_K = 20, 200
+XXZ_RTOL = {"euler": 2e-6, "su2": 1e-4, "bethe_abs": 0.02}
+TFIM2D, TFIM2D_G, TFIM2D_K = (4, 5), 3.04, 150
+TFIM2D_RTOL = 1e-5
 
 
 def emit(obj):
@@ -4406,6 +4497,514 @@ def phase_gen(pkg, spmv):
     if failed:
         raise AssertionError(f"gen phase failed: {failed}")
     return counts
+def launched(spmv, fn):
+    """``(fn(), seconds, K4b f32 launches)``: the call timed, and the
+    banded SpMV and SpMM launches it made."""
+    names = ("bell_spmv_banded_f32", "bell_spmm_banded_f32")
+    before = [spmv.launch_counts[k] for k in names]
+    out, seconds = timed(fn)
+    return out, seconds, {k: spmv.launch_counts[k] - b
+                          for k, b in zip(names, before)}
+
+
+def add_counts(total, more):
+    for k, c in more.items():
+        total[k] = total.get(k, 0) + c
+
+
+@contextlib.contextmanager
+def recorded_loop(module, name):
+    """Record the per-column iterations (their max) of every run of the
+    batched solver loop ``module.name`` inside the block."""
+    loop = getattr(module, name)
+    its = []
+
+    def record(*args, **kw):
+        x, n_its = loop(*args, **kw)
+        its.append(int(n_its.max()))
+        return x, n_its
+
+    setattr(module, name, record)
+    try:
+        yield its
+    finally:
+        setattr(module, name, loop)
+
+
+def loop_products(its, maxiter):
+    """The block products a batched loop made: its longest column's
+    iterations, rounded up to the host's check (``CHECK_EVERY``), at
+    most ``maxiter``."""
+    from dominantsparseeigenad_tpu_torch.ops.cg import CHECK_EVERY
+    return min(maxiter, -(-its // CHECK_EVERY) * CHECK_EVERY)
+
+
+def kpm_exact(op, center, half, s):
+    """μ1 = Tr(Ã)/N and μ2 = 2 ||Ã||_F^2 / N - 1 of Ã = (A - c)/h, exact
+    in float64 from the values, and the standard errors of their
+    s-probe Rademacher estimates (μ2's an upper bound: ||Ã²||_F <=
+    ||Ã||_F inside the enclosure)."""
+    vals, cols = op.vals.detach(), op.cols
+    nb = vals.shape[0]
+    n = op.dim
+    c, h = float(center), float(half)
+    diag_slot = (cols.long() == torch.arange(nb, device=cols.device)[:, None])
+    dvals = torch.diagonal(vals, dim1=-2, dim2=-1).double()
+    tr = float((dvals.sum(-1) * diag_slot).sum())
+    diag2 = float(((dvals ** 2).sum(-1) * diag_slot).sum())
+    frob2 = sum(float((b.double() ** 2).sum()) for b in vals.split(256))
+    at_frob2 = (frob2 - 2 * c * tr + n * c * c) / (h * h)
+    mu1 = (tr - n * c) / (n * h)
+    mu2 = 2 * at_frob2 / n - 1
+    se1 = math.sqrt(2 * (frob2 - diag2)) / (h * n * math.sqrt(s))
+    se2 = 2 * math.sqrt(2 * at_frob2) / (n * math.sqrt(s))
+    return {"mu1": mu1, "mu2": mu2, "se1": se1, "se2": se2,
+            "trace": tr}
+
+
+def spectral_config5(pkg, spmv):
+    """Part (a) of the spectral phase (module docstring, phase 18)."""
+    from dominantsparseeigenad_tpu_torch.ops.eigh import _block_tangents
+    slicing = importlib.import_module(
+        "dominantsparseeigenad_tpu_torch.ops.slicing")
+    cg = importlib.import_module("dominantsparseeigenad_tpu_torch.ops.cg")
+    sv, sm = "bell_spmv_banded_f32", "bell_spmm_banded_f32"
+    n, bs, bpr = CONFIG5
+    r = MULTI_R
+    main = {}
+    op, v0 = config5_operator(pkg)
+    gen = torch.Generator(device=DEVICE).manual_seed(SPEC_SEED)
+
+    def seeded():
+        return torch.Generator(device=DEVICE).manual_seed(SPEC_SEED)
+
+    def run(fn):
+        out, seconds, got = launched(spmv, fn)
+        add_counts(main, got)
+        return out, seconds, got
+
+    # (1) The enclosure.
+    with torch.no_grad():
+        (lo, hi), t_bounds, l_bounds = run(lambda: pkg.spectral_bounds(
+            op, SPEC_BOUNDS_K, v0=v0, device=DEVICE))
+    lo_f, hi_f = float(lo), float(hi)
+    width = hi_f - lo_f
+    # (2) KPM: density and Tr exp(A) at the JAX defaults, their
+    # moments recorded as they run.
+    energies = torch.linspace(lo_f + 0.01 * width, hi_f - 0.01 * width, 64,
+                              device=DEVICE)
+    moments = []
+    cheb = slicing._chebyshev_moments
+
+    def record(*args):
+        out = cheb(*args)
+        moments.append(out)
+        return out
+
+    slicing._chebyshev_moments = record
+    try:
+        with torch.no_grad():
+            rho, t_dos, l_dos = run(lambda: pkg.spectral_density(
+                op, energies, degree=KPM_DEGREE, n_probe=KPM_PROBES,
+                generator=seeded(), bounds_k=SPEC_BOUNDS_K, device=DEVICE))
+            tr_exp, t_tr, l_tr = run(lambda: pkg.trace_function(
+                op, torch.exp, degree=KPM_DEGREE, n_probe=KPM_PROBES,
+                generator=seeded(), bounds_k=SPEC_BOUNDS_K, device=DEVICE))
+    finally:
+        slicing._chebyshev_moments = cheb
+    mus, center, half = moments[0]
+    exact = kpm_exact(op, center, half, KPM_PROBES)
+    mu = [float(t) for t in mus[:3]]
+    rho_int = float(torch.trapezoid(rho, energies))
+    # (3) log det of the SPD shift A - lo.
+    spd = pkg.ShiftedOperator(op, lo_f)
+    with torch.no_grad():
+        ld, t_ld, l_ld = run(lambda: pkg.logdet(
+            spd, degree=LOGDET_DEGREE, n_probe=KPM_PROBES,
+            generator=seeded(), bounds_k=SPEC_BOUNDS_K, device=DEVICE))
+    jensen = math.log(exact["trace"] / n - lo_f)
+    # (4) The slice at the top edge, its backward and forward mode.
+    with torch.no_grad():
+        theta, _ = pkg.lanczos_eigh(op, SPEC_BOUNDS_K, extreme="max", v0=v0,
+                                    device=DEVICE)
+    a_win, b_win = float(theta) - SLICE_WINDOW, hi_f
+    op.vals.requires_grad_(True)
+    c = torch.randn(r, generator=gen, device=DEVICE)
+    C = torch.randn(n, r, generator=gen, device=DEVICE) / math.sqrt(n)
+    applies = []
+    fm = slicing._filtered_matvec
+
+    def counted_filter(params, x):
+        applies.append(tuple(x.shape))
+        return fm(params, x)
+
+    slicing._filtered_matvec = counted_filter
+    try:
+        (lams, V, info), t_fwd, l_fwd = run(lambda: pkg.spectral_slice(
+            op, a_win, b_win, r=r, degree=SLICE_DEGREE, maxiter=SLICE_MAXITER,
+            tol=CG_TOL, solve_maxiter=SLICE_SOLVE_MAXITER,
+            bounds_k=SPEC_BOUNDS_K, generator=seeded(), device=DEVICE))
+    finally:
+        slicing._filtered_matvec = fm
+    (g_sum,), t_bwd_lam, l_bwd_lam = run(lambda: torch.autograd.grad(
+        lams.sum(), op.vals, retain_graph=True))
+    with recorded_solves() as bwd_solves, \
+            recorded_loop(cg, "_minres_columns_loop") as bwd_its:
+        (g_full,), t_bwd, l_bwd = run(lambda: torch.autograd.grad(
+            (c * lams).sum() + (C * V).sum(), op.vals))
+    lams_d, V_d = lams.detach(), V.detach()
+    op_d = op.with_vals(op.vals.detach())
+    opts = slicing.SliceOptions(r=r, solve_tol=CG_TOL,
+                                solve_maxiter=SLICE_SOLVE_MAXITER)
+    dvals = torch.randn(op.vals.shape, generator=gen, device=DEVICE)
+
+    def solve(rhs):
+        return pkg.solve_deflated(op_d, lams_d, V_d, rhs, method="minres",
+                                  tol=CG_TOL, maxiter=SLICE_SOLVE_MAXITER,
+                                  device=DEVICE)
+
+    with torch.no_grad(), recorded_solves() as fwd_solves, \
+            recorded_loop(cg, "_minres_columns_loop") as fwd_its:
+        (dlams, dV), t_tan, l_tan = run(lambda: _block_tangents(
+            op_d, lams_d, V_d, [dvals], opts, solve))
+    # (5) The resolvent at SPECFN_POINTS frequencies: one batched CG.
+    b_probe = torch.randn(n, generator=gen, device=DEVICE)
+    eta = SPECFN_ETA_REL * width
+    omegas = torch.linspace(lo_f + 0.1 * width, hi_f - 0.1 * width,
+                            SPECFN_POINTS, device=DEVICE)
+    with torch.no_grad(), recorded_loop(cg, "_cg_columns_loop") as sf_its:
+        s_w, t_sf, l_sf = run(lambda: pkg.spectral_function(
+            op_d, b_probe, omegas, eta, tol=SPECFN_TOL,
+            maxiter=SPECFN_MAXITER, device=DEVICE))
+    # ---- end of the main path; the checks' own products follow --------
+    with torch.no_grad():
+        loop_two = torch.cat([pkg.spectral_function(
+            op_d, b_probe, omegas[i:i + 1], eta, tol=SPECFN_TOL,
+            maxiter=SPECFN_MAXITER, device=DEVICE) for i in (1, 5)])
+        sf_loop_err = rel_err(loop_two, s_w[[1, 5]])
+        av = op_d.matmat(V_d)
+        rq = (V_d * av).sum(dim=0)
+        pair_err = float((rq - lams_d).abs().max() / lams_d.abs().max())
+        vb = V_d.reshape(-1, bs, r)
+        expect = torch.matmul(vb[:, None],
+                              vb[op.cols.long()].transpose(-1, -2))
+        dsum_err = rel_err(g_sum, expect)
+        del expect, vb
+
+        def deflated(Z):
+            """P (A P Z - P Z diag(λ)) P, P = I - V V^T."""
+            pz = Z - V_d @ (V_d.T @ Z)
+            az = op_d.matmat(pz) - pz * lams_d[None, :]
+            return az - V_d @ (V_d.T @ az)
+
+        # reverse <∇, D> - forward dL = <r_w, X> - <W, r_x> exactly, W
+        # and X the two batched solves, r_w and r_x their residuals.
+        rhs_w, W = bwd_solves[0][:2]
+        rhs_x, X = fwd_solves[0][:2]
+        r_w, r_x = rhs_w - deflated(W), rhs_x - deflated(X)
+        lhs = grad_dot(g_full, dvals)
+        tangent = [float((c * dlams).sum()), float((C * dV).sum())]
+        resid = [float((r_w * X).sum()), -float((W * r_x).sum())]
+        dot_err = abs(lhs - sum(tangent) - sum(resid)) / (
+            abs(lhs) + sum(abs(t) for t in tangent + resid))
+        finite = all(bool(torch.isfinite(t).all()) for t in (
+            rho, tr_exp, ld, lams_d, V_d, g_sum, g_full, dlams, dV, s_w))
+    del g_full, g_sum, dvals, W, X, r_w, r_x
+    out = {
+        "n": n, "bounds": [lo_f, hi_f], "bounds_s": t_bounds,
+        "bounds_launches": l_bounds,
+        "density_s": t_dos, "density_launches": l_dos,
+        "density_integral": rho_int, "moments_0_2": mu,
+        "moments_exact_1_2": [exact["mu1"], exact["mu2"]],
+        "moments_se_1_2": [exact["se1"], exact["se2"]],
+        "trace_exp": float(tr_exp), "trace_exp_s": t_tr,
+        "trace_exp_launches": l_tr, "logdet": float(ld),
+        "logdet_per_site": float(ld) / n, "logdet_jensen_bound": jensen,
+        "logdet_s": t_ld, "logdet_launches": l_ld,
+        "slice_window": [a_win, b_win], "slice_lams": lams_d.tolist(),
+        "slice_n_inside": float(info.n_inside),
+        "slice_residual": float(info.residual),
+        "slice_residuals": info.residuals.tolist(),
+        "slice_converged": float(info.converged),
+        "slice_filter_applies": len(applies),
+        "slice_lobpcg_iterations": (len(applies) - 1) // 2,
+        "slice_capped": (len(applies) - 1) // 2 >= SLICE_MAXITER,
+        "slice_forward_s": t_fwd, "slice_forward_launches": l_fwd,
+        "slice_dsumlam_s": t_bwd_lam, "slice_dsumlam_launches": l_bwd_lam,
+        "slice_backward_s": t_bwd, "slice_backward_launches": l_bwd,
+        "slice_backward_minres_iterations": bwd_its,
+        "slice_backward_capped": bwd_its[0] >= SLICE_SOLVE_MAXITER,
+        "slice_tangent_s": t_tan, "slice_tangent_launches": l_tan,
+        "slice_tangent_minres_iterations": fwd_its,
+        "slice_pair_rel_err": pair_err, "slice_dsumlam_rel_err": dsum_err,
+        "slice_dot_lhs": lhs, "slice_dot_tangent": tangent,
+        "slice_dot_residual_terms": resid, "slice_dot_rel_err": dot_err,
+        "specfn_eta": eta, "specfn_omegas": omegas.tolist(),
+        "specfn": s_w.tolist(), "specfn_s": t_sf,
+        "specfn_launches": l_sf, "specfn_cg_iterations": sf_its,
+        "specfn_capped": sf_its[0] >= SPECFN_MAXITER,
+        "specfn_loop_rel_err": sf_loop_err}
+    width_ok = all(shape == (n, r) for shape in applies)
+    checks = {
+        "bounds: SPEC_BOUNDS_K SpMVs, no SpMM":
+            l_bounds == {sv: SPEC_BOUNDS_K, sm: 0},
+        "density: enclosure SpMVs + one r = 16 SpMM a degree":
+            l_dos == {sv: SPEC_BOUNDS_K, sm: KPM_DEGREE},
+        "trace: enclosure SpMVs + one SpMM a degree":
+            l_tr == {sv: SPEC_BOUNDS_K, sm: KPM_DEGREE},
+        "logdet: 2 (k + 1) SpMVs + one SpMM a degree":
+            l_ld == {sv: 2 * (2 * SPEC_BOUNDS_K + 1), sm: LOGDET_DEGREE},
+        "μ0 == 1 (within 1e-6)": abs(mu[0] - 1.0) <= 1e-6,
+        f"μ1 within {KPM_SE_BAR} standard errors of Tr(Ã)/N":
+            abs(mu[1] - exact["mu1"]) <= KPM_SE_BAR * exact["se1"],
+        f"μ2 within {KPM_SE_BAR} standard errors of 2||Ã||²/N - 1":
+            abs(mu[2] - exact["mu2"]) <= KPM_SE_BAR * exact["se2"],
+        "density integrates to 1 within 0.05": abs(rho_int - 1) < 0.05,
+        "Tr exp(A) > 0": float(tr_exp) > 0,
+        "logdet / N below ln(mean eigenvalue) (Jensen)":
+            float(ld) / n < jensen,
+        "slice forward: degree x filtered applies + 1 SpMMs, "
+        "SPEC_BOUNDS_K SpMVs":
+            l_fwd == {sv: SPEC_BOUNDS_K,
+                      sm: SLICE_DEGREE * len(applies) + 1}
+            and width_ok and len(applies) % 2 == 1,
+        "∂Σλ backward: one SpMM": l_bwd_lam == {sv: 0, sm: 1},
+        "backward: one batched MINRES (its loop's SpMMs) + 1 SpMM":
+            len(bwd_its) == 1 and l_bwd == {
+                sv: 0, sm: loop_products(bwd_its[0], SLICE_SOLVE_MAXITER)
+                + 1},
+        "tangent: one SpMM + one batched MINRES":
+            len(fwd_its) == 1 and l_tan == {
+                sv: 0, sm: 1 + loop_products(fwd_its[0],
+                                             SLICE_SOLVE_MAXITER)},
+        "spectral_function: one batched CG, 2 SpMMs an iteration":
+            len(sf_its) == 1 and l_sf == {
+                sv: 0, sm: 2 * loop_products(sf_its[0], SPECFN_MAXITER)},
+        f"slice λ_i == v_i^T A v_i, rel {SLICE_RTOL['pair']}":
+            pair_err <= SLICE_RTOL["pair"],
+        f"∂Σλ/∂vals vs Σ v_i⊗v_i, rel {SLICE_RTOL['dsumlam_dvals']}":
+            dsum_err <= SLICE_RTOL["dsumlam_dvals"],
+        f"dot-product identity, reverse vs forward, rel {SLICE_RTOL['dot']}":
+            dot_err <= SLICE_RTOL["dot"],
+        "S(ω) >= 0": bool((s_w >= 0).all()),
+        f"batched resolvent vs the loop at 2 frequencies, rel "
+        f"{SPECFN_LOOP_RTOL}": sf_loop_err <= SPECFN_LOOP_RTOL,
+        "finite": finite,
+    }
+    op.vals.requires_grad_(False)
+    return out, checks, main
+
+
+def spectral_tfim(pkg):
+    """Part (b) of the spectral phase: the TFIM (module docstring, phase
+    18)."""
+    from dominantsparseeigenad_tpu_torch import models
+    f64 = torch.float64
+    cfg = SLICE_TFIM
+    n, g = cfg["n"], cfg["g"]
+
+    def window(nn):
+        e0, _ = pkg.dominant_eigh(models.tfim_operator(nn, g, dtype=f64,
+                                                       device=DEVICE),
+                                  k=80, extreme="min", tol=1e-10,
+                                  device=DEVICE)
+        return float(e0) + cfg["window"][0], float(e0) + cfg["window"][1]
+
+    def dense_evals(nn, gv):
+        return torch.linalg.eigvalsh(models.tfim_dense_hamiltonian(
+            nn, gv, dtype=f64, device=DEVICE)).cpu().numpy()
+
+    lo_e, hi_e = window(n)
+
+    def centroid(gv):
+        ls, _, inf = pkg.spectral_slice(
+            models.tfim_operator(n, gv, dtype=f64, device=DEVICE), lo_e,
+            hi_e, r=cfg["r"], degree=cfg["degree"], maxiter=cfg["maxiter"],
+            tol=cfg["tol"], device=DEVICE)
+        msk = (ls >= lo_e) & (ls <= hi_e)
+        cen = torch.where(msk, ls, torch.zeros_like(ls)).sum() \
+            / torch.clamp(msk.sum(), min=1)
+        return cen, ls, inf
+
+    gt = torch.tensor(g, dtype=f64, device=DEVICE, requires_grad=True)
+    (cen, ls, info), t_fwd = timed(lambda: centroid(gt))
+    (dc,), t_bwd = timed(lambda: torch.autograd.grad(cen, gt))
+    ew = dense_evals(n, g)
+    truth = ew[(ew >= lo_e) & (ew <= hi_e)]
+    ls_np = ls.detach().cpu().numpy()
+    got = np.sort(ls_np[(ls_np >= lo_e) & (ls_np <= hi_e)])
+    lam_err = (float(np.abs(got - truth).max() / np.abs(truth).max())
+               if len(got) == len(truth) else float("inf"))
+    eps = SLICE_TFIM_RTOL["fd_eps"]
+
+    def band_mean(gv):
+        e = dense_evals(n, gv)
+        return e[(e >= lo_e) & (e <= hi_e)].mean()
+
+    fd = (band_mean(g + eps) - band_mean(g - eps)) / (2 * eps)
+    dc_err = abs(float(dc) - fd) / abs(fd)
+    # interior_eigh: σ at the window's middle (N = 10, against the slice),
+    # and at N = INTERIOR_TFIM_N in its own window.
+    interior = {}
+    for nn in (n, INTERIOR_TFIM_N):
+        a_w, b_w = (lo_e, hi_e) if nn == n else window(nn)
+        sigma = 0.5 * (a_w + b_w)
+        (lam, _), t_int = timed(lambda: pkg.interior_eigh(
+            models.tfim_operator(nn, g, dtype=f64, device=DEVICE), sigma,
+            device=DEVICE))
+        e = ew if nn == n else dense_evals(nn, g)
+        nearest = float(e[np.argmin(np.abs(e - sigma))])
+        interior[nn] = {"sigma": sigma, "lam": float(lam),
+                        "nearest_dense": nearest,
+                        "rel_err": abs(float(lam) - nearest) / abs(nearest),
+                        "s": t_int}
+        if nn == n:
+            near = float(ls_np[np.argmin(np.abs(ls_np - sigma))])
+            interior[nn]["slice_lam"] = near
+            interior[nn]["vs_slice_rel"] = abs(float(lam) - near) / abs(near)
+    # spectral_function at N = SPECFN_TFIM["n"], f32, block products.
+    sf = SPECFN_TFIM
+    cg = importlib.import_module("dominantsparseeigenad_tpu_torch.ops.cg")
+    op20 = models.tfim_operator(sf["n"], sf["g"], dtype=torch.float32,
+                                device=DEVICE)
+    with torch.no_grad():
+        e0, psi0 = pkg.dominant_eigh(op20, k=sf["k"], extreme="min",
+                                     tol=1e-10, device=DEVICE)
+        probe = models.flip_sum(psi0, sf["n"])
+        omegas = float(e0) + torch.linspace(0.0, sf["wmax"], SPECFN_POINTS,
+                                            device=DEVICE)
+        with recorded_loop(cg, "_cg_columns_loop") as its:
+            s_w, t_sf = timed(lambda: pkg.spectral_function(
+                op20, probe, omegas, sf["eta"], tol=SPECFN_TOL,
+                maxiter=sf["maxiter"], device=DEVICE))
+        loop_two = torch.cat([pkg.spectral_function(
+            op20, probe, omegas[i:i + 1], sf["eta"], tol=SPECFN_TOL,
+            maxiter=sf["maxiter"], device=DEVICE) for i in (2, 5)])
+        loop_err = rel_err(loop_two, s_w[[2, 5]])
+        X = torch.randn(op20.dim, SPECFN_POINTS, device=DEVICE)
+        block_ms = event_ms(lambda: op20.matmat(X), samples=5)
+        loop_ms = event_ms(lambda: [op20.matvec(X[:, j])
+                                    for j in range(SPECFN_POINTS)],
+                           samples=5)
+        same = torch.equal(op20.matmat(X), torch.stack(
+            [op20.matvec(X[:, j]) for j in range(SPECFN_POINTS)], dim=1))
+    out = {"slice": {"n": n, "g": g, "window": [lo_e, hi_e],
+                     "n_inside": float(info.n_inside),
+                     "dense_inside": len(truth),
+                     "residual": float(info.residual),
+                     "converged": float(info.converged),
+                     "lam_rel_err": lam_err, "centroid": float(cen),
+                     "dcentroid_dg": float(dc), "fd": fd,
+                     "dcentroid_vs_fd_rel": dc_err, "forward_s": t_fwd,
+                     "backward_s": t_bwd},
+           "interior": interior,
+           "specfn": {"n": sf["n"], "e0": float(e0), "omegas": omegas.tolist(),
+                      "s": s_w.tolist(), "cg_iterations": its,
+                      "capped": its[0] >= sf["maxiter"], "seconds": t_sf,
+                      "loop_rel_err": loop_err,
+                      "block_matmat_ms": block_ms,
+                      "column_loop_ms": loop_ms,
+                      "block_equals_loop": same}}
+    checks = {
+        "TFIM slice n_inside == dense count":
+            float(info.n_inside) == len(truth),
+        f"TFIM slice λ vs dense, rel {SLICE_TFIM_RTOL['lam']}":
+            lam_err <= SLICE_TFIM_RTOL["lam"],
+        f"d(centroid)/dg vs central difference, rel "
+        f"{SLICE_TFIM_RTOL['dcentroid_vs_fd']}":
+            dc_err <= SLICE_TFIM_RTOL["dcentroid_vs_fd"],
+        f"interior λ vs nearest dense, rel {INTERIOR_RTOL}":
+            all(v["rel_err"] <= INTERIOR_RTOL for v in interior.values()),
+        f"interior λ vs the slice's, rel {SLICE_TFIM_RTOL['lam']}":
+            interior[n]["vs_slice_rel"] <= SLICE_TFIM_RTOL["lam"],
+        "TFIM S(ω) >= 0 and finite": bool((s_w >= 0).all())
+            and bool(torch.isfinite(s_w).all()),
+        f"TFIM resolvent batched vs loop, rel {SPECFN_LOOP_RTOL}":
+            loop_err <= SPECFN_LOOP_RTOL,
+        "TFIM block product == column loop bit for bit": same,
+    }
+    return out, checks
+
+
+def phase_spectral(pkg, spmv):
+    """The spectral tiers (module docstring, phase 18).  Returns the
+    kernel launch counts of its main path."""
+    t_phase = time.perf_counter()
+    spmv.reset_launch_counts()
+    out, checks = {}, {}
+    out["config5"], more, counts = spectral_config5(pkg, spmv)
+    checks.update(more)
+    torch.cuda.empty_cache()
+    out["tfim"], more = spectral_tfim(pkg)
+    checks.update(more)
+    torch.cuda.empty_cache()
+    for name in ("bell_spmv_banded_f32", "bell_spmm_banded_f32"):
+        checks[f"{name} launched on the spectral path"] = counts[name] > 0
+    out["launches"] = counts
+    out["card"] = nvidia_smi_name_power()
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit({"phase": "spectral", **out})
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"spectral phase failed: {failed}")
+    return counts
+
+
+def phase_models(pkg):
+    """The XXZ chain and the 2D TFIM (module docstring, phase 19)."""
+    from dominantsparseeigenad_tpu_torch import models
+    t_phase = time.perf_counter()
+    f32 = torch.float32
+    j = torch.tensor(1.0, dtype=f32, device=DEVICE, requires_grad=True)
+    jz = torch.tensor(1.0, dtype=f32, device=DEVICE, requires_grad=True)
+    op = models.heisenberg_operator(XXZ_N, j, jz, dtype=f32, device=DEVICE)
+    (e0, _), t_fwd, peak = peak_since(lambda: pkg.dominant_eigh(
+        op, k=XXZ_K, extreme="min", tol=CG_TOL, device=DEVICE))
+    (dj, djz), t_bwd = timed(lambda: torch.autograd.grad(e0, (j, jz)))
+    e, dj, djz = float(e0), float(dj), float(djz)
+    x = torch.randn(op.dim, device=DEVICE)
+    with torch.no_grad():
+        xxz_ms = event_ms(lambda: op.matvec(x), samples=10)
+    xxz = {"n": XXZ_N, "k": XXZ_K, "e0": e, "e0_per_site": e / XXZ_N,
+           "de0_dj": dj, "de0_djz": djz,
+           "euler_rel": abs(e - (dj + djz)) / abs(e),
+           "su2_rel": abs(dj - 2.0 * djz) / abs(dj),
+           "bethe_abs": abs(e / XXZ_N - (0.25 - math.log(2.0))),
+           "forward_s": t_fwd, "backward_s": t_bwd, "peak_mib": peak,
+           "matvec_ms": xxz_ms}
+    lx, ly = TFIM2D
+    g = torch.tensor(TFIM2D_G, dtype=f32, device=DEVICE, requires_grad=True)
+    op2 = models.tfim2d_operator(lx, ly, g, dtype=f32, device=DEVICE)
+    (e2, psi), t2_fwd = timed(lambda: pkg.dominant_eigh(
+        op2, k=TFIM2D_K, extreme="min", tol=CG_TOL, device=DEVICE))
+    (de,), t2_bwd = timed(lambda: torch.autograd.grad(e2, g))
+    with torch.no_grad():
+        psi = psi.detach()
+        hf = -float(torch.dot(psi, models.flip_sum(psi, lx * ly)))
+    tfim2d = {"lattice": [lx, ly], "g": TFIM2D_G, "k": TFIM2D_K,
+              "e0": float(e2), "e0_per_site": float(e2) / (lx * ly),
+              "de0_dg": float(de), "hellmann_feynman": hf,
+              "de0_dg_vs_hf_rel": abs(float(de) - hf) / abs(hf),
+              "forward_s": t2_fwd, "backward_s": t2_bwd}
+    checks = {
+        f"XXZ Euler identity, rel {XXZ_RTOL['euler']}":
+            xxz["euler_rel"] <= XXZ_RTOL["euler"],
+        f"XXZ SU(2) identity, rel {XXZ_RTOL['su2']}":
+            xxz["su2_rel"] <= XXZ_RTOL["su2"],
+        f"XXZ E0/N vs Bethe within {XXZ_RTOL['bethe_abs']}":
+            xxz["bethe_abs"] < XXZ_RTOL["bethe_abs"],
+        f"2D TFIM dE0/dg vs -<ψ|Σσˣ|ψ>, rel {TFIM2D_RTOL}":
+            tfim2d["de0_dg_vs_hf_rel"] <= TFIM2D_RTOL,
+        "finite": all(math.isfinite(t) for t in (e, dj, djz, float(e2),
+                                                 float(de), hf)),
+    }
+    emit({"phase": "models", "xxz": xxz, "tfim2d": tfim2d,
+          "card": nvidia_smi_name_power(),
+          "phase_s": time.perf_counter() - t_phase})
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"models phase failed: {failed}")
+
 
 def main():
     if not torch.cuda.is_available():
@@ -4459,6 +5058,9 @@ def main():
     counts = {k: counts[k] + rs_counts[k] for k in counts}
     gen_counts = phase_gen(pkg, spmv)
     counts = {k: counts[k] + gen_counts[k] for k in counts}
+    torch.cuda.empty_cache()
+    add_counts(counts, phase_spectral(pkg, spmv))
+    phase_models(pkg)
 
     csrc = "dominantsparseeigenad_tpu_torch/csrc/"
     # The Pallas kernel body, and the SpMM entry that runs it on (N, r).

@@ -53,7 +53,15 @@ Thick-restart Lanczos (``lanczos_restarted``, ``restart_init``,
 checkpointed by ``utils.save_pytree`` in the JAX package's file format;
 ``dominant_eigh_gen`` solves the generalized pencil A x = λ B x by
 B-metric LOBPCG (``lobpcg_eigh_general``), differentiable in both
-operators through ``solve_deflated_pencil``.
+operators through ``solve_deflated_pencil``.  Beyond the extremal pairs:
+``interior_eigh`` (the pair nearest a shift, by shift-invert Lanczos
+over inner MINRES solves), ``spectral_slice`` (every pair in a window,
+by a Jackson-Chebyshev filter, LOBPCG and Rayleigh-Ritz; its rule one
+batched deflated MINRES), the kernel polynomial estimators
+``spectral_density``, ``trace_function`` and ``logdet``, and
+``spectral_function`` (Lorentzian spectral functions, one batched CG
+over the frequencies), each differentiable to any order; ``models/``
+adds the XXZ chain and the 2D TFIM.
 
 Entry points run on CUDA unless called with ``device="cpu"``; without a
 card they raise rather than fall back.

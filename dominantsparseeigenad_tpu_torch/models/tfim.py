@@ -1,6 +1,7 @@
-"""1D transverse-field Ising model (TFIM), the paper's flagship.
+"""Transverse-field Ising model (TFIM), the paper's flagship.
 
-Counterpart of the 1D part of ``dominantsparseeigenad_tpu/models/tfim.py``:
+Counterpart of ``dominantsparseeigenad_tpu/models/tfim.py`` but its
+sharded operator:
 the 2^N-dimensional Hamiltonian
 
     H(g) = - sum_i sz_i sz_{i+1}  -  g * sum_i sx_i     (PBC)
@@ -15,13 +16,18 @@ jvp of a jvp), χ_F from one forward-mode pass.
 
 The JAX ``flip_sum`` contracts groups of up to 7 bits with hypercube
 adjacency matrices, a device for the TPU's matrix unit; here each flip is
-a reversed view, ``x.view(2**(n-1-i), 2, 2**i).flip(1)``.  No Pallas
-kernel is on this path, so none is owed.
+a reversed view, ``x.view(2**(n-1-i), 2, 2**i).flip(1)``, and a block of
+m states (2^N, m) flips as a (2^(N-1-i), 2, 2^i, m) view: the operator's
+``matmat`` is one pass over the block (what the JAX ``jax.vmap`` of the
+matvec gives), not m matvecs.  No Pallas kernel is on this path, so none
+is owed.
 
 ``tfim_observables_sweep`` is ``torch.func.vmap`` of one forward-mode
 pass, as the JAX function, and ``tfim_energy_gap`` the block solver with
-r = 2.  Not ported yet: the 2D model and
-``tfim_sharded_operator`` (``ROADMAP.md`` queue 1 items 13 and 14).
+r = 2.  The 2D model on an lx × ly periodic square lattice
+(``tfim2d_operator``) shares the transverse term; only its zz diagonal
+differs.  Not ported yet: ``tfim_sharded_operator`` (``ROADMAP.md``
+queue 1 item 14).
 """
 
 from __future__ import annotations
@@ -31,7 +37,7 @@ import torch
 
 from ..ops.eigh import dominant_eigh, dominant_eigh_multi
 from ..ops.observables import fidelity_susceptibility as _chi
-from ..ops.operators import MatrixFreeOperator, hdot, resolve_device
+from ..ops.operators import _BlockMatrixFreeOperator, hdot, resolve_device
 
 
 def tfim_zz_diagonal(n: int, dtype=torch.float64, device=None):
@@ -57,21 +63,26 @@ def tfim_zz_diagonal(n: int, dtype=torch.float64, device=None):
 
 
 def flip_sum(x: torch.Tensor, n: int) -> torch.Tensor:
-    """sum_i flip_i(x): every single-spin flip of the 2^n state, summed.
-    Flipping spin i maps basis index j to j XOR 2^i, which reverses the
-    middle axis of the (2^(n-1-i), 2, 2^i) view."""
-    x = x.reshape(-1)
+    """sum_i flip_i(x): every single-spin flip of the 2^n state (or of
+    each column of a (2^n, m) block), summed.  Flipping spin i maps basis
+    index j to j XOR 2^i, which reverses the middle axis of the
+    (2^(n-1-i), 2, 2^i[, m]) view; a block's columns get the same adds
+    in the same order as one state's, bit for bit."""
+    tail = tuple(x.shape[1:])
     out = torch.zeros_like(x)
     for i in range(n):
-        out = out + x.view(1 << (n - 1 - i), 2, 1 << i).flip(1).reshape(-1)
+        out = out + x.reshape(1 << (n - 1 - i), 2, 1 << i, *tail).flip(1) \
+            .reshape(x.shape)
     return out
 
 
 def tfim_matvec(params, x: torch.Tensor) -> torch.Tensor:
-    """y = H(g) x, matrix-free.  params = (g, zz_diagonal)."""
+    """y = H(g) x, matrix-free, for a state (2^n,) or a block (2^n, m).
+    params = (g, zz_diagonal)."""
     g, diag = params
     n = diag.shape[0].bit_length() - 1
-    return diag.to(x.dtype) * x - g * flip_sum(x, n)
+    d = diag.to(x.dtype)
+    return (d if x.ndim == 1 else d[:, None]) * x - g * flip_sum(x, n)
 
 
 def _coupling(g, dtype, dev):
@@ -81,13 +92,15 @@ def _coupling(g, dtype, dev):
 
 
 def tfim_operator(n: int, g, dtype=torch.float64,
-                  device=None) -> MatrixFreeOperator:
+                  device=None) -> _BlockMatrixFreeOperator:
     """Matrix-free TFIM Hamiltonian; its parameters are ``(g, diag)``, as
-    in JAX, and derivatives in ``g`` go through ``tfim_matvec``."""
+    in JAX, and derivatives in ``g`` go through ``tfim_matvec``.  Its
+    ``matmat`` is one pass of ``tfim_matvec`` over the block."""
     dev = resolve_device(device)
     diag = tfim_zz_diagonal(n, dtype=dtype, device=dev)
-    return MatrixFreeOperator(tfim_matvec, (_coupling(g, dtype, dev), diag),
-                              dim=1 << n, dtype=dtype)
+    return _BlockMatrixFreeOperator(tfim_matvec,
+                                    (_coupling(g, dtype, dev), diag),
+                                    dim=1 << n, dtype=dtype)
 
 
 def tfim_dense_hamiltonian(n: int, g, dtype=torch.float64, device=None):
@@ -101,6 +114,55 @@ def tfim_dense_hamiltonian(n: int, g, dtype=torch.float64, device=None):
     hx = torch.as_tensor(hx, dtype=dtype, device=dev)
     return (torch.diag(tfim_zz_diagonal(n, dtype=dtype, device=dev))
             - _coupling(g, dtype, dev) * hx)
+
+
+def tfim2d_zz_diagonal(lx: int, ly: int, dtype=torch.float64, device=None):
+    """Diagonal of -sum_<ij> sz_i sz_j on an lx x ly periodic square
+    lattice (site (x, y) -> bit x + lx*y), over the 2^(lx*ly) basis."""
+    if lx < 3 or ly < 3:
+        # The JAX guard: a torus dimension below 3 double-counts its
+        # wrapped bonds (and bonds a site to itself at length 1).
+        raise ValueError("need lx, ly >= 3 (a torus dimension of 2 "
+                         f"double-counts its wrapped bonds); got "
+                         f"({lx}, {ly})")
+    dev = resolve_device(device)
+    n = lx * ly
+    idx = torch.arange(1 << n, dtype=torch.int64, device=dev)
+    n_anti = torch.zeros(1 << n, dtype=dtype, device=dev)
+    for y in range(ly):
+        for x in range(lx):
+            p = x + lx * y
+            for q in (((x + 1) % lx) + lx * y, x + lx * ((y + 1) % ly)):
+                n_anti = n_anti + (((idx >> p) ^ (idx >> q)) & 1).to(dtype)
+    # 2 bonds per site; -sum sz sz = 2 n_anti - n_bonds
+    return 2.0 * n_anti - 2 * n
+
+
+def tfim2d_operator(lx: int, ly: int, g, dtype=torch.float64,
+                    device=None) -> _BlockMatrixFreeOperator:
+    """Matrix-free 2D TFIM on an lx x ly periodic square lattice: the
+    transverse term is site-local, so ``tfim_matvec`` (and its block
+    pass) applies unchanged; only the zz diagonal differs."""
+    dev = resolve_device(device)
+    diag = tfim2d_zz_diagonal(lx, ly, dtype=dtype, device=dev)
+    return _BlockMatrixFreeOperator(tfim_matvec,
+                                    (_coupling(g, dtype, dev), diag),
+                                    dim=1 << (lx * ly), dtype=dtype)
+
+
+def tfim2d_dense_hamiltonian(lx: int, ly: int, g, dtype=torch.float64,
+                             device=None):
+    """Dense 2D TFIM (exact diagonalization; tiny lattices only)."""
+    dev = resolve_device(device)
+    n = lx * ly
+    dim = 1 << n
+    idx = np.arange(dim)
+    hx = np.zeros((dim, dim))
+    for i in range(n):
+        hx[idx, idx ^ (1 << i)] += 1.0
+    return (torch.diag(tfim2d_zz_diagonal(lx, ly, dtype=dtype, device=dev))
+            - _coupling(g, dtype, dev) * torch.as_tensor(hx, dtype=dtype,
+                                                         device=dev))
 
 
 # ---------------------------------------------------------------------------
@@ -223,8 +285,8 @@ def tfim_observables_sweep(n: int, gs, *, k: int = 100, tol: float = 1e-10,
 
     def one(g):
         def ground(gg):
-            op = MatrixFreeOperator(tfim_matvec, (gg, diag), dim=1 << n,
-                                    dtype=dtype)
+            op = _BlockMatrixFreeOperator(tfim_matvec, (gg, diag),
+                                          dim=1 << n, dtype=dtype)
             return dominant_eigh(op, k=kk, extreme="min", tol=tol,
                                  maxiter=maxiter, device=dev, **eigh_kwargs)
 

@@ -7,7 +7,9 @@ and block (V of shape (N, r)) deflation.  A right-hand side of shape
 (N, m) with one shift per column is solved by a batched CG over the
 columns, the written-out counterpart of the ``jax.vmap(solve_deflated)``
 in the block eigensolver's tangent rule (``eigh.py::_multi_pair_tangents``):
-one operator ``matmat`` of width m per iteration.  ``solve_deflated`` is
+one operator ``matmat`` of width m per iteration; with ``method="minres"``
+by a batched MINRES over the columns, the counterpart of the vmapped
+MINRES of the spectral slice's rule (``ops/slicing.py``).  ``solve_deflated`` is
 differentiable to any order, the counterpart of the
 ``lax.custom_linear_solve`` the JAX solve wraps its solver in: its
 backward is one more deflated solve, by the same method and with the
@@ -15,7 +17,7 @@ same preconditioner, and one deflated product (:class:`_DeflatedSolve`),
 so the IFT rules of ``eigh.py`` that call it differentiate again under
 ``create_graph``; its ``jvp`` is one more solve too (forward mode to any
 order), and under ``torch.func.vmap`` a batch of right-hand sides is
-one batched CG over the columns.  ``solve_spd`` and ``solve_symmetric``
+one batched CG (or MINRES) over the columns.  ``solve_spd`` and ``solve_symmetric``
 are the same Function with nothing deflated.
 
 The non-symmetric solvers: ``bicgstab``, ``gmres`` (restarted, its small
@@ -429,15 +431,12 @@ def _deflated_solve(op, lam, V, rhs, sign, tol, maxiter, method="cg",
     (a cotangent or tangent with a span(V) component would make the
     solver divide by round-off; M is singular there) and so is the
     result.  Returns ``(x, iterations)``, per column for an (N, m)
-    ``rhs`` (which only CG solves)."""
+    ``rhs``."""
     batched = rhs.ndim == 2
     mv = _deflated_mv(op, lam, V, sign, batched)
     m = _deflated_precond(precond, V, batched)
     if method == "minres":
-        if batched:
-            raise NotImplementedError(
-                "method='minres' solves one right-hand side at a time")
-        loop = _minres_loop
+        loop = _minres_columns_loop if batched else _minres_loop
     else:
         loop = _cg_columns_loop if batched else _cg_loop
     args = (mv, _project_out(V, rhs), tol, maxiter)
@@ -494,6 +493,75 @@ def _cg_columns_loop(matmat: Callable, B, tol: float, maxiter,
     return X, its
 
 
+def _minres_columns_loop(matmat: Callable, B, tol: float, maxiter,
+                         precond: Callable | None = None):
+    """Batched (preconditioned) MINRES from X0 = 0 over the columns of
+    ``B`` (N, m), one ``matmat`` of width m per iteration; returns ``(X,
+    iterations per column)``.
+
+    Each column runs the recurrence of :func:`_minres_loop` with its own
+    rotations and its own target (``tol ||b_j||``, or ``tol sqrt(b_j^H
+    M^{-1} b_j)`` with a preconditioner), and freezes once its own
+    ``phibar`` meets it, every quantity of its state kept (a lane of a
+    vmapped ``while_loop``): decided on the device every iteration, read
+    by the host every ``CHECK_EVERY`` iterations.  ``precond`` maps (N, m)
+    blocks."""
+    n, m = B.shape
+    if maxiter is None:
+        maxiter = 10 * n
+    X = torch.zeros_like(B)
+    Yv = B if precond is None else precond(B)
+    beta1 = torch.sqrt(torch.clamp(_coldot(B, Yv), min=0.0))
+    tol = tol_floor(tol, B.dtype)
+    target = tol * (torch.linalg.vector_norm(B, dim=0) if precond is None
+                    else beta1)
+    zero = torch.zeros_like(beta1)
+    tiny = torch.finfo(B.dtype).tiny
+    # X, R1, R2, Yv, W, W2, oldb, beta, dbar, epsln, cs, sn, phibar: the
+    # blocks (N, m), the scalars of each column (m,).
+    state = [X, B, B, Yv, torch.zeros_like(B), torch.zeros_like(B), zero,
+             beta1, zero, zero, -torch.ones_like(beta1), zero, beta1]
+    its = torch.zeros(m, dtype=torch.int64, device=B.device)
+    it = 0
+    while it < maxiter:
+        if not bool((state[-1] > target).any()):
+            break
+        for _ in range(min(CHECK_EVERY, maxiter - it)):
+            (X, R1, R2, Yv, W, W2, oldb, beta, dbar, epsln, cs, sn,
+             phibar) = state
+            active = phibar > target
+            V = Yv / _nonzero(beta)
+            Y = matmat(V)
+            if it >= 1:
+                Y = Y - (beta / _nonzero(oldb)) * R1
+            alfa = _coldot(V, Y)
+            Y = Y - (alfa / _nonzero(beta)) * R2
+            R1, R2 = R2, Y
+            Yv = Y if precond is None else precond(Y)
+            oldb = beta
+            beta_new = torch.sqrt(torch.clamp(_coldot(Y, Yv), min=0.0))
+            oldeps = epsln
+            delta = cs * dbar + sn * alfa
+            gbar = sn * dbar - cs * alfa
+            epsln = sn * beta_new
+            dbar = -cs * beta_new
+            gamma = torch.clamp(torch.sqrt(gbar * gbar + beta_new * beta_new),
+                                min=tiny)
+            cs = gbar / gamma
+            sn = beta_new / gamma
+            phi = cs * phibar
+            phibar = sn * phibar
+            W1, W2_new = W2, W
+            W_new = (V - oldeps * W1 - delta * W2_new) / gamma
+            X = X + phi * W_new
+            new = (X, R1, R2, Yv, W_new, W2_new, oldb, beta_new, dbar,
+                   epsln, cs, sn, phibar)
+            state = [torch.where(active, a, o) for a, o in zip(new, state)]
+            its += active
+            it += 1
+    return state[0], its
+
+
 def _deflated_mv_tangent(op, lam, V, sign, x, dlam, dV, dparams):
     """The tangent of ``x -> sign P (A - λ) P x`` at a fixed ``x`` along
     ``(dλ, dV, dθ)`` (the ``Ṁ x`` of the solve's JVP), or None when
@@ -540,9 +608,9 @@ class _DeflatedSolve(torch.autograd.Function):
     operations only, on the operator rebuilt from the parameters they are
     handed, so they differentiate again, in either mode, to any order.
     Under ``torch.func.vmap`` a batch of right-hand sides (and shifts)
-    over a shared operator and V is one batched CG over the columns, one
-    matmat per iteration (the vmapped solve of JAX's block rule);
-    anything else goes lane by lane.  An empty (N, 0) ``V`` deflates
+    over a shared operator and V is one batched CG (or MINRES) over the
+    columns, one matmat per iteration (the vmapped solve of JAX's block
+    rules); anything else goes lane by lane.  An empty (N, 0) ``V`` deflates
     nothing: that is :func:`solve_spd` and :func:`solve_symmetric`."""
 
     @staticmethod
@@ -590,7 +658,7 @@ class _DeflatedSolve(torch.autograd.Function):
     def vmap(info, in_dims, op, sign, tol, maxiter, method, precond, rhs,
              lam, V, *params):
         rhs_dim, lam_dim, v_dim = in_dims[6:9]
-        if method != "cg" or v_dim is not None or any(
+        if v_dim is not None or any(
                 d is not None for d in in_dims[9:]):
             return _per_lane(_DeflatedSolve, info, in_dims,
                              (op, sign, tol, maxiter, method, precond, rhs,
@@ -660,8 +728,9 @@ def solve_deflated(op, lam, V, b, *, definite_sign: float = 1.0,
     restricted operator positive definite for CG: +1 when ``lam`` is the
     algebraic minimum, -1 when it is the maximum (CG then runs on
     ``lam I - A``).  ``method="minres"`` solves the (possibly indefinite)
-    restriction with MINRES instead, for an interior ``lam`` (an (N,)
-    ``b`` only); ``definite_sign`` is then ignored.  ``precond`` is an SPD
+    restriction with MINRES instead, for an interior ``lam`` (an (N, m)
+    ``b`` by the batched MINRES, each column stopping at its own
+    tolerance); ``definite_sign`` is then ignored.  ``precond`` is an SPD
     approximate inverse ``z = M^{-1} r`` in the vector convention, used
     projected (``P M P``) by either solver and, for an (N, m) ``b``,
     column by column.  The returned x solves the unsigned equation and is
@@ -669,7 +738,7 @@ def solve_deflated(op, lam, V, b, *, definite_sign: float = 1.0,
     ``lam``, ``V`` and ``op.parameters()``, to any order in either mode
     (``torch.func`` transforms included), and no derivative is taken
     through the solver's iterations.  Under ``torch.func.vmap`` over
-    ``b`` and ``lam`` (a shared operator and V) it is one batched CG.
+    ``b`` and ``lam`` (a shared operator and V) it is one batched solve.
     """
     if method not in ("cg", "minres"):
         raise ValueError(f"method must be cg|minres, got {method!r}")

@@ -544,6 +544,46 @@ def _gap_inverses(lams, opts):
     return f * (1.0 - torch.eye(opts.r, dtype=f.dtype, device=f.device))
 
 
+def _block_tangents(op, lams, v, dparams, opts, solve):
+    """The block IFT tangents ``(dλ, dV)`` of the pairs ``(lams, v)``
+    along the parameters' tangents ``dparams`` (the JAX package's
+    ``_multi_pair_tangents``): with ``M = V^H dA V``,
+
+        dλ = Re diag(M),
+        dV = V (F ∘ M) + solve(-(dA V - V M)),
+
+    then the pivot-phase projection of each column; ``solve`` is the
+    batched deflated solve on span(V)⊥ (CG for an extremal block, MINRES
+    for an interior one)."""
+    dav = op.tangent_matmat(v, dparams)
+    m = hmatmul(v.mH, dav)
+    dlams = torch.diagonal(m).real.clone()
+    dv_out = solve(-(dav - hmatmul(v, m)))
+    dv = hmatmul(v, _gap_inverses(lams, opts).to(m.dtype) * m) + dv_out
+    return dlams, _pivot_phase_project(v, dv)
+
+
+def _block_cotangent(lams, v, lams_bar, v_bar, opts, solve):
+    """The transpose of :func:`_block_tangents`: the U whose ``U^H (∂A/∂θ)
+    V`` is each parameter's gradient, for cotangents ``(λ̄, V̄)`` (either
+    may be None),
+
+        U = V (diag(λ̄) + F ∘ (V^H V̄')) + solve(-(I - V V^H) V̄'),
+
+    ``V̄'`` the cotangent after the pivot-phase transpose."""
+    g = (torch.zeros((opts.r, opts.r), dtype=v.dtype, device=v.device)
+         if lams_bar is None else torch.diag(lams_bar).to(v.dtype))
+    u = hmatmul(v, g)
+    if v_bar is not None:
+        v_bar = _pivot_phase_cotangent(v, v_bar)
+        u = u + hmatmul(v, _gap_inverses(lams, opts).to(v.dtype)
+                        * hmatmul(v.mH, v_bar))
+        # Out-of-block part: one deflated solve per pair on span(V)⊥,
+        # batched over the r columns.
+        u = u + solve(-(v_bar - hmatmul(v, hmatmul(v.mH, v_bar))))
+    return u
+
+
 @per_lane_vmap
 class _DominantEighMulti(torch.autograd.Function):
     """Outputs ``(λ (r,), V (N, r))``, then the three
@@ -587,42 +627,30 @@ class _DominantEighMulti(torch.autograd.Function):
         one SpMM on the tangent values) and one batched deflated solve.
         The info fields get zero tangents (None, as in
         :class:`_DominantEigh`)."""
-        opts = ctx.opts
         op, lams, v = _DominantEighMulti._saved(ctx)
         info = (None,) * ctx.n_info
         if all(t is None for t in dparams):
             return (torch.zeros_like(lams), torch.zeros_like(v), *info)
-        dav = op.tangent_matmat(v, dparams)
-        m = hmatmul(v.mH, dav)
-        dlams = torch.diagonal(m).real.clone()
+        return (*_block_tangents(op, lams, v, dparams, ctx.opts,
+                                 _DominantEighMulti._solve(ctx, op, lams,
+                                                           v)), *info)
+
+    @staticmethod
+    def _solve(ctx, op, lams, v):
+        """The batched deflated CG of the rules, with the block's sign."""
+        opts = ctx.opts
         sign = 1.0 if opts.extreme == "min" else -1.0
-        dv_out = solve_deflated(op, lams, v, -(dav - hmatmul(v, m)),
-                                definite_sign=sign, tol=opts.tol,
-                                maxiter=opts.maxiter, precond=opts.precond,
-                                device=op.device)
-        dv = hmatmul(v, _gap_inverses(lams, opts).to(m.dtype) * m) + dv_out
-        return (dlams, _pivot_phase_project(v, dv), *info)
+        return lambda b: solve_deflated(
+            op, lams, v, b, definite_sign=sign, tol=opts.tol,
+            maxiter=opts.maxiter, precond=opts.precond, device=op.device)
 
     @staticmethod
     def backward(ctx, lams_bar, v_bar, *info_bar):
-        opts = ctx.opts
         op, lams, v = _DominantEighMulti._saved(ctx)
         if lams_bar is None and v_bar is None:
             return (None,) * (5 + len(op.parameters()))
-        g = (torch.zeros((opts.r, opts.r), dtype=v.dtype, device=v.device)
-             if lams_bar is None else torch.diag(lams_bar).to(v.dtype))
-        u = hmatmul(v, g)
-        if v_bar is not None:
-            v_bar = _pivot_phase_cotangent(v, v_bar)
-            u = u + hmatmul(v, _gap_inverses(lams, opts).to(v.dtype)
-                            * hmatmul(v.mH, v_bar))
-            # Out-of-block part: one deflated solve per pair on span(V)⊥,
-            # batched over the r columns.
-            sign = 1.0 if opts.extreme == "min" else -1.0
-            u = u + solve_deflated(
-                op, lams, v, -(v_bar - hmatmul(v, hmatmul(v.mH, v_bar))),
-                definite_sign=sign, tol=opts.tol, maxiter=opts.maxiter,
-                precond=opts.precond, device=op.device)
+        u = _block_cotangent(lams, v, lams_bar, v_bar, ctx.opts,
+                             _DominantEighMulti._solve(ctx, op, lams, v))
         grads = partial_vjp(op, lambda held: held.matmat(v), [], u,
                             ctx.needs_input_grad[5:])
         return (None, None, None, None, None, *grads)

@@ -23,6 +23,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+from torch._C._functorch import is_functorch_wrapped_tensor
 
 from .operators import (as_operator, check_device, hdot, hmatmul,
                         outside_transforms, pivot_gauge, real_dtype,
@@ -163,10 +164,17 @@ def _refuse_host_reads(what: str):
             f"mode)")
 
 
+def _differentiated(op) -> bool:
+    """Whether a run on ``op`` is recorded for differentiation."""
+    return any((torch.is_grad_enabled() and p.requires_grad)
+               or is_functorch_wrapped_tensor(p) for p in op.parameters())
+
+
 def _put(buf, i: int, value, batched: bool):
     """``buf`` with row ``i`` set to ``value``: in place, or out of place
-    under ``torch.func.vmap`` (``batched``), where a lane's value cannot
-    be written into an unbatched buffer."""
+    (``batched``) under ``torch.func.vmap``, where a lane's value cannot
+    be written into an unbatched buffer, and where the run is
+    differentiated."""
     if batched:
         return torch.cat([buf[:i], value[None].to(buf.dtype), buf[i + 1:]])
     buf[i] = value
@@ -291,8 +299,12 @@ def lanczos(op, k: int, *, v0: torch.Tensor | None = None,
         generator = torch.Generator(device=dev).manual_seed(0)
     q = _start(op, v0, generator, dev)
     int(reorth_chunks)              # the JAX package's only check
-    # Row k is a scratch slot for the last step's q_next.
-    batched = under_vmap()
+    # Row k is a scratch slot for the last step's q_next.  The buffers
+    # are written out of place under vmap, and where the run is
+    # differentiated (autograd recording it, or a torch.func level on the
+    # parameters), as JAX differentiates its loop: an in-place row write
+    # would overwrite what the backward reads.
+    batched = under_vmap() or _differentiated(op)
     basis = _put(torch.zeros((k + 1, op.dim), dtype=storage, device=dev), 0,
                  q, batched)
     r_perp = None

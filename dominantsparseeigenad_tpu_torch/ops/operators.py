@@ -646,6 +646,21 @@ class MatrixFreeOperator(LinearOperator):
         return self._device
 
 
+class _BlockMatrixFreeOperator(MatrixFreeOperator):
+    """A :class:`MatrixFreeOperator` whose ``matvec_fn`` also takes an
+    (N, m) block, column by column in one pass: its ``matmat`` (and
+    ``rmatmat``, and the tangent block products) is one call of it on
+    the block, where the base class loops over columns.  The JAX
+    ``matmat`` of a matrix-free operator is ``jax.vmap`` of its matvec,
+    which gives the same one pass."""
+
+    def matmat(self, X):
+        return self.matvec(X)
+
+    def rmatmat(self, X):
+        return self.rmatvec(X)
+
+
 def _add(a, b):
     """``a + b`` where either may be None (a zero)."""
     return b if a is None else a if b is None else a + b

@@ -154,8 +154,10 @@ def test_vmap_of_solve_deflated_is_the_block_solve(deflated):
 
 @pytest.mark.parametrize("what", ["minres", "operator"])
 def test_vmap_of_solve_deflated_per_lane(deflated, what):
-    """MINRES, or a batched operator, goes lane by lane: equal to the
-    loop (1e-13; the wrapper's projections run batched)."""
+    """MINRES (one batched MINRES over the lanes as columns since the
+    spectral slice's rule needs it), or a batched operator (lane by
+    lane): equal to the loop (1e-13; the wrapper's projections run
+    batched)."""
     a, v, bs, lams = deflated
     at, vt, bt, lt = (torch.from_numpy(x) for x in (a, v, bs, lams))
     if what == "minres":
@@ -322,6 +324,22 @@ def _checks():
         return torch.from_numpy(np.asarray(x, dtype=np.float64)) \
             .requires_grad_()
 
+    w_mid = np.linalg.eigvalsh(a0)
+
+    def interior(m):
+        lam, v = port.interior_eigh(sym(m), float(w_mid[3] + 0.1), k=n,
+                                    inner_tol=1e-13, tol=TOL,
+                                    v0=torch.ones(n, dtype=F64),
+                                    device="cpu")
+        return lam, v * v
+
+    def spectral_slice(m):
+        lams, v, _ = port.spectral_slice(
+            sym(m), float(w_mid[2] + w_mid[3]) / 2,
+            float(w_mid[4] + w_mid[5]) / 2, r=2, degree=30, maxiter=200,
+            tol=TOL, device="cpu")
+        return lams, v * v
+
     a_pos = rng.uniform(size=(n, n)) + 0.1
     a_pair = 0.2 * rng.standard_normal((n, n))
     a_pair[:2, :2] += np.array([[1.0, 2.0], [-2.0, 1.0]])
@@ -336,6 +354,8 @@ def _checks():
                            t(rng.standard_normal(n + 1))), general),
         "dominant_eigh": ((_sym_param(n, 73),), lambda m: port.dominant_eigh(
             sym(m), k=n, tol=TOL, device="cpu")),
+        "interior_eigh": ((t(a0),), interior),
+        "spectral_slice": ((t(a0),), spectral_slice),
         "dominant_eigh_multi": ((_sym_param(n, 74),),
                                 lambda m: port.dominant_eigh_multi(
                                     sym(m), r=2, k=n, tol=TOL,
@@ -364,7 +384,8 @@ _CHECKS = _checks()
 # which runs no Function's vmap rule) cannot batch.  Their batched
 # gradients are checked through torch.func.vmap instead.
 _SOLVERS = ("deflated_solve", "general_solve", "dominant_eigh",
-            "dominant_eigh_multi", "dominant_eig", "dominant_eig_pair")
+            "dominant_eigh_multi", "dominant_eig", "dominant_eig_pair",
+            "interior_eigh", "spectral_slice")
 
 
 def _func_batched_grad(fn, inputs, batch=3):

@@ -165,6 +165,27 @@ def test_import_scan_covers_the_ising2d_modules():
     assert out.returncode == 0, out.stderr
 
 
+def test_import_scan_covers_the_spectral_tier_and_heisenberg_modules():
+    """The scan below reads ``ops/interior.py``, ``ops/slicing.py``,
+    ``ops/spectral.py`` and ``models/heisenberg.py``, and the import
+    check imports them with JAX blocked."""
+    names = {p.relative_to(PKG).as_posix() for p in _sources()
+             if p.is_relative_to(PKG)}
+    assert {"ops/interior.py", "ops/slicing.py", "ops/spectral.py",
+            "models/heisenberg.py"} <= names
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['dominantsparseeigenad_tpu'] = None\n"
+        "import dominantsparseeigenad_tpu_torch.ops.interior\n"
+        "import dominantsparseeigenad_tpu_torch.ops.slicing\n"
+        "import dominantsparseeigenad_tpu_torch.ops.spectral\n"
+        "import dominantsparseeigenad_tpu_torch.models.heisenberg\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+
+
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: p.name)
 def test_no_source_imports_the_jax_package(path):
     for no, line in enumerate(path.read_text().splitlines(), 1):
@@ -313,6 +334,22 @@ def _entry_points():
             np.arange(9), np.arange(8), np.ones(8), 8),
         "bcoo_operator_from_numpy": lambda: port.bcoo_operator_from_numpy(
             np.stack([np.arange(8)] * 2, axis=1), np.ones(8), 8),
+        "interior_eigh": lambda: port.interior_eigh(a, 0.5, k=4),
+        "spectral_slice": lambda: port.spectral_slice(a, 0.5, 1.5, r=2),
+        "spectral_bounds": lambda: port.spectral_bounds(a, k=4),
+        "spectral_density": lambda: port.spectral_density(a, [0.0]),
+        "trace_function": lambda: port.trace_function(a, torch.exp),
+        "logdet": lambda: port.logdet(a),
+        "spectral_function": lambda: port.spectral_function(a, v, [0.0],
+                                                            0.1),
+        "heisenberg_operator": lambda: models.heisenberg_operator(4),
+        "heisenberg_dense": lambda: models.heisenberg_dense(4),
+        "heisenberg_ground_energy":
+            lambda: models.heisenberg_ground_energy(4),
+        "tfim2d_zz_diagonal": lambda: models.tfim2d_zz_diagonal(3, 3),
+        "tfim2d_operator": lambda: models.tfim2d_operator(3, 3, 1.0),
+        "tfim2d_dense_hamiltonian":
+            lambda: models.tfim2d_dense_hamiltonian(3, 3, 1.0),
     }
 
 
@@ -504,6 +541,28 @@ def test_restart_and_pencil_solvers_are_exported():
     assert port.RestartState._fields == ("theta", "y", "s", "q")
 
 
+def test_spectral_tiers_and_models_are_exported():
+    """Items 12 and 13: the names that JAX's ``ops/__init__.py`` exports
+    from ``interior.py``, ``slicing.py`` and ``spectral.py`` (with the
+    option class ``InteriorOptions``) are exported by the port's ``ops``
+    and package, and ``models`` has the XXZ chain and the 2D TFIM."""
+    ops_pkg = importlib.import_module("dominantsparseeigenad_tpu_torch.ops")
+    for name in ("interior_eigh", "InteriorOptions", "spectral_slice",
+                 "SliceInfo", "SliceOptions", "spectral_bounds",
+                 "spectral_density", "trace_function", "logdet",
+                 "spectral_function"):
+        assert name in port.__all__ and name in ops_pkg.__all__, name
+        assert getattr(port, name) is getattr(ops_pkg, name)
+    for name in ("heisenberg_operator", "heisenberg_dense",
+                 "heisenberg_ground_energy", "tfim2d_operator",
+                 "tfim2d_zz_diagonal", "tfim2d_dense_hamiltonian"):
+        assert name in models.__all__, name
+    assert port.InteriorOptions().k == 64
+    assert port.SliceOptions().degree == 80
+    assert port.SliceInfo._fields == ("n_inside", "residual", "residuals",
+                                      "converged")
+
+
 def _port_functions():
     """Every ``torch.autograd.Function`` the port defines, by name."""
     found = {}
@@ -519,14 +578,15 @@ def _port_functions():
 
 
 def test_every_function_composes_with_torch_func():
-    """All 16 Functions (the 15 of the solvers, decompositions and
-    collectives, the generalized pencil's two among them, and the pair
+    """All 18 Functions (the 17 of the solvers, decompositions and
+    collectives, the generalized pencil's two and the spectral tiers'
+    ``_InteriorEigh`` and ``_SpectralSlice`` among them, and the pair
     solver's subclass) use the ``setup_context`` form (a forward without
     ctx), define a ``jvp`` and a ``vmap`` of their own, and none asks
     PyTorch to generate its vmap rule (the solvers read the host)."""
     import inspect
     functions = _port_functions()
-    assert len(functions) == 16, sorted(functions)
+    assert len(functions) == 18, sorted(functions)
     base = torch.autograd.Function
     for name, cls in functions.items():
         assert cls.setup_context is not base.setup_context, name
