@@ -40,11 +40,18 @@ line each:
    build (4096 batched ``eigh``s of 128 x 128) and one apply, timed.
 4. ``spmm``: the blocked-ELL SpMM kernel against its plain version and
    against r chained SpMV launches, float32 and bfloat16 values, at
-   config #5 with r = 8, 4 and 16 (the KPM probe block: the kernel runs
-   two 8-column chunks), and at small odd shapes (r = 8; r = 3
-   with an X that is not 16-byte aligned); then its banded mode as in
-   ``spmv``; kernel, plain, chained-SpMV, bound and library (cuSPARSE BSR,
-   float32 only) times.
+   config #5 with r = 8 (the block solvers' width), 4 (the narrow
+   body), 16 (the KPM probe block) and 32 (one full pass of the wide
+   body), and at small odd shapes (r = 8 and 13; r = 3 and 40, two
+   passes of the wide body, with an X that is not 16-byte aligned); then
+   its banded mode as in ``spmv``; kernel, plain, chained-SpMV, bound,
+   bytes with every X gather over the measured copy rate, and library
+   (cuSPARSE BSR, float32 only) times.  The ``build`` phase fails if
+   ptxas reports a spill store in any SpMM kernel.  ``python3
+   chip_smoke.py --spmm-turns LABEL=CSRC_DIR ...`` runs only the build
+   and ``spmm_turns``: this checkout's SpMM against the kernel libraries
+   built from other ``csrc`` directories (e.g. the parent commit's),
+   timed in turns.
 5. ``eigh_multi``: the block path at the config-#5 shape, banded.
    ``dominant_eigh_multi`` with r = 8, LOBPCG capped at 100 iterations,
    and the gradient of ``Σ c_i λ_i + <C, V>`` with the backward's batched
@@ -58,10 +65,10 @@ line each:
 6. ``panel``: the same two kernels on rectangular row panels (K4a), the
    block-rows one rank of a p = 2 and a p = 4 sharding of config #5 keeps
    (2048 and 1024 block-rows against all 4096 block-columns), SpMV and
-   SpMM (r = 8), float32 and bfloat16 values: against the plain version
-   and against the matching rows of the square product (expected equal
-   bit for bit); kernel, plain, bound and library (cuSPARSE BSR on the
-   panel, float32 only) times.
+   SpMM (r = 8; r = 16 at p = 2), float32 and bfloat16 values: against
+   the plain version and against the matching rows of the square
+   product (expected equal bit for bit); kernel, plain, bound and
+   library (cuSPARSE BSR on the panel, float32 only) times.
 7. ``sharded``: the row-sharded tier, two ranks sharing the one card over
    a gloo group (NCCL refuses two ranks on one card), spawned after the
    kernel library is built.  Each rank builds config #5 from the same
@@ -304,7 +311,9 @@ line each:
    4 × 5 torus (2^20 states) at g = 3.04, f32: E0 and dE0/dg against
    −<ψ|Σσˣ|ψ> by ``flip_sum``.  No hand-written kernel is on this path.
 
-Then a ``kernels`` line, the ``nvidia-smi`` name and power-limit line, and
+Then a ``kernels`` line (each SpMM entry with its config-#5 times, bound
+and library time at every r of ``spmm``, the panel entries at r = 8 and
+16, under ``by_r``), the ``nvidia-smi`` name and power-limit line, and
 as the last line ``{"ok": true, "device": {...}}``.  Any failed check
 raises, so the exit code is not 0.  Without a CUDA device it exits with
 code 1 before printing any result.
@@ -316,6 +325,7 @@ import json
 import math
 import os
 import queue
+import re
 import shutil
 import statistics
 import subprocess
@@ -324,6 +334,8 @@ import tempfile
 import time
 import traceback
 import warnings
+
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -342,7 +354,11 @@ DEVICE = "cuda"
 CG_TOL = 1e-6                          # clamped to 50 eps(f32) = 6e-6
 CG_MAXITER = 3000
 SPMM_SHAPES = ((CONFIG5, 8, False), (CONFIG5, 4, False), (CONFIG5, 16, False),
-               (SMALL_SHAPES[0], 8, False), (SMALL_SHAPES[1], 3, True))
+               (CONFIG5, 32, False), (SMALL_SHAPES[0], 8, False),
+               (SMALL_SHAPES[1], 3, True), (SMALL_SHAPES[0], 13, False),
+               (SMALL_SHAPES[1], 40, True))
+SPMM_WIDE_PASS = 32                    # columns a pass of the r > 4 body
+PANEL_R16_SHARDS = (2,)                # the r = 16 panel's shardings
 MULTI_R = 8
 LOBPCG_ITERS = 100
 MULTI_CG_MAXITER = 1000
@@ -716,12 +732,41 @@ def rel_err(a, b) -> float:
     return float((a - b).abs().max() / b.abs().max())
 
 
+def ptxas_functions(log):
+    """{function: (registers, spill store bytes)} from nvcc's
+    ``-Xptxas -v`` output."""
+    funcs, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"(?:entry function '|Function properties for )"
+                      r"([\w$]+)", ln)
+        if m:
+            name = m.group(1)
+            funcs.setdefault(name, [None, None])
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores", ln)
+        if m:
+            funcs[name][1] = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            funcs[name][0] = int(m.group(1))
+    return {k: tuple(v) for k, v in funcs.items()}
+
+
 def phase_build(spmv):
     spmv.build_library()
     log = spmv.build_info["log"]
     ptxas = [ln.strip() for ln in log.splitlines()
              if "entry function" in ln or "registers" in ln
              or "spill" in ln]
+    # Every SpMM kernel (both bodies, every instantiation) without spills.
+    spmm_funcs = {k: v for k, v in ptxas_functions(log).items()
+                  if "bell_spmm" in k}
+    spills = {k: v[1] for k, v in spmm_funcs.items() if v[1] != 0}
+    if (not spmm_funcs and spmv.build_info["seconds"]) or spills:
+        raise AssertionError(f"SpMM kernels: {len(spmm_funcs)} in the ptxas "
+                             f"log, spill stores {spills}")
     n_copy = 1 << 30                                   # 4 GiB of float32
     src = torch.empty(n_copy, dtype=torch.float32, device=DEVICE)
     src.fill_(1.0)
@@ -731,6 +776,9 @@ def phase_build(spmv):
     copy_gbps = 2 * n_copy * 4 / (copy_ms * 1e-3) / 1e9
     emit({"phase": "build", "nvcc_s": spmv.build_info["seconds"],
           "library": spmv.build_info["path"], "ptxas": ptxas,
+          "spmm_kernels_spill_free": len(spmm_funcs),
+          "spmm_max_registers": max((v[0] or 0 for v in
+                                     spmm_funcs.values()), default=None),
           "gpu": nvidia_smi_name_power(),
           "copy_ms": copy_ms, "copy_gbps": copy_gbps})
     return copy_gbps
@@ -880,7 +928,13 @@ def spmv_case(spmv, sparse, n, bs, bpr, copy_gbps, seed, unaligned=False):
     return results
 
 
-def spmm_case(spmv, sparse, n, bs, bpr, r, seed, unaligned=False):
+def spmm_passes(r):
+    """Passes over the values the SpMM kernel makes for r columns."""
+    return -(-r // SPMM_WIDE_PASS)
+
+
+def spmm_case(spmv, sparse, n, bs, bpr, r, seed, copy_gbps,
+              unaligned=False):
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
     op = sparse.random_bell_operator(n, bs, bpr, generator=gen,
                                      device=DEVICE)
@@ -930,6 +984,13 @@ def spmm_case(spmv, sparse, n, bs, bpr, r, seed, unaligned=False):
         bytes_min, bound_ms, bound_by = bound(
             vals.numel(), vals.element_size(),
             cols.numel() * 4 + 2 * n * r * 4, r)
+        # The same stream as the kernel moves it: the values and cols once
+        # a pass, every X segment a block-row stages, Y once; over the
+        # measured copy rate.
+        nb, max_blk = cols.shape
+        bytes_gather = spmm_passes(r) * (vals.numel() * vals.element_size()
+                                         + cols.numel() * 4) \
+            + nb * max_blk * bs * r * 4 + n * r * 4
         row = {"phase": "spmm", "kernel": name, "n": n, "bs": bs,
                "blocks_per_row": bpr, "r": r, "x_aligned": not unaligned,
                "rel_err": err, "max_abs_err": max_abs,
@@ -938,6 +999,8 @@ def spmm_case(spmv, sparse, n, bs, bpr, r, seed, unaligned=False):
                "library_ms": library_ms, "library_rel_err": lib_err,
                "chained_spmv_ms": chained_ms, "bytes_min": bytes_min,
                "bound_ms": bound_ms, "bound_by": bound_by,
+               "bytes_with_gathers": bytes_gather,
+               "copy_bound_ms": bytes_gather / (copy_gbps * 1e9) * 1e3,
                "achieved_gbps": bytes_min / (kernel_ms * 1e-3) / 1e9}
         emit(row)
         results[name] = row
@@ -950,6 +1013,89 @@ def spmm_case(spmv, sparse, n, bs, bpr, r, seed, unaligned=False):
     del op, X, x_cols
     torch.cuda.empty_cache()
     return results
+
+
+def kernel_library(spmv, csrc):
+    """Build and load the kernel library from the sources in ``csrc`` (a
+    ``csrc`` directory of another checkout) beside this one's; return it
+    and the ptxas summary of its SpMM kernels."""
+    saved = spmv._CSRC, spmv._lib
+    try:
+        spmv._CSRC, spmv._lib = Path(csrc).resolve(), None
+        lib = spmv._library()
+        funcs = {k: v for k, v in
+                 ptxas_functions(spmv.build_info["log"]).items()
+                 if "bell_spmm" in k}
+    finally:
+        spmv._CSRC, spmv._lib = saved
+    return lib, funcs
+
+
+def spmm_turns(spmv, sparse, libs):
+    """The SpMM entries of several builds of the kernel library, timed in
+    turns on the same config-#5 inputs (first to last, then last to first;
+    each turn the median of 12 CUDA-event samples of 5 launches): square
+    gather and banded at r = 4, 8, 16, 32 and the p = 2 row panel at r =
+    8, 16, float32 and bfloat16 values.  Each build's Y against the first
+    build's and against the plain version.  ``libs``: {label: library}."""
+    n, bs, bpr = CONFIG5
+    gen = torch.Generator(device=DEVICE).manual_seed(6)
+    op = sparse.random_bell_operator(n, bs, bpr, generator=gen,
+                                     device=DEVICE)
+    nb = n // bs
+    half = slice(nb // 2, nb)                 # the last rank's panel, p = 2
+    saved = spmv._lib
+    cases = [(mode, r) for r in (4, 8, 16, 32) for mode in ("gather",
+                                                           "banded")]
+    cases += [("panel", 8), ("panel", 16)]
+    try:
+        for suffix, vals in (("f32", op.vals),
+                             ("bf16vals", op.vals.to(torch.bfloat16))):
+            for mode, r in cases:
+                X = torch.randn(n, r, generator=gen, device=DEVICE)
+                v, c = (vals[half], op.cols[half]) if mode == "panel" \
+                    else (vals, op.cols)
+                if mode == "banded":
+                    def call():
+                        return spmv._bell_spmm_banded_cuda(v, c, X,
+                                                           op.slot_plan)
+                    plain = spmv._bell_spmm_banded_torch(v, c, X,
+                                                         op.slot_plan)
+                else:
+                    def call():
+                        return spmv._bell_spmm_cuda(v, c, X)
+                    plain = spmv._bell_spmm_torch(v, c, X)
+                ys, errs = {}, {}
+                for label, lib in libs.items():
+                    spmv._lib = lib
+                    ys[label] = call()
+                    torch.cuda.synchronize()
+                    errs[label] = rel_err(ys[label], plain)
+                first = next(iter(ys.values()))
+                diffs = {k: float((y - first).abs().max())
+                         for k, y in ys.items()}
+                if not all(math.isfinite(e) and e <= 1e-5
+                           for e in errs.values()):
+                    raise AssertionError(f"spmm turns {suffix} {mode} r={r}"
+                                         f": rel errs {errs}")
+                turns = {k: [] for k in libs}
+                for label in [*libs, *reversed(libs)]:
+                    spmv._lib = libs[label]
+                    turns[label].append(event_ms(call, samples=12, batch=5))
+                _, bound_ms, bound_by = bound(
+                    v.numel(), v.element_size(),
+                    c.numel() * 4 + X.numel() * 4
+                    + v.shape[0] * bs * r * 4, r)
+                emit({"phase": "spmm_turns", "values": suffix, "mode": mode,
+                      "r": r, "rel_err": errs, "max_abs_diff_vs_first": diffs,
+                      "ms_turns": turns,
+                      "ms": {k: statistics.mean(t) for k, t in turns.items()},
+                      "bound_ms": bound_ms, "bound_by": bound_by})
+                del X, ys, plain, first
+    finally:
+        spmv._lib = saved
+    del op
+    torch.cuda.empty_cache()
 
 
 def ift_dot_test(op, lam, v, c, b, x, lhs, dav, maxiter):
@@ -1695,17 +1841,20 @@ def phase_panel(spmv, sparse):
     gen = torch.Generator(device=DEVICE).manual_seed(13)
     op = sparse.random_bell_operator(n, bs, bpr, generator=gen, device=DEVICE)
     rhs = {"spmv": torch.randn(n, generator=gen, device=DEVICE),
-           "spmm": torch.randn(n, PANEL_R, generator=gen, device=DEVICE)}
+           "spmm": torch.randn(n, PANEL_R, generator=gen, device=DEVICE),
+           "spmm16": torch.randn(n, 16, generator=gen, device=DEVICE)}
     kernels = {"spmv": (spmv._bell_spmv_cuda, spmv._bell_spmv_torch),
                "spmm": (spmv._bell_spmm_cuda, spmv._bell_spmm_torch)}
     results = {}
     for suffix, vals in (("f32", op.vals),
                          ("bf16vals", op.vals.to(torch.bfloat16))):
-        for kind, (kernel, plain) in kernels.items():
-            x = rhs[kind]
+        for key, x in rhs.items():
+            # r = 16 runs the wide body (one panel, p = 2).
+            kind = key[:4]
+            kernel, plain = kernels[kind]
             r = 1 if x.ndim == 1 else x.shape[1]
             square = kernel(vals, op.cols, x)
-            for p in PANEL_SHARDS:
+            for p in PANEL_R16_SHARDS if r == 16 else PANEL_SHARDS:
                 nb_l = nb // p
                 rows = slice((p - 1) * nb_l, p * nb_l)
                 vals_p, cols_p = vals[rows], op.cols[rows]
@@ -1748,7 +1897,7 @@ def phase_panel(spmv, sparse):
                        "bound_by": bound_by,
                        "achieved_gbps": bytes_min / (kernel_ms * 1e-3) / 1e9}
                 emit(row)
-                results[(name, p)] = row
+                results[(name, p) if r != 16 else (name, p, r)] = row
                 del y_k, y_p
             del square
         del vals
@@ -5018,17 +5167,38 @@ def main():
                                      "sparse")
 
     copy_gbps = phase_build(spmv)
+    if sys.argv[1:2] == ["--spmm-turns"]:
+        # python3 chip_smoke.py --spmm-turns LABEL=CSRC_DIR ...: this
+        # checkout's SpMM against other builds, in turns; no other phase.
+        libs = {"this": spmv._library()}
+        for arg in sys.argv[2:]:
+            label, csrc = arg.split("=", 1)
+            libs[label], funcs = kernel_library(spmv, csrc)
+            emit({"phase": "build", "library": label, "spmm_ptxas": funcs})
+        spmm_turns(spmv, sparse, libs)
+        print(nvidia_smi_name_power(), flush=True)
+        return
     big = spmv_case(spmv, sparse, *CONFIG5, copy_gbps, seed=1)
     spmv_case(spmv, sparse, *SMALL_SHAPES[0], copy_gbps, seed=2)
     spmv_case(spmv, sparse, *SMALL_SHAPES[1], copy_gbps, seed=3,
               unaligned=True)
     counts, lam_eigh = phase_eigh(pkg, spmv)
     spmm = [spmm_case(spmv, sparse, *shape, r, seed=4 + i,
-                      unaligned=unaligned)
+                      copy_gbps=copy_gbps, unaligned=unaligned)
             for i, (shape, r, unaligned) in enumerate(SPMM_SHAPES)]
     counts.update({k: v for k, v in phase_eigh_multi(pkg, spmv).items()
                    if k.startswith("bell_spmm")})
     big.update(spmm[0])
+    # Each SpMM entry's config-#5 rows by r.
+    spmm_by_r = {}
+    for (shape, r, _), rows in zip(SPMM_SHAPES, spmm):
+        if shape == CONFIG5:
+            for name, row in rows.items():
+                spmm_by_r.setdefault(name, {})[str(r)] = {
+                    "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
+                    "bound_ms": row["bound_ms"],
+                    "library_ms": row["library_ms"],
+                    "max_abs_err": row["max_abs_err"]}
     panel = phase_panel(spmv, sparse)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -5089,6 +5259,8 @@ def main():
                         "bound_ms": row["bound_ms"],
                         "bound_by": row["bound_by"],
                         "library_ms": row["library_ms"]})
+        if spmm_kernel:
+            kernels[-1]["by_r"] = spmm_by_r[name]
     # K4a: the same kernels on the row panels of the sharded run (p = 2).
     for kind, suffix in (("spmv", "f32"), ("spmv", "bf16vals"),
                          ("spmm", "f32"), ("spmm", "bf16vals")):
@@ -5107,6 +5279,14 @@ def main():
                         "bound_ms": row["bound_ms"],
                         "bound_by": row["bound_by"],
                         "library_ms": row["library_ms"]})
+        if kind == "spmm":
+            kernels[-1]["by_r"] = {
+                str(r): {"ms": rr["kernel_ms"], "plain_ms": rr["plain_ms"],
+                         "bound_ms": rr["bound_ms"],
+                         "library_ms": rr["library_ms"],
+                         "max_abs_err": rr["max_abs_err"]}
+                for r, rr in ((PANEL_R, row),
+                              (16, panel[(name, SHARDED_RANKS, 16)]))}
     emit({"kernels": kernels})
     print(nvidia_smi_name_power(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

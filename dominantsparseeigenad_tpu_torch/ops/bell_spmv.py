@@ -19,8 +19,10 @@ card): the operators check it once, when they are built.
 
 * On a CUDA tensor :func:`bell_spmv` launches the CUDA kernel in
   ``csrc/bell_spmv.cu`` and :func:`bell_spmm` the one in
-  ``csrc/bell_spmm.cu`` (float32 vectors; float32 or bfloat16 values), or
-  raise.  There is no fallback.
+  ``csrc/bell_spmm.cu`` (float32 vectors; float32 or bfloat16 values;
+  any r >= 1: r <= 4 in one body, wider blocks in another that streams
+  the values once for up to 32 columns), or raise.  There is no
+  fallback.
 * On a CPU tensor they take :func:`_bell_spmv_torch` /
   :func:`_bell_spmm_torch`, the plain PyTorch versions, which are also
   what the kernels are checked against on the card.
@@ -181,9 +183,10 @@ def _library():
     return _lib
 
 
-# The SpMM kernel stages X segments in shared memory, 8 columns of about
-# bs floats per slot in at most 100 KiB: a bound on bs that leaves room
-# for one slot with margin.
+# The SpMM kernel's narrow body (r <= 4) stages X segments in shared
+# memory, 4 columns of about bs floats per slot in at most 100 KiB: a
+# bound on bs that leaves room for several slots a tile.  The wide body
+# (r > 4) stages 128-row, 128-byte slices of a slot, whatever bs is.
 SPMM_MAX_BS = 1024
 
 

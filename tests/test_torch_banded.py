@@ -139,11 +139,17 @@ def test_jax_runs_its_banded_kernel_at_the_main_shape():
     assert any(o > 0 for _, o in plan)
 
 
-@pytest.mark.parametrize("r", [None, 1, 3, 8], ids=["spmv", "r1", "r3", "r8"])
+# Jitted once: one compile per shape, not an eager interpret-mode run.
+_jax_spmv_jit = jax.jit(jax_bell_spmv, static_argnums=(3, 4))
+_jax_spmm_jit = jax.jit(jax_bell_spmm, static_argnums=(3, 4))
+
+
+@pytest.mark.parametrize("r", [None, 1, 3, 8, 13, 16, 40],
+                         ids=["spmv", "r1", "r3", "r8", "r13", "r16", "r40"])
 def test_plain_banded_matches_jax_interpret(r):
     vals, cols, plan = _jax_operator()
     x = _rhs(N, r, 7)
-    jfun = jax_bell_spmv if r is None else jax_bell_spmm
+    jfun = _jax_spmv_jit if r is None else _jax_spmm_jit
     y_j = jfun(jnp.asarray(vals), jnp.asarray(cols), jnp.asarray(x), True,
                plan)
     pfun = spmv._bell_spmv_banded_torch if r is None \

@@ -60,12 +60,18 @@ def _port_product(vals, cols, x):
     return fn(vals, cols, x)
 
 
+# Jitted once: one compile per shape, not an eager interpret-mode run.
+_JAX_SPMV = jax.jit(jax_bell_spmv, static_argnums=(3,))
+_JAX_SPMM = jax.jit(jax_bell_spmm, static_argnums=(3,))
+_JAX_XLA = jax.jit(_bell_spmv_xla)
+
+
 def _jax_product(vals, cols, x):
-    fn = jax_bell_spmv if x.ndim == 1 else jax_bell_spmm
+    fn = _JAX_SPMV if x.ndim == 1 else _JAX_SPMM
     return fn(jnp.asarray(vals), jnp.asarray(cols), jnp.asarray(x), True)
 
 
-@pytest.mark.parametrize("r", [None, 1, 3, 8], ids=lambda r: f"r{r}")
+@pytest.mark.parametrize("r", [None, 1, 3, 8, 16], ids=lambda r: f"r{r}")
 @pytest.mark.parametrize("rows", ROWS)
 @pytest.mark.parametrize("jax_path", ["pallas_interpret", "xla"])
 def test_plain_panel_matches_jax_f64(jax_path, rows, r):
@@ -76,7 +82,7 @@ def test_plain_panel_matches_jax_f64(jax_path, rows, r):
               torch.from_numpy(x))
     assert tuple(y.shape) == (rows * BS,) + (() if r is None else (r,))
     if jax_path == "xla":
-        y_jax = _bell_spmv_xla(jnp.asarray(vals), jnp.asarray(cols),
+        y_jax = _JAX_XLA(jnp.asarray(vals), jnp.asarray(cols),
                                jnp.asarray(x))
     else:
         y_jax = _jax_product(vals, cols, x)

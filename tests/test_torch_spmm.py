@@ -28,7 +28,14 @@ spmv = importlib.import_module("dominantsparseeigenad_tpu_torch.ops.bell_spmv")
 
 torch.set_num_threads(2)
 
-RS = [1, 3, 8]
+# 13: ragged inside one pass of the kernel's wide body; 16: the KPM probe
+# block; 40: past one 32-column pass.
+RS = [1, 3, 8, 13, 16, 40]
+
+# Each JAX reference jitted once (one compile per shape, not an eager
+# interpret-mode run per call).
+_jax_spmm = jax.jit(jax_bell_spmm, static_argnums=(3, 4))
+_jax_xla = jax.jit(_bell_spmv_xla)
 
 
 @functools.lru_cache(maxsize=None)
@@ -67,10 +74,10 @@ def test_plain_version_matches_jax_f64(jax_path, r):
     assert plan is not None
     args = (jnp.asarray(vals), jnp.asarray(cols), jnp.asarray(X))
     if jax_path == "xla":
-        y_jax = _bell_spmv_xla(*args)
+        y_jax = _jax_xla(*args)
     else:
-        y_jax = jax_bell_spmm(*args, True,
-                              plan if jax_path == "interpret_plan" else None)
+        y_jax = _jax_spmm(*args, True,
+                          plan if jax_path == "interpret_plan" else None)
     y = _plain(vals, cols, X)
     assert y.shape == (256, r)
     # f64 sums of 5 blocks x 32 terms in another order.
@@ -88,8 +95,8 @@ def test_plain_version_matches_jax_on_an_irregular_pattern():
 def test_wrapper_on_cpu_matches_jax_interpret_f32(r):
     vals, cols, X, plan = _banded(r)
     vals, X = vals.astype(np.float32), X.astype(np.float32)
-    y_jax = jax_bell_spmm(jnp.asarray(vals), jnp.asarray(cols),
-                          jnp.asarray(X), True, plan)
+    y_jax = _jax_spmm(jnp.asarray(vals), jnp.asarray(cols), jnp.asarray(X),
+                      True, plan)
     before = dict(spmv.launch_counts)
     y = port.bell_spmm(torch.from_numpy(vals), torch.from_numpy(cols),
                        torch.from_numpy(X))
