@@ -311,6 +311,39 @@ line each:
    4 × 5 torus (2^20 states) at g = 3.04, f32: E0 and dE0/dg against
    −<ψ|Σσˣ|ψ> by ``flip_sum``.  No hand-written kernel is on this path.
 
+20. ``utils``: the port's ``utils/``.  (a) ``timeit`` (host clock
+   around a synchronized call, 12 repeats) of one config-#5 K4b SpMV
+   through the operator's ``matvec``, against the kernel's CUDA-event
+   median from the ``spmv`` phase: at least it, at most 1.15 x it + 0.05
+   ms.  (b) ``trace`` (``torch.profiler``, CPU and CUDA activity) around
+   config #5's ``dominant_eigh`` forward and backward (k = 100, CG capped
+   at 3000) and (c) around the TFIM N = 20 forward-mode pass (the
+   ``tfim`` phase's settings): each trace file read back, the named
+   ranges ``lanczos_matvec``, ``lanczos_reorth`` (k each) and
+   ``cg_matvec`` (the CG's products) counted, a ``bell_spmv_banded``
+   kernel found in the config-#5 trace, and the idle share of each traced
+   window (one minus the union of the kernel and copy intervals over the
+   window from the first to the last device activity); the phase fails
+   if the profiler recorded no device activity.  The TFIM pass also
+   timed untraced before and after its trace.  (d) ``lanczos_health`` of
+   config #5's k = 100 Lanczos run (orthogonality loss, both Ritz
+   residuals, breakdowns), logged through ``JsonlLogger`` on the card's
+   tensors (a bfloat16 one among them) and read back;
+   ``cg_relative_residual`` of the traced backward's capped CG (its solve
+   recorded as it ran).  (e) ``assert_converged`` raises on a k = 10
+   Lanczos at config #5 and passes on the TFIM N = 20 solve.  (f) The
+   host cost of one named range with no profiler running.
+
+21. ``examples``: the eleven drivers of
+   ``dominantsparseeigenad_tpu_torch/examples`` in this process at their
+   JAX twins' defaults (``EXAMPLES`` lists any cut of sweep points; none
+   so far), ``sharded_sparse`` spawning its two gloo ranks on the card;
+   each driver's wall time and key numbers against the closed form it
+   prints (Jordan-Wigner, the XXZ ferromagnet and Bethe's value, Onsager
+   at the first β, Onsager's ξ), its own check (``SystemExit`` on a
+   miss), a ``--log`` record a point where it logs, the panel kernels on
+   the sharded ranks and the banded ones on the local operator.
+
 Then a ``kernels`` line (each SpMM entry with its config-#5 times, bound
 and library time at every r of ``spmm``, the panel entries at r = 8 and
 16, under ``by_r``), the ``nvidia-smi`` name and power-limit line, and
@@ -321,6 +354,7 @@ code 1 before printing any result.
 
 import contextlib
 import importlib
+import io
 import json
 import math
 import os
@@ -641,6 +675,39 @@ XXZ_N, XXZ_K = 20, 200
 XXZ_RTOL = {"euler": 2e-6, "su2": 1e-4, "bethe_abs": 0.02}
 TFIM2D, TFIM2D_G, TFIM2D_K = (4, 5), 3.04, 150
 TFIM2D_RTOL = 1e-5
+# The utils phase.  timeit of one config-#5 K4b SpMV (median of 12 synced
+# calls) against the CUDA-event median of the same call: at least it, at
+# most 1.15 x it + 0.05 ms.  The ranges the solvers open (the JAX
+# package's named scopes), the device activity a trace holds, and the
+# deliberately short Lanczos that assert_converged must flag.
+UTILS_TIMEIT_REPEATS = 12
+UTILS_TIMEIT_BAR = (1.15, 0.05)
+RANGES = ("lanczos_matvec", "lanczos_reorth", "cg_matvec", "bicgstab_matvec")
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+UTILS_SHORT_K = 10
+# The examples phase: each driver at its JAX defaults plus these arguments
+# (a cut of sweep points only, never of chi, steps, N or k), in-process;
+# sharded_sparse spawns its own 2 ranks.  Drivers with --log write it.
+EXAMPLES = (("tfim_ed", []), ("tfim_sparse", []), ("heisenberg", []),
+            ("spectral", []), ("ising2d", []), ("transfer_spectrum", []),
+            ("lobpcg_precond", []), ("spectrum_slice", []),
+            ("vibrational_modes", []), ("complex_spectrum", []),
+            ("sharded_sparse", []))
+EXAMPLES_LOGGED = ("tfim_ed", "tfim_sparse", "heisenberg", "spectral",
+                   "ising2d", "transfer_spectrum")
+# Bars on the closed forms the drivers print: Jordan-Wigner for tfim_ed
+# (float64: E0, dE0/dg, d2E0/dg2 absolute) and tfim_sparse (E0 relative);
+# the XXZ chain's ferromagnetic E0/N = Jz/4 for Jz <= -1 and the Bethe
+# value 1/4 - ln 2 at Jz = 1 (N = 12, the models phase's 0.02); Onsager at
+# the ising2d sweep's first beta (0.3, away from beta_c; CTMRG chi = 30),
+# and Onsager's row-to-row xi there for transfer_spectrum (the eig
+# phase's 0.1); the spectral driver's E0 against Jordan-Wigner.
+EX_TFIM_ED_ABS = (1e-9, 1e-7, 1e-5)
+EX_TFIM_SPARSE_REL = 1e-9
+EX_XXZ = {"ferro_abs": 1e-10, "bethe_abs": 0.02}
+EX_ISING_FIRST_ABS = (1e-10, 1e-8, 1e-6)
+EX_XI_REL = 0.1
+EX_SPECTRAL_E0_REL = 1e-10
 
 
 def emit(obj):
@@ -4663,14 +4730,14 @@ def add_counts(total, more):
 
 @contextlib.contextmanager
 def recorded_loop(module, name):
-    """Record the per-column iterations (their max) of every run of the
-    batched solver loop ``module.name`` inside the block."""
+    """Record the iterations (of a batched loop, the per-column max) of
+    every run of the solver loop ``module.name`` inside the block."""
     loop = getattr(module, name)
     its = []
 
     def record(*args, **kw):
         x, n_its = loop(*args, **kw)
-        its.append(int(n_its.max()))
+        its.append(int(torch.as_tensor(n_its).max()))
         return x, n_its
 
     setattr(module, name, record)
@@ -5155,6 +5222,428 @@ def phase_models(pkg):
         raise AssertionError(f"models phase failed: {failed}")
 
 
+def idle_share(intervals):
+    """``(idle share, window ms, busy ms)`` of device intervals (µs): one
+    minus the union of the intervals over the window from the first
+    start to the last end."""
+    intervals = sorted(intervals)
+    busy, (lo, hi) = 0.0, intervals[0]
+    end = max(e for _, e in intervals)
+    for s, e in intervals[1:]:
+        if s > hi:
+            busy += hi - lo
+            lo, hi = s, e
+        else:
+            hi = max(hi, e)
+    busy += hi - lo
+    window = end - intervals[0][0]
+    return 1.0 - busy / window, window * 1e-3, busy * 1e-3
+
+
+def read_trace(log_dir):
+    """The one trace file ``utils.trace`` wrote into ``log_dir``: the
+    named ranges (host side) by count, the device kernels and copies, the
+    idle share of the device window, the kernels with the most device
+    time.  Fails if the profiler recorded no device activity."""
+    files = sorted(Path(log_dir).glob("trace_*.json"))
+    if len(files) != 1:
+        raise AssertionError(f"expected one trace file in {log_dir}, found "
+                             f"{[f.name for f in files]}")
+    events = json.loads(files[0].read_text())["traceEvents"]
+    ranges = {name: 0 for name in RANGES}
+    kernel_us = {}
+    intervals = []
+    for e in events:
+        cat = e.get("cat")
+        if cat == "user_annotation" and e.get("name") in ranges:
+            ranges[e["name"]] += 1
+        elif cat in DEVICE_CATS and e.get("ph") == "X":
+            intervals.append((e["ts"], e["ts"] + e["dur"]))
+            if cat == "kernel":
+                kernel_us[e["name"]] = kernel_us.get(e["name"], 0.0) \
+                    + e["dur"]
+    if not kernel_us:
+        raise AssertionError("the trace holds no CUDA kernel: the profiler "
+                             "recorded no device activity")
+    idle, window_ms, busy_ms = idle_share(intervals)
+    top = sorted(kernel_us.items(), key=lambda kv: -kv[1])[:6]
+    return {"file_mib": files[0].stat().st_size / 2**20,
+            "events": len(events), "ranges": ranges,
+            "device_intervals": len(intervals),
+            "distinct_kernels": len(kernel_us),
+            "bell_spmv_banded_kernels": sorted(
+                n for n in kernel_us if "bell_spmv_banded" in n),
+            "idle_share": idle,
+            "window_ms": window_ms, "busy_ms": busy_ms,
+            "top_kernels_ms": {name[:80]: us * 1e-3 for name, us in top}}
+
+
+def phase_utils(pkg, spmv, spmv_row):
+    """utils/ on the card (module docstring, phase 20): synced timing, the
+    profiler trace with the solvers' named ranges and the idle share, the
+    logger on CUDA tensors, diagnostics and the convergence guards.
+    ``spmv_row`` is the spmv phase's config-#5 K4b f32 row."""
+    from dominantsparseeigenad_tpu_torch import models, utils
+    cg = importlib.import_module("dominantsparseeigenad_tpu_torch.ops.cg")
+    t_phase = time.perf_counter()
+    f32 = torch.float32
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="utils_", dir=build)
+    out, checks = {"phase": "utils"}, {}
+
+    # (a) timeit of one K4b SpMV (the operator's matvec, synced each call)
+    # against the kernel's CUDA-event median from the spmv phase; and the
+    # event median of the same synced-free call, one a sample.
+    op, v0 = config5_operator(pkg)
+    x = torch.randn(op.dim, generator=torch.Generator(device=DEVICE)
+                    .manual_seed(8), device=DEVICE)
+    with torch.no_grad():
+        before = spmv.launch_counts["bell_spmv_banded_f32"]
+        res = utils.timeit(op.matvec, x, repeats=UTILS_TIMEIT_REPEATS)
+        call_event = event_ms(lambda: op.matvec(x),
+                              samples=UTILS_TIMEIT_REPEATS)
+        launched = spmv.launch_counts["bell_spmv_banded_f32"] - before
+    timeit_ms, event = res.median * 1e3, spmv_row["kernel_ms"]
+    a, b = UTILS_TIMEIT_BAR
+    out["timeit"] = {"what": "one config-#5 K4b SpMV (op.matvec)",
+                     "repeats": UTILS_TIMEIT_REPEATS, "repr": repr(res),
+                     "median_ms": timeit_ms, "best_ms": res.best * 1e3,
+                     "event_median_ms": event, "ratio": timeit_ms / event,
+                     "call_event_median_ms": call_event,
+                     "k4b_launches": launched}
+    checks[f"timeit median within [event, {a} x event + {b} ms]"] = \
+        event <= timeit_ms <= a * event + b
+    checks["timeit and events launched K4b"] = launched > 0
+
+    # (b) config #5, dominant_eigh forward and backward, traced.
+    c = torch.randn(op.dim, generator=torch.Generator(device=DEVICE)
+                    .manual_seed(9), device=DEVICE) / math.sqrt(op.dim)
+    vals = op.vals.detach().clone().requires_grad_(True)
+    opg = op.with_vals(vals)
+    # Warm (the first λ-only backward of a process pays one-time costs).
+    lam_w, v_w = pkg.dominant_eigh(opg, k=20, maxiter=20, device=DEVICE)
+    (lam_w + (c * v_w).sum()).backward()
+    vals.grad = None
+    torch.cuda.synchronize()
+    c5_dir = os.path.join(work, "config5")
+    before = spmv.launch_counts["bell_spmv_banded_f32"]
+    t0 = time.perf_counter()
+    with recorded_loop(cg, "_cg_loop") as cg_its, \
+            recorded_solves() as solves:
+        with utils.trace(c5_dir) as log_dir:
+            lam, v = pkg.dominant_eigh(opg, k=K, extreme="min", tol=CG_TOL,
+                                       maxiter=CG_MAXITER, v0=v0,
+                                       device=DEVICE)
+            (lam + (c * v).sum()).backward()
+            torch.cuda.synchronize()
+    t_traced = time.perf_counter() - t0
+    c5_launches = spmv.launch_counts["bell_spmv_banded_f32"] - before
+    c5 = read_trace(log_dir)
+    cg_products = int(sum(cg_its))
+    rhs, xs, sop, sign, slam, sv = solves[0]
+    with torch.no_grad():
+        cg_rel = float(utils.cg_relative_residual(
+            cg._deflated_mv(sop, slam, sv, sign, False),
+            cg._project_out(sv, rhs), xs))
+    out["config5_trace"] = {**c5, "k": K, "cg_maxiter": CG_MAXITER,
+                            "cg_products": cg_products,
+                            "backward_solves": len(solves),
+                            "cg_relative_residual": cg_rel,
+                            "k4b_spmv_launches": c5_launches,
+                            "traced_s": t_traced}
+    checks.update({
+        "config #5: lanczos_matvec == k": c5["ranges"]["lanczos_matvec"] == K,
+        "config #5: lanczos_reorth == k": c5["ranges"]["lanczos_reorth"] == K,
+        "config #5: cg_matvec == the CG's products":
+            c5["ranges"]["cg_matvec"] == cg_products > 0,
+        "config #5: a bell_spmv_banded kernel in the trace":
+            bool(c5["bell_spmv_banded_kernels"]),
+        "config #5: one backward solve": len(solves) == 1,
+        "config #5: the capped CG's residual finite":
+            math.isfinite(cg_rel),
+    })
+    lam_f = float(lam.detach())
+    del lam, v, lam_w, v_w, vals, opg, solves, rhs, xs, sop, sv
+    torch.cuda.empty_cache()
+
+    # (c) the TFIM N = 20 forward-mode pass (the tfim phase's settings),
+    # timed untraced before and after its trace.
+    tfim_dir = os.path.join(work, "tfim")
+    t_before = utils.timeit(lambda: tfim_pass(pkg, models, TFIM_N, f32),
+                            repeats=3)
+    t0 = time.perf_counter()
+    with recorded_loop(cg, "_cg_loop") as tcg_its:
+        with utils.trace(tfim_dir) as log_dir:
+            e0, de0, chi, _ = tfim_pass(pkg, models, TFIM_N, f32)
+    t_tfim = time.perf_counter() - t0
+    tf = read_trace(log_dir)
+    t_after = utils.timeit(lambda: tfim_pass(pkg, models, TFIM_N, f32),
+                           repeats=3, warmup=0)
+    tcg = int(sum(tcg_its))
+    out["tfim_trace"] = {**tf, "n": TFIM_N, "k": TFIM_K,
+                         "reorth_passes": TFIM_REORTH_PASSES,
+                         "cg_products": tcg, "traced_s": t_tfim,
+                         "pass_ms_before": [t * 1e3 for t in
+                                            t_before.times_s],
+                         "pass_ms_after": [t * 1e3 for t in
+                                           t_after.times_s],
+                         "e0": e0, "de0_dg": de0, "chi_f": chi}
+    errs, _ = jw_errors(models, TFIM_N, TFIM_G, e0, de0, chi)
+    checks.update({
+        "TFIM: lanczos_matvec == k": tf["ranges"]["lanczos_matvec"] == TFIM_K,
+        "TFIM: lanczos_reorth == k": tf["ranges"]["lanczos_reorth"] == TFIM_K,
+        "TFIM: cg_matvec == the tangent CG's products":
+            tf["ranges"]["cg_matvec"] == tcg > 0,
+        "TFIM: no bicgstab range": tf["ranges"]["bicgstab_matvec"] == 0,
+        "TFIM traced pass vs Jordan-Wigner at the tfim bars":
+            all(errs[k] <= TFIM_RTOL[k] for k in TFIM_RTOL),
+    })
+
+    # (d) lanczos_health of config #5's k = 100 run (same start), and the
+    # logger on the card's tensors.
+    with torch.no_grad():
+        res = pkg.lanczos(op, K, v0=v0, device=DEVICE)
+        health = utils.lanczos_health(op, res)
+    ritz_min, ritz_max = (float(t) for t in health["ritz_extremes"])
+    out["lanczos_health"] = {
+        "k": K, "ortho_loss": float(health["ortho_loss"]),
+        "ritz_residual_min": float(health["ritz_residual_min"]),
+        "ritz_residual_max": float(health["ritz_residual_max"]),
+        "breakdowns": int(health["breakdowns"]),
+        "ritz_extremes": [ritz_min, ritz_max]}
+    log_path = os.path.join(work, "health.jsonl")
+    with utils.JsonlLogger(log_path) as log:
+        log.log("lanczos_health", ortho_loss=health["ortho_loss"],
+                ritz_residual_min=health["ritz_residual_min"],
+                ritz_residual_max=health["ritz_residual_max"],
+                breakdowns=health["breakdowns"],
+                ritz_extremes=torch.stack(health["ritz_extremes"]),
+                alphas_bf16=res.alphas[:4].to(torch.bfloat16))
+    with open(log_path) as f:
+        rec = json.loads(f.read())
+    checks.update({
+        "health: finite": all(math.isfinite(v) for v in (
+            out["lanczos_health"]["ortho_loss"], ritz_min, ritz_max,
+            out["lanczos_health"]["ritz_residual_min"],
+            out["lanczos_health"]["ritz_residual_max"])),
+        "health: no breakdown": out["lanczos_health"]["breakdowns"] == 0,
+        "health: its λ_min is the traced solve's, rel 1e-6":
+            abs(ritz_min - lam_f) <= 1e-6 * abs(lam_f),
+        "logger: CUDA and bf16 tensors logged as numbers":
+            rec["event"] == "lanczos_health"
+            and rec["ritz_extremes"] == [ritz_min, ritz_max]
+            and len(rec["alphas_bf16"]) == 4,
+    })
+    del res, health
+
+    # (e) the guards: a deliberately short Lanczos is flagged, the TFIM
+    # headline solve passes.
+    with torch.no_grad():
+        _, _, info = pkg.dominant_eigh(op, k=UTILS_SHORT_K, v0=v0,
+                                       tol=CG_TOL, with_info=True,
+                                       device=DEVICE)
+    try:
+        utils.assert_converged(info)
+        short_msg = None
+    except RuntimeError as err:
+        short_msg = str(err)
+    with torch.no_grad():
+        _, _, tinfo = pkg.dominant_eigh(
+            models.tfim_operator(TFIM_N, TFIM_G, dtype=f32, device=DEVICE),
+            k=TFIM_K, extreme="min", tol=TFIM_CG_TOL,
+            maxiter=TFIM_CG_MAXITER, reorth_passes=TFIM_REORTH_PASSES,
+            with_info=True, device=DEVICE)
+    utils.assert_converged(tinfo, name="TFIM N = 20")
+    out["guards"] = {"short_k": UTILS_SHORT_K, "short_message": short_msg,
+                     "tfim_residual": float(tinfo.residual),
+                     "tfim_converged": float(tinfo.converged)}
+    checks[f"assert_converged flags k = {UTILS_SHORT_K} on config #5"] = (
+        short_msg is not None and "did not converge" in short_msg)
+    # (f) what one named range costs the host with no profiler running,
+    # against the ranges a TFIM pass opens.
+    def open_ranges(count=10000):
+        for _ in range(count):
+            with torch.profiler.record_function("lanczos_matvec"):
+                pass
+
+    range_us = utils.timeit(open_ranges, repeats=3).median / 10000 * 1e6
+    per_pass = sum(tf["ranges"].values())
+    out["range_cost"] = {"us_per_range": range_us,
+                         "ranges_per_tfim_pass": per_pass,
+                         "ms_per_tfim_pass": range_us * per_pass * 1e-3}
+    del op, x, c
+    shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    out.update(card=nvidia_smi_name_power(),
+               phase_s=time.perf_counter() - t_phase)
+    emit(out)
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"utils phase failed: {failed}")
+
+
+def example_summary(name, res):
+    """The driver's key numbers against the closed forms it prints, and
+    the checks on them: ``(summary, {check: ok})``."""
+    from dominantsparseeigenad_tpu_torch import models
+    rows = res.get("rows")
+    if name == "tfim_ed":
+        worst = [max(r["abs_err"][i] for r in rows) for i in range(3)]
+        return ({"points": len(rows), "max_abs_err_e0_d1_d2": worst},
+                {f"tfim_ed vs Jordan-Wigner within {EX_TFIM_ED_ABS}":
+                    all(w <= b for w, b in zip(worst, EX_TFIM_ED_ABS))})
+    if name == "tfim_sparse":
+        worst = max(r["rel_err_e0"] for r in rows)
+        mid = min(rows, key=lambda r: abs(r["g"] - 1.0))
+        return ({"points": len(rows), "max_rel_err_e0": worst,
+                 "chi_f_near_g1": [mid["g"], mid["chi"]],
+                 "per_point_ms": res["per_point_ms"]},
+                {f"tfim_sparse E0 vs Jordan-Wigner, rel "
+                 f"{EX_TFIM_SPARSE_REL}": worst <= EX_TFIM_SPARSE_REL})
+    if name == "heisenberg":
+        ferro = [abs(r["e0_per_site"] - r["jz"] / 4) for r in rows
+                 if r["jz"] <= -1.0]
+        iso = min(rows, key=lambda r: abs(r["jz"] - 1.0))
+        bethe = abs(iso["e0_per_site"] - (0.25 - math.log(2.0)))
+        return ({"points": len(rows), "ferro_max_abs_err": max(ferro),
+                 "e0_per_site_jz1": iso["e0_per_site"], "bethe_abs": bethe},
+                {"XXZ E0/N = Jz/4 for Jz <= -1":
+                    bool(ferro) and max(ferro) <= EX_XXZ["ferro_abs"],
+                 "XXZ E0/N at Jz = 1 vs Bethe":
+                    bethe <= EX_XXZ["bethe_abs"]})
+    if name == "spectral":
+        exact = float(models.tfim_exact_e0(res["n"], res["g"],
+                                           device="cpu"))
+        err = abs(res["e0"] - exact) / abs(exact)
+        return ({"points": len(rows), "e0_rel_err": err,
+                 "s_max": max(r["s"] for r in rows),
+                 "s_min": min(r["s"] for r in rows)},
+                {"spectral E0 vs Jordan-Wigner": err <= EX_SPECTRAL_E0_REL,
+                 "spectral S(ω) >= 0": min(r["s"] for r in rows) >= -1e-8})
+    if name == "ising2d":
+        first = rows[0]
+        worst = [max(r["abs_err"][i] for r in rows) for i in range(3)]
+        return ({"points": len(rows), "first_beta": first["beta"],
+                 "first_abs_err": first["abs_err"],
+                 "max_abs_err_lnz_u_cv": worst},
+                {f"ising2d at β = {first['beta']} vs Onsager within "
+                 f"{EX_ISING_FIRST_ABS}": all(
+                     e <= b for e, b in zip(first["abs_err"],
+                                            EX_ISING_FIRST_ABS))})
+    if name == "transfer_spectrum":
+        first = rows[0]
+        b = first["beta"]
+        onsager = 1.0 / (-math.log(math.tanh(b)) - 2.0 * b)
+        err = abs(first["xi"] - onsager) / onsager
+        return ({"points": len(rows), "first_beta": b, "xi": first["xi"],
+                 "onsager_xi": onsager, "xi_rel_err": err,
+                 "dxi": first["dxi"], "lams": first["lams"]},
+                {f"transfer ξ vs Onsager, rel {EX_XI_REL}": err <= EX_XI_REL})
+    if name == "lobpcg_precond":
+        return ({k: res[k] for k in ("iters_precond", "iters_plain", "e0",
+                                     "de0_dg", "fd")},
+                {"preconditioner cuts LOBPCG's iterations":
+                    res["iters_precond"] < res["iters_plain"],
+                 "lobpcg dense check ran": "fd" in res})
+    if name == "spectrum_slice":
+        return ({k: res[k] for k in ("n_inside", "residual", "centroid",
+                                     "dcentroid_dg", "fd")},
+                {"slice dense check ran": "fd" in res})
+    if name == "vibrational_modes":
+        return ({k: res[k] for k in ("omega2", "scipy", "iterations", "grad",
+                                     "fd")},
+                {"chain converged": res["converged"],
+                 "chain scipy check ran": "fd" in res})
+    if name == "complex_spectrum":
+        return ({k: res[k] for k in ("structure", "xi", "wavelength",
+                                     "dtheta_dbias")},
+                {"dθ/db = 1 within 1e-6": abs(res["dtheta_dbias"] - 1.0)
+                 <= 1e-6})
+    if name == "sharded_sparse":
+        panel = res["panel_launches"]
+        local = res["local_square_launches"]
+        return ({k: res[k] for k in ("ranks", "lam_sharded", "lam_local",
+                                     "grad_max_abs_diff", "grad_norm",
+                                     "panel_launches",
+                                     "local_square_launches")},
+                {"sharded: the ranks' λ equal":
+                    len(set(res["lam_sharded_by_rank"])) == 1,
+                 "sharded: panel SpMV kernels launched":
+                    panel.get("bell_spmv_f32", 0) > 0,
+                 "sharded: no square launch on a rank's panel":
+                    not res["sharded_square_launches"],
+                 "sharded: the local operator launched banded kernels":
+                    local.get("bell_spmv_banded_f32", 0) > 0})
+    raise ValueError(name)
+
+
+def phase_examples(pkg):
+    """The eleven drivers on the card (module docstring, phase 21)."""
+    t_phase = time.perf_counter()
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="examples_", dir=build)
+    drivers, checks = {}, {}
+    try:
+        for name, extra in EXAMPLES:
+            mod = importlib.import_module(
+                f"dominantsparseeigenad_tpu_torch.examples.{name}")
+            args = [*extra, "--device", DEVICE]
+            log_path = None
+            if name in EXAMPLES_LOGGED:
+                log_path = os.path.join(work, f"{name}.jsonl")
+                args += ["--log", log_path]
+            buf = io.StringIO()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                with contextlib.redirect_stdout(buf):
+                    res = mod.main(args)
+            except SystemExit as err:
+                raise AssertionError(
+                    f"examples phase: {name} failed its own check: {err}\n"
+                    f"{buf.getvalue()[-3000:]}") from err
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            summary, more = example_summary(name, res)
+            lines = buf.getvalue().splitlines()
+            entry = {"wall_s": wall, "args": args[:-2] if log_path else args,
+                     **summary, "printed_lines": len(lines),
+                     "last_line": lines[-1] if lines else None}
+            if log_path is not None:
+                with open(log_path) as f:
+                    recs = [json.loads(line) for line in f]
+                entry["log_records"] = len(recs)
+                more[f"{name}: one log record a point"] = \
+                    len(recs) == len(res["rows"])
+            more[f"{name}: finite"] = all(
+                math.isfinite(v) for v in _floats(res))
+            drivers[name] = entry
+            checks.update(more)
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    emit({"phase": "examples", "cuts": {n: e for n, e in EXAMPLES if e},
+          "drivers": drivers, "card": nvidia_smi_name_power(),
+          "phase_s": time.perf_counter() - t_phase})
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"examples phase failed: {failed}")
+
+
+def _floats(obj):
+    """Every float in a nest of dicts and lists."""
+    if isinstance(obj, dict):
+        for v in obj.values():
+            yield from _floats(v)
+    elif isinstance(obj, (list, tuple)):
+        for v in obj:
+            yield from _floats(v)
+    elif isinstance(obj, float):
+        yield obj
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this script runs on the card")
@@ -5231,6 +5720,8 @@ def main():
     torch.cuda.empty_cache()
     add_counts(counts, phase_spectral(pkg, spmv))
     phase_models(pkg)
+    phase_utils(pkg, spmv, big["bell_spmv_banded_f32"])
+    phase_examples(pkg)
 
     csrc = "dominantsparseeigenad_tpu_torch/csrc/"
     # The Pallas kernel body, and the SpMM entry that runs it on (N, r).

@@ -42,6 +42,7 @@ from __future__ import annotations
 from typing import Callable
 
 import torch
+from torch.profiler import record_function
 
 from .lanczos import arnoldi_step
 from .operators import (LinearOperator, _add, _per_lane, _project_out,
@@ -100,7 +101,8 @@ def _cg_loop(matvec: Callable, b, tol: float, maxiter, x0=None,
             break
         for _ in range(min(CHECK_EVERY, maxiter - it)):
             active = rr > target2
-            ap = matvec(p)
+            with record_function("cg_matvec"):
+                ap = matvec(p)
             denom = hdot(p, ap).real
             alpha = torch.where(active & (denom != 0), rz / _nonzero(denom),
                                 zero)
@@ -162,14 +164,16 @@ def _bicgstab_loop(matvec: Callable, b, tol: float, maxiter, x0=None,
                                * (alpha / torch.where(omega == 0, one,
                                                       omega)))
             p_new = r + beta * (p - omega * v)
-            v_new = matvec(p_new)
+            with record_function("bicgstab_matvec"):
+                v_new = matvec(p_new)
             denom = hdot(rhat, v_new)
             broke = broke | (denom.abs() <= eps * rhat_norm
                              * torch.linalg.vector_norm(v_new))
             alpha_new = torch.where(broke, zero,
                                     rho_new / torch.where(broke, one, denom))
             s = r - alpha_new * v_new
-            t = matvec(s)
+            with record_function("bicgstab_matvec"):
+                t = matvec(s)
             tt = hdot(t, t)
             omega_new = torch.where(tt == 0, zero,
                                     hdot(t, s) / torch.where(tt == 0, one,

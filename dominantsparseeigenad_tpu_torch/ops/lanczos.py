@@ -16,6 +16,10 @@ A complex Hermitian operator runs the same loops: the projections
 conjugate the basis, α = Re<q, A q> and β = ||w|| are real, so the
 tridiagonal T stays real (solved in float64) and the Ritz values are
 real; a complex basis cannot be stored narrower (no complex bfloat16).
+
+Profiler ranges name the step's phases as the JAX package's
+``jax.named_scope`` does: ``lanczos_matvec`` around the product,
+``lanczos_reorth`` around the reorthogonalization passes.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ from typing import NamedTuple
 
 import torch
 from torch._C._functorch import is_functorch_wrapped_tensor
+from torch.profiler import record_function
 
 from .operators import (as_operator, check_device, hdot, hmatmul,
                         outside_transforms, pivot_gauge, real_dtype,
@@ -212,13 +217,15 @@ def _step(op, basis, i, q, q_prev, beta_prev, generator, reorthogonalize,
     no host read.
     """
     dtype = real_dtype(q.dtype)
-    w = op.matvec(q)
+    with record_function("lanczos_matvec"):
+        w = op.matvec(q)
     # <q, A q> is real for a Hermitian A: T stays real.
     alpha = hdot(q, w).real
     w = w - alpha * q - beta_prev * q_prev
     if reorthogonalize:
-        for _ in range(reorth_passes):
-            w = _project_out(basis[:i + 1], w)
+        with record_function("lanczos_reorth"):
+            for _ in range(reorth_passes):
+                w = _project_out(basis[:i + 1], w)
     beta = torch.linalg.vector_norm(w)
     scale = torch.sqrt(alpha * alpha + beta_prev * beta_prev) + 1.0
     broke = beta <= _breakdown_rel_tol(dtype) * scale

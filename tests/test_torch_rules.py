@@ -186,7 +186,66 @@ def test_import_scan_covers_the_spectral_tier_and_heisenberg_modules():
     assert out.returncode == 0, out.stderr
 
 
-@pytest.mark.parametrize("path", _sources(), ids=lambda p: p.name)
+def test_import_scan_covers_the_utils_and_example_modules():
+    """The scan below reads ``utils/timing.py``, ``utils/logging.py``,
+    ``utils/diagnostics.py`` and every driver of ``examples/``, and the
+    import check imports them with JAX blocked."""
+    names = {p.relative_to(PKG).as_posix() for p in _sources()
+             if p.is_relative_to(PKG)}
+    drivers = sorted(n for n in names if n.startswith("examples/")
+                     and n != "examples/__init__.py")
+    assert len(drivers) == 11, drivers
+    assert {"utils/timing.py", "utils/logging.py",
+            "utils/diagnostics.py"} <= names
+    modules = ["utils.timing", "utils.logging", "utils.diagnostics",
+               *(n[:-3].replace("/", ".") for n in drivers)]
+    code = (
+        "import sys, importlib\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['dominantsparseeigenad_tpu'] = None\n"
+        "pkg = 'dominantsparseeigenad_tpu_torch'\n"
+        f"for m in {modules!r}:\n"
+        "    importlib.import_module(f'{pkg}.{m}')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+
+
+def test_drivers_import_without_side_effects():
+    """Importing a driver parses no arguments, initializes no CUDA and
+    changes no global torch setting (default dtype, threads, TF32)."""
+    code = (
+        "import argparse, importlib, pkgutil, sys, torch\n"
+        "import dominantsparseeigenad_tpu_torch.examples as ex\n"
+        "def refuse(*a, **k):\n"
+        "    raise SystemExit('parse_args called on import')\n"
+        "argparse.ArgumentParser.parse_args = refuse\n"
+        "def state():\n"
+        "    return (torch.get_default_dtype(), torch.get_num_threads(),\n"
+        "            torch.backends.cuda.matmul.allow_tf32,\n"
+        "            torch.backends.cudnn.allow_tf32, list(sys.argv))\n"
+        "before = state()\n"
+        "names = [m.name for m in pkgutil.iter_modules(ex.__path__)]\n"
+        "for n in names:\n"
+        "    importlib.import_module(ex.__name__ + '.' + n)\n"
+        "assert state() == before, (state(), before)\n"
+        "assert not torch.cuda.is_initialized()\n"
+        "print(len(names))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) == 11
+
+
+def _source_id(path):
+    """A source's path relative to the package (``examples/ising2d.py``
+    and ``models/ising2d.py`` apart), or its name outside it."""
+    if path.is_relative_to(PKG):
+        return path.relative_to(PKG).as_posix()
+    return path.name
+
+
+@pytest.mark.parametrize("path", _sources(), ids=_source_id)
 def test_no_source_imports_the_jax_package(path):
     for no, line in enumerate(path.read_text().splitlines(), 1):
         for pat in _FORBIDDEN:
