@@ -80,8 +80,21 @@ line each:
    (the ranks' λ equal bit for bit, λ against the unsharded solve from
    the same start, the gradients against v⊗v on the panel's pattern and
    by the dot-product identity, panel launches against the products the
-   solvers made, bf16 against f32).  Its times are those of two ranks
-   sharing one card over gloo, not a multi-GPU number.
+   solvers made, bf16 against f32).  Then, in the same ranks: the sharded
+   matrix-free TFIM at N = 20 (``tfim_sharded_operator``: the low spin
+   flips on the rank's segment, the top one an XOR exchange of whole
+   segments), E0, dE0/dg in reverse and forward mode and d²E0/dg² against
+   Jordan-Wigner and against the unsharded operator from the same v0, the
+   ranks bitwise equal with the same collectives, one matvec split into
+   its local flips, the exchange and the row gather, the peak memory;
+   second order and forward mode through the Bell panels (d²λ/dt² and
+   dλ/dt of A0 + t A1 at the small spiked shape, against the float64 sum
+   over states and the unsharded operator; K4a on the tangent); λ and
+   dλ/dt of a complex Hermitian ``RowShardedOperator`` (n = 256) against
+   ``torch.linalg.eigh``.  Last, a spawn of four ranks as a 2 x 2
+   (batch, shards) mesh, the TFIM at N = 16, one coupling a row.  Its
+   times are those of ranks sharing one card over gloo, not a multi-GPU
+   number.
 8. ``tfim``: the paper's flagship at the bench's headline settings
    (``bench.py:36-43``, ``:87-91``): the matrix-free TFIM at N = 20,
    g = 1.2, f32, ``dominant_eigh`` with k = 60, one reorthogonalization
@@ -334,10 +347,11 @@ line each:
    Lanczos at config #5 and passes on the TFIM N = 20 solve.  (f) The
    host cost of one named range with no profiler running.
 
-21. ``examples``: the eleven drivers of
+21. ``examples``: the twelve drivers of
    ``dominantsparseeigenad_tpu_torch/examples`` in this process at their
    JAX twins' defaults (``EXAMPLES`` lists any cut of sweep points; none
-   so far), ``sharded_sparse`` spawning its two gloo ranks on the card;
+   so far), ``sharded_sparse`` and ``distributed_lanczos`` each spawning
+   its two gloo ranks on the card;
    each driver's wall time and key numbers against the closed form it
    prints (Jordan-Wigner, the XXZ ferromagnet and Bethe's value, Onsager
    at the first β, Onsager's ξ), its own check (``SystemExit`` on a
@@ -402,6 +416,28 @@ PANEL_R = 8
 SHARDED_RANKS = 2                      # ranks sharing the one card
 SHARDED_CG_MAXITER = 1000
 SHARDED_TIMEOUT_S = 600                # a rank's whole run
+# The sharded phase's matrix-free, second-order and complex parts.
+# (a) The sharded TFIM at the flagship width of the tfim phase (N = 20,
+# g = 1.2, f32, k = 60, CG tol 1e-5 and at most 150 iterations), split
+# over the ranks by tfim_sharded_operator: E0, dE0/dg in reverse and
+# forward mode and d²E0/dg² against Jordan-Wigner at the forward_n
+# phase's TFIM bars, and against the unsharded tfim_operator run from
+# the same v0.  (b) d²λ/dt² and forward dλ/dt through the Bell panels at
+# the small spiked shape of forward_n (d): H(t) = A0 + t A1 at t = SO_G,
+# against its float64 sum over states at FWDN_SMALL_RTOL and against the
+# unsharded BellOperator.  (c) The complex Hermitian h0 + t h1 of
+# tests/test_parallel.py:237 (n = 256, k = 60, complex128) through
+# RowShardedOperator, against torch.linalg.eigh at that test's bars.
+# (d) The batch axis: 4 ranks as a 2 x 2 mesh, the TFIM at N = 16, one
+# coupling a batch row, against Jordan-Wigner.
+SHARDED_TFIM_RTOL = {"e0": 2e-5, "de0_dg": 1e-3, "de0_dg_fwd": 1e-3,
+                     "d2e0_dg2": 5e-4}
+SHARDED_VS_UNSHARDED = 1e-5
+SHARDED_BELL_VS_UNSHARDED = 1e-4
+SHARDED_CX = (256, 60, 12)             # n, k, numpy seed
+SHARDED_CX_RTOL = {"lam": 1e-10, "dlam_dt": 1e-8}
+BATCH_RANKS, BATCH_SHARDS, BATCH_TFIM_N = 4, 2, 16
+BATCH_G = (1.0, 1.2)                   # one coupling a batch row
 FWD_CG_MAXITER = 300                   # the forward-mode tangent's CG
 # The bf16 basis's polish held against a float64 Newton step from the same
 # Ritz pair: both CGs capped at this many iterations, where a float32 CG
@@ -692,7 +728,7 @@ EXAMPLES = (("tfim_ed", []), ("tfim_sparse", []), ("heisenberg", []),
             ("spectral", []), ("ising2d", []), ("transfer_spectrum", []),
             ("lobpcg_precond", []), ("spectrum_slice", []),
             ("vibrational_modes", []), ("complex_spectrum", []),
-            ("sharded_sparse", []))
+            ("sharded_sparse", []), ("distributed_lanczos", []))
 EXAMPLES_LOGGED = ("tfim_ed", "tfim_sparse", "heisenberg", "spectral",
                    "ising2d", "transfer_spectrum")
 # Bars on the closed forms the drivers print: Jordan-Wigner for tfim_ed
@@ -708,6 +744,8 @@ EX_XXZ = {"ferro_abs": 1e-10, "bethe_abs": 0.02}
 EX_ISING_FIRST_ABS = (1e-10, 1e-8, 1e-6)
 EX_XI_REL = 0.1
 EX_SPECTRAL_E0_REL = 1e-10
+# distributed_lanczos (float64, N = 12, k = 80): E0 against Jordan-Wigner.
+EX_DISTRIBUTED_E0_REL = 1e-10
 
 
 def emit(obj):
@@ -1973,21 +2011,23 @@ def phase_panel(spmv, sparse):
     return results
 
 
-def _sharded_rank(rank, world, init_method, out_queue):
-    """One rank of the ``sharded`` phase (a spawned process): sends
-    (rank, results, None), or (rank, None, traceback) if it failed."""
+def _sharded_rank(rank, world, init_method, out_queue, body):
+    """One rank of the ``sharded`` phase (a spawned process) running
+    ``body(shard group)``: sends (rank, results, None), or (rank, None,
+    traceback) if it failed."""
     try:
-        out_queue.put((rank, _sharded_run(rank, world, init_method), None))
+        out_queue.put((rank, _sharded_run(rank, world, init_method, body),
+                       None))
     except Exception:  # the parent raises it; this rank exits non-zero
         out_queue.put((rank, None, traceback.format_exc()))
         sys.exit(1)
 
 
-def _sharded_run(rank, world, init_method):
+def _sharded_run(rank, world, init_method, body):
     from dominantsparseeigenad_tpu_torch import init_distributed, make_mesh
     init_distributed("gloo", init_method, rank, world)
     try:
-        return _sharded_solves(make_mesh())
+        return body(make_mesh())
     finally:
         torch.distributed.destroy_process_group()
 
@@ -2126,7 +2166,7 @@ def _sharded_solves(sg):
                              samples=12, batch=5)
         matvec_ms = event_ms(lambda: sop.matvec(v), samples=12, batch=5)
     lam_f = float(lam)
-    return {
+    out = {
         "rank": sg.rank, "world": sg.size, "backend": sg.backend,
         "panel_block_rows": nb_l, "lam": lam_f, "lam_hex": lam_f.hex(),
         "lams_hex": [float(t).hex() for t in lams], "lams": lams.tolist(),
@@ -2148,10 +2188,270 @@ def _sharded_solves(sg):
         "finite": finite, "panel_spmv_ms": panel_ms,
         "gather_ms": gather_ms, "matvec_ms": matvec_ms,
         "peak_mem_gib": peak_gib}
+    del sop, panel, cols_l, v, V, lams, g_lam, g_sum, x, b, y_l, c, x0, v0, dav
+    torch.cuda.empty_cache()
+    out["tfim"] = _sharded_tfim(pkg, sg)
+    out["bell_second_order"] = _sharded_bell_second_order(pkg, spmv, sg)
+    out["complex"] = _sharded_complex(pkg, sg)
+    return out
 
 
-def phase_sharded():
-    """Spawn the ranks, collect what each sends, check them together."""
+def _tfim_derivatives(make, g0, dtype, v0):
+    """E0, dE0/dg (reverse, by a create_graph backward), d²E0/dg² (its
+    second backward) and dE0/dg (forward mode) of the operator
+    ``make(g)`` at the tfim phase's settings from ``v0``, and the time of
+    each part."""
+    from dominantsparseeigenad_tpu_torch import dominant_eigh
+    kw = dict(k=TFIM_K, extreme="min", tol=TFIM_CG_TOL,
+              maxiter=TFIM_CG_MAXITER, v0=v0, device=DEVICE)
+    times = {}
+
+    def lap(name, t0):
+        torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    g = torch.tensor(g0, dtype=dtype, device=DEVICE, requires_grad=True)
+    lam, _ = dominant_eigh(make(g), **kw)
+    lap("forward_s", t0)
+    t0 = time.perf_counter()
+    (d1,) = torch.autograd.grad(lam, g, create_graph=True)
+    lap("backward1_s", t0)
+    t0 = time.perf_counter()
+    (d2,) = torch.autograd.grad(d1, g)
+    lap("backward2_s", t0)
+    t0 = time.perf_counter()
+    with torch.no_grad(), fwAD.dual_level():
+        dual = fwAD.make_dual(torch.tensor(g0, dtype=dtype, device=DEVICE),
+                              torch.ones((), dtype=dtype, device=DEVICE))
+        lam_f, _ = dominant_eigh(make(dual), **kw)
+        d1_fwd = fwAD.unpack_dual(lam_f).tangent
+    lap("forward_mode_s", t0)
+    values = {"e0": float(lam), "de0_dg": float(d1),
+              "de0_dg_fwd": float(d1_fwd), "d2e0_dg2": float(d2)}
+    return values, times
+
+
+def _sharded_tfim(pkg, sg):
+    """Part (a) of the sharded phase's additions, on each rank: the
+    sharded TFIM at N = 20 and its derivatives in every mode, the
+    collectives each ran, the split of one sharded matvec, the peak
+    memory; rank 0 also runs the unsharded operator from the same v0."""
+    from dominantsparseeigenad_tpu_torch import models
+    from dominantsparseeigenad_tpu_torch.parallel import collectives
+    f32, n = torch.float32, TFIM_N
+
+    def sharded(nn):
+        return lambda g: models.tfim_sharded_operator(nn, g, sg, dtype=f32,
+                                                      device=DEVICE)
+
+    def local(nn):
+        return lambda g: models.tfim_operator(nn, g, dtype=f32,
+                                              device=DEVICE)
+
+    def start(nn):
+        return torch.randn(1 << nn, device=DEVICE, generator=torch.Generator(
+            device=DEVICE).manual_seed(11))
+
+    # Warm-up at N = 10 through the same calls.
+    _tfim_derivatives(sharded(TFIM_N_ED), TFIM_G, f32, start(TFIM_N_ED))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_gib = torch.cuda.memory_allocated() / 2**30
+    collectives.reset_collective_counts()
+    v0 = start(n)
+    values, times = _tfim_derivatives(sharded(n), TFIM_G, f32, v0)
+    counts = dict(collectives.collective_counts)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    unsharded = None
+    if sg.rank == 0:
+        _tfim_derivatives(local(TFIM_N_ED), TFIM_G, f32, start(TFIM_N_ED))
+        values_u, times_u = _tfim_derivatives(local(n), TFIM_G, f32, v0)
+        unsharded = {"values": values_u, "times": times_u}
+
+    # The split of one sharded matvec: the rank's own work (diagonal and
+    # the m low-bit flips of its segment), one XOR exchange (host-staged
+    # over gloo), the gather of the row blocks; and the whole matvec.
+    op = models.tfim_sharded_operator(n, TFIM_G, sg, dtype=f32,
+                                      device=DEVICE)
+    g_t, diag_l = op.parameters()
+    m = n - (sg.size.bit_length() - 1)
+    rows = (1 << n) // sg.size
+    with torch.no_grad():
+        x = v0 / torch.linalg.vector_norm(v0)
+        x_l = x[sg.rank * rows:(sg.rank + 1) * rows]
+        perm = tuple((s_, s_ ^ 1) for s_ in range(sg.size))
+        y_l = diag_l * x_l - g_t * models.flip_sum(x_l, m)
+        split = {
+            "local_flips_ms": event_ms(
+                lambda: diag_l * x_l - g_t * models.flip_sum(x_l, m),
+                samples=12, batch=5),
+            "xor_exchange_ms": event_ms(
+                lambda: collectives.permute_exchange(x_l, sg, perm),
+                samples=12, batch=5),
+            "row_gather_ms": event_ms(
+                lambda: collectives.all_gather_rows(y_l, sg),
+                samples=12, batch=5),
+            "matvec_ms": event_ms(lambda: op.matvec(x), samples=12,
+                                  batch=5)}
+    return {"n": n, "g": TFIM_G, "dtype": "float32", "k": TFIM_K,
+            "cg_tol": TFIM_CG_TOL, "cg_maxiter": TFIM_CG_MAXITER,
+            "values": values, "hex": {k: float(v).hex()
+                                      for k, v in values.items()},
+            "times": times, "collectives": counts,
+            "unsharded": unsharded, "matvec_split": split,
+            "segment_len": rows, "local_bits": m,
+            "peak_mem_gib": peak_gib, "base_mem_gib": base_gib}
+
+
+def _bell_dense_f64(vals, cols):
+    """The dense float64 matrix of blocked-ELL ``(vals, cols)`` (numpy)."""
+    nb, bpr, bs, _ = vals.shape
+    a = np.zeros((nb, bs, nb, bs))
+    for i in range(nb):
+        for j in range(bpr):
+            a[i, :, cols[i, j], :] += vals[i, j]
+    return a.reshape(nb * bs, nb * bs)
+
+
+def _sharded_bell_second_order(pkg, spmv, sg):
+    """Part (b): d²λ/dt² (reverse over reverse, the ranks' shares summed)
+    and dλ/dt (forward mode: the panel kernel on the tangent, K4a) of
+    H(t) = A0 + t A1 through the Bell panels at t = SO_G; rank 0 also runs
+    the unsharded BellOperator and the float64 sum over states."""
+    from dominantsparseeigenad_tpu_torch.parallel import collectives
+    n, bs, bpr = FWDN_SMALL
+    (a0, cols), (a1, _) = (spiked_bell(n, bs, bpr, seed,
+                                       SO_SPIKES if i == 0 else ())
+                           for i, seed in enumerate(FWDN_SEEDS))
+    kw = dict(k=K, extreme="min", tol=CG_TOL, maxiter=CG_MAXITER,
+              device=DEVICE)
+    sop = pkg.RowShardedBellOperator(torch.from_numpy(a0).to(DEVICE),
+                                     torch.from_numpy(cols).to(DEVICE), n,
+                                     sg, symmetric=True)
+    nb_l = sop.vals.shape[0]
+    pert = torch.from_numpy(a1[sg.rank * nb_l:(sg.rank + 1) * nb_l]) \
+        .to(DEVICE)
+    counts = spmv.panel_launch_counts
+    before = dict(counts)
+    t0 = time.perf_counter()
+    t = torch.tensor(SO_G, device=DEVICE, requires_grad=True)
+    lam, _ = pkg.dominant_eigh(sop.with_vals(sop.vals + t * pert), **kw)
+    (d1,) = torch.autograd.grad(lam, t, create_graph=True)
+    (d2,) = torch.autograd.grad(d1, t)
+    d2_total = float(collectives.all_reduce_sum(d2.detach().reshape(1),
+                                                sg))
+    torch.cuda.synchronize()
+    t_rev = time.perf_counter() - t0
+    reverse_launches = {k: counts[k] - before[k] for k in counts}
+    before = dict(counts)
+    t0 = time.perf_counter()
+    with torch.no_grad(), fwAD.dual_level():
+        lam_f, _ = pkg.dominant_eigh(sop.with_vals(fwAD.make_dual(
+            sop.vals + SO_G * pert, pert)), **kw)
+        e_fwd, d1_fwd = (float(z) for z in fwAD.unpack_dual(lam_f))
+    torch.cuda.synchronize()
+    t_fwd = time.perf_counter() - t0
+    forward_launches = {k: counts[k] - before[k] for k in counts}
+    out = {"n": n, "bs": bs, "blocks_per_row": bpr, "seeds": FWDN_SEEDS,
+           "spikes": SO_SPIKES, "t": SO_G, "k": K, "e": float(lam),
+           "e_hex": float(lam).hex(), "de_dt_fwd": d1_fwd,
+           "de_dt_fwd_hex": d1_fwd.hex(), "e_fwd": e_fwd,
+           "d2e_dt2_share": float(d2), "d2e_dt2": d2_total,
+           "reverse_s": t_rev, "forward_mode_s": t_fwd,
+           "reverse_panel_launches": reverse_launches,
+           "forward_panel_launches": forward_launches}
+    if sg.rank == 0:
+        op = pkg.bell_operator_from_numpy(a0, cols, n, symmetric=True,
+                                          device=DEVICE)
+        a1_d = torch.from_numpy(a1).to(DEVICE)
+        t = torch.tensor(SO_G, device=DEVICE, requires_grad=True)
+        lam_u, _ = pkg.dominant_eigh(op.with_vals(op.vals + t * a1_d), **kw)
+        (d1_u,) = torch.autograd.grad(lam_u, t, create_graph=True)
+        (d2_u,) = torch.autograd.grad(d1_u, t)
+        with torch.no_grad():
+            h0 = torch.from_numpy(_bell_dense_f64(a0, cols)).to(DEVICE)
+            h1 = torch.from_numpy(_bell_dense_f64(a1, cols)).to(DEVICE)
+            w, vec = torch.linalg.eigh(h0 + SO_G * h1)
+            mm = vec.T @ (h1 @ vec[:, 0])
+            want = (float(w[0]), float(mm[0]),
+                    float(2.0 * torch.sum(mm[1:] ** 2 / (w[0] - w[1:]))))
+            del h0, h1, w, vec, mm
+        out["unsharded"] = {"e": float(lam_u), "de_dt": float(d1_u),
+                            "d2e_dt2": float(d2_u)}
+        out["float64_sum_over_states"] = dict(zip(FWDN_SMALL_RTOL, want))
+    return out
+
+
+def _sharded_complex(pkg, sg):
+    """Part (c): λ and dλ/dt of h0 + t h1 (complex Hermitian, n = 256,
+    complex128) through RowShardedOperator, in reverse mode (the ranks'
+    shares summed) and forward mode, against torch.linalg.eigh."""
+    from dominantsparseeigenad_tpu_torch.parallel import collectives
+    n, k, seed = SHARDED_CX
+    rng = np.random.default_rng(seed)
+    h0 = rng.standard_normal((n, n)) + 1j * rng.standard_normal((n, n))
+    h1 = rng.standard_normal((n, n)) + 1j * rng.standard_normal((n, n))
+    h0, h1 = (torch.from_numpy((h + h.conj().T) / 2).to(DEVICE)
+              for h in (h0, h1))
+    f64 = torch.float64
+    t0 = time.perf_counter()
+    t = torch.zeros((), dtype=f64, device=DEVICE, requires_grad=True)
+    lam, _ = pkg.dominant_eigh(pkg.RowShardedOperator(h0 + t * h1, sg),
+                               k=k, device=DEVICE)
+    (share,) = torch.autograd.grad(lam, t)
+    dlam = float(collectives.all_reduce_sum(share.reshape(1), sg))
+    with torch.no_grad(), fwAD.dual_level():
+        dual = fwAD.make_dual(torch.zeros((), dtype=f64, device=DEVICE),
+                              torch.ones((), dtype=f64, device=DEVICE))
+        lam_f, _ = pkg.dominant_eigh(
+            pkg.RowShardedOperator(h0 + dual * h1, sg), k=k, device=DEVICE)
+        dlam_fwd = float(fwAD.unpack_dual(lam_f).tangent)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with torch.no_grad():
+        w, vec = torch.linalg.eigh(h0)
+        exact = (float(w[0]), float(torch.real(
+            vec[:, 0].conj() @ (h1 @ vec[:, 0]))))
+    return {"n": n, "k": k, "dtype": "complex128", "lam": float(lam),
+            "lam_hex": float(lam).hex(), "dlam_dt": dlam,
+            "dlam_dt_fwd": dlam_fwd, "dlam_dt_share": float(share),
+            "eigh": dict(zip(SHARDED_CX_RTOL, exact)), "wall_s": wall}
+
+
+def _batch_solves(sg):
+    """One rank of the batch-axis spawn: the 2 x 2 mesh, the TFIM at
+    N = 16 sharded over the rank's row, the row's coupling."""
+    import dominantsparseeigenad_tpu_torch as pkg
+    from dominantsparseeigenad_tpu_torch import models
+    from dominantsparseeigenad_tpu_torch.parallel import collectives
+    row = pkg.make_mesh(n_shards=BATCH_SHARDS,
+                        n_batch=sg.size // BATCH_SHARDS)
+    g0 = BATCH_G[row.batch_index]
+    collectives.reset_collective_counts()
+    t0 = time.perf_counter()
+    g = torch.tensor(g0, device=DEVICE, requires_grad=True)
+    lam, _ = pkg.dominant_eigh(models.tfim_sharded_operator(
+        BATCH_TFIM_N, g, row, dtype=torch.float32, device=DEVICE),
+        k=TFIM_K, extreme="min", tol=TFIM_CG_TOL, maxiter=TFIM_CG_MAXITER,
+        device=DEVICE)
+    (d1,) = torch.autograd.grad(lam, g)
+    torch.cuda.synchronize()
+    return {"rank": sg.rank, "batch_index": row.batch_index,
+            "shard": row.rank, "shards": row.size, "n_batch": row.n_batch,
+            "g": g0, "e0": float(lam), "de0_dg": float(d1),
+            "e0_hex": float(lam).hex(), "wall_s": time.perf_counter() - t0,
+            "collectives": dict(collectives.collective_counts),
+            "exact": {"e0": float(models.tfim_exact_e0(BATCH_TFIM_N, g0,
+                                                        device=DEVICE)),
+                      "de0_dg": models.tfim_exact_de0_dg(BATCH_TFIM_N,
+                                                         g0)}}
+
+
+def spawn_ranks(world, body):
+    """Spawn ``world`` gloo ranks on this card, each running
+    ``body(shard group)``; their results in rank order, and the wall
+    time."""
     build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
     os.makedirs(build, exist_ok=True)
     store = tempfile.mkdtemp(prefix="sharded_store_", dir=build)
@@ -2160,9 +2460,9 @@ def phase_sharded():
     ctx = torch.multiprocessing.get_context("spawn")
     out_queue = ctx.Queue()
     procs = [ctx.Process(target=_sharded_rank,
-                         args=(rank, SHARDED_RANKS,
-                               f"file://{store}/store", out_queue))
-             for rank in range(SHARDED_RANKS)]
+                         args=(rank, world, f"file://{store}/store",
+                               out_queue, body))
+             for rank in range(world)]
     t0 = time.perf_counter()
     for proc in procs:
         proc.start()
@@ -2189,8 +2489,15 @@ def phase_sharded():
                 proc.kill()
                 proc.join(timeout=10)
         shutil.rmtree(store, ignore_errors=True)
-    wall_s = time.perf_counter() - t0
-    ranks = [got[rank] for rank in range(SHARDED_RANKS)]
+    return [got[rank] for rank in range(world)], time.perf_counter() - t0
+
+
+def phase_sharded():
+    """Spawn the ranks, collect what each sends, check them together;
+    then the batch axis's four ranks."""
+    ranks, wall_s = spawn_ranks(SHARDED_RANKS, _sharded_solves)
+    added = [{key: res.pop(key) for key in ("tfim", "bell_second_order",
+                                            "complex")} for res in ranks]
     first = ranks[0]
     lam_ref = first["lam_unsharded"]
     unsharded_err = abs(first["lam"] - lam_ref) / abs(lam_ref)
@@ -2247,10 +2554,132 @@ def phase_sharded():
                 res["dot_test_rel_err"] <= 1e-3,
             f"rank {rk}: finite": res["finite"],
         })
+    for name, count in sharded_added_checks(added, checks).items():
+        total[name] += count
+    batch, batch_wall = spawn_ranks(BATCH_RANKS, _batch_solves)
+    emit({"phase": "sharded_batch", "note": f"{BATCH_RANKS} ranks sharing "
+          "one card over gloo as a (batch, shards) grid; not a multi-GPU "
+          "number", "n": BATCH_TFIM_N, "grid": [BATCH_RANKS // BATCH_SHARDS,
+                                                BATCH_SHARDS],
+          "wall_s": batch_wall, "ranks": batch})
+    for res in batch:
+        rk = res["rank"]
+        errs = {key: abs(res[key] - res["exact"][key]) / abs(res["exact"][key])
+                for key in ("e0", "de0_dg")}
+        res["rel_err"] = errs
+        mate = batch[rk ^ 1]
+        checks.update({
+            f"batch rank {rk}: row {rk // BATCH_SHARDS}, shard "
+            f"{rk % BATCH_SHARDS}": (res["batch_index"], res["shard"],
+                                     res["n_batch"])
+            == (rk // BATCH_SHARDS, rk % BATCH_SHARDS,
+                BATCH_RANKS // BATCH_SHARDS),
+            f"batch rank {rk}: E0 vs Jordan-Wigner, rel "
+            f"{SHARDED_TFIM_RTOL['e0']}": errs["e0"] <= SHARDED_TFIM_RTOL["e0"],
+            f"batch rank {rk}: dE0/dg vs Jordan-Wigner, rel "
+            f"{SHARDED_TFIM_RTOL['de0_dg']}":
+                errs["de0_dg"] <= SHARDED_TFIM_RTOL["de0_dg"],
+            f"batch rank {rk}: its row's partner bitwise equal":
+                mate["e0_hex"] == res["e0_hex"]
+                and mate["collectives"] == res["collectives"],
+        })
+    checks["batch rows solve different couplings"] = \
+        batch[0]["e0"] != batch[BATCH_SHARDS]["e0"]
     failed = [name for name, ok in checks.items() if not ok]
     if failed:
         raise AssertionError(f"sharded phase failed: {failed}")
     return total
+
+
+def sharded_added_checks(added, checks):
+    """Emit the sharded phase's TFIM, Bell second-order and complex parts
+    (one dict a rank each), add their checks to ``checks``, and return
+    the panel launches of the Bell part, summed over the ranks."""
+    from dominantsparseeigenad_tpu_torch import models
+    note = ("2 ranks sharing one card over gloo; not a multi-GPU or "
+            "scaling number")
+    tf = [a["tfim"] for a in added]
+    de0 = models.tfim_exact_de0_dg(TFIM_N, TFIM_G)
+    exact = {"e0": float(models.tfim_exact_e0(TFIM_N, TFIM_G, device="cpu")),
+             "de0_dg": de0, "de0_dg_fwd": de0,
+             "d2e0_dg2": models.tfim_exact_d2e0_dg2(TFIM_N, TFIM_G)}
+    errs = {key: abs(tf[0]["values"][key] - exact[key]) / abs(exact[key])
+            for key in SHARDED_TFIM_RTOL}
+    unsharded = tf[0]["unsharded"]["values"]
+    vs_unsharded = {key: abs(tf[0]["values"][key] - unsharded[key])
+                    / abs(unsharded[key]) for key in SHARDED_TFIM_RTOL}
+    emit({"phase": "sharded_tfim", "note": note,
+          "jordan_wigner": exact, "rel_err": errs, "rtol": SHARDED_TFIM_RTOL,
+          "vs_unsharded_rel": vs_unsharded, "ranks": tf,
+          "card": nvidia_smi_name_power()})
+    for key, bar in SHARDED_TFIM_RTOL.items():
+        checks[f"sharded TFIM N={TFIM_N} {key} vs Jordan-Wigner, rel "
+               f"{bar}"] = errs[key] <= bar
+        checks[f"sharded TFIM {key} vs unsharded, rel "
+               f"{SHARDED_VS_UNSHARDED}"] = \
+            vs_unsharded[key] <= SHARDED_VS_UNSHARDED
+    checks["sharded TFIM: ranks bitwise equal, same collectives"] = all(
+        t["hex"] == tf[0]["hex"] and t["collectives"] == tf[0]["collectives"]
+        for t in tf)
+    checks["sharded TFIM: the XOR exchange ran"] = \
+        tf[0]["collectives"]["ppermute"] > 0
+
+    bl = [a["bell_second_order"] for a in added]
+    want = bl[0]["float64_sum_over_states"]
+    got = {"e": bl[0]["e"], "de_dg": bl[0]["de_dt_fwd"],
+           "d2e_dg2": bl[0]["d2e_dt2"]}
+    b_errs = {key: abs(got[key] - want[key]) / abs(want[key])
+              for key in FWDN_SMALL_RTOL}
+    un = bl[0]["unsharded"]
+    b_vs = {key: abs(got[key] - un[ukey]) / abs(un[ukey]) for key, ukey in
+            (("e", "e"), ("de_dg", "de_dt"), ("d2e_dg2", "d2e_dt2"))}
+    emit({"phase": "sharded_bell_second_order", "note": note,
+          "rel_err": b_errs, "rtol": FWDN_SMALL_RTOL,
+          "vs_unsharded_rel": b_vs, "ranks": bl})
+    for key, bar in FWDN_SMALL_RTOL.items():
+        checks[f"sharded Bell {key} vs float64 sum over states, rel "
+               f"{bar}"] = b_errs[key] <= bar
+        checks[f"sharded Bell {key} vs unsharded, rel "
+               f"{SHARDED_BELL_VS_UNSHARDED}"] = \
+            b_vs[key] <= SHARDED_BELL_VS_UNSHARDED
+    checks["sharded Bell: ranks bitwise equal"] = all(
+        b["e_hex"] == bl[0]["e_hex"] and b["de_dt_fwd_hex"]
+        == bl[0]["de_dt_fwd_hex"] and b["d2e_dt2"] == bl[0]["d2e_dt2"]
+        for b in bl)
+    launches = {}
+    for rk, b in enumerate(bl):
+        for part in ("reverse_panel_launches", "forward_panel_launches"):
+            for name, count in b[part].items():
+                launches[name] = launches.get(name, 0) + count
+        # Forward mode: k panel SpMVs, the tangent's, its CG's.
+        checks[f"sharded Bell rank {rk}: forward-mode panel SpMVs > k"] = \
+            b["forward_panel_launches"]["bell_spmv_f32"] > K
+        checks[f"sharded Bell rank {rk}: reverse panel SpMVs > k"] = \
+            b["reverse_panel_launches"]["bell_spmv_f32"] > K
+
+    cx = [a["complex"] for a in added]
+    ex = cx[0]["eigh"]
+    c_errs = {"lam": abs(cx[0]["lam"] - ex["lam"]) / abs(ex["lam"]),
+              "dlam_dt": abs(cx[0]["dlam_dt"] - ex["dlam_dt"])
+              / abs(ex["dlam_dt"]),
+              "dlam_dt_fwd": abs(cx[0]["dlam_dt_fwd"] - ex["dlam_dt"])
+              / abs(ex["dlam_dt"])}
+    emit({"phase": "sharded_complex", "note": note, "rel_err": c_errs,
+          "rtol": SHARDED_CX_RTOL, "ranks": cx})
+    checks.update({
+        f"sharded complex λ vs eigh, rel {SHARDED_CX_RTOL['lam']}":
+            c_errs["lam"] <= SHARDED_CX_RTOL["lam"],
+        f"sharded complex dλ/dt vs eigh, rel {SHARDED_CX_RTOL['dlam_dt']}":
+            c_errs["dlam_dt"] <= SHARDED_CX_RTOL["dlam_dt"],
+        f"sharded complex forward dλ/dt vs eigh, rel "
+        f"{SHARDED_CX_RTOL['dlam_dt']}":
+            c_errs["dlam_dt_fwd"] <= SHARDED_CX_RTOL["dlam_dt"],
+        "sharded complex: ranks bitwise equal": all(
+            c["lam_hex"] == cx[0]["lam_hex"]
+            and c["dlam_dt_fwd"] == cx[0]["dlam_dt_fwd"] for c in cx),
+    })
+    return launches
+
 
 
 def tfim_pass(pkg, models, n, dtype, **extra):
@@ -5575,11 +6004,27 @@ def example_summary(name, res):
                     not res["sharded_square_launches"],
                  "sharded: the local operator launched banded kernels":
                     local.get("bell_spmv_banded_f32", 0) > 0})
+    if name == "distributed_lanczos":
+        err = abs(res["e0"] - res["exact"]) / abs(res["exact"])
+        counts = res["collectives_by_rank"]
+        return ({"ranks": res["ranks"], "n": res["n"], "e0": res["e0"],
+                 "exact": res["exact"], "e0_rel_err": err,
+                 "de0_dg": res["de0_dg"], "steady_ms": res["steady_ms"],
+                 "collectives_rank0": counts[0]},
+                {f"distributed_lanczos E0 vs Jordan-Wigner, rel "
+                 f"{EX_DISTRIBUTED_E0_REL}": err <= EX_DISTRIBUTED_E0_REL,
+                 "distributed_lanczos: the ranks' E0 and dE0/dg equal":
+                    len(set(res["e0_by_rank"])) == 1
+                    and len(set(res["de0_dg_by_rank"])) == 1,
+                 "distributed_lanczos: the XOR exchange ran, the same "
+                 "collectives on every rank":
+                    counts[0]["ppermute"] > 0
+                    and all(c == counts[0] for c in counts)})
     raise ValueError(name)
 
 
 def phase_examples(pkg):
-    """The eleven drivers on the card (module docstring, phase 21)."""
+    """The twelve drivers on the card (module docstring, phase 21)."""
     t_phase = time.perf_counter()
     build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
     os.makedirs(build, exist_ok=True)

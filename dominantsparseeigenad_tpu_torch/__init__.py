@@ -16,8 +16,12 @@ CUDA kernel of ``csrc/bell_spmv.cu``, and the block solver
 ``lobpcg_eigh``) whose every SpMM runs the one of ``csrc/bell_spmm.cu``;
 plus the dense and matrix-free operators.  The row-sharded tier
 (``parallel/``, on ``torch.distributed``) splits a blocked-ELL or dense
-operator's rows over ranks, one process each, and both solvers run
-through it unchanged; each rank's row panel runs the same kernels.  An
+operator's rows over ranks, one process each, and every solver runs
+through it unchanged; each rank's row panel runs the same kernels.
+``ShardedMatrixFreeOperator`` takes a product written against the
+rank's segment of the vector (``tfim_sharded_operator`` swaps segments
+between XOR partner ranks with ``ppermute``), and ``make_mesh`` lays
+the ranks out as a (batch, shards) grid.  An
 operator whose slots are ring bands (config #5's all are) binds the
 banded slot plan, and its products run the kernels' banded mode (K4b).
 ``energy_curvature`` gives an eigenvalue's first and second derivative
@@ -28,8 +32,8 @@ heat differentiated through the renormalization flow, by the
 degeneracy-safe decompositions ``eigh_safe``, ``eigh_safe_truncated``,
 ``svd_safe`` and ``svd_safe_truncated`` or by the block solver
 (``dominant_svd`` on the symmetric embedding, ``dominant_eigh_multi``),
-against Onsager's solution.  The row-sharded tier is first order in
-reverse mode (its collectives carry forward mode to any order).
+against Onsager's solution.  The sharded tier carries forward mode and
+derivatives of any order, and complex dense operators.
 The Krylov engine has the JAX package's options: chunked
 reorthogonalization, a bfloat16 basis polished by a Newton step
 (``refine_eigenpair``), a carried restart direction that needs no host
@@ -40,8 +44,8 @@ non-symmetric dominant eigensolver (``dominant_eig``,
 request, whose IFT rule solves bordered systems by BiCGStab, GMRES or
 CGNR) gives config #4's transfer observables, ``transfer_spectral_gap``
 and ``correlation_length``.  Complex operators run through every solver
-and derivative rule above but the blocked-ELL kernels and the row-sharded
-tier: complex Hermitian ones through the symmetric solvers (real
+and derivative rule above but the blocked-ELL kernels (square or on a
+row panel): complex Hermitian ones through the symmetric solvers (real
 eigenvalues, the eigenvectors' pivot phase gauge carried into the
 rules), complex non-symmetric ones through ``dominant_eig``; and the
 complex half of the non-symmetric solver (``dominant_eig_pair``,

@@ -1,6 +1,5 @@
 """Example drivers of the port, the counterparts of the JAX package's
-``examples/*.py`` (all but ``distributed_lanczos.py``, which needs the
-sharded matrix-free operator).  Run one as
+twelve ``examples/*.py``.  Run one as
 
     python -m dominantsparseeigenad_tpu_torch.examples.<name> [--device cpu]
 

@@ -41,11 +41,11 @@ from ..parallel.sharded_sparse import _check_mode
 RANK_TIMEOUT_S = 600
 
 
-def _rank(rank, world, init_method, args, out_queue):
-    """One rank (a spawned process): sends (rank, results, None), or
-    (rank, None, traceback) if it failed."""
+def _rank(rank, world, init_method, args, out_queue, solve):
+    """One rank (a spawned process) running ``solve``: sends (rank,
+    results, None), or (rank, None, traceback) if it failed."""
     try:
-        out_queue.put((rank, _solve(rank, world, init_method, args), None))
+        out_queue.put((rank, solve(rank, world, init_method, args), None))
     except Exception:  # the parent raises it; this rank exits non-zero
         out_queue.put((rank, None, traceback.format_exc()))
         sys.exit(1)
@@ -99,14 +99,16 @@ def _solve(rank, world, init_method, args):
         torch.distributed.destroy_process_group()
 
 
-def _run_ranks(world, args):
-    """Spawn the ranks over a file store and collect their results."""
-    store = tempfile.mkdtemp(prefix="sharded_sparse_")
+def _run_ranks(world, args, solve):
+    """Spawn the ranks over a file store, each running ``solve(rank,
+    world, init_method, args)`` (a module-level function), and collect
+    their results."""
+    store = tempfile.mkdtemp(prefix="ranks_")
     ctx = multiprocessing.get_context("spawn")
     out_queue = ctx.Queue()
     procs = [ctx.Process(target=_rank, args=(rank, world,
                                              f"file://{store}/store", args,
-                                             out_queue))
+                                             out_queue, solve))
              for rank in range(world)]
     env = os.environ.get("GLOO_SOCKET_IFNAME")
     # The ranks reach each other over the loopback interface.
@@ -179,7 +181,7 @@ def main(argv=None):
     ranks = _run_ranks(args.ranks, {"n": args.n, "bs": args.bs,
                                     "bpr": args.bpr, "k": args.k,
                                     "mode": args.mode,
-                                    "device": args.device})
+                                    "device": args.device}, _solve)
     first = ranks[0]
     nnz = first["nnz"]
     print(f"operator: n={args.n}, {nnz:,} stored entries "

@@ -26,8 +26,10 @@ is owed.
 pass, as the JAX function, and ``tfim_energy_gap`` the block solver with
 r = 2.  The 2D model on an lx × ly periodic square lattice
 (``tfim2d_operator``) shares the transverse term; only its zz diagonal
-differs.  Not ported yet: ``tfim_sharded_operator`` (``ROADMAP.md``
-queue 1 item 14).
+differs.  ``tfim_sharded_operator`` splits the state over the ranks of a
+process group (``parallel/``): the low spin flips stay on the rank's
+segment, and each high-bit flip swaps whole segments with the XOR
+partner rank (``parallel.collectives.ppermute``).
 """
 
 from __future__ import annotations
@@ -38,6 +40,9 @@ import torch
 from ..ops.eigh import dominant_eigh, dominant_eigh_multi
 from ..ops.observables import fidelity_susceptibility as _chi
 from ..ops.operators import _BlockMatrixFreeOperator, hdot, resolve_device
+from ..parallel.collectives import ppermute
+from ..parallel.mesh import SHARD_AXIS, make_mesh
+from ..parallel.sharded import ShardedMatrixFreeOperator
 
 
 def tfim_zz_diagonal(n: int, dtype=torch.float64, device=None):
@@ -101,6 +106,50 @@ def tfim_operator(n: int, g, dtype=torch.float64,
     return _BlockMatrixFreeOperator(tfim_matvec,
                                     (_coupling(g, dtype, dev), diag),
                                     dim=1 << n, dtype=dtype)
+
+
+def tfim_sharded_operator(n: int, g, group=None, *, dtype=torch.float64,
+                          device=None) -> ShardedMatrixFreeOperator:
+    """TFIM Hamiltonian as a row-sharded matrix-free operator.
+
+    The 2^n-dimensional state is split over the ``p = 2^d`` ranks of
+    ``group`` (a :class:`~..parallel.mesh.ShardGroup`, default
+    :func:`~..parallel.mesh.make_mesh`): a rank holds the amplitudes
+    whose top ``d`` basis bits equal its index.  On the rank's segment,
+
+    * the zz diagonal term and the ``m = n - d`` low-bit spin flips are
+      local (:func:`flip_sum` of the segment);
+    * each of the ``d`` high-bit flips swaps whole segments between XOR
+      partner ranks, one :func:`~..parallel.collectives.ppermute` each.
+
+    Its parameters are ``(g, the rank's rows of the zz diagonal)``;
+    derivatives in ``g`` of any order, in either mode, go through the
+    exchange.  The counterpart of the JAX ``tfim_sharded_operator``.
+    """
+    sg = make_mesh() if group is None else group
+    p = sg.size
+    d = p.bit_length() - 1
+    if (1 << d) != p:
+        raise ValueError(f"shard count {p} must be a power of two")
+    if d > n:
+        raise ValueError(f"cannot split 2^{n} states over 2^{d} shards")
+    m = n - d   # local qubits
+    dev = resolve_device(device)
+    perms = [tuple((s, s ^ (1 << b)) for s in range(p)) for b in range(d)]
+
+    def local_matvec(params, x_local):
+        gg, diag_local = params
+        dl = diag_local.to(x_local.dtype)
+        y = (dl if x_local.ndim == 1 else dl[:, None]) * x_local
+        flips = flip_sum(x_local, m)
+        for perm in perms:   # high-bit flips: XOR-partner segment swaps
+            flips = flips + ppermute(x_local, sg, perm)
+        return y - gg * flips
+
+    diag = tfim_zz_diagonal(n, dtype=dtype, device=dev)
+    return ShardedMatrixFreeOperator(
+        local_matvec, (_coupling(g, dtype, dev), diag), 1 << n, sg,
+        dtype=dtype, param_specs=(None, SHARD_AXIS))
 
 
 def tfim_dense_hamiltonian(n: int, g, dtype=torch.float64, device=None):

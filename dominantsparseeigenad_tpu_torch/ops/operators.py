@@ -34,7 +34,7 @@ sign) of an eigenvector, and ``rmatvec`` is the bilinear transpose
 ``A^T x`` (not the adjoint ``A^H x = conj(A^T conj(x))``, which the
 solvers that need it build themselves).  :func:`refuse_complex` remains
 for the operators whose hand-written kernels or physics have no complex
-form (``BellOperator``, the row-sharded tier, the 2D Ising model).
+form (``BellOperator`` and its row panels, the 2D Ising model).
 
 Transforms.  Every ``torch.autograd.Function`` of the port takes the
 operator's structure as a Python object and its tensors as explicit

@@ -1,7 +1,7 @@
-"""The collectives of the row-sharded operators, and their gradients.
+"""The collectives of the sharded operators, and their derivatives.
 
 The sharded operators keep Krylov vectors replicated: every rank holds
-the whole x and computes its own rows of ``A x``.  Three differentiable
+the whole x and computes its own rows of ``A x``.  Four differentiable
 steps carry that layout (``sg`` is a :class:`~.mesh.ShardGroup`):
 
 * :func:`replicate` (identity forward): marks a replicated input.  Its
@@ -16,16 +16,32 @@ steps carry that layout (``sg`` is a :class:`~.mesh.ShardGroup`):
   the ranks instead, which would multiply it by their number here.)
 * :func:`sum_over_ranks` (``all_reduce`` forward, identity backward):
   the transpose product's partial sums.
+* :func:`ppermute` (send to one rank, receive from another): the
+  counterpart of ``lax.ppermute``, which the sharded matrix-free TFIM
+  uses to swap whole segments between XOR partners.  Its backward is the
+  inverse permutation (an XOR exchange is its own inverse).
 
-Their backwards are first order: under ``create_graph`` they raise
-NotImplementedError (second order through the sharded operators is
-``ROADMAP.md`` queue 1 item 14).  Each is linear, so its ``jvp`` is the
-same collective on the tangent (this Function again, so forward mode
-nests); ``vmap`` runs one collective per lane, in the same order on every
-rank.
+Every derivative is again one of these steps, so derivatives of any
+order go through them.  A backward that hands a replicated gradient to
+the rank's own computation (``gather_rows``, ``sum_over_ranks``) marks
+it with :func:`replicate`, so that a double backward sums the ranks'
+shares of it, as the first backward sums those of x.  Each step is
+linear: its ``jvp`` is the same step on the tangent (this Function
+again, so forward mode nests), and ``vmap`` runs one collective per
+lane.
 
-Host staging on gloo.  Gloo takes CUDA tensors in few collectives (not
-in ``all_gather``), so on a group whose backend is gloo every collective
+Lockstep.  The solvers branch on scalars read on the host, and every
+rank must run the same collectives in the same order.  They do: every
+rank starts from the same vectors, every replicated result is bitwise
+the same on every rank, and so every rank builds the same graph and runs
+the same backward (and double backward) through it.
+:data:`collective_counts` counts the collectives this process ran, by
+kind, so that a run can check that every rank ran the same ones.
+
+Complex tensors travel as their real view (``torch.view_as_real``), by
+the dtype, never by how a backend treats a complex dtype.  Host staging
+on gloo: gloo takes CUDA tensors in few collectives (not in
+``all_gather``), so on a group whose backend is gloo every collective
 here copies a CUDA tensor to host memory, runs there, and copies the
 result back.  This is explicit, by the group's backend, never a switch
 taken on failure; it is what lets several ranks share one card (NCCL
@@ -39,6 +55,16 @@ import torch.distributed as dist
 
 from ..ops.operators import nestable_jvp, per_lane_vmap
 
+# Collectives run by this process, by kind (one per call of the three
+# functions below, also on one rank).
+collective_counts = dict.fromkeys(("all_gather", "all_reduce", "ppermute"),
+                                  0)
+
+
+def reset_collective_counts():
+    for kind in collective_counts:
+        collective_counts[kind] = 0
+
 
 def _staged(sg, t) -> bool:
     """Whether a collective on ``t`` goes through host memory: a CUDA
@@ -46,35 +72,86 @@ def _staged(sg, t) -> bool:
     return sg.backend == "gloo" and t.device.type == "cuda"
 
 
+def _wire(t, sg, fresh=False):
+    """``t`` as the collectives send it: a contiguous real tensor (the
+    real view of a complex one), in host memory when staged; with
+    ``fresh``, never ``t``'s own memory (a buffer to reduce into)."""
+    if _staged(sg, t):
+        src = t.cpu()
+    else:
+        src = t.clone() if fresh else t
+    if src.is_complex():
+        src = torch.view_as_real(src.resolve_conj())
+    return src.contiguous()
+
+
+def _unwire(buf, like):
+    """A received ``buf`` back as ``like``'s dtype and device."""
+    if like.is_complex():
+        buf = torch.view_as_complex(buf)
+    return buf.to(like.device)
+
+
 def all_gather_rows(t: torch.Tensor, sg) -> torch.Tensor:
     """Every rank's ``t`` (one shape on all ranks), concatenated along
     dim 0 in rank order."""
-    staged = _staged(sg, t)
-    src = (t.cpu() if staged else t).contiguous()
+    collective_counts["all_gather"] += 1
+    src = _wire(t, sg)
     parts = [torch.empty_like(src) for _ in range(sg.size)]
     dist.all_gather(parts, src, group=sg.group)
-    out = torch.cat(parts)
-    return out.to(t.device) if staged else out
+    return _unwire(torch.cat(parts), t)
 
 
 def all_reduce_sum(t: torch.Tensor, sg) -> torch.Tensor:
     """The sum of every rank's ``t``, the same on every rank (a new
     tensor; ``t`` is left as it was)."""
-    staged = _staged(sg, t)
-    buf = t.to("cpu", copy=True) if staged else t.clone()
+    collective_counts["all_reduce"] += 1
+    buf = _wire(t, sg, fresh=True)
     dist.all_reduce(buf, group=sg.group)
-    return buf.to(t.device) if staged else buf
+    return _unwire(buf, t)
 
 
-def _first_order_only():
-    """Refuse a backward that records a graph (``create_graph``): second
-    order through the sharded operators would run collectives in a
-    double backward whose lockstep across the ranks nothing checks."""
-    if torch.is_grad_enabled():
-        raise NotImplementedError(
-            "second-order derivatives through the row-sharded operators "
-            "are not ported yet (ROADMAP.md queue 1 item 14); use "
-            "create_graph=False")
+def _peers(sg, perm):
+    """(where this rank sends, where it receives from) under ``perm``, a
+    sequence of (source, destination) pairs of shard indices; None where
+    ``perm`` names no such rank.  Raises on a pair that is out of range
+    or a rank that sends or receives twice."""
+    perm = [(int(s), int(d)) for s, d in perm]
+    srcs, dsts = [s for s, _ in perm], [d for _, d in perm]
+    if len(set(srcs)) != len(srcs) or len(set(dsts)) != len(dsts):
+        raise ValueError(f"ppermute: {perm} is not a permutation")
+    if any(not 0 <= i < sg.size for i in srcs + dsts):
+        raise ValueError(f"ppermute: {perm} names a rank outside "
+                         f"[0, {sg.size})")
+    to = dict(perm).get(sg.rank)
+    frm = {d: s for s, d in perm}.get(sg.rank)
+    return to, frm
+
+
+def _global(sg, rank):
+    return rank if sg.group is None else dist.get_global_rank(sg.group, rank)
+
+
+def permute_exchange(t: torch.Tensor, sg, perm) -> torch.Tensor:
+    """This rank's ``t`` sent to its destination under ``perm``, and the
+    source's ``t`` received (zeros where no rank sends here, as
+    ``lax.ppermute``).  Every send and receive of the call is in one
+    ``batch_isend_irecv``, so a pair of ranks that swap cannot deadlock."""
+    collective_counts["ppermute"] += 1
+    to, frm = _peers(sg, perm)
+    src = _wire(t, sg)
+    if to == sg.rank and frm == sg.rank:
+        return _unwire(src.clone(), t)
+    buf = torch.zeros_like(src)
+    ops = []
+    if to is not None and to != sg.rank:
+        ops.append(dist.P2POp(dist.isend, src, _global(sg, to), sg.group))
+    if frm is not None and frm != sg.rank:
+        ops.append(dist.P2POp(dist.irecv, buf, _global(sg, frm), sg.group))
+    if ops:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    return _unwire(buf, t)
 
 
 @per_lane_vmap
@@ -95,8 +172,8 @@ class _Replicate(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        _first_order_only()
-        # Through the Function, so a vmap over the backward batches it.
+        # Through the Function, so a vmap over the backward batches it and
+        # a double backward replicates the sum again.
         return _SumOverRanks.apply(g, ctx.sg), None
 
 
@@ -119,8 +196,10 @@ class _GatherRows(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        _first_order_only()
-        return g.narrow(0, ctx.rank * ctx.rows, ctx.rows), None
+        # The replicated g enters the rank's own rows: its double backward
+        # sums the ranks' rows (an all_reduce of the padded shares).
+        return _Replicate.apply(g, ctx.sg).narrow(0, ctx.rank * ctx.rows,
+                                                  ctx.rows), None
 
 
 @per_lane_vmap
@@ -141,8 +220,29 @@ class _SumOverRanks(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        _first_order_only()
-        return g, None
+        return _Replicate.apply(g, ctx.sg), None
+
+
+@per_lane_vmap
+class _Ppermute(torch.autograd.Function):
+
+    @staticmethod
+    def forward(x, sg, perm):
+        return permute_exchange(x, sg, perm)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        _, ctx.sg, ctx.perm = inputs
+
+    @staticmethod
+    @nestable_jvp
+    def jvp(ctx, dx, *_):
+        return _Ppermute.apply(dx, ctx.sg, ctx.perm)
+
+    @staticmethod
+    def backward(ctx, g):
+        inverse = tuple((d, s) for s, d in ctx.perm)
+        return _Ppermute.apply(g, ctx.sg, inverse), None, None
 
 
 def replicate(x: torch.Tensor, sg) -> torch.Tensor:
@@ -159,3 +259,15 @@ def gather_rows(y: torch.Tensor, sg) -> torch.Tensor:
 def sum_over_ranks(y: torch.Tensor, sg) -> torch.Tensor:
     """The sum over ranks of ``y``; the gradient passes through."""
     return _SumOverRanks.apply(y, sg)
+
+
+def ppermute(x: torch.Tensor, sg, perm) -> torch.Tensor:
+    """``lax.ppermute`` over the ranks of ``sg``: ``perm`` is a sequence
+    of (source, destination) shard indices; this rank's ``x`` goes to its
+    destination and the result is what its source sent (zeros where no
+    rank sends here).  Every rank passes the same ``perm`` and an ``x``
+    of one shape and dtype.  Differentiable to any order: the gradient
+    travels back by the inverse permutation."""
+    perm = tuple((int(s), int(d)) for s, d in perm)
+    _peers(sg, perm)
+    return _Ppermute.apply(x, sg, perm)

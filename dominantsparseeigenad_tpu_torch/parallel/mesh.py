@@ -3,9 +3,13 @@
 Counterpart of ``dominantsparseeigenad_tpu/parallel/mesh.py``.  The JAX
 package builds a ``jax.sharding.Mesh`` with a ``"batch"`` and a
 ``"shards"`` axis over the devices of a slice; here one process per rank
-joins a ``torch.distributed`` group, and :func:`make_mesh` returns that
-group as the ``"shards"`` axis: a :class:`ShardGroup` with the rank and
-the number of ranks.  Only the shard axis is ported (``n_batch=1``).
+joins a ``torch.distributed`` group, and :func:`make_mesh` lays its ranks
+out as JAX's ``(batch, shards)`` grid: rank r is in batch row
+``r // n_shards`` at shard index ``r % n_shards``.  It returns the
+:class:`ShardGroup` of the rank's own row, the ``"shards"`` axis that
+the sharded operators split over; the rows are independent problems
+(many couplings, many right-hand sides), each sharded over its own
+group.
 
 Each rank drives one card, ``cuda:(rank % device_count)``
 (:func:`rank_device`), so several ranks on a machine with fewer cards
@@ -24,6 +28,7 @@ import torch
 import torch.distributed as dist
 
 SHARD_AXIS = "shards"
+BATCH_AXIS = "batch"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -32,15 +37,20 @@ class ShardGroup:
 
     group   : the ``torch.distributed`` process group (None: the default
               group of every rank)
-    rank    : this process's rank in it
-    size    : the number of ranks
+    rank    : this process's rank in it (its shard index)
+    size    : the number of ranks (shards)
     backend : the group's backend ("gloo" or "nccl")
+    batch_index : the batch row of the mesh this group is (0 without a
+              batch axis)
+    n_batch : the number of batch rows
     """
 
     group: object
     rank: int
     size: int
     backend: str
+    batch_index: int = 0
+    n_batch: int = 1
 
 
 def rank_device(rank: int) -> torch.device:
@@ -85,22 +95,42 @@ def init_distributed(backend: str | None = None,
 
 def make_mesh(n_shards: int | None = None, n_batch: int = 1,
               group=None) -> ShardGroup:
-    """The shard axis over the ranks of ``group`` (default: every rank of
-    the default group, which :func:`init_distributed` joined).
+    """The ``(batch, shards)`` grid over the ranks of ``group`` (default:
+    every rank of the default group, which :func:`init_distributed`
+    joined), as the JAX ``make_mesh`` lays its devices out:
+    ``reshape(n_batch, n_shards)`` of the ranks in order.
 
-    ``n_shards`` defaults to the group's size and must equal it.  Only
-    ``n_batch=1``: the batch axis is not ported yet (``ROADMAP.md``).
+    ``n_shards`` defaults to the group's size over ``n_batch``;
+    ``n_shards * n_batch`` must equal the group's size.  With
+    ``n_batch > 1`` every rank calls this with the same arguments: each
+    row becomes a process group of its own (every rank creates every
+    row's group, in the same order), and the call returns the rank's
+    row.
     """
-    if n_batch != 1:
-        raise NotImplementedError(
-            "make_mesh: only n_batch=1; the batch axis waits (ROADMAP.md, "
-            "queue 1 item 14)")
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs a process group: call "
                            "init_distributed first")
     size = dist.get_world_size(group)
-    if n_shards is not None and n_shards != size:
-        raise ValueError(f"make_mesh: n_shards={n_shards}, but the group has "
-                         f"{size} ranks")
-    return ShardGroup(group=group, rank=dist.get_rank(group), size=size,
-                      backend=str(dist.get_backend(group)))
+    if n_batch < 1:
+        raise ValueError(f"make_mesh: n_batch={n_batch} must be >= 1")
+    if n_shards is None:
+        n_shards = size // n_batch
+    if n_shards < 1 or n_shards * n_batch != size:
+        raise ValueError(
+            f"mesh {n_batch}x{n_shards} needs {n_batch * n_shards} ranks, "
+            f"the group has {size}")
+    rank = dist.get_rank(group)
+    backend = str(dist.get_backend(group))
+    if n_batch == 1:
+        return ShardGroup(group=group, rank=rank, size=size, backend=backend)
+    ranks = [r if group is None else dist.get_global_rank(group, r)
+             for r in range(size)]
+    row = rank // n_shards
+    mine = None
+    for b in range(n_batch):
+        sub = dist.new_group(ranks[b * n_shards:(b + 1) * n_shards],
+                             backend=backend, timeout=COLLECTIVE_TIMEOUT)
+        if b == row:
+            mine = sub
+    return ShardGroup(group=mine, rank=rank % n_shards, size=n_shards,
+                      backend=backend, batch_index=row, n_batch=n_batch)

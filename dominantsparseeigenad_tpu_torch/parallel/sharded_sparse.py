@@ -34,6 +34,10 @@ IFT rule of ``ops/eigh.py`` gives each rank ∂L/∂(its panel); the panels,
 concatenated in rank order, are the gradient with respect to the global
 ``vals``.
 
+Forward mode: the tangent products run the same panel kernels on the
+tangent of the panel.  The collectives' backwards are differentiable, so
+derivatives of any order go through the operator.
+
 The ``ring`` mode (the vector hops rank to rank, never whole on one
 rank) needs sharded vectors and is not ported (``ROADMAP.md``).
 """
@@ -49,11 +53,10 @@ from ..ops.operators import LinearOperator, refuse_complex
 from .collectives import gather_rows, replicate, sum_over_ranks
 from .mesh import make_mesh
 
-# The JAX package row-shards complex Hermitian matrices too
-# (tests/test_parallel.py::test_sharded_complex_hermitian_eigh); here the
-# collectives and the panels' kernels are real only.
-SHARDED_COMPLEX = ("the row-sharded tier is real only so far (ROADMAP.md "
-                   "queue 1 item 14)")
+# The JAX package's blocked-ELL values may be complex (on its XLA path);
+# the panels' kernels are real only, as the square ones are.
+SHARDED_COMPLEX = ("the row-sharded blocked-ELL panels run the real "
+                   "kernels only (ROADMAP.md queue 1 item 17)")
 
 
 def _check_mode(mode):
@@ -154,30 +157,45 @@ class RowShardedBellOperator(LinearOperator):
         nb_l, _, bs, _ = self.vals.shape
         return x.narrow(0, self.group.rank * nb_l * bs, nb_l * bs)
 
-    def matvec(self, x):
-        return gather_rows(bell_spmv(self.vals, self.cols,
-                                     replicate(x, self.group)), self.group)
+    def _apply(self, vals, X):
+        """``A(vals) X`` for X (N,) or (N, r): the panel product of the
+        rank's rows (on the card the panel SpMV or SpMM kernel, K4a),
+        then the gather of the row blocks."""
+        product = bell_spmv if X.ndim == 1 else bell_spmm
+        return gather_rows(product(vals, self.cols, replicate(X, self.group)),
+                           self.group)
 
-    def matmat(self, X):
-        """``A @ X`` for an (N, r) block: one panel SpMM per rank, then
-        the gather of the (N/p, r) row blocks."""
-        return gather_rows(bell_spmm(self.vals, self.cols,
-                                     replicate(X, self.group)), self.group)
-
-    def rmatmat(self, X):
+    def _apply_t(self, vals, X):
+        """``A(vals)^T X``: the alias of :meth:`_apply` when symmetric;
+        else the panel's transpose scattered onto all nb block-columns,
+        summed over ranks (the JAX package's psum_scatter, replicated)."""
         if self.symmetric:
-            return self.matmat(X)
-        # A^T X: the panel's transpose scattered onto all nb block-columns,
-        # summed over ranks (the JAX package's psum_scatter, replicated).
-        part = _bell_rmatmat_torch(self.vals, self.cols,
-                                   self._rows(replicate(X, self.group)),
+            return self._apply(vals, X)
+        block = X if X.ndim == 2 else X[:, None]
+        part = _bell_rmatmat_torch(vals, self.cols,
+                                   self._rows(replicate(block, self.group)),
                                    self.n // self.block_size)
-        return sum_over_ranks(part, self.group)
+        out = sum_over_ranks(part, self.group)
+        return out if X.ndim == 2 else out[:, 0]
+
+    def matvec(self, x):
+        return self._apply(self.vals, x)
 
     def rmatvec(self, x):
-        if self.symmetric:
-            return self.matvec(x)
-        return self.rmatmat(x[:, None])[:, 0]
+        return self._apply_t(self.vals, x)
+
+    matmat, rmatmat = matvec, rmatvec
+
+    def tangent_matvec(self, x, dparams):
+        """``(dA) x``: the same panel product on the tangent of the panel."""
+        (dvals,) = dparams
+        return self._apply(dvals.contiguous(), x)
+
+    def tangent_rmatvec(self, x, dparams):
+        (dvals,) = dparams
+        return self._apply_t(dvals.contiguous(), x)
+
+    tangent_matmat, tangent_rmatmat = tangent_matvec, tangent_rmatvec
 
     def parameters(self):
         return [self.vals]

@@ -432,27 +432,36 @@ def one_rank():
             dist.destroy_process_group()
 
 
+def _collective(name, sg):
+    """The collective ``name`` as a function of one tensor (``ppermute``
+    on the one rank's identity permutation)."""
+    if name == "ppermute":
+        return lambda z: coll.ppermute(z, sg, [(0, 0)])
+    return lambda z: getattr(coll, name)(z, sg)
+
+
 @pytest.mark.parametrize("name", ["replicate", "gather_rows",
-                                  "sum_over_ranks"])
+                                  "sum_over_ranks", "ppermute"])
 def test_collectives_gradcheck_jvp_and_vmap(one_rank, name):
-    """The collectives are linear: gradcheck in both modes, a nested
-    ``torch.func.jvp`` (the same collective on the tangent, twice), and
-    ``vmap`` (one collective per lane).  Their backwards stay first order
-    (``ROADMAP.md`` queue 1 item 14)."""
-    fn = getattr(coll, name)
+    """The collectives are linear: gradcheck in both modes, gradgradcheck
+    (their backwards are collectives again, so a double backward runs
+    through them), batched cotangents by ``torch.func.vmap`` of the vjp,
+    a nested ``torch.func.jvp`` (the same collective on the tangent,
+    twice), and ``vmap`` (one collective per lane)."""
+    fn = _collective(name, one_rank)
     x = torch.randn(6, dtype=F64, requires_grad=True)
-    # No batched gradient: gradcheck's prototype vmap runs no Function's
-    # vmap rule and cannot batch a collective, and a torch.func vjp records
-    # a graph, which these first-order backwards refuse (item 14).
-    assert gradcheck(lambda z: fn(z, one_rank), (x,), check_forward_ad=True,
-                     fast_mode=True)
+    # gradcheck's prototype vmap runs no Function's vmap rule and cannot
+    # batch a collective: the batched gradient goes through torch.func.
+    assert gradcheck(fn, (x,), check_forward_ad=True, fast_mode=True)
+    assert gradgradcheck(fn, (x,), check_fwd_over_rev=True, fast_mode=True)
+    _func_batched_grad(fn, (x,))
     dx = torch.randn(6, dtype=F64)
 
     def cube(z):
-        return (fn(z, one_rank) ** 3).sum()
+        return (fn(z) ** 3).sum()
 
     _, d2 = torch.func.jvp(lambda s: torch.func.jvp(cube, (s,), (dx,))[1],
                            (x.detach(),), (dx,))
     assert torch.allclose(d2, (6 * x.detach() * dx * dx).sum(), rtol=1e-14)
     xs = torch.randn(3, 6, dtype=F64)
-    assert torch.equal(torch.func.vmap(lambda z: fn(z, one_rank))(xs), xs)
+    assert torch.equal(torch.func.vmap(fn)(xs), xs)

@@ -194,7 +194,7 @@ def test_import_scan_covers_the_utils_and_example_modules():
              if p.is_relative_to(PKG)}
     drivers = sorted(n for n in names if n.startswith("examples/")
                      and n != "examples/__init__.py")
-    assert len(drivers) == 11, drivers
+    assert len(drivers) == 12, drivers
     assert {"utils/timing.py", "utils/logging.py",
             "utils/diagnostics.py"} <= names
     modules = ["utils.timing", "utils.logging", "utils.diagnostics",
@@ -209,6 +209,53 @@ def test_import_scan_covers_the_utils_and_example_modules():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
+
+
+def test_import_scan_covers_the_sharded_tfim_and_its_driver():
+    """The scan below reads the modules of the sharded matrix-free tier
+    (``parallel/collectives.py`` with ``ppermute``, ``parallel/sharded.py``,
+    ``models/tfim.py``), the driver ``examples/distributed_lanczos.py``
+    and ``chip_smoke.py``, and the import check imports the modules and
+    the driver with JAX blocked."""
+    ids = {_source_id(p) for p in _sources()}
+    assert {"parallel/collectives.py", "parallel/sharded.py",
+            "models/tfim.py", "examples/distributed_lanczos.py",
+            "chip_smoke.py"} <= ids
+    code = (
+        "import sys, importlib\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['dominantsparseeigenad_tpu'] = None\n"
+        "pkg = 'dominantsparseeigenad_tpu_torch'\n"
+        "for m in ('parallel.collectives', 'parallel.sharded', "
+        "'models.tfim', 'examples.distributed_lanczos'):\n"
+        "    importlib.import_module(f'{pkg}.{m}')\n"
+        "from dominantsparseeigenad_tpu_torch import (BATCH_AXIS, "
+        "ShardedMatrixFreeOperator, ppermute)\n"
+        "from dominantsparseeigenad_tpu_torch.models import "
+        "tfim_sharded_operator\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+
+
+def test_sharded_tier_names_match_the_jax_exports():
+    """``parallel`` and ``models`` export the JAX package's names but the
+    three placement helpers of the sharded-vector layout, which wait
+    (``shard_vector``, ``row_sharding``, ``replicated``; item 14)."""
+    parallel = importlib.import_module("dominantsparseeigenad_tpu_torch."
+                                       "parallel")
+    jax_parallel = {"SHARD_AXIS", "BATCH_AXIS", "init_distributed",
+                    "make_mesh", "row_sharding", "replicated",
+                    "RowShardedOperator", "ShardedMatrixFreeOperator",
+                    "shard_vector", "RowShardedBellOperator"}
+    waiting = {"shard_vector", "row_sharding", "replicated"}
+    assert jax_parallel - waiting <= set(parallel.__all__)
+    assert not waiting & set(parallel.__all__)
+    for name in jax_parallel - waiting:
+        assert name in port.__all__ and getattr(port, name) is \
+            getattr(parallel, name), name
+    assert "tfim_sharded_operator" in models.__all__
+    assert port.BATCH_AXIS == "batch" and port.SHARD_AXIS == "shards"
 
 
 def test_drivers_import_without_side_effects():
@@ -234,7 +281,7 @@ def test_drivers_import_without_side_effects():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) == 11
+    assert int(out.stdout.strip()) == 12
 
 
 def _source_id(path):
@@ -473,7 +520,8 @@ def _complex_hermitian():
 
 _BELL = (r"blocked-ELL kernels .* have no complex dtype "
          r"\(ROADMAP\.md queue 1 item 17\)")
-_SHARDED = r"row-sharded tier is real only .*\(ROADMAP\.md queue 1 item 14\)"
+_SHARDED = (r"row-sharded blocked-ELL panels run the real kernels only "
+            r"\(ROADMAP\.md queue 1 item 17\)")
 _ISING = r"real weights, tensors and transfer matrices"
 
 
@@ -498,7 +546,6 @@ def _complex_calls():
         "BellOperator.with_vals": (
             lambda: port.BellOperator(real_vals, cols, 16).with_vals(vals),
             _BELL),
-        "RowShardedOperator": (lambda: port.RowShardedOperator(h), _SHARDED),
         "RowShardedBellOperator": (
             lambda: port.RowShardedBellOperator(vals, cols, 16), _SHARDED),
         "ising_vertex_tensor": (
@@ -520,8 +567,9 @@ def _complex_calls():
 
 @pytest.mark.parametrize("name", sorted(_complex_calls()))
 def test_complex_input_is_refused(name):
-    """Where the port has no complex form (the blocked-ELL kernels, the
-    row-sharded tier, the real Ising model) complex input is refused with
+    """Where the port has no complex form (the blocked-ELL kernels, on a
+    square operator or a row panel, the real Ising model) complex input
+    is refused with
     a TypeError that names the reason and its ROADMAP.md item, not failed
     with incidental errors."""
     call, reason = _complex_calls()[name]
@@ -553,16 +601,14 @@ def test_hdot_fault_input_is_what_the_refusal_guards():
 
 
 @pytest.mark.parametrize("call", [
-    lambda: port.make_mesh(n_batch=2),
     lambda: port.RowShardedOperator(torch.eye(4), mode="ring"),
     lambda: port.RowShardedBellOperator(
         torch.zeros(1, 1, 4, 4), torch.zeros(1, 1, dtype=torch.int32), 4,
         mode="ring"),
-], ids=["make_mesh n_batch", "RowShardedOperator ring",
-        "RowShardedBellOperator ring"])
+], ids=["RowShardedOperator ring", "RowShardedBellOperator ring"])
 def test_sharded_refusals_name_item_14(call):
-    """F7: the batch axis and mode="ring" wait for the rest of
-    ``parallel/``, queue 1 item 14."""
+    """F7: mode="ring" waits for the sharded-vector layout, queue 1
+    item 14."""
     with pytest.raises(NotImplementedError,
                        match=r"ROADMAP\.md, queue 1 item 14\)"):
         call()
@@ -637,15 +683,15 @@ def _port_functions():
 
 
 def test_every_function_composes_with_torch_func():
-    """All 18 Functions (the 17 of the solvers, decompositions and
-    collectives, the generalized pencil's two and the spectral tiers'
-    ``_InteriorEigh`` and ``_SpectralSlice`` among them, and the pair
-    solver's subclass) use the ``setup_context`` form (a forward without
+    """All 19 Functions (the 18 of the solvers, decompositions and
+    collectives, the generalized pencil's two, the spectral tiers'
+    ``_InteriorEigh`` and ``_SpectralSlice`` and the exchange's
+    ``_Ppermute`` among them, and the pair solver's subclass) use the ``setup_context`` form (a forward without
     ctx), define a ``jvp`` and a ``vmap`` of their own, and none asks
     PyTorch to generate its vmap rule (the solvers read the host)."""
     import inspect
     functions = _port_functions()
-    assert len(functions) == 18, sorted(functions)
+    assert len(functions) == 19, sorted(functions)
     base = torch.autograd.Function
     for name, cls in functions.items():
         assert cls.setup_context is not base.setup_context, name

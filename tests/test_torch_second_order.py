@@ -4,8 +4,8 @@ the JAX package (CPU, f64): the differentiable deflated solve of
 Hessian-vector products of ``dominant_eigh`` and ``dominant_eigh_multi``,
 ``value_d1_d2`` and ``energy_curvature``, the TFIM closed form of
 d²E0/dg², ``extreme="both"`` and ``with_info``; that no derivative is
-taken through a solver's iterations; and that the row-sharded operators
-refuse second order.
+taken through a solver's iterations; and second order through a
+row-sharded operator.
 
 Every JAX reference is computed here, from the same numpy inputs; where
 the JAX operator reaches the Pallas SpMV it takes its XLA route
@@ -577,26 +577,50 @@ def test_with_info_matches_jax_and_does_not_move_derivatives():
     assert abs(float(lam) - float(lam_j)) <= 1e-10 * abs(float(lam_j))
 
 
-# -- the row-sharded operators refuse second order ----------------------------
+# -- second order through the row-sharded operators ---------------------------
 
 def test_sharded_operator_refuses_create_graph(tmp_path):
-    """One gloo rank: a first-order backward through the sharded
-    operator works, a create_graph one raises and names the roadmap
-    item."""
-    op = port.random_bell_operator(
-        64, 8, 3, generator=torch.Generator().manual_seed(0),
-        dtype=torch.float64, device="cpu")
+    """One gloo rank: second order through the row-sharded operator, which
+    refused ``create_graph`` until the collectives' backwards became
+    differentiable.  d²λ/dt² of A + t B (B a second symmetric operator on
+    A's pattern) by a ``create_graph`` backward and a second backward
+    through the panel and the gather matches ``jax.grad(jax.grad(...))``
+    of the JAX package's sharded operator from the same start vector
+    (1e-7, the JAX test's bar, ``tests/test_sharded_sparse.py:98``)."""
+    from dominantsparseeigenad_tpu.parallel import (
+        RowShardedBellOperator as JaxRowShardedBell, make_mesh)
+
+    def bell(seed):
+        return port.random_bell_operator(
+            64, 8, 3, generator=torch.Generator().manual_seed(seed),
+            dtype=torch.float64, device="cpu")
+
+    op, pert = bell(0), bell(1).vals
+    v0 = np.asarray(jax.random.normal(jax.random.PRNGKey(0), (64,),
+                                      jnp.float64))
     port.init_distributed("gloo", f"file://{tmp_path}/store", 0, 1)
     try:
-        vals = op.vals.clone().requires_grad_(True)
-        sop = port.RowShardedBellOperator(vals, op.cols, 64, symmetric=True)
-        lam, _ = port.dominant_eigh(sop, k=64, device="cpu")
-        (g,) = torch.autograd.grad(lam, vals, retain_graph=True)
-        assert torch.isfinite(g).all()
-        with pytest.raises(NotImplementedError, match="queue 1 item 14"):
-            torch.autograd.grad(lam, vals, create_graph=True)
+        sop = port.RowShardedBellOperator(op.vals, op.cols, 64,
+                                          symmetric=True)
+        t = torch.zeros((), dtype=torch.float64, requires_grad=True)
+        lam, _ = port.dominant_eigh(sop.with_vals(sop.vals + t * pert),
+                                    k=40, v0=torch.from_numpy(v0),
+                                    device="cpu")
+        (d1,) = torch.autograd.grad(lam, t, create_graph=True)
+        (d2,) = torch.autograd.grad(d1, t)
     finally:
         dist.destroy_process_group()
+    jsop = JaxRowShardedBell.from_bell(
+        JaxBell(jnp.asarray(op.vals.numpy()), jnp.asarray(op.cols.numpy()),
+                64, symmetric=True, use_pallas=False), make_mesh(n_shards=1))
+    jvals, jpert = jnp.asarray(op.vals.numpy()), jnp.asarray(pert.numpy())
+
+    def lam_j(tt):
+        return jax_eigh(jsop.with_vals(jvals + tt * jpert), k=40,
+                        extreme="min")[0]
+
+    d2_j = jax.jit(jax.grad(jax.grad(lam_j)))(jnp.float64(0.0))
+    assert _rel(float(d2), float(d2_j)) <= 1e-7
 
 
 @pytest.fixture(scope="module", autouse=True)

@@ -416,8 +416,9 @@ def test_constructor_checks_without_a_group():
         port.RowShardedBellOperator(vals, cols, 40)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         port.RowShardedOperator(torch.eye(8), mode="ring")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        port.make_mesh(n_batch=2)
     if not dist.is_initialized():
         with pytest.raises(RuntimeError, match="init_distributed"):
             port.RowShardedBellOperator(vals, cols, 32)
+        # The batch axis needs the process group its rows split.
+        with pytest.raises(RuntimeError, match="init_distributed"):
+            port.make_mesh(n_batch=2)
