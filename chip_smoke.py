@@ -230,7 +230,42 @@ line each:
    (``tools/jax_complex_errors.py``).  This path launches no hand-written
    kernel (checked: the launch counts stay 0).
 
-15. ``formats``: the COO, CSR and BCOO formats and the operator algebra.
+15. ``complex_bell``: complex blocked-ELL values on the hand-written
+   complex64 kernels K5 (SpMV) and K6 (SpMM), at config #5's full width
+   in a complex gauge: vals_c[i, j] = diag(d_i) vals[i, j] diag(conj
+   d_{cols[i, j]}) with unit phases d from a seeded generator, 9.13 GB of
+   complex64 values, complex Hermitian (built with ``symmetric=False``)
+   and unitarily similar to the real config #5.  (a) The real operator's
+   Lanczos coefficients (k = 100, from v0), λ and LOBPCG λ (r = 8, 100
+   iterations, from x0); its products with complex64 vectors (one real
+   SpMM on the (re, im) columns, K4b) against the real and imaginary
+   parts done apart, exactly; then the real values go.  (b) K5 and K6
+   against their plain versions (1e-5): SpMV, SpMM at r = 4, 8, 16, 32,
+   gather and banded (banded equal to gather bit for bit, timed in
+   turns), the panels of a p = 2 sharding (the square product's rows bit
+   for bit); kernel, plain, bound (bytes, or 8 r flops a complex value)
+   and library (cuSPARSE BSR in complex64) times; at three small shapes
+   (bs = 25 among them) every r of 1-5, 8, 13, 16, 32 and 40 with X
+   aligned and offset by one complex value, against the plain versions,
+   banded = gather and panel = square rows bit for bit; lazily conjugated
+   x, X and vals (``.conj()``), also real values with a conjugated
+   complex x, equal bit for bit to their resolved copies.  (c) The main
+   path, counted: Lanczos from D v0 (α, β against the real run's, 1e-5
+   of their largest), λ against
+   the real λ (1e-5), the λ-only gradient (v v^H on the pattern) against
+   a forward-mode dλ along random complex dvals by the dot-product
+   identity (1e-5), LOBPCG from D x0 against the real λ (1e-4), twin
+   forwards on the gather kernels (equal bit for bit).  (d) A complex
+   Hermitian Bell at n = 4096, bs = 32 (three spiked eigenvalues) against
+   a float64 ``eigh`` of its dense matrix: the eigenvector loss
+   λ + |<w, v>|² along a second Hermitian Bell by reverse and forward
+   mode, and E, dE/dg, d²E/dg² of A0 + g A1 by ``energy_curvature``.
+   (e) Two ranks sharing the card over gloo (not multi-GPU) on the
+   complex panels (K5, K6 on a row panel): λ against the unsharded λ
+   (1e-5), a 20-iteration LOBPCG against the unsharded one (1e-4).  The
+   phase's peak memory and time on its line.
+
+16. ``formats``: the COO, CSR and BCOO formats and the operator algebra.
    (a) The TFIM N = 20 as sparse matrices built from host COO triplets
    (the zz diagonal, 2^20 entries, and the transverse term, 20 · 2^20),
    H(g) = CSR_zz + (-g) CSR_x through ``SumOperator`` and
@@ -258,7 +293,7 @@ line each:
    bound and the peak memory.  Its K4b launches join the ``kernels``
    line.
 
-16. ``restart``: thick-restart Lanczos.  (a) Config #5, the ``eigh``
+17. ``restart``: thick-restart Lanczos.  (a) Config #5, the ``eigh``
    phase's operator and start vector: ``dominant_eigh`` with a window of
    k = 32 and 8 restart cycles, λ and ∂λ/∂vals; its K4b SpMV launches
    against 32 + 1 + 8 × 24 = 225 and one for ∂λ; λ against the plain
@@ -275,7 +310,7 @@ line each:
    ``restart_cycle``, ``restart_extract``), dE0/dg by Hellmann-Feynman,
    the same bars; the time of each cycle, a matvec's, the peak memory.
 
-17. ``gen``: the generalized pencil.  (a) Config #5's A with B = diag(m),
+18. ``gen``: the generalized pencil.  (a) Config #5's A with B = diag(m),
    m in [1, 2) from a seed, a ``MatrixFreeOperator`` in m:
    ``dominant_eigh_gen`` (r = 8, at most 100 LOBPCG iterations,
    preconditioner M^{-1}) and the gradient of Σ c_i λ_i + <C, X> in the
@@ -292,7 +327,7 @@ line each:
    ``dominant_eigh_multi(reorth_chunks=4)`` at config #5 against the
    unchunked run.  Both phases' K4b launches join the ``kernels`` line.
 
-18. ``spectral``: the spectral tiers.  (a) Config #5 (the ``eigh``
+19. ``spectral``: the spectral tiers.  (a) Config #5 (the ``eigh``
    phase's operator, K4b, f32 values): ``spectral_bounds`` (30 SpMVs);
    ``spectral_density`` and ``trace_function(exp)`` at the JAX defaults
    (degree 120, 16 probes: one r = 16 SpMM a degree, with their own
@@ -317,14 +352,14 @@ line each:
    at two frequencies, the block product against the column loop (bit
    for bit and timed).  Its K4b launches join the ``kernels`` line.
 
-19. ``models``: the XXZ chain at N = 20, f32, isotropic, through
+20. ``models``: the XXZ chain at N = 20, f32, isotropic, through
    ``dominant_eigh`` (k = 200): E0, ∂E0/∂j and ∂E0/∂jz, Euler's identity
    E0 = j ∂E0/∂j + jz ∂E0/∂jz, the SU(2) identity ∂E0/∂j = 2 ∂E0/∂jz and
    E0/N against the Bethe value 1/4 − ln 2 (0.02); the 2D TFIM on the
    4 × 5 torus (2^20 states) at g = 3.04, f32: E0 and dE0/dg against
    −<ψ|Σσˣ|ψ> by ``flip_sum``.  No hand-written kernel is on this path.
 
-20. ``utils``: the port's ``utils/``.  (a) ``timeit`` (host clock
+21. ``utils``: the port's ``utils/``.  (a) ``timeit`` (host clock
    around a synchronized call, 12 repeats) of one config-#5 K4b SpMV
    through the operator's ``matvec``, against the kernel's CUDA-event
    median from the ``spmv`` phase: at least it, at most 1.15 x it + 0.05
@@ -347,7 +382,7 @@ line each:
    Lanczos at config #5 and passes on the TFIM N = 20 solve.  (f) The
    host cost of one named range with no profiler running.
 
-21. ``examples``: the twelve drivers of
+22. ``examples``: the twelve drivers of
    ``dominantsparseeigenad_tpu_torch/examples`` in this process at their
    JAX twins' defaults (``EXAMPLES`` lists any cut of sweep points; none
    so far), ``sharded_sparse`` and ``distributed_lanczos`` each spawning
@@ -360,7 +395,8 @@ line each:
 
 Then a ``kernels`` line (each SpMM entry with its config-#5 times, bound
 and library time at every r of ``spmm``, the panel entries at r = 8 and
-16, under ``by_r``), the ``nvidia-smi`` name and power-limit line, and
+16, the complex64 entries at every r of ``complex_bell``, under
+``by_r``), the ``nvidia-smi`` name and power-limit line, and
 as the last line ``{"ok": true, "device": {...}}``.  Any failed check
 raises, so the exit code is not 0.  Without a CUDA device it exits with
 code 1 before printing any result.
@@ -908,13 +944,14 @@ def bsr_library_call(vals, cols, n):
     return lambda x: a @ x
 
 
-def bound(nnz, val_bytes, other_bytes, r=1):
+def bound(nnz, val_bytes, other_bytes, r=1, flops_per_value=2):
     """Least time (ms) for the product and what bounds it: each input read
     once and each output written once at the published memory rate, or
-    2 r operations per value at the float32 rate."""
+    ``flops_per_value`` r operations per value (2 real, 8 complex) at the
+    float32 rate."""
     bytes_min = nnz * val_bytes + other_bytes
     t_bytes = bytes_min / PEAK_BYTES_PER_S
-    t_ops = 2 * nnz * r / PEAK_F32_FLOP_PER_S
+    t_ops = flops_per_value * nnz * r / PEAK_F32_FLOP_PER_S
     return (bytes_min, max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -4339,6 +4376,654 @@ def phase_complex(pkg, spmv):
         raise AssertionError(f"complex phase failed: {failed}")
 
 
+# The complex_bell phase: complex blocked-ELL values (the kernels K5 and
+# K6) at config #5's full width in a complex gauge, vals_c[i, j] =
+# diag(d_i) vals[i, j] diag(conj d_{cols[i, j]}), unit phases d from a
+# seeded generator: complex Hermitian (built with symmetric=False) and
+# unitarily similar to the real config #5, so its spectrum, its Lanczos
+# coefficients from D v0 and its LOBPCG values from D x0 are the real
+# ones'.  9.13 GB of complex64 values.
+CXB_GAUGE_SEED = 71
+CXB_SPMM_R = (4, 8, 16, 32)
+CXB_RTOL = {
+    "kernel": 1e-5,          # kernel vs plain, as the real kernels
+    "lam": 1e-5,             # complex vs real λ (float32 Lanczos)
+    "lanczos": 1e-5,         # α, β vs the real run's, of max |α|, |β|
+    "dot": 1e-5,             # reverse vs forward dλ, of ||G|| ||D||
+    "lobpcg": 1e-4,          # complex vs real LOBPCG λ (r = 8)
+}
+CXB_PANEL_LOBPCG_ITERS = 20             # the ranks' LOBPCG (2 on one card)
+# (d) the derivative set: a complex Hermitian Bell A0 (n, bs, blocks per
+# row, seed), spiked below its bulk as spiked_bell, and A1 on its pattern
+# (seed + 1), against a float64 eigh of the dense A0: the eigenvector
+# loss λ + |<w, v>|^2 along A1 by reverse and forward mode, and E, dE/dg,
+# d²E/dg² of A0 + g A1 at g = 0 by energy_curvature.  Bars: float32
+# arithmetic, the eigenvector term through a deflated CG at CG_TOL.
+CXB_SMALL = (4096, 32, 5, 73)
+# (b) the instantiations config #5 does not reach, on complex symmetric
+# random_bell_operator values (n, bs, blocks per row): every r below, X
+# 16-byte aligned and offset by one complex value (X staged by 4-byte
+# copies, as at odd r), bs = 25 (values by plain loads); each entry
+# against its plain version (kernel bar), banded = gather and panel = the
+# square product's rows bit for bit, and a lazily conjugated x, X or
+# vals (``.conj()``) equal bit for bit to its resolved copy.
+CXB_KERNEL_SHAPES = ((4096, 32, 5), (4000, 20, 5), (4000, 25, 3))
+CXB_KERNEL_R = (1, 2, 3, 4, 5, 8, 13, 16, 32, 40)
+CXB_SMALL_RTOL = {"lam": 1e-5, "dloss_rev": 1e-4, "dloss_fwd": 1e-4,
+                  "e": 1e-5, "de_dg": 1e-5, "d2e_dg2": 1e-4}
+
+
+def complex_gauge(nb, bs):
+    """``(d, x0)``: the gauge's unit phases (nb, bs), complex64, and the
+    real LOBPCG start block, both drawn from one seeded generator."""
+    gen = torch.Generator(device=DEVICE).manual_seed(CXB_GAUGE_SEED)
+    phi = 2 * math.pi * torch.rand((nb, bs), generator=gen, device=DEVICE)
+    d = torch.polar(torch.ones_like(phi), phi)
+    x0 = torch.randn(nb * bs, MULTI_R, generator=gen, device=DEVICE)
+    return d, x0, gen
+
+
+def gauge_values(vals, cols, d):
+    """vals_c[i, j] = diag(d_i) vals[i, j] diag(conj d_{cols[i, j]}), built
+    one band (slot) at a time."""
+    out = torch.empty(vals.shape, dtype=torch.complex64, device=DEVICE)
+    for j in range(vals.shape[1]):
+        out[:, j] = (vals[:, j] * d[:, :, None]) \
+            * d[cols[:, j].long()].conj()[:, None, :]
+    return out
+
+
+def cgrad_dot(g, d) -> float:
+    """Re<g, d> = Re sum(conj(g) d) in complex128, in chunks."""
+    return sum(float(torch.vdot(a.reshape(-1).to(torch.complex128),
+                                b.reshape(-1).to(torch.complex128)).real)
+               for a, b in zip(g.split(256), d.split(256)))
+
+
+def cnorm(t) -> float:
+    return math.sqrt(sum(float(torch.linalg.vector_norm(a).double()) ** 2
+                         for a in t.split(256)))
+
+
+def library_row(vals, cols, n_cols, x, y_ref, batch):
+    """The cuSPARSE BSR yardstick for the same product: (ms, rel err).
+    Timed here and used nowhere in the port."""
+    lib = bsr_library_call(vals, cols, n_cols)
+    err = rel_err(lib(x), y_ref)
+    return event_ms(lambda: lib(x), samples=12, batch=batch), err
+
+
+def cx_kernel_row(spmv, name, vals, cols, x, plan, gather_y=None):
+    """One K5/K6 entry at config #5 on complex64 (vals, cols, x): against
+    its plain version (1e-5), banded against gather bit for bit (timed in
+    turns with it), a panel against the square product's rows bit for
+    bit; kernel, plain, library, bound."""
+    r = 1 if x.ndim == 1 else x.shape[1]
+    kind = "spmv" if x.ndim == 1 else "spmm"
+    gather = getattr(spmv, f"_bell_{kind}_cuda")
+    plain = getattr(spmv, f"_bell_{kind}_torch")
+    y = gather(vals, cols, x)
+    y_p = plain(vals, cols, x)
+    torch.cuda.synchronize()
+    row = {"phase": "complex_bell", "kernel": name, "r": r,
+           "block_rows": vals.shape[0], "n_cols": x.shape[0],
+           "rel_err": rel_err(y, y_p),
+           "max_abs_err": float((y - y_p).abs().max())}
+    batch = 3
+
+    def timed_ms(fn):
+        return event_ms(fn, samples=12, batch=batch)
+
+    if plan is not None:
+        banded = getattr(spmv, f"_bell_{kind}_banded_cuda")
+        plain_b = getattr(spmv, f"_bell_{kind}_banded_torch")
+        y_b = banded(vals, cols, x, plan)
+        y_pb = plain_b(vals, cols, x, plan)
+        torch.cuda.synchronize()
+        row["banded_rel_err"] = rel_err(y_b, y_pb)
+        row["banded_max_abs_err"] = float((y_b - y_pb).abs().max())
+        row["banded_vs_gather_max_abs_diff"] = float((y_b - y).abs().max())
+        g1 = timed_ms(lambda: gather(vals, cols, x))
+        b1 = timed_ms(lambda: banded(vals, cols, x, plan))
+        b2 = timed_ms(lambda: banded(vals, cols, x, plan))
+        g2 = timed_ms(lambda: gather(vals, cols, x))
+        row.update({"kernel_ms": (g1 + g2) / 2, "kernel_ms_turns": [g1, g2],
+                    "banded_ms": (b1 + b2) / 2, "banded_ms_turns": [b1, b2],
+                    "banded_plain_ms": event_ms(
+                        lambda: plain_b(vals, cols, x, plan), samples=6)})
+        del y_b, y_pb
+    else:
+        row["kernel_ms"] = timed_ms(lambda: gather(vals, cols, x))
+    if gather_y is not None:
+        rows = gather_y[-y.shape[0]:]
+        row["square_rows_max_abs_diff"] = float((y - rows).abs().max())
+    row["plain_ms"] = event_ms(lambda: plain(vals, cols, x), samples=6)
+    row["library_ms"], row["library_rel_err"] = library_row(
+        vals, cols, x.shape[0], x, y_p, batch)
+    # Least bytes: values, cols, x once, y once; or 8 r flops a value.
+    row["bytes_min"], row["bound_ms"], row["bound_by"] = bound(
+        vals.numel(), vals.element_size(),
+        cols.numel() * 4 + (x.numel() + y.numel()) * x.element_size(), r,
+        flops_per_value=8)
+    row["achieved_gbps"] = row["bytes_min"] / (row["kernel_ms"] * 1e-3) / 1e9
+    emit(row)
+    return row, y
+
+
+def offset_copy(t):
+    """A copy of ``t`` whose data starts one element past a 16-byte
+    boundary (8 bytes for complex64)."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    buf[1:] = t.reshape(-1)
+    return buf[1:].view(t.shape)
+
+
+def cx_kernel_shapes(spmv, sparse):
+    """Part (b): K5 and K6 at the small shapes of ``CXB_KERNEL_SHAPES``
+    (see there); returns the checks.  Launches counted nowhere."""
+    checks = {}
+    bar = CXB_RTOL["kernel"]
+    for i, (n, bs, bpr) in enumerate(CXB_KERNEL_SHAPES):
+        gen = torch.Generator(device=DEVICE).manual_seed(90 + i)
+        op = sparse.random_bell_operator(n, bs, bpr, generator=gen,
+                                         dtype=torch.complex64,
+                                         device=DEVICE)
+        vals, cols, plan = op.vals, op.cols, op.slot_plan
+        nb = n // bs
+        half, rows = slice(nb // 2, nb), slice(nb // 2 * bs, n)
+        panel = (vals[half].contiguous(), cols[half].contiguous())
+        row = {"phase": "complex_bell", "part": "kernel_shapes", "n": n,
+               "bs": bs, "blocks_per_row": bpr, "rel_err": {},
+               "banded_vs_gather_max_abs_diff": {},
+               "panel_vs_square_max_abs_diff": {}}
+        cases = [(None, False), (None, True)] + [
+            (r, un) for r in CXB_KERNEL_R for un in (False, True)]
+        for r, unaligned in cases:
+            shape = (n,) if r is None else (n, r)
+            x = torch.randn(shape, generator=gen, device=DEVICE,
+                            dtype=torch.complex64)
+            if unaligned:
+                x = offset_copy(x)
+            kind = "spmv" if r is None else "spmm"
+            tag = f"{kind} r={r or 1}{' unaligned' if unaligned else ''}"
+            y = getattr(spmv, f"_bell_{kind}_cuda")(vals, cols, x)
+            y_p = getattr(spmv, f"_bell_{kind}_torch")(vals, cols, x)
+            y_b = getattr(spmv, f"_bell_{kind}_banded_cuda")(vals, cols, x,
+                                                            plan)
+            y_pan = getattr(spmv, f"_bell_{kind}_cuda")(*panel, x)
+            torch.cuda.synchronize()
+            row["rel_err"][tag] = rel_err(y, y_p)
+            row["banded_vs_gather_max_abs_diff"][tag] = \
+                float((y_b - y).abs().max())
+            row["panel_vs_square_max_abs_diff"][tag] = \
+                float((y_pan - y[rows]).abs().max())
+            checks[f"n={n} bs={bs} {tag} vs plain, rel {bar}"] = \
+                row["rel_err"][tag] <= bar
+            checks[f"n={n} bs={bs} {tag} banded = gather bit for bit"] = \
+                row["banded_vs_gather_max_abs_diff"][tag] == 0.0
+            checks[f"n={n} bs={bs} {tag} panel = square rows bit for bit"] \
+                = row["panel_vs_square_max_abs_diff"][tag] == 0.0
+        # Conjugate views through the operators (complex values; real
+        # values with complex vectors on the real kernels).
+        x = torch.randn(n, generator=gen, device=DEVICE,
+                        dtype=torch.complex64)
+        X = torch.randn(n, MULTI_R, generator=gen, device=DEVICE,
+                        dtype=torch.complex64)
+        real_op = sparse.BellOperator(vals.real.contiguous(), cols, n,
+                                      compute_dtype=torch.complex64)
+        conj_pairs = {
+            "complex matvec(x.conj())": (op.matvec(x.conj()),
+                                         op.matvec(x.conj().resolve_conj())),
+            "complex matmat(X.conj())": (op.matmat(X.conj()),
+                                         op.matmat(X.conj().resolve_conj())),
+            "complex with_vals(vals.conj()).matvec": (
+                op.with_vals(vals.conj()).matvec(x),
+                op.with_vals(vals.conj().resolve_conj()).matvec(x)),
+            "real values matvec(x.conj())": (
+                real_op.matvec(x.conj()),
+                real_op.matvec(x.conj().resolve_conj())),
+            "real values matmat(X.conj())": (
+                real_op.matmat(X.conj()),
+                real_op.matmat(X.conj().resolve_conj()))}
+        torch.cuda.synchronize()
+        row["conj_view_max_abs_diff"] = {
+            name: float((a - b).abs().max())
+            for name, (a, b) in conj_pairs.items()}
+        for name, diff in row["conj_view_max_abs_diff"].items():
+            checks[f"n={n} bs={bs} {name} = resolved bit for bit"] = \
+                diff == 0.0
+        emit(row)
+        del op, vals, cols, panel, real_op, conj_pairs
+    torch.cuda.empty_cache()
+    return checks
+
+
+def hermitian_bell(n, bs, bpr, seed, spikes=()):
+    """``(vals, cols)`` of a complex Hermitian ring-banded blocked-ELL
+    operator on ``spiked_bell``'s pattern: complex Gaussian values from
+    ``numpy.random.default_rng(seed)`` of variance 1 / (bpr bs), the
+    diagonal block (B + B^H) / 2 with its first entries lowered by
+    ``spikes``, the -o band the +o band's conjugate transposes; complex64
+    values, int32 columns."""
+    nb, n_off = n // bs, (bpr - 1) // 2
+    offs = np.random.default_rng(7).permutation(np.arange(1, nb))[:n_off]
+    rng = np.random.default_rng(seed)
+    scale = 1.0 / np.sqrt(2.0 * bpr * bs)
+    i = np.arange(nb)
+
+    def gauss():
+        return (rng.standard_normal((nb, bs, bs))
+                + 1j * rng.standard_normal((nb, bs, bs))) * scale
+
+    d = gauss()
+    vals, cols = [(d + d.conj().transpose(0, 2, 1)) / 2], [i]
+    for o in offs:
+        b = gauss()
+        vals += [b, b[(i - o) % nb].conj().transpose(0, 2, 1)]
+        cols += [(i + o) % nb, (i - o) % nb]
+    vals = np.stack(vals, axis=1)
+    for j, sp in enumerate(spikes):
+        vals[0, 0, j, j] -= sp
+    return vals.astype(np.complex64), np.stack(cols, axis=1).astype(np.int32)
+
+
+def _bell_dense_c128(vals, cols):
+    """The dense complex128 matrix of blocked-ELL ``(vals, cols)``."""
+    nb, bpr, bs, _ = vals.shape
+    a = np.zeros((nb, bs, nb, bs), np.complex128)
+    for i in range(nb):
+        for j in range(bpr):
+            a[i, :, cols[i, j], :] += vals[i, j]
+    return a.reshape(nb * bs, nb * bs)
+
+
+def cx_bell_small(pkg):
+    """Part (d): the derivative set of a complex Hermitian Bell at
+    n = 4096 against a float64 ``eigh`` of its dense matrix."""
+    n, bs, bpr, seed = CXB_SMALL
+    v0_np, cols_np = hermitian_bell(n, bs, bpr, seed, spikes=SO_SPIKES)
+    v1_np, cols1 = hermitian_bell(n, bs, bpr, seed + 1)
+    assert np.array_equal(cols_np, cols1)
+    a0 = pkg.BellOperator(torch.from_numpy(v0_np).to(DEVICE),
+                          torch.from_numpy(cols_np).to(DEVICE), n,
+                          symmetric=False)
+    a1 = a0.with_vals(torch.from_numpy(v1_np).to(DEVICE))
+    rng = np.random.default_rng(seed + 2)
+    w_np = rng.standard_normal(n) + 1j * rng.standard_normal(n)
+    w = torch.from_numpy(w_np / np.linalg.norm(w_np)).to(
+        torch.complex64).to(DEVICE)
+    kw = dict(k=K, tol=CG_TOL, maxiter=CG_MAXITER, device=DEVICE)
+    t0 = time.perf_counter()
+    h0 = torch.from_numpy(_bell_dense_c128(v0_np, cols_np)).to(DEVICE)
+    h1 = torch.from_numpy(_bell_dense_c128(v1_np, cols_np)).to(DEVICE)
+    lam_all, vec = torch.linalg.eigh(h0)
+    v = vec[:, 0]
+    me = vec[:, 1:].conj().T @ (h1 @ v)             # <v_k, H1 v>, k >= 1
+    gaps = lam_all[0] - lam_all[1:]
+    dv = vec[:, 1:] @ (me / gaps)
+    wv = torch.vdot(w.to(torch.complex128), v)
+    truth = {"lam": float(lam_all[0]),
+             "dloss": float(torch.vdot(v, h1 @ v).real
+                            + 2 * (wv.conj() * torch.vdot(
+                                w.to(torch.complex128), dv)).real),
+             "e": float(lam_all[0]),
+             "de_dg": float(torch.vdot(v, h1 @ v).real),
+             "d2e_dg2": float(2 * ((me.abs() ** 2) / gaps).sum())}
+    truth_s = time.perf_counter() - t0
+    del h0, h1, vec, lam_all, v, me, dv
+
+    def loss(op):
+        lam, vv = pkg.dominant_eigh(op, **kw)
+        return lam + torch.vdot(w, vv).abs() ** 2, lam
+
+    leaf = a0.vals.detach().clone().requires_grad_(True)
+    (f, lam), fwd_s = timed(lambda: loss(a0.with_vals(leaf)))
+    (g,), bwd_s = timed(lambda: torch.autograd.grad(f, leaf))
+    with torch.no_grad(), fwAD.dual_level():
+        (f_d, _), jvp_s = timed(lambda: loss(a0.with_vals(
+            fwAD.make_dual(a0.vals, a1.vals))))
+        dloss_fwd = float(fwAD.unpack_dual(f_d).tangent)
+
+    def make(gg):
+        return pkg.MatrixFreeOperator(
+            lambda p, x: a0.matvec(x) + p * a1.matvec(x), gg, n,
+            dtype=torch.complex64)
+
+    curv, curv_s = timed(lambda: [float(t) for t in pkg.energy_curvature(
+        make, 0.0, **kw)])
+    got = {"lam": float(lam.detach()), "dloss_rev": cgrad_dot(g, a1.vals),
+           "dloss_fwd": dloss_fwd, "e": curv[0], "de_dg": curv[1],
+           "d2e_dg2": curv[2]}
+    errs = {key: abs(val - truth["dloss" if key.startswith("dloss")
+                                 else key]) / abs(
+        truth["dloss" if key.startswith("dloss") else key])
+        for key, val in got.items()}
+    part = {"n": n, "bs": bs, "blocks_per_row": bpr, "dtype": "complex64",
+            "spikes": list(SO_SPIKES), "k": K, "got": got, "truth": truth,
+            "rel_err": errs, "forward_s": fwd_s, "backward_s": bwd_s,
+            "forward_mode_s": jvp_s, "energy_curvature_s": curv_s,
+            "float64_eigh_truth_s": truth_s}
+    checks = {f"small {key} vs float64 eigh, rel {bar}": errs[key] <= bar
+              for key, bar in CXB_SMALL_RTOL.items()}
+    return part, checks
+
+
+def _complex_panel_solves(sg):
+    """One rank of the complex panels' spawn: config #5 in the complex
+    gauge, the rank's panel of it, ``dominant_eigh`` (k = 100, from D v0)
+    and a short LOBPCG (r = 8, from D x0), counted."""
+    import importlib
+    import dominantsparseeigenad_tpu_torch as pkg
+    spmv = importlib.import_module("dominantsparseeigenad_tpu_torch.ops."
+                                   "bell_spmv")
+    n, bs, bpr = CONFIG5
+    op, v0 = config5_operator(pkg)
+    d, x0, _ = complex_gauge(n // bs, bs)
+    vals_c = gauge_values(op.vals, op.cols, d)
+    cols = op.cols
+    del op
+    sop = pkg.RowShardedBellOperator(vals_c, cols, n, sg, symmetric=False)
+    del vals_c
+    torch.cuda.empty_cache()
+    dflat = d.reshape(-1)
+    vc0, x0c = dflat * v0, dflat[:, None] * x0
+    with torch.no_grad():
+        # Warm-up through the same calls on a small operator in the gauge.
+        small = pkg.random_bell_operator(min(1 << 14, n), bs, bpr,
+                                         device=DEVICE)
+        small = pkg.RowShardedBellOperator(
+            gauge_values(small.vals, small.cols, d[:small.vals.shape[0]]),
+            small.cols, small.n, sg, symmetric=False)
+        pkg.dominant_eigh(small, k=20, device=DEVICE)
+        pkg.dominant_eigh_multi(small, r=MULTI_R, k=MULTI_R, method="lobpcg",
+                                device=DEVICE)
+        del small
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        spmv.reset_launch_counts()
+        (lam, _), fwd_s = timed(lambda: pkg.dominant_eigh(
+            sop, k=K, v0=vc0, device=DEVICE))
+        (lams, _), lobpcg_s = timed(lambda: pkg.dominant_eigh_multi(
+            sop, r=MULTI_R, k=CXB_PANEL_LOBPCG_ITERS, method="lobpcg",
+            tol=CG_TOL, x0=x0c, device=DEVICE))
+    return {"rank": sg.rank, "lam": float(lam), "lam_hex": float(lam).hex(),
+            "lams": lams.tolist(), "forward_s": fwd_s,
+            "lobpcg_s": lobpcg_s,
+            "panel_launches": dict(spmv.panel_launch_counts),
+            "square_launches": dict(spmv.launch_counts),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def phase_complex_bell(pkg, spmv):
+    """Complex blocked-ELL values on K5 and K6 (see the module docstring,
+    phase 15).  Returns the kernel rows and the launches of the counted
+    runs (square, and the ranks' panels)."""
+    sparse = importlib.import_module("dominantsparseeigenad_tpu_torch.ops."
+                                     "sparse")
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    n, bs, bpr = CONFIG5
+    nb = n // bs
+    out, checks, rows = {}, {}, {}
+    op, v0 = config5_operator(pkg)
+    cols, plan = op.cols, op.slot_plan
+    d, x0, gen = complex_gauge(nb, bs)
+    dflat = d.reshape(-1)
+    vc0, x0c = dflat * v0, dflat[:, None] * x0
+
+    # (a) The real config #5: its Lanczos coefficients, λ and LOBPCG λ;
+    # real values times complex vectors against the parts done apart.
+    with torch.no_grad():
+        res_r = pkg.lanczos(op, K, v0=v0, device=DEVICE)
+        lam_r = float(pkg.dominant_eigh(op, k=K, v0=v0, device=DEVICE)[0])
+        lams_r = pkg.dominant_eigh_multi(
+            op, r=MULTI_R, k=LOBPCG_ITERS, method="lobpcg", tol=CG_TOL,
+            x0=x0, device=DEVICE)[0]
+        xc = torch.randn(n, generator=gen, device=DEVICE,
+                         dtype=torch.complex64)
+        Xc = torch.randn(n, MULTI_R, generator=gen, device=DEVICE,
+                         dtype=torch.complex64)
+        spmv.reset_launch_counts()
+        y = op.matvec(xc)
+        Y = op.matmat(Xc)
+        route_launches = dict(spmv.launch_counts)
+        apart = torch.complex(op.matmat(xc.real[:, None].contiguous())[:, 0],
+                              op.matmat(xc.imag[:, None].contiguous())[:, 0])
+        apart_X = torch.complex(op.matmat(Xc.real.contiguous()),
+                                op.matmat(Xc.imag.contiguous()))
+        torch.cuda.synchronize()
+    out["real_values_complex_vectors"] = {
+        "matvec_vs_parts_max_abs_diff": float((y - apart).abs().max()),
+        "matmat_vs_parts_max_abs_diff": float((Y - apart_X).abs().max()),
+        "matvec_rel_err_vs_plain": rel_err(y, spmv._bell_spmv_banded_torch(
+            op.vals, cols, xc, plan)),
+        "launches": {k: v for k, v in route_launches.items() if v}}
+    checks["real values x complex vectors: the parts apart, exactly"] = (
+        out["real_values_complex_vectors"]["matvec_vs_parts_max_abs_diff"]
+        == 0.0 and out["real_values_complex_vectors"][
+            "matmat_vs_parts_max_abs_diff"] == 0.0)
+    checks["real values x complex vectors ran K4b SpMM, twice"] = \
+        route_launches["bell_spmm_banded_f32"] == 2 and sum(
+            route_launches.values()) == 2
+    del y, Y, apart, apart_X, xc, Xc
+
+    # The complex operator; the real one goes.
+    t0 = time.perf_counter()
+    vals_c = gauge_values(op.vals, cols, d)
+    torch.cuda.synchronize()
+    out["gauge_build_s"] = time.perf_counter() - t0
+    del op
+    torch.cuda.empty_cache()
+    op_c = sparse.BellOperator(vals_c, cols, n, symmetric=False)
+    op_g = sparse.BellOperator(vals_c, cols, n, symmetric=False,
+                               slot_plan=None)
+    checks["the complex operator binds the all-band plan"] = \
+        op_c.slot_plan == plan and op_g.slot_plan is None
+    out["values_gb"] = vals_c.numel() * vals_c.element_size() / 1e9
+
+    # (b) K5 and K6 against their plain versions, banded = gather; the
+    # panels of a p = 2 sharding (the last rank's rows); the small
+    # shapes; a conjugate view of x at full width.
+    t0 = time.perf_counter()
+    checks.update(cx_kernel_shapes(spmv, sparse))
+    out["kernel_shapes_s"] = time.perf_counter() - t0
+    x = torch.randn(n, generator=gen, device=DEVICE, dtype=torch.complex64)
+    rows["bell_spmv_c64"], y_sq = cx_kernel_row(spmv, "bell_spmv_c64",
+                                                vals_c, cols, x, plan)
+    out["conj_view_max_abs_diff"] = float((
+        op_c.matvec(x.conj()) - op_c.matvec(x.conj().resolve_conj())
+    ).abs().max())
+    checks["config #5 matvec(x.conj()) = resolved bit for bit"] = \
+        out["conj_view_max_abs_diff"] == 0.0
+    half = slice(nb // 2, nb)
+    rows["bell_spmv_panel_c64"], _ = cx_kernel_row(
+        spmv, "bell_spmv_panel_c64", vals_c[half], cols[half], x, None,
+        gather_y=y_sq)
+    del x, y_sq
+    by_r = {}
+    for r in CXB_SPMM_R:
+        X = torch.randn(n, r, generator=gen, device=DEVICE,
+                        dtype=torch.complex64)
+        by_r[r], Y_sq = cx_kernel_row(spmv, "bell_spmm_c64", vals_c, cols,
+                                      X, plan)
+        if r == MULTI_R:
+            rows["bell_spmm_panel_c64"], _ = cx_kernel_row(
+                spmv, "bell_spmm_panel_c64", vals_c[half], cols[half], X,
+                None, gather_y=Y_sq)
+        del X, Y_sq
+    rows["bell_spmm_c64"] = dict(by_r[MULTI_R], by_r=by_r)
+    for name, row in [*rows.items(), *((f"spmm r={r}", row)
+                                       for r, row in by_r.items())]:
+        checks[f"{name} vs plain, rel {CXB_RTOL['kernel']}"] = \
+            row["rel_err"] <= CXB_RTOL["kernel"]
+        if "banded_rel_err" in row:
+            checks[f"{name} banded vs plain banded, rel "
+                   f"{CXB_RTOL['kernel']}"] = \
+                row["banded_rel_err"] <= CXB_RTOL["kernel"]
+            checks[f"{name} banded = gather bit for bit"] = \
+                row["banded_vs_gather_max_abs_diff"] == 0.0
+        if "square_rows_max_abs_diff" in row:
+            checks[f"{name} = the square product's rows bit for bit"] = \
+                row["square_rows_max_abs_diff"] == 0.0
+    torch.cuda.empty_cache()
+
+    # Warm-up: the same calls on a small operator in the gauge, so that
+    # first-use costs (library handles, lazy loading) stay out of the
+    # times.
+    small = pkg.random_bell_operator(min(1 << 14, n), bs, bpr, device=DEVICE)
+    small = sparse.BellOperator(gauge_values(small.vals, small.cols,
+                                             d[:small.vals.shape[0]]),
+                                small.cols, small.n, symmetric=False)
+    w_leaf = small.vals.detach().clone().requires_grad_(True)
+    w_lam, _ = pkg.dominant_eigh(small.with_vals(w_leaf), k=20,
+                                 device=DEVICE)
+    torch.autograd.grad(w_lam, w_leaf)
+    with torch.no_grad(), fwAD.dual_level():
+        pkg.dominant_eigh(small.with_vals(fwAD.make_dual(
+            small.vals, torch.ones_like(small.vals))), k=20, maxiter=5,
+            device=DEVICE)
+        pkg.dominant_eigh_multi(small, r=MULTI_R, k=MULTI_R,
+                                method="lobpcg", device=DEVICE)
+    del small, w_leaf, w_lam
+    torch.cuda.synchronize()
+
+    # (c) The main path, counted: Lanczos, λ and its λ-only gradient,
+    # forward mode, LOBPCG; the twins on the gather kernels.
+    peak_ab = torch.cuda.max_memory_allocated() / 2**30
+    spmv.reset_launch_counts()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        res_c, lanczos_s = timed(lambda: pkg.lanczos(op_c, K, v0=vc0,
+                                                     device=DEVICE))
+    leaf = vals_c.detach().requires_grad_(True)
+    (lam_c, _), fwd_s = timed(lambda: pkg.dominant_eigh(
+        op_c.with_vals(leaf), k=K, v0=vc0, tol=CG_TOL, maxiter=CG_MAXITER,
+        device=DEVICE))
+    (g,), bwd_s = timed(lambda: torch.autograd.grad(lam_c, leaf))
+    del leaf
+    dvals = torch.randn(vals_c.shape, generator=gen, device=DEVICE,
+                        dtype=torch.complex64)
+    with torch.no_grad(), fwAD.dual_level():
+        (lam_f, _), jvp_s = timed(lambda: pkg.dominant_eigh(
+            op_c.with_vals(fwAD.make_dual(vals_c, dvals)), k=K, v0=vc0,
+            tol=CG_TOL, maxiter=FWD_CG_MAXITER, device=DEVICE))
+        dlam_fwd = float(fwAD.unpack_dual(lam_f).tangent)
+    lhs = cgrad_dot(g, dvals)
+    dot_scale = cnorm(g) * cnorm(dvals)
+    del g, dvals
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        (lams_c, _, info), lobpcg_s = timed(lambda: pkg.dominant_eigh_multi(
+            op_c, r=MULTI_R, k=LOBPCG_ITERS, method="lobpcg", tol=CG_TOL,
+            x0=x0c, with_info=True, device=DEVICE))
+        lams_short = pkg.dominant_eigh_multi(
+            op_c, r=MULTI_R, k=CXB_PANEL_LOBPCG_ITERS, method="lobpcg",
+            tol=CG_TOL, x0=x0c, device=DEVICE)[0]
+        lam_g = float(pkg.dominant_eigh(op_g, k=K, v0=vc0,
+                                        device=DEVICE)[0])
+        lams_g = pkg.dominant_eigh_multi(
+            op_g, r=MULTI_R, k=LOBPCG_ITERS, method="lobpcg", tol=CG_TOL,
+            x0=x0c, device=DEVICE)[0]
+    peak_gib = (torch.cuda.max_memory_allocated() - base) / 2**30
+    counts = dict(spmv.launch_counts)
+    lam_c = float(lam_c.detach())
+    scale = float(torch.cat([res_r.alphas.abs(), res_r.betas.abs()]).max())
+    main = {
+        "k": K, "lam": lam_c, "lam_real": lam_r,
+        "lam_rel": abs(lam_c - lam_r) / abs(lam_r),
+        "alpha_max_diff": float((res_c.alphas - res_r.alphas).abs().max()),
+        "beta_max_diff": float((res_c.betas - res_r.betas).abs().max()),
+        "alpha_beta_scale": scale,
+        "alpha_beta_first20_max_diff": float(max(
+            (res_c.alphas[:20] - res_r.alphas[:20]).abs().max(),
+            (res_c.betas[:20] - res_r.betas[:20]).abs().max())),
+        "dlam_reverse": lhs, "dlam_forward": dlam_fwd,
+        "dot_rel": abs(lhs - dlam_fwd) / dot_scale,
+        "lobpcg_lams": lams_c.tolist(), "lobpcg_lams_real": lams_r.tolist(),
+        "lobpcg_rel": float(((lams_c - lams_r).abs() / lams_r.abs()).max()),
+        "lobpcg_iterations": float(info.effective_k),
+        "lobpcg_residual": float(info.residual),
+        "twin_lam_equal": lam_g == lam_c,
+        "twin_lobpcg_equal": bool(torch.equal(lams_g, lams_c)),
+        "lanczos_s": lanczos_s, "forward_s": fwd_s,
+        "lambda_backward_s": bwd_s, "forward_mode_s": jvp_s,
+        "lobpcg_s": lobpcg_s, "peak_added_gib": peak_gib}
+    out["config5_gauge"] = main
+    checks.update({
+        f"complex vs real lambda, rel {CXB_RTOL['lam']}":
+            main["lam_rel"] <= CXB_RTOL["lam"],
+        f"complex vs real alpha/beta, of their max, {CXB_RTOL['lanczos']}":
+            max(main["alpha_max_diff"], main["beta_max_diff"])
+            <= CXB_RTOL["lanczos"] * scale,
+        f"reverse vs forward d lambda, rel {CXB_RTOL['dot']}":
+            main["dot_rel"] <= CXB_RTOL["dot"],
+        f"complex vs real LOBPCG lambdas, rel {CXB_RTOL['lobpcg']}":
+            main["lobpcg_rel"] <= CXB_RTOL["lobpcg"],
+        "gather twin lambda = banded lambda bit for bit":
+            main["twin_lam_equal"],
+        "gather twin LOBPCG = banded bit for bit":
+            main["twin_lobpcg_equal"]})
+    del res_c, res_r
+
+    # (d) The derivative set at n = 4096 (counted with the main path).
+    out["small_derivatives"], more = cx_bell_small(pkg)
+    checks.update(more)
+    counts = dict(spmv.launch_counts)
+    main_launches = {k: v for k, v in counts.items() if v}
+    out["main_path_launches"] = main_launches
+    for name in ("bell_spmv_banded_c64", "bell_spmm_banded_c64",
+                 "bell_spmv_c64", "bell_spmm_c64"):
+        checks[f"{name} launched on the main path"] = counts[name] > 0
+    checks["no real kernel on the complex main path"] = all(
+        not v for k, v in counts.items() if not k.endswith("_c64"))
+
+    # (e) Complex panels: two ranks sharing this card over gloo.
+    del op_c, op_g, vals_c
+    torch.cuda.empty_cache()
+    ranks, spawn_s = spawn_ranks(2, _complex_panel_solves)
+    panel_counts = {k: sum(rk["panel_launches"][k] for rk in ranks)
+                    for k in ranks[0]["panel_launches"]}
+    lam_sh = ranks[0]["lam"]
+    short = torch.tensor(ranks[0]["lams"], dtype=torch.float64)
+    sh_rel = float(((short - lams_short.double().cpu()).abs()
+                    / lams_short.double().cpu().abs()).max())
+    out["panels"] = {
+        "ranks": 2, "note": "two ranks sharing one card over gloo, not "
+        "multi-GPU", "spawn_s": spawn_s,
+        "lam": lam_sh, "lam_unsharded": lam_c,
+        "lam_rel": abs(lam_sh - lam_c) / abs(lam_c),
+        "lobpcg_short_rel": sh_rel,
+        "per_rank": [{k: rk[k] for k in ("forward_s", "lobpcg_s",
+                                         "peak_gib", "lam_hex")}
+                     for rk in ranks],
+        "panel_launches": {k: v for k, v in panel_counts.items() if v}}
+    checks.update({
+        "panel ranks' lambda equal bit for bit":
+            len({rk["lam_hex"] for rk in ranks}) == 1,
+        f"panel lambda vs unsharded, rel {SHARDED_VS_UNSHARDED}":
+            out["panels"]["lam_rel"] <= SHARDED_VS_UNSHARDED,
+        f"panel LOBPCG ({CXB_PANEL_LOBPCG_ITERS} its) vs unsharded, rel "
+        f"{SHARDED_BELL_VS_UNSHARDED}": sh_rel <= SHARDED_BELL_VS_UNSHARDED,
+        "bell_spmv_c64 launched on the panels":
+            panel_counts["bell_spmv_c64"] > 0,
+        "bell_spmm_c64 launched on the panels":
+            panel_counts["bell_spmm_c64"] > 0,
+        "no square kernel in the ranks' counted run": all(
+            not any(rk["square_launches"].values()) for rk in ranks)})
+    out["peak_gib"] = max(peak_ab,
+                          torch.cuda.max_memory_allocated() / 2**30)
+    out["card"] = nvidia_smi_name_power()
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit({"phase": "complex_bell", **out})
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"complex_bell phase failed: {failed}")
+    return rows, counts, panel_counts
+
+
 def least_ms(nbytes):
     """Least time (ms) to move ``nbytes`` at the published memory rate."""
     return nbytes / PEAK_BYTES_PER_S * 1e3
@@ -4395,7 +5080,7 @@ def sparse_tfim(parts):
 
 def formats_tfim(pkg, models):
     """Part (a): TFIM N = 20 as sparse matrices (module docstring, phase
-    15)."""
+    16)."""
     n, f32 = TFIM_N, torch.float32
     kw = dict(k=TFIM_K, tol=TFIM_CG_TOL, maxiter=TFIM_CG_MAXITER,
               device=DEVICE)
@@ -4517,7 +5202,7 @@ def formats_tfim(pkg, models):
 
 def formats_config5(pkg, spmv, lam_eigh):
     """Part (b): config #5 through the composites, and part (d), config
-    #5 as one CSR (module docstring, phase 15)."""
+    #5 as one CSR (module docstring, phase 16)."""
     n, bs, bpr = CONFIG5
     counts = spmv.launch_counts
     torch.cuda.empty_cache()
@@ -4679,7 +5364,7 @@ def formats_config5(pkg, spmv, lam_eigh):
 
 def formats_transpose(pkg, sparse):
     """Part (c): ``dominant_eig`` of the eig phase's non-symmetric Bell
-    and of its transpose (module docstring, phase 15)."""
+    and of its transpose (module docstring, phase 16)."""
     op = positive_ring_bell(pkg, sparse)
     kw = dict(method="arnoldi", arnoldi_k=EIG_BELL_ARNOLDI_K, with_info=True,
               device=DEVICE)
@@ -4717,7 +5402,7 @@ def formats_transpose(pkg, sparse):
 
 def phase_formats(pkg, spmv, lam_eigh):
     """The COO, CSR and BCOO formats and the operator algebra (module
-    docstring, phase 15).  Returns the phase's kernel launch counts."""
+    docstring, phase 16).  Returns the phase's kernel launch counts."""
     from dominantsparseeigenad_tpu_torch import models
     sparse = importlib.import_module("dominantsparseeigenad_tpu_torch.ops."
                                      "sparse")
@@ -4793,7 +5478,7 @@ def restart_resume(pkg, op, v0):
 
 
 def restart_config5(pkg, spmv, lam_eigh):
-    """Part (a) of the restart phase (module docstring, phase 16)."""
+    """Part (a) of the restart phase (module docstring, phase 17)."""
     n, bs, bpr = CONFIG5
     k, cycles = RESTART_K, RESTART_CYCLES
     kernel = "bell_spmv_banded_f32"
@@ -4925,7 +5610,7 @@ def restart_stepped(pkg, models):
 
 
 def phase_restart(pkg, spmv, lam_eigh):
-    """Thick-restart Lanczos (module docstring, phase 16).  Returns the
+    """Thick-restart Lanczos (module docstring, phase 17).  Returns the
     phase's kernel launch counts."""
     from dominantsparseeigenad_tpu_torch import models
     t_phase = time.perf_counter()
@@ -4957,7 +5642,7 @@ def diagonal_operator(pkg, w, n, dtype=torch.float32):
 
 
 def gen_config5(pkg, spmv):
-    """Part (a) of the gen phase, and (c) (module docstring, phase 17)."""
+    """Part (a) of the gen phase, and (c) (module docstring, phase 18)."""
     from dominantsparseeigenad_tpu_torch.ops import gen as gen_module
     from dominantsparseeigenad_tpu_torch.ops.cg import CHECK_EVERY
     n, bs, bpr = CONFIG5
@@ -5121,7 +5806,7 @@ def gen_vibrational(pkg):
 
 
 def phase_gen(pkg, spmv):
-    """The generalized pencil (module docstring, phase 17).  Returns the
+    """The generalized pencil (module docstring, phase 18).  Returns the
     phase's kernel launch counts."""
     t_phase = time.perf_counter()
     spmv.reset_launch_counts()
@@ -5208,7 +5893,7 @@ def kpm_exact(op, center, half, s):
 
 
 def spectral_config5(pkg, spmv):
-    """Part (a) of the spectral phase (module docstring, phase 18)."""
+    """Part (a) of the spectral phase (module docstring, phase 19)."""
     from dominantsparseeigenad_tpu_torch.ops.eigh import _block_tangents
     slicing = importlib.import_module(
         "dominantsparseeigenad_tpu_torch.ops.slicing")
@@ -5442,7 +6127,7 @@ def spectral_config5(pkg, spmv):
 
 def spectral_tfim(pkg):
     """Part (b) of the spectral phase: the TFIM (module docstring, phase
-    18)."""
+    19)."""
     from dominantsparseeigenad_tpu_torch import models
     f64 = torch.float64
     cfg = SLICE_TFIM
@@ -5572,7 +6257,7 @@ def spectral_tfim(pkg):
 
 
 def phase_spectral(pkg, spmv):
-    """The spectral tiers (module docstring, phase 18).  Returns the
+    """The spectral tiers (module docstring, phase 19).  Returns the
     kernel launch counts of its main path."""
     t_phase = time.perf_counter()
     spmv.reset_launch_counts()
@@ -5596,7 +6281,7 @@ def phase_spectral(pkg, spmv):
 
 
 def phase_models(pkg):
-    """The XXZ chain and the 2D TFIM (module docstring, phase 19)."""
+    """The XXZ chain and the 2D TFIM (module docstring, phase 20)."""
     from dominantsparseeigenad_tpu_torch import models
     t_phase = time.perf_counter()
     f32 = torch.float32
@@ -5708,7 +6393,7 @@ def read_trace(log_dir):
 
 
 def phase_utils(pkg, spmv, spmv_row):
-    """utils/ on the card (module docstring, phase 20): synced timing, the
+    """utils/ on the card (module docstring, phase 21): synced timing, the
     profiler trace with the solvers' named ranges and the idle share, the
     logger on CUDA tensors, diagnostics and the convergence guards.
     ``spmv_row`` is the spmv phase's config-#5 K4b f32 row."""
@@ -6024,7 +6709,7 @@ def example_summary(name, res):
 
 
 def phase_examples(pkg):
-    """The twelve drivers on the card (module docstring, phase 21)."""
+    """The twelve drivers on the card (module docstring, phase 22)."""
     t_phase = time.perf_counter()
     build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
     os.makedirs(build, exist_ok=True)
@@ -6155,6 +6840,7 @@ def main():
     eig_counts = phase_eig(pkg, spmv)
     counts = {k: counts[k] + eig_counts[k] for k in counts}
     phase_complex(pkg, spmv)
+    cx_rows, cx_counts, cx_panel_counts = phase_complex_bell(pkg, spmv)
     fmt_counts = phase_formats(pkg, spmv, lam_eigh)
     counts = {k: counts[k] + fmt_counts[k] for k in counts}
     torch.cuda.empty_cache()
@@ -6223,6 +6909,52 @@ def main():
                          "max_abs_err": rr["max_abs_err"]}
                 for r, rr in ((PANEL_R, row),
                               (16, panel[(name, SHARDED_RANKS, 16)]))}
+    # K5 and K6: complex64 values, on the complex_bell phase's counted
+    # paths (square: its main path and twins; panels: its two ranks).
+    # The JAX package multiplies complex blocks on its XLA path only.
+    xla = {"spmv": "dominantsparseeigenad_tpu/ops/sparse.py:337",
+           "spmm": "dominantsparseeigenad_tpu/ops/sparse.py:364",
+           "panel": "dominantsparseeigenad_tpu/parallel/sharded_sparse.py:206"}
+    for name, row_name, banded, launches in (
+            ("bell_spmv_c64", "bell_spmv_c64", False,
+             cx_counts["bell_spmv_c64"]),
+            ("bell_spmv_banded_c64", "bell_spmv_c64", True,
+             cx_counts["bell_spmv_banded_c64"]),
+            ("bell_spmm_c64", "bell_spmm_c64", False,
+             cx_counts["bell_spmm_c64"]),
+            ("bell_spmm_banded_c64", "bell_spmm_c64", True,
+             cx_counts["bell_spmm_banded_c64"]),
+            ("bell_spmv_panel_c64", "bell_spmv_panel_c64", False,
+             cx_panel_counts["bell_spmv_c64"]),
+            ("bell_spmm_panel_c64", "bell_spmm_panel_c64", False,
+             cx_panel_counts["bell_spmm_c64"])):
+        if launches < 1:
+            raise AssertionError(f"{name} never launched on the "
+                                 f"complex_bell path")
+        kind = "spmm" if "spmm" in name else "spmv"
+
+        def entry(row):
+            if banded:
+                return {"max_abs_err": row["banded_max_abs_err"],
+                        "ms": row["banded_ms"],
+                        "plain_ms": row["banded_plain_ms"]}
+            return {"max_abs_err": row["max_abs_err"],
+                    "ms": row["kernel_ms"], "plain_ms": row["plain_ms"]}
+
+        row = cx_rows[row_name]
+        kernels.append({"name": name, "route": "cuda",
+                        "source": csrc + f"bell_{kind}.cu",
+                        "replaces": xla["panel" if "panel" in name
+                                        else kind],
+                        "launches": launches, **entry(row),
+                        "bound_ms": row["bound_ms"],
+                        "bound_by": row["bound_by"],
+                        "library_ms": row["library_ms"]})
+        if "by_r" in row:
+            kernels[-1]["by_r"] = {
+                str(r): {**entry(rr), "bound_ms": rr["bound_ms"],
+                         "library_ms": rr["library_ms"]}
+                for r, rr in row["by_r"].items()}
     emit({"kernels": kernels})
     print(nvidia_smi_name_power(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

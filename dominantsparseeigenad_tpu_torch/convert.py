@@ -33,9 +33,10 @@ def _tensor_from_numpy(a) -> torch.Tensor:
 def bell_operator_from_numpy(vals, cols, n: int, *, symmetric: bool = False,
                              slot_plan="auto", device=None) -> BellOperator:
     """The port's ``BellOperator`` for a JAX ``BellOperator``'s
-    ``np.asarray(op.vals)``, ``np.asarray(op.cols)`` and ``op.n``;
-    ``slot_plan`` as in :class:`BellOperator` (JAX's ``op.slot_plan`` may
-    be passed as it is)."""
+    ``np.asarray(op.vals)``, ``np.asarray(op.cols)`` and ``op.n``, in the
+    same dtype (complex64 and complex128 too); ``slot_plan`` as in
+    :class:`BellOperator` (JAX's ``op.slot_plan`` may be passed as it
+    is)."""
     dev = resolve_device(device)
     return BellOperator(_tensor_from_numpy(vals).to(dev),
                         _tensor_from_numpy(np.asarray(cols, np.int32)).to(dev),
@@ -47,8 +48,9 @@ def row_sharded_bell_operator_from_numpy(
         device=None) -> RowShardedBellOperator:
     """This rank's ``RowShardedBellOperator`` for a JAX
     ``RowShardedBellOperator``'s (or ``BellOperator``'s) global
-    ``np.asarray(op.vals)``, ``np.asarray(op.cols)`` and ``op.n``;
-    ``group`` as in :func:`~.parallel.make_mesh`."""
+    ``np.asarray(op.vals)``, ``np.asarray(op.cols)`` and ``op.n``, in the
+    same dtype (complex too); ``group`` as in
+    :func:`~.parallel.make_mesh`."""
     dev = resolve_device(device)
     return RowShardedBellOperator(
         _tensor_from_numpy(vals).to(dev),

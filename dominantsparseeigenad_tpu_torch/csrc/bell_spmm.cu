@@ -6,6 +6,7 @@
 // registers); cols: (nb, mb) int32 block-column indices in [0, nb_cols);
 // X: (nb_cols*bs, r) and Y: (nb*bs, r) float, row-major (the layout of
 // the JAX package's public function).  Accumulation is always float.
+// Complex64 values take complex64 X and Y (K6, below).
 // X is read only through cols, so nb_cols never enters the kernel: a
 // square operator has nb_cols = nb, a rectangular row panel (one rank's
 // block-rows of a row-sharded operator) any nb_cols.  The caller checks
@@ -106,6 +107,24 @@
 // gathers.  Here a block owns (a slab of rows of) one block-row and loads
 // its own indices, so the band mode removes the cols read and makes the
 // X segments that neighbouring blocks stage contiguous.
+//
+// Complex64 values (K6): the JAX package multiplies complex blocks by an
+// (N, r) block on its XLA path only (`BellOperator.matmat`,
+// ops/sparse.py:364-382; the panels of `RowShardedBellOperator`,
+// parallel/sharded_sparse.py:206); its Pallas kernel has no complex
+// dtype.  The wide body runs them for every r, with T = float2: X and Y
+// are (N, 2r) floats (re and im interleaved), so the X staging, the
+// partial tiles and the write of Y are the float body's on 2r float
+// columns, and a stage's 128 bytes of a row are 16 complex values.  The
+// products take each value as (re, im) and each float4 of an X row as two
+// complex columns, 4 FMAs a column (the negation folds into the FMA).  A
+// warp owns 16 float columns (8 complex) except at r <= 4 (4 complex),
+// so the sums are the float body's 64 registers; the column groups are 1,
+// 2 and, at r > 16, 4 (KG = 2 warps along b), so one pass takes up to 32
+// complex columns with the same shared memory as the float body's 32 (a
+// stage holds half the b, so an X stage is the same 4 KB).  What bounds
+// it: the value stream up to r ~ 20, beyond that the FMAs (8 r flops a
+// complex value over 67 TFLOP/s).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -452,8 +471,28 @@ __device__ __forceinline__ void store_zero(float* p) { *p = 0.f; }
 __device__ __forceinline__ void store_zero(__nv_bfloat16* p) {
   *p = __float2bfloat16(0.f);
 }
+__device__ __forceinline__ void store_zero(float2* p) {
+  *p = make_float2(0.f, 0.f);
+}
 
-// CW columns a warp owns, CG warps side by side along the columns.
+// Complex value k (0 or 1) of a 16-byte chunk of complex64 values.
+__device__ __forceinline__ float2 chunk_complex(const uint4& w, int k) {
+  return k == 0 ? make_float2(__uint_as_float(w.x), __uint_as_float(w.y))
+                : make_float2(__uint_as_float(w.z), __uint_as_float(w.w));
+}
+
+// Floats a column of X and Y: 1, or 2 for complex64 (re, im).
+template <typename T>
+struct ColFloats {
+  static constexpr int value = 1;
+};
+template <>
+struct ColFloats<float2> {
+  static constexpr int value = 2;
+};
+
+// CW columns a warp owns, CG warps side by side along the columns; for
+// complex64 values columns are float columns (two a complex column).
 template <typename T, int CW, int CG>
 struct Wide {
   static constexpr int CH = 16 / (int)sizeof(T);   // values a chunk
@@ -476,7 +515,8 @@ struct Wide {
 // by 16-byte cp.async (bs a multiple of CH, values 16-byte aligned), else
 // by plain loads.  XVEC: X staged by 16-byte cp.async (r % 4 == 0, X
 // 16-byte aligned), else by 4-byte ones.  The same layout either way.
-// BANDED: as in the narrow body.
+// BANDED: as in the narrow body.  X, Y and r count float columns: for
+// complex64 values r is twice the complex columns.
 template <typename T, bool VASYNC, bool XVEC, int CW, int CG, bool BANDED>
 __global__ void __launch_bounds__(NT, 2)
 bell_spmm_wide_kernel(const T* __restrict__ vals,
@@ -604,20 +644,46 @@ bell_spmm_wide_kernel(const T* __restrict__ vals,
             st + ((lane + 32 * t) * LDV + q) * 16);
 #pragma unroll
       for (int k = 0; k < CH; ++k) {
-        float v[LANE_ROWS];
-#pragma unroll
-        for (int t = 0; t < LANE_ROWS; ++t)
-          v[t] = chunk_value(raw[t], k, (const T*)nullptr);
         const float* xk = sx + (q * CH + k) * RC;
+        if constexpr (ColFloats<T>::value == 1) {
+          float v[LANE_ROWS];
 #pragma unroll
-        for (int c4 = 0; c4 < CW / 4; ++c4) {
-          const float4 x4 = *reinterpret_cast<const float4*>(xk + 4 * c4);
+          for (int t = 0; t < LANE_ROWS; ++t)
+            v[t] = chunk_value(raw[t], k, (const T*)nullptr);
 #pragma unroll
-          for (int t = 0; t < LANE_ROWS; ++t) {
-            acc[t][4 * c4] = fmaf(v[t], x4.x, acc[t][4 * c4]);
-            acc[t][4 * c4 + 1] = fmaf(v[t], x4.y, acc[t][4 * c4 + 1]);
-            acc[t][4 * c4 + 2] = fmaf(v[t], x4.z, acc[t][4 * c4 + 2]);
-            acc[t][4 * c4 + 3] = fmaf(v[t], x4.w, acc[t][4 * c4 + 3]);
+          for (int c4 = 0; c4 < CW / 4; ++c4) {
+            const float4 x4 =
+                *reinterpret_cast<const float4*>(xk + 4 * c4);
+#pragma unroll
+            for (int t = 0; t < LANE_ROWS; ++t) {
+              acc[t][4 * c4] = fmaf(v[t], x4.x, acc[t][4 * c4]);
+              acc[t][4 * c4 + 1] = fmaf(v[t], x4.y, acc[t][4 * c4 + 1]);
+              acc[t][4 * c4 + 2] = fmaf(v[t], x4.z, acc[t][4 * c4 + 2]);
+              acc[t][4 * c4 + 3] = fmaf(v[t], x4.w, acc[t][4 * c4 + 3]);
+            }
+          }
+        } else {
+          // Complex: a float4 of X is two complex columns, (x, y) and
+          // (z, w); the sums hold (re, im) of each.
+          float2 v[LANE_ROWS];
+#pragma unroll
+          for (int t = 0; t < LANE_ROWS; ++t) v[t] = chunk_complex(raw[t], k);
+#pragma unroll
+          for (int c4 = 0; c4 < CW / 4; ++c4) {
+            const float4 x4 =
+                *reinterpret_cast<const float4*>(xk + 4 * c4);
+#pragma unroll
+            for (int t = 0; t < LANE_ROWS; ++t) {
+              float* a = acc[t] + 4 * c4;
+              a[0] = fmaf(v[t].x, x4.x, a[0]);
+              a[0] = fmaf(-v[t].y, x4.y, a[0]);
+              a[1] = fmaf(v[t].x, x4.y, a[1]);
+              a[1] = fmaf(v[t].y, x4.x, a[1]);
+              a[2] = fmaf(v[t].x, x4.z, a[2]);
+              a[2] = fmaf(-v[t].y, x4.w, a[2]);
+              a[3] = fmaf(v[t].x, x4.w, a[3]);
+              a[3] = fmaf(v[t].y, x4.z, a[3]);
+            }
           }
         }
         // A compiler fence: the next b's loads stay after this point,
@@ -675,12 +741,18 @@ int launch_wide(const void* vals, const void* cols, const void* band_off,
   return (int)cudaGetLastError();
 }
 
-// The warp's columns by r: 8 up to r = 8, 16 up to 16, 16 in two groups
-// (passes of 32) beyond.
+// The warp's columns by r (float columns): 8 up to r = 8, 16 up to 16,
+// 16 in two groups (passes of 32) beyond; for complex64 values, in four
+// groups (passes of 64 float columns, 32 complex) beyond 32.
 template <typename T, bool VASYNC, bool XVEC, bool BANDED>
 int launch_wide_r(const void* vals, const void* cols, const void* band_off,
                   const void* X, void* Y, long long nb, int mb, int bs,
                   int r, cudaStream_t s) {
+  if constexpr (ColFloats<T>::value == 2) {
+    if (r > 32)
+      return launch_wide<T, VASYNC, XVEC, 16, 4, BANDED>(
+          vals, cols, band_off, X, Y, nb, mb, bs, r, s);
+  }
   if (r > 16)
     return launch_wide<T, VASYNC, XVEC, 16, 2, BANDED>(
         vals, cols, band_off, X, Y, nb, mb, bs, r, s);
@@ -702,18 +774,22 @@ int launch(const void* vals, const void* cols, const void* band_off,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = (cudaStream_t)stream;
-  if (r <= 4)
-    return launch_narrow<T, VEC, 4, BANDED>(vals, cols, band_off, X, Y, nb,
-                                            mb, bs, r, s);
+  // Complex64 values take the wide body at every r.
+  if constexpr (ColFloats<T>::value == 1) {
+    if (r <= 4)
+      return launch_narrow<T, VEC, 4, BANDED>(vals, cols, band_off, X, Y,
+                                              nb, mb, bs, r, s);
+  }
+  const int rf = r * ColFloats<T>::value;   // float columns of X and Y
   if constexpr (VEC > 1) {
-    if (r % 4 == 0 && (reinterpret_cast<uintptr_t>(X) & 15) == 0)
+    if (rf % 4 == 0 && (reinterpret_cast<uintptr_t>(X) & 15) == 0)
       return launch_wide_r<T, true, true, BANDED>(vals, cols, band_off, X, Y,
-                                                  nb, mb, bs, r, s);
+                                                  nb, mb, bs, rf, s);
     return launch_wide_r<T, true, false, BANDED>(vals, cols, band_off, X, Y,
-                                                 nb, mb, bs, r, s);
+                                                 nb, mb, bs, rf, s);
   }
   return launch_wide_r<T, false, false, BANDED>(vals, cols, band_off, X, Y,
-                                                nb, mb, bs, r, s);
+                                                nb, mb, bs, rf, s);
 }
 
 // The vector width the caller checked (16 bytes of values, or 1) picks
@@ -740,13 +816,25 @@ int launch_bf16(const void* vals, const void* cols, const void* band_off,
                                           mb, bs, r, device, stream);
 }
 
+template <bool BANDED>
+int launch_c64(const void* vals, const void* cols, const void* band_off,
+               const void* X, void* Y, long long nb, int mb, int bs, int r,
+               int vec, int device, void* stream) {
+  if (vec == 2)
+    return launch<float2, 2, BANDED>(vals, cols, band_off, X, Y, nb, mb, bs,
+                                     r, device, stream);
+  return launch<float2, 1, BANDED>(vals, cols, band_off, X, Y, nb, mb, bs, r,
+                                   device, stream);
+}
+
 }  // namespace
 
 // Plain C entry points for ctypes.  `vec` is the vector width the caller
 // checked the block size and the values' alignment for (16 bytes of
-// values, or 1); `band_off` the banded entries' plan, (mb,) int32 on the
-// device.  Each returns cudaGetLastError() after the launch
-// (0 = launched).
+// values: 4 floats, 8 bfloat16 or 2 complex64; or 1); `r` counts the
+// columns of X (complex ones for the complex64 entries); `band_off` the
+// banded entries' plan, (mb,) int32 on the device.  Each returns
+// cudaGetLastError() after the launch (0 = launched).
 extern "C" int bell_spmm_f32(const void* vals, const void* cols,
                              const void* X, void* Y, long long nb, int mb,
                              int bs, int r, int vec, int device,
@@ -779,4 +867,22 @@ extern "C" int bell_spmm_banded_bf16vals(const void* vals, const void* cols,
                                          void* stream) {
   return launch_bf16<true>(vals, cols, band_off, X, Y, nb, mb, bs, r, vec,
                            device, stream);
+}
+
+// Complex64 values, X and Y (K6).
+extern "C" int bell_spmm_c64(const void* vals, const void* cols,
+                             const void* X, void* Y, long long nb, int mb,
+                             int bs, int r, int vec, int device,
+                             void* stream) {
+  return launch_c64<false>(vals, cols, nullptr, X, Y, nb, mb, bs, r, vec,
+                           device, stream);
+}
+
+extern "C" int bell_spmm_banded_c64(const void* vals, const void* cols,
+                                    const void* band_off, const void* X,
+                                    void* Y, long long nb, int mb, int bs,
+                                    int r, int vec, int device,
+                                    void* stream) {
+  return launch_c64<true>(vals, cols, band_off, X, Y, nb, mb, bs, r, vec,
+                          device, stream);
 }

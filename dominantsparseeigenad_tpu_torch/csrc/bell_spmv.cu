@@ -5,7 +5,9 @@
 // vals: (nb, mb, bs, bs) row-major, float or bfloat16 (upcast in
 // registers); cols: (nb, mb) int32 block-column indices in [0, nb_cols);
 // x: (nb_cols*bs,) float; y: (nb*bs,) float.  Accumulation is always
-// float.  x is read only through cols, so nb_cols never enters the
+// float.  Complex64 values take complex64 x and y (float2, re and im
+// interleaved) and a float2 accumulator (K5, below).  x is read only
+// through cols, so nb_cols never enters the
 // kernel: a square operator has nb_cols = nb, a rectangular row panel
 // (one rank's block-rows of a row-sharded operator) any nb_cols.  The
 // caller checks the range of cols; every offset into x, cols*bs + b, is
@@ -31,9 +33,10 @@
 //   y of row i across sequential grid steps in VMEM; here the loop over
 //   the mb slots runs inside the block instead.)
 // * Each row a of a value block is read by a group of G lanes with
-//   16-byte vector loads along b (4 floats or 8 bfloat16), so a warp's
-//   loads are contiguous and coalesced.  Reading with one thread per row
-//   a would stride by bs and waste most of each memory transaction.
+//   16-byte vector loads along b (4 floats, 8 bfloat16 or 2 complex64
+//   values), so a warp's loads are contiguous and coalesced.  Reading
+//   with one thread per row a would stride by bs and waste most of each
+//   memory transaction.
 // * The x segment a group needs is read through the read-only cache:
 //   it is reused by every row of the block-row and stays in L1/L2, so the
 //   device-memory traffic stays the value stream plus one gather of x.
@@ -62,6 +65,17 @@
 // contiguous, which the L2 serves alike.  A block that owns G block-rows
 // and copies a band's (G, bs) slab with one bulk (TMA) copy is later,
 // performance work.
+//
+// Complex64 values (K5): the JAX package multiplies complex blocks on its
+// XLA path only (`BellOperator._xla_matvec`, ops/sparse.py:337-351, and
+// `RowShardedBellOperator._panel_spmv`, parallel/sharded_sparse.py:206);
+// its Pallas kernel has no complex dtype.  The same body runs them with
+// T = float2: a 16-byte load carries 2 complex values (VEC = 2), x comes
+// as float2 through the read-only cache, each value costs 4 FMAs into a
+// float2 register sum, and the shuffles reduce both halves.  The bound is
+// the same value stream, twice the bytes of float values (8 flops a
+// 8-byte value stays far below the arithmetic rate).  Gather, banded and
+// panel modes are the real ones', so banded equals gather bit for bit.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -108,7 +122,35 @@ struct Loader<__nv_bfloat16, 1> {
   }
 };
 
-// x is always float; VEC floats at a 16-byte aligned address when VEC > 1.
+// Complex64 values: float2 (re, im), two to a 16-byte load.
+template <>
+struct Loader<float2, 2> {
+  __device__ static void load(const float2* p, float2 (&v)[2]) {
+    float4 t = __ldg(reinterpret_cast<const float4*>(p));
+    v[0] = make_float2(t.x, t.y);
+    v[1] = make_float2(t.z, t.w);
+  }
+};
+
+template <>
+struct Loader<float2, 1> {
+  __device__ static void load(const float2* p, float2 (&v)[1]) {
+    v[0] = __ldg(p);
+  }
+};
+
+// The type of x, y and the sums: float for float and bfloat16 values,
+// float2 for complex64 values.
+template <typename T>
+struct Elem {
+  using type = float;
+};
+template <>
+struct Elem<float2> {
+  using type = float2;
+};
+
+// VEC elements of x at a 16-byte aligned address when VEC > 1.
 template <int VEC>
 __device__ __forceinline__ void load_x(const float* p, float (&v)[VEC]) {
   if constexpr (VEC == 1) {
@@ -122,6 +164,44 @@ __device__ __forceinline__ void load_x(const float* p, float (&v)[VEC]) {
   }
 }
 
+template <int VEC>
+__device__ __forceinline__ void load_x(const float2* p, float2 (&v)[VEC]) {
+  if constexpr (VEC == 1) {
+    v[0] = __ldg(p);
+  } else {
+#pragma unroll
+    for (int k = 0; k < VEC; k += 2) {
+      float4 t = __ldg(reinterpret_cast<const float4*>(p + k));
+      v[k] = make_float2(t.x, t.y);
+      v[k + 1] = make_float2(t.z, t.w);
+    }
+  }
+}
+
+// acc + v * x, in float or in complex arithmetic (4 FMAs).
+__device__ __forceinline__ float mac(float v, float x, float acc) {
+  return fmaf(v, x, acc);
+}
+
+__device__ __forceinline__ float2 mac(float2 v, float2 x, float2 acc) {
+  acc.x = fmaf(v.x, x.x, acc.x);
+  acc.x = fmaf(-v.y, x.y, acc.x);
+  acc.y = fmaf(v.x, x.y, acc.y);
+  acc.y = fmaf(v.y, x.x, acc.y);
+  return acc;
+}
+
+// a plus the a of the lane `off` away (a butterfly step of the reduction).
+__device__ __forceinline__ float shfl_add(float a, int off) {
+  return a + __shfl_xor_sync(0xffffffffu, a, off);
+}
+
+__device__ __forceinline__ float2 shfl_add(float2 a, int off) {
+  const float re = __shfl_xor_sync(0xffffffffu, a.x, off);
+  const float im = __shfl_xor_sync(0xffffffffu, a.y, off);
+  return make_float2(a.x + re, a.y + im);
+}
+
 // The product of block-row i, the body of both modes.  G: lanes per row
 // (a power of two <= 32).  Each warp covers 32 / G rows per pass; the
 // block's warps stride over the bs rows of block-row i.  Slot j's
@@ -130,8 +210,10 @@ __device__ __forceinline__ void load_x(const float* p, float (&v)[VEC]) {
 template <typename T, int VEC, bool BANDED>
 __device__ __forceinline__ void spmv_block_row(
     const T* __restrict__ vals, const int* __restrict__ cols_i,
-    const int* s_cols, const float* __restrict__ x, float* __restrict__ y,
-    long long i, int mb, int bs, int G) {
+    const int* s_cols, const typename Elem<T>::type* __restrict__ x,
+    typename Elem<T>::type* __restrict__ y, long long i, int mb, int bs,
+    int G) {
+  using X = typename Elem<T>::type;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int nwarps = blockDim.x >> 5;
@@ -145,27 +227,26 @@ __device__ __forceinline__ void spmv_block_row(
   for (int a0 = warp * rows_per_warp; a0 < bs;
        a0 += nwarps * rows_per_warp) {
     const int a = a0 + rsub;
-    float acc = 0.f;
+    X acc{};
     if (a < bs) {
       const T* row = vals_i + (long long)a * bs;
 #pragma unroll 4
       for (int j = 0; j < mb; ++j) {
         const long long col = BANDED ? s_cols[j] : __ldg(cols_i + j);
-        const float* xs = x + col * bs;
+        const X* xs = x + col * bs;
         const T* vr = row + j * blk;
         for (int c = sub; c < chunks; c += G) {
-          float v[VEC], xv[VEC];
+          X v[VEC], xv[VEC];
           Loader<T, VEC>::load(vr + c * VEC, v);
           load_x<VEC>(xs + c * VEC, xv);
 #pragma unroll
-          for (int k = 0; k < VEC; ++k) acc = fmaf(v[k], xv[k], acc);
+          for (int k = 0; k < VEC; ++k) acc = mac(v[k], xv[k], acc);
         }
       }
     }
     // Every lane of the warp takes part in the shuffles (the loop bound
     // is uniform across the warp); rows past bs contribute nothing.
-    for (int off = G >> 1; off > 0; off >>= 1)
-      acc += __shfl_xor_sync(0xffffffffu, acc, off);
+    for (int off = G >> 1; off > 0; off >>= 1) acc = shfl_add(acc, off);
     if (sub == 0 && a < bs) y[i * bs + a] = acc;
   }
 }
@@ -174,9 +255,9 @@ __device__ __forceinline__ void spmv_block_row(
 template <typename T, int VEC>
 __global__ void bell_spmv_kernel(const T* __restrict__ vals,
                                  const int* __restrict__ cols,
-                                 const float* __restrict__ x,
-                                 float* __restrict__ y, int mb, int bs,
-                                 int G) {
+                                 const typename Elem<T>::type* __restrict__ x,
+                                 typename Elem<T>::type* __restrict__ y,
+                                 int mb, int bs, int G) {
   const long long i = blockIdx.x;
   spmv_block_row<T, VEC, false>(vals, cols + i * mb, nullptr, x, y, i, mb,
                                 bs, G);
@@ -194,7 +275,8 @@ __global__ void __launch_bounds__(256, 8)
 bell_spmv_banded_kernel(const T* __restrict__ vals,
                         const int* __restrict__ cols,
                         const int* __restrict__ band_off,
-                        const float* __restrict__ x, float* __restrict__ y,
+                        const typename Elem<T>::type* __restrict__ x,
+                        typename Elem<T>::type* __restrict__ y,
                         long long nb, int mb, int bs, int G) {
   extern __shared__ int s_cols[];
   const long long i = blockIdx.x;
@@ -220,6 +302,7 @@ int launch(const void* vals, const void* cols, const void* band_off,
            void* stream) {
   // The library carries its own CUDA runtime: bind it to the caller's
   // device so the launch goes to the context that owns `stream`.
+  using X = typename Elem<T>::type;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const int G = next_pow2_capped(bs / VEC);
@@ -237,11 +320,10 @@ int launch(const void* vals, const void* cols, const void* band_off,
     }
     bell_spmv_banded_kernel<T, VEC><<<(unsigned)nb, warps * 32, smem, s>>>(
         (const T*)vals, (const int*)cols, (const int*)band_off,
-        (const float*)x, (float*)y, nb, mb, bs, G);
+        (const X*)x, (X*)y, nb, mb, bs, G);
   } else {
     bell_spmv_kernel<T, VEC><<<(unsigned)nb, warps * 32, 0, s>>>(
-        (const T*)vals, (const int*)cols, (const float*)x, (float*)y, mb,
-        bs, G);
+        (const T*)vals, (const int*)cols, (const X*)x, (X*)y, mb, bs, G);
   }
   return (int)cudaGetLastError();
 }
@@ -270,11 +352,23 @@ int launch_bf16(const void* vals, const void* cols, const void* band_off,
                                           mb, bs, device, stream);
 }
 
+template <bool BANDED>
+int launch_c64(const void* vals, const void* cols, const void* band_off,
+               const void* x, void* y, long long nb, int mb, int bs, int vec,
+               int device, void* stream) {
+  if (vec == 2)
+    return launch<float2, 2, BANDED>(vals, cols, band_off, x, y, nb, mb, bs,
+                                     device, stream);
+  return launch<float2, 1, BANDED>(vals, cols, band_off, x, y, nb, mb, bs,
+                                   device, stream);
+}
+
 }  // namespace
 
 // Plain C entry points for ctypes.  `vec` is the vector width the caller
-// checked the block size and pointer alignment for (16 bytes of values, or
-// 1); `band_off` the banded entries' plan, (mb,) int32 on the device.
+// checked the block size and pointer alignment for (16 bytes of values: 4
+// floats, 8 bfloat16 or 2 complex64; or 1); `band_off` the banded entries'
+// plan, (mb,) int32 on the device.
 // Each returns cudaGetLastError() after the launch (0 = launched).
 extern "C" int bell_spmv_f32(const void* vals, const void* cols,
                              const void* x, void* y, long long nb, int mb,
@@ -306,6 +400,22 @@ extern "C" int bell_spmv_banded_bf16vals(const void* vals, const void* cols,
                                          void* stream) {
   return launch_bf16<true>(vals, cols, band_off, x, y, nb, mb, bs, vec,
                            device, stream);
+}
+
+// Complex64 values, x and y (K5).
+extern "C" int bell_spmv_c64(const void* vals, const void* cols,
+                             const void* x, void* y, long long nb, int mb,
+                             int bs, int vec, int device, void* stream) {
+  return launch_c64<false>(vals, cols, nullptr, x, y, nb, mb, bs, vec,
+                           device, stream);
+}
+
+extern "C" int bell_spmv_banded_c64(const void* vals, const void* cols,
+                                    const void* band_off, const void* x,
+                                    void* y, long long nb, int mb, int bs,
+                                    int vec, int device, void* stream) {
+  return launch_c64<true>(vals, cols, band_off, x, y, nb, mb, bs, vec,
+                          device, stream);
 }
 
 extern "C" const char* bell_spmv_error_string(int code) {

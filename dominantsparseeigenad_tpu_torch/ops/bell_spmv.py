@@ -7,10 +7,11 @@ entries ``bell_spmv`` and ``bell_spmm``:
     y[i*bs + a]    = sum_j vals[i, j, a, b] @ x[cols[i, j]*bs + b]
     Y[i*bs + a, c] = sum_j vals[i, j, a, b] @ X[cols[i, j]*bs + b, c]
 
-``vals`` is (nb, max_blk, bs, bs) in float32/float64, or bfloat16
-storage that is upcast at the product; ``cols`` is (nb, max_blk) int32
-in [0, nb_cols); ``x`` is (nb_cols*bs,) and ``y`` (nb*bs,), ``X``
-(nb_cols*bs, r) and ``Y`` (nb*bs, r) row-major, in the compute dtype.
+``vals`` is (nb, max_blk, bs, bs) in float32/float64, complex64/
+complex128, or bfloat16 storage that is upcast at the product; ``cols``
+is (nb, max_blk) int32 in [0, nb_cols); ``x`` is (nb_cols*bs,) and ``y``
+(nb*bs,), ``X`` (nb_cols*bs, r) and ``Y`` (nb*bs, r) row-major, in the
+compute dtype.
 A square operator has nb_cols = nb; a rectangular row panel (one rank's
 block-rows of a row-sharded operator, ``parallel/sharded_sparse.py``)
 has nb block-rows against an x of any nb_cols block-columns.  Nothing
@@ -19,10 +20,15 @@ card): the operators check it once, when they are built.
 
 * On a CUDA tensor :func:`bell_spmv` launches the CUDA kernel in
   ``csrc/bell_spmv.cu`` and :func:`bell_spmm` the one in
-  ``csrc/bell_spmm.cu`` (float32 vectors; float32 or bfloat16 values;
-  any r >= 1: r <= 4 in one body, wider blocks in another that streams
-  the values once for up to 32 columns), or raise.  There is no
-  fallback.
+  ``csrc/bell_spmm.cu`` (float32 vectors with float32 or bfloat16
+  values; complex64 vectors with complex64 values, K5 and K6; any
+  r >= 1: for real values r <= 4 in one body, wider blocks in another
+  that streams the values once for up to 32 columns, which complex
+  values take at every r), or raise.  There is no fallback.
+* Real (float32 or bfloat16) values with a complex64 vector run the
+  real kernels on ``torch.view_as_real``: x (N,) as an (N, 2) block, X
+  (N, r) as (N, 2r), so one SpMM (K3, or K4b under a plan) gives the real
+  and imaginary parts at once, exactly as two real products would.
 * On a CPU tensor they take :func:`_bell_spmv_torch` /
   :func:`_bell_spmm_torch`, the plain PyTorch versions, which are also
   what the kernels are checked against on the card.
@@ -43,6 +49,12 @@ backward of :class:`_BellProduct`, as the JAX kernels' JVPs go through
 XLA; its forward-mode ``jvp`` runs the kernels on the tangents (the map is
 bilinear), to any order, and its ``vmap`` turns a batch of vectors into
 one SpMM, as JAX's ``bell_spmm`` is the batched ``bell_spmv``.
+
+Complex values: the product is holomorphic in ``vals`` and ``x``, so the
+``jvp`` is the same bilinear rule.  PyTorch's backward takes the
+conjugate cotangent ∂L/∂ȳ and returns ``x̄ = A^H ȳ`` and ``vals̄ = ȳ x^H``
+(the JAX cotangents' conjugates); :func:`_bell_rmatmat_torch` stays the
+bilinear ``A^T``, which an operator's ``rmatvec`` is.
 
 The kernels are compiled on first use with ``nvcc``, one process per
 source started together, and linked into one shared library with a plain
@@ -77,10 +89,12 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # square operator (x as long as y) in launch_counts, on a rectangular row
 # panel (x longer or shorter than y) in panel_launch_counts.  The banded
 # kernels run on square operators only.
-_SPMV_NAMES = ("bell_spmv_f32", "bell_spmv_bf16vals")
-_SPMM_NAMES = ("bell_spmm_f32", "bell_spmm_bf16vals")
-_BANDED_SPMV_NAMES = ("bell_spmv_banded_f32", "bell_spmv_banded_bf16vals")
-_BANDED_SPMM_NAMES = ("bell_spmm_banded_f32", "bell_spmm_banded_bf16vals")
+_SPMV_NAMES = ("bell_spmv_f32", "bell_spmv_bf16vals", "bell_spmv_c64")
+_SPMM_NAMES = ("bell_spmm_f32", "bell_spmm_bf16vals", "bell_spmm_c64")
+_BANDED_SPMV_NAMES = ("bell_spmv_banded_f32", "bell_spmv_banded_bf16vals",
+                      "bell_spmv_banded_c64")
+_BANDED_SPMM_NAMES = ("bell_spmm_banded_f32", "bell_spmm_banded_bf16vals",
+                      "bell_spmm_banded_c64")
 launch_counts = dict.fromkeys(_SPMV_NAMES + _SPMM_NAMES + _BANDED_SPMV_NAMES
                               + _BANDED_SPMM_NAMES, 0)
 panel_launch_counts = dict.fromkeys(_SPMV_NAMES + _SPMM_NAMES, 0)
@@ -189,6 +203,32 @@ def _library():
 # (r > 4) stages 128-row, 128-byte slices of a slot, whatever bs is.
 SPMM_MAX_BS = 1024
 
+# The value dtypes each vector dtype's kernels take, by entry suffix.
+_KERNEL_VALS = {torch.float32: {torch.float32: "f32",
+                                torch.bfloat16: "bf16vals"},
+                torch.complex64: {torch.complex64: "c64",
+                                  torch.float32: "f32",
+                                  torch.bfloat16: "bf16vals"}}
+
+
+def _dtype_suffix(vals, x) -> str:
+    """The kernel entry's dtype suffix for ``vals`` and ``x``, or raise
+    naming both dtypes.  Real values with a complex64 x name the real
+    entry, which runs on ``view_as_real(x)``."""
+    takes = _KERNEL_VALS.get(x.dtype)
+    if takes is None:
+        raise ValueError(f"the kernel takes float32 x (float32 or bfloat16 "
+                         f"values) or complex64 x (complex64, float32 or "
+                         f"bfloat16 values), got {x.dtype} x with "
+                         f"{vals.dtype} values")
+    if vals.dtype not in takes:
+        raise ValueError(
+            f"the kernel takes float32 or bfloat16 values with a {x.dtype} x"
+            + (" (complex64 values too)" if x.dtype.is_complex
+               else " (complex64 values take a complex64 x)")
+            + f", got {vals.dtype} values")
+    return takes[vals.dtype]
+
 
 def _check_kernel_args(vals, cols, x, plan=None) -> str:
     """Validate what the CUDA kernels take; return the kernel's name.
@@ -196,6 +236,8 @@ def _check_kernel_args(vals, cols, x, plan=None) -> str:
     ``x`` of shape (N,) goes to the SpMV kernel, (N, r) to the SpMM one;
     N may be any positive multiple of bs (a row panel's x), or exactly
     nb*bs for the banded kernels (``plan`` given, one entry per slot).
+    Real values with a complex64 x name the real SpMM, which runs on the
+    (re, im) columns.
     """
     kind = "bell_spmm" if x.ndim == 2 else "bell_spmv"
     if plan is not None:
@@ -231,15 +273,10 @@ def _check_kernel_args(vals, cols, x, plan=None) -> str:
                              f"got {bs}")
     if cols.dtype != torch.int32:
         raise ValueError(f"cols must be int32, got {cols.dtype}")
-    if x.dtype != torch.float32:
-        raise ValueError(f"the kernel takes float32 x, got {x.dtype}")
-    if vals.dtype == torch.float32:
-        name = f"{kind}_f32"
-    elif vals.dtype == torch.bfloat16:
-        name = f"{kind}_bf16vals"
-    else:
-        raise ValueError(f"the kernel takes float32 or bfloat16 values, "
-                         f"got {vals.dtype}")
+    suffix = _dtype_suffix(vals, x)
+    if x.is_complex() and not vals.is_complex():
+        kind = kind.replace("bell_spmv", "bell_spmm")   # (N, 2) columns
+    name = f"{kind}_{suffix}"
     for t, what in ((vals, "vals"), (cols, "cols"), (x, "x")):
         if not t.is_contiguous():
             raise ValueError(f"{what} must be contiguous")
@@ -292,8 +329,13 @@ def _band_offsets(plan, nb, device):
 
 def _launch(vals, cols, x, plan):
     """Launch the SpMV (x (N,)) or SpMM (X (N, r)) kernel, banded when
-    ``plan`` is given; return the output."""
+    ``plan`` is given; return the output.  A lazily conjugated or
+    negated view (``x.conj()``) is materialized first: the kernels read
+    the storage, which holds the unconjugated values."""
+    vals, x = (t.resolve_conj().resolve_neg() for t in (vals, x))
     name = _check_kernel_args(vals, cols, x, plan)
+    if x.is_complex() and not vals.is_complex():
+        return _on_real_columns(_launch, vals, cols, x, plan)
     nb, max_blk, bs, _ = vals.shape
     y = _output(vals, x)
     band = () if plan is None else \
@@ -309,6 +351,15 @@ def _launch(vals, cols, x, plan):
     _raise_on_error(name, err)
     _count_launch(name, vals, x)
     return y
+
+
+def _on_real_columns(product, vals, cols, x, plan):
+    """Real values times a complex ``x`` by one real ``product`` on its
+    (re, im) columns: (N,) as (N, 2), (N, r) as (N, 2r); exactly the real
+    products of the two parts."""
+    y = product(vals, cols, torch.view_as_real(x).reshape(x.shape[0], -1),
+                plan)
+    return torch.view_as_complex(y.reshape(*y.shape[:1], *x.shape[1:], 2))
 
 
 def _bell_spmv_cuda(vals, cols, x):
@@ -469,20 +520,24 @@ class _BellProduct(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, y_bar):
+        # y_bar is ∂L/∂ȳ: x_bar = A^H y_bar, vals_bar = y_bar x^H (for
+        # real tensors the conjugations are no-ops).  A real input takes
+        # the real part of its complex gradient, as PyTorch's own
+        # real-to-complex products do.
         vals, cols, x = ctx.saved_tensors
         nb, max_blk, bs, _ = vals.shape
         yb = y_bar.reshape(nb, bs, -1)                  # (nb, bs, r)
         vals_bar = x_bar = None
         if ctx.needs_input_grad[0]:
             # vals_bar[i, j, a, b] = sum_c y_bar[i*bs + a, c]
-            #                              * x[cols[i, j]*bs + b, c]
+            #                              * conj(x[cols[i, j]*bs + b, c])
             xg = x.reshape(-1, bs, yb.shape[-1])[cols.long()]
-            vals_bar = torch.matmul(yb[:, None], xg.transpose(-1, -2)).to(
-                vals.dtype)
+            vals_bar = _as_input(torch.matmul(
+                yb[:, None], xg.conj().transpose(-1, -2)), vals)
         if ctx.needs_input_grad[2]:
-            x_bar = _bell_rmatmat_torch(
-                vals, cols, y_bar.reshape(nb * bs, -1),
-                x.shape[0] // bs).reshape(x.shape)
+            x_bar = _as_input(_bell_rmatmat_torch(
+                vals.conj(), cols, y_bar.reshape(nb * bs, -1),
+                x.shape[0] // bs).reshape(x.shape), x)
         return vals_bar, None, x_bar, None
 
     @staticmethod
@@ -495,6 +550,14 @@ class _BellProduct(torch.autograd.Function):
         y = _BellProduct.apply(
             vals, cols, lanes.reshape(lanes.shape[0], -1).contiguous(), plan)
         return y.reshape(y.shape[0], *lanes.shape[1:]), lanes.ndim - 1
+
+
+def _as_input(grad, inp):
+    """A gradient in ``inp``'s dtype: the real part for a real input
+    (PyTorch's rule for a real tensor that meets a complex one)."""
+    if grad.is_complex() and not inp.is_complex():
+        grad = grad.real
+    return grad.to(inp.dtype)
 
 
 def _bare_plan(vals, cols, x, slot_plan):

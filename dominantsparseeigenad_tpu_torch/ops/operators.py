@@ -33,8 +33,7 @@ its first argument, :func:`pivot_gauge` fixes the phase (not only the
 sign) of an eigenvector, and ``rmatvec`` is the bilinear transpose
 ``A^T x`` (not the adjoint ``A^H x = conj(A^T conj(x))``, which the
 solvers that need it build themselves).  :func:`refuse_complex` remains
-for the operators whose hand-written kernels or physics have no complex
-form (``BellOperator`` and its row panels, the 2D Ising model).
+for the model whose physics has no complex form (the 2D Ising model).
 
 Transforms.  Every ``torch.autograd.Function`` of the port takes the
 operator's structure as a Python object and its tensors as explicit
@@ -127,6 +126,15 @@ def _promoted(a, b):
         return a, b
     dtype = torch.promote_types(a.dtype, b.dtype)
     return a.to(dtype), b.to(dtype)
+
+
+def promote_to(x, dtype):
+    """``x`` as complex when it is real and ``dtype`` (an operator's
+    compute dtype) is complex: a real vector meeting a complex operator,
+    as JAX promotes; otherwise ``x`` itself."""
+    if dtype.is_complex and not x.is_complex():
+        return x.to(torch.promote_types(x.dtype, dtype))
+    return x
 
 
 def hmatmul(a, b):

@@ -21,7 +21,8 @@ Counterpart of ``dominantsparseeigenad_tpu/ops/sparse.py``.
   tensor they take the plain versions.  An operator whose slots are ring
   bands (``random_bell_operator``'s all are) binds the banded slot plan,
   so its products run the kernels' banded mode, as the JAX operator's
-  run the banded Pallas kernel.
+  run the banded Pallas kernel.  Complex values (complex64 on the card:
+  K5 and K6) go through the same paths.
 """
 
 from __future__ import annotations
@@ -32,10 +33,9 @@ import math
 import numpy as np
 import torch
 
-from .bell_spmv import (_band_offsets, _bell_rmatmat_torch,
-                        _bell_rmatvec_torch, _BellProduct,
+from .bell_spmv import (_band_offsets, _bell_rmatmat_torch, _BellProduct,
                         _slot_plan_matches, detect_slot_plan)
-from .operators import (LinearOperator, outside_transforms, refuse_complex,
+from .operators import (LinearOperator, outside_transforms, promote_to,
                         resolve_device)
 
 
@@ -271,12 +271,6 @@ class BCOOOperator(_TripletOperator):
         return op
 
 
-# The JAX package's XLA path multiplies complex blocks, its Pallas kernel
-# does not; neither do the hand-written kernels here.
-BELL_COMPLEX = ("the blocked-ELL kernels (csrc/bell_spmv.cu, bell_spmm.cu) "
-                "have no complex dtype (ROADMAP.md queue 1 item 17)")
-
-
 class BellOperator(LinearOperator):
     """Blocked-ELLPACK sparse operator.
 
@@ -288,6 +282,16 @@ class BellOperator(LinearOperator):
     in ``compute_dtype`` (float32 by default for bf16 storage) and the
     blocks are upcast at the product, so the only rounding is storage,
     ``||δA|| <= 2^-8 ||A||`` once at write time.
+
+    Complex values (complex64 on the card, where the products run the
+    kernels K5 and K6; complex128 on the CPU): ``compute_dtype`` defaults
+    to ``vals.dtype``, and real values with a complex ``compute_dtype``
+    multiply complex vectors (on the card, the real kernels on the
+    vectors' real and imaginary parts).  A real vector given to a complex
+    operator is promoted to ``compute_dtype``.  ``symmetric=True`` means
+    A^T = A (``rmatvec`` is ``matvec``), as in the JAX package; ``rmatvec``
+    is the bilinear A^T x.  A complex Hermitian operator is not symmetric
+    in that sense: build it with ``symmetric=False``.
 
     ``slot_plan`` (JAX's): "auto" detects the banded slot plan from
     ``cols`` (``bell_spmv.detect_slot_plan``), None forces the gather
@@ -330,8 +334,6 @@ class BellOperator(LinearOperator):
         if compute_dtype is None:
             compute_dtype = (torch.float32 if vals.dtype == torch.bfloat16
                              else vals.dtype)
-        refuse_complex(vals.dtype, "vals", BELL_COMPLEX)
-        refuse_complex(compute_dtype, "compute_dtype", BELL_COMPLEX)
         self.vals = vals
         self.cols = cols
         self.n = int(n)
@@ -365,18 +367,33 @@ class BellOperator(LinearOperator):
         return cls(torch.from_numpy(vals).to(dev),
                    torch.from_numpy(cols).to(dev), n, symmetric=symmetric)
 
+    def _apply(self, vals, X):
+        """``A(vals) X`` for X (N,) or (N, r), a real X promoted to a
+        complex compute dtype (on a CUDA tensor the kernel, banded under
+        the plan)."""
+        return _BellProduct.apply(vals, self.cols,
+                                  promote_to(X, self.compute_dtype),
+                                  self.slot_plan)
+
+    def _apply_t(self, vals, X):
+        """``A(vals)^T X``, the bilinear transpose: the alias of
+        :meth:`_apply` when symmetric, else a scatter-transpose in plain
+        PyTorch (off the Lanczos loop)."""
+        if self.symmetric:
+            return self._apply(vals, X)
+        X = promote_to(X, self.compute_dtype)
+        block = X if X.ndim == 2 else X[:, None]
+        out = _bell_rmatmat_torch(vals, self.cols, block, self.vals.shape[0])
+        return out if X.ndim == 2 else out[:, 0]
+
     def matvec(self, x):
         if x.ndim != 1:
             raise ValueError(f"matvec takes x of shape (N,), got "
                              f"{tuple(x.shape)}")
-        return _BellProduct.apply(self.vals, self.cols, x, self.slot_plan)
+        return self._apply(self.vals, x)
 
     def rmatvec(self, x):
-        if self.symmetric:
-            return self.matvec(x)
-        # A^T x: scatter-transpose in plain PyTorch (off the Lanczos loop).
-        return _bell_rmatvec_torch(self.vals, self.cols, x,
-                                   self.vals.shape[0])
+        return self._apply_t(self.vals, x)
 
     def matmat(self, X):
         """``A @ X`` for an (N, r) block: one SpMM streams the values once
@@ -384,14 +401,13 @@ class BellOperator(LinearOperator):
         if X.ndim != 2:
             raise ValueError(f"matmat takes X of shape (N, r), got "
                              f"{tuple(X.shape)}")
-        return _BellProduct.apply(self.vals, self.cols, X, self.slot_plan)
+        return self._apply(self.vals, X)
 
     def tangent_matvec(self, x, dparams):
         """``(dA) x = A(dvals) x``: the same product on the tangent values
         (on a CUDA tensor the kernel, banded under the plan)."""
         (dvals,) = dparams
-        return _BellProduct.apply(dvals.contiguous(), self.cols, x,
-                                  self.slot_plan)
+        return self._apply(dvals.contiguous(), x)
 
     def tangent_matmat(self, X, dparams):
         """``(dA) X = A(dvals) X``: one SpMM on the tangent values (on a
@@ -400,23 +416,15 @@ class BellOperator(LinearOperator):
 
     def tangent_rmatvec(self, x, dparams):
         """``(dA)^T x = A(dvals)^T x`` (plain PyTorch, as :meth:`rmatvec`)."""
-        if self.symmetric:
-            return self.tangent_matvec(x, dparams)
         (dvals,) = dparams
-        return _bell_rmatvec_torch(dvals, self.cols, x, self.vals.shape[0])
+        return self._apply_t(dvals.contiguous(), x)
 
     def tangent_rmatmat(self, X, dparams):
         """``(dA)^T X`` (plain PyTorch, as :meth:`rmatmat`)."""
-        if self.symmetric:
-            return self.tangent_matmat(X, dparams)
-        (dvals,) = dparams
-        return _bell_rmatmat_torch(dvals, self.cols, X, self.vals.shape[0])
+        return self.tangent_rmatvec(X, dparams)
 
     def rmatmat(self, X):
-        if self.symmetric:
-            return self.matmat(X)
-        return _bell_rmatmat_torch(self.vals, self.cols, X,
-                                   self.vals.shape[0])
+        return self._apply_t(self.vals, X)
 
     def parameters(self):
         return [self.vals]
@@ -452,7 +460,6 @@ class BellOperator(LinearOperator):
         if vals.device != self.vals.device:
             raise ValueError(f"vals on {vals.device}, cols on "
                              f"{self.cols.device}")
-        refuse_complex(vals.dtype, "vals", BELL_COMPLEX)
         op = copy.copy(self)
         op.vals = vals
         return op
@@ -489,7 +496,9 @@ def random_bell_operator(n: int, bs: int, blocks_per_row: int, *,
     The structure is the JAX ``random_bell_operator``'s exactly: the
     diagonal block (symmetrized) plus pairs of bands at offsets ±o drawn
     from ``np.random.default_rng(7)``, the -o band the transpose of the +o
-    band, entries scaled by ``1/sqrt(blocks_per_row * bs)``.  So ``cols``
+    band, entries scaled by ``1/sqrt(blocks_per_row * bs)``.  A complex
+    ``dtype`` gives a complex symmetric operator (A^T = A, not Hermitian),
+    as JAX's does.  So ``cols``
     equals the JAX operator's, and every slot is a ring band: the
     operator binds an all-band slot plan.  The values come from ``generator`` (seeded
     0 on the device when None) and are made on the device, one band at a

@@ -38,6 +38,12 @@ Forward mode: the tangent products run the same panel kernels on the
 tangent of the panel.  The collectives' backwards are differentiable, so
 derivatives of any order go through the operator.
 
+Complex values run as on a square ``BellOperator``: a complex64 panel
+on the card runs the complex kernels (K5, K6) on the rank's rows, the
+gather and the all-reduce carry complex tensors, a real vector meeting a
+complex operator is promoted, and ``rmatvec`` stays the bilinear A^T (a
+complex Hermitian operator is built with ``symmetric=False``).
+
 The ``ring`` mode (the vector hops rank to rank, never whole on one
 rank) needs sharded vectors and is not ported (``ROADMAP.md``).
 """
@@ -49,14 +55,9 @@ import math
 import torch
 
 from ..ops.bell_spmv import _bell_rmatmat_torch, bell_spmm, bell_spmv
-from ..ops.operators import LinearOperator, refuse_complex
+from ..ops.operators import LinearOperator, promote_to
 from .collectives import gather_rows, replicate, sum_over_ranks
 from .mesh import make_mesh
-
-# The JAX package's blocked-ELL values may be complex (on its XLA path);
-# the panels' kernels are real only, as the square ones are.
-SHARDED_COMPLEX = ("the row-sharded blocked-ELL panels run the real "
-                   "kernels only (ROADMAP.md queue 1 item 17)")
 
 
 def _check_mode(mode):
@@ -90,7 +91,6 @@ class RowShardedBellOperator(LinearOperator):
                  mode: str = "all_gather", symmetric: bool = False,
                  compute_dtype=None):
         _check_mode(mode)
-        refuse_complex(vals.dtype, "vals", SHARDED_COMPLEX)
         if vals.ndim != 4:
             raise ValueError(f"vals must be (nb, max_blk, bs, bs), got "
                              f"{tuple(vals.shape)}")
@@ -159,9 +159,11 @@ class RowShardedBellOperator(LinearOperator):
 
     def _apply(self, vals, X):
         """``A(vals) X`` for X (N,) or (N, r): the panel product of the
-        rank's rows (on the card the panel SpMV or SpMM kernel, K4a),
-        then the gather of the row blocks."""
+        rank's rows (on the card the panel SpMV or SpMM kernel, K4a, or
+        the complex ones on a complex panel), then the gather of the row
+        blocks."""
         product = bell_spmv if X.ndim == 1 else bell_spmm
+        X = promote_to(X, self.compute_dtype)
         return gather_rows(product(vals, self.cols, replicate(X, self.group)),
                            self.group)
 
@@ -171,6 +173,7 @@ class RowShardedBellOperator(LinearOperator):
         summed over ranks (the JAX package's psum_scatter, replicated)."""
         if self.symmetric:
             return self._apply(vals, X)
+        X = promote_to(X, self.compute_dtype)
         block = X if X.ndim == 2 else X[:, None]
         part = _bell_rmatmat_torch(vals, self.cols,
                                    self._rows(replicate(block, self.group)),

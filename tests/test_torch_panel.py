@@ -167,8 +167,8 @@ def test_panel_launches_are_counted_apart():
         spmv._count_launch("bell_spmm_f32", vals, _meta((48, 3)))
         spmv._count_launch("bell_spmv_f32", vals, _meta((32,)))
         assert spmv.panel_launch_counts == {
-            "bell_spmv_f32": 1, "bell_spmv_bf16vals": 0, "bell_spmm_f32": 1,
-            "bell_spmm_bf16vals": 0}
+            "bell_spmv_f32": 1, "bell_spmv_bf16vals": 0, "bell_spmv_c64": 0,
+            "bell_spmm_f32": 1, "bell_spmm_bf16vals": 0, "bell_spmm_c64": 0}
         assert spmv.launch_counts["bell_spmv_f32"] == 1
         spmv.reset_launch_counts()
         assert not any(spmv.panel_launch_counts.values())

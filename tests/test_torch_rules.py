@@ -518,10 +518,6 @@ def _complex_hermitian():
     return (a + a.conj().T) / 2
 
 
-_BELL = (r"blocked-ELL kernels .* have no complex dtype "
-         r"\(ROADMAP\.md queue 1 item 17\)")
-_SHARDED = (r"row-sharded blocked-ELL panels run the real kernels only "
-            r"\(ROADMAP\.md queue 1 item 17\)")
 _ISING = r"real weights, tensors and transfer matrices"
 
 
@@ -530,24 +526,9 @@ def _complex_calls():
     its message must name.  Every other entry point takes complex input
     now and is held against the JAX package in
     ``tests/test_torch_complex.py::test_complex_input_matches_jax``."""
-    h = _complex_hermitian()
-    vals = torch.zeros(2, 1, 8, 8, dtype=torch.complex128)
-    cols = torch.zeros(2, 1, dtype=torch.int32)
-    real_vals = vals.real.contiguous()
     ising = dict(dtype=torch.complex128, device="cpu")
     flow = dict(chi=4, n_steps=2, **ising)
     return {
-        "BellOperator vals": (
-            lambda: port.BellOperator(vals, cols, 16), _BELL),
-        "BellOperator compute_dtype": (
-            lambda: port.BellOperator(real_vals, cols, 16,
-                                      compute_dtype=torch.complex128),
-            _BELL),
-        "BellOperator.with_vals": (
-            lambda: port.BellOperator(real_vals, cols, 16).with_vals(vals),
-            _BELL),
-        "RowShardedBellOperator": (
-            lambda: port.RowShardedBellOperator(vals, cols, 16), _SHARDED),
         "ising_vertex_tensor": (
             lambda: models.ising_vertex_tensor(0.5, **ising), _ISING),
         "onsager_free_energy": (
@@ -567,23 +548,103 @@ def _complex_calls():
 
 @pytest.mark.parametrize("name", sorted(_complex_calls()))
 def test_complex_input_is_refused(name):
-    """Where the port has no complex form (the blocked-ELL kernels, on a
-    square operator or a row panel, the real Ising model) complex input
-    is refused with
-    a TypeError that names the reason and its ROADMAP.md item, not failed
+    """Where the port has no complex form (the real Ising model) complex
+    input is refused with a TypeError that names the reason, not failed
     with incidental errors."""
     call, reason = _complex_calls()[name]
     with pytest.raises(TypeError, match=reason):
         call()
 
 
+def _bell_complex_cases():
+    """The blocked-ELL calls that refused complex values until the
+    complex kernels came, each as ``(port call, JAX call)`` of the vals,
+    cols and x of a 16 x 16 complex128 operator (2 x 2 blocks of 8);
+    the row-sharded one on a one-rank group."""
+    rng = np.random.default_rng(17)
+    vals = (rng.standard_normal((2, 2, 8, 8))
+            + 1j * rng.standard_normal((2, 2, 8, 8)))
+    cols = np.array([[0, 1], [1, 0]], np.int32)
+    x = rng.standard_normal(16) + 1j * rng.standard_normal(16)
+
+    def jax_bell(v, **kw):
+        import jax.numpy as jnp
+        from dominantsparseeigenad_tpu import BellOperator
+        return BellOperator(jnp.asarray(v), jnp.asarray(cols), 16,
+                            use_pallas=False, **kw)
+
+    def bell(v, **kw):
+        return port.BellOperator(torch.from_numpy(v), torch.from_numpy(cols),
+                                 16, **kw)
+
+    c128 = dict(compute_dtype=torch.complex128)
+    return {
+        "BellOperator vals": (lambda: bell(vals), lambda: jax_bell(vals)),
+        "BellOperator compute_dtype": (
+            lambda: bell(vals.real.copy(), **c128),
+            lambda: jax_bell(vals.real.copy(), compute_dtype="complex128")),
+        "BellOperator.with_vals": (
+            lambda: bell(vals.real.copy()).with_vals(torch.from_numpy(vals)),
+            lambda: jax_bell(vals.real.copy()).with_vals(vals)),
+        "RowShardedBellOperator": (
+            lambda: port.RowShardedBellOperator(
+                torch.from_numpy(vals), torch.from_numpy(cols), 16),
+            lambda: jax_bell(vals)),
+    }, x
+
+
+@pytest.mark.parametrize("name", sorted(_bell_complex_cases()[0]))
+def test_complex_bell_calls_match_jax(name, tmp_path):
+    """The four blocked-ELL calls that refused complex values until the
+    complex kernels (K5, K6) take them, and their A x and bilinear A^T x
+    are the JAX package's (1e-12)."""
+    cases, x = _bell_complex_cases()
+    port_call, jax_call = cases[name]
+    group = name == "RowShardedBellOperator"
+    if group:
+        port.init_distributed("gloo", f"file://{tmp_path}/store", 0, 1)
+    try:
+        op = port_call()
+        got = [op.matvec(torch.from_numpy(x)), op.rmatvec(torch.from_numpy(x))]
+    finally:
+        if group:
+            torch.distributed.destroy_process_group()
+    jop = jax_call()
+    want = [np.asarray(jop.matvec(x)), np.asarray(jop.rmatvec(x))]
+    # with_vals keeps the compute dtype, in both packages.
+    assert str(op.dtype) == f"torch.{np.dtype(jop.dtype).name}"
+    for g, w in zip(got, want):
+        assert g.dtype == torch.complex128
+        assert np.abs(g.numpy() - w).max() <= 1e-12 * np.abs(w).max()
+
+
+@pytest.mark.parametrize("vals_dtype, x_dtype", [
+    (torch.complex128, torch.complex128),
+    (torch.complex64, torch.complex128),
+    (torch.complex64, torch.float32),
+], ids=["complex128", "complex128_x", "complex_values_real_x"])
+def test_kernel_arguments_refuse_other_complex_dtypes(vals_dtype, x_dtype):
+    """The CUDA kernels take complex64 values with a complex64 x (and
+    real values with it); complex128, or complex values with a real x,
+    are refused, on any device, with both dtypes named."""
+    spmv = importlib.import_module(
+        "dominantsparseeigenad_tpu_torch.ops.bell_spmv")
+    vals = torch.zeros(2, 1, 8, 8, dtype=vals_dtype)
+    with pytest.raises(ValueError) as err:
+        spmv._check_kernel_args(vals, torch.zeros(2, 1, dtype=torch.int32),
+                                torch.zeros(16, dtype=x_dtype))
+    assert str(vals_dtype) in str(err.value)
+    assert str(x_dtype) in str(err.value)
+
+
 def test_no_message_names_the_finished_or_a_wrong_item():
-    """The complex item (5) and the formats and algebra (items 6 and 7)
-    are done, and the sharded tier's refusals name item 14, not item 12
-    (the spectral tiers)."""
+    """The complex items (5, and 17, the blocked-ELL values) and the
+    formats and algebra (items 6 and 7) are done, and the sharded tier's
+    refusals name item 14, not item 12 (the spectral tiers)."""
     for path in _sources():
         text = path.read_text()
         assert "queue 1 item 5)" not in text, path.name
+        assert "queue 1 item 17)" not in text, path.name
         assert not re.search(r"items\s+6\s+and\s+7", text), path.name
         if path.parent.name == "parallel":
             assert "queue 1 item 12)" not in text, path.name

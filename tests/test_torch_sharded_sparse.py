@@ -9,6 +9,11 @@ global numpy arrays, computes everything below, and sends it back; the
 tests compare with JAX, computed in this process.  The rank processes
 import no JAX: this module imports it only inside the functions that
 compute the expected values.
+
+A complex Hermitian blocked-ELL operator (complex128, ``symmetric=False``)
+runs through the same ranks: its panels' products, λ and v, and the
+gradient, against the JAX ``RowShardedBellOperator`` on the same values
+(PyTorch's gradient of a complex leaf is the conjugate of JAX's).
 """
 
 import functools
@@ -55,6 +60,20 @@ def _inputs():
     eig = bell(5, 64, 3)
     dense = np.asarray(BellOperator(jnp.asarray(eig[0]), jnp.asarray(eig[1]),
                                     64, use_pallas=False).to_dense())
+    # Complex Hermitian, block-sparse (8 x 8 blocks of 8, about a third
+    # kept, the pattern symmetric).
+    rng = np.random.default_rng(29)
+    keep = rng.random((8, 8)) < 0.3
+    keep = keep | keep.T | np.eye(8, dtype=bool)
+    c = (rng.standard_normal((64, 64)) + 1j * rng.standard_normal((64, 64))) \
+        * np.kron(keep, np.ones((8, 8)))
+    cherm = BellOperator.from_dense(jnp.asarray((c + c.conj().T) / 2), bs=8,
+                                    use_pallas=False)
+
+    def cvec(*shape):
+        return rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+
+    cx, cX, cw = cvec(64), cvec(64, 3), cvec(64)
     rng = np.random.default_rng(0)
     return {
         "sym": bell(5, 128, 5),
@@ -69,6 +88,10 @@ def _inputs():
         "v0": rng.standard_normal(64),
         "x0": np.asarray(jax.random.normal(jax.random.PRNGKey(0),
                                            (128, R_MULTI), jnp.float64)),
+        "cherm": (np.asarray(cherm.vals), np.asarray(cherm.cols), 64),
+        "cx": cx, "cX": cX, "cw": cw,
+        "cv0": np.asarray(jax.random.normal(jax.random.PRNGKey(0), (64,),
+                                            jnp.complex128)),
     }
 
 
@@ -143,6 +166,20 @@ def _compute(inp):
                                   device="cpu")
     lam_d.backward()
     out["dense_lam"], out["dense_grad"] = float(lam_d), a.grad.numpy()
+
+    # Complex values, square panels of a Hermitian operator.
+    cop = _sharded(inp["cherm"], symmetric=False)
+    out["cx_dtypes"] = (str(cop.vals.dtype), str(cop.dtype))
+    cx = _t(inp["cx"])
+    out["cx_matvec"] = cop.matvec(cx).numpy()
+    out["cx_matmat"] = cop.matmat(_t(inp["cX"])).numpy()
+    out["cx_rmatvec"] = cop.rmatvec(cx).numpy()
+    panel, op = _leaf(cop)
+    lam, v = port.dominant_eigh(op, k=K_EIG, tol=1e-12, v0=_t(inp["cv0"]),
+                                device="cpu")
+    (lam + torch.vdot(_t(inp["cw"]), v).abs() ** 2).backward()
+    out["cx_lam"], out["cx_v"] = float(lam.detach()), v.detach().numpy()
+    out["cx_grad_panel"] = panel.grad.numpy()
 
     out["ring_error"] = _error(lambda: port.RowShardedBellOperator(
         _t(inp["sym"][0]), _t(inp["sym"][1]), 128, mode="ring"))
@@ -244,11 +281,14 @@ def _jax_sharded(p):
     sop, nop, bop = (sharded(inp["sym"]),
                      sharded(inp["nonsym"], symmetric=False),
                      sharded(inp["bf16"]))
+    cop = sharded(inp["cherm"], symmetric=False)
     eop, dop = sharded(inp["eig"]), RowShardedOperator(
         jnp.asarray(inp["dense"]), mesh)
     x, x64, x32 = vec(inp["x"]), vec(inp["x64"]), vec(inp["x32"])
-    X = jax.device_put(jnp.asarray(inp["X"]), jax.sharding.NamedSharding(
-        mesh, jax.sharding.PartitionSpec("shards", None)))
+    rows = jax.sharding.NamedSharding(
+        mesh, jax.sharding.PartitionSpec("shards", None))
+    X = jax.device_put(jnp.asarray(inp["X"]), rows)
+    cx, cX = vec(inp["cx"]), jax.device_put(jnp.asarray(inp["cX"]), rows)
 
     def bilinear(vals, xx):
         y = nop.with_vals(vals).matvec(xx)
@@ -263,11 +303,18 @@ def _jax_sharded(p):
                 "matvec_grad_vals": g_vals, "matvec_grad_x": g_x,
                 "bf16_matvec": bop.matvec(x32),
                 "dense_matvec": dop.matvec(x64),
-                "dense_rmatvec": dop.rmatvec(x64)}
+                "dense_rmatvec": dop.rmatvec(x64),
+                "cx_matvec": cop.matvec(cx), "cx_matmat": cop.matmat(cX),
+                "cx_rmatvec": cop.rmatvec(cx)}
 
     def eig_loss(vals):
         lam, v = dominant_eigh(eop.with_vals(vals), k=K_EIG, tol=1e-12)
         return lam + jnp.sum(v ** 4), (lam, v)
+
+    def cx_loss(vals):
+        lam, v = dominant_eigh(cop.with_vals(vals), k=K_EIG, tol=1e-12)
+        return lam + jnp.abs(jnp.vdot(jnp.asarray(inp["cw"]), v)) ** 2, \
+            (lam, v)
 
     def dense_lam(a):
         return dominant_eigh(RowShardedOperator(a, mesh), k=K_EIG)[0]
@@ -275,6 +322,8 @@ def _jax_sharded(p):
     out = jax.jit(products)()
     out["eig_grad"], (out["lam"], out["v"]) = jax.jit(
         jax.grad(eig_loss, has_aux=True))(eop.vals)
+    out["cx_grad"], (out["cx_lam"], out["cx_v"]) = jax.jit(
+        jax.grad(cx_loss, has_aux=True))(cop.vals)
     out["multi_lams"], out["multi_V"] = dominant_eigh_multi(
         sharded(inp["multi"]), r=R_MULTI, k=K_MULTI, method="lobpcg",
         tol=1e-9)
@@ -394,6 +443,28 @@ def test_dense_row_sharded_operator_matches_jax(ranks):
         own = slice(rank * n_l, (rank + 1) * n_l)
         assert _rel(res["dense_grad"][own], want["dense_grad"][own]) <= 1e-8
         assert not np.delete(res["dense_grad"], own, axis=0).any()
+
+
+def test_complex_bell_matches_jax(ranks):
+    """Complex128 panels of a Hermitian operator built with
+    ``symmetric=False`` (the values carried across by
+    ``row_sharded_bell_operator_from_numpy`` in their dtype): A x, A X
+    and the bilinear A^T x; λ and v (pivot gauge); and
+    ∂(λ + |<w, v>|²)/∂vals, the rank panels concatenated, against
+    conj(jax.grad)."""
+    p, results = ranks
+    want = _jax_sharded(p)
+    for res in results:
+        assert res["cx_dtypes"] == ("torch.complex128", "torch.complex128")
+        for key in ("cx_matvec", "cx_matmat", "cx_rmatvec"):
+            err = np.abs(res[key] - want[key]).max()
+            assert err <= 1e-12 * np.abs(want[key]).max(), key
+        assert abs(res["cx_lam"] - want["cx_lam"]) <= \
+            1e-10 * abs(want["cx_lam"])
+        assert np.abs(res["cx_v"] - want["cx_v"]).max() <= 1e-8
+    grad = np.concatenate(_each_rank(results, "cx_grad_panel"))
+    assert np.abs(grad - np.conj(want["cx_grad"])).max() <= \
+        1e-6 * np.abs(want["cx_grad"]).max()
 
 
 def test_construction_errors(ranks):

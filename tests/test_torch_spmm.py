@@ -214,10 +214,11 @@ def test_build_hashes_every_source(tmp_path, monkeypatch):
                                                  "bell_spmv.cu"]
     assert "arch=compute_90a,code=sm_90a" in spmv.NVCC_FLAGS
     assert set(spmv.launch_counts) == {
-        "bell_spmv_f32", "bell_spmv_bf16vals", "bell_spmm_f32",
-        "bell_spmm_bf16vals", "bell_spmv_banded_f32",
-        "bell_spmv_banded_bf16vals", "bell_spmm_banded_f32",
-        "bell_spmm_banded_bf16vals"}
+        "bell_spmv_f32", "bell_spmv_bf16vals", "bell_spmv_c64",
+        "bell_spmm_f32", "bell_spmm_bf16vals", "bell_spmm_c64",
+        "bell_spmv_banded_f32", "bell_spmv_banded_bf16vals",
+        "bell_spmv_banded_c64", "bell_spmm_banded_f32",
+        "bell_spmm_banded_bf16vals", "bell_spmm_banded_c64"}
     # An edit to either source names another library, so it is rebuilt.
     for src in spmv._sources():
         (tmp_path / src.name).write_bytes(src.read_bytes())
