@@ -393,6 +393,31 @@ line each:
    miss), a ``--log`` record a point where it logs, the panel kernels on
    the sharded ranks and the banded ones on the local operator.
 
+24. ``sharded_vectors`` (right after ``sharded``): the sharded-vector
+   layout and ring mode, two gloo ranks sharing the card.  Config #5
+   (the ``sharded`` phase's operator and start vectors) as one panel
+   behind three operators: the replicated-vector one, and ``all_gather``
+   and ``ring`` over sharded vectors.  (a) ``matvec`` and ``matmat``
+   (r = 8) against the replicated operator's rows: all_gather bit for
+   bit, ring at 1e-5.  (b) ``ring_offsets`` against the bucketing of
+   ``cols`` computed apart, ``ring_hops``, and a ring matvec's
+   ``ppermute`` count.  (c) ``dominant_eigh`` (k = 100) in both modes: λ
+   against the replicated run (1e-5), ∂λ/∂panel against v⊗v on the
+   rank's rows (1e-5), the ranks' λ bitwise equal with the same
+   collectives.  (d) LOBPCG (r = 8, ring) against the replicated run.
+   (e) The bucket launches, counted apart: one gather kernel per active
+   offset per product.  The sharded TFIM at N = 20 over sharded vectors
+   (E0, dE0/dg in both modes, d²E0/dg² against Jordan-Wigner), its
+   matvec beside the replicated layout's; an (N/p, 8) Lanczos basis saved
+   by both ranks and read back bit for bit; each mode's matvec and
+   matmat times, the bucket gathers' share of a ring matvec, the peak
+   memory; the ``sharded_sparse`` driver in ``--mode ring``; then, in
+   this process, each config-#5 bucket of rank 0 on the SpMV and SpMM
+   kernels against the plain version, with kernel, plain, bound,
+   library and gather times (the ring rows of the ``kernels`` line).
+   Every time is that of ranks sharing one card over gloo, not a
+   multi-GPU number.
+
 Then a ``kernels`` line (each SpMM entry with its config-#5 times, bound
 and library time at every r of ``spmm``, the panel entries at r = 8 and
 16, the complex64 entries at every r of ``complex_bell``, under
@@ -474,6 +499,15 @@ SHARDED_CX = (256, 60, 12)             # n, k, numpy seed
 SHARDED_CX_RTOL = {"lam": 1e-10, "dlam_dt": 1e-8}
 BATCH_RANKS, BATCH_SHARDS, BATCH_TFIM_N = 4, 2, 16
 BATCH_G = (1.0, 1.2)                   # one coupling a batch row
+# The sharded_vectors phase (2 ranks sharing the card over gloo): config #5
+# over vectors sharded across the ranks, all_gather and ring mode, held
+# against the replicated-vector operator at the same p (all_gather bit for
+# bit, ring at SV_RTOL: f32 sums of the ring's buckets in another order),
+# dominant_eigh (k = K) and LOBPCG (r = MULTI_R) against the replicated
+# run at SV_RTOL; the sharded TFIM at N = 20 over sharded vectors at the
+# sharded phase's bars; a checkpoint of an (N/p, SV_CKPT_K) basis.
+SV_RTOL = 1e-5
+SV_CKPT_K = 8
 FWD_CG_MAXITER = 300                   # the forward-mode tangent's CG
 # The bf16 basis's polish held against a float64 Newton step from the same
 # Ritz pair: both CGs capped at this many iterations, where a float32 CG
@@ -2717,6 +2751,481 @@ def sharded_added_checks(added, checks):
     })
     return launches
 
+
+
+def ring_offsets_of(cols, p):
+    """The active ring offsets of a blocked-ELL ``cols`` (numpy, global)
+    split over p ranks, ascending: o such that some slot of a row owned by
+    rank d reads a block-column owned by rank (d + o) % p (the definition
+    of the JAX package's ``_bucket_by_offset``, computed here apart)."""
+    nb = cols.shape[0]
+    nb_l = nb // p
+    owner = np.arange(nb)[:, None] // nb_l
+    return tuple(int(o) for o in np.unique((cols // nb_l - owner) % p))
+
+
+def _sv_counts(spmv):
+    from dominantsparseeigenad_tpu_torch.parallel import collectives
+    return (dict(spmv.ring_launch_counts), dict(spmv.panel_launch_counts),
+            dict(spmv.launch_counts), dict(collectives.collective_counts))
+
+
+def _sv_diff(after, before):
+    return [{k: a[k] - b[k] for k in a if a[k] != b[k]}
+            for a, b in zip(after, before)]
+
+
+def _sharded_vector_solves(sg):
+    """One rank of the sharded_vectors phase (module docstring)."""
+    import importlib
+    import dominantsparseeigenad_tpu_torch as pkg
+    from dominantsparseeigenad_tpu_torch import models, utils
+    from dominantsparseeigenad_tpu_torch.parallel import collectives
+    spmv = importlib.import_module("dominantsparseeigenad_tpu_torch.ops."
+                                   "bell_spmv")
+    t_rank = time.perf_counter()
+    n, bs, bpr = CONFIG5
+    r = MULTI_R
+    gen = torch.Generator(device=DEVICE).manual_seed(7)
+    op = pkg.random_bell_operator(n, bs, bpr, generator=gen, device=DEVICE)
+    v0 = torch.randn(n, generator=gen, device=DEVICE)
+    torch.randn(n, generator=gen, device=DEVICE)        # the sharded c
+    x0 = torch.randn(n, r, generator=gen, device=DEVICE)
+    offsets_indep = ring_offsets_of(op.cols.cpu().numpy(), sg.size)
+    # One panel for the three operators: the replicated-vector one (the
+    # default layout), all_gather and ring over sharded vectors.
+    rep = pkg.RowShardedBellOperator.from_bell(op, sg)
+    ag = pkg.RowShardedBellOperator.from_bell(
+        op, sg, vectors="sharded").with_vals(rep.vals)
+    t0 = time.perf_counter()
+    ring = pkg.RowShardedBellOperator.from_bell(
+        op, sg, mode="ring", vectors="sharded").with_vals(rep.vals)
+    t_bucket_build = time.perf_counter() - t0
+    del op
+    torch.cuda.empty_cache()
+    lay = ag.vector_layout
+    n_off = len(ring.ring_offsets)
+    m_o = [int(b[1].shape[1]) for b in ring._buckets]
+    v0_s, x0_s = lay.rows(v0).clone(), lay.rows(x0).clone()
+    out = {"rank": sg.rank, "world": sg.size, "offsets": ring.ring_offsets,
+           "hops": ring.ring_hops, "offsets_indep": offsets_indep,
+           "bucket_slots": m_o, "bucket_build_s": t_bucket_build}
+
+    # Warm-up through the same calls on a small sharded operator.
+    small = pkg.random_bell_operator(1 << 14, bs, bpr, generator=gen,
+                                     device=DEVICE)
+    for mode in ("all_gather", "ring"):
+        w = pkg.RowShardedBellOperator.from_bell(small, sg, mode=mode,
+                                                 vectors="sharded")
+        w = w.with_vals(w.vals.clone().requires_grad_(True))
+        lam_w, _ = pkg.dominant_eigh(w, k=20, device=DEVICE)
+        lam_w.backward()
+        pkg.dominant_eigh_multi(w, r=r, k=r, method="lobpcg", device=DEVICE)
+    del small, w, lam_w
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    # ---- (a), (b), (e): the products, counted --------------------------
+    spmv.reset_launch_counts()
+    collectives.reset_collective_counts()
+    with torch.no_grad():
+        y_rep = lay.rows(rep.matvec(v0))
+        Y_rep = lay.rows(rep.matmat(x0))
+        before = _sv_counts(spmv)
+        y_ag = ag.matvec(v0_s)
+        mid = _sv_counts(spmv)
+        y_ring = ring.matvec(v0_s)
+        after = _sv_counts(spmv)
+        Y_ag = ag.matmat(x0_s)
+        mid2 = _sv_counts(spmv)
+        Y_ring = ring.matmat(x0_s)
+        after2 = _sv_counts(spmv)
+    out.update({
+        "ag_matvec_bitwise": bool(torch.equal(y_ag, y_rep)),
+        "ag_matmat_bitwise": bool(torch.equal(Y_ag, Y_rep)),
+        "ring_matvec_rel": rel_err(y_ring, y_rep),
+        "ring_matmat_rel": rel_err(Y_ring, Y_rep),
+        "ag_matvec_counts": _sv_diff(mid, before),
+        "ring_matvec_counts": _sv_diff(after, mid),
+        "ring_matmat_counts": _sv_diff(after2, mid2)})
+    del y_rep, Y_rep, y_ag, Y_ag, y_ring, Y_ring
+
+    # ---- (c): dominant_eigh, both modes, against the replicated run -----
+    solve = dict(k=K, extreme="min", tol=CG_TOL, device=DEVICE)
+    with torch.no_grad():
+        lam_rep = float(pkg.dominant_eigh(rep, v0=v0, **solve)[0])
+    out["lam_replicated"] = lam_rep
+    collectives.reset_collective_counts()
+    eigh = {}
+    for mode, sop in (("all_gather", ag), ("ring", ring)):
+        panel = sop.vals.clone().requires_grad_(True)
+        before = _sv_counts(spmv)
+        t0 = time.perf_counter()
+        lam, v = pkg.dominant_eigh(sop.with_vals(panel), v0=v0_s, **solve)
+        torch.cuda.synchronize()
+        t_fwd = time.perf_counter() - t0
+        mid = _sv_counts(spmv)
+        t0 = time.perf_counter()
+        (g_lam,) = torch.autograd.grad(lam, panel)
+        torch.cuda.synchronize()
+        t_bwd = time.perf_counter() - t0
+        after = _sv_counts(spmv)
+        with torch.no_grad():
+            # ∂λ/∂panel = v[rows] ⊗ v[cols] on the panel's pattern.
+            vb = pkg.row_sharding(sg).gather(v.detach()).reshape(-1, bs)
+            nb_l = panel.shape[0]
+            expect = vb[sg.rank * nb_l:(sg.rank + 1) * nb_l][:, None, :,
+                                                              None] \
+                * vb[sop.cols.long()][:, :, None, :]
+            dlam_err = rel_err(g_lam, expect)
+            del expect
+        eigh[mode] = {"lam": float(lam), "lam_hex": float(lam).hex(),
+                      "lam_vs_replicated": abs(float(lam) - lam_rep)
+                      / abs(lam_rep),
+                      "dlam_dpanel_rel_err": dlam_err,
+                      "forward_s": t_fwd, "backward_lam_s": t_bwd,
+                      "forward_counts": _sv_diff(mid, before),
+                      "backward_counts": _sv_diff(after, mid),
+                      "finite": bool(torch.isfinite(v).all()
+                                     and torch.isfinite(g_lam).all())}
+        del panel, lam, v, g_lam
+    out["eigh"] = eigh
+    out["eigh_collectives"] = dict(collectives.collective_counts)
+
+    # ---- (d): LOBPCG in ring mode against the replicated run -------------
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        lams_rep, _, info_rep = pkg.dominant_eigh_multi(
+            rep, r=r, k=LOBPCG_ITERS, method="lobpcg", tol=CG_TOL, x0=x0,
+            with_info=True, device=DEVICE)
+        torch.cuda.synchronize()
+        t_rep = time.perf_counter() - t0
+        before = _sv_counts(spmv)
+        t0 = time.perf_counter()
+        lams, _, info = pkg.dominant_eigh_multi(
+            ring, r=r, k=LOBPCG_ITERS, method="lobpcg", tol=CG_TOL, x0=x0_s,
+            with_info=True, device=DEVICE)
+        torch.cuda.synchronize()
+        t_ring = time.perf_counter() - t0
+        after = _sv_counts(spmv)
+    out["lobpcg"] = {
+        "lams": lams.tolist(), "lams_hex": [float(t).hex() for t in lams],
+        "lams_replicated": lams_rep.tolist(),
+        "rel_vs_replicated": float((lams - lams_rep).abs().max()
+                                   / lams_rep.abs().max()),
+        "iterations": int(info.effective_k),
+        "iterations_replicated": int(info_rep.effective_k),
+        "residual": float(info.residual), "ring_s": t_ring,
+        "replicated_s": t_rep, "counts": _sv_diff(after, before)}
+    # The main path's launches: the products above, both modes' solves
+    # and the ring LOBPCG (the replicated runs' panels among them).
+    ring_total = dict(spmv.ring_launch_counts)
+    panel_total = dict(spmv.panel_launch_counts)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+
+    # ---- times (both ranks in step, sharing the card) --------------------
+    with torch.no_grad():
+        times = {
+            "replicated_matvec_ms": event_ms(lambda: rep.matvec(v0),
+                                             samples=12, batch=3),
+            "all_gather_matvec_ms": event_ms(lambda: ag.matvec(v0_s),
+                                             samples=12, batch=3),
+            "ring_matvec_ms": event_ms(lambda: ring.matvec(v0_s),
+                                       samples=12, batch=3),
+            "replicated_matmat_ms": event_ms(lambda: rep.matmat(x0),
+                                             samples=8, batch=2),
+            "all_gather_matmat_ms": event_ms(lambda: ag.matmat(x0_s),
+                                             samples=8, batch=2),
+            "ring_matmat_ms": event_ms(lambda: ring.matmat(x0_s),
+                                       samples=8, batch=2)}
+        rows = torch.arange(ring.vals.shape[0], device=DEVICE)[:, None]
+
+        def gathers():
+            for _, slot_idx, _, mask in ring._buckets:
+                ring.vals[rows, slot_idx.long()] \
+                    * mask.to(ring.vals.dtype)[:, :, None, None]
+
+        times["ring_bucket_gathers_ms"] = event_ms(gathers, samples=12,
+                                                   batch=3)
+        times["ring_gather_share"] = times["ring_bucket_gathers_ms"] \
+            / times["ring_matvec_ms"]
+    out["times"] = times
+
+    # ---- the checkpoint of an (N/p, k) Lanczos basis ---------------------
+    with torch.no_grad():
+        res = pkg.lanczos(ag, SV_CKPT_K, v0=v0_s, device=DEVICE)
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    path = os.path.join(build, "sharded_vectors_ckpt")
+    specs = type(res)(pkg.replicated(sg), pkg.replicated(sg),
+                      pkg.row_sharding(sg, 2))
+    utils.save_orbax(path, res, specs)
+    back = utils.load_orbax(path, res, specs)
+    out["checkpoint_bitwise"] = all(torch.equal(a, b)
+                                    for a, b in zip(back, res))
+    out["checkpoint_mb"] = os.path.getsize(path + ".npz") / 2**20
+    torch.distributed.barrier()
+    if sg.rank == 0:
+        for ext in (".npz", ".tree.json"):
+            os.remove(path + ext)
+    del rep, ag, ring, res, back
+    torch.cuda.empty_cache()
+
+    # ---- the sharded TFIM at N = 20 over sharded vectors -----------------
+    f32 = torch.float32
+
+    def tfim(vectors, nn=TFIM_N):
+        return lambda g: models.tfim_sharded_operator(
+            nn, g, sg, dtype=f32, device=DEVICE, vectors=vectors)
+
+    def start(nn):
+        return torch.randn(1 << nn, device=DEVICE, generator=torch.Generator(
+            device=DEVICE).manual_seed(11))
+
+    small = start(TFIM_N_ED)
+    _tfim_derivatives(tfim("sharded", TFIM_N_ED), TFIM_G, f32,
+                      shard_rows(small, sg))
+    torch.cuda.synchronize()
+    collectives.reset_collective_counts()
+    t0v = start(TFIM_N)
+    values, tfim_times = _tfim_derivatives(tfim("sharded"), TFIM_G, f32,
+                                           shard_rows(t0v, sg))
+    tfim_counts = dict(collectives.collective_counts)
+    sharded_op = tfim("sharded")(TFIM_G)
+    replicated_op = tfim("replicated")(TFIM_G)
+    with torch.no_grad():
+        x = t0v / torch.linalg.vector_norm(t0v)
+        x_l = shard_rows(x, sg)
+        mv = {"sharded_ms": event_ms(lambda: sharded_op.matvec(x_l),
+                                     samples=12, batch=5),
+              "replicated_ms": event_ms(lambda: replicated_op.matvec(x),
+                                        samples=12, batch=5)}
+    out["tfim"] = {"values": values, "hex": {k: float(v).hex()
+                                             for k, v in values.items()},
+                   "times": tfim_times, "collectives": tfim_counts,
+                   "matvec": mv}
+    out.update({"ring_launches": ring_total, "panel_launches": panel_total,
+                "peak_mem_gib": peak_gib,
+                "rank_s": time.perf_counter() - t_rank})
+    return out
+
+
+def shard_rows(x, sg):
+    """The rank's rows of a global tensor (no gradient)."""
+    rows = x.shape[0] // sg.size
+    return x[sg.rank * rows:(sg.rank + 1) * rows].clone()
+
+
+def bucket_library_call(bucket, local_col, mask, n):
+    """One PyTorch call for a ring bucket's product: a cuSPARSE BSR matrix
+    of its stored slots (the padding left out, each row's slots sorted by
+    column).  A yardstick only."""
+    nb, m_o, bs, _ = bucket.shape
+    keep = mask > 0
+    counts = keep.sum(dim=1)
+    key = torch.where(keep, local_col.long(), torch.full_like(
+        local_col.long(), n // bs))
+    order = key.argsort(dim=1)
+    rows = torch.arange(nb, device=bucket.device)[:, None]
+    keep_s = keep[rows, order]
+    crow = torch.zeros(nb + 1, dtype=torch.int32, device=bucket.device)
+    crow[1:] = counts.cumsum(0)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        a = torch.sparse_bsr_tensor(
+            crow, local_col.long()[rows, order][keep_s].to(torch.int32),
+            bucket[rows, order][keep_s], size=(nb * bs, n),
+            check_invariants=False)
+    return lambda x: a @ x
+
+
+def bucket_kernel_rows(spmv, pkg):
+    """The ring buckets of rank 0 of config #5 split over SHARDED_RANKS, on
+    their own in this process: each bucket's SpMV and SpMM (r = MULTI_R)
+    kernel against the plain version, kernel, plain, bound and library
+    (cuSPARSE BSR on the bucket) times, and the bucket gather's own time.
+    The first (widest) offset's rows name the ring kernels in the
+    ``kernels`` line."""
+    from dominantsparseeigenad_tpu_torch.parallel.mesh import ShardGroup
+    n, bs, bpr = CONFIG5
+    gen = torch.Generator(device=DEVICE).manual_seed(7)
+    op = pkg.random_bell_operator(n, bs, bpr, generator=gen, device=DEVICE)
+    sg = ShardGroup(group=None, rank=0, size=SHARDED_RANKS, backend="gloo")
+    ring = pkg.RowShardedBellOperator.from_bell(op, sg, mode="ring",
+                                                vectors="sharded")
+    del op
+    torch.cuda.empty_cache()
+    nb_l = ring.vals.shape[0]
+    seg = torch.randn(nb_l * bs, generator=gen, device=DEVICE)
+    segs = torch.randn(nb_l * bs, MULTI_R, generator=gen, device=DEVICE)
+    rows_idx = torch.arange(nb_l, device=DEVICE)[:, None]
+    rows = {}
+    for o, slot_idx, local_col, mask in ring._buckets:
+        mask = mask.to(DEVICE)
+
+        def gather(s=slot_idx, m=mask):
+            return ring.vals[rows_idx, s.long()] \
+                * m.to(ring.vals.dtype)[:, :, None, None]
+
+        bucket = gather()
+        gather_ms = event_ms(gather, samples=8, batch=2)
+        for kind, x, kernel, plain in (
+                ("spmv", seg, spmv._bell_spmv_cuda, spmv._bell_spmv_torch),
+                ("spmm", segs, spmv._bell_spmm_cuda, spmv._bell_spmm_torch)):
+            r = 1 if x.ndim == 1 else x.shape[1]
+            with spmv.ring_launches():
+                y_k = kernel(bucket, local_col, x)
+            y_p = plain(bucket, local_col, x)
+            torch.cuda.synchronize()
+            err = rel_err(y_k, y_p)
+            if not (math.isfinite(err) and err <= 1e-5):
+                raise AssertionError(f"ring bucket {kind} offset {o}: rel "
+                                     f"err {err} against the plain version")
+            with spmv.ring_launches():
+                kernel_ms = event_ms(lambda: kernel(bucket, local_col, x),
+                                     samples=12, batch=3)
+            plain_ms = event_ms(lambda: plain(bucket, local_col, x),
+                                samples=8)
+            lib = bucket_library_call(bucket, local_col, mask, nb_l * bs)
+            lib_err = rel_err(lib(x), y_p)
+            library_ms = event_ms(lambda: lib(x), samples=12)
+            del lib
+            # Least bytes: the bucket's values and local columns, the
+            # segment once, y once; the padding slots are part of the work.
+            bytes_min, bound_ms, bound_by = bound(
+                bucket.numel(), bucket.element_size(),
+                local_col.numel() * 4 + x.numel() * 4 + y_k.numel() * 4, r)
+            row = {"phase": "sharded_vectors", "kernel":
+                   f"bell_{kind}_ring_f32", "offset": o,
+                   "bucket_slots": int(local_col.shape[1]),
+                   "block_rows": nb_l, "bs": bs, "r": r, "rel_err": err,
+                   "max_abs_err": float((y_k - y_p).abs().max()),
+                   "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+                   "library_ms": library_ms, "library_rel_err": lib_err,
+                   "gather_ms": gather_ms, "bytes_min": bytes_min,
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "achieved_gbps": bytes_min / (kernel_ms * 1e-3) / 1e9}
+            emit(row)
+            rows.setdefault(f"bell_{kind}_f32", []).append(row)
+            del y_k, y_p
+        del bucket
+    del ring, seg, segs
+    torch.cuda.empty_cache()
+    return {k: max(v, key=lambda row: row["bucket_slots"])
+            for k, v in rows.items()}
+
+
+def phase_sharded_vectors(pkg, spmv):
+    """The sharded-vector layout and ring mode on the card (module
+    docstring); returns the ring bucket and the panel launches of its
+    main path, and the bucket kernels' rows."""
+    from dominantsparseeigenad_tpu_torch import models
+    t_phase = time.perf_counter()
+    ranks, wall_s = spawn_ranks(SHARDED_RANKS, _sharded_vector_solves)
+    note = ("2 ranks sharing one card over gloo; not a multi-GPU or "
+            "scaling number")
+    first = ranks[0]
+    de0 = models.tfim_exact_de0_dg(TFIM_N, TFIM_G)
+    exact = {"e0": float(models.tfim_exact_e0(TFIM_N, TFIM_G, device="cpu")),
+             "de0_dg": de0, "de0_dg_fwd": de0,
+             "d2e0_dg2": models.tfim_exact_d2e0_dg2(TFIM_N, TFIM_G)}
+    tf_err = {key: abs(first["tfim"]["values"][key] - exact[key])
+              / abs(exact[key]) for key in SHARDED_TFIM_RTOL}
+    # The ring example driver: its parity gate against the unsharded
+    # operator, its buckets counted apart.
+    driver = importlib.import_module(
+        "dominantsparseeigenad_tpu_torch.examples.sharded_sparse")
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        ex = driver.main(["--mode", "ring", "--device", DEVICE])
+    ex_s = time.perf_counter() - t0
+    rows = bucket_kernel_rows(spmv, pkg)
+    card = nvidia_smi_name_power()
+    emit({"phase": "sharded_vectors", "note": note, "card": card,
+          "n": CONFIG5[0], "bs": CONFIG5[1], "blocks_per_row": CONFIG5[2],
+          "k": K, "r": MULTI_R, "lobpcg_cap": LOBPCG_ITERS, "wall_s": wall_s,
+          "tfim_jordan_wigner": exact, "tfim_rel_err": tf_err,
+          "example_ring": {k: ex[k] for k in (
+              "lam_sharded", "lam_local", "grad_max_abs_diff",
+              "ring_launches", "ring_offsets")}, "example_ring_s": ex_s,
+          "ranks": ranks, "phase_s": time.perf_counter() - t_phase})
+    n_off = len(first["offsets"])
+    checks = {
+        "ring offsets: ranks agree": all(res["offsets"] == first["offsets"]
+                                         for res in ranks),
+        "ring offsets == the bucketing of cols, computed apart":
+            tuple(first["offsets"]) == tuple(first["offsets_indep"]),
+        "ring hops == active offsets other than 0":
+            first["hops"] == sum(1 for o in first["offsets"] if o != 0),
+        "ranks' λ bitwise equal, both modes": all(
+            res["eigh"][m]["lam_hex"] == first["eigh"][m]["lam_hex"]
+            for res in ranks for m in ("all_gather", "ring")),
+        "ranks' LOBPCG λ bitwise equal": all(
+            res["lobpcg"]["lams_hex"] == first["lobpcg"]["lams_hex"]
+            for res in ranks),
+        "ranks ran the same collectives": all(
+            res["eigh_collectives"] == first["eigh_collectives"]
+            and res["tfim"]["collectives"] == first["tfim"]["collectives"]
+            for res in ranks),
+        "sharded TFIM: ranks bitwise equal": all(
+            res["tfim"]["hex"] == first["tfim"]["hex"] for res in ranks),
+        "example --mode ring: ring bucket SpMVs launched":
+            ex["ring_launches"].get("bell_spmv_f32", 0) > 0,
+    }
+    for key, bar in SHARDED_TFIM_RTOL.items():
+        checks[f"sharded-vector TFIM N={TFIM_N} {key} vs Jordan-Wigner, "
+               f"rel {bar}"] = tf_err[key] <= bar
+    for res in ranks:
+        rk = res["rank"]
+        ring_mv, ring_mm = res["ring_matvec_counts"], res["ring_matmat_counts"]
+        checks.update({
+            f"rank {rk}: all_gather matvec == replicated rows, bitwise":
+                res["ag_matvec_bitwise"],
+            f"rank {rk}: all_gather matmat == replicated rows, bitwise":
+                res["ag_matmat_bitwise"],
+            f"rank {rk}: ring matvec vs replicated, rel {SV_RTOL}":
+                res["ring_matvec_rel"] <= SV_RTOL,
+            f"rank {rk}: ring matmat vs replicated, rel {SV_RTOL}":
+                res["ring_matmat_rel"] <= SV_RTOL,
+            f"rank {rk}: a ring matvec launches one SpMV per offset":
+                ring_mv[0] == {"bell_spmv_f32": n_off}
+                and not ring_mv[1] and not ring_mv[2],
+            f"rank {rk}: a ring matmat launches one SpMM per offset":
+                ring_mm[0] == {"bell_spmm_f32": n_off}
+                and not ring_mm[1] and not ring_mm[2],
+            f"rank {rk}: a ring matvec runs ring_hops ppermutes":
+                ring_mv[3].get("ppermute", 0) == res["hops"],
+            f"rank {rk}: all_gather matvec: one panel SpMV, no ring":
+                res["ag_matvec_counts"][1] == {"bell_spmv_f32": 1}
+                and not res["ag_matvec_counts"][0],
+            f"rank {rk}: ring forward: k x offsets bucket SpMVs":
+                res["eigh"]["ring"]["forward_counts"][0]
+                == {"bell_spmv_f32": K * n_off},
+            f"rank {rk}: ring LOBPCG: offsets x (1 + 2 x iterations) "
+            f"bucket SpMMs":
+                res["lobpcg"]["counts"][0].get("bell_spmm_f32")
+                == n_off * (1 + 2 * res["lobpcg"]["iterations"]),
+            f"rank {rk}: checkpoint read back bitwise":
+                res["checkpoint_bitwise"],
+        })
+        for mode in ("all_gather", "ring"):
+            e = res["eigh"][mode]
+            checks.update({
+                f"rank {rk}: {mode} λ vs replicated, rel {SV_RTOL}":
+                    e["lam_vs_replicated"] <= SV_RTOL,
+                f"rank {rk}: {mode} ∂λ/∂panel vs v⊗v, rel {SV_RTOL}":
+                    e["dlam_dpanel_rel_err"] <= SV_RTOL,
+                f"rank {rk}: {mode} finite": e["finite"]})
+        checks[f"rank {rk}: ring LOBPCG λ vs replicated, rel {SV_RTOL}"] = \
+            res["lobpcg"]["rel_vs_replicated"] <= SV_RTOL
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"sharded_vectors phase failed: {failed}")
+    ring_total, panel_total = {}, {}
+    for res in ranks:
+        add_counts(ring_total, res["ring_launches"])
+        add_counts(panel_total, res["panel_launches"])
+    return ring_total, panel_total, rows
 
 
 def tfim_pass(pkg, models, n, dtype, **extra):
@@ -6822,6 +7331,9 @@ def main():
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     panel_counts = phase_sharded()
+    ring_counts, sv_panel_counts, ring_rows = phase_sharded_vectors(pkg,
+                                                                    spmv)
+    add_counts(panel_counts, sv_panel_counts)
     phase_tfim(pkg)
     phase_sweep(pkg)
     so_counts, reverse_c5 = phase_second_order(pkg, spmv)
@@ -6909,6 +7421,25 @@ def main():
                          "max_abs_err": rr["max_abs_err"]}
                 for r, rr in ((PANEL_R, row),
                               (16, panel[(name, SHARDED_RANKS, 16)]))}
+    # K1 and K3 on the ring buckets (sharded_vectors): each offset's bucket
+    # against the segment in hand; the JAX ring multiplies its buckets on
+    # its XLA path (parallel/sharded_sparse.py:259-266).
+    for kind in ("spmv", "spmm"):
+        name = f"bell_{kind}_f32"
+        if ring_counts.get(name, 0) < 1:
+            raise AssertionError(f"{name} never launched on a ring bucket in "
+                                 f"the sharded_vectors run")
+        row = ring_rows[name]
+        kernels.append({"name": f"bell_{kind}_ring_f32", "route": "cuda",
+                        "source": csrc + f"bell_{kind}.cu",
+                        "replaces": "dominantsparseeigenad_tpu/parallel/"
+                                    "sharded_sparse.py:259",
+                        "launches": ring_counts[name],
+                        "max_abs_err": row["max_abs_err"],
+                        "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
+                        "bound_ms": row["bound_ms"],
+                        "bound_by": row["bound_by"],
+                        "library_ms": row["library_ms"]})
     # K5 and K6: complex64 values, on the complex_bell phase's counted
     # paths (square: its main path and twins; panels: its two ranks).
     # The JAX package multiplies complex blocks on its XLA path only.

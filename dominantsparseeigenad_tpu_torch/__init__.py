@@ -16,8 +16,13 @@ CUDA kernel of ``csrc/bell_spmv.cu``, and the block solver
 ``lobpcg_eigh``) whose every SpMM runs the one of ``csrc/bell_spmm.cu``;
 plus the dense and matrix-free operators.  The row-sharded tier
 (``parallel/``, on ``torch.distributed``) splits a blocked-ELL or dense
-operator's rows over ranks, one process each, and every solver runs
-through it unchanged; each rank's row panel runs the same kernels.
+operator's rows over ranks, one process each: over replicated vectors
+every solver runs through it unchanged; over vectors sharded across the
+ranks (``vectors="sharded"``, ``shard_vector``; the solvers of
+``dominant_eigh`` and ``dominant_eigh_multi`` sum their dots over the
+ranks) a rank holds N/p of every vector, and ``mode="ring"`` passes the
+segment from rank to rank; each rank's row panel, or ring bucket, runs
+the same kernels.
 ``ShardedMatrixFreeOperator`` takes a product written against the
 rank's segment of the vector (``tfim_sharded_operator`` swaps segments
 between XOR partner ranks with ``ppermute``), and ``make_mesh`` lays

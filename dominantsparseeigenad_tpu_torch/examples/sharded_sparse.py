@@ -11,10 +11,12 @@ the oracle, printed beside it, and a parity gate exits with an error if
 the two disagree.
 
 The JAX driver fakes eight CPU devices in one process.  This one spawns
-``--ranks`` processes (default 2) that join one gloo group on this
-machine and share its one card (or its CPU with ``--device cpu``): a
-check of the sharded program, not a multi-GPU run.  ``--mode ring``
-needs vectors sharded over the ranks and raises NotImplementedError.
+``--ranks`` processes (default 2; one runs in this process) that join
+one gloo group on this machine and share its one card (or its CPU with
+``--device cpu``): a check of the sharded program, not a multi-GPU run.
+``--mode ring`` runs over vectors sharded across the ranks (the JAX
+layout), each offset's bucket on the hand-written kernels; the default
+``all_gather`` keeps them replicated.
 
 Run: python -m dominantsparseeigenad_tpu_torch.examples.sharded_sparse --n 4096
 """
@@ -33,9 +35,9 @@ import traceback
 import torch
 
 from ..ops import dominant_eigh, random_bell_operator, resolve_device
-from ..ops.bell_spmv import launch_counts, panel_launch_counts
+from ..ops.bell_spmv import (launch_counts, panel_launch_counts,
+                             ring_launch_counts)
 from ..parallel import RowShardedBellOperator, init_distributed, make_mesh
-from ..parallel.sharded_sparse import _check_mode
 
 # How long the parent waits for a rank's result, in seconds.
 RANK_TIMEOUT_S = 600
@@ -52,9 +54,9 @@ def _rank(rank, world, init_method, args, out_queue, solve):
 
 
 def _counted(fn):
-    """``(fn(), square launches, panel launches)``: the kernel launches
-    the call made, by kernel name."""
-    counts = (launch_counts, panel_launch_counts)
+    """``(fn(), square launches, panel launches, ring bucket launches)``:
+    the kernel launches the call made, by kernel name."""
+    counts = (launch_counts, panel_launch_counts, ring_launch_counts)
     before = [dict(c) for c in counts]
     out = fn()
     return (out, *({k: c[k] - b[k] for k in c if c[k] != b[k]}
@@ -72,7 +74,9 @@ def _solve(rank, world, init_method, args):
         op = random_bell_operator(args["n"], args["bs"], args["bpr"],
                                   generator=gen, dtype=torch.float32,
                                   device=dev)
-        sop = RowShardedBellOperator.from_bell(op, sg, mode=args["mode"])
+        vectors = "sharded" if args["mode"] == "ring" else "replicated"
+        sop = RowShardedBellOperator.from_bell(op, sg, mode=args["mode"],
+                                               vectors=vectors)
 
         # d lambda_min / d vals is v v^T on the pattern: exact, and no
         # dense matrix is built.
@@ -83,8 +87,9 @@ def _solve(rank, world, init_method, args):
             grad, = torch.autograd.grad(lam, vals)
             return lam.item(), grad
 
-        (lam_s, grad_s), sq_s, pan_s = _counted(lambda: lam_grad(sop))
-        (lam_l, grad_l), sq_l, pan_l = _counted(lambda: lam_grad(op))
+        (lam_s, grad_s), sq_s, pan_s, ring_s = _counted(
+            lambda: lam_grad(sop))
+        (lam_l, grad_l), sq_l, pan_l, _ = _counted(lambda: lam_grad(op))
         nb_l = sop.vals.shape[0]
         grad_l = grad_l[rank * nb_l:(rank + 1) * nb_l]
         return {"rank": rank, "lam_sharded": lam_s, "lam_local": lam_l,
@@ -93,6 +98,8 @@ def _solve(rank, world, init_method, args):
                 "grad_local_sq": float((grad_l ** 2).sum()),
                 "nnz": op.nnz, "sharded_square_launches": sq_s,
                 "sharded_panel_launches": pan_s,
+                "sharded_ring_launches": ring_s,
+                "ring_offsets": list(sop.ring_offsets),
                 "local_square_launches": sq_l,
                 "local_panel_launches": pan_l}
     finally:
@@ -102,8 +109,13 @@ def _solve(rank, world, init_method, args):
 def _run_ranks(world, args, solve):
     """Spawn the ranks over a file store, each running ``solve(rank,
     world, init_method, args)`` (a module-level function), and collect
-    their results."""
+    their results; one rank runs in this process."""
     store = tempfile.mkdtemp(prefix="ranks_")
+    if world == 1:
+        try:
+            return [solve(0, 1, f"file://{store}/store", args)]
+        finally:
+            shutil.rmtree(store, ignore_errors=True)
     ctx = multiprocessing.get_context("spawn")
     out_queue = ctx.Queue()
     procs = [ctx.Process(target=_rank, args=(rank, world,
@@ -174,7 +186,6 @@ def main(argv=None):
                     help="torch device (default cuda; 'cpu' to run there)")
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
-    _check_mode(args.mode)
 
     print(f"ranks: {args.ranks} processes over gloo sharing {dev} (not a "
           f"multi-GPU run), exchange mode: {args.mode}")
@@ -201,6 +212,9 @@ def main(argv=None):
            "lam_sharded_by_rank": [r["lam_sharded"] for r in ranks],
            "panel_launches": _sum_counts(r["sharded_panel_launches"]
                                          for r in ranks),
+           "ring_launches": _sum_counts(r["sharded_ring_launches"]
+                                        for r in ranks),
+           "ring_offsets": first["ring_offsets"],
            "sharded_square_launches": _sum_counts(
                r["sharded_square_launches"] for r in ranks),
            "local_square_launches": _sum_counts(

@@ -109,7 +109,9 @@ def tfim_operator(n: int, g, dtype=torch.float64,
 
 
 def tfim_sharded_operator(n: int, g, group=None, *, dtype=torch.float64,
-                          device=None) -> ShardedMatrixFreeOperator:
+                          device=None,
+                          vectors: str = "replicated"
+                          ) -> ShardedMatrixFreeOperator:
     """TFIM Hamiltonian as a row-sharded matrix-free operator.
 
     The 2^n-dimensional state is split over the ``p = 2^d`` ranks of
@@ -124,7 +126,11 @@ def tfim_sharded_operator(n: int, g, group=None, *, dtype=torch.float64,
 
     Its parameters are ``(g, the rank's rows of the zz diagonal)``;
     derivatives in ``g`` of any order, in either mode, go through the
-    exchange.  The counterpart of the JAX ``tfim_sharded_operator``.
+    exchange.  ``vectors`` as in
+    :class:`~..parallel.ShardedMatrixFreeOperator`: with "sharded" a
+    product takes and gives the rank's segment, and no gather of the
+    result is made.  The counterpart of the JAX
+    ``tfim_sharded_operator``.
     """
     sg = make_mesh() if group is None else group
     p = sg.size
@@ -149,7 +155,7 @@ def tfim_sharded_operator(n: int, g, group=None, *, dtype=torch.float64,
     diag = tfim_zz_diagonal(n, dtype=dtype, device=dev)
     return ShardedMatrixFreeOperator(
         local_matvec, (_coupling(g, dtype, dev), diag), 1 << n, sg,
-        dtype=dtype, param_specs=(None, SHARD_AXIS))
+        dtype=dtype, param_specs=(None, SHARD_AXIS), vectors=vectors)
 
 
 def tfim_dense_hamiltonian(n: int, g, dtype=torch.float64, device=None):

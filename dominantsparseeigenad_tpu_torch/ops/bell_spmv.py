@@ -65,6 +65,7 @@ source is rebuilt.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -87,8 +88,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # Launches of each kernel, counted by the wrapper where it launches: on a
 # square operator (x as long as y) in launch_counts, on a rectangular row
-# panel (x longer or shorter than y) in panel_launch_counts.  The banded
-# kernels run on square operators only.
+# panel (x longer or shorter than y) in panel_launch_counts, a ring
+# bucket's in ring_launch_counts.  The banded kernels run on square
+# operators only.
 _SPMV_NAMES = ("bell_spmv_f32", "bell_spmv_bf16vals", "bell_spmv_c64")
 _SPMM_NAMES = ("bell_spmm_f32", "bell_spmm_bf16vals", "bell_spmm_c64")
 _BANDED_SPMV_NAMES = ("bell_spmv_banded_f32", "bell_spmv_banded_bf16vals",
@@ -98,6 +100,11 @@ _BANDED_SPMM_NAMES = ("bell_spmm_banded_f32", "bell_spmm_banded_bf16vals",
 launch_counts = dict.fromkeys(_SPMV_NAMES + _SPMM_NAMES + _BANDED_SPMV_NAMES
                               + _BANDED_SPMM_NAMES, 0)
 panel_launch_counts = dict.fromkeys(_SPMV_NAMES + _SPMM_NAMES, 0)
+# The ring mode's bucket products (``parallel/sharded_sparse.py``): the
+# gather kernels on one offset's bucket against the segment in hand,
+# counted here and in neither count above (see ring_launches).
+ring_launch_counts = dict.fromkeys(_SPMV_NAMES + _SPMM_NAMES, 0)
+_ring_depth = 0
 
 # What the last build did: seconds spent in nvcc (0.0 when the library was
 # already built) and nvcc's output (register and shared-memory use).
@@ -107,9 +114,22 @@ _lib = None
 
 
 def reset_launch_counts():
-    for counts in (launch_counts, panel_launch_counts):
+    for counts in (launch_counts, panel_launch_counts, ring_launch_counts):
         for name in counts:
             counts[name] = 0
+
+
+@contextlib.contextmanager
+def ring_launches():
+    """Count the launches made inside the block (a ring bucket's product,
+    with its forward-mode tangents, which run at the call) in
+    :data:`ring_launch_counts`."""
+    global _ring_depth
+    _ring_depth += 1
+    try:
+        yield
+    finally:
+        _ring_depth -= 1
 
 
 def _nvcc() -> str:
@@ -313,6 +333,9 @@ def _output(vals, x):
 
 
 def _count_launch(name, vals, x):
+    if _ring_depth:
+        ring_launch_counts[name] += 1
+        return
     square = x.shape[0] == vals.shape[0] * vals.shape[2]
     (launch_counts if square else panel_launch_counts)[name] += 1
 

@@ -28,6 +28,14 @@ non-symmetric eigensolver's rule (``eig.py``): its backward is the same
 solve on the transposed system, the counterpart of the JAX package's
 ``custom_linear_solve`` with ``transpose_solve``.
 
+Sharded vectors (``operators.vector_layout``): the CG loops, single and
+batched, and the deflated solve with its rules run on the rank's rows,
+their inner products summed over the ranks (so every rank reads the
+same residual), λ marked where it enters the rank's rows; the default
+iteration cap is 10 N of the whole N.  MINRES, BiCGStab, GMRES, the
+undeflated and the general solves, and a preconditioner raise there
+(queue 1 item 18).
+
 Complex operators: every inner product conjugates (``hdot``), and CG's
 and MINRES's step sizes are real for a Hermitian system.  PyTorch's
 gradient of a complex tensor is the conjugate of JAX's cotangent, so a
@@ -47,8 +55,10 @@ from torch.profiler import record_function
 from .lanczos import arnoldi_step
 from .operators import (LinearOperator, _add, _per_lane, _project_out,
                         _projector_tangent, _tangent_product, as_operator,
-                        check_device, hdot, hmatmul, nestable_jvp,
-                        partial_vjp, per_lane_vmap, rebind, tol_floor)
+                        check_device, hdot, hmatmul, layout_bcast,
+                        layout_norm, layout_sum, nestable_jvp, partial_vjp,
+                        per_lane_vmap, rebind, refuse_sharded, tol_floor,
+                        vector_layout)
 from .precond import _apply_columns
 
 # The JAX loops test the residual on the device every iteration inside a
@@ -76,12 +86,15 @@ def _nonzero(t):
 
 
 def _cg_loop(matvec: Callable, b, tol: float, maxiter, x0=None,
-             atol: float = 0.0, precond: Callable | None = None):
+             atol: float = 0.0, precond: Callable | None = None,
+             layout=None):
     """Preconditioned CG; returns ``(x, iterations run)``, the second
     counting the products made (frozen iterations included).  Stops once
-    ``||r|| <= max(tol ||b||, atol)``, as the JAX loop does."""
+    ``||r|| <= max(tol ||b||, atol)``, as the JAX loop does.  Under a
+    sharded ``layout`` b is the rank's rows and every dot is summed over
+    the ranks."""
     if maxiter is None:
-        maxiter = 10 * b.shape[-1]
+        maxiter = 10 * (b.shape[-1] if layout is None else layout.dim)
     if x0 is None:
         x = torch.zeros_like(b)
         r = b.clone()
@@ -90,10 +103,14 @@ def _cg_loop(matvec: Callable, b, tol: float, maxiter, x0=None,
         r = b - matvec(x)
     z = r if precond is None else precond(r)
     p = z.clone()
-    rr = hdot(r, r).real
-    rz = rr if precond is None else hdot(r, z).real
+
+    def dot(a, c):
+        return layout_sum(layout, hdot(a, c)).real
+
+    rr = dot(r, r)
+    rz = rr if precond is None else dot(r, z)
     tol = tol_floor(tol, b.dtype)
-    target2 = torch.clamp(tol * tol * hdot(b, b).real, min=float(atol) ** 2)
+    target2 = torch.clamp(tol * tol * dot(b, b), min=float(atol) ** 2)
     zero = torch.zeros_like(rz)
     it = 0
     while it < maxiter:
@@ -103,14 +120,14 @@ def _cg_loop(matvec: Callable, b, tol: float, maxiter, x0=None,
             active = rr > target2
             with record_function("cg_matvec"):
                 ap = matvec(p)
-            denom = hdot(p, ap).real
+            denom = dot(p, ap)
             alpha = torch.where(active & (denom != 0), rz / _nonzero(denom),
                                 zero)
             x = x + alpha * p
             r = r - alpha * ap
             z = r if precond is None else precond(r)
-            rr_new = hdot(r, r).real
-            rz_new = rr_new if precond is None else hdot(r, z).real
+            rr_new = dot(r, r)
+            rz_new = rr_new if precond is None else dot(r, z)
             beta = rz_new / _nonzero(rz)
             p = torch.where(active, z + beta * p, p)
             rz = torch.where(active, rz_new, rz)
@@ -214,6 +231,7 @@ def bicgstab(matvec: Callable, b: torch.Tensor, *,
     ``<rhat, v>``, scaled by eps, or ``omega = 0``; x stays the last
     finite iterate), or after ``maxiter`` iterations (default 10 N).
     """
+    refuse_sharded("bicgstab", matvec)
     check_device(device, b)
     return _bicgstab_loop(matvec, b, tol, maxiter, x0, atol)[0]
 
@@ -285,6 +303,7 @@ def gmres(matvec: Callable, b: torch.Tensor, *,
     (Arnoldi) steps, default 10 N; the test ``||r|| <= max(tol ||b||,
     atol)`` is made once a cycle, on the residual of the Arnoldi
     relation."""
+    refuse_sharded("gmres", matvec)
     check_device(device, b)
     return _gmres_loop(matvec, b, tol, maxiter, x0, atol, restart)[0]
 
@@ -300,6 +319,7 @@ def cg(matvec: Callable, b: torch.Tensor, *, x0: torch.Tensor | None = None,
     (zero when None); ``precond`` an SPD approximate inverse
     ``z = M^{-1} r`` (see :mod:`~.precond`).
     """
+    refuse_sharded("cg on a bare matvec", matvec)
     check_device(device, b)
     return _cg_loop(matvec, b, tol, maxiter, x0, atol, precond)[0]
 
@@ -312,6 +332,7 @@ def cg_info(matvec: Callable, b: torch.Tensor, *,
     the products made (up to ``CHECK_EVERY - 1`` past the iteration that
     met the tolerance, whose steps are frozen) and ``||b - A x|| /
     ||b||`` from one extra matvec.  Forward-only."""
+    refuse_sharded("cg_info on a bare matvec", matvec)
     check_device(device, b)
     with torch.no_grad():
         x, it = _cg_loop(matvec, b, tol, maxiter, x0, atol, precond)
@@ -396,6 +417,7 @@ def minres(matvec: Callable, b: torch.Tensor, *,
     ``beta = sqrt(r^T M^{-1} r)``.  With ``precond=None`` this is exactly
     the unpreconditioned recurrence.
     """
+    refuse_sharded("minres", matvec)
     check_device(device, b)
     return _minres_loop(matvec, b, tol, maxiter, x0, precond)[0]
 
@@ -404,14 +426,16 @@ def _deflated_mv(op, lam, V, sign, batched):
     """``x -> sign * P (A - lam I) P x``, ``P = I - V V^H``: on (N,)
     vectors with a scalar ``lam``, or on (N, m) blocks with one shift per
     column in ``lam`` (m,)."""
+    lay = vector_layout(op)
     if batched:
         def mv(x):
-            px = _project_out(V, x)
-            return sign * _project_out(V, op.matmat(px) - px * lam[None, :])
+            px = _project_out(V, x, lay)
+            return sign * _project_out(V, op.matmat(px) - px * lam[None, :],
+                                       lay)
     else:
         def mv(x):
-            px = _project_out(V, x)
-            return sign * _project_out(V, op.matvec(px) - lam * px)
+            px = _project_out(V, x, lay)
+            return sign * _project_out(V, op.matvec(px) - lam * px, lay)
     return mv
 
 
@@ -438,6 +462,14 @@ def _deflated_solve(op, lam, V, rhs, sign, tol, maxiter, method="cg",
     ``rhs``."""
     batched = rhs.ndim == 2
     mv = _deflated_mv(op, lam, V, sign, batched)
+    lay = vector_layout(op)
+    if lay is not None:
+        # Only CG, unpreconditioned, runs here (solve_deflated refuses
+        # the rest).
+        loop = _cg_columns_loop if batched else _cg_loop
+        x, its = loop(mv, _project_out(V, rhs, lay), tol, maxiter,
+                      layout=lay)
+        return _project_out(V, x, lay), its
     m = _deflated_precond(precond, V, batched)
     if method == "minres":
         loop = _minres_columns_loop if batched else _minres_loop
@@ -449,7 +481,7 @@ def _deflated_solve(op, lam, V, rhs, sign, tol, maxiter, method="cg",
 
 
 def _cg_columns_loop(matmat: Callable, B, tol: float, maxiter,
-                     precond: Callable | None = None):
+                     precond: Callable | None = None, layout=None):
     """Batched (preconditioned) CG from X0 = 0 over the columns of ``B``
     (N, m), one ``matmat`` of width m per iteration; returns ``(X,
     iterations per column)``.
@@ -459,16 +491,22 @@ def _cg_columns_loop(matmat: Callable, B, tol: float, maxiter,
     ``while_loop`` is): whether a column is still active is decided on
     the device every iteration, and the host reads whether any is left
     every ``CHECK_EVERY`` iterations.  ``precond`` maps (N, m) blocks.
+    Under a sharded ``layout`` B is the rank's rows and the column dots
+    are summed over the ranks.
     """
     n, m = B.shape
     if maxiter is None:
-        maxiter = 10 * n
+        maxiter = 10 * (n if layout is None else layout.dim)
+
+    def coldot(a, c):
+        return layout_sum(layout, _coldot(a, c))
+
     X = torch.zeros_like(B)
     R = B.clone()
     Z = R if precond is None else precond(R)
     P = Z.clone()
-    rr = _coldot(R, R)
-    rz = rr if precond is None else _coldot(R, Z)
+    rr = coldot(R, R)
+    rz = rr if precond is None else coldot(R, Z)
     tol = tol_floor(tol, B.dtype)
     target2 = tol * tol * rr
     its = torch.zeros(m, dtype=torch.int64, device=B.device)
@@ -480,14 +518,14 @@ def _cg_columns_loop(matmat: Callable, B, tol: float, maxiter,
         for _ in range(min(CHECK_EVERY, maxiter - it)):
             active = rr > target2
             AP = matmat(P)
-            denom = _coldot(P, AP)
+            denom = coldot(P, AP)
             alpha = torch.where(active & (denom != 0), rz / _nonzero(denom),
                                 zero)
             X = X + alpha * P
             R = R - alpha * AP
             Z = R if precond is None else precond(R)
-            rr_new = _coldot(R, R)
-            rz_new = rr_new if precond is None else _coldot(R, Z)
+            rr_new = coldot(R, R)
+            rz_new = rr_new if precond is None else coldot(R, Z)
             beta = rz_new / _nonzero(rz)
             P = torch.where(active, Z + beta * P, P)
             rz = torch.where(active, rz_new, rz)
@@ -574,19 +612,21 @@ def _deflated_mv_tangent(op, lam, V, sign, x, dlam, dV, dparams):
         y = P x,  u = A y - λ y,
         Ṁ x = sign (dP u + P (dA y + A dP x - dλ y - λ dP x))."""
     batched = x.ndim == 2
-    y = _project_out(V, x)
-    dy = None if dV is None else _projector_tangent(V, dV, x)
+    lay = vector_layout(op)
+    y = _project_out(V, x, lay)
+    dy = None if dV is None else _projector_tangent(V, dV, x, lay)
     du = _tangent_product(op, y, dparams)
     if dlam is not None:
+        dlam = layout_bcast(lay, dlam)
         du = _add(du, -(y * dlam[None, :] if batched else dlam * y))
     if dy is not None:
         a_dy = op.matmat(dy) if batched else op.matvec(dy)
         du = _add(du, a_dy - (dy * lam[None, :] if batched else lam * dy))
-    out = None if du is None else _project_out(V, du)
+    out = None if du is None else _project_out(V, du, lay)
     if dV is not None:
         u = (op.matmat(y) - y * lam[None, :]) if batched \
             else op.matvec(y) - lam * y
-        out = _add(out, _projector_tangent(V, dV, u))
+        out = _add(out, _projector_tangent(V, dV, u, lay))
     return None if out is None else sign * out
 
 
@@ -703,16 +743,19 @@ def solve_deflated_info(op, lam, V, b, *, definite_sign: float = 1.0,
     right-hand side both are lists with one entry per column."""
     op = as_operator(op)
     check_device(device, op, V, b)
+    if precond is not None:
+        refuse_sharded("solve_deflated_info with precond", op)
     sign = float(definite_sign)
+    lay = vector_layout(op)
     with torch.no_grad():
         lam = _shifts(lam, b)
-        rhs = sign * _project_out(V, b)
+        rhs = sign * _project_out(V, b, lay)
         x, its = _deflated_solve(op, lam, V, rhs, sign, tol, maxiter,
                                  "cg", precond)
         mv = _deflated_mv(op, lam, V, sign, b.ndim == 2)
-        rhs = _project_out(V, rhs)
-        bnorm = torch.linalg.vector_norm(rhs, dim=0)
-        res = torch.linalg.vector_norm(rhs - mv(x), dim=0) / _nonzero(bnorm)
+        rhs = _project_out(V, rhs, lay)
+        bnorm = layout_norm(lay, rhs, dim=0)
+        res = layout_norm(lay, rhs - mv(x), dim=0) / _nonzero(bnorm)
     if b.ndim == 2:
         return x, its.tolist(), res.tolist()
     return x, its, float(res)
@@ -748,17 +791,21 @@ def solve_deflated(op, lam, V, b, *, definite_sign: float = 1.0,
         raise ValueError(f"method must be cg|minres, got {method!r}")
     op = as_operator(op)
     check_device(device, op, V, b)
+    if method == "minres" or precond is not None:
+        refuse_sharded("solve_deflated with method='minres' or precond", op)
     sign = 1.0 if method == "minres" else float(definite_sign)
-    lam = _shifts(lam, b)
+    lay = vector_layout(op)
+    # λ enters the rank's rows: a backward sums its ranks' shares.
+    lam = layout_bcast(lay, _shifts(lam, b))
     # The two projections of the JAX solve: this one differentiable, the
     # second inside the solver (a right-hand side nearly parallel to V
     # leaves a round-off remainder whose own V component is large).
-    rhs = sign * _project_out(V, b)
+    rhs = sign * _project_out(V, b, lay)
     x = _DeflatedSolve.apply(op, sign, tol, maxiter, method, precond, rhs,
                              lam, V, *op.parameters())
     # Keep x exactly in V⊥, differentiably: round-off would leak a
     # span(V) component into the gradients downstream.
-    return _project_out(V, x)
+    return _project_out(V, x, lay)
 
 
 def _solve_operator(op, b, device):
@@ -782,6 +829,7 @@ def _undeflated(op, b, tol, maxiter, method, device):
     (an empty (N, 0) V, λ = 0): gradients to ``b`` and
     ``op.parameters()``."""
     op = _solve_operator(op, b, device)
+    refuse_sharded("solve_spd and solve_symmetric", op)
     empty = torch.zeros((op.dim, 0), dtype=b.dtype, device=b.device)
     zero = torch.zeros((), dtype=b.dtype, device=b.device)
     return _DeflatedSolve.apply(op, 1.0, tol, maxiter, method, None, b,
@@ -945,6 +993,7 @@ def solve_general(op, b: torch.Tensor, *, tol: float = 1e-7,
         raise ValueError(
             f"method must be bicgstab|cgnr|gmres, got {method!r}")
     op = _solve_operator(op, b, device)
+    refuse_sharded("solve_general", op)
     empty = torch.zeros((op.dim, 0), dtype=b.dtype, device=b.device)
     zero = torch.zeros((), dtype=b.dtype, device=b.device)
     return _GeneralSolve.apply(op, False, tol, maxiter, method, b, zero,

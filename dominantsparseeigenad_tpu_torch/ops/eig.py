@@ -84,9 +84,9 @@ import torch
 from .cg import CHECK_EVERY, _GeneralSolve
 from .lanczos import arnoldi_step
 from .operators import (LinearOperator, MatrixFreeOperator, as_operator,
-                        check_device, hdot, hmatmul, nestable_jvp,
-                        partial_vjp, per_lane_vmap, pivot_gauge, real_dtype,
-                        rebind, tol_floor)
+                        check_device, hdot, hmatmul, nestable_jvp, partial_vjp,
+                        per_lane_vmap, pivot_gauge, real_dtype, rebind,
+                        refuse_sharded, tol_floor)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -442,6 +442,7 @@ def dominant_eig(op, num_iters: int = 500, *, tol: float = 1e-10,
     operator l is the transpose left eigenvector, ``A^T l = λ l``); with
     ``with_info`` also a :class:`PowerInfo`.
     """
+    refuse_sharded("dominant_eig", op)
     if solver not in ("bicgstab", "cgnr", "gmres"):
         raise ValueError(
             f"solver must be bicgstab|cgnr|gmres, got {solver!r}")
@@ -494,6 +495,7 @@ def dominant_eig_multi(op, m: int = 2, *, num_iters: int = 500,
     ``l_j^T r_j = 1``; with ``with_info`` also a :class:`PowerInfo` of
     (m,) fields.
     """
+    refuse_sharded("dominant_eig_multi", op)
     op = as_operator(op)
     dev = check_device(device, op)
     m = int(m)
@@ -730,6 +732,7 @@ def dominant_eig_pair(op, num_iters: int = 500, *, tol: float = 1e-10,
     subspace iterations (their larger residual and step count;
     ``rank1_defect`` 0).
     """
+    refuse_sharded("dominant_eig_pair", op)
     if solver not in ("bicgstab", "cgnr", "gmres"):
         raise ValueError(
             f"solver must be bicgstab|cgnr|gmres, got {solver!r}")
@@ -792,6 +795,7 @@ def dominant_eig_spectrum(op, m: int = 4, *, num_iters: int = 500,
     when the m-th slot falls on its first member both are returned, and
     ``lams`` has m + 1 entries.
     """
+    refuse_sharded("dominant_eig_spectrum", op)
     op = as_operator(op)
     dev = check_device(device, op)
     _check_real(op, "dominant_eig_spectrum")
@@ -884,5 +888,6 @@ def spectrum_structure(op, m: int = 4, **kwargs) -> tuple:
     in modulus order, so one discovery serves a sweep of parameters
     until a real eigenvalue collides into a pair.  Takes the keyword
     arguments of :func:`dominant_eig_spectrum`."""
+    refuse_sharded("spectrum_structure", op)
     kwargs.pop("structure", None)
     return dominant_eig_spectrum(op, m, **kwargs)[3]

@@ -95,6 +95,17 @@ before the deflated solve (column by column for the block rule).  For a
 real dtype both are the identity.  PyTorch's gradient of a complex
 tensor is the conjugate of JAX's cotangent; the rules above are written
 for PyTorch's.
+
+Sharded vectors (``operators.vector_layout``, the row-sharded operators
+with ``vectors="sharded"``): v, V, their cotangents and tangents are the
+rank's rows, and every inner product over the vector axis above (V^H X,
+<v, v̄>, the pivot) is summed over the ranks; λ and those sums are the
+same on every rank.  A replicated value that enters the rank's rows (λ,
+λ̄, a sum) is marked there (``layout.bcast``), so that a second
+backward sums its gradient over the ranks that used it.  The Lanczos and
+LOBPCG forwards, the deflated CG and ``with_info`` run there; the other
+options (restart cycles, early exit, a narrow basis, restart mode
+"carry", a preconditioner) raise (queue 1 item 18).
 """
 
 from __future__ import annotations
@@ -107,9 +118,10 @@ from .cg import solve_deflated
 from .lanczos import (LanczosInfo, _tridiagonal_eigh, lanczos,
                       lanczos_adaptive, lanczos_eigh)
 from .lobpcg import lobpcg_eigh
-from .operators import (as_operator, check_device, hdot, hmatmul,
-                        nestable_jvp, partial_vjp, per_lane_vmap,
-                        pivot_gauge, rebind, tol_floor)
+from .operators import (_reduced, as_operator, check_device, hdot, hmatmul,
+                        layout_bcast, layout_norm, layout_sum, nestable_jvp,
+                        partial_vjp, per_lane_vmap, pivot_gauge, rebind,
+                        refuse_sharded, tol_floor, vector_layout)
 from .precond import _apply_columns
 from .restart import lanczos_restarted
 
@@ -139,8 +151,8 @@ def _pair_info(op, opts, lam, v):
     / |λ|`` from one extra matvec, ``converged`` against ``tol`` clamped
     to what the dtype reaches, ``effective_k`` the steps run (the
     restart tier: k, then k - max(1, k // 4) a cycle)."""
-    resid = torch.linalg.vector_norm(op.matvec(v) - lam * v) / torch.clamp(
-        lam.abs(), min=torch.finfo(v.dtype).tiny)
+    resid = layout_norm(vector_layout(op), op.matvec(v) - lam * v) \
+        / torch.clamp(lam.abs(), min=torch.finfo(v.dtype).tiny)
     k = min(opts.k, op.dim)
     steps = k + max(opts.restart_cycles, 0) * (k - max(1, k // 4))
     return LanczosInfo(
@@ -157,13 +169,18 @@ def _pivots(v):
     return torch.argmax(torch.abs(v), dim=0)
 
 
-def _pivot_phase_project(v, dv):
+def _pivot_phase_project(v, dv, layout=None):
     """The JAX package's ``_pivot_phase_project``: ``dv + i α v`` with
     ``α = -Im(dv[p]) / v[p]`` per column, the tangent that keeps each
     pivot entry real (the forward's gauge); the identity for a real
     dtype."""
     if not v.is_complex():
         return dv
+    if layout is not None:
+        idx, _ = layout.pivot(v)
+        alpha = -layout.take(dv, idx).imag / layout.take(v, idx).real
+        alpha = layout.bcast(alpha)
+        return dv + 1j * (alpha if v.ndim == 1 else alpha[None, :]) * v
     idx = _pivots(v)
     if v.ndim == 1:
         alpha = -dv[idx].imag / v[idx].real
@@ -173,13 +190,20 @@ def _pivot_phase_project(v, dv):
     return dv + 1j * alpha * v
 
 
-def _pivot_phase_cotangent(v, v_bar):
+def _pivot_phase_cotangent(v, v_bar, layout=None):
     """The transpose of :func:`_pivot_phase_project` applied to the
     cotangent ``v̄`` (PyTorch's convention): ``v̄ + i (Im<v̄, v> / v[p])
     e_p`` per column, so that ``Re<v̄, P dv> = Re<P^T v̄, dv>``; the
     identity for a real dtype."""
     if not v.is_complex():
         return v_bar
+    if layout is not None:
+        idx, _ = layout.pivot(v)
+        inner = hdot(v_bar, v) if v.ndim == 1 \
+            else (v_bar.conj() * v).sum(dim=0)
+        c = layout.bcast(layout.sum(inner).imag / layout.take(v, idx).real)
+        e = layout.one_hot(idx, v.dtype)
+        return v_bar + 1j * (c if v.ndim == 1 else c[None, :]) * e
     idx = _pivots(v)
     if v.ndim == 1:
         c = hdot(v_bar, v).imag / v[idx].real
@@ -285,6 +309,7 @@ class _DominantEigh(torch.autograd.Function):
         output marked non-differentiable)."""
         opts = ctx.opts
         op, pairs = _DominantEigh._saved(ctx)
+        layout = vector_layout(op)
         moving = any(t is not None for t in dparams)
         tangents = []
         for sign, lam, v in zip(_signs(opts.extreme), pairs[::2],
@@ -294,18 +319,20 @@ class _DominantEigh(torch.autograd.Function):
                 continue
             dav = op.tangent_matvec(v, dparams)
             # <v, dA v> is real for a Hermitian dA, as λ is.
-            dlam = hdot(v, dav).real
-            dv = solve_deflated(op, lam, v, -(dav - dlam * v),
+            dlam = layout_sum(layout, hdot(v, dav)).real
+            dv = solve_deflated(op, lam, v,
+                                -(dav - layout_bcast(layout, dlam) * v),
                                 definite_sign=sign, tol=opts.tol,
                                 maxiter=opts.maxiter, precond=opts.precond,
                                 device=op.device)
-            tangents += [dlam, _pivot_phase_project(v, dv)]
+            tangents += [dlam, _pivot_phase_project(v, dv, layout)]
         return (*tangents, *(None,) * ctx.n_info)
 
     @staticmethod
     def backward(ctx, *bars):
         opts = ctx.opts
         op, pairs = _DominantEigh._saved(ctx)
+        layout = vector_layout(op)
         grads = [None] * len(op.parameters())
         for sign, lam, v, lam_bar, v_bar in zip(
                 _signs(opts.extreme), pairs[::2], pairs[1::2], bars[0::2],
@@ -314,10 +341,11 @@ class _DominantEigh(torch.autograd.Function):
                 continue
             # u = λ̄ v + x, x = solve_deflated(A, λ, v, -(I - v v^H) v̄);
             # a pair whose v̄ never arrived needs no solve.
-            u = torch.zeros_like(v) if lam_bar is None else lam_bar * v
+            u = torch.zeros_like(v) if lam_bar is None \
+                else layout_bcast(layout, lam_bar) * v
             if v_bar is not None:
-                v_bar = _pivot_phase_cotangent(v, v_bar)
-                b = -(v_bar - v * hdot(v, v_bar))
+                v_bar = _pivot_phase_cotangent(v, v_bar, layout)
+                b = -(v_bar - v * _reduced(layout, hdot(v, v_bar)))
                 u = u + solve_deflated(op, lam, v, b, definite_sign=sign,
                                        tol=opts.tol, maxiter=opts.maxiter,
                                        precond=opts.precond,
@@ -416,6 +444,12 @@ def dominant_eigh(op, k: int = 128, *, extreme: str = "min",
                          "with restart_cycles/early_exit_tol)")
     op = as_operator(op)
     dev = check_device(device, op)
+    if (restart_cycles or early_exit_tol is not None or precond is not None
+            or restart_mode != "cond"
+            or basis_dtype not in (None, op.dtype)):
+        refuse_sharded("dominant_eigh with restart_cycles, early_exit_tol, "
+                       "precond, restart_mode='carry' or a narrow "
+                       "basis_dtype", op)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(int(seed))
     opts = EighOptions(k=int(k), extreme=extreme, tol=float(tol),
@@ -451,6 +485,7 @@ def refine_eigenpair(op, lam, v, *, iters: int = 2, tol: float = 1e-12,
     in the operator's dtype, ``||v|| = 1``.
     """
     op = as_operator(op)
+    refuse_sharded("refine_eigenpair", op)
     dev = check_device(device, op)
     v = torch.as_tensor(v).to(device=dev, dtype=op.dtype)
     v = v / torch.linalg.vector_norm(v)
@@ -509,7 +544,8 @@ def _multi_forward(op, opts, v0, generator):
     if opts.extreme == "max":
         idx = k - 1 - idx
     y = evecs[:, idx].to(res.basis.dtype)
-    return evals[idx], pivot_gauge(hmatmul(res.basis, y))
+    return evals[idx], pivot_gauge(hmatmul(res.basis, y),
+                                   layout=vector_layout(op))
 
 
 def _multi_forward_info(op, opts, v0, generator):
@@ -526,7 +562,8 @@ def _multi_forward_info(op, opts, v0, generator):
                                     residual=linfo.residual,
                                     converged=linfo.converged)
     lams, v = _multi_forward(op, opts, v0, generator)
-    resid = torch.linalg.vector_norm(op.matmat(v) - v * lams[None, :], dim=0)
+    resid = layout_norm(vector_layout(op), op.matmat(v) - v * lams[None, :],
+                        dim=0)
     resid = torch.max(resid / torch.clamp(lams.abs(), min=1.0))
     ref_tol = tol_floor(opts.tol, op.dtype)
     return lams, v, LanczosInfo(
@@ -555,15 +592,18 @@ def _block_tangents(op, lams, v, dparams, opts, solve):
     then the pivot-phase projection of each column; ``solve`` is the
     batched deflated solve on span(V)⊥ (CG for an extremal block, MINRES
     for an interior one)."""
+    layout = vector_layout(op)
     dav = op.tangent_matmat(v, dparams)
-    m = hmatmul(v.mH, dav)
+    m = layout_sum(layout, hmatmul(v.mH, dav))
     dlams = torch.diagonal(m).real.clone()
-    dv_out = solve(-(dav - hmatmul(v, m)))
-    dv = hmatmul(v, _gap_inverses(lams, opts).to(m.dtype) * m) + dv_out
-    return dlams, _pivot_phase_project(v, dv)
+    m_rows = layout_bcast(layout, m)
+    dv_out = solve(-(dav - hmatmul(v, m_rows)))
+    gaps = _gap_inverses(layout_bcast(layout, lams), opts)
+    dv = hmatmul(v, gaps.to(m.dtype) * m_rows) + dv_out
+    return dlams, _pivot_phase_project(v, dv, layout)
 
 
-def _block_cotangent(lams, v, lams_bar, v_bar, opts, solve):
+def _block_cotangent(lams, v, lams_bar, v_bar, opts, solve, layout=None):
     """The transpose of :func:`_block_tangents`: the U whose ``U^H (∂A/∂θ)
     V`` is each parameter's gradient, for cotangents ``(λ̄, V̄)`` (either
     may be None),
@@ -573,14 +613,16 @@ def _block_cotangent(lams, v, lams_bar, v_bar, opts, solve):
     ``V̄'`` the cotangent after the pivot-phase transpose."""
     g = (torch.zeros((opts.r, opts.r), dtype=v.dtype, device=v.device)
          if lams_bar is None else torch.diag(lams_bar).to(v.dtype))
-    u = hmatmul(v, g)
+    u = hmatmul(v, layout_bcast(layout, g))
     if v_bar is not None:
-        v_bar = _pivot_phase_cotangent(v, v_bar)
-        u = u + hmatmul(v, _gap_inverses(lams, opts).to(v.dtype)
-                        * hmatmul(v.mH, v_bar))
+        v_bar = _pivot_phase_cotangent(v, v_bar, layout)
+        gaps = _gap_inverses(layout_bcast(layout, lams), opts)
+        u = u + hmatmul(v, gaps.to(v.dtype)
+                        * _reduced(layout, hmatmul(v.mH, v_bar)))
         # Out-of-block part: one deflated solve per pair on span(V)⊥,
         # batched over the r columns.
-        u = u + solve(-(v_bar - hmatmul(v, hmatmul(v.mH, v_bar))))
+        u = u + solve(-(v_bar - hmatmul(
+            v, _reduced(layout, hmatmul(v.mH, v_bar)))))
     return u
 
 
@@ -650,7 +692,8 @@ class _DominantEighMulti(torch.autograd.Function):
         if lams_bar is None and v_bar is None:
             return (None,) * (5 + len(op.parameters()))
         u = _block_cotangent(lams, v, lams_bar, v_bar, ctx.opts,
-                             _DominantEighMulti._solve(ctx, op, lams, v))
+                             _DominantEighMulti._solve(ctx, op, lams, v),
+                             vector_layout(op))
         grads = partial_vjp(op, lambda held: held.matmat(v), [], u,
                             ctx.needs_input_grad[5:])
         return (None, None, None, None, None, *grads)
@@ -704,6 +747,8 @@ def dominant_eigh_multi(op, r: int = 4, k: int = 128, *,
                          "for method='lobpcg'")
     op = as_operator(op)
     dev = check_device(device, op)
+    if precond is not None:
+        refuse_sharded("dominant_eigh_multi with precond", op)
     r = int(r)
     k = int(min(k, op.dim)) if method == "lanczos" else int(k)
     if r > k:

@@ -43,7 +43,7 @@ from .lanczos import LanczosInfo
 from .lobpcg import lobpcg_eigh_general
 from .operators import (_add, _per_lane, _tangent_product, as_operator,
                         check_device, hmatmul, nestable_jvp, partial_vjp,
-                        per_lane_vmap, rebind)
+                        per_lane_vmap, rebind, refuse_sharded)
 from .precond import _apply_columns
 
 
@@ -248,6 +248,7 @@ def solve_deflated_pencil(a, b, lam, v, bv, rhs, *,
     of both operators, to any order in either mode, with no derivative
     taken through the CG iterations.
     """
+    refuse_sharded("solve_deflated_pencil", a, b)
     a, b = as_operator(a), as_operator(b)
     check_device(device, a, b, v, bv, rhs)
     V = v[:, None] if v.ndim == 1 else v
@@ -405,6 +406,7 @@ def dominant_eigh_gen(a, b, r: int = 4, *, extreme: str = "min",
     ||A v_i - lam_i B v_i|| / max(|lam_i|, 1)``, effective_k the LOBPCG
     iterations run; zero tangents, no gradient).
     """
+    refuse_sharded("dominant_eigh_gen", a, b)
     a = as_operator(a)
     b = as_operator(b)
     if extreme not in ("min", "max"):

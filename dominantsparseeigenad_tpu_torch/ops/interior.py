@@ -27,7 +27,8 @@ from .cg import _minres_loop, solve_deflated
 from .eigh import _pivot_phase_cotangent, _pivot_phase_project
 from .lanczos import lanczos_eigh
 from .operators import (MatrixFreeOperator, as_operator, check_device, hdot,
-                        nestable_jvp, partial_vjp, per_lane_vmap, rebind)
+                        nestable_jvp, partial_vjp, per_lane_vmap, rebind,
+                        refuse_sharded)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -148,6 +149,7 @@ def interior_eigh(op, sigma: float, k: int = 64, *,
 
     Returns ``(lam, v)``, ``v`` normalized and pivot-gauged.
     """
+    refuse_sharded("interior_eigh", op)
     op = as_operator(op)
     dev = check_device(device, op)
     if generator is None:

@@ -20,6 +20,13 @@ real; a complex basis cannot be stored narrower (no complex bfloat16).
 Profiler ranges name the step's phases as the JAX package's
 ``jax.named_scope`` does: ``lanczos_matvec`` around the product,
 ``lanczos_reorth`` around the reorthogonalization passes.
+
+On an operator whose vectors are sharded over ranks
+(``operators.vector_layout``) the loops run on the rank's rows: a
+(k+1, N/p) basis, α, β and the projections summed over the ranks (so
+every rank reads the same β), the start and breakdown vectors drawn
+whole and narrowed, the pivot the whole vector's.  Restart mode "carry"
+and a narrow basis are not carried there (queue 1 item 18).
 """
 
 from __future__ import annotations
@@ -30,9 +37,10 @@ import torch
 from torch._C._functorch import is_functorch_wrapped_tensor
 from torch.profiler import record_function
 
-from .operators import (as_operator, check_device, hdot, hmatmul,
-                        outside_transforms, pivot_gauge, real_dtype,
-                        tol_floor, under_vmap)
+from .operators import (_reduced, as_operator, check_device, hdot, hmatmul,
+                        layout_norm, layout_sum, local_dim, outside_transforms,
+                        pivot_gauge, real_dtype, refuse_sharded, tol_floor,
+                        under_vmap, vector_layout)
 
 
 def _breakdown_rel_tol(real_dtype) -> float:
@@ -127,17 +135,19 @@ def _narrow_mm(a, b):
     return a.to(b.dtype) @ b_narrow.to(b.dtype)
 
 
-def _project_out(basis, w):
-    """``w - Q Q^H w`` against the rows of ``basis``; a narrow-stored
+def _project_out(basis, w, layout=None):
+    """``w - Q Q^H w`` against the rows of ``basis`` (the coefficients
+    summed over the ranks of a sharded ``layout``); a narrow-stored
     basis projects by :func:`_narrow_mm` (w and the coefficients rounded
     to the storage dtype, both products accumulated in w's)."""
     if basis.dtype == w.dtype:
-        return w - hmatmul(basis.T, hmatmul(basis.conj(), w))
+        return w - hmatmul(basis.T,
+                           _reduced(layout, hmatmul(basis.conj(), w)))
     coeffs = _narrow_mm(basis, w[:, None])
     return w - _narrow_mm(basis.T, coeffs)[:, 0]
 
 
-def _ritz_vector(basis, y):
+def _ritz_vector(basis, y, layout=None):
     """``Q y`` normalized, for a (N, m) ``basis`` (of any storage dtype)
     and real coefficients ``y`` in the working precision."""
     if basis.dtype.is_complex:
@@ -146,14 +156,17 @@ def _ritz_vector(basis, y):
         v = hmatmul(basis, y)
     else:
         v = _narrow_mm(basis, y[:, None])[:, 0]
-    return v / torch.linalg.vector_norm(v)
+    return v / layout_norm(layout, v)
 
 
-def _draw(n, generator, dtype, dev):
+def _draw(n, generator, dtype, dev, layout=None):
     """``n`` normal numbers from ``generator``: one plain tensor, outside
     any ``torch.func`` transform (every lane of a ``vmap`` draws the same,
-    as an unbatched JAX key gives)."""
+    as an unbatched JAX key gives); the rank's rows of them under a
+    sharded ``layout``."""
     with outside_transforms():
+        if layout is not None:
+            return layout.draw((n,), generator, dtype, dev)
         return torch.randn(n, generator=generator, dtype=dtype, device=dev)
 
 
@@ -187,12 +200,18 @@ def _put(buf, i: int, value, batched: bool):
 
 
 def _start(op, v0, generator, dev):
-    """The unit start vector: ``v0``, or a draw from ``generator``."""
+    """The unit start vector: ``v0`` (the rank's rows of it under a
+    sharded layout), or a draw from ``generator``."""
+    layout = vector_layout(op)
     if v0 is None:
-        q = _draw(op.dim, generator, op.dtype, dev)
+        q = _draw(op.dim, generator, op.dtype, dev, layout)
     else:
         q = torch.as_tensor(v0).to(device=dev, dtype=op.dtype)
-    return q / torch.linalg.vector_norm(q)
+        if layout is not None and q.shape[0] != layout.local_dim:
+            raise ValueError(f"v0 has {q.shape[0]} rows; vectors sharded "
+                             f"over the ranks take the rank's "
+                             f"{layout.local_dim} (shard_vector)")
+    return q / layout_norm(layout, q)
 
 
 def _step(op, basis, i, q, q_prev, beta_prev, generator, reorthogonalize,
@@ -217,24 +236,24 @@ def _step(op, basis, i, q, q_prev, beta_prev, generator, reorthogonalize,
     no host read.
     """
     dtype = real_dtype(q.dtype)
+    layout = vector_layout(op)
     with record_function("lanczos_matvec"):
         w = op.matvec(q)
     # <q, A q> is real for a Hermitian A: T stays real.
-    alpha = hdot(q, w).real
+    alpha = layout_sum(layout, hdot(q, w)).real
     w = w - alpha * q - beta_prev * q_prev
     if reorthogonalize:
         with record_function("lanczos_reorth"):
             for _ in range(reorth_passes):
-                w = _project_out(basis[:i + 1], w)
-    beta = torch.linalg.vector_norm(w)
+                w = _project_out(basis[:i + 1], w, layout)
+    beta = layout_norm(layout, w)
     scale = torch.sqrt(alpha * alpha + beta_prev * beta_prev) + 1.0
     broke = beta <= _breakdown_rel_tol(dtype) * scale
     if r_perp is None:
         if bool(broke):
-            r = _draw(op.dim, generator, q.dtype, q.device)
-            r = _project_out(basis[:i + 1], r)
-            q_next = r / (torch.linalg.vector_norm(r)
-                          + torch.finfo(dtype).tiny)
+            r = _draw(op.dim, generator, q.dtype, q.device, layout)
+            r = _project_out(basis[:i + 1], r, layout)
+            q_next = r / (layout_norm(layout, r) + torch.finfo(dtype).tiny)
             beta = torch.zeros_like(beta)
         else:
             q_next = w / beta
@@ -291,6 +310,9 @@ def lanczos(op, k: int, *, v0: torch.Tensor | None = None,
     k = int(k)
     if k < 1:
         raise ValueError("k must be >= 1")
+    if restart_mode == "carry" or basis_dtype not in (None, dtype):
+        refuse_sharded("lanczos(restart_mode='carry') or a narrow "
+                       "basis_dtype", op)
     if restart_mode not in ("cond", "carry"):
         raise ValueError(f"restart_mode must be 'cond'|'carry', got "
                          f"{restart_mode!r}")
@@ -312,8 +334,8 @@ def lanczos(op, k: int, *, v0: torch.Tensor | None = None,
     # parameters), as JAX differentiates its loop: an in-place row write
     # would overwrite what the backward reads.
     batched = under_vmap() or _differentiated(op)
-    basis = _put(torch.zeros((k + 1, op.dim), dtype=storage, device=dev), 0,
-                 q, batched)
+    basis = _put(torch.zeros((k + 1, local_dim(op)), dtype=storage,
+                             device=dev), 0, q, batched)
     r_perp = None
     if restart_mode == "carry":
         r0 = _draw(op.dim, generator, dtype, dev)
@@ -361,9 +383,11 @@ def lanczos_eigh(op, k: int, *, extreme: str = "both",
                   basis_dtype=basis_dtype, restart_mode=restart_mode,
                   device=device)
     evals, evecs = _tridiagonal_eigh(res.alphas, res.betas)
+    layout = vector_layout(op)
 
     def _pair(idx):
-        return evals[idx], pivot_gauge(_ritz_vector(res.basis, evecs[:, idx]))
+        return evals[idx], pivot_gauge(
+            _ritz_vector(res.basis, evecs[:, idx], layout), layout=layout)
 
     if extreme == "min":
         return _pair(0)
@@ -396,6 +420,7 @@ def lanczos_adaptive(op, k: int, *, extreme: str = "min",
                          f"only, got {extreme!r}")
     _refuse_host_reads("lanczos_adaptive")
     op = as_operator(op)
+    refuse_sharded("lanczos_adaptive", op)
     dev = check_device(device, op)
     dtype = op.dtype
     tol = tol_floor(tol, dtype)
@@ -457,6 +482,7 @@ def power_iteration(op, num_iters: int = 100, *,
     pivot-gauged.
     """
     op = as_operator(op)
+    refuse_sharded("power_iteration", op)
     dev = check_device(device, op)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)

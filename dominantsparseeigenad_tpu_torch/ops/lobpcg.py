@@ -31,6 +31,13 @@ again to the conjugate directions.
 Forward only: gradients come from the implicit-function-theorem rules of
 ``eigh.py`` (``dominant_eigh_multi(..., method="lobpcg")``) and
 ``gen.py`` (``dominant_eigh_gen``).
+
+On an operator whose vectors are sharded over ranks
+(``operators.vector_layout``) :func:`lobpcg_eigh` runs on the rank's
+rows: its Gram matrices, norms and projections are summed over the
+ranks (every rank whitens and solves the same small problems), its start
+block is drawn whole and narrowed.  The generalized solver and a
+preconditioner are not carried there (queue 1 item 18).
 """
 
 from __future__ import annotations
@@ -39,8 +46,9 @@ from typing import NamedTuple
 
 import torch
 
-from .operators import (as_operator, check_device, hmatmul, pivot_gauge,
-                        real_dtype, tol_floor)
+from .operators import (_reduced, as_operator, check_device, hmatmul,
+                        layout_norm, layout_sum, local_dim, pivot_gauge,
+                        real_dtype, refuse_sharded, tol_floor, vector_layout)
 
 
 class LobpcgInfo(NamedTuple):
@@ -57,25 +65,25 @@ class LobpcgInfo(NamedTuple):
     converged: torch.Tensor
 
 
-def _colnormalize(blocks):
+def _colnormalize(blocks, layout=None):
     """Scale the columns of the first block to unit norm, and the
     companion blocks (their A-images) by the same factors."""
     m = blocks[0]
     tiny = torch.finfo(m.dtype).tiny
-    nrm = torch.linalg.vector_norm(m, dim=0)
+    nrm = layout_norm(layout, m, dim=0)
     scl = torch.where(nrm > tiny, 1.0 / torch.clamp(nrm, min=tiny),
                       torch.zeros_like(nrm))
     return tuple(b * scl[None, :] for b in blocks)
 
 
-def _whiten_metric(S, MS, companions, drop_tol):
+def _whiten_metric(S, MS, companions, drop_tol, layout=None):
     """Orthonormalize the columns of ``S`` in the metric whose image is
     ``MS`` by Gram whitening, applying the same transform ``t`` to every
     companion block; near-dependent directions are dropped by masking
     (their columns zeroed, ``keep`` returned) instead of shrinking
     shapes.  ``t`` maps whitened coefficients back to the columns of
     ``S`` (``S_white = S t``)."""
-    g = hmatmul(S.mH, MS)
+    g = layout_sum(layout, hmatmul(S.mH, MS))
     g = 0.5 * (g + g.mH)
     d, u = torch.linalg.eigh(g)
     tiny = torch.finfo(d.dtype).tiny
@@ -86,18 +94,18 @@ def _whiten_metric(S, MS, companions, drop_tol):
     return tuple(hmatmul(c, t) for c in companions), keep, t
 
 
-def _whiten(S, AS, drop_tol):
+def _whiten(S, AS, drop_tol, layout=None):
     """Euclidean-metric whitening of ``(S, AS)``."""
-    (so, aso), keep, t = _whiten_metric(S, S, (S, AS), drop_tol)
+    (so, aso), keep, t = _whiten_metric(S, S, (S, AS), drop_tol, layout)
     return so, aso, keep, t
 
 
-def _rayleigh_ritz(So, ASo, keep, r):
+def _rayleigh_ritz(So, ASo, keep, r, layout=None):
     """The r lowest Ritz pairs of the (masked-)orthonormal basis ``So``;
     dropped directions get an eigenvalue above the spectrum (about
     2·||T||_F, not a huge constant: eigh's absolute error scales with the
     matrix norm)."""
-    t = hmatmul(So.mH, ASo)
+    t = layout_sum(layout, hmatmul(So.mH, ASo))
     t = 0.5 * (t + t.mH)
     big = 2.0 * torch.linalg.matrix_norm(t) + 1.0
     penalty = torch.where(keep, torch.zeros_like(big), big)
@@ -105,15 +113,21 @@ def _rayleigh_ritz(So, ASo, keep, r):
     return evals[:r], evecs[:, :r]
 
 
-def _start_block(n, r, dtype, x0, generator, dev):
+def _start_block(n, r, dtype, x0, generator, dev, layout=None):
     """The (N, r) start block: ``x0``, or a real draw from ``generator``
-    (seeded 0 on the device when None), cast (the JAX package's)."""
+    (seeded 0 on the device when None), cast (the JAX package's); the
+    rank's rows of it under a sharded ``layout``."""
     if x0 is None:
         if generator is None:
             generator = torch.Generator(device=dev).manual_seed(0)
+        if layout is not None:
+            return layout.draw((n, r), generator, real_dtype(dtype),
+                               dev).to(dtype)
         return torch.randn((n, r), generator=generator,
                            dtype=real_dtype(dtype), device=dev).to(dtype)
     x0 = torch.as_tensor(x0).to(device=dev, dtype=dtype)
+    if layout is not None:
+        n = layout.local_dim
     if x0.shape != (n, r):
         raise ValueError(f"x0 must be ({n}, {r}), got {tuple(x0.shape)}")
     return x0
@@ -146,6 +160,9 @@ def lobpcg_eigh(op, r: int = 4, *, extreme: str = "min", maxiter: int = 200,
     if extreme not in ("min", "max"):
         raise ValueError(f"extreme must be min|max, got {extreme!r}")
     dev = check_device(device, op)
+    if precond is not None:
+        refuse_sharded("lobpcg_eigh with precond", op)
+    layout = vector_layout(op)
     r = int(r)
     n = op.dim
     if n < 3 * r:
@@ -163,16 +180,16 @@ def lobpcg_eigh(op, r: int = 4, *, extreme: str = "min", maxiter: int = 200,
     def amat(X):
         return sign * op.matmat(X)
 
-    x0 = _start_block(n, r, dtype, x0, generator, dev)
-    zeros = torch.zeros((n, r), dtype=dtype, device=dev)
+    x0 = _start_block(n, r, dtype, x0, generator, dev, layout)
+    zeros = torch.zeros((local_dim(op), r), dtype=dtype, device=dev)
     # A random (n, r) block is full rank at working precision, so the
     # whitening mask is all-keep here.
-    x, _, _, _ = _whiten(x0, zeros, drop_tol)
+    x, _, _, _ = _whiten(x0, zeros, drop_tol, layout)
     ax = amat(x)
-    lams = (x.conj() * ax).real.sum(dim=0)
+    lams = layout_sum(layout, (x.conj() * ax).real.sum(dim=0))
 
     def resid_norm(x, ax, lams):
-        nrm = torch.linalg.vector_norm(ax - x * lams[None, :], dim=0)
+        nrm = layout_norm(layout, ax - x * lams[None, :], dim=0)
         return torch.max(nrm / torch.clamp(lams.abs(), min=1.0))
 
     res = resid_norm(x, ax, lams)
@@ -184,13 +201,13 @@ def lobpcg_eigh(op, r: int = 4, *, extreme: str = "min", maxiter: int = 200,
         # Project W off span(X) twice and unit-normalize its columns, so
         # the 3r x 3r Gram stays well scaled as the residuals shrink.
         for _ in range(2):
-            w = w - hmatmul(x, hmatmul(x.mH, w))
+            w = w - hmatmul(x, _reduced(layout, hmatmul(x.mH, w)))
         aw = amat(w)
-        w, aw = _colnormalize((w, aw))
+        w, aw = _colnormalize((w, aw), layout)
         s = torch.cat([x, w, p], dim=1)
         a_s = torch.cat([ax, aw, ap], dim=1)
-        so, aso, keep, t = _whiten(s, a_s, drop_tol)
-        lams, y = _rayleigh_ritz(so, aso, keep, r)
+        so, aso, keep, t = _whiten(s, a_s, drop_tol, layout)
+        lams, y = _rayleigh_ritz(so, aso, keep, r, layout)
         x_new = hmatmul(so, y)
         ax = hmatmul(aso, y)
         # Next conjugate directions: the W/P part of the update, taken in
@@ -201,15 +218,17 @@ def lobpcg_eigh(op, r: int = 4, *, extreme: str = "min", maxiter: int = 200,
         c_wp = hmatmul(t, y)
         c_wp[:r] = 0
         p_raw = hmatmul(s, c_wp)
-        p_raw = p_raw - hmatmul(x_new, hmatmul(x_new.mH, p_raw))
-        (p,), _, _ = _whiten_metric(p_raw, p_raw, (p_raw,), drop_tol)
+        p_raw = p_raw - hmatmul(x_new,
+                                _reduced(layout, hmatmul(x_new.mH, p_raw)))
+        (p,), _, _ = _whiten_metric(p_raw, p_raw, (p_raw,), drop_tol,
+                                    layout)
         ap = amat(p)
         x = x_new
         res = resid_norm(x, ax, lams)
         it += 1
 
     lams = sign * lams
-    x = pivot_gauge(x)
+    x = pivot_gauge(x, layout=layout)
     if not with_info:
         return lams, x
     info = LobpcgInfo(
@@ -243,6 +262,7 @@ def lobpcg_eigh_general(a, b, r: int = 4, *, extreme: str = "min",
     """
     a = as_operator(a)
     b = as_operator(b)
+    refuse_sharded("lobpcg_eigh_general", a, b)
     if extreme not in ("min", "max"):
         raise ValueError(f"extreme must be min|max, got {extreme!r}")
     if a.dim != b.dim:

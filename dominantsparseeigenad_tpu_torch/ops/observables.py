@@ -14,7 +14,7 @@ from __future__ import annotations
 import torch
 
 from .eigh import dominant_eigh
-from .operators import hdot, resolve_device
+from .operators import hdot, layout_sum, resolve_device, vector_layout
 
 
 def _scalar(x, dev):
@@ -41,18 +41,26 @@ def fidelity_susceptibility(make_operator, g, *, k: int = 100,
     Hermitian one the pivot-phase projection gives <ψ|∂ψ> = iα, and
     <∂ψ|∂ψ> alone would overcount by α² (the JAX package's tests
     measured 1.7% on a 24-dimensional pencil).  The subtracted form is
-    gauge-invariant.
+    gauge-invariant.  An operator whose vectors are sharded over ranks
+    gives the same χ_F on every rank.
     """
     dev = resolve_device(device)
     g = _scalar(g, dev)
+    layouts = []
 
     def psi(gg):
-        _, v = dominant_eigh(make_operator(gg), k=k, extreme=extreme,
-                             tol=tol, maxiter=maxiter, device=dev)
+        op = make_operator(gg)
+        layouts.append(vector_layout(op))
+        _, v = dominant_eigh(op, k=k, extreme=extreme, tol=tol,
+                             maxiter=maxiter, device=dev)
         return v
 
     v, dv = torch.func.jvp(psi, (g,), (torch.ones_like(g),))
-    return hdot(dv, dv).real - hdot(v, dv).abs() ** 2
+    # Over vectors sharded across ranks the inner products are summed
+    # over them.
+    layout = layouts[0]
+    return layout_sum(layout, hdot(dv, dv)).real \
+        - layout_sum(layout, hdot(v, dv)).abs() ** 2
 
 
 def value_d1_d2(f, x, *, device=None):

@@ -151,20 +151,94 @@ def hdot(a, b):
     return torch.vdot(*_promoted(a, b))
 
 
-def pivot_gauge(v, *companions):
+def pivot_gauge(v, *companions, layout=None):
     """Scale ``v`` (an (N,) vector, or the columns of an (N, r) block) by
     the phase ``conj(sgn(pivot))`` that makes its largest-magnitude entry
     real and positive: the gauge every forward of the JAX package applies
     and its derivative rules assume (for a real dtype, a sign).
     ``companions`` (e.g. a tracked ``A v``) get the same phase; with
-    companions the return is a tuple ``(v', *companions')``."""
-    if v.ndim == 1:
+    companions the return is a tuple ``(v', *companions')``.  With a
+    sharded ``layout`` (see :func:`vector_layout`) ``v`` is the rank's
+    rows and the pivot is the whole vector's, the same on every rank."""
+    if layout is not None:
+        _, entry = layout.pivot(v)
+        phase = torch.sgn(entry).conj()
+        phase = phase if v.ndim == 1 else phase[None, :]
+    elif v.ndim == 1:
         phase = torch.sgn(v[torch.argmax(torch.abs(v))]).conj()
     else:
         idx = torch.argmax(torch.abs(v), dim=0)
         phase = torch.sgn(torch.gather(v, 0, idx[None])[0]).conj()[None, :]
     out = (v * phase,) + tuple(c * phase for c in companions)
     return out if companions else out[0]
+
+
+def vector_layout(op):
+    """The layout of ``op``'s vectors: None when every process holds them
+    whole (one process, or the replicated vectors of the row-sharded
+    operators), else the object a row-sharded operator with
+    ``vectors="sharded"`` carries (``parallel/collectives.py``,
+    ``ShardedVectors``).  Its vectors are then the rank's rows, and the
+    solvers take every contraction over the vector axis through it:
+
+    * ``sum(t)``: a local contraction summed over the ranks, the same on
+      every rank (a replicated result);
+    * ``bcast(t)``: a replicated value marked where it enters the rank's
+      own rows (identity; its gradient is summed over the ranks, each of
+      whose rows used it);
+    * ``norm(x, dim=None)``, ``local_dim``, ``offset``, ``dim``;
+    * ``draw(shape, generator, dtype, device)``: the global draw, narrowed
+      to the rank's rows;
+    * ``pivot(v)``: the global index of the first largest |v| (per column
+      of a block) and the entry there; ``take(t, idx)`` the entries of
+      ``t`` at global indices, and ``one_hot(idx, dtype)`` the rank's rows
+      of the unit vectors there, all the same on every rank.
+
+    Duck-typed: ``ops/`` never imports ``parallel/``."""
+    return getattr(op, "vector_layout", None)
+
+
+def layout_sum(layout, t):
+    """``t``, a local contraction over the vector axis, summed over the
+    ranks of ``layout`` (a replicated result); ``t`` with no layout."""
+    return t if layout is None else layout.sum(t)
+
+
+def layout_bcast(layout, t):
+    """A replicated ``t`` marked where it enters the rank's rows (see
+    :func:`vector_layout`); ``t`` with no layout."""
+    return t if layout is None else layout.bcast(t)
+
+
+def layout_norm(layout, x, dim=None):
+    """``torch.linalg.vector_norm(x, dim=dim)`` over the whole vector (or
+    each column, ``dim=0``), the same on every rank."""
+    if layout is None:
+        return torch.linalg.vector_norm(x, dim=dim)
+    return layout.norm(x, dim)
+
+
+def local_dim(op) -> int:
+    """The rows of ``op``'s vectors that this process holds: ``op.dim``,
+    or the rank's rows under a sharded layout."""
+    layout = vector_layout(op)
+    return op.dim if layout is None else layout.local_dim
+
+
+SHARDED_REFUSAL = ("on vectors sharded over ranks is not ported yet "
+                   "(ROADMAP.md, queue 1 item 18: the remaining solvers on "
+                   "sharded vectors); use vectors='replicated'")
+
+
+def refuse_sharded(what: str, *items):
+    """Raise NotImplementedError if an operator among ``items`` carries a
+    sharded vector layout (a local dot there would be a plausible wrong
+    number); ``items`` may hold tensors, callables (a bound ``matvec``
+    names its operator) and None."""
+    for item in items:
+        owner = getattr(item, "__self__", item)
+        if vector_layout(owner) is not None:
+            raise NotImplementedError(f"{what} {SHARDED_REFUSAL}")
 
 
 def tol_floor(tol: float, dtype) -> float:
@@ -386,6 +460,9 @@ def _rebuild(params, tensors):
 
 class LinearOperator:
     """Abstract square linear operator."""
+
+    # None: vectors live whole on this process (see vector_layout).
+    vector_layout = None
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
@@ -697,22 +774,30 @@ def _tangent_product(op, x, dparams, transpose=False):
     return op.tangent_matvec(x, dparams)
 
 
-def _project_out(V, x):
+def _reduced(layout, t):
+    """A contraction over the vector axis, summed over the ranks and
+    marked for the rank's rows (``t`` itself with no layout)."""
+    return t if layout is None else layout.bcast(layout.sum(t))
+
+
+def _project_out(V, x, layout=None):
     """``x - V <V, x>`` for a unit vector V and x of shape (N,), or
     ``x - V V^H x`` for V of shape (N,) or (N, r) with orthonormal
-    columns and x of shape (N,) or (N, m)."""
+    columns and x of shape (N,) or (N, m); the inner products over the
+    ranks of a sharded ``layout``."""
     if V.ndim == 1:
         if x.ndim == 1:
-            return x - V * hdot(V, x)
+            return x - V * _reduced(layout, hdot(V, x))
         V = V[:, None]
-    return x - hmatmul(V, hmatmul(V.mH, x))
+    return x - hmatmul(V, _reduced(layout, hmatmul(V.mH, x)))
 
 
-def _projector_tangent(V, dV, z):
+def _projector_tangent(V, dV, z, layout=None):
     """``(dP) z`` for ``P = I - V V^H``: ``-(dV V^H z + V dV^H z)``."""
     if V.ndim == 1:
         V, dV = V[:, None], dV[:, None]
-    return -(hmatmul(dV, hmatmul(V.mH, z)) + hmatmul(V, hmatmul(dV.mH, z)))
+    return -(hmatmul(dV, _reduced(layout, hmatmul(V.mH, z)))
+             + hmatmul(V, _reduced(layout, hmatmul(dV.mH, z))))
 
 
 def _scaled_dtype(dtype, c):
@@ -775,6 +860,20 @@ class _Composite(LinearOperator):
             return torch.zeros(x.shape, device=x.device,
                                dtype=torch.promote_types(x.dtype, self.dtype))
         return out
+
+    @property
+    def vector_layout(self):
+        """The children's vector layout: their products act row by row
+        on the rank's rows, so a sum, scaling, shift, transpose or
+        product of sharded operators is one too.  Children whose layouts
+        differ do not conform."""
+        layouts = [vector_layout(c) for c in self._items()
+                   if isinstance(c, LinearOperator)]
+        if any(lay != layouts[0] for lay in layouts):
+            raise ValueError("the operators' vectors are laid out "
+                             "differently (sharded and whole) and do not "
+                             "conform")
+        return layouts[0]
 
     @property
     def dim(self):
@@ -847,6 +946,7 @@ class DeflatedOperator(_Composite):
     _fields = ("op", "V")
 
     def __init__(self, op: LinearOperator, V: torch.Tensor):
+        refuse_sharded("DeflatedOperator", op)
         if V.shape[0] != op.dim:
             raise ValueError(f"V has {V.shape[0]} rows, the operator "
                              f"dimension {op.dim}")

@@ -21,7 +21,7 @@ from __future__ import annotations
 import torch
 
 from .operators import (DenseOperator, ScaledOperator, ShiftedOperator,
-                        SumOperator, as_operator)
+                        SumOperator, as_operator, refuse_sharded)
 from .sparse import BellOperator, _TripletOperator
 
 
@@ -32,6 +32,7 @@ def operator_diagonal(op) -> torch.Tensor:
     shift, scale or sum composite over them.  A matrix-free operator has
     none: pass ``diag=`` to the constructors instead (for a physics
     operator it is usually known, e.g. ``tfim_zz_diagonal``)."""
+    refuse_sharded("operator_diagonal", op)
     op = as_operator(op)
     if isinstance(op, DenseOperator):
         return torch.diagonal(op.a)
@@ -115,6 +116,7 @@ def jacobi_precond(op=None, *, diag=None, shift=0.0, floor_rel=None):
     ``A - shift`` is indefinite; an all-zero shifted diagonal gives the
     identity.  Useful where the diagonal carries the conditioning.
     """
+    refuse_sharded("jacobi_precond", op)
     if diag is None:
         if op is None:
             raise ValueError("need an operator or an explicit diag=")
@@ -136,6 +138,7 @@ def block_jacobi_precond(op=None, *, blocks=None, bs: int | None = None,
     ``V |w|^{-1} V^T`` with the magnitudes floored as in
     :func:`jacobi_precond`.  Each apply is one batched (bs, bs) product.
     """
+    refuse_sharded("block_jacobi_precond", op)
     if blocks is None:
         if op is None:
             raise ValueError("need an operator or explicit blocks=")

@@ -37,8 +37,8 @@ from typing import NamedTuple
 import torch
 
 from .lanczos import _breakdown_rel_tol, _tridiagonal_eigh, lanczos
-from .operators import (as_operator, check_device, hdot, hmatmul,
-                        pivot_gauge, real_dtype)
+from .operators import (as_operator, check_device, hdot, hmatmul, pivot_gauge,
+                        real_dtype, refuse_sharded)
 
 # The JAX package's restart stream, PRNGKey(0x5452).
 RESTART_SEED = 0x5452
@@ -203,6 +203,7 @@ def restart_init(op, k: int = 64, *, num_kept: int | None = None,
     None).  One k-step Lanczos run plus one matvec, which rebuilds the
     continuation vector q_{k+1} the couplings refer to.
     """
+    refuse_sharded("restart_init", op)
     op = as_operator(op)
     _check_extreme(extreme)
     dev = check_device(device, op)
@@ -253,6 +254,7 @@ def restart_cycle(op, state: RestartState, k: int, *, extreme: str = "min",
     as :func:`restart_init` clamps its own (a window wider than the space
     would give spurious ~0 Ritz values).  Runs where the state lives.
     """
+    refuse_sharded("restart_cycle", op)
     op = as_operator(op)
     _check_extreme(extreme)
     check_device(state.q.device, op)
@@ -296,6 +298,7 @@ def lanczos_restarted(op, k: int = 64, *, n_restarts: int = 8,
     :func:`restart_init`, :func:`restart_cycle` and
     :func:`restart_extract`: this function is that loop.
     """
+    refuse_sharded("lanczos_restarted", op)
     op = as_operator(op)
     state = restart_init(op, k, num_kept=num_kept, extreme=extreme, v0=v0,
                          generator=generator, reorth_passes=reorth_passes,

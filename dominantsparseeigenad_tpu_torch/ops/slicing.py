@@ -44,7 +44,7 @@ from .lobpcg import lobpcg_eigh
 from .operators import (_BlockMatrixFreeOperator, _product, as_operator,
                         check_device, hmatmul, nestable_jvp, partial_vjp,
                         per_lane_vmap, pivot_gauge, real_dtype, rebind,
-                        tol_floor)
+                        refuse_sharded, tol_floor)
 
 
 class SliceInfo(NamedTuple):
@@ -74,6 +74,7 @@ def spectral_bounds(op, k: int = 30, *, v0: torch.Tensor | None = None,
     safe for a filter, too narrow is not).  ``v0`` is the start vector,
     drawn from ``generator`` (seeded 1 on the device when None) if not
     given."""
+    refuse_sharded("spectral_bounds", op)
     op = as_operator(op)
     dev = check_device(device, op)
     if generator is None:
@@ -285,6 +286,7 @@ def spectral_slice(op, a: float, b: float, r: int = 8, *,
     slice edges belong in spectral gaps: an edge through a multiplet
     leaves the subspace ill-defined.
     """
+    refuse_sharded("spectral_slice", op)
     op = as_operator(op)
     a, b = float(a), float(b)
     if not a < b:
@@ -374,6 +376,7 @@ def spectral_density(op, energies, *, degree: int = 120, n_probe: int = 16,
     ``generator`` draws the enclosure's start vector and the probes
     (seeded 7 on the device when None).
     """
+    refuse_sharded("spectral_density", op)
     op = as_operator(op)
     mus, center, halfwidth = _moments(op, int(degree), n_probe, generator,
                                       bounds, int(bounds_k), device)
@@ -399,6 +402,7 @@ def trace_function(op, f, *, degree: int = 120, n_probe: int = 16,
     is evaluated only there.  ``jackson=False`` drops the damping (for an
     analytic ``f``).  Differentiable by plain autograd in the operator's
     parameters and in whatever ``f`` closes over."""
+    refuse_sharded("trace_function", op)
     op = as_operator(op)
     degree = int(degree)
     mus, center, halfwidth = _moments(op, degree, n_probe, generator,
@@ -425,6 +429,7 @@ def logdet(op, *, degree: int = 160, n_probe: int = 16,
     Ritz residuals and a 1% margin, the bottom floored at 10 eps |hi|.
     The error is then the Hutchinson noise, ~``||ln A||_F sqrt(2 /
     n_probe)`` absolute."""
+    refuse_sharded("logdet", op)
     op = as_operator(op)
     dev = check_device(device, op)
     rdt = real_dtype(op.dtype)

@@ -22,8 +22,8 @@ import math
 import torch
 
 from .cg import _DeflatedSolve
-from .operators import (_add, _Composite, _product, _tangent_product,
-                        as_operator, check_device, real_dtype)
+from .operators import (_Composite, _add, _product, _tangent_product,
+                        as_operator, check_device, real_dtype, refuse_sharded)
 
 
 class _ResolventSquares(_Composite):
@@ -81,6 +81,7 @@ def spectral_function(op, b, omegas, eta: float, *, tol: float = 1e-8,
     Differentiable in ``op.parameters()``, ``b`` and ``omegas``, to any
     order.  ``omegas`` and ``b`` are cast to the operator's (real) dtype.
     """
+    refuse_sharded("spectral_function", op)
     op = as_operator(op)
     dev = check_device(device, op)
     rdt = real_dtype(op.dtype)

@@ -24,7 +24,7 @@ import torch
 
 from .eigh import dominant_eigh_multi
 from .operators import (LinearOperator, MatrixFreeOperator, as_operator,
-                        hmatmul)
+                        hmatmul, refuse_sharded)
 
 
 class _RectOperator(LinearOperator):
@@ -111,6 +111,7 @@ def dominant_svd(a, r: int = 4, k: int = 128, *, tol: float = 1e-8,
     Triplets past rank(A) (``s_i ~ 0``) are unit null-space vectors, not
     singular triplets; ``s`` is clamped at 0.
     """
+    refuse_sharded("dominant_svd", a)
     if isinstance(a, LinearOperator):
         op = as_operator(a)
         m = n = op.dim

@@ -1,8 +1,11 @@
 """The collectives of the sharded operators, and their derivatives.
 
-The sharded operators keep Krylov vectors replicated: every rank holds
-the whole x and computes its own rows of ``A x``.  Four differentiable
-steps carry that layout (``sg`` is a :class:`~.mesh.ShardGroup`):
+Two layouts of the Krylov vectors.  With replicated vectors every rank
+holds the whole x and computes its own rows of ``A x``; with sharded
+vectors (``vectors="sharded"``, the JAX package's ``P(axis)``) every rank
+holds its rows of x only, and the solvers reduce their dots over the
+ranks through :class:`ShardedVectors`.  Four differentiable steps carry
+the replicated layout (``sg`` is a :class:`~.mesh.ShardGroup`):
 
 * :func:`replicate` (identity forward): marks a replicated input.  Its
   backward sums the ranks' gradients with ``all_reduce``, because each
@@ -20,6 +23,20 @@ steps carry that layout (``sg`` is a :class:`~.mesh.ShardGroup`):
   counterpart of ``lax.ppermute``, which the sharded matrix-free TFIM
   uses to swap whole segments between XOR partners.  Its backward is the
   inverse permutation (an XOR exchange is its own inverse).
+
+Two more carry the sharded one:
+
+* :func:`all_gather_sharded` (``all_gather`` forward): the whole vector
+  from the ranks' rows, for a rank's panel to multiply.  Each rank's
+  panel gives its own cotangent of the gathered vector, so the backward
+  is the reduce-scatter, the JAX ``all_gather(tiled=True)`` transposed.
+  (:func:`gather_rows` assumes one cotangent on every rank: it is the
+  gather of a replicated result, not of a panel's input.)
+* :func:`reduce_scatter_rows` (sum over ranks, then the rank's rows; the
+  JAX ``psum_scatter``): the transpose products' partial sums.  Its
+  backward is :func:`all_gather_sharded`.  On gloo it is an
+  ``all_reduce`` and a narrow (gloo has no CUDA reduce-scatter), counted
+  as the all_reduce it is.
 
 Every derivative is again one of these steps, so derivatives of any
 order go through them.  A backward that hands a replicated gradient to
@@ -245,6 +262,67 @@ class _Ppermute(torch.autograd.Function):
         return _Ppermute.apply(g, ctx.sg, inverse), None, None
 
 
+@per_lane_vmap
+class _AllGatherSharded(torch.autograd.Function):
+
+    @staticmethod
+    def forward(x, sg):
+        return all_gather_rows(x, sg)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.sg = inputs[1]
+
+    @staticmethod
+    @nestable_jvp
+    def jvp(ctx, dx, _):
+        return _AllGatherSharded.apply(dx, ctx.sg)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _ReduceScatterRows.apply(g, ctx.sg), None
+
+
+@per_lane_vmap
+class _ReduceScatterRows(torch.autograd.Function):
+
+    @staticmethod
+    def forward(t, sg):
+        rows = t.shape[0] // sg.size
+        return all_reduce_sum(t, sg).narrow(0, sg.rank * rows, rows) \
+            .contiguous()
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.sg = inputs[1]
+
+    @staticmethod
+    @nestable_jvp
+    def jvp(ctx, dt, _):
+        return _ReduceScatterRows.apply(dt, ctx.sg)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _AllGatherSharded.apply(g, ctx.sg), None
+
+
+def all_gather_sharded(x: torch.Tensor, sg) -> torch.Tensor:
+    """The whole vector (or block) from the ranks' rows ``x``, for the
+    rank's own computation; the gradient is the reduce-scatter of the
+    ranks' gradients."""
+    return _AllGatherSharded.apply(x, sg)
+
+
+def reduce_scatter_rows(t: torch.Tensor, sg) -> torch.Tensor:
+    """The rank's rows of the sum over ranks of ``t`` (whose leading
+    dimension the ranks split evenly); the gradient is the all-gather of
+    the ranks' gradients."""
+    if t.shape[0] % sg.size:
+        raise ValueError(f"{t.shape[0]} rows do not split over {sg.size} "
+                         f"ranks")
+    return _ReduceScatterRows.apply(t, sg)
+
+
 def replicate(x: torch.Tensor, sg) -> torch.Tensor:
     """``x``, replicated on every rank; gradients are summed over ranks."""
     return _Replicate.apply(x, sg)
@@ -271,3 +349,102 @@ def ppermute(x: torch.Tensor, sg, perm) -> torch.Tensor:
     perm = tuple((int(s), int(d)) for s, d in perm)
     _peers(sg, perm)
     return _Ppermute.apply(x, sg, perm)
+
+
+class ShardedVectors:
+    """The layout of vectors sharded over the ranks of ``group``: a rank
+    holds rows ``[offset, offset + local_dim)`` of every N-vector and
+    every (N, r) block.  The solvers take their contractions over the
+    vector axis through it (``ops/operators.py``, ``vector_layout``);
+    every result is the same on every rank, so the ranks stay in step.
+    Two layouts are equal when their group and dimension are."""
+
+    def __init__(self, group, dim: int):
+        if dim % group.size:
+            raise ValueError(f"dim {dim} not divisible by {group.size} "
+                             f"shards")
+        self.group = group
+        self.dim = int(dim)
+        self.local_dim = self.dim // group.size
+        self.offset = group.rank * self.local_dim
+
+    def __eq__(self, other):
+        return isinstance(other, ShardedVectors) and \
+            (self.group, self.dim) == (other.group, other.dim)
+
+    def sum(self, t):
+        """The sum over ranks of the local contraction ``t``."""
+        return sum_over_ranks(t, self.group)
+
+    def bcast(self, t):
+        """A replicated ``t`` entering the rank's rows: its gradient
+        shares are summed over the ranks."""
+        return replicate(t, self.group)
+
+    def norm(self, x, dim=None):
+        """The 2-norm of the whole vector (of each column with
+        ``dim=0``)."""
+        local = torch.linalg.vector_norm(x, dim=dim)
+        return torch.sqrt(self.sum(local * local))
+
+    def rows(self, t):
+        """The rank's rows of a whole (N, ...) tensor."""
+        return t.narrow(0, self.offset, self.local_dim)
+
+    def draw(self, shape, generator, dtype, device):
+        """``torch.randn(shape)`` of the whole (N, ...) tensor from
+        ``generator`` (as an unsharded run draws it), narrowed to the
+        rank's rows.  The whole draw is transient: N numbers, next to the
+        (k+1) N of a Krylov basis."""
+        full = torch.randn(shape, generator=generator, dtype=dtype,
+                           device=device)
+        return self.rows(full).clone()
+
+    def pivot(self, v):
+        """``(idx, entry)``: the global index of the first largest |v| (of
+        each column of an (N/p, r) block) and the entry there, the same on
+        every rank (``torch.argmax`` of the whole vector).  One
+        all-gather of each rank's (max |v|, index, entry)."""
+        block = v if v.ndim == 2 else v[:, None]
+        mag = torch.abs(block)
+        local = torch.argmax(mag, dim=0)
+        entry = torch.gather(block, 0, local[None])[0]
+        parts = [torch.gather(mag, 0, local[None])[0].double(),
+                 (local + self.offset).double()]
+        parts += ([entry.real.double(), entry.imag.double()]
+                  if entry.is_complex() else [entry.double()])
+        got = all_gather_rows(torch.stack(parts)[None], self.group)
+        # Ranks hold ascending rows: the first rank with the largest
+        # magnitude holds the lowest index among ties.
+        best = torch.argmax(got[:, 0], dim=0)
+        pick = got[best, :, torch.arange(block.shape[1],
+                                          device=best.device)]
+        idx = pick[:, 1].long()
+        entry = (torch.complex(pick[:, 2], pick[:, 3]) if entry.is_complex()
+                 else pick[:, 2]).to(v.dtype)
+        return (idx[0], entry[0]) if v.ndim == 1 else (idx, entry)
+
+    def _owned(self, idx):
+        local = idx - self.offset
+        mine = (local >= 0) & (local < self.local_dim)
+        return mine, torch.where(mine, local, torch.zeros_like(local))
+
+    def take(self, t, idx):
+        """The entries of the whole ``t`` at global ``idx`` (a scalar
+        index for an (N/p,) ``t``, one per column of an (N/p, r) block),
+        the same on every rank; differentiable (a sum over ranks of the
+        owner's entry)."""
+        mine, local = self._owned(idx)
+        if t.ndim == 1:
+            got = t[local]
+        else:
+            got = torch.gather(t, 0, local[None])[0]
+        return self.sum(torch.where(mine, got, torch.zeros_like(got)))
+
+    def one_hot(self, idx, dtype):
+        """The rank's rows of the unit vector e_idx (an (N/p,) vector), or
+        of one per column (an (N/p, r) block)."""
+        rows = torch.arange(self.offset, self.offset + self.local_dim,
+                            device=idx.device)
+        hot = rows == idx if idx.ndim == 0 else rows[:, None] == idx[None, :]
+        return hot.to(dtype)

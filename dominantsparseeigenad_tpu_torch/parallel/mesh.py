@@ -16,6 +16,12 @@ Each rank drives one card, ``cuda:(rank % device_count)``
 share them; :func:`init_distributed` makes it the rank's current device,
 so that ``device=None`` (CUDA) in the entry points means the rank's own
 card.
+
+:func:`row_sharding` and :func:`replicated` are the port's counterparts
+of the JAX ``NamedSharding`` objects of the same names: where a ``jax.Array``
+carries its sharding, a torch tensor on a rank is its rows or the whole,
+and these objects say which (``place`` a global tensor, ``gather`` the
+whole one back); ``utils/checkpoint.py`` takes a tree of them.
 """
 
 from __future__ import annotations
@@ -26,6 +32,8 @@ from datetime import timedelta
 
 import torch
 import torch.distributed as dist
+
+from .collectives import gather_rows, replicate
 
 SHARD_AXIS = "shards"
 BATCH_AXIS = "batch"
@@ -134,3 +142,62 @@ def make_mesh(n_shards: int | None = None, n_batch: int = 1,
             mine = sub
     return ShardGroup(group=mine, rank=rank % n_shards, size=n_shards,
                       backend=backend, batch_index=row, n_batch=n_batch)
+
+
+@dataclasses.dataclass(frozen=True)
+class RowSharding:
+    """A tensor's leading axis split over the ranks of ``group``: rank d
+    holds rows ``[d*M/p, (d+1)*M/p)`` (the JAX ``P(axis, None, ...)``).
+
+    ``place(x)``: the rank's rows of the global ``x`` (the same on every
+    rank); its gradient is summed over the ranks, as each holds a share.
+    ``gather(x)``: the global tensor on every rank from the ranks' rows,
+    a replicated result (a loss every rank computes alike takes it; a
+    panel's input is ``collectives.all_gather_sharded``)."""
+
+    group: ShardGroup
+    ndim: int = 1
+
+    def _check(self, x, rows):
+        if x.ndim != self.ndim:
+            raise ValueError(f"row_sharding(ndim={self.ndim}) got a tensor "
+                             f"of shape {tuple(x.shape)}")
+        if rows % self.group.size:
+            raise ValueError(f"{rows} rows do not split over "
+                             f"{self.group.size} shards")
+
+    def place(self, x: torch.Tensor) -> torch.Tensor:
+        self._check(x, x.shape[0])
+        rows = x.shape[0] // self.group.size
+        return replicate(x, self.group).narrow(
+            0, self.group.rank * rows, rows).clone()
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        self._check(x, x.shape[0] * self.group.size)
+        return gather_rows(x, self.group)
+
+
+@dataclasses.dataclass(frozen=True)
+class Replicated:
+    """A tensor held whole on every rank of ``group`` (the JAX ``P()``):
+    ``place`` and ``gather`` return it as it is."""
+
+    group: ShardGroup
+
+    def place(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+
+def row_sharding(group: ShardGroup, ndim: int = 1) -> RowSharding:
+    """The sharding that splits the leading axis of an ``ndim``-dimensional
+    tensor over ``group`` (JAX ``row_sharding(mesh, ndim)``)."""
+    return RowSharding(group, int(ndim))
+
+
+def replicated(group: ShardGroup) -> Replicated:
+    """The sharding of a tensor every rank holds whole (JAX
+    ``replicated(mesh)``)."""
+    return Replicated(group)

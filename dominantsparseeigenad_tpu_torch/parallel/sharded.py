@@ -1,27 +1,30 @@
 """Row-sharded dense and matrix-free operators.
 
-Counterpart of ``dominantsparseeigenad_tpu/parallel/sharded.py``, with
-the layout of :class:`~.sharded_sparse.RowShardedBellOperator`: the
+Counterpart of ``dominantsparseeigenad_tpu/parallel/sharded.py``: the
 operator's rows are split over the ranks of a :class:`~.mesh.ShardGroup`,
-vectors are replicated, each rank computes its own rows of ``A x`` and
-the row blocks are all-gathered.
+and its vectors are replicated (``vectors="replicated"``: each rank
+computes its own rows of ``A x`` and the row blocks are all-gathered) or
+sharded (``vectors="sharded"``, the JAX package's ``P(axis)``: each rank
+holds its rows of x and of ``A x``, :func:`shard_vector`; the solvers
+reduce their dots over the ranks through ``vector_layout``).
 
-* :class:`RowShardedOperator` (``mode="all_gather"``): a dense (N, N)
-  matrix, real or complex; each rank multiplies its (N/p, N) rows by the
-  whole x in true fp32/fp64.  It runs no kernel of its own.
+* :class:`RowShardedOperator`: a dense (N, N) matrix, real or complex,
+  each rank's (N/p, N) rows multiplied in true fp32/fp64 (``hmatmul``;
+  the JAX package leaves these products to XLA, so no kernel is owed).
+  ``mode="all_gather"`` gathers x; ``mode="ring"`` (sharded vectors)
+  walks the p column blocks with the segment in hand, passing it to the
+  next rank with :func:`~.collectives.ppermute` (p - 1 hops: the last,
+  whose segment no step reads, is skipped).
 * :class:`ShardedMatrixFreeOperator`: a ``local_matvec`` written against
   the rank's segment of the vector, which may use the collectives of
   ``collectives.py`` (the sharded TFIM swaps segments between XOR
-  partners with :func:`~.collectives.ppermute`).  It is the JAX
-  contract exactly, so that code written against it does not change
-  when the vectors become sharded.
+  partners with :func:`~.collectives.ppermute`).  It is the JAX contract
+  exactly: over sharded vectors the segment is the rank's rows as they
+  are, over replicated ones they are cut out and the results gathered.
 
 Both carry forward mode and derivatives of any order: their tangent
 products run the same collectives on the tangent, and the collectives'
 backwards are differentiable.
-
-Not ported yet (``ROADMAP.md`` queue 1 item 14): ``mode="ring"`` and
-``shard_vector``, which need vectors sharded over the ranks.
 """
 
 from __future__ import annotations
@@ -31,9 +34,19 @@ import copy
 import torch
 
 from ..ops.operators import LinearOperator, MatrixFreeOperator, hmatmul
-from .collectives import gather_rows, replicate, sum_over_ranks
-from .mesh import SHARD_AXIS, make_mesh
+from .collectives import (ShardedVectors, all_gather_sharded, gather_rows,
+                          ppermute, reduce_scatter_rows, replicate,
+                          sum_over_ranks)
+from .mesh import SHARD_AXIS, make_mesh, row_sharding
 from .sharded_sparse import _check_mode
+
+
+def shard_vector(x: torch.Tensor, group=None) -> torch.Tensor:
+    """The rank's rows of a global vector (or (N, r) block) that every
+    rank holds, as an operator with ``vectors="sharded"`` takes it:
+    ``row_sharding(group, x.ndim).place(x)`` (JAX ``shard_vector``)."""
+    sg = make_mesh() if group is None else group
+    return row_sharding(sg, x.ndim).place(x)
 
 
 class RowShardedOperator(LinearOperator):
@@ -43,11 +56,13 @@ class RowShardedOperator(LinearOperator):
             copy of its rows (gradients flow back into ``a`` where it
             requires them).
     group : the :class:`~.mesh.ShardGroup` (default :func:`~.mesh.make_mesh`).
-    mode  : "all_gather" ("ring" raises NotImplementedError).
+    mode  : "all_gather" or "ring" (``vectors="sharded"`` only).
+    vectors : "replicated" or "sharded" (see the module docstring).
     """
 
-    def __init__(self, a, group=None, *, mode: str = "all_gather"):
-        _check_mode(mode)
+    def __init__(self, a, group=None, *, mode: str = "all_gather",
+                 vectors: str = "replicated"):
+        _check_mode(mode, vectors)
         if a.ndim != 2 or a.shape[0] != a.shape[1]:
             raise ValueError(f"expected square matrix, got shape "
                              f"{tuple(a.shape)}")
@@ -60,19 +75,42 @@ class RowShardedOperator(LinearOperator):
         self.a = a[sg.rank * n_l:(sg.rank + 1) * n_l].clone()
         self.n = n
         self.group = sg
+        self.mode = mode
+        self.vectors = vectors
+        self.vector_layout = (ShardedVectors(sg, n) if vectors == "sharded"
+                              else None)
 
     def _rows(self, x):
         n_l = self.a.shape[0]
         return x.narrow(0, self.group.rank * n_l, n_l)
 
     def _mv(self, a, x):
-        return gather_rows(hmatmul(a, replicate(x, self.group)), self.group)
+        sg = self.group
+        if self.vectors == "replicated":
+            return gather_rows(hmatmul(a, replicate(x, sg)), sg)
+        if self.mode == "all_gather":
+            return hmatmul(a, all_gather_sharded(x, sg))
+        # Ring: at step t the segment in hand is rank (me - t) % p's, the
+        # matching (N/p, N/p) column block multiplies it, and it moves on
+        # to the next rank (JAX parallel/sharded.py:92-115).
+        p, n_l = sg.size, a.shape[0]
+        perm = [(s, (s + 1) % p) for s in range(p)]
+        acc, seg = None, x
+        for t in range(p):
+            src = (sg.rank - t) % p
+            y = hmatmul(a.narrow(1, src * n_l, n_l), seg)
+            acc = y if acc is None else acc + y
+            if t < p - 1:
+                seg = ppermute(seg, sg, perm)
+        return acc
 
     def _rmv(self, a, x):
         # A^T x = sum over ranks of (rank rows)^T (x's rank rows).
-        return sum_over_ranks(hmatmul(a.T,
-                                      self._rows(replicate(x, self.group))),
-                              self.group)
+        sg = self.group
+        if self.vectors == "sharded":
+            return reduce_scatter_rows(hmatmul(a.T, x), sg)
+        return sum_over_ranks(hmatmul(a.T, self._rows(replicate(x, sg))),
+                              sg)
 
     def matvec(self, x):
         return self._mv(self.a, x)
@@ -87,7 +125,8 @@ class RowShardedOperator(LinearOperator):
         return self._rmv(self.a, X)
 
     def tangent_matvec(self, x, dparams):
-        """``(dA) x``: the same gather on the tangent of the rank's rows."""
+        """``(dA) x``: the same product on the tangent of the rank's
+        rows."""
         (da,) = dparams
         return self._mv(da, x)
 
@@ -166,6 +205,9 @@ class ShardedMatrixFreeOperator(MatrixFreeOperator):
     device      : where the operator runs when ``params`` holds no tensor.
     local_rmatvec : the transpose product on the segment (required when
                   ``symmetric`` is False).
+    vectors     : "replicated" (each product cuts the rank's segment out
+                  of the whole x and gathers the results) or "sharded"
+                  (x and the product are the rank's segment).
 
     ``parameters()`` is the replicated leaves whole and the sharded
     leaves' rows.  Inside a product every replicated leaf goes through
@@ -178,9 +220,11 @@ class ShardedMatrixFreeOperator(MatrixFreeOperator):
 
     def __init__(self, local_matvec, params, dim: int, group=None, *,
                  dtype=torch.float32, param_specs=None, local_rmatvec=None,
-                 symmetric: bool = True, device=None):
+                 symmetric: bool = True, device=None,
+                 vectors: str = "replicated"):
         if local_rmatvec is None and not symmetric:
             raise ValueError("non-symmetric operator requires local_rmatvec")
+        _check_mode("all_gather", vectors)
         sg = make_mesh() if group is None else group
         dim = int(dim)
         if dim % sg.size:
@@ -201,12 +245,17 @@ class ShardedMatrixFreeOperator(MatrixFreeOperator):
         self.local_rmatvec = local_rmatvec
         self.param_specs = param_specs
         self.group = sg
+        self.vectors = vectors
+        self.vector_layout = (ShardedVectors(sg, dim) if vectors == "sharded"
+                              else None)
 
     def _run(self, fn, x):
         sg = self.group
         params = _map_specs(
             lambda t, spec: replicate(t, sg) if spec is None else t,
             self.params, self.param_specs)
+        if self.vectors == "sharded":
+            return fn(params, x)
         n_l = self.dim // sg.size
         x_local = replicate(x, sg).narrow(0, sg.rank * n_l, n_l)
         return gather_rows(fn(params, x_local), sg)

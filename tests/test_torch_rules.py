@@ -239,19 +239,18 @@ def test_import_scan_covers_the_sharded_tfim_and_its_driver():
 
 
 def test_sharded_tier_names_match_the_jax_exports():
-    """``parallel`` and ``models`` export the JAX package's names but the
-    three placement helpers of the sharded-vector layout, which wait
-    (``shard_vector``, ``row_sharding``, ``replicated``; item 14)."""
+    """``parallel`` and ``models`` export the JAX package's names, the
+    placement helpers of the sharded-vector layout (``shard_vector``,
+    ``row_sharding``, ``replicated``) among them, and so does the
+    package."""
     parallel = importlib.import_module("dominantsparseeigenad_tpu_torch."
                                        "parallel")
     jax_parallel = {"SHARD_AXIS", "BATCH_AXIS", "init_distributed",
                     "make_mesh", "row_sharding", "replicated",
                     "RowShardedOperator", "ShardedMatrixFreeOperator",
                     "shard_vector", "RowShardedBellOperator"}
-    waiting = {"shard_vector", "row_sharding", "replicated"}
-    assert jax_parallel - waiting <= set(parallel.__all__)
-    assert not waiting & set(parallel.__all__)
-    for name in jax_parallel - waiting:
+    assert jax_parallel <= set(parallel.__all__)
+    for name in jax_parallel:
         assert name in port.__all__ and getattr(port, name) is \
             getattr(parallel, name), name
     assert "tfim_sharded_operator" in models.__all__
@@ -640,9 +639,11 @@ def test_kernel_arguments_refuse_other_complex_dtypes(vals_dtype, x_dtype):
 def test_no_message_names_the_finished_or_a_wrong_item():
     """The complex items (5, and 17, the blocked-ELL values) and the
     formats and algebra (items 6 and 7) are done, and the sharded tier's
-    refusals name item 14, not item 12 (the spectral tiers)."""
+    refusals name item 18 (item 14 is done), not item 12 (the spectral
+    tiers)."""
     for path in _sources():
         text = path.read_text()
+        assert "queue 1 item 14)" not in text, path.name
         assert "queue 1 item 5)" not in text, path.name
         assert "queue 1 item 17)" not in text, path.name
         assert not re.search(r"items\s+6\s+and\s+7", text), path.name
@@ -661,17 +662,36 @@ def test_hdot_fault_input_is_what_the_refusal_guards():
                           torch.linalg.vector_norm(x).to(x.dtype) ** 2)
 
 
-@pytest.mark.parametrize("call", [
-    lambda: port.RowShardedOperator(torch.eye(4), mode="ring"),
-    lambda: port.RowShardedBellOperator(
+def _solo_sharded():
+    """A one-rank sharded-vector operator, its ShardGroup given (no
+    process group is needed before a product)."""
+    from dominantsparseeigenad_tpu_torch.parallel.mesh import ShardGroup
+    sg = ShardGroup(group=None, rank=0, size=1, backend="gloo")
+    return sg, port.RowShardedOperator(torch.eye(4, dtype=torch.float64), sg,
+                                       vectors="sharded")
+
+
+@pytest.mark.parametrize("call, error, match", [
+    (lambda: port.RowShardedOperator(torch.eye(4), _solo_sharded()[0],
+                                     mode="ring"),
+     ValueError, r"mode='ring' needs vectors='sharded'"),
+    (lambda: port.RowShardedBellOperator(
         torch.zeros(1, 1, 4, 4), torch.zeros(1, 1, dtype=torch.int32), 4,
-        mode="ring"),
-], ids=["RowShardedOperator ring", "RowShardedBellOperator ring"])
-def test_sharded_refusals_name_item_14(call):
-    """F7: mode="ring" waits for the sharded-vector layout, queue 1
-    item 14."""
-    with pytest.raises(NotImplementedError,
-                       match=r"ROADMAP\.md, queue 1 item 14\)"):
+        _solo_sharded()[0], mode="ring"),
+     ValueError, r"mode='ring' needs vectors='sharded'"),
+    (lambda: port.lanczos_restarted(_solo_sharded()[1], 4, device="cpu"),
+     NotImplementedError, r"ROADMAP\.md, queue 1 item 18"),
+    (lambda: port.spectral_slice(_solo_sharded()[1], 0.5, 1.5, r=1,
+                                 device="cpu"),
+     NotImplementedError, r"ROADMAP\.md, queue 1 item 18"),
+], ids=["RowShardedOperator ring", "RowShardedBellOperator ring",
+        "lanczos_restarted", "spectral_slice"])
+def test_sharded_refusals_name_item_14(call, error, match):
+    """F7's refusals after item 14: ring mode over replicated vectors
+    (the segment a ring step would send is already on every rank), and a
+    solver that does not carry the sharded-vector layout (queue 1 item
+    18)."""
+    with pytest.raises(error, match=match):
         call()
 
 
@@ -744,15 +764,17 @@ def _port_functions():
 
 
 def test_every_function_composes_with_torch_func():
-    """All 19 Functions (the 18 of the solvers, decompositions and
+    """All 21 Functions (the 20 of the solvers, decompositions and
     collectives, the generalized pencil's two, the spectral tiers'
-    ``_InteriorEigh`` and ``_SpectralSlice`` and the exchange's
-    ``_Ppermute`` among them, and the pair solver's subclass) use the ``setup_context`` form (a forward without
-    ctx), define a ``jvp`` and a ``vmap`` of their own, and none asks
-    PyTorch to generate its vmap rule (the solvers read the host)."""
+    ``_InteriorEigh`` and ``_SpectralSlice``, the exchange's
+    ``_Ppermute`` and the sharded layout's ``_AllGatherSharded`` and
+    ``_ReduceScatterRows`` among them, and the pair solver's subclass)
+    use the ``setup_context`` form (a forward without ctx), define a
+    ``jvp`` and a ``vmap`` of their own, and none asks PyTorch to
+    generate its vmap rule (the solvers read the host)."""
     import inspect
     functions = _port_functions()
-    assert len(functions) == 19, sorted(functions)
+    assert len(functions) == 21, sorted(functions)
     base = torch.autograd.Function
     for name, cls in functions.items():
         assert cls.setup_context is not base.setup_context, name

@@ -470,8 +470,10 @@ def test_complex_bell_matches_jax(ranks):
 def test_construction_errors(ranks):
     p, results = ranks
     for res in results:
-        assert res["ring_error"].startswith("NotImplementedError: mode='ring'")
-        assert "ROADMAP.md" in res["ring_error"]
+        # Ring mode runs over sharded vectors; over the default replicated
+        # ones it is refused, naming why.
+        assert res["ring_error"].startswith(
+            "ValueError: mode='ring' needs vectors='sharded'")
         # 3 block-rows split over p ranks.
         assert res["odd_error"] == (None if p == 1 else
                                     f"ValueError: 3 block-rows not divisible "
@@ -485,7 +487,7 @@ def test_constructor_checks_without_a_group():
         port.RowShardedBellOperator(torch.zeros(4, 2, 8, 4), cols, 32)
     with pytest.raises(ValueError, match="!= n"):
         port.RowShardedBellOperator(vals, cols, 40)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(ValueError, match="vectors='sharded'"):
         port.RowShardedOperator(torch.eye(8), mode="ring")
     if not dist.is_initialized():
         with pytest.raises(RuntimeError, match="init_distributed"):
