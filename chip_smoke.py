@@ -417,6 +417,29 @@ line each:
    library and gather times (the ring rows of the ``kernels`` line).
    Every time is that of ranks sharing one card over gloo, not a
    multi-GPU number.
+25. ``sharded_solvers`` (right after ``sharded_vectors``): the Hermitian
+   solvers over sharded vectors, two gloo ranks sharing the card, after
+   the unsharded references in this process.  (a) The TFIM N = 20
+   headline (the ``tfim`` phase's settings, ``bench.py:78-99``: bf16
+   basis, ``reorth_chunks=4``, k = 60, one pass, CG tol 1e-5 and at most
+   150 iterations) over sharded vectors, and its float32-basis twin: one
+   forward-mode pass each, E0 and dE0/dg against Jordan-Wigner and χ_F
+   against the unsharded bf16 pass at the ``tfim`` bars; the pass's wall
+   time and rank 0's idle share beside the unsharded pass's.  (b) Thick
+   restart (the ``restart`` phase's k = 32, 8 cycles) on the sharded
+   TFIM N = 20: E0 and dE0/dg against Jordan-Wigner, a rank's peak
+   memory beside the unsharded restart's.  (c) Config #5's KPM density
+   and ``trace_function(exp)`` (degree 120, 16 probes: one r = 16 SpMM a
+   degree) through ``RowShardedBellOperator`` over sharded vectors, in
+   all_gather (K4a panel SpMMs) and ring (bucket SpMMs) mode, against the
+   unsharded operator with the same generator seed.  (d) The ``gen``
+   phase's pencil with A row-sharded and B = diag(m) a sharded
+   matrix-free operator: λ (LOBPCG, r = 8, 100 iterations) and ∂Σλ/∂m
+   against the unsharded run from the same x0.  (e) F11's diagnostics on
+   the sharded TFIM against the replicated layout.  The KPM and pencil
+   launches are counted from 0 and added to the K4a and ring rows of the
+   ``kernels`` line; the ranks ran the same collectives and agree bit for
+   bit.  Ranks sharing one card over gloo: not multi-GPU numbers.
 
 Then a ``kernels`` line (each SpMM entry with its config-#5 times, bound
 and library time at every r of ``spmm``, the panel entries at r = 8 and
@@ -508,6 +531,18 @@ BATCH_G = (1.0, 1.2)                   # one coupling a batch row
 # sharded phase's bars; a checkpoint of an (N/p, SV_CKPT_K) basis.
 SV_RTOL = 1e-5
 SV_CKPT_K = 8
+# The sharded_solvers phase (2 ranks sharing the card over gloo): the
+# Hermitian solvers over sharded vectors.  The KPM estimators of config #5
+# (the spectral phase's seeds: the same enclosure start and the same
+# probes, drawn whole and narrowed) against the unsharded operator's,
+# float32 sums in another order over degree KPM_DEGREE; the pencil's
+# ∂Σλ/∂m (-λ_i x_i², first order in the Ritz vectors' error) against the
+# unsharded run from the same x0; F11's diagnostics on the sharded TFIM
+# against the replicated layout (the Lanczos runs under lanczos_health
+# are two float32 runs).
+SS_KPM_RTOL = 1e-4
+SS_PENCIL_GRAD_RTOL = 1e-3
+SS_F11_RTOL = 1e-4
 FWD_CG_MAXITER = 300                   # the forward-mode tangent's CG
 # The bf16 basis's polish held against a float64 Newton step from the same
 # Ritz pair: both CGs capped at this many iterations, where a float32 CG
@@ -3226,6 +3261,394 @@ def phase_sharded_vectors(pkg, spmv):
         add_counts(ring_total, res["ring_launches"])
         add_counts(panel_total, res["panel_launches"])
     return ring_total, panel_total, rows
+
+
+def sharded_tfim_pass(pkg, models, sg, n, **extra):
+    """:func:`tfim_pass` on the sharded TFIM over sharded vectors: (E0,
+    dE0/dg, χ_F), ψ and its tangent the rank's rows, the two inner
+    products of χ_F summed over the ranks."""
+    from dominantsparseeigenad_tpu_torch.parallel import collectives
+    f32 = torch.float32
+    with torch.no_grad(), fwAD.dual_level():
+        g = fwAD.make_dual(torch.tensor(TFIM_G, dtype=f32, device=DEVICE),
+                           torch.ones((), dtype=f32, device=DEVICE))
+        op = models.tfim_sharded_operator(n, g, sg, dtype=f32, device=DEVICE,
+                                          vectors="sharded")
+        lam, v = pkg.dominant_eigh(
+            op, k=min(TFIM_K, 1 << n), extreme="min", tol=TFIM_CG_TOL,
+            maxiter=TFIM_CG_MAXITER, reorth_passes=TFIM_REORTH_PASSES,
+            device=DEVICE, **extra)
+        e0, de0 = fwAD.unpack_dual(lam)
+        psi, dpsi = fwAD.unpack_dual(v)
+        dots = collectives.sum_over_ranks(
+            torch.stack([torch.dot(dpsi, dpsi), torch.dot(psi, dpsi)]), sg)
+    chi = dots[0] - dots[1] ** 2
+    return float(e0), float(de0), float(chi)
+
+
+def restart_value_and_grad(pkg, make):
+    """(E0, dE0/dg) of the operator ``make(g)`` by thick restart at the
+    restart phase's TFIM settings (``RESTART_TFIM``), float32."""
+    p = RESTART_TFIM
+    g = torch.tensor(p["g"], dtype=torch.float32, device=DEVICE,
+                     requires_grad=True)
+    lam, _ = pkg.dominant_eigh(make(g), k=p["k"], restart_cycles=p["cycles"],
+                               reorth_passes=p["reorth_passes"],
+                               device=DEVICE)
+    (d,) = torch.autograd.grad(lam, g)
+    return float(lam.detach()), float(d)
+
+
+def kpm_pair(pkg, op, energies):
+    """The spectral phase's KPM density at ``energies`` and Tr exp(A)
+    (degree ``KPM_DEGREE``, ``KPM_PROBES`` probes, the enclosure and the
+    probes drawn from ``SPEC_SEED``)."""
+    def seeded():
+        return torch.Generator(device=DEVICE).manual_seed(SPEC_SEED)
+
+    with torch.no_grad():
+        rho = pkg.spectral_density(op, energies, degree=KPM_DEGREE,
+                                   n_probe=KPM_PROBES, generator=seeded(),
+                                   bounds_k=SPEC_BOUNDS_K, device=DEVICE)
+        tr = pkg.trace_function(op, torch.exp, degree=KPM_DEGREE,
+                                n_probe=KPM_PROBES, generator=seeded(),
+                                bounds_k=SPEC_BOUNDS_K, device=DEVICE)
+    return rho.tolist(), float(tr)
+
+
+def _sharded_solver_solves(energies, sg):
+    """One rank of the sharded_solvers phase (module docstring):
+    ``energies`` are the unsharded KPM density's."""
+    import dominantsparseeigenad_tpu_torch as pkg
+    from dominantsparseeigenad_tpu_torch import SHARD_AXIS, models, utils
+    from dominantsparseeigenad_tpu_torch.parallel import collectives
+    spmv = importlib.import_module("dominantsparseeigenad_tpu_torch.ops."
+                                   "bell_spmv")
+    t_rank = time.perf_counter()
+    f32 = torch.float32
+    out = {"rank": sg.rank}
+
+    # ---- (a) the TFIM headline over sharded vectors ---------------------
+    for extra in (TFIM_HEADLINE, {}):          # warm-up at N = 10
+        sharded_tfim_pass(pkg, models, sg, TFIM_N_ED, **extra)
+    torch.cuda.synchronize()
+    collectives.reset_collective_counts()
+    tf = {}
+    for name, extra in (("bf16_basis", TFIM_HEADLINE), ("f32_basis", {})):
+        t0 = time.perf_counter()
+        values = sharded_tfim_pass(pkg, models, sg, TFIM_N, **extra)
+        torch.cuda.synchronize()
+        tf[name] = {"values": values, "hex": [v.hex() for v in values],
+                    "pass_s": time.perf_counter() - t0}
+    tf["collectives"] = dict(collectives.collective_counts)
+    # The bf16 pass again, rank 0 under the profiler (its idle share).
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    trace_dir = os.path.join(build, f"sharded_solvers_trace_{os.getpid()}")
+    t0 = time.perf_counter()
+    if sg.rank == 0:
+        with utils.trace(trace_dir) as log_dir:
+            sharded_tfim_pass(pkg, models, sg, TFIM_N, **TFIM_HEADLINE)
+        tf["trace"] = {k: v for k, v in read_trace(log_dir).items()
+                       if k in ("idle_share", "window_ms", "busy_ms",
+                                "device_intervals")}
+        shutil.rmtree(trace_dir, ignore_errors=True)
+    else:
+        sharded_tfim_pass(pkg, models, sg, TFIM_N, **TFIM_HEADLINE)
+    torch.cuda.synchronize()
+    tf["traced_pass_s"] = time.perf_counter() - t0
+    out["tfim"] = tf
+
+    # ---- (b) thick restart on the sharded TFIM N = 20 --------------------
+    runs = [peak_since(lambda: restart_value_and_grad(
+        pkg, lambda g: models.tfim_sharded_operator(
+            TFIM_N, g, sg, dtype=f32, device=DEVICE, vectors="sharded")))
+        for _ in range(2)]
+    (e0, de0), _, peak = runs[-1]
+    out["restart"] = {"e0": e0, "de0_dg": de0, "peak_mib": peak,
+                      "value_and_grad_s": [t for _, t, _ in runs],
+                      "hex": [e0.hex(), de0.hex()]}
+
+    # ---- (e) F11: the diagnostics, sharded against replicated -------------
+    gen = torch.Generator(device=DEVICE).manual_seed(11)
+    v0 = torch.randn(1 << TFIM_N, generator=gen, device=DEVICE)
+    ops = {vectors: models.tfim_sharded_operator(
+        TFIM_N, TFIM_G, sg, dtype=f32, device=DEVICE, vectors=vectors)
+        for vectors in ("sharded", "replicated")}
+    lay = ops["sharded"].vector_layout
+    with torch.no_grad():
+        lam, v = pkg.dominant_eigh(ops["sharded"], k=TFIM_K,
+                                   v0=lay.rows(v0), device=DEVICE)
+        v_whole = pkg.row_sharding(sg).gather(v)
+        b = lay.rows(v0) / 16.0
+        x = pkg.cg(ops["sharded"].matvec, b, maxiter=5, device=DEVICE)
+        diag = {}
+        for vectors, op in ops.items():
+            whole = vectors == "replicated"
+            health = utils.lanczos_health(op, pkg.lanczos(
+                op, 10, v0=v0 if whole else lay.rows(v0), device=DEVICE))
+            xb = (pkg.row_sharding(sg).gather(x), v0 / 16.0) if whole \
+                else (x, b)
+            diag[vectors] = [
+                float(utils.ritz_residual(op, lam + 0.1,
+                                          v_whole if whole else v)),
+                float(health["ortho_loss"]),
+                float(health["ritz_residual_min"]),
+                float(health["ritz_residual_max"]),
+                float(utils.cg_relative_residual(op.matvec, xb[1], xb[0]))]
+    out["diagnostics"] = diag
+    del ops, v0, v, v_whole, b, x
+    torch.cuda.empty_cache()
+
+    # ---- (c) KPM through the row panel, (d) the pencil: counted ----------
+    op, _ = config5_operator(pkg)
+    n, r = CONFIG5[0], MULTI_R
+    panels = {mode: pkg.RowShardedBellOperator.from_bell(
+        op, sg, mode=mode, vectors="sharded") for mode in ("all_gather",
+                                                          "ring")}
+    del op
+    torch.cuda.empty_cache()
+    lay = panels["all_gather"].vector_layout
+    energies = torch.tensor(energies, device=DEVICE)
+    # Warm-up of the sharded KPM calls at a small shape.
+    small = pkg.random_bell_operator(1 << 14, CONFIG5[1], CONFIG5[2],
+                                     generator=torch.Generator(
+                                         device=DEVICE).manual_seed(1),
+                                     device=DEVICE)
+    for mode in ("all_gather", "ring"):
+        w = pkg.RowShardedBellOperator.from_bell(small, sg, mode=mode,
+                                                 vectors="sharded")
+        with torch.no_grad():
+            pkg.spectral_density(w, energies, degree=8, n_probe=KPM_PROBES,
+                                 bounds_k=8, device=DEVICE)
+    del small, w
+    torch.cuda.synchronize()
+    spmv.reset_launch_counts()
+    collectives.reset_collective_counts()
+    kpm = {}
+    for mode, sop in panels.items():
+        before = _sv_counts(spmv)
+        t0 = time.perf_counter()
+        rho, tr = kpm_pair(pkg, sop, energies)
+        torch.cuda.synchronize()
+        kpm[mode] = {"density": rho, "trace_exp": tr,
+                     "s": time.perf_counter() - t0,
+                     "launches": _sv_diff(_sv_counts(spmv), before)}
+    del panels["ring"]
+    torch.cuda.empty_cache()
+    out["kpm"] = kpm
+    # The gen phase's pencil with A row-sharded: B = diag(m) a sharded
+    # matrix-free operator (its rows of m), on A's layout.
+    a = panels.pop("all_gather")
+    gen = torch.Generator(device=DEVICE).manual_seed(GEN_SEED)
+    m = (1.0 + torch.rand(n, generator=gen, device=DEVICE)).requires_grad_()
+    x0 = torch.randn(n, r, generator=gen, device=DEVICE)
+    bop = pkg.ShardedMatrixFreeOperator(lambda d, x: d * x, m, n, sg,
+                                        dtype=f32, param_specs=SHARD_AXIS,
+                                        vectors="sharded")
+    m_rows = lay.rows(m.detach())
+    before = _sv_counts(spmv)
+    t0 = time.perf_counter()
+    lams, _, info = pkg.dominant_eigh_gen(
+        a, bop, r=r, maxiter=LOBPCG_ITERS, tol=CG_TOL,
+        precond=lambda z: z / m_rows, x0=lay.rows(x0), with_info=True,
+        device=DEVICE)
+    (g_m,) = torch.autograd.grad(lams.sum(), m)
+    torch.cuda.synchronize()
+    out["pencil"] = {"lams": lams.tolist(), "hex": [float(t).hex()
+                                                     for t in lams],
+                     "iterations": int(info.effective_k),
+                     "residual": float(info.residual),
+                     "s": time.perf_counter() - t0,
+                     "launches": _sv_diff(_sv_counts(spmv), before),
+                     "dsumlam_dm_rows": lay.rows(g_m).cpu().numpy(),
+                     "collectives": dict(collectives.collective_counts)}
+    ring, panel, square, _ = _sv_counts(spmv)
+    out.update({"ring_launches": ring, "panel_launches": panel,
+                "square_launches": square,
+                "rank_s": time.perf_counter() - t_rank})
+    del a, bop, m, x0, lams, g_m
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_sharded_solvers(pkg, spmv):
+    """The Hermitian solvers over sharded vectors (module docstring):
+    the unsharded references in this process first, then two ranks;
+    returns the panel and ring launches of the ranks' counted path."""
+    import functools
+    from dominantsparseeigenad_tpu_torch import models, utils
+    t_phase = time.perf_counter()
+    f32 = torch.float32
+    ref = {}
+    # The unsharded TFIM headline pass (warm, then timed and traced).
+    tfim_pass(pkg, models, TFIM_N_ED, f32, **TFIM_HEADLINE)
+    tfim_pass(pkg, models, TFIM_N, f32, **TFIM_HEADLINE)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    e0, de0, chi, _ = tfim_pass(pkg, models, TFIM_N, f32, **TFIM_HEADLINE)
+    torch.cuda.synchronize()
+    ref["tfim"] = {"values": (e0, de0, chi),
+                   "pass_s": time.perf_counter() - t0}
+    work = tempfile.mkdtemp(prefix="sharded_solvers_", dir=os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "build"))
+    with utils.trace(work) as log_dir:
+        tfim_pass(pkg, models, TFIM_N, f32, **TFIM_HEADLINE)
+    ref["tfim"]["trace"] = {k: v for k, v in read_trace(log_dir).items()
+                            if k in ("idle_share", "window_ms", "busy_ms",
+                                     "device_intervals")}
+    shutil.rmtree(work, ignore_errors=True)
+    # The unsharded restart at N = 20 (the restart phase's k and cycles).
+    p = RESTART_TFIM
+    runs = [peak_since(lambda: restart_value_and_grad(
+        pkg, lambda g: models.tfim_operator(TFIM_N, g, dtype=f32,
+                                            device=DEVICE)))
+        for _ in range(2)]
+    ref["restart"] = {"e0": runs[-1][0][0], "de0_dg": runs[-1][0][1],
+                      "peak_mib": runs[-1][2]}
+    # The unsharded config #5 KPM (the spectral phase's seeds) and pencil.
+    op, _ = config5_operator(pkg)
+    seeded = torch.Generator(device=DEVICE).manual_seed(SPEC_SEED)
+    with torch.no_grad():
+        lo, hi = pkg.spectral_bounds(op, SPEC_BOUNDS_K, generator=seeded,
+                                     device=DEVICE)
+    width = float(hi - lo)
+    energies = torch.linspace(float(lo) + 0.01 * width,
+                              float(hi) - 0.01 * width, 64, device=DEVICE)
+    rho, tr = kpm_pair(pkg, op, energies)
+    ref["kpm"] = {"density": rho, "trace_exp": tr}
+    n, r = CONFIG5[0], MULTI_R
+    gen = torch.Generator(device=DEVICE).manual_seed(GEN_SEED)
+    m = (1.0 + torch.rand(n, generator=gen, device=DEVICE)).requires_grad_()
+    x0 = torch.randn(n, r, generator=gen, device=DEVICE)
+    m_d = m.detach()
+    lams, _, info = pkg.dominant_eigh_gen(
+        op, diagonal_operator(pkg, m, n), r=r, maxiter=LOBPCG_ITERS,
+        tol=CG_TOL, precond=lambda z: z / m_d, x0=x0, with_info=True,
+        device=DEVICE)
+    (g_m,) = torch.autograd.grad(lams.sum(), m)
+    ref["pencil"] = {"lams": lams.tolist(),
+                     "iterations": int(info.effective_k),
+                     "dsumlam_dm": g_m.cpu().numpy()}
+    del op, m, x0, lams, g_m
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    ranks, wall_s = spawn_ranks(
+        SHARDED_RANKS, functools.partial(_sharded_solver_solves,
+                                         energies.tolist()))
+    first = ranks[0]
+    jw = {"e0": float(models.tfim_exact_e0(TFIM_N, TFIM_G, device=DEVICE)),
+          "de0_dg": models.tfim_exact_de0_dg(TFIM_N, TFIM_G)}
+    jw_restart = {"e0": float(models.tfim_exact_e0(TFIM_N, p["g"],
+                                                  device=DEVICE)),
+                  "de0_dg": models.tfim_exact_de0_dg(TFIM_N, p["g"])}
+    tf_err = {basis: {"e0": abs(first["tfim"][basis]["values"][0]
+                                - jw["e0"]) / abs(jw["e0"]),
+                      "de0_dg": abs(first["tfim"][basis]["values"][1]
+                                    - jw["de0_dg"]) / abs(jw["de0_dg"]),
+                      "chi_f_vs_unsharded_bf16": abs(
+                          first["tfim"][basis]["values"][2]
+                          - ref["tfim"]["values"][2])
+                      / abs(ref["tfim"]["values"][2])}
+              for basis in ("bf16_basis", "f32_basis")}
+    rs_err = {key: abs(first["restart"][key] - jw_restart[key])
+              / abs(jw_restart[key]) for key in RESTART_RTOL}
+    kpm_err = {mode: {
+        "density": float(np.abs(np.subtract(first["kpm"][mode]["density"],
+                                            ref["kpm"]["density"])).max()
+                         / np.abs(ref["kpm"]["density"]).max()),
+        "trace_exp": abs(first["kpm"][mode]["trace_exp"]
+                         - ref["kpm"]["trace_exp"])
+        / abs(ref["kpm"]["trace_exp"])} for mode in ("all_gather", "ring")}
+    g_m_sharded = np.concatenate([res["pencil"].pop("dsumlam_dm_rows")
+                                  for res in ranks])
+    pencil_err = {
+        "lams": rel_err(torch.tensor(first["pencil"]["lams"]),
+                        torch.tensor(ref["pencil"]["lams"])),
+        "dsumlam_dm": float(np.abs(g_m_sharded - ref["pencil"].pop(
+            "dsumlam_dm")).max() / np.abs(g_m_sharded).max())}
+    f11_err = max(abs(a - b) / max(abs(b), 1e-30) for res in ranks
+                  for a, b in zip(res["diagnostics"]["sharded"],
+                                  res["diagnostics"]["replicated"])
+                  if b > 1e-6)
+    f11_abs = max(abs(a - b) for res in ranks
+                  for a, b in zip(res["diagnostics"]["sharded"],
+                                  res["diagnostics"]["replicated"]))
+    ring_gain, panel_gain = {}, {}
+    for res in ranks:
+        add_counts(ring_gain, res["ring_launches"])
+        add_counts(panel_gain, res["panel_launches"])
+    note = ("2 ranks sharing one card over gloo; not a multi-GPU or "
+            "scaling number")
+    emit({"phase": "sharded_solvers", "note": note,
+          "card": nvidia_smi_name_power(), "wall_s": wall_s,
+          "tfim": {"n": TFIM_N, "g": TFIM_G, "k": TFIM_K,
+                   "headline_options": {k: str(v) for k, v in
+                                        TFIM_HEADLINE.items()},
+                   "jordan_wigner": jw, "rel_err": tf_err,
+                   "unsharded_bf16": ref["tfim"]},
+          "restart": {**p, "n": TFIM_N, "jordan_wigner": jw_restart,
+                      "rel_err": rs_err, "unsharded": ref["restart"]},
+          "kpm": {"degree": KPM_DEGREE, "probes": KPM_PROBES,
+                  "rel_vs_unsharded": kpm_err,
+                  "unsharded_trace_exp": ref["kpm"]["trace_exp"]},
+          "pencil": {"r": r, "lobpcg_cap": LOBPCG_ITERS,
+                     "rel_vs_unsharded": pencil_err,
+                     "unsharded": ref["pencil"]},
+          "diagnostics_rel": f11_err, "diagnostics_abs": f11_abs,
+          "launches_gained": {"ring": ring_gain, "panel": panel_gain},
+          "ranks": ranks, "phase_s": time.perf_counter() - t_phase})
+    checks = {}
+    for basis in ("bf16_basis", "f32_basis"):
+        for key in ("e0", "de0_dg"):
+            checks[f"sharded TFIM N={TFIM_N} {basis} {key} vs "
+                   f"Jordan-Wigner, rel {TFIM_RTOL[key]}"] = \
+                tf_err[basis][key] <= TFIM_RTOL[key]
+        checks[f"sharded TFIM N={TFIM_N} {basis} χ_F vs the unsharded bf16 "
+               f"pass, rel {TFIM_RTOL['chi_f']}"] = \
+            tf_err[basis]["chi_f_vs_unsharded_bf16"] <= TFIM_RTOL["chi_f"]
+    for key, bar in RESTART_RTOL.items():
+        checks[f"sharded restart N={TFIM_N} {key} vs Jordan-Wigner, rel "
+               f"{bar}"] = rs_err[key] <= bar
+    for mode in ("all_gather", "ring"):
+        for key in ("density", "trace_exp"):
+            checks[f"KPM {key} {mode} vs unsharded, rel {SS_KPM_RTOL}"] = \
+                kpm_err[mode][key] <= SS_KPM_RTOL
+        checks[f"KPM {mode}: SpMMs launched"] = any(
+            first["kpm"][mode]["launches"][i].get("bell_spmm_f32", 0) > 0
+            for i in (0, 1))
+    checks.update({
+        f"pencil λ vs unsharded, rel {SV_RTOL}": pencil_err["lams"]
+            <= SV_RTOL,
+        f"pencil ∂Σλ/∂m vs unsharded, rel {SS_PENCIL_GRAD_RTOL}":
+            pencil_err["dsumlam_dm"] <= SS_PENCIL_GRAD_RTOL,
+        f"F11 diagnostics sharded vs replicated, rel {SS_F11_RTOL}":
+            f11_err <= SS_F11_RTOL,
+        "KPM all_gather: panel SpMMs at r = 16, no ring launch":
+            first["kpm"]["all_gather"]["launches"][1].get(
+                "bell_spmm_f32", 0) > 0
+            and not first["kpm"]["all_gather"]["launches"][0],
+        "KPM ring: ring bucket SpMMs": first["kpm"]["ring"]["launches"][0]
+            .get("bell_spmm_f32", 0) > 0,
+        "pencil: panel SpMMs": first["pencil"]["launches"][1].get(
+            "bell_spmm_f32", 0) > 0,
+        "ranks ran the same collectives": all(
+            res["tfim"]["collectives"] == first["tfim"]["collectives"]
+            and res["pencil"]["collectives"]
+            == first["pencil"]["collectives"] for res in ranks),
+        "ranks bitwise equal (TFIM, restart, pencil λ)": all(
+            res["tfim"][b]["hex"] == first["tfim"][b]["hex"]
+            for res in ranks for b in ("bf16_basis", "f32_basis"))
+            and all(res["restart"]["hex"] == first["restart"]["hex"]
+                    and res["pencil"]["hex"] == first["pencil"]["hex"]
+                    for res in ranks),
+        "finite": all(math.isfinite(x) for res in ranks
+                      for x in _floats(res)),
+    })
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"sharded_solvers phase failed: {failed}")
+    return ring_gain, panel_gain
 
 
 def tfim_pass(pkg, models, n, dtype, **extra):
@@ -6927,6 +7350,19 @@ def phase_utils(pkg, spmv, spmv_row):
         call_event = event_ms(lambda: op.matvec(x),
                               samples=UTILS_TIMEIT_REPEATS)
         launched = spmv.launch_counts["bell_spmv_banded_f32"] - before
+        # The same product through the autograd Function, which op.matvec
+        # skips where nothing is differentiated: timeit and the call's
+        # event median of each route, in turns.
+        routes = {"direct": lambda: op.matvec(x),
+                  "function": lambda: spmv._BellProduct.apply(
+                      op.vals, op.cols, x, op.slot_plan)}
+        turns = {"direct": [], "function": []}
+        for route in ("direct", "function", "function", "direct"):
+            turns[route].append({
+                "timeit_ms": utils.timeit(
+                    routes[route], repeats=UTILS_TIMEIT_REPEATS).median * 1e3,
+                "call_event_ms": event_ms(routes[route],
+                                          samples=UTILS_TIMEIT_REPEATS)})
     timeit_ms, event = res.median * 1e3, spmv_row["kernel_ms"]
     a, b = UTILS_TIMEIT_BAR
     out["timeit"] = {"what": "one config-#5 K4b SpMV (op.matvec)",
@@ -6934,7 +7370,7 @@ def phase_utils(pkg, spmv, spmv_row):
                      "median_ms": timeit_ms, "best_ms": res.best * 1e3,
                      "event_median_ms": event, "ratio": timeit_ms / event,
                      "call_event_median_ms": call_event,
-                     "k4b_launches": launched}
+                     "k4b_launches": launched, "route_turns": turns}
     checks[f"timeit median within [event, {a} x event + {b} ms]"] = \
         event <= timeit_ms <= a * event + b
     checks["timeit and events launched K4b"] = launched > 0
@@ -7334,6 +7770,9 @@ def main():
     ring_counts, sv_panel_counts, ring_rows = phase_sharded_vectors(pkg,
                                                                     spmv)
     add_counts(panel_counts, sv_panel_counts)
+    ss_ring_counts, ss_panel_counts = phase_sharded_solvers(pkg, spmv)
+    add_counts(ring_counts, ss_ring_counts)
+    add_counts(panel_counts, ss_panel_counts)
     phase_tfim(pkg)
     phase_sweep(pkg)
     so_counts, reverse_c5 = phase_second_order(pkg, spmv)

@@ -48,7 +48,9 @@ The kernels run forward only.  Gradients come from the plain math in the
 backward of :class:`_BellProduct`, as the JAX kernels' JVPs go through
 XLA; its forward-mode ``jvp`` runs the kernels on the tangents (the map is
 bilinear), to any order, and its ``vmap`` turns a batch of vectors into
-one SpMM, as JAX's ``bell_spmm`` is the batched ``bell_spmv``.
+one SpMM, as JAX's ``bell_spmm`` is the batched ``bell_spmv``.  Where no
+derivative can be taken, the products skip the Function
+(:func:`_bell_product`).
 
 Complex values: the product is holomorphic in ``vals`` and ``x``, so the
 ``jvp`` is the same bilinear rule.  PyTorch's backward takes the
@@ -77,8 +79,9 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.autograd.forward_ad as fwAD
 
-from .operators import _per_lane, nestable_jvp
+from .operators import _per_lane, nestable_jvp, transforms_active
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _SRC = _CSRC / "bell_spmv.cu"          # the SpMV kernel's source
@@ -575,6 +578,20 @@ class _BellProduct(torch.autograd.Function):
         return y.reshape(y.shape[0], *lanes.shape[1:]), lanes.ndim - 1
 
 
+def _bell_product(vals, cols, x, plan):
+    """The product through :class:`_BellProduct` where a derivative can be
+    taken of it (a ``torch.func`` transform is active, a forward-mode
+    dual level is open, or grad mode is on and ``vals`` or ``x``
+    requires grad), else straight to :func:`_product`: the Function's
+    own dispatch (a signature bind and a ctx a call) is host time that a
+    loop under ``torch.no_grad`` would pay at every product."""
+    if (transforms_active() or fwAD._current_level >= 0
+            or (torch.is_grad_enabled()
+                and (vals.requires_grad or x.requires_grad))):
+        return _BellProduct.apply(vals, cols, x, plan)
+    return _product(vals, cols, x, plan)
+
+
 def _as_input(grad, inp):
     """A gradient in ``inp``'s dtype: the real part for a real input
     (PyTorch's rule for a real tensor that meets a complex one)."""
@@ -604,8 +621,8 @@ def bell_spmv(vals, cols, x, slot_plan=None):
     if x.ndim != 1:
         raise ValueError(f"bell_spmv takes x of shape (N,), got "
                          f"{tuple(x.shape)}")
-    return _BellProduct.apply(vals, cols, x,
-                              _bare_plan(vals, cols, x, slot_plan))
+    return _bell_product(vals, cols, x,
+                         _bare_plan(vals, cols, x, slot_plan))
 
 
 def bell_spmm(vals, cols, X, slot_plan=None):
@@ -616,5 +633,5 @@ def bell_spmm(vals, cols, X, slot_plan=None):
     if X.ndim != 2:
         raise ValueError(f"bell_spmm takes X of shape (N, r), got "
                          f"{tuple(X.shape)}")
-    return _BellProduct.apply(vals, cols, X,
-                              _bare_plan(vals, cols, X, slot_plan))
+    return _bell_product(vals, cols, X,
+                         _bare_plan(vals, cols, X, slot_plan))

@@ -28,13 +28,15 @@ non-symmetric eigensolver's rule (``eig.py``): its backward is the same
 solve on the transposed system, the counterpart of the JAX package's
 ``custom_linear_solve`` with ``transpose_solve``.
 
-Sharded vectors (``operators.vector_layout``): the CG loops, single and
-batched, and the deflated solve with its rules run on the rank's rows,
-their inner products summed over the ranks (so every rank reads the
-same residual), λ marked where it enters the rank's rows; the default
-iteration cap is 10 N of the whole N.  MINRES, BiCGStab, GMRES, the
-undeflated and the general solves, and a preconditioner raise there
-(queue 1 item 18).
+Sharded vectors (``operators.vector_layout``): the CG and MINRES loops,
+single and batched, the deflated and undeflated solves with their
+rules, and ``cg``/``cg_info``/``minres`` on a bound ``op.matvec`` (which
+names its operator) run on the rank's rows, their inner products and
+norms summed over the ranks (so every rank reads the same residual and
+stops at the same iteration), λ marked where it enters the rank's rows;
+the default iteration cap is 10 N of the whole N.  A preconditioner's
+apply is row-local (``ops/precond.py``).  BiCGStab, GMRES and the
+general solve raise there (queue 1 item 18).
 
 Complex operators: every inner product conjugates (``hdot``), and CG's
 and MINRES's step sizes are real for a Hermitian system.  PyTorch's
@@ -56,9 +58,9 @@ from .lanczos import arnoldi_step
 from .operators import (LinearOperator, _add, _per_lane, _project_out,
                         _projector_tangent, _tangent_product, as_operator,
                         check_device, hdot, hmatmul, layout_bcast,
-                        layout_norm, layout_sum, nestable_jvp, partial_vjp,
-                        per_lane_vmap, rebind, refuse_sharded, tol_floor,
-                        vector_layout)
+                        layout_norm, layout_sum, local_dim, matvec_layout,
+                        nestable_jvp, partial_vjp, per_lane_vmap, rebind,
+                        refuse_sharded, tol_floor, vector_layout)
 from .precond import _apply_columns
 
 # The JAX loops test the residual on the device every iteration inside a
@@ -317,11 +319,13 @@ def cg(matvec: Callable, b: torch.Tensor, *, x0: torch.Tensor | None = None,
     the dtype can reach), tested every ``CHECK_EVERY`` iterations, or
     after ``maxiter`` iterations (default 10 N).  ``x0`` is the start
     (zero when None); ``precond`` an SPD approximate inverse
-    ``z = M^{-1} r`` (see :mod:`~.precond`).
+    ``z = M^{-1} r`` (see :mod:`~.precond`).  On a bound ``op.matvec``
+    of an operator whose vectors are sharded, ``b`` is the rank's rows
+    and the dots are summed over the ranks.
     """
-    refuse_sharded("cg on a bare matvec", matvec)
     check_device(device, b)
-    return _cg_loop(matvec, b, tol, maxiter, x0, atol, precond)[0]
+    return _cg_loop(matvec, b, tol, maxiter, x0, atol, precond,
+                    matvec_layout(matvec))[0]
 
 
 def cg_info(matvec: Callable, b: torch.Tensor, *,
@@ -332,31 +336,35 @@ def cg_info(matvec: Callable, b: torch.Tensor, *,
     the products made (up to ``CHECK_EVERY - 1`` past the iteration that
     met the tolerance, whose steps are frozen) and ``||b - A x|| /
     ||b||`` from one extra matvec.  Forward-only."""
-    refuse_sharded("cg_info on a bare matvec", matvec)
     check_device(device, b)
+    lay = matvec_layout(matvec)
     with torch.no_grad():
-        x, it = _cg_loop(matvec, b, tol, maxiter, x0, atol, precond)
-        res = torch.linalg.vector_norm(b - matvec(x)) \
-            / torch.linalg.vector_norm(b)
+        x, it = _cg_loop(matvec, b, tol, maxiter, x0, atol, precond, lay)
+        res = layout_norm(lay, b - matvec(x)) / layout_norm(lay, b)
     return x, it, float(res)
 
 
 def _minres_loop(matvec: Callable, b, tol: float, maxiter, x0=None,
-                 precond: Callable | None = None):
+                 precond: Callable | None = None, layout=None):
     """Paige-Saunders MINRES (the JAX ``minres`` recurrence, line for
     line); returns ``(x, iterations run)``, products made, frozen ones
     included.  Once ``phibar`` meets the target every quantity of the
-    state is kept, as the JAX ``while_loop`` would stop there."""
+    state is kept, as the JAX ``while_loop`` would stop there.  Under a
+    sharded ``layout`` b is the rank's rows and every dot is summed over
+    the ranks (the rotations are then the same on every rank)."""
     if maxiter is None:
-        maxiter = 10 * b.shape[-1]
+        maxiter = 10 * (b.shape[-1] if layout is None else layout.dim)
+
+    def dot(a, c):
+        return layout_sum(layout, hdot(a, c)).real
+
     x = torch.zeros_like(b) if x0 is None else x0.to(b.dtype).clone()
     r = b.clone() if x0 is None else b - matvec(x)
     yv = r if precond is None else precond(r)
-    beta1 = torch.sqrt(torch.clamp(hdot(r, yv).real, min=0.0))
+    beta1 = torch.sqrt(torch.clamp(dot(r, yv), min=0.0))
     tol = tol_floor(tol, b.dtype)
     # The M^{-1} norm phibar tracks; for M = I and x0 = 0, tol ||b||.
-    target = tol * (torch.linalg.vector_norm(b) if precond is None
-                    else beta1)
+    target = tol * (layout_norm(layout, b) if precond is None else beta1)
     zero = torch.zeros_like(beta1)
     tiny = torch.finfo(b.dtype).tiny
     # x, r1, r2, yv, w, w2, oldb, beta, dbar, epsln, cs, sn, phibar
@@ -375,12 +383,12 @@ def _minres_loop(matvec: Callable, b, tol: float, maxiter, x0=None,
             if it >= 1:
                 y = y - (beta / _nonzero(oldb)) * r1
             # <v, A v> is real for a Hermitian A: the rotations stay real.
-            alfa = hdot(v, y).real
+            alfa = dot(v, y)
             y = y - (alfa / _nonzero(beta)) * r2
             r1, r2 = r2, y
             yv = y if precond is None else precond(y)
             oldb = beta
-            beta_new = torch.sqrt(torch.clamp(hdot(y, yv).real, min=0.0))
+            beta_new = torch.sqrt(torch.clamp(dot(y, yv), min=0.0))
             oldeps = epsln
             delta = cs * dbar + sn * alfa
             gbar = sn * dbar - cs * alfa
@@ -415,11 +423,13 @@ def minres(matvec: Callable, b: torch.Tensor, *,
     ``y = M^{-1} r`` (the operator may stay indefinite): the Lanczos
     recurrence runs on the preconditioned residuals with
     ``beta = sqrt(r^T M^{-1} r)``.  With ``precond=None`` this is exactly
-    the unpreconditioned recurrence.
+    the unpreconditioned recurrence.  On a bound ``op.matvec`` of an
+    operator whose vectors are sharded, ``b`` is the rank's rows and the
+    dots are summed over the ranks.
     """
-    refuse_sharded("minres", matvec)
     check_device(device, b)
-    return _minres_loop(matvec, b, tol, maxiter, x0, precond)[0]
+    return _minres_loop(matvec, b, tol, maxiter, x0, precond,
+                        matvec_layout(matvec))[0]
 
 
 def _deflated_mv(op, lam, V, sign, batched):
@@ -439,7 +449,7 @@ def _deflated_mv(op, lam, V, sign, batched):
     return mv
 
 
-def _deflated_precond(precond, V, batched):
+def _deflated_precond(precond, V, batched, layout=None):
     """The preconditioner projected as ``P M P``, which maps V⊥ to V⊥
     (for CG and MINRES alike: PSD with null space span(V), which the
     deflated recurrences never touch); applied column by column to an
@@ -449,7 +459,7 @@ def _deflated_precond(precond, V, batched):
         return None
     if batched:
         precond = _apply_columns(precond)
-    return lambda r: _project_out(V, precond(r))
+    return lambda r: _project_out(V, precond(r), layout)
 
 
 def _deflated_solve(op, lam, V, rhs, sign, tol, maxiter, method="cg",
@@ -463,21 +473,15 @@ def _deflated_solve(op, lam, V, rhs, sign, tol, maxiter, method="cg",
     batched = rhs.ndim == 2
     mv = _deflated_mv(op, lam, V, sign, batched)
     lay = vector_layout(op)
-    if lay is not None:
-        # Only CG, unpreconditioned, runs here (solve_deflated refuses
-        # the rest).
-        loop = _cg_columns_loop if batched else _cg_loop
-        x, its = loop(mv, _project_out(V, rhs, lay), tol, maxiter,
-                      layout=lay)
-        return _project_out(V, x, lay), its
-    m = _deflated_precond(precond, V, batched)
+    m = _deflated_precond(precond, V, batched, lay)
     if method == "minres":
         loop = _minres_columns_loop if batched else _minres_loop
     else:
         loop = _cg_columns_loop if batched else _cg_loop
-    args = (mv, _project_out(V, rhs), tol, maxiter)
-    x, its = loop(*args) if m is None else loop(*args, precond=m)
-    return _project_out(V, x), its
+    # The loop's options only where they are set.
+    kw = {k: v for k, v in (("precond", m), ("layout", lay)) if v is not None}
+    x, its = loop(mv, _project_out(V, rhs, lay), tol, maxiter, **kw)
+    return _project_out(V, x, lay), its
 
 
 def _cg_columns_loop(matmat: Callable, B, tol: float, maxiter,
@@ -536,7 +540,7 @@ def _cg_columns_loop(matmat: Callable, B, tol: float, maxiter,
 
 
 def _minres_columns_loop(matmat: Callable, B, tol: float, maxiter,
-                         precond: Callable | None = None):
+                         precond: Callable | None = None, layout=None):
     """Batched (preconditioned) MINRES from X0 = 0 over the columns of
     ``B`` (N, m), one ``matmat`` of width m per iteration; returns ``(X,
     iterations per column)``.
@@ -547,15 +551,20 @@ def _minres_columns_loop(matmat: Callable, B, tol: float, maxiter,
     ``phibar`` meets it, every quantity of its state kept (a lane of a
     vmapped ``while_loop``): decided on the device every iteration, read
     by the host every ``CHECK_EVERY`` iterations.  ``precond`` maps (N, m)
-    blocks."""
+    blocks.  Under a sharded ``layout`` B is the rank's rows and the
+    column dots are summed over the ranks."""
     n, m = B.shape
     if maxiter is None:
-        maxiter = 10 * n
+        maxiter = 10 * (n if layout is None else layout.dim)
+
+    def coldot(a, c):
+        return layout_sum(layout, _coldot(a, c))
+
     X = torch.zeros_like(B)
     Yv = B if precond is None else precond(B)
-    beta1 = torch.sqrt(torch.clamp(_coldot(B, Yv), min=0.0))
+    beta1 = torch.sqrt(torch.clamp(coldot(B, Yv), min=0.0))
     tol = tol_floor(tol, B.dtype)
-    target = tol * (torch.linalg.vector_norm(B, dim=0) if precond is None
+    target = tol * (layout_norm(layout, B, dim=0) if precond is None
                     else beta1)
     zero = torch.zeros_like(beta1)
     tiny = torch.finfo(B.dtype).tiny
@@ -576,12 +585,12 @@ def _minres_columns_loop(matmat: Callable, B, tol: float, maxiter,
             Y = matmat(V)
             if it >= 1:
                 Y = Y - (beta / _nonzero(oldb)) * R1
-            alfa = _coldot(V, Y)
+            alfa = coldot(V, Y)
             Y = Y - (alfa / _nonzero(beta)) * R2
             R1, R2 = R2, Y
             Yv = Y if precond is None else precond(Y)
             oldb = beta
-            beta_new = torch.sqrt(torch.clamp(_coldot(Y, Yv), min=0.0))
+            beta_new = torch.sqrt(torch.clamp(coldot(Y, Yv), min=0.0))
             oldeps = epsln
             delta = cs * dbar + sn * alfa
             gbar = sn * dbar - cs * alfa
@@ -743,8 +752,6 @@ def solve_deflated_info(op, lam, V, b, *, definite_sign: float = 1.0,
     right-hand side both are lists with one entry per column."""
     op = as_operator(op)
     check_device(device, op, V, b)
-    if precond is not None:
-        refuse_sharded("solve_deflated_info with precond", op)
     sign = float(definite_sign)
     lay = vector_layout(op)
     with torch.no_grad():
@@ -791,8 +798,6 @@ def solve_deflated(op, lam, V, b, *, definite_sign: float = 1.0,
         raise ValueError(f"method must be cg|minres, got {method!r}")
     op = as_operator(op)
     check_device(device, op, V, b)
-    if method == "minres" or precond is not None:
-        refuse_sharded("solve_deflated with method='minres' or precond", op)
     sign = 1.0 if method == "minres" else float(definite_sign)
     lay = vector_layout(op)
     # λ enters the rank's rows: a backward sums its ranks' shares.
@@ -829,8 +834,7 @@ def _undeflated(op, b, tol, maxiter, method, device):
     (an empty (N, 0) V, λ = 0): gradients to ``b`` and
     ``op.parameters()``."""
     op = _solve_operator(op, b, device)
-    refuse_sharded("solve_spd and solve_symmetric", op)
-    empty = torch.zeros((op.dim, 0), dtype=b.dtype, device=b.device)
+    empty = torch.zeros((local_dim(op), 0), dtype=b.dtype, device=b.device)
     zero = torch.zeros((), dtype=b.dtype, device=b.device)
     return _DeflatedSolve.apply(op, 1.0, tol, maxiter, method, None, b,
                                 zero, empty, *op.parameters())

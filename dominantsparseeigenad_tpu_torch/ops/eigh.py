@@ -102,10 +102,10 @@ rank's rows, and every inner product over the vector axis above (V^H X,
 <v, v̄>, the pivot) is summed over the ranks; λ and those sums are the
 same on every rank.  A replicated value that enters the rank's rows (λ,
 λ̄, a sum) is marked there (``layout.bcast``), so that a second
-backward sums its gradient over the ranks that used it.  The Lanczos and
-LOBPCG forwards, the deflated CG and ``with_info`` run there; the other
-options (restart cycles, early exit, a narrow basis, restart mode
-"carry", a preconditioner) raise (queue 1 item 18).
+backward sums its gradient over the ranks that used it.  Every forward
+and option runs there: the Lanczos and LOBPCG forwards, thick restart,
+the early exit, a narrow basis with its polish, restart mode "carry",
+``with_info``, and a preconditioner, whose apply is row-local.
 """
 
 from __future__ import annotations
@@ -121,7 +121,7 @@ from .lobpcg import lobpcg_eigh
 from .operators import (_reduced, as_operator, check_device, hdot, hmatmul,
                         layout_bcast, layout_norm, layout_sum, nestable_jvp,
                         partial_vjp, per_lane_vmap, pivot_gauge, rebind,
-                        refuse_sharded, tol_floor, vector_layout)
+                        tol_floor, vector_layout)
 from .precond import _apply_columns
 from .restart import lanczos_restarted
 
@@ -256,7 +256,7 @@ def _forward(op, opts, v0, generator):
         lam, v = refine_eigenpair(op, lam, v, iters=1, tol=opts.tol,
                                   maxiter=opts.maxiter, definite_sign=sign,
                                   device=op.device)
-        polished += [lam, pivot_gauge(v)]
+        polished += [lam, pivot_gauge(v, layout=vector_layout(op))]
     return tuple(polished), None
 
 
@@ -444,12 +444,6 @@ def dominant_eigh(op, k: int = 128, *, extreme: str = "min",
                          "with restart_cycles/early_exit_tol)")
     op = as_operator(op)
     dev = check_device(device, op)
-    if (restart_cycles or early_exit_tol is not None or precond is not None
-            or restart_mode != "cond"
-            or basis_dtype not in (None, op.dtype)):
-        refuse_sharded("dominant_eigh with restart_cycles, early_exit_tol, "
-                       "precond, restart_mode='carry' or a narrow "
-                       "basis_dtype", op)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(int(seed))
     opts = EighOptions(k=int(k), extreme=extreme, tol=float(tol),
@@ -482,24 +476,27 @@ def refine_eigenpair(op, lam, v, *, iters: int = 2, tol: float = 1e-12,
     dtype; built of differentiable operations.
 
     Returns ``(lam, v)``: ``lam`` real (the operator's real dtype), ``v``
-    in the operator's dtype, ``||v|| = 1``.
+    in the operator's dtype, ``||v|| = 1``.  Over sharded vectors ``v``
+    is the rank's rows, and the norms and Rayleigh quotients are the
+    whole vector's.
     """
     op = as_operator(op)
-    refuse_sharded("refine_eigenpair", op)
     dev = check_device(device, op)
+    layout = vector_layout(op)
     v = torch.as_tensor(v).to(device=dev, dtype=op.dtype)
-    v = v / torch.linalg.vector_norm(v)
+    v = v / layout_bcast(layout, layout_norm(layout, v))
     method = "minres" if definite_sign is None else "cg"
     sign = 1.0 if definite_sign is None else float(definite_sign)
     for _ in range(int(iters)):
         av = op.matvec(v)
-        lam = hdot(v, av).real
-        dv = solve_deflated(op, lam, v, -(av - lam * v), definite_sign=sign,
-                            method=method, tol=tol, maxiter=maxiter,
-                            device=dev)
+        lam = layout_sum(layout, hdot(v, av)).real
+        dv = solve_deflated(op, lam, v,
+                            -(av - layout_bcast(layout, lam) * v),
+                            definite_sign=sign, method=method, tol=tol,
+                            maxiter=maxiter, device=dev)
         v = v + dv
-        v = v / torch.linalg.vector_norm(v)
-    return hdot(v, op.matvec(v)).real, v
+        v = v / layout_bcast(layout, layout_norm(layout, v))
+    return layout_sum(layout, hdot(v, op.matvec(v))).real, v
 
 
 @dataclasses.dataclass(frozen=True)
@@ -747,8 +744,6 @@ def dominant_eigh_multi(op, r: int = 4, k: int = 128, *,
                          "for method='lobpcg'")
     op = as_operator(op)
     dev = check_device(device, op)
-    if precond is not None:
-        refuse_sharded("dominant_eigh_multi with precond", op)
     r = int(r)
     k = int(min(k, op.dim)) if method == "lanczos" else int(k)
     if r > k:

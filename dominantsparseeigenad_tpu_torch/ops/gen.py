@@ -29,6 +29,14 @@ cotangent U and of one ``B(φ) V`` with Z.  The out-of-block solves are
 own Function (:class:`_DeflatedPencilSolve`, the JAX package's
 ``custom_linear_solve``) differentiates by one more pencil solve, so no
 derivative is ever taken through the LOBPCG or CG iterations.
+
+Over sharded vectors (``operators.vector_layout``; A and B must share
+one layout) V, B V and every block are the rank's rows: the B-metric
+Gram, both projections' coefficients and the in-block matrices above
+are summed over the ranks, and each replicated value that enters the
+rank's rows (λ, the gap-weighted blocks) is marked there
+(``layout_bcast``), so that a second derivative sums its gradient over
+the ranks.
 """
 
 from __future__ import annotations
@@ -41,9 +49,10 @@ from .cg import _cg_columns_loop, _cg_loop, _shifts
 from .eigh import _gap_inverses, _pivot_phase_cotangent, _pivot_phase_project
 from .lanczos import LanczosInfo
 from .lobpcg import lobpcg_eigh_general
-from .operators import (_add, _per_lane, _tangent_product, as_operator,
-                        check_device, hmatmul, nestable_jvp, partial_vjp,
-                        per_lane_vmap, rebind, refuse_sharded)
+from .operators import (_add, _per_lane, _reduced, _tangent_product,
+                        as_operator, check_device, common_layout, hmatmul,
+                        layout_bcast, layout_sum, nestable_jvp, partial_vjp,
+                        per_lane_vmap, rebind)
 from .precond import _apply_columns
 
 
@@ -68,15 +77,20 @@ class _Pencil:
         na = len(self.a.parameters())
         return items[:na], items[na:]
 
+    @property
+    def vector_layout(self):
+        """The layout both operators share (they must conform)."""
+        return common_layout(self.a, self.b)
 
-def _proj_r(V, BV, x):
+
+def _proj_r(V, BV, x, layout=None):
     """``x - V (B V)^H x``: onto the B-orthogonal complement of span(V)."""
-    return x - hmatmul(V, hmatmul(BV.mH, x))
+    return x - hmatmul(V, _reduced(layout, hmatmul(BV.mH, x)))
 
 
-def _proj_l(V, BV, y):
+def _proj_l(V, BV, y, layout=None):
     """``y - B V V^H y``, the adjoint of :func:`_proj_r`."""
-    return y - hmatmul(BV, hmatmul(V.mH, y))
+    return y - hmatmul(BV, _reduced(layout, hmatmul(V.mH, y)))
 
 
 def _shifted(pencil, y, lam):
@@ -89,8 +103,9 @@ def _shifted(pencil, y, lam):
 
 def _pencil_mv(pencil, lam, V, BV, sign):
     """``x -> sign P_L (A - lam B) P_R x``."""
-    return lambda x: sign * _proj_l(V, BV, _shifted(pencil, _proj_r(V, BV, x),
-                                                    lam))
+    lay = pencil.vector_layout
+    return lambda x: sign * _proj_l(
+        V, BV, _shifted(pencil, _proj_r(V, BV, x, lay), lam), lay)
 
 
 def _pencil_solve(pencil, lam, V, BV, rhs, sign, tol, maxiter, precond):
@@ -98,15 +113,16 @@ def _pencil_solve(pencil, lam, V, BV, rhs, sign, tol, maxiter, precond):
     linear solve; the preconditioner is applied as ``P_R M^{-1}``, column
     by column for an (N, m) ``rhs``."""
     batched = rhs.ndim == 2
+    lay = pencil.vector_layout
     loop = _cg_columns_loop if batched else _cg_loop
-    args = (_pencil_mv(pencil, lam, V, BV, sign), _proj_l(V, BV, rhs), tol,
-            maxiter)
-    if precond is None:
-        x, _ = loop(*args)
-    else:
+    args = (_pencil_mv(pencil, lam, V, BV, sign), _proj_l(V, BV, rhs, lay),
+            tol, maxiter)
+    m = None
+    if precond is not None:
         apply = _apply_columns(precond) if batched else precond
-        x, _ = loop(*args, precond=lambda r: _proj_r(V, BV, apply(r)))
-    return _proj_r(V, BV, x)
+        m = lambda r: _proj_r(V, BV, apply(r), lay)  # noqa: E731
+    x, _ = loop(*args, precond=m, layout=lay)
+    return _proj_r(V, BV, x, lay)
 
 
 def _scaled(y, lam):
@@ -122,28 +138,29 @@ def _pencil_mv_tangent(pencil, lam, V, BV, sign, x, dlam, dV, dBV, dparams):
         du = dA y + A dy - dλ B y - λ (dB y + B dy),
         Ṁ x = sign (P_L du - dBV V^H u - BV dV^H u)."""
     da, db = pencil.split(dparams)
-    y = _proj_r(V, BV, x)
+    lay = pencil.vector_layout
+    y = _proj_r(V, BV, x, lay)
     dy = None
     if dV is not None:
-        dy = -hmatmul(dV, hmatmul(BV.mH, x))
+        dy = -hmatmul(dV, _reduced(lay, hmatmul(BV.mH, x)))
     if dBV is not None:
-        dy = _add(dy, -hmatmul(V, hmatmul(dBV.mH, x)))
+        dy = _add(dy, -hmatmul(V, _reduced(lay, hmatmul(dBV.mH, x))))
     du = _tangent_product(pencil.a, y, da)
     dby = _tangent_product(pencil.b, y, db)
     if dby is not None:
         du = _add(du, -_scaled(dby, lam))
     if dlam is not None:
         by = pencil.b.matmat(y) if y.ndim == 2 else pencil.b.matvec(y)
-        du = _add(du, -_scaled(by, dlam))
+        du = _add(du, -_scaled(by, layout_bcast(lay, dlam)))
     if dy is not None:
         du = _add(du, _shifted(pencil, dy, lam))
-    out = None if du is None else _proj_l(V, BV, du)
+    out = None if du is None else _proj_l(V, BV, du, lay)
     if dV is not None or dBV is not None:
         u = _shifted(pencil, y, lam)
         if dBV is not None:
-            out = _add(out, -hmatmul(dBV, hmatmul(V.mH, u)))
+            out = _add(out, -hmatmul(dBV, _reduced(lay, hmatmul(V.mH, u))))
         if dV is not None:
-            out = _add(out, -hmatmul(BV, hmatmul(dV.mH, u)))
+            out = _add(out, -hmatmul(BV, _reduced(lay, hmatmul(dV.mH, u))))
     return None if out is None else sign * out
 
 
@@ -246,20 +263,22 @@ def solve_deflated_pencil(a, b, lam, v, bv, rhs, *,
     inverse in the vector convention, used as ``P_R M^{-1}``.
     Differentiable in ``rhs``, ``lam``, ``v``, ``bv`` and the parameters
     of both operators, to any order in either mode, with no derivative
-    taken through the CG iterations.
+    taken through the CG iterations.  Over sharded vectors (A and B on
+    one layout) ``v``, ``bv`` and ``rhs`` are the rank's rows.
     """
-    refuse_sharded("solve_deflated_pencil", a, b)
     a, b = as_operator(a), as_operator(b)
     check_device(device, a, b, v, bv, rhs)
     V = v[:, None] if v.ndim == 1 else v
     BV = bv[:, None] if bv.ndim == 1 else bv
     sign = float(definite_sign)
-    lam = _shifts(lam, rhs)
     pencil = _Pencil(a, b)
+    lay = pencil.vector_layout
+    # λ enters the rank's rows: a backward sums its ranks' shares.
+    lam = layout_bcast(lay, _shifts(lam, rhs))
     x = _DeflatedPencilSolve.apply(pencil, sign, tol, maxiter, precond,
-                                   sign * _proj_l(V, BV, rhs), lam, V, BV,
-                                   *pencil.parameters())
-    return _proj_r(V, BV, x)
+                                   sign * _proj_l(V, BV, rhs, lay), lam, V,
+                                   BV, *pencil.parameters())
+    return _proj_r(V, BV, x, lay)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -328,44 +347,51 @@ class _DominantEighGen(torch.autograd.Function):
         operator and one batched pencil solve."""
         opts = ctx.opts
         pencil, lams, v = _DominantEighGen._saved(ctx)
+        lay = pencil.vector_layout
         info = (None,) * ctx.n_info
         if all(t is None for t in dparams):
             return (torch.zeros_like(lams), torch.zeros_like(v), *info)
         da, db = pencil.split(dparams)
         dav = _tangent_product(pencil.a, v, da)
         dbv = _tangent_product(pencil.b, v, db)
+        lams_rows = layout_bcast(lay, lams)
         k = dav
         if dbv is not None:
-            k = _add(k, -dbv * lams[None, :].to(v.dtype))
-        m = hmatmul(v.mH, k)
+            k = _add(k, -dbv * lams_rows[None, :].to(v.dtype))
+        m = layout_sum(lay, hmatmul(v.mH, k))
         dlams = torch.diagonal(m).real.clone()
-        c = _gap_inverses(lams, opts).to(m.dtype) * m
+        c = _gap_inverses(lams_rows, opts).to(m.dtype) \
+            * layout_bcast(lay, m)
         if dbv is not None:
             # The B-normalization gauge v^H B v = 1.
-            c = c - 0.5 * torch.diag(torch.diagonal(hmatmul(v.mH, dbv)))
+            c = c - 0.5 * torch.diag(torch.diagonal(
+                _reduced(lay, hmatmul(v.mH, dbv))))
         dv = hmatmul(v, c) + _DominantEighGen._solve(pencil, opts, lams, v,
                                                      -k)
-        return (dlams, _pivot_phase_project(v, dv), *info)
+        return (dlams, _pivot_phase_project(v, dv, lay), *info)
 
     @staticmethod
     def backward(ctx, lams_bar, v_bar, *info_bar):
         opts = ctx.opts
         pencil, lams, v = _DominantEighGen._saved(ctx)
+        lay = pencil.vector_layout
         if lams_bar is None and v_bar is None:
             return (None,) * (4 + len(pencil.parameters()))
+        lams_rows = layout_bcast(lay, lams)
         g = torch.zeros((opts.r, opts.r), dtype=v.dtype, device=v.device) \
-            if lams_bar is None else torch.diag(lams_bar).to(v.dtype)
+            if lams_bar is None \
+            else torch.diag(layout_bcast(lay, lams_bar)).to(v.dtype)
         z = None
         if v_bar is not None:
-            v_bar = _pivot_phase_cotangent(v, v_bar)
-            w = hmatmul(v.mH, v_bar)
-            g = g + _gap_inverses(lams, opts).to(v.dtype) * w
+            v_bar = _pivot_phase_cotangent(v, v_bar, lay)
+            w = _reduced(lay, hmatmul(v.mH, v_bar))
+            g = g + _gap_inverses(lams_rows, opts).to(v.dtype) * w
             # The gauge term's transpose: -½ Re W_ii v_i into B's.
             z = -0.5 * v * torch.diagonal(w).real[None, :]
         u = hmatmul(v, g)
         if v_bar is not None:
             u = u + _DominantEighGen._solve(pencil, opts, lams, v, -v_bar)
-        z = _add(z, -u * lams[None, :].to(v.dtype))
+        z = _add(z, -u * lams_rows[None, :].to(v.dtype))
         need_a, need_b = pencil.split(ctx.needs_input_grad[4:])
         grads = partial_vjp(pencil.a, lambda held: held.matmat(v), [], u,
                             need_a)
@@ -404,9 +430,10 @@ def dominant_eigh_gen(a, b, r: int = 4, *, extreme: str = "min",
     Returns ``(lams, V)`` with ``V^H B V = I``, plus a
     :class:`~.lanczos.LanczosInfo` with ``with_info`` (residual ``max_i
     ||A v_i - lam_i B v_i|| / max(|lam_i|, 1)``, effective_k the LOBPCG
-    iterations run; zero tangents, no gradient).
+    iterations run; zero tangents, no gradient).  Over sharded vectors A
+    and B share one layout (operators laid out differently do not
+    conform: ValueError), and ``V`` and ``x0`` are the rank's rows.
     """
-    refuse_sharded("dominant_eigh_gen", a, b)
     a = as_operator(a)
     b = as_operator(b)
     if extreme not in ("min", "max"):

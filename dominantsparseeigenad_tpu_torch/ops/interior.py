@@ -26,9 +26,10 @@ import torch
 from .cg import _minres_loop, solve_deflated
 from .eigh import _pivot_phase_cotangent, _pivot_phase_project
 from .lanczos import lanczos_eigh
-from .operators import (MatrixFreeOperator, as_operator, check_device, hdot,
-                        nestable_jvp, partial_vjp, per_lane_vmap, rebind,
-                        refuse_sharded)
+from .operators import (MatrixFreeOperator, _reduced, as_operator,
+                        check_device, hdot, layout_bcast, layout_norm,
+                        layout_sum, nestable_jvp, partial_vjp, per_lane_vmap,
+                        rebind, vector_layout)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,21 +51,24 @@ class InteriorOptions:
 def _forward(op, opts, v0, generator):
     """``(λ, v)``: the eigenpair of ``op`` nearest ``opts.sigma``."""
     sigma = opts.sigma
+    layout = vector_layout(op)
 
     def inv_matvec(_, x):
         return _minres_loop(lambda y: op.matvec(y) - sigma * y, x,
                             opts.inner_tol, opts.inner_maxiter,
-                            precond=opts.precond)[0]
+                            precond=opts.precond, layout=layout)[0]
 
     inv_op = MatrixFreeOperator(inv_matvec, None, dim=op.dim, dtype=op.dtype,
                                 device=op.device)
+    # The shift-inverted operator acts on the rank's rows, as A does.
+    inv_op.vector_layout = layout
     mu_min, v_min, mu_max, v_max = lanczos_eigh(
         inv_op, min(opts.k, op.dim), extreme="both", v0=v0,
         generator=generator, device=op.device)
     v = torch.where(mu_max.abs() >= mu_min.abs(), v_max, v_min)
-    v = v / torch.linalg.vector_norm(v)
+    v = v / layout_norm(layout, v)
     # The Rayleigh quotient of A itself (more accurate than sigma + 1/mu).
-    return hdot(v, op.matvec(v)).real.clone(), v
+    return layout_sum(layout, hdot(v, op.matvec(v))).real.clone(), v
 
 
 @per_lane_vmap
@@ -101,12 +105,14 @@ class _InteriorEigh(torch.autograd.Function):
         """``dλ = Re<v, dA v>``, ``dv = solve_deflated(A, λ, v, -(dA v -
         dλ v), method="minres")``, then the pivot-phase projection."""
         op, lam, v = _InteriorEigh._saved(ctx)
+        layout = vector_layout(op)
         if all(t is None for t in dparams):
             return torch.zeros_like(lam), torch.zeros_like(v)
         dav = op.tangent_matvec(v, dparams)
-        dlam = hdot(v, dav).real
-        dv = _InteriorEigh._solve(ctx, op, lam, v, -(dav - dlam * v))
-        return dlam, _pivot_phase_project(v, dv)
+        dlam = layout_sum(layout, hdot(v, dav)).real
+        dv = _InteriorEigh._solve(ctx, op, lam, v,
+                                  -(dav - layout_bcast(layout, dlam) * v))
+        return dlam, _pivot_phase_project(v, dv, layout)
 
     @staticmethod
     def backward(ctx, lam_bar, v_bar):
@@ -114,13 +120,16 @@ class _InteriorEigh(torch.autograd.Function):
         v, -(I - v v^H) v̄')`` and each parameter's gradient ``u^H (∂A/∂θ)
         v``, one matvec's vjp."""
         op, lam, v = _InteriorEigh._saved(ctx)
+        layout = vector_layout(op)
         if lam_bar is None and v_bar is None:
             return (None,) * (4 + len(op.parameters()))
-        u = torch.zeros_like(v) if lam_bar is None else lam_bar * v
+        u = torch.zeros_like(v) if lam_bar is None \
+            else layout_bcast(layout, lam_bar) * v
         if v_bar is not None:
-            v_bar = _pivot_phase_cotangent(v, v_bar)
-            u = u + _InteriorEigh._solve(ctx, op, lam, v,
-                                         -(v_bar - v * hdot(v, v_bar)))
+            v_bar = _pivot_phase_cotangent(v, v_bar, layout)
+            u = u + _InteriorEigh._solve(
+                ctx, op, lam, v,
+                -(v_bar - v * _reduced(layout, hdot(v, v_bar))))
         grads = partial_vjp(op, lambda held: held.matvec(v), [], u,
                             ctx.needs_input_grad[4:])
         return (None, None, None, None, *grads)
@@ -147,9 +156,10 @@ def interior_eigh(op, sigma: float, k: int = 64, *,
               ``seed`` on the device when None) if not given.
     device  : where the solve runs (CUDA when None).
 
-    Returns ``(lam, v)``, ``v`` normalized and pivot-gauged.
+    Returns ``(lam, v)``, ``v`` normalized and pivot-gauged.  Over
+    sharded vectors ``v`` (and ``v0``) is the rank's rows: the inner
+    MINRES, the Lanczos run and the rules sum their dots over the ranks.
     """
-    refuse_sharded("interior_eigh", op)
     op = as_operator(op)
     dev = check_device(device, op)
     if generator is None:

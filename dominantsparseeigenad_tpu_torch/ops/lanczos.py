@@ -24,9 +24,12 @@ Profiler ranges name the step's phases as the JAX package's
 On an operator whose vectors are sharded over ranks
 (``operators.vector_layout``) the loops run on the rank's rows: a
 (k+1, N/p) basis, α, β and the projections summed over the ranks (so
-every rank reads the same β), the start and breakdown vectors drawn
-whole and narrowed, the pivot the whole vector's.  Restart mode "carry"
-and a narrow basis are not carried there (queue 1 item 18).
+every rank reads the same β and takes the same branch), the start,
+breakdown and carried restart vectors drawn whole and narrowed, the
+pivot the whole vector's.  A narrow basis sums its float32 projection
+coefficients over the ranks.  α and β are marked where they enter the
+rank's rows (``layout_bcast``), so a run differentiated by autograd
+sums their gradients over the ranks.
 """
 
 from __future__ import annotations
@@ -38,9 +41,9 @@ from torch._C._functorch import is_functorch_wrapped_tensor
 from torch.profiler import record_function
 
 from .operators import (_reduced, as_operator, check_device, hdot, hmatmul,
-                        layout_norm, layout_sum, local_dim, outside_transforms,
-                        pivot_gauge, real_dtype, refuse_sharded, tol_floor,
-                        under_vmap, vector_layout)
+                        layout_bcast, layout_norm, layout_sum, local_dim,
+                        outside_transforms, pivot_gauge, real_dtype,
+                        tol_floor, under_vmap, vector_layout)
 
 
 def _breakdown_rel_tol(real_dtype) -> float:
@@ -143,7 +146,7 @@ def _project_out(basis, w, layout=None):
     if basis.dtype == w.dtype:
         return w - hmatmul(basis.T,
                            _reduced(layout, hmatmul(basis.conj(), w)))
-    coeffs = _narrow_mm(basis, w[:, None])
+    coeffs = _reduced(layout, _narrow_mm(basis, w[:, None]))
     return w - _narrow_mm(basis.T, coeffs)[:, 0]
 
 
@@ -241,7 +244,8 @@ def _step(op, basis, i, q, q_prev, beta_prev, generator, reorthogonalize,
         w = op.matvec(q)
     # <q, A q> is real for a Hermitian A: T stays real.
     alpha = layout_sum(layout, hdot(q, w)).real
-    w = w - alpha * q - beta_prev * q_prev
+    w = w - layout_bcast(layout, alpha) * q \
+        - layout_bcast(layout, beta_prev) * q_prev
     if reorthogonalize:
         with record_function("lanczos_reorth"):
             for _ in range(reorth_passes):
@@ -256,20 +260,21 @@ def _step(op, basis, i, q, q_prev, beta_prev, generator, reorthogonalize,
             q_next = r / (layout_norm(layout, r) + torch.finfo(dtype).tiny)
             beta = torch.zeros_like(beta)
         else:
-            q_next = w / beta
+            q_next = w / layout_bcast(layout, beta)
     else:
         # A second breakdown finds r_perp consumed by its own deflation,
         # rounding junk only: the threshold turns it into a zero vector,
         # whose zero rows the caller's residual check reports (the JAX
         # package's contract; "cond" handles any number of breakdowns).
-        rnorm = torch.linalg.vector_norm(r_perp)
+        rnorm = layout_norm(layout, r_perp)
         alive = rnorm > (float(torch.finfo(dtype).eps) * op.dim) ** 0.5
         restart = torch.where(alive, r_perp, torch.zeros_like(r_perp)) \
-            / torch.clamp(rnorm, min=torch.finfo(dtype).tiny)
+            / layout_bcast(layout,
+                           torch.clamp(rnorm, min=torch.finfo(dtype).tiny))
         q_next = torch.where(broke, restart,
-                             w / torch.where(broke, torch.ones_like(beta),
-                                             beta))
-        r_perp = r_perp - q_next * hdot(q_next, r_perp)
+                             w / layout_bcast(layout, torch.where(
+                                 broke, torch.ones_like(beta), beta)))
+        r_perp = r_perp - q_next * _reduced(layout, hdot(q_next, r_perp))
         beta = torch.where(broke, torch.zeros_like(beta), beta)
     return q_next, alpha, beta, r_perp
 
@@ -310,9 +315,6 @@ def lanczos(op, k: int, *, v0: torch.Tensor | None = None,
     k = int(k)
     if k < 1:
         raise ValueError("k must be >= 1")
-    if restart_mode == "carry" or basis_dtype not in (None, dtype):
-        refuse_sharded("lanczos(restart_mode='carry') or a narrow "
-                       "basis_dtype", op)
     if restart_mode not in ("cond", "carry"):
         raise ValueError(f"restart_mode must be 'cond'|'carry', got "
                          f"{restart_mode!r}")
@@ -337,9 +339,10 @@ def lanczos(op, k: int, *, v0: torch.Tensor | None = None,
     basis = _put(torch.zeros((k + 1, local_dim(op)), dtype=storage,
                              device=dev), 0, q, batched)
     r_perp = None
+    layout = vector_layout(op)
     if restart_mode == "carry":
-        r0 = _draw(op.dim, generator, dtype, dev)
-        r_perp = r0 - q * hdot(q, r0)
+        r0 = _draw(op.dim, generator, dtype, dev, layout)
+        r_perp = r0 - q * _reduced(layout, hdot(q, r0))
     rdt = real_dtype(dtype)
     alphas = torch.zeros(k, dtype=rdt, device=dev)
     betas = torch.zeros(k, dtype=rdt, device=dev)
@@ -420,7 +423,6 @@ def lanczos_adaptive(op, k: int, *, extreme: str = "min",
                          f"only, got {extreme!r}")
     _refuse_host_reads("lanczos_adaptive")
     op = as_operator(op)
-    refuse_sharded("lanczos_adaptive", op)
     dev = check_device(device, op)
     dtype = op.dtype
     tol = tol_floor(tol, dtype)
@@ -436,7 +438,7 @@ def lanczos_adaptive(op, k: int, *, extreme: str = "min",
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
     q = _start(op, v0, generator, dev)
-    basis = torch.zeros((k + 1, op.dim), dtype=dtype, device=dev)
+    basis = torch.zeros((k + 1, local_dim(op)), dtype=dtype, device=dev)
     basis[0] = q
     rdt = real_dtype(dtype)
     alphas = torch.zeros(k, dtype=rdt, device=dev)
@@ -460,9 +462,12 @@ def lanczos_adaptive(op, k: int, *, extreme: str = "min",
         resid = betas[cp - 1] * torch.abs(y[cp - 1]) / torch.clamp(
             torch.abs(theta), min=torch.finfo(rdt).tiny)
         converged = resid <= tol
+        # A replicated estimate (T is the same on every rank): every rank
+        # stops at the same checkpoint.
         if bool(converged):
             break
-    v = pivot_gauge(_ritz_vector(basis[:done].T, y))
+    layout = vector_layout(op)
+    v = pivot_gauge(_ritz_vector(basis[:done].T, y, layout), layout=layout)
     info = LanczosInfo(
         effective_k=torch.tensor(float(done), dtype=rdt, device=dev),
         residual=resid, converged=converged.to(rdt))
@@ -482,13 +487,15 @@ def power_iteration(op, num_iters: int = 100, *,
     pivot-gauged.
     """
     op = as_operator(op)
-    refuse_sharded("power_iteration", op)
     dev = check_device(device, op)
+    layout = vector_layout(op)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
     q = _start(op, v0, generator, dev)
-    shift = torch.as_tensor(shift, dtype=op.dtype, device=dev)
+    shift = layout_bcast(layout, torch.as_tensor(shift, dtype=op.dtype,
+                                                 device=dev))
     for _ in range(int(num_iters)):
         w = op.matvec(q) + shift * q
-        q = w / torch.linalg.vector_norm(w)
-    return hdot(q, op.matvec(q)), pivot_gauge(q)
+        q = w / layout_bcast(layout, layout_norm(layout, w))
+    return layout_sum(layout, hdot(q, op.matvec(q))), \
+        pivot_gauge(q, layout=layout)

@@ -33,11 +33,12 @@ Forward only: gradients come from the implicit-function-theorem rules of
 ``gen.py`` (``dominant_eigh_gen``).
 
 On an operator whose vectors are sharded over ranks
-(``operators.vector_layout``) :func:`lobpcg_eigh` runs on the rank's
-rows: its Gram matrices, norms and projections are summed over the
-ranks (every rank whitens and solves the same small problems), its start
-block is drawn whole and narrowed.  The generalized solver and a
-preconditioner are not carried there (queue 1 item 18).
+(``operators.vector_layout``) both solvers run on the rank's rows: their
+Gram matrices (the B-metric ones too), norms and projections are summed
+over the ranks (every rank whitens and solves the same small problems
+and reads the same residual), the start block is drawn whole and
+narrowed, and a preconditioner applies to the rank's rows of the
+residual block.  A pencil's two operators must share one layout.
 """
 
 from __future__ import annotations
@@ -46,9 +47,9 @@ from typing import NamedTuple
 
 import torch
 
-from .operators import (_reduced, as_operator, check_device, hmatmul,
-                        layout_norm, layout_sum, local_dim, pivot_gauge,
-                        real_dtype, refuse_sharded, tol_floor, vector_layout)
+from .operators import (_reduced, as_operator, check_device, common_layout,
+                        hmatmul, layout_norm, layout_sum, local_dim,
+                        pivot_gauge, real_dtype, tol_floor, vector_layout)
 
 
 class LobpcgInfo(NamedTuple):
@@ -160,8 +161,6 @@ def lobpcg_eigh(op, r: int = 4, *, extreme: str = "min", maxiter: int = 200,
     if extreme not in ("min", "max"):
         raise ValueError(f"extreme must be min|max, got {extreme!r}")
     dev = check_device(device, op)
-    if precond is not None:
-        refuse_sharded("lobpcg_eigh with precond", op)
     layout = vector_layout(op)
     r = int(r)
     n = op.dim
@@ -262,12 +261,12 @@ def lobpcg_eigh_general(a, b, r: int = 4, *, extreme: str = "min",
     """
     a = as_operator(a)
     b = as_operator(b)
-    refuse_sharded("lobpcg_eigh_general", a, b)
     if extreme not in ("min", "max"):
         raise ValueError(f"extreme must be min|max, got {extreme!r}")
     if a.dim != b.dim:
         raise ValueError(f"pencil dims differ: A {a.dim} vs B {b.dim}")
     dev = check_device(device, a, b)
+    layout = common_layout(a, b)
     r = int(r)
     n = a.dim
     if n < 3 * r:
@@ -281,17 +280,17 @@ def lobpcg_eigh_general(a, b, r: int = 4, *, extreme: str = "min",
     def amat(X):
         return sign * a.matmat(X)
 
-    x0 = _start_block(n, r, dtype, x0, generator, dev)
-    zeros = torch.zeros((n, r), dtype=dtype, device=dev)
+    x0 = _start_block(n, r, dtype, x0, generator, dev, layout)
+    zeros = torch.zeros((local_dim(a), r), dtype=dtype, device=dev)
     # B-metric whitening; B(S t) = (B S) t, so the whitened block's B
     # image comes with it.
     bx0 = b.matmat(x0)
-    (x, bx), _, _ = _whiten_metric(x0, bx0, (x0, bx0), drop_tol)
+    (x, bx), _, _ = _whiten_metric(x0, bx0, (x0, bx0), drop_tol, layout)
     ax = amat(x)
-    lams = (x.conj() * ax).real.sum(dim=0)
+    lams = layout_sum(layout, (x.conj() * ax).real.sum(dim=0))
 
     def resid_norm(ax, bx, lams):
-        nrm = torch.linalg.vector_norm(ax - bx * lams[None, :], dim=0)
+        nrm = layout_norm(layout, ax - bx * lams[None, :], dim=0)
         return torch.max(nrm / torch.clamp(lams.abs(), min=1.0))
 
     res = resid_norm(ax, bx, lams)
@@ -302,16 +301,16 @@ def lobpcg_eigh_general(a, b, r: int = 4, *, extreme: str = "min",
         w = precond(rblk) if precond is not None else rblk
         # B-project W off span(X) twice, then unit-normalize its columns.
         for _ in range(2):
-            w = w - hmatmul(x, hmatmul(bx.mH, w))
+            w = w - hmatmul(x, _reduced(layout, hmatmul(bx.mH, w)))
         aw = amat(w)
         bw = b.matmat(w)
-        w, aw, bw = _colnormalize((w, aw, bw))
+        w, aw, bw = _colnormalize((w, aw, bw), layout)
         s = torch.cat([x, w, p], dim=1)
         a_s = torch.cat([ax, aw, ap], dim=1)
         b_s = torch.cat([bx, bw, bp], dim=1)
         (so, aso, bso), keep, t = _whiten_metric(s, b_s, (s, a_s, b_s),
-                                                 drop_tol)
-        lams, y = _rayleigh_ritz(so, aso, keep, r)
+                                                 drop_tol, layout)
+        lams, y = _rayleigh_ritz(so, aso, keep, r, layout)
         x_new, ax, bx_new = hmatmul(so, y), hmatmul(aso, y), hmatmul(bso, y)
         # The W/P part of the update in the original [X, W, P]
         # coordinates, B-projected off the new X, Euclidean-whitened for
@@ -319,8 +318,10 @@ def lobpcg_eigh_general(a, b, r: int = 4, *, extreme: str = "min",
         c_wp = hmatmul(t, y)
         c_wp[:r] = 0
         p_raw = hmatmul(s, c_wp)
-        p_raw = p_raw - hmatmul(x_new, hmatmul(bx_new.mH, p_raw))
-        (p,), _, _ = _whiten_metric(p_raw, p_raw, (p_raw,), drop_tol)
+        p_raw = p_raw - hmatmul(x_new,
+                                _reduced(layout, hmatmul(bx_new.mH, p_raw)))
+        (p,), _, _ = _whiten_metric(p_raw, p_raw, (p_raw,), drop_tol,
+                                    layout)
         ap = amat(p)
         bp = b.matmat(p)
         x, bx = x_new, bx_new
@@ -328,7 +329,7 @@ def lobpcg_eigh_general(a, b, r: int = 4, *, extreme: str = "min",
         it += 1
 
     lams = sign * lams
-    x = pivot_gauge(x)
+    x = pivot_gauge(x, layout=layout)
     if not with_info:
         return lams, x
     info = LobpcgInfo(

@@ -218,6 +218,23 @@ def layout_norm(layout, x, dim=None):
     return layout.norm(x, dim)
 
 
+def common_layout(*items):
+    """The one vector layout of the operators among ``items`` (None for
+    whole vectors); operators whose layouts differ do not conform."""
+    layouts = [vector_layout(c) for c in items
+               if isinstance(c, LinearOperator)]
+    if any(lay != layouts[0] for lay in layouts):
+        raise ValueError("the operators' vectors are laid out differently "
+                         "(sharded and whole) and do not conform")
+    return layouts[0]
+
+
+def matvec_layout(matvec):
+    """The vector layout of a bare ``matvec``: its operator's, where it is
+    a bound method (``op.matvec`` names ``op`` through ``__self__``)."""
+    return vector_layout(getattr(matvec, "__self__", matvec))
+
+
 def local_dim(op) -> int:
     """The rows of ``op``'s vectors that this process holds: ``op.dim``,
     or the rank's rows under a sharded layout."""
@@ -226,8 +243,9 @@ def local_dim(op) -> int:
 
 
 SHARDED_REFUSAL = ("on vectors sharded over ranks is not ported yet "
-                   "(ROADMAP.md, queue 1 item 18: the remaining solvers on "
-                   "sharded vectors); use vectors='replicated'")
+                   "(ROADMAP.md, queue 1 item 18: the general "
+                   "(non-Hermitian) solvers on sharded vectors); use "
+                   "vectors='replicated'")
 
 
 def refuse_sharded(what: str, *items):
@@ -236,8 +254,7 @@ def refuse_sharded(what: str, *items):
     number); ``items`` may hold tensors, callables (a bound ``matvec``
     names its operator) and None."""
     for item in items:
-        owner = getattr(item, "__self__", item)
-        if vector_layout(owner) is not None:
+        if matvec_layout(item) is not None:
             raise NotImplementedError(f"{what} {SHARDED_REFUSAL}")
 
 
@@ -867,13 +884,7 @@ class _Composite(LinearOperator):
         on the rank's rows, so a sum, scaling, shift, transpose or
         product of sharded operators is one too.  Children whose layouts
         differ do not conform."""
-        layouts = [vector_layout(c) for c in self._items()
-                   if isinstance(c, LinearOperator)]
-        if any(lay != layouts[0] for lay in layouts):
-            raise ValueError("the operators' vectors are laid out "
-                             "differently (sharded and whole) and do not "
-                             "conform")
-        return layouts[0]
+        return common_layout(*self._items())
 
     @property
     def dim(self):
@@ -941,38 +952,40 @@ class DeflatedOperator(_Composite):
     orthonormal columns): ``A`` restricted to the complement of
     ``span(V)``.  ``V`` is a parameter.  Its transpose products are the
     bilinear ``P^T A^T P^T``, ``P^T = I - conj(V) V^T`` (for a real V the
-    same P)."""
+    same P).  Over sharded vectors V is the rank's rows and the
+    projections' inner products are summed over the ranks."""
 
     _fields = ("op", "V")
 
     def __init__(self, op: LinearOperator, V: torch.Tensor):
-        refuse_sharded("DeflatedOperator", op)
-        if V.shape[0] != op.dim:
-            raise ValueError(f"V has {V.shape[0]} rows, the operator "
-                             f"dimension {op.dim}")
+        if V.shape[0] != local_dim(op):
+            raise ValueError(f"V has {V.shape[0]} rows, the operator's "
+                             f"vectors {local_dim(op)}")
         self.op = op
         self.V = V
 
     def _product(self, x, transpose):
         V = self.V.conj() if transpose else self.V
-        y = _product(self.op, _project_out(V, x), transpose)
-        return _project_out(V, y)
+        lay = self.vector_layout
+        y = _product(self.op, _project_out(V, x, lay), transpose)
+        return _project_out(V, y, lay)
 
     def _tangent(self, x, parts, transpose):
         """``P dA P x + dP A P x + P A dP x``, ``dP z = -(dV V^H z + V
         dV^H z)``."""
         d_op, (dV,) = parts
         V = self.V.conj() if transpose else self.V
-        y = _project_out(V, x)
+        lay = self.vector_layout
+        y = _project_out(V, x, lay)
         out = _tangent_product(self.op, y, d_op, transpose)
-        out = None if out is None else _project_out(V, out)
+        out = None if out is None else _project_out(V, out, lay)
         if dV is not None:
             dV = dV.conj() if transpose else dV
             a_y = _product(self.op, y, transpose)
-            a_dpx = _product(self.op, _projector_tangent(V, dV, x),
+            a_dpx = _product(self.op, _projector_tangent(V, dV, x, lay),
                              transpose)
-            out = _add(out, _projector_tangent(V, dV, a_y)
-                       + _project_out(V, a_dpx))
+            out = _add(out, _projector_tangent(V, dV, a_y, lay)
+                       + _project_out(V, a_dpx, lay))
         return out
 
     @property

@@ -14,6 +14,14 @@ Counterpart of ``dominantsparseeigenad_tpu/ops/precond.py``:
 
 Every returned preconditioner takes an (N,) vector or an (N, m) block
 (:func:`_apply_columns`).
+
+Over sharded vectors (``operators.vector_layout``) an apply is row-local:
+the constructors take the whole ``diag=`` (N,) or ``blocks=`` (nb, bs,
+bs), build the preconditioner from it as the replicated layout does (the
+floor reads the largest magnitude of the whole), and keep the rank's
+rows, so each rank scales its own rows with no collective.  A row-sharded
+operator has no structural diagonal here, as in the JAX package: pass
+``diag=`` or ``blocks=``.
 """
 
 from __future__ import annotations
@@ -21,7 +29,7 @@ from __future__ import annotations
 import torch
 
 from .operators import (DenseOperator, ScaledOperator, ShiftedOperator,
-                        SumOperator, as_operator, refuse_sharded)
+                        SumOperator, as_operator, vector_layout)
 from .sparse import BellOperator, _TripletOperator
 
 
@@ -31,8 +39,9 @@ def operator_diagonal(op) -> torch.Tensor:
     diagonal), a :class:`BellOperator` (in its compute dtype), or a
     shift, scale or sum composite over them.  A matrix-free operator has
     none: pass ``diag=`` to the constructors instead (for a physics
-    operator it is usually known, e.g. ``tfim_zz_diagonal``)."""
-    refuse_sharded("operator_diagonal", op)
+    operator it is usually known, e.g. ``tfim_zz_diagonal``), and
+    neither has a row-sharded operator (TypeError, as the JAX function
+    raises for a type it does not know)."""
     op = as_operator(op)
     if isinstance(op, DenseOperator):
         return torch.diagonal(op.a)
@@ -104,6 +113,19 @@ def _inverse_magnitudes(w, floor_rel):
         torch.ones_like(aw))
 
 
+def _rank_rows(op, t, what):
+    """The rows of the whole ``t`` that this rank's vectors hold, for an
+    ``op`` whose vectors are sharded (``t`` itself otherwise)."""
+    layout = vector_layout(op)
+    if layout is None:
+        return t
+    if t.shape[0] != layout.dim:
+        raise ValueError(f"{what} has {t.shape[0]} rows; over vectors "
+                         f"sharded over ranks pass the whole {layout.dim} "
+                         f"(each rank keeps its own rows)")
+    return layout.rows(t)
+
+
 def jacobi_precond(op=None, *, diag=None, shift=0.0, floor_rel=None):
     """Diagonal (Jacobi) preconditioner ``z = r / max(|d - shift|,
     floor)``.
@@ -115,14 +137,16 @@ def jacobi_precond(op=None, *, diag=None, shift=0.0, floor_rel=None):
     diagonal's dtype, times its largest entry) keep it SPD where
     ``A - shift`` is indefinite; an all-zero shifted diagonal gives the
     identity.  Useful where the diagonal carries the conditioning.
+    Over sharded vectors pass the whole ``diag``; each rank applies its
+    own rows of the result.
     """
-    refuse_sharded("jacobi_precond", op)
     if diag is None:
         if op is None:
             raise ValueError("need an operator or an explicit diag=")
         diag = operator_diagonal(op)
     inv = _inverse_magnitudes(_constant(torch.as_tensor(diag))
                               - _constant(shift), floor_rel)
+    inv = _rank_rows(op, inv, "diag")
     return _apply_columns(lambda r: inv.to(r.dtype) * r)
 
 
@@ -137,8 +161,9 @@ def block_jacobi_precond(op=None, *, blocks=None, bs: int | None = None,
     eigendecomposed in one batched ``eigh`` and rebuilt as
     ``V |w|^{-1} V^T`` with the magnitudes floored as in
     :func:`jacobi_precond`.  Each apply is one batched (bs, bs) product.
+    Over sharded vectors pass the whole ``blocks``; each rank applies its
+    own block-rows, which must be whole blocks (ValueError otherwise).
     """
-    refuse_sharded("block_jacobi_precond", op)
     if blocks is None:
         if op is None:
             raise ValueError("need an operator or explicit blocks=")
@@ -165,6 +190,18 @@ def block_jacobi_precond(op=None, *, blocks=None, bs: int | None = None,
     w, v = torch.linalg.eigh((d + d.transpose(1, 2)) / 2)
     inv_w = _inverse_magnitudes(w, floor_rel)
     minv = torch.einsum("nij,nj,nkj->nik", v, inv_w, v)
+    layout = vector_layout(op)
+    if layout is not None:
+        if layout.local_dim % bsz or layout.offset % bsz:
+            raise ValueError(
+                f"the rank's {layout.local_dim} rows are not a whole number "
+                f"of {bsz}-row blocks")
+        if nb * bsz != layout.dim:
+            raise ValueError(f"blocks cover {nb * bsz} rows; over vectors "
+                             f"sharded over ranks pass the whole "
+                             f"{layout.dim}")
+        nb = layout.local_dim // bsz
+        minv = minv.narrow(0, layout.offset // bsz, nb)
 
     def apply_vec(r):
         z = torch.einsum("nij,nj->ni", minv.to(r.dtype), r.reshape(nb, bsz))

@@ -28,6 +28,14 @@ Forward only: ``dominant_eigh(restart_cycles=...)`` differentiates the
 converged pair by the implicit-function-theorem rule of ``eigh.py``.
 Complex Hermitian operators run the same cycles (real arrowhead, real
 Ritz values).
+
+Over sharded vectors (``operators.vector_layout``) the window, the
+retained vectors y and q are the rank's rows (a (k+1, N/p) slab): α, β,
+the projections and the norms are summed over the ranks, and the restart
+vector is the whole seeded draw narrowed to the rank's rows, so every
+host branch (breakdown, exhaustion, a dead continuation) reads a value
+that is the same on every rank, and the arrowhead, its eigenpairs and θ
+and s are too.
 """
 
 from __future__ import annotations
@@ -37,8 +45,9 @@ from typing import NamedTuple
 import torch
 
 from .lanczos import _breakdown_rel_tol, _tridiagonal_eigh, lanczos
-from .operators import (as_operator, check_device, hdot, hmatmul, pivot_gauge,
-                        real_dtype, refuse_sharded)
+from .operators import (_reduced, as_operator, check_device, hdot, hmatmul,
+                        layout_norm, layout_sum, local_dim, pivot_gauge,
+                        real_dtype, vector_layout)
 
 # The JAX package's restart stream, PRNGKey(0x5452).
 RESTART_SEED = 0x5452
@@ -48,9 +57,11 @@ class RestartState(NamedTuple):
     """State between thick-restart cycles (checkpointable).
 
     theta : (l,)    retained Ritz values
-    y     : (l, N)  retained Ritz vectors (rows)
+    y     : (l, N)  retained Ritz vectors (rows; the rank's N/p columns
+                    over sharded vectors)
     s     : (l,)    residual couplings beta_k * (last eigvec components)
-    q     : (N,)    next Lanczos vector
+    q     : (N,)    next Lanczos vector (the rank's rows over sharded
+                    vectors)
     """
 
     theta: torch.Tensor
@@ -59,25 +70,31 @@ class RestartState(NamedTuple):
     q: torch.Tensor
 
 
-def _project(rows, w):
-    """``w - rows^T (conj(rows) w)``: ``w`` projected off the rows."""
-    return w - hmatmul(rows.T, hmatmul(rows.conj(), w))
+def _project(rows, w, layout=None):
+    """``w - rows^T (conj(rows) w)``: ``w`` projected off the rows (the
+    coefficients summed over the ranks of a sharded ``layout``)."""
+    return w - hmatmul(rows.T, _reduced(layout, hmatmul(rows.conj(), w)))
 
 
-def _fresh_vector(n, j, dtype, dev, rows):
-    """The restart vector of step ``j``: a seeded draw, normalized and
+def _fresh_vector(n, j, dtype, dev, rows, layout=None):
+    """The restart vector of step ``j``: a seeded draw of the whole N
+    (the rank's rows of it under a sharded ``layout``), normalized and
     projected twice off ``rows``; returns ``(vector, exhausted)``, the
     second True when no direction orthogonal to the rows is left."""
     rdt = real_dtype(dtype)
     gen = torch.Generator(device=dev).manual_seed(RESTART_SEED + j)
-    r = torch.randn(n, generator=gen, dtype=dtype, device=dev)
-    r = _project(rows, _project(rows, r / torch.linalg.vector_norm(r)))
-    rn = torch.linalg.vector_norm(r)
+    if layout is None:
+        r = torch.randn(n, generator=gen, dtype=dtype, device=dev)
+    else:
+        r = layout.draw((n,), gen, dtype, dev)
+    r = _project(rows, _project(rows, r / layout_norm(layout, r), layout),
+                 layout)
+    rn = layout_norm(layout, r)
     exhausted = bool(rn <= (float(n) ** 0.5) * _breakdown_rel_tol(rdt))
     return r / torch.clamp(rn, min=torch.finfo(rdt).tiny), exhausted
 
 
-def _continuation(w, b, scale, dead_in, j, rows):
+def _continuation(w, b, scale, dead_in, j, rows, n, layout=None):
     """``(q_next, beta_out, dead_out)`` after step ``j``.
 
     On a breakdown (β ~ 0 relative to ``scale``) the recurrence restarts
@@ -86,11 +103,12 @@ def _continuation(w, b, scale, dead_in, j, rows):
     against a non-orthonormal window amplifies round-off from cycle to
     cycle.  If no orthogonal direction is left, or the run is dead
     already, the remaining steps are dead: zero vectors, zero
-    couplings."""
+    couplings.  ``n`` is the whole dimension; ``b`` and ``scale`` are
+    replicated under a sharded ``layout``."""
     broke = bool(b <= _breakdown_rel_tol(b.dtype) * scale)
     dead = dead_in
     if broke and not dead_in:
-        q_next, dead = _fresh_vector(w.shape[0], j, w.dtype, w.device, rows)
+        q_next, dead = _fresh_vector(n, j, w.dtype, w.device, rows, layout)
     elif not broke:
         q_next = w / b
     if dead:
@@ -111,7 +129,9 @@ def _cycle(op, state: RestartState, k: int, extreme: str,
     l = state.theta.shape[0]
     dtype, dev = state.q.dtype, state.q.device
     rdt = real_dtype(dtype)
-    slab = torch.empty((k + 1, op.dim), dtype=dtype, device=dev)
+    layout = vector_layout(op)
+    n = op.dim
+    slab = torch.empty((k + 1, local_dim(op)), dtype=dtype, device=dev)
     slab[:l] = state.y
     slab[l] = state.q
     t = torch.zeros((k, k), dtype=rdt, device=dev)
@@ -125,19 +145,19 @@ def _cycle(op, state: RestartState, k: int, extreme: str,
     # cycle dead: a fresh vector there would re-derive eigenvalues that
     # theta already holds, and their duplicate Ritz vectors would break
     # the next cycle's orthonormality.
-    dead = bool(torch.linalg.vector_norm(state.q) < 0.5)
+    dead = bool(layout_norm(layout, state.q) < 0.5)
     q = slab[l]
     w = op.matvec(q)
     alpha = torch.zeros((), dtype=rdt, device=dev) if dead \
-        else hdot(q, w).real
+        else layout_sum(layout, hdot(q, w)).real
     w = w - alpha * q - hmatmul(state.s.to(dtype), slab[:l])
     for _ in range(reorth_passes):
-        w = _project(slab[:l + 1], w)
-    beta = torch.linalg.vector_norm(w)
+        w = _project(slab[:l + 1], w, layout)
+    beta = layout_norm(layout, w)
     scale = alpha.abs() + torch.linalg.vector_norm(state.s) + 1.0
     dead_mask[l] = dead
     slab[l + 1], beta, dead = _continuation(w, beta, scale, dead, l,
-                                            slab[:l + 1])
+                                            slab[:l + 1], n, layout)
     t[l, l] = alpha
     t[l + 1, l] = t[l, l + 1] = beta      # l + 2 <= k
 
@@ -146,15 +166,15 @@ def _cycle(op, state: RestartState, k: int, extreme: str,
         q = slab[j]
         w = op.matvec(q)
         a = torch.zeros((), dtype=rdt, device=dev) if dead \
-            else hdot(q, w).real
+            else layout_sum(layout, hdot(q, w)).real
         w = w - a * q - beta_prev * q_prev
         for _ in range(reorth_passes):
-            w = _project(slab[:j + 1], w)
-        b = torch.linalg.vector_norm(w)
+            w = _project(slab[:j + 1], w, layout)
+        b = layout_norm(layout, w)
         scale = torch.sqrt(a * a + beta_prev * beta_prev) + 1.0
         dead_mask[j] = dead
         slab[j + 1], b, dead = _continuation(w, b, scale, dead, j,
-                                             slab[:j + 1])
+                                             slab[:j + 1], n, layout)
         t[j, j] = a
         if j + 1 < k:
             t[j + 1, j] = t[j, j + 1] = b
@@ -203,10 +223,10 @@ def restart_init(op, k: int = 64, *, num_kept: int | None = None,
     None).  One k-step Lanczos run plus one matvec, which rebuilds the
     continuation vector q_{k+1} the couplings refer to.
     """
-    refuse_sharded("restart_init", op)
     op = as_operator(op)
     _check_extreme(extreme)
     dev = check_device(device, op)
+    layout = vector_layout(op)
     n, dtype = op.dim, op.dtype
     k = int(min(k, n))
     # At least one Ritz vector must be kept: l = 0 would give empty
@@ -235,11 +255,11 @@ def restart_init(op, k: int = 64, *, num_kept: int | None = None,
     if k > 1:
         last_beta = res.betas[-1]
         w = w - last_beta * rows[-2]
-    w = _project(rows, _project(rows, w))
-    beta_last = torch.linalg.vector_norm(w)
+    w = _project(rows, _project(rows, w, layout), layout)
+    beta_last = layout_norm(layout, w)
     q, beta, _ = _continuation(
         w, beta_last, res.alphas[-1].abs() + last_beta.abs() + 1.0, False,
-        0, rows)
+        0, rows, n, layout)
     return RestartState(theta=theta, y=y, s=beta * sel[k - 1],
                         q=q)
 
@@ -254,7 +274,6 @@ def restart_cycle(op, state: RestartState, k: int, *, extreme: str = "min",
     as :func:`restart_init` clamps its own (a window wider than the space
     would give spurious ~0 Ritz values).  Runs where the state lives.
     """
-    refuse_sharded("restart_cycle", op)
     op = as_operator(op)
     _check_extreme(extreme)
     check_device(state.q.device, op)
@@ -267,12 +286,15 @@ def restart_cycle(op, state: RestartState, k: int, *, extreme: str = "min",
     return _cycle(op, state, k, extreme, int(reorth_passes))
 
 
-def restart_extract(state: RestartState):
+def restart_extract(state: RestartState, op=None):
     """Finalize a restart run: ``(lam, v, residual)`` of the extremal
     Ritz pair, ``v`` normalized and pivot-gauged like every forward
-    here."""
+    here.  ``op``, the operator of the run, is needed only when its
+    vectors are sharded over ranks (the norm and the pivot are then the
+    whole vector's)."""
+    layout = vector_layout(op)
     v = state.y[0]
-    v = pivot_gauge(v / torch.linalg.vector_norm(v))
+    v = pivot_gauge(v / layout_norm(layout, v), layout=layout)
     return state.theta[0], v, state.s[0].abs()
 
 
@@ -298,7 +320,6 @@ def lanczos_restarted(op, k: int = 64, *, n_restarts: int = 8,
     :func:`restart_init`, :func:`restart_cycle` and
     :func:`restart_extract`: this function is that loop.
     """
-    refuse_sharded("lanczos_restarted", op)
     op = as_operator(op)
     state = restart_init(op, k, num_kept=num_kept, extreme=extreme, v0=v0,
                          generator=generator, reorth_passes=reorth_passes,
@@ -306,4 +327,4 @@ def lanczos_restarted(op, k: int = 64, *, n_restarts: int = 8,
     for _ in range(int(n_restarts)):
         state, _ = restart_cycle(op, state, k, extreme=extreme,
                                  reorth_passes=reorth_passes)
-    return restart_extract(state)
+    return restart_extract(state, op)

@@ -27,6 +27,14 @@ block products and differentiate by plain autograd, as in JAX.
 
 Where JAX takes a ``key``, the functions here take a ``generator``; the
 private :func:`_chebyshev_moments` takes the probe block itself.
+
+Over sharded vectors (``operators.vector_layout``) every vector and block
+is the rank's rows: the filtered operator carries the layout into
+LOBPCG, the Rayleigh-Ritz matrix, the residual norms and the pivot are
+the whole block's, the probes are the whole Rademacher draw narrowed to
+the rank's rows, and the moments are summed over the ranks (``N`` stays
+the whole dimension).  The enclosure and the mapped operator's centre
+and half-width are replicated, marked where they enter the rank's rows.
 """
 
 from __future__ import annotations
@@ -42,9 +50,10 @@ from .eigh import _block_cotangent, _block_tangents, dominant_eigh
 from .lanczos import _tridiagonal, lanczos
 from .lobpcg import lobpcg_eigh
 from .operators import (_BlockMatrixFreeOperator, _product, as_operator,
-                        check_device, hmatmul, nestable_jvp, partial_vjp,
-                        per_lane_vmap, pivot_gauge, real_dtype, rebind,
-                        refuse_sharded, tol_floor)
+                        check_device, hmatmul, layout_bcast, layout_norm,
+                        layout_sum, nestable_jvp, partial_vjp, per_lane_vmap,
+                        pivot_gauge, real_dtype, rebind, tol_floor,
+                        vector_layout)
 
 
 class SliceInfo(NamedTuple):
@@ -73,8 +82,7 @@ def spectral_bounds(op, k: int = 30, *, v0: torch.Tensor | None = None,
     by ``margin * spread`` plus the last Lanczos β and eps (too wide is
     safe for a filter, too narrow is not).  ``v0`` is the start vector,
     drawn from ``generator`` (seeded 1 on the device when None) if not
-    given."""
-    refuse_sharded("spectral_bounds", op)
+    given (the rank's rows of it over sharded vectors)."""
     op = as_operator(op)
     dev = check_device(device, op)
     if generator is None:
@@ -120,8 +128,10 @@ def _filtered_matvec(params, x):
     shape (N,) or (N, m): a block runs as one block product a step."""
     op, lo, hi, coeffs = (params["op"], params["lo"], params["hi"],
                           params["coeffs"])
-    center = (hi + lo) / 2.0
-    halfwidth = (hi - lo) / 2.0
+    layout = vector_layout(op)
+    center = layout_bcast(layout, (hi + lo) / 2.0)
+    halfwidth = layout_bcast(layout, (hi - lo) / 2.0)
+    coeffs = layout_bcast(layout, coeffs)
 
     def amap(v):
         return (_product(op, v) - center * v) / halfwidth
@@ -142,10 +152,13 @@ def _filtered_operator(op, lo, hi, a, b, degree):
     halfwidth = (hi - lo) / 2.0
     coeffs = _jackson_indicator_coeffs((a - center) / halfwidth,
                                        (b - center) / halfwidth, degree)
-    return _BlockMatrixFreeOperator(
+    fop = _BlockMatrixFreeOperator(
         _filtered_matvec,
         {"op": op, "lo": lo, "hi": hi, "coeffs": coeffs.to(op.dtype)},
         dim=op.dim, dtype=op.dtype)
+    # p(A) acts row by row on the rank's rows, as A does.
+    fop.vector_layout = vector_layout(op)
+    return fop
 
 
 @dataclasses.dataclass(frozen=True)
@@ -182,12 +195,13 @@ def _slice_forward(op, a, b, opts, generator):
     _, v = lobpcg_eigh(fop, opts.r, extreme="max", maxiter=opts.maxiter,
                        tol=opts.tol, generator=generator, device=dev)
     # Rayleigh-Ritz on A in span(v): exact eigenvalues, ascending.
+    layout = vector_layout(op)
     av = op.matmat(v)
-    bmat = hmatmul(v.mH, av)
+    bmat = layout_sum(layout, hmatmul(v.mH, av))
     theta, y = torch.linalg.eigh(0.5 * (bmat + bmat.mH))
-    v, av = pivot_gauge(hmatmul(v, y), hmatmul(av, y))
+    v, av = pivot_gauge(hmatmul(v, y), hmatmul(av, y), layout=layout)
     lams = theta.to(rdt)
-    resids = torch.linalg.vector_norm(av - v * lams[None, :], dim=0).to(rdt)
+    resids = layout_norm(layout, av - v * lams[None, :], dim=0).to(rdt)
     resids = resids / torch.clamp(lams.abs(), min=1.0)
     inside = (lams >= a_t) & (lams <= b_t)
     n_inside = inside.sum().to(rdt)
@@ -248,7 +262,8 @@ class _SpectralSlice(torch.autograd.Function):
         op, lams, v, solve = _SpectralSlice._saved(ctx)
         if lams_bar is None and v_bar is None:
             return (None,) * (5 + len(op.parameters()))
-        u = _block_cotangent(lams, v, lams_bar, v_bar, ctx.opts, solve)
+        u = _block_cotangent(lams, v, lams_bar, v_bar, ctx.opts, solve,
+                             vector_layout(op))
         grads = partial_vjp(op, lambda held: held.matmat(v), [], u,
                             ctx.needs_input_grad[5:])
         return (None,) * 5 + tuple(grads)
@@ -286,7 +301,6 @@ def spectral_slice(op, a: float, b: float, r: int = 8, *,
     slice edges belong in spectral gaps: an edge through a multiplet
     leaves the subspace ill-defined.
     """
-    refuse_sharded("spectral_slice", op)
     op = as_operator(op)
     a, b = float(a), float(b)
     if not a < b:
@@ -316,15 +330,20 @@ def _chebyshev_moments(op, degree: int, z, lo, hi):
     """Hutchinson estimates ``mu_j = (1/N) Tr T_j(Ã)``, j = 0..degree, of
     the operator mapped from ``[lo, hi]`` onto [-1, 1], from the probe
     block ``z`` (N, s): one three-term recurrence over the block, one
-    block product a step.  Returns ``(mus, center, halfwidth)``."""
+    block product a step.  Returns ``(mus, center, halfwidth)``.  Over
+    sharded vectors ``z`` is the rank's rows and the moments are summed
+    over the ranks."""
     dtype = op.dtype
+    layout = vector_layout(op)
     center = (hi + lo) / 2.0
     halfwidth = (hi - lo) / 2.0
+    c_rows = layout_bcast(layout, center.to(dtype))
+    h_rows = layout_bcast(layout, halfwidth.to(dtype))
 
     def amap(v):
-        return (op.matmat(v) - center.to(dtype) * v) / halfwidth.to(dtype)
+        return (op.matmat(v) - c_rows * v) / h_rows
 
-    scale = z.shape[0] * z.shape[1]
+    scale = op.dim * z.shape[1]
 
     def moment(t):  # (1/(N*s)) sum_z z^H T_j(Ã) z
         return (z.conj() * t).sum().real / scale
@@ -334,7 +353,9 @@ def _chebyshev_moments(op, degree: int, z, lo, hi):
     for _ in range(int(degree) - 1):
         t_prev, t_cur = t_cur, 2.0 * amap(t_cur) - t_prev
         mus.append(moment(t_cur))
-    return torch.stack(mus).to(real_dtype(dtype)), center, halfwidth
+    # One sum over the ranks for all the moments.
+    mus = layout_sum(layout, torch.stack(mus))
+    return mus.to(real_dtype(dtype)), center, halfwidth
 
 
 def _moments(op, degree, n_probe, generator, bounds, bounds_k, device):
@@ -353,6 +374,10 @@ def _moments(op, degree, n_probe, generator, bounds, bounds_k, device):
     else:
         lo, hi = (torch.as_tensor(t, dtype=rdt, device=dev) for t in bounds)
     z = _rademacher((op.dim, int(n_probe)), generator, rdt, dev)
+    layout = vector_layout(op)
+    if layout is not None:
+        # The whole draw, narrowed: the probes an unsharded run takes.
+        z = layout.rows(z).clone()
     return _chebyshev_moments(op, degree, z.to(op.dtype), lo, hi)
 
 
@@ -376,7 +401,6 @@ def spectral_density(op, energies, *, degree: int = 120, n_probe: int = 16,
     ``generator`` draws the enclosure's start vector and the probes
     (seeded 7 on the device when None).
     """
-    refuse_sharded("spectral_density", op)
     op = as_operator(op)
     mus, center, halfwidth = _moments(op, int(degree), n_probe, generator,
                                       bounds, int(bounds_k), device)
@@ -402,7 +426,6 @@ def trace_function(op, f, *, degree: int = 120, n_probe: int = 16,
     is evaluated only there.  ``jackson=False`` drops the damping (for an
     analytic ``f``).  Differentiable by plain autograd in the operator's
     parameters and in whatever ``f`` closes over."""
-    refuse_sharded("trace_function", op)
     op = as_operator(op)
     degree = int(degree)
     mus, center, halfwidth = _moments(op, degree, n_probe, generator,
@@ -429,7 +452,6 @@ def logdet(op, *, degree: int = 160, n_probe: int = 16,
     Ritz residuals and a 1% margin, the bottom floored at 10 eps |hi|.
     The error is then the Hutchinson noise, ~``||ln A||_F sqrt(2 /
     n_probe)`` absolute."""
-    refuse_sharded("logdet", op)
     op = as_operator(op)
     dev = check_device(device, op)
     rdt = real_dtype(op.dtype)

@@ -33,7 +33,7 @@ import math
 import numpy as np
 import torch
 
-from .bell_spmv import (_band_offsets, _bell_rmatmat_torch, _BellProduct,
+from .bell_spmv import (_band_offsets, _bell_product, _bell_rmatmat_torch,
                         _slot_plan_matches, detect_slot_plan)
 from .operators import (LinearOperator, outside_transforms, promote_to,
                         resolve_device)
@@ -371,9 +371,9 @@ class BellOperator(LinearOperator):
         """``A(vals) X`` for X (N,) or (N, r), a real X promoted to a
         complex compute dtype (on a CUDA tensor the kernel, banded under
         the plan)."""
-        return _BellProduct.apply(vals, self.cols,
-                                  promote_to(X, self.compute_dtype),
-                                  self.slot_plan)
+        return _bell_product(vals, self.cols,
+                             promote_to(X, self.compute_dtype),
+                             self.slot_plan)
 
     def _apply_t(self, vals, X):
         """``A(vals)^T X``, the bilinear transpose: the alias of

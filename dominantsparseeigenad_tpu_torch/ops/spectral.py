@@ -23,7 +23,8 @@ import torch
 
 from .cg import _DeflatedSolve
 from .operators import (_Composite, _add, _product, _tangent_product,
-                        as_operator, check_device, real_dtype, refuse_sharded)
+                        as_operator, check_device, layout_bcast, layout_sum,
+                        local_dim, real_dtype, vector_layout)
 
 
 class _ResolventSquares(_Composite):
@@ -39,7 +40,7 @@ class _ResolventSquares(_Composite):
         self.eta2 = float(eta) ** 2
 
     def _product(self, x, transpose):
-        w = self.omegas[None, :]
+        w = layout_bcast(self.vector_layout, self.omegas)[None, :]
         y = _product(self.op, x) - x * w
         return _product(self.op, y) - y * w + self.eta2 * x
 
@@ -47,9 +48,10 @@ class _ResolventSquares(_Composite):
         """``dA Y + (A - ω) dY - Y dω``, ``Y = (A - ω) X``, ``dY = dA X -
         X dω``."""
         d_op, (d_om,) = parts
-        w = self.omegas[None, :]
+        lay = self.vector_layout
+        w = layout_bcast(lay, self.omegas)[None, :]
         y = _product(self.op, x) - x * w
-        dw = None if d_om is None else d_om[None, :]
+        dw = None if d_om is None else layout_bcast(lay, d_om)[None, :]
         dy = _tangent_product(self.op, x, d_op)
         if dw is not None:
             dy = _add(dy, -x * dw)
@@ -80,18 +82,20 @@ def spectral_function(op, b, omegas, eta: float, *, tol: float = 1e-8,
     Returns an (m,) tensor; it integrates to ``<b|b>`` over ω as η → 0.
     Differentiable in ``op.parameters()``, ``b`` and ``omegas``, to any
     order.  ``omegas`` and ``b`` are cast to the operator's (real) dtype.
+    Over sharded vectors ``b`` is the rank's rows; the block CG and the
+    final contraction sum over the ranks.
     """
-    refuse_sharded("spectral_function", op)
     op = as_operator(op)
     dev = check_device(device, op)
     rdt = real_dtype(op.dtype)
     omegas = torch.as_tensor(omegas).to(device=dev, dtype=rdt)
     b = torch.as_tensor(b).to(device=dev, dtype=op.dtype)
-    n, m = op.dim, omegas.shape[0]
+    n, m = local_dim(op), omegas.shape[0]
     res = _ResolventSquares(op, omegas, eta)
     rhs = b[:, None].expand(n, m)
     empty = torch.zeros((n, 0), dtype=b.dtype, device=dev)
     shifts = torch.zeros(m, dtype=b.dtype, device=dev)
     y = _DeflatedSolve.apply(res, 1.0, tol, maxiter, "cg", None, rhs,
                              shifts, empty, *res.parameters())
-    return (float(eta) / math.pi) * (b.conj()[:, None] * y).sum(dim=0).real
+    return (float(eta) / math.pi) * layout_sum(
+        vector_layout(op), (b.conj()[:, None] * y).sum(dim=0)).real

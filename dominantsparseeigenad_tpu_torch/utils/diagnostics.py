@@ -13,6 +13,12 @@ metrics are tensors on the solver's device (feed them to
 The guards :func:`assert_converged` and :func:`assert_converged_residual`
 are ``checkify`` checks in the JAX package; here they read the host and
 raise at once, with the same messages.
+
+Over vectors sharded over ranks (``ops.operators.vector_layout``) the
+vectors and the basis are the rank's rows, and every norm and the Gram
+are summed over the ranks through the operator's layout, so each rank
+reads the whole vector's metric (the JAX package's arrays are global).
+``cg_relative_residual`` finds the layout from a bound ``op.matvec``.
 """
 
 from __future__ import annotations
@@ -20,24 +26,27 @@ from __future__ import annotations
 import torch
 
 from ..ops.lanczos import LanczosResult, _tridiagonal_eigh
-from ..ops.operators import as_operator, hmatmul
+from ..ops.operators import (as_operator, hmatmul, layout_norm, layout_sum,
+                             matvec_layout, vector_layout)
 
 
 def ritz_residual(op, lam, v) -> torch.Tensor:
     """||A v - lam v|| / max(1, |lam|) for an eigenpair estimate."""
     op = as_operator(op)
     r = op.matvec(v) - lam * v
-    return torch.linalg.vector_norm(r) / torch.clamp(
+    return layout_norm(vector_layout(op), r) / torch.clamp(
         torch.abs(torch.as_tensor(lam)), min=1.0)
 
 
-def orthogonality_loss(res: LanczosResult) -> torch.Tensor:
+def orthogonality_loss(res: LanczosResult, op=None) -> torch.Tensor:
     """max |Q^H Q - I| over the Lanczos basis (0 = perfectly orthogonal).
 
     The conjugate transpose, not the plain one: Q^T Q of an orthonormal
-    complex basis is far from the identity."""
+    complex basis is far from the identity.  ``op``, the operator of the
+    run, is needed only when its vectors are sharded over ranks (the Gram
+    is then summed over them)."""
     q = res.basis
-    gram = hmatmul(q.conj().T, q)
+    gram = layout_sum(vector_layout(op), hmatmul(q.conj().T, q))
     eye = torch.eye(gram.shape[0], dtype=gram.dtype, device=gram.device)
     return torch.max(torch.abs(gram - eye))
 
@@ -55,7 +64,7 @@ def lanczos_health(op, res: LanczosResult) -> dict:
     vmin = hmatmul(basis, evecs[:, 0])
     vmax = hmatmul(basis, evecs[:, -1])
     return {
-        "ortho_loss": orthogonality_loss(res),
+        "ortho_loss": orthogonality_loss(res, op),
         "ritz_residual_min": ritz_residual(op, evals[0], vmin),
         "ritz_residual_max": ritz_residual(op, evals[-1], vmax),
         "breakdowns": torch.sum(res.betas == 0),
@@ -64,9 +73,11 @@ def lanczos_health(op, res: LanczosResult) -> dict:
 
 
 def cg_relative_residual(matvec, b, x) -> torch.Tensor:
-    """||b - A x|| / ||b|| for a linear-solve result."""
-    return torch.linalg.vector_norm(b - matvec(x)) \
-        / torch.linalg.vector_norm(b)
+    """||b - A x|| / ||b|| for a linear-solve result (the norms over the
+    ranks when ``matvec`` is a bound ``op.matvec`` of an operator whose
+    vectors are sharded)."""
+    lay = matvec_layout(matvec)
+    return layout_norm(lay, b - matvec(x)) / layout_norm(lay, b)
 
 
 def assert_converged(info, *, name: str = "eigensolver"):

@@ -203,6 +203,92 @@ def test_power_iteration_matches_jax(shift):
     np.testing.assert_allclose(v.numpy(), np.asarray(v_j), atol=1e-10)
 
 
+# -- the same options on sharded vectors at p = 1 --------------------------------
+
+@pytest.fixture
+def solo(tmp_path):
+    """A one-rank gloo group in this process: the sharded-vector layout at
+    p = 1, whose sums over the ranks are real one-rank all_reduces."""
+    import torch.distributed as dist
+    port.init_distributed("gloo", f"file://{tmp_path}/store", 0, 1)
+    try:
+        yield port.make_mesh()
+    finally:
+        dist.destroy_process_group()
+
+
+def _sharded(a, sg):
+    return port.RowShardedOperator(torch.from_numpy(a), sg,
+                                   vectors="sharded")
+
+
+@pytest.mark.parametrize("restart_mode", ["cond", "carry"])
+def test_sharded_vectors_lanczos_matches_jax(solo, restart_mode):
+    """Both restart modes on sharded vectors (p = 1) against JAX's run and
+    the unsharded port's, without and with a breakdown."""
+    a, v0 = _sym(N, 0), _v0(N)
+    res = port.lanczos(_sharded(a, solo), K, v0=torch.from_numpy(v0),
+                       restart_mode=restart_mode, device="cpu")
+    plain = _port_run("dense", restart_mode=restart_mode)
+    np.testing.assert_allclose(res.alphas.numpy(), plain.alphas.numpy(),
+                               rtol=1e-12, atol=1e-12)
+    alphas_j, betas_j, _ = _jax_run("dense", 0, restart_mode)
+    np.testing.assert_allclose(res.alphas.numpy(), alphas_j, rtol=1e-10,
+                               atol=1e-10)
+    np.testing.assert_allclose(res.betas.numpy(), betas_j, rtol=1e-10,
+                               atol=1e-10)
+    a, v0 = _breakdown_inputs()
+    res = port.lanczos(_sharded(a, solo), 8, v0=torch.from_numpy(v0),
+                       restart_mode=restart_mode, device="cpu")
+    assert float(res.betas[1]) == 0.0
+    evals = np.linalg.eigvalsh(np.diag(res.alphas.numpy())
+                               + np.diag(res.betas.numpy(), 1)
+                               + np.diag(res.betas.numpy(), -1))
+    np.testing.assert_allclose(evals, np.arange(1.0, 9.0), atol=1e-12)
+
+
+def test_sharded_vectors_narrow_basis_matches_unsharded(solo):
+    """A float32 basis of a float64 operator on sharded vectors (its
+    projection coefficients summed over the ranks) against the unsharded
+    port's and JAX's Ritz values."""
+    a, v0 = _sym(N, 0), _v0(N)
+    got = port.lanczos_eigh(_sharded(a, solo), K, extreme="min",
+                            v0=torch.from_numpy(v0),
+                            basis_dtype=torch.float32, device="cpu")
+    want = port.lanczos_eigh(torch.from_numpy(a), K, extreme="min",
+                             v0=torch.from_numpy(v0),
+                             basis_dtype=torch.float32, device="cpu")
+    np.testing.assert_allclose(float(got[0]), float(want[0]), rtol=1e-12)
+    np.testing.assert_allclose(got[1].numpy(), want[1].numpy(), atol=1e-12)
+
+
+@pytest.mark.parametrize("extreme", ["min", "max"])
+def test_sharded_vectors_adaptive_matches_jax(solo, extreme):
+    h = _tfim_h()
+    lam, v, info = port.lanczos_adaptive(
+        _sharded(h, solo), 60, extreme=extreme, tol=1e-8,
+        v0=torch.from_numpy(_v0(h.shape[0], 2)), device="cpu")
+    lam_j, v_j, k_j, res_j, conv_j = _jax_adaptive(extreme, 60, 1e-8,
+                                                   jnp.float64)
+    assert float(info.converged) == float(conv_j) == 1.0
+    assert float(info.effective_k) == float(k_j) < 60
+    np.testing.assert_allclose(float(lam), float(lam_j), rtol=1e-12)
+    np.testing.assert_allclose(v.numpy(), v_j, atol=1e-6)
+
+
+@pytest.mark.parametrize("shift", [0.0, 3.0])
+def test_sharded_vectors_power_iteration_matches_jax(solo, shift):
+    a, v0 = _sym(32, 5), _v0(32, 6)
+    lam, v = port.power_iteration(_sharded(a, solo), 200,
+                                  v0=torch.from_numpy(v0), shift=shift,
+                                  device="cpu")
+    lam_j, v_j = jax.jit(lambda m, x: jax_power(
+        JaxDense(m), 200, v0=x, shift=shift))(jnp.asarray(a),
+                                                jnp.asarray(v0))
+    np.testing.assert_allclose(float(lam), float(lam_j), rtol=1e-10)
+    np.testing.assert_allclose(v.numpy(), np.asarray(v_j), atol=1e-10)
+
+
 @pytest.fixture(scope="module", autouse=True)
 def _release_jax_compilations():
     """Free this module's JAX executables when it is done."""

@@ -262,6 +262,82 @@ def test_jacobi_cuts_lobpcg_iterations():
     assert 2 * its[1] <= its[0], its
 
 
+# -- the preconditioners on sharded vectors at p = 1 ---------------------------
+
+@pytest.fixture
+def solo(tmp_path):
+    """A one-rank gloo group in this process: the sharded-vector layout at
+    p = 1, whose sums over the ranks are real one-rank all_reduces."""
+    import torch.distributed as dist
+    port.init_distributed("gloo", f"file://{tmp_path}/store", 0, 1)
+    try:
+        yield port.make_mesh()
+    finally:
+        dist.destroy_process_group()
+
+
+def _sharded(a, sg):
+    return port.RowShardedOperator(a, sg, vectors="sharded")
+
+
+@pytest.mark.parametrize("kind", ["jacobi_dense", "block_dense"])
+def test_sharded_vectors_applies_match_jax(solo, kind):
+    """A row-sharded operator has no structural diagonal: the whole
+    ``diag=`` or ``blocks=`` builds the rank's rows of the JAX
+    preconditioner (same applies, 1e-10)."""
+    a = _dense()[:48, :48]
+    op = _sharded(torch.from_numpy(a), solo)
+    _, m_j = _preconds(kind, shift=0.3)
+    if kind == "jacobi_dense":
+        m = port.jacobi_precond(op, diag=torch.from_numpy(np.diag(a).copy()),
+                                shift=0.3)
+    else:
+        blocks = np.stack([a[i:i + 8, i:i + 8] for i in range(0, 48, 8)])
+        m = port.block_jacobi_precond(op, blocks=torch.from_numpy(blocks),
+                                      shift=0.3)
+    r = np.random.default_rng(1).standard_normal((48, 3))
+    for x in (r[:, 0], r):
+        np.testing.assert_allclose(m(torch.from_numpy(x)).numpy(),
+                                   np.asarray(m_j(jnp.asarray(x))),
+                                   rtol=1e-10, atol=1e-12)
+
+
+def test_sharded_vectors_dominant_eigh_precond_matches_jax(solo):
+    """``test_dominant_eigh_precond_gradient_matches_jax`` on sharded
+    vectors: the preconditioned derivative solve sums its dots over the
+    ranks and applies Jacobi to the rank's rows."""
+    a, da = _eigh_problem()
+    t = torch.tensor(0.0, dtype=torch.float64, requires_grad=True)
+    op = _sharded(torch.from_numpy(a) + t * torch.from_numpy(da), solo)
+    m = port.jacobi_precond(op, diag=torch.from_numpy(np.diag(a).copy()))
+    lam, v = port.dominant_eigh(op, k=96, tol=1e-11, precond=m,
+                                device="cpu")
+    loss = _eigh_loss(lam, v, torch.from_numpy(da))
+    (g,) = torch.autograd.grad(loss, t)
+    val_j, g_j = _jax_eigh_grad()
+    np.testing.assert_allclose(float(loss.detach()), val_j, rtol=1e-12)
+    np.testing.assert_allclose(float(g), g_j, rtol=1e-8)
+
+
+def test_sharded_vectors_multi_precond_matches_jax(solo):
+    """``test_dominant_eigh_multi_precond_matches_jax``'s LOBPCG case on
+    sharded vectors: Jacobi in LOBPCG and in the batched deflated CG."""
+    a, da = _eigh_problem()
+    d = torch.diag(torch.linspace(-1.0, 1.0, 96, dtype=torch.float64))
+    t = torch.tensor(0.0, dtype=torch.float64, requires_grad=True)
+    op = _sharded(torch.from_numpy(a) + t * torch.from_numpy(da), solo)
+    m = port.jacobi_precond(op, diag=torch.from_numpy(np.diag(a).copy()))
+    lams, v, info = port.dominant_eigh_multi(
+        op, r=2, k=600, method="lobpcg", tol=1e-10, precond=m,
+        with_info=True, device="cpu")
+    assert float(info.converged) == 1.0
+    loss = lams.sum() + (v * (d @ v)).sum()
+    (g,) = torch.autograd.grad(loss, t)
+    val_j, lams_j, g_j = _jax_multi_grads()
+    np.testing.assert_allclose(lams.detach().numpy(), lams_j, rtol=1e-10)
+    np.testing.assert_allclose(float(g), g_j, rtol=1e-8)
+
+
 @pytest.fixture(scope="module", autouse=True)
 def _release_jax_compilations():
     """Free this module's JAX executables when it is done."""

@@ -679,18 +679,18 @@ def _solo_sharded():
         torch.zeros(1, 1, 4, 4), torch.zeros(1, 1, dtype=torch.int32), 4,
         _solo_sharded()[0], mode="ring"),
      ValueError, r"mode='ring' needs vectors='sharded'"),
-    (lambda: port.lanczos_restarted(_solo_sharded()[1], 4, device="cpu"),
+    (lambda: port.dominant_eig(_solo_sharded()[1], device="cpu"),
      NotImplementedError, r"ROADMAP\.md, queue 1 item 18"),
-    (lambda: port.spectral_slice(_solo_sharded()[1], 0.5, 1.5, r=1,
-                                 device="cpu"),
+    (lambda: port.gmres(_solo_sharded()[1].matvec, torch.ones(4),
+                        device="cpu"),
      NotImplementedError, r"ROADMAP\.md, queue 1 item 18"),
 ], ids=["RowShardedOperator ring", "RowShardedBellOperator ring",
-        "lanczos_restarted", "spectral_slice"])
+        "dominant_eig", "gmres"])
 def test_sharded_refusals_name_item_14(call, error, match):
     """F7's refusals after item 14: ring mode over replicated vectors
     (the segment a ring step would send is already on every rank), and a
-    solver that does not carry the sharded-vector layout (queue 1 item
-    18)."""
+    solver of the general tier, which does not carry the sharded-vector
+    layout yet (queue 1 item 18)."""
     with pytest.raises(error, match=match):
         call()
 

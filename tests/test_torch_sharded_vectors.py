@@ -23,9 +23,11 @@ them), a replicated parameter (the TFIM's g) the whole gradient on every
 rank.
 """
 
+import fcntl
 import functools
 import multiprocessing
 import os
+import pickle
 import queue
 import traceback
 
@@ -49,6 +51,9 @@ MODES = ("all_gather", "ring")
 LOBPCG_R, LOBPCG_K = 2, 400
 BLOCK_R, BLOCK_K = 5, 60
 CKPT_K = 6                  # the checkpointed Lanczos basis's columns
+RESTART_N = 12              # tests/test_parallel.py:215-234
+KRY_MID = 30                # the interior eigenpair of the deflated MINRES
+KRY_SIGMA = 0.05            # interior_eigh's shift
 
 
 # -- inputs, made in this process -------------------------------------------
@@ -92,6 +97,48 @@ def _complex_hermitian_pair(n, seed):
         return (a + a.conj().T) / 2
 
     return herm(), herm(), rng.standard_normal(n) + 1j * rng.standard_normal(n)
+
+
+def _solver_inputs(bell, normal):
+    """The inputs of the Hermitian solvers' cases (item 18, steps 1-4)."""
+    import jax
+    import jax.numpy as jnp
+    a = _sym(64, 0)
+    w, vecs = np.linalg.eigh(a)
+    a11 = _sym(64, 11)
+    ew = np.linalg.eigvalsh(a11)
+    rng = np.random.default_rng(13)
+    c = rng.standard_normal((64, 64)) / np.sqrt(4 * 64)
+    key = jax.random.PRNGKey(3)
+    chi_vals, chi_cols = bell(31, 128, 5)
+    dense = np.zeros((128, 128))
+    for i in range(16):
+        for j, col in enumerate(chi_cols[i]):
+            dense[i * 8:(i + 1) * 8, col * 8:(col + 1) * 8] += chi_vals[i, j]
+    return {
+        "eig_a": (w, vecs),
+        "b64": np.random.default_rng(5).standard_normal(64),
+        "c64": np.random.default_rng(6).standard_normal(64),
+        "spd": a @ a.T / 64 + np.eye(64),
+        "x0_64": normal(23, (64, LOBPCG_R)),
+        "lobpcg_shift": float(np.linalg.eigvalsh(_sym(64, 7))[0] - 1.0),
+        "blocks_a": np.stack([a[i * 8:(i + 1) * 8, i * 8:(i + 1) * 8]
+                              for i in range(8)]),
+        "omegas": np.linspace(-3.0, 3.0, 7),
+        "a11": a11,
+        # Two eigenvalues inside, one buffer (tests/test_parallel.py:166).
+        "slice_band": (float((ew[30] + ew[29]) / 2),
+                       float((ew[32] + ew[31]) / 2)),
+        "pa": _sym(64, 13) + 2.0 * np.diag(np.arange(1.0, 65.0)),
+        "pb": c @ c.T + np.eye(64),
+        "kpm_v0": np.asarray(jax.random.normal(jax.random.fold_in(key, 1),
+                                               (128,), jnp.float64)),
+        "kpm_z": np.asarray(jax.random.rademacher(
+            jax.random.fold_in(key, 2), (128, 8), dtype=jnp.float64)),
+        "kpm_xs": np.linspace(-1.6, 1.6, 9),
+        # A - shift I positive definite for logdet.
+        "kpm_shift": float(np.linalg.eigvalsh(dense)[0] - 1.0),
+    }
 
 
 @functools.lru_cache(maxsize=None)
@@ -139,6 +186,7 @@ def _inputs():
         "basis": np.random.default_rng(9).standard_normal((128, CKPT_K)),
         "cx": _complex_hermitian_pair(32, 13),
         "alphas": np.random.default_rng(10).standard_normal(CKPT_K),
+        **_solver_inputs(bell, normal),
     }
 
 
@@ -423,6 +471,336 @@ def _checkpoint_part(inp, sg, out, ckpt_dir):
                                        for a, b in zip(got, state))
 
 
+class _Layout:
+    """One layout of the step-4 cases at the rank's p: the sharded
+    vectors, or the replicated ones (the reference at the same p).  The
+    outputs are the rank's rows either way."""
+
+    def __init__(self, sg, vectors, n=64):
+        self.sg, self.vectors = sg, vectors
+        self.lay = collectives.ShardedVectors(sg, n)
+
+    def op(self, a, **kw):
+        return port.RowShardedOperator(a, self.sg, vectors=self.vectors,
+                                       **kw)
+
+    def place(self, x):
+        return self.lay.rows(x) if self.vectors == "sharded" else x
+
+    def rows(self, t):
+        return t if self.vectors == "sharded" else self.lay.rows(t)
+
+    def total(self, t):
+        """A loss term summed over the whole vector."""
+        return _global_sum(self.sg, t) if self.vectors == "sharded" else t
+
+
+def _eigh_loss(L, a, v0, **kw):
+    """λ + Σ v⁴ of ``dominant_eigh`` with options ``kw``, its gradient
+    share in the matrix, and v."""
+    leaf = a.clone().requires_grad_(True)
+    lam, v = port.dominant_eigh(L.op(leaf), device="cpu", v0=L.place(v0),
+                                **kw)
+    loss = lam + L.total((v ** 4).sum())
+    loss.backward()
+    return [loss, L.rows(v), leaf.grad]
+
+
+def _solve_grads(L, solve, a, b, c):
+    """``x = solve(op(a), b)`` and the gradient shares of <c, x> in the
+    matrix and the right-hand side."""
+    leaf = a.clone().requires_grad_(True)
+    bleaf = b.clone().requires_grad_(True)
+    x = solve(L.op(leaf), L.place(bleaf))
+    L.total((L.place(c) * x).sum()).backward()
+    return [L.rows(x), leaf.grad, L.lay.rows(bleaf.grad)]
+
+
+def _krylov_cases(inp):
+    """The step-4 entry points, each ``L -> [tensors]`` on the 64 x 64
+    matrix of the JAX tests, from shared start vectors."""
+    a, a7 = _t(inp["a"]), _t(inp["a7"])
+    v0, b, c = _t(inp["v0_64"]), _t(inp["b64"]), _t(inp["c64"])
+    spd = _t(inp["spd"])
+    w, vecs = (_t(t) for t in inp["eig_a"])
+    x0 = _t(inp["x0_64"])
+    blocks = _t(inp["blocks_a"])
+    mid = KRY_MID
+
+    def jacobi(L, m, shift=0.0):
+        return port.jacobi_precond(L.op(m), diag=torch.diagonal(m),
+                                   shift=shift)
+
+    def multi(L):
+        # Jacobi of A - σ with σ below the spectrum: an SPD
+        # approximation of (A - σ)^{-1} for LOBPCG's residuals.
+        leaf = a7.clone().requires_grad_(True)
+        lams, v = port.dominant_eigh_multi(
+            L.op(leaf), r=LOBPCG_R, k=LOBPCG_K, method="lobpcg", tol=1e-11,
+            precond=jacobi(L, a7, inp["lobpcg_shift"]), x0=L.place(x0),
+            device="cpu")
+        (lams * torch.arange(1.0, LOBPCG_R + 1, dtype=F64)).sum().backward()
+        return [lams, leaf.grad]
+
+    def lobpcg(L):
+        op = L.op(a)
+        lams, v = port.lobpcg_eigh(
+            op, 2, tol=1e-10, maxiter=400, x0=L.place(x0), device="cpu",
+            precond=port.block_jacobi_precond(op, blocks=blocks, shift=-9.0))
+        return [lams, L.rows(v)]
+
+    def adaptive(L):
+        lam, v, info = port.lanczos_adaptive(L.op(a), 48, v0=L.place(v0),
+                                             tol=1e-10, device="cpu")
+        return [lam, L.rows(v), info.effective_k, info.residual]
+
+    def power(L):
+        lam, v = port.power_iteration(L.op(a), 300, v0=L.place(v0),
+                                      device="cpu")
+        return [lam, L.rows(v)]
+
+    def refine(L, sign):
+        v = vecs[:, 0] + 1e-3 * vecs[:, 1]
+        lam, v = port.refine_eigenpair(L.op(a), w[0] + 1e-3, L.place(v),
+                                       iters=2, definite_sign=sign,
+                                       device="cpu")
+        return [lam, L.rows(v)]
+
+    def minres(L):
+        op = L.op(a)
+        return [L.rows(port.minres(op.matvec, L.place(b), tol=1e-12,
+                                   maxiter=2000, device="cpu"))]
+
+    def cg(L):
+        op = L.op(spd)
+        x = port.cg(op.matvec, L.place(b), tol=1e-12, device="cpu")
+        xi, it, res = port.cg_info(op.matvec, L.place(b), tol=1e-12,
+                                   precond=jacobi(L, spd), device="cpu")
+        return [L.rows(x), L.rows(xi), torch.tensor(float(it), dtype=F64),
+                torch.tensor(res, dtype=F64)]
+
+    def deflated(L, method, precond, at):
+        op = L.op(a)
+        return [L.rows(port.solve_deflated(
+            op, w[at], L.place(vecs[:, at]), L.place(b), method=method,
+            tol=1e-11, maxiter=5000, device="cpu",
+            precond=jacobi(L, a, float(w[at])) if precond else None))]
+
+    def deflated_info(L):
+        x, its, res = port.solve_deflated_info(
+            L.op(a), w[0], L.place(vecs[:, 0]), L.place(b), tol=1e-11,
+            precond=jacobi(L, a, float(w[0])), device="cpu")
+        return [L.rows(x), torch.tensor(float(its), dtype=F64),
+                torch.tensor(res, dtype=F64)]
+
+    def interior(L):
+        leaf = a.clone().requires_grad_(True)
+        lam, v = port.interior_eigh(L.op(leaf), KRY_SIGMA, k=12,
+                                    v0=L.place(v0), inner_tol=1e-12,
+                                    tol=1e-10, device="cpu")
+        loss = lam + L.total((v ** 4).sum())
+        loss.backward()
+        return [loss, L.rows(v), leaf.grad]
+
+    def spectral(L):
+        leaf = a.clone().requires_grad_(True)
+        y = port.spectral_function(L.op(leaf), L.place(b),
+                                   _t(inp["omegas"]), 0.5, tol=1e-11,
+                                   device="cpu")
+        y.sum().backward()
+        return [y, leaf.grad]
+
+    def deflated_op(L):
+        d = port.DeflatedOperator(L.op(a), L.place(vecs[:, :2]))
+        lam, v = port.dominant_eigh(d, k=64, v0=L.place(v0), device="cpu")
+        return [L.rows(d.matvec(L.place(b))), lam]
+
+    return {
+        "carry": lambda L: _eigh_loss(L, a, v0, k=64, restart_mode="carry"),
+        "early_exit": lambda L: _eigh_loss(L, a, v0, k=64,
+                                           early_exit_tol=1e-10),
+        "basis_f32": lambda L: _eigh_loss(L, a, v0, k=64,
+                                          basis_dtype=torch.float32),
+        "precond": lambda L: _eigh_loss(
+            L, a, v0, k=64, precond=jacobi(L, a, float(w[0]))),
+        "restart": lambda L: _eigh_loss(L, a, v0, k=24, restart_cycles=12),
+        "multi_precond": multi,
+        "lobpcg_precond": lobpcg,
+        "adaptive": adaptive,
+        "power": power,
+        "refine_cg": lambda L: refine(L, 1.0),
+        "refine_minres": lambda L: refine(L, None),
+        "minres": minres,
+        "cg": cg,
+        "deflated_minres": lambda L: deflated(L, "minres", False, mid),
+        "deflated_minres_precond": lambda L: deflated(L, "minres", True,
+                                                      mid),
+        "deflated_cg_precond": lambda L: deflated(L, "cg", True, 0),
+        "deflated_info_precond": deflated_info,
+        "solve_spd": lambda L: _solve_grads(
+            L, lambda op, x: port.solve_spd(op, x, tol=1e-12, device="cpu"),
+            spd, b, c),
+        "solve_symmetric": lambda L: _solve_grads(
+            L, lambda op, x: port.solve_symmetric(op, x, tol=1e-12,
+                                                  maxiter=2000,
+                                                  device="cpu"), a, b, c),
+        "jacobi": lambda L: [L.rows(jacobi(L, a, 0.3)(L.place(b)))],
+        "block_jacobi": lambda L: [L.rows(port.block_jacobi_precond(
+            L.op(a), blocks=blocks, shift=0.3)(L.place(b)))],
+        "interior": interior,
+        "spectral_function": spectral,
+        "deflated_operator": deflated_op,
+    }
+
+
+def _krylov_part(inp, sg, out):
+    """Every step-4 entry point in both layouts at the rank's p."""
+    for name, case in _krylov_cases(inp).items():
+        for vectors in ("sharded", "replicated"):
+            got = case(_Layout(sg, vectors))
+            out[f"kry_{name}_{vectors}"] = [
+                np.asarray(t.detach().numpy()) for t in got]
+
+
+def _restart_part(inp, sg, out):
+    """``tests/test_parallel.py:215-234``: thick restart through the
+    sharded TFIM (N = 12, k = 24, 6 cycles), value and dE0/dg;
+    d²E0/dg² through the restart (N = 6); the stepped API against the
+    replicated layout."""
+    g = torch.tensor(1.0, dtype=F64, requires_grad=True)
+    op = models.tfim_sharded_operator(RESTART_N, g, sg, device="cpu",
+                                      vectors="sharded")
+    lam, _ = port.dominant_eigh(op, k=24, restart_cycles=6, extreme="min",
+                                device="cpu")
+    (d1,) = torch.autograd.grad(lam, g)
+    out["restart_e0"], out["restart_de0"] = float(lam), float(d1)
+    g = torch.tensor(1.2, dtype=F64, requires_grad=True)
+    op = models.tfim_sharded_operator(6, g, sg, device="cpu",
+                                      vectors="sharded")
+    lam, _ = port.dominant_eigh(op, k=16, restart_cycles=6, device="cpu")
+    (d1,) = torch.autograd.grad(lam, g, create_graph=True)
+    (d2,) = torch.autograd.grad(d1, g)
+    out["restart_d2e0"] = float(d2)
+    # restart_init / restart_cycle / restart_extract in both layouts.
+    v0 = _t(inp["v0_256"])
+    got = {}
+    for vectors in ("sharded", "replicated"):
+        op = models.tfim_sharded_operator(8, 0.9, sg, device="cpu",
+                                          vectors=vectors)
+        lay = collectives.ShardedVectors(sg, 256)
+        start = lay.rows(v0) if vectors == "sharded" else v0
+        state = port.restart_init(op, 16, v0=start, device="cpu")
+        for _ in range(3):
+            state, _ = port.restart_cycle(op, state, 16)
+        lam, v, resid = port.restart_extract(state, op)
+        got[vectors] = (lam, v if vectors == "sharded" else lay.rows(v),
+                        resid)
+    (ls, vs, rs), (lr, vr, rr) = got["sharded"], got["replicated"]
+    out["restart_stepped"] = (float(abs(ls - lr) / abs(lr)),
+                              float((vs - vr).abs().max()),
+                              float(abs(rs - rr)), float(ls))
+
+
+def _slice_part(inp, sg, out):
+    """``tests/test_parallel.py:157-182``: the band of an interior slice
+    of a ``RowShardedOperator`` and its gradient (the ranks' shares)."""
+    lo_e, hi_e = inp["slice_band"]
+    leaf = _t(inp["a11"]).clone().requires_grad_(True)
+    lams, _, _ = port.spectral_slice(
+        port.RowShardedOperator(leaf, sg, vectors="sharded"), lo_e, hi_e,
+        r=3, degree=80, maxiter=200, tol=1e-10, device="cpu")
+    inside = (lams >= lo_e) & (lams <= hi_e)
+    band = torch.where(inside, lams, torch.zeros_like(lams)).sum()
+    band.backward()
+    out["slice_band"] = float(band)
+    out["slice_grad"] = leaf.grad.numpy()
+
+
+def _jax_draws(inp, slicing):
+    """Make the KPM estimators draw JAX's enclosure start vector and
+    Rademacher probes (``tests/test_torch_slicing.py``'s patch), each
+    rank its rows of them; returns the undo."""
+    bounds, rademacher = slicing.spectral_bounds, slicing._rademacher
+    v0, z = _t(inp["kpm_v0"]), _t(inp["kpm_z"])
+
+    def jax_bounds(op, k, **kw):
+        lay = op.vector_layout
+        return bounds(op, k, v0=v0 if lay is None else lay.rows(v0),
+                      device=kw.get("device"))
+
+    slicing.spectral_bounds = jax_bounds
+    slicing._rademacher = lambda shape, generator, dtype, device: z.clone()
+
+    def undo():
+        slicing.spectral_bounds, slicing._rademacher = bounds, rademacher
+    return undo
+
+
+def _kpm_part(inp, sg, out):
+    """``tests/test_sharded_sparse.py:178-212``, its density half (n =
+    128, degree 64, 8 probes) and ``trace_function(exp)``, in both modes
+    with JAX's draws; ``logdet`` of the shifted operator against the
+    replicated layout."""
+    from dominantsparseeigenad_tpu_torch.ops import slicing
+    undo = _jax_draws(inp, slicing)
+    try:
+        xs = _t(inp["kpm_xs"])
+        for mode in MODES:
+            op = _bell(inp["chi"], sg, 128, symmetric=True, mode=mode,
+                       vectors="sharded")
+            out[f"kpm_density_{mode}"] = port.spectral_density(
+                op, xs, degree=64, n_probe=8, device="cpu").numpy()
+            out[f"kpm_trace_{mode}"] = float(port.trace_function(
+                op, torch.exp, degree=64, n_probe=8, device="cpu"))
+        for vectors in ("sharded", "replicated"):
+            op = _bell(inp["chi"], sg, 128, symmetric=True, vectors=vectors)
+            out[f"kpm_logdet_{vectors}"] = float(port.logdet(
+                port.ShiftedOperator(op, inp["kpm_shift"]), degree=64,
+                n_probe=8, device="cpu"))
+    finally:
+        undo()
+
+
+def _pencil_part(inp, sg, out):
+    """``tests/test_parallel.py:185-212``: the generalized pencil with A
+    row-sharded (B on the same layout: operators whose layouts differ do
+    not conform), values and both gradients (the ranks' shares)."""
+    a = _t(inp["pa"]).clone().requires_grad_(True)
+    b = _t(inp["pb"]).clone().requires_grad_(True)
+    lams, _ = port.dominant_eigh_gen(
+        port.RowShardedOperator((a + a.T) / 2, sg, vectors="sharded"),
+        port.RowShardedOperator((b + b.T) / 2, sg, vectors="sharded"),
+        r=2, maxiter=300, tol=1e-11, device="cpu")
+    loss = (lams * torch.arange(1.0, 3.0, dtype=F64)).sum()
+    loss.backward()
+    out["pencil_loss"] = float(loss)
+    out["pencil_grad_a"], out["pencil_grad_b"] = a.grad.numpy(), \
+        b.grad.numpy()
+
+
+def _diagnostics_part(inp, sg, out):
+    """F11: the diagnostics on sharded vectors against the replicated
+    layout, on F11's recorded input (the 64 x 64 matrix, k = 60, λ +
+    0.1; a 10-step Lanczos run; an unconverged CG)."""
+    a, v0, b = _t(inp["a"]), _t(inp["v0_64"]), _t(inp["b64"])
+    spd = _t(inp["spd"])
+    for vectors in ("sharded", "replicated"):
+        L = _Layout(sg, vectors)
+        op = L.op(a)
+        lam, v = port.dominant_eigh(op, k=60, v0=L.place(v0), device="cpu")
+        health = utils.lanczos_health(op, port.lanczos(op, 10,
+                                                       v0=L.place(v0),
+                                                       device="cpu"))
+        sop = L.op(spd)
+        x = port.cg(sop.matvec, L.place(b), maxiter=5, device="cpu")
+        out[f"f11_{vectors}"] = [
+            float(utils.ritz_residual(op, lam + 0.1, v)),
+            float(health["ortho_loss"]),
+            float(health["ritz_residual_min"]),
+            float(health["ritz_residual_max"]),
+            float(utils.cg_relative_residual(sop.matvec, L.place(b), x))]
+
+
 def _compute(inp, ckpt_dir):
     sg = port.make_mesh()
     collectives.reset_collective_counts()
@@ -434,6 +812,12 @@ def _compute(inp, ckpt_dir):
     _complex_part(inp, sg, out)
     _collectives_part(sg, out)
     _pivot_part(sg, out)
+    _diagnostics_part(inp, sg, out)
+    _restart_part(inp, sg, out)
+    _slice_part(inp, sg, out)
+    _kpm_part(inp, sg, out)
+    _pencil_part(inp, sg, out)
+    _krylov_part(inp, sg, out)
     # (Before the checkpoints: at p = 4 two of the ranks write one.)
     out["collectives"] = dict(collectives.collective_counts)
     _checkpoint_part(inp, sg, out, ckpt_dir)
@@ -489,17 +873,61 @@ def _spawn_ranks(p, init_method, inp, ckpt_dir):
     return [got[r] for r in range(p)]
 
 
+# The directory the pytest-xdist workers of one run share (set per module).
+_SHARED = {}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _shared_root(tmp_path_factory):
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        _SHARED["root"] = tmp_path_factory.getbasetemp().parent
+    yield
+    _SHARED.clear()
+
+
+def _shared(name, compute):
+    """``compute()``, once for all the xdist workers of a run: the first
+    worker to take the lock computes and pickles it, the others wait and
+    read it (``--dist load`` sends one module's tests to several workers,
+    and a module-scoped fixture is per worker)."""
+    root = _SHARED.get("root")
+    if root is None:
+        return compute()
+    if name in _SHARED:
+        return _SHARED[name]
+    path = root / f"sharded_vectors_{name}.pkl"
+    with open(root / f"sharded_vectors_{name}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if path.exists():
+                out = pickle.loads(path.read_bytes())
+            else:
+                out = compute()
+                path.write_bytes(pickle.dumps(out))
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+    _SHARED[name] = out
+    return out
+
+
 @pytest.fixture(scope="module", params=[1, 2, 4], ids=lambda p: f"p{p}")
 def ranks(request, tmp_path_factory):
     """(p, [each rank's results], the checkpoint directory)."""
     p = request.param
-    init_method = f"file://{tmp_path_factory.mktemp(f'store{p}')}/store"
-    ckpt_dir = str(tmp_path_factory.mktemp(f"ckpt{p}"))
-    if p == 1:
-        res = [_rank_results(0, 1, init_method, _inputs(), ckpt_dir)]
-    else:
-        res = _spawn_ranks(p, init_method, _inputs(), ckpt_dir)
-    return p, res, ckpt_dir
+    base = _SHARED.get("root")
+    if base is None:
+        base = tmp_path_factory.mktemp(f"ranks{p}")
+    base = base / f"sharded_vectors_p{p}"
+
+    def compute():
+        os.makedirs(base / "ckpt", exist_ok=True)
+        init_method = f"file://{base}/store"
+        if p == 1:
+            return [_rank_results(0, 1, init_method, _inputs(),
+                                  str(base / "ckpt"))]
+        return _spawn_ranks(p, init_method, _inputs(), str(base / "ckpt"))
+
+    return p, _shared(f"p{p}", compute), str(base / "ckpt")
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -581,10 +1009,15 @@ def _jax_at(p):
     return out
 
 
-@functools.lru_cache(maxsize=None)
 def _jax_oracles():
     """The oracles the mirrored JAX tests hold the sharded solves to, each
-    jitted once: the dense or single-device path, Jordan-Wigner."""
+    jitted once (and computed once for the run's xdist workers)."""
+    return _shared("jax_oracles", _compute_jax_oracles)
+
+
+@functools.lru_cache(maxsize=None)
+def _compute_jax_oracles():
+    """The dense or single-device path, Jordan-Wigner."""
     import jax
     import jax.numpy as jnp
     from dominantsparseeigenad_tpu import (BellOperator, DenseOperator,
@@ -643,12 +1076,128 @@ def _jax_oracles():
 
     out = oracles(jnp.asarray(inp["a"]), jnp.asarray(inp["a7"]),
                   jnp.asarray(b3v))
+    out.update(_jax_solver_oracles(inp))
     out = jax.tree.map(np.asarray, out)
     bv, bc = inp["block"]
     dense = np.asarray(BellOperator(jnp.asarray(bv), jnp.asarray(bc), 128,
                                     use_pallas=False).to_dense())
     out["block_eigvals"] = np.linalg.eigvalsh(dense)
     return out
+
+
+def _jax_solver_oracles(inp):
+    """The JAX package's values for the Hermitian solvers' cases (item
+    18, steps 1-4), in one jitted program: the mirrored tests' oracles
+    (Jordan-Wigner, the dense slice and pencil, the local operator's
+    density) and each step-4 entry point on the unsharded operator, from
+    the same start vectors where it takes one."""
+    import jax
+    import jax.numpy as jnp
+    import dominantsparseeigenad_tpu as jx
+    from dominantsparseeigenad_tpu.models import tfim_exact_e0
+
+    one = jnp.float64
+    lo_e, hi_e = inp["slice_band"]
+    w, vecs = (jnp.asarray(t) for t in inp["eig_a"])
+    # The preconditioners' shifts, concrete (JAX's constructors read them).
+    w_mid, w_0 = (float(inp["eig_a"][0][i]) for i in (KRY_MID, 0))
+    cv, cc = inp["chi"]
+    key = jax.random.PRNGKey(3)
+
+    def band(m):
+        lams, _, _ = jx.spectral_slice(jx.DenseOperator(m), lo_e, hi_e, r=3,
+                                       degree=80, maxiter=200, tol=1e-10)
+        inside = (lams >= lo_e) & (lams <= hi_e)
+        return jnp.sum(jnp.where(inside, lams, 0.0))
+
+    def pencil(am, bm):
+        lams, _ = jx.dominant_eigh_gen(jx.DenseOperator((am + am.T) / 2),
+                                       jx.DenseOperator((bm + bm.T) / 2),
+                                       r=2, maxiter=300, tol=1e-11)
+        return jnp.sum(lams * jnp.arange(1.0, 3.0))
+
+    def interior(m):
+        lam, v = jx.interior_eigh(jx.DenseOperator(m), KRY_SIGMA, k=16,
+                                  inner_tol=1e-12, tol=1e-10)
+        return lam + jnp.sum(v ** 4)
+
+    def solve(fn, m, b, c):
+        return jnp.dot(c, fn(lambda x: m @ x, b, tol=1e-12, maxiter=2000))
+
+    # JAX's constructors read their inputs on the host: built outside jit.
+    a_j, spd_j = jnp.asarray(inp["a"]), jnp.asarray(inp["spd"])
+    pre = {"spd": jx.jacobi_precond(jx.DenseOperator(spd_j)),
+           "mid": jx.jacobi_precond(jx.DenseOperator(a_j), shift=w_mid),
+           "min": jx.jacobi_precond(jx.DenseOperator(a_j), shift=w_0),
+           "a": jx.jacobi_precond(jx.DenseOperator(a_j), shift=0.3),
+           "block": jx.block_jacobi_precond(jx.DenseOperator(a_j), bs=8,
+                                            shift=0.3)}
+
+    @jax.jit
+    def oracles(a, spd, a11, pa, pb, vals, v0, b, c, omegas):
+        op = jx.DenseOperator(a)
+        bell = jx.BellOperator(vals, jnp.asarray(cc), 128, symmetric=True,
+                               use_pallas=False)
+        vp = vecs[:, 0] + 1e-3 * vecs[:, 1]
+        mid = KRY_MID
+        out = {
+            "restart": jax.value_and_grad(
+                lambda g: tfim_exact_e0(RESTART_N, g))(one(1.0)),
+            "slice": jax.value_and_grad(band)(a11),
+            "pencil": (pencil(pa, pb),
+                       jax.grad(pencil, argnums=(0, 1))(pa, pb)),
+            "kpm_density": jx.spectral_density(
+                bell, jnp.asarray(inp["kpm_xs"]), degree=64, n_probe=8,
+                key=key),
+            "kpm_trace": jx.trace_function(bell, jnp.exp, degree=64,
+                                           n_probe=8, key=key),
+            "adaptive": jx.lanczos_adaptive(op, 48, v0=v0, tol=1e-10),
+            "power": jx.power_iteration(op, 300, v0=v0),
+            "refine_cg": jx.refine_eigenpair(op, w[0] + 1e-3, vp, iters=2,
+                                             definite_sign=1.0),
+            "refine_minres": jx.refine_eigenpair(op, w[0] + 1e-3, vp,
+                                                 iters=2),
+            "minres": jx.minres(lambda x: a @ x, b, tol=1e-12,
+                                maxiter=2000),
+            "cg": jx.cg(lambda x: spd @ x, b, tol=1e-12),
+            "cg_info": jx.cg_info(lambda x: spd @ x, b, tol=1e-12,
+                                  precond=pre["spd"])[0],
+            "deflated_minres": jx.solve_deflated(
+                op, w[mid], vecs[:, mid], b, method="minres", tol=1e-11,
+                maxiter=5000),
+            "deflated_minres_precond": jx.solve_deflated(
+                op, w[mid], vecs[:, mid], b, method="minres", tol=1e-11,
+                maxiter=5000, precond=pre["mid"]),
+            "deflated_cg_precond": jx.solve_deflated(
+                op, w[0], vecs[:, 0], b, tol=1e-11, maxiter=5000,
+                precond=pre["min"]),
+            "deflated_info_precond": jx.solve_deflated_info(
+                op, w[0], vecs[:, 0], b, tol=1e-11,
+                precond=pre["min"])[0],
+            "solve_spd": (jx.solve_spd(lambda x: spd @ x, b, tol=1e-12),
+                          jax.grad(lambda m, r: solve(jx.solve_spd, m, r, c),
+                                   argnums=(0, 1))(spd, b)),
+            "solve_symmetric": (
+                jx.solve_symmetric(lambda x: a @ x, b, tol=1e-12,
+                                   maxiter=2000),
+                jax.grad(lambda m, r: solve(jx.solve_symmetric, m, r, c),
+                         argnums=(0, 1))(a, b)),
+            "jacobi": pre["a"](b),
+            "block_jacobi": pre["block"](b),
+            "interior": jax.value_and_grad(interior)(a),
+            "spectral_function": (
+                jx.spectral_function(op, b, omegas, 0.5, tol=1e-11),
+                jax.grad(lambda m: jnp.sum(jx.spectral_function(
+                    jx.DenseOperator(m), b, omegas, 0.5, tol=1e-11)))(a)),
+            "deflated_operator": jx.DeflatedOperator(op, vecs[:, :2])
+            .matvec(b)}
+        return out
+
+    got = oracles(*(jnp.asarray(inp[k]) for k in (
+        "a", "spd", "a11", "pa", "pb")), jnp.asarray(cv),
+        *(jnp.asarray(inp[k]) for k in ("v0_64", "b64", "c64", "omegas")))
+    got["eigvals_a"] = np.asarray(inp["eig_a"][0])
+    return got
 
 
 def _rel(a, b):
@@ -959,14 +1508,262 @@ def test_checkpoint_round_trip_and_jax_load(ranks):
 
 def test_ranks_run_the_same_collectives(ranks):
     """Lockstep: every rank ran the same collectives, and the replicated
-    results are bitwise the same on every rank."""
+    results are bitwise the same on every rank, those of the Hermitian
+    solvers over sharded vectors too (every host branch there reads one
+    of them: breakdowns, the early exit, the residual reads of CG and
+    MINRES, LOBPCG's stop)."""
     p, results, _ = ranks
     first = results[0]
     for res in results[1:]:
         assert res["collectives"] == first["collectives"]
         for key in ("dense_loss_ring", "tfim_e0", "tfim_d2e0", "chi_ring",
-                    "eig_loss_ring"):
+                    "eig_loss_ring", "restart_e0", "restart_d2e0",
+                    "slice_band", "pencil_loss", "kpm_trace_ring",
+                    "kpm_logdet_sharded", "f11_sharded"):
             assert res[key] == first[key], key
+        for name in _KRY_REPLICATED:
+            for i in _KRY_REPLICATED[name]:
+                assert np.array_equal(res[f"kry_{name}_sharded"][i],
+                                      first[f"kry_{name}_sharded"][i]), name
+
+
+# -- the Hermitian solvers over sharded vectors (item 18, steps 1-4) ----------
+
+def test_sharded_restart_cycles_value_and_grad(ranks):
+    """``tests/test_parallel.py:215-234``: thick restart (k = 24, 6
+    cycles) through the sharded TFIM N = 12 against Jordan-Wigner."""
+    p, results, _ = ranks
+    e0, de0 = _jax_oracles()["restart"]
+    for res in results:
+        assert abs(res["restart_e0"] - e0) <= 1e-10 * abs(e0)
+        assert abs(res["restart_de0"] - de0) <= 1e-8 * abs(de0)
+
+
+def test_sharded_restart_second_order(ranks):
+    """d²E0/dg² through the restart (N = 6) at the bar of
+    ``test_sharded_tfim_energy_and_derivatives``: a missing
+    ``layout_bcast`` mark passes at first order and at p = 1, not at
+    p = 2 and 4."""
+    p, results, _ = ranks
+    want = _jax_oracles()["tfim_d2e0"]
+    for res in results:
+        assert abs(res["restart_d2e0"] - want) <= 1e-6 * abs(want)
+
+
+def test_sharded_restart_stepped_matches_replicated(ranks):
+    """``restart_init``, three ``restart_cycle`` and ``restart_extract``
+    on the sharded TFIM N = 8 against the replicated layout from the same
+    start vector (λ, the rank's rows of v, the residual coupling)."""
+    p, results, _ = ranks
+    for res in results:
+        lam_rel, v_err, resid_err, _ = res["restart_stepped"]
+        assert lam_rel <= 1e-12 and v_err <= 1e-10 and resid_err <= 1e-12
+
+
+def test_sharded_spectral_slice_matches_dense(ranks):
+    """``tests/test_parallel.py:157-182``: the band of an interior slice
+    (n = 64, r = 3, degree 80) and its gradient (the ranks' shares)
+    against JAX's dense path."""
+    p, results, _ = ranks
+    val, grad = _jax_oracles()["slice"]
+    for res in results:
+        assert abs(res["slice_band"] - val) <= 1e-9 * abs(val)
+    np.testing.assert_allclose(sum(res["slice_grad"] for res in results),
+                               grad, rtol=1e-6, atol=1e-9)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_sharded_kpm_density_and_trace(ranks, mode):
+    """``tests/test_sharded_sparse.py:178-212``, its density half, and
+    ``trace_function(exp)``: a ``RowShardedBellOperator`` (n = 128,
+    degree 64, 8 probes, each rank its rows of JAX's probes) against
+    JAX's local operator; ``logdet`` against the replicated layout."""
+    p, results, _ = ranks
+    want = _jax_oracles()
+    for res in results:
+        np.testing.assert_allclose(res[f"kpm_density_{mode}"],
+                                   want["kpm_density"], rtol=1e-9,
+                                   atol=1e-12)
+        assert abs(res[f"kpm_trace_{mode}"] - want["kpm_trace"]) <= \
+            1e-9 * abs(want["kpm_trace"])
+        assert abs(res["kpm_logdet_sharded"] - res["kpm_logdet_replicated"]) \
+            <= 1e-12 * abs(res["kpm_logdet_replicated"])
+
+
+def test_sharded_generalized_pencil_matches_dense(ranks):
+    """``tests/test_parallel.py:185-212``: the pencil with A row-sharded
+    (B on the same layout), Σ i λ_i and both gradients (the ranks'
+    shares) against JAX's dense pencil."""
+    p, results, _ = ranks
+    val, (ga, gb) = _jax_oracles()["pencil"]
+    for res in results:
+        assert abs(res["pencil_loss"] - val) <= 1e-9 * abs(val)
+    np.testing.assert_allclose(sum(res["pencil_grad_a"] for res in results),
+                               ga, rtol=1e-6, atol=1e-9)
+    np.testing.assert_allclose(sum(res["pencil_grad_b"] for res in results),
+                               gb, rtol=1e-6, atol=1e-9)
+
+
+def test_diagnostics_reduce_over_the_ranks(ranks):
+    """F11: ``ritz_residual``, ``lanczos_health`` (the orthogonality loss
+    and both Ritz residuals) and ``cg_relative_residual`` on sharded
+    vectors give the replicated layout's values on every rank (f64, on
+    F11's recorded input)."""
+    p, results, _ = ranks
+    for res in results:
+        sh, rep = res["f11_sharded"], res["f11_replicated"]
+        for got, want in zip(sh, rep):
+            assert abs(got - want) <= 1e-12 * max(abs(want), 1.0)
+        assert rep[1] <= 1e-14       # the replicated basis is orthonormal
+
+
+def _vec(outs, i):
+    """The whole vector of output ``i`` from the ranks' rows."""
+    return np.concatenate([o[i] for o in outs])
+
+
+def _share(outs, i):
+    """The ranks' gradient shares of output ``i``, summed."""
+    return sum(o[i] for o in outs)
+
+
+def _eigh_option(outs, want):
+    np.testing.assert_allclose(float(outs[0][0]), want["dense"][0],
+                               rtol=1e-9)
+    np.testing.assert_allclose(_share(outs, 2), want["dense"][1], rtol=1e-6,
+                               atol=1e-9)
+
+
+def _pair(outs, want, lam_rtol=1e-12, v_atol=1e-10):
+    lam, v = want
+    np.testing.assert_allclose(float(outs[0][0]), float(lam), rtol=lam_rtol)
+    np.testing.assert_allclose(_vec(outs, 1), v, atol=v_atol)
+
+
+def _solve_x(outs, want, rtol):
+    assert _rel(_vec(outs, 0), want) <= rtol
+
+
+def _check_solve_grads(outs, want):
+    x, (gm, gb) = want
+    assert _rel(_vec(outs, 0), x) <= 1e-9
+    np.testing.assert_allclose(_share(outs, 1), gm, rtol=1e-7, atol=1e-10)
+    np.testing.assert_allclose(_vec(outs, 2), gb, rtol=1e-7, atol=1e-10)
+
+
+def _kry_checks():
+    """Each step-4 case against the JAX package on the unsharded operator,
+    at the bar of that option's JAX test."""
+    def adaptive(outs, want):
+        lam, v, info = want
+        _pair(outs, (lam, v), v_atol=1e-8)
+        assert float(outs[0][2]) == float(info.effective_k)
+
+    def multi(outs, want):
+        np.testing.assert_allclose(outs[0][0], want["lobpcg_lams"],
+                                   rtol=1e-9)
+        np.testing.assert_allclose(_share(outs, 1), want["lobpcg_grad"],
+                                   rtol=1e-7, atol=1e-10)
+
+    def cg(outs, want):
+        _solve_x(outs, want["cg"], 1e-10)
+        assert _rel(_vec(outs, 1), want["cg_info"]) <= 1e-10
+        assert float(outs[0][3]) <= 1e-11
+
+    def interior(outs, want):
+        val, grad = want["interior"]
+        np.testing.assert_allclose(float(outs[0][0]), float(val), rtol=1e-9)
+        np.testing.assert_allclose(_share(outs, 2), grad, rtol=1e-6,
+                                   atol=1e-9)
+
+    def spectral(outs, want):
+        y, grad = want["spectral_function"]
+        np.testing.assert_allclose(outs[0][0], y, rtol=1e-9)
+        np.testing.assert_allclose(_share(outs, 1), grad, rtol=1e-7,
+                                   atol=1e-10)
+
+    def deflated_op(outs, want):
+        assert _rel(_vec(outs, 0), want["deflated_operator"]) <= 1e-12
+        np.testing.assert_allclose(float(outs[0][1]), want["eigvals_a"][2],
+                                   rtol=1e-9)
+
+    return {
+        "carry": _eigh_option, "early_exit": _eigh_option,
+        "basis_f32": _eigh_option, "precond": _eigh_option,
+        "restart": _eigh_option, "multi_precond": multi,
+        "lobpcg_precond": lambda outs, want: np.testing.assert_allclose(
+            outs[0][0], want["eigvals_a"][:2], rtol=1e-9),
+        "adaptive": lambda outs, want: adaptive(outs, want["adaptive"]),
+        "power": lambda outs, want: _pair(outs, want["power"]),
+        "refine_cg": lambda outs, want: _pair(outs, want["refine_cg"]),
+        "refine_minres": lambda outs, want: _pair(outs,
+                                                  want["refine_minres"]),
+        "minres": lambda outs, want: _solve_x(outs, want["minres"], 1e-9),
+        "cg": cg,
+        "deflated_minres": lambda outs, want: _solve_x(
+            outs, want["deflated_minres"], 1e-8),
+        "deflated_minres_precond": lambda outs, want: _solve_x(
+            outs, want["deflated_minres_precond"], 1e-8),
+        "deflated_cg_precond": lambda outs, want: _solve_x(
+            outs, want["deflated_cg_precond"], 1e-8),
+        "deflated_info_precond": lambda outs, want: _solve_x(
+            outs, want["deflated_info_precond"], 1e-8),
+        "solve_spd": lambda outs, want: _check_solve_grads(
+            outs, want["solve_spd"]),
+        "solve_symmetric": lambda outs, want: _check_solve_grads(
+            outs, want["solve_symmetric"]),
+        "jacobi": lambda outs, want: _solve_x(outs, want["jacobi"], 1e-14),
+        # One batched eigh of the blocks on each side.
+        "block_jacobi": lambda outs, want: _solve_x(
+            outs, want["block_jacobi"], 1e-10),
+        "interior": interior,
+        "spectral_function": spectral,
+        "deflated_operator": deflated_op,
+    }
+
+
+# The outputs of each case that are replicated (the same on every rank).
+_KRY_REPLICATED = {
+    "carry": (0,), "early_exit": (0,), "basis_f32": (0,), "precond": (0,),
+    "restart": (0,), "multi_precond": (0,), "lobpcg_precond": (0,),
+    "adaptive": (0, 2, 3), "power": (0,), "refine_cg": (0,),
+    "refine_minres": (0,), "cg": (2, 3), "deflated_info_precond": (1, 2),
+    "interior": (0,), "spectral_function": (0,), "deflated_operator": (1,)}
+
+# The outputs that are residuals, relative already and down to
+# round-off: compared absolutely.
+_KRY_RESIDUALS = {"adaptive": (3,), "cg": (3,), "deflated_info_precond": (2,)}
+
+# The cases whose iterative solves stop at a tolerance (MINRES and the
+# block CG at 1e-10 to 1e-11 through hundreds of iterations, LOBPCG's
+# Ritz vectors at 1e-10): the two layouts sum their dots in different
+# orders, and the outputs agree within ten times that tolerance.
+_KRY_SOLVE_BAR = {"deflated_minres": 1e-10, "deflated_minres_precond": 1e-10,
+                  "spectral_function": 1e-10, "interior": 1e-10,
+                  "multi_precond": 1e-9, "lobpcg_precond": 1e-9}
+
+
+@pytest.mark.parametrize("name", sorted(_kry_checks()))
+def test_krylov_option_on_sharded_vectors(ranks, name):
+    """Each step-4 entry point (the Krylov options of ``dominant_eigh``,
+    the preconditioners, LOBPCG with one, ``lanczos_adaptive``,
+    ``power_iteration``, ``refine_eigenpair``, ``cg``/``cg_info``/
+    ``minres`` on a bound matvec, the deflated and undeflated solves,
+    ``interior_eigh``, ``spectral_function``, ``DeflatedOperator``) over
+    sharded vectors: equal to the replicated layout at the same p (1e-12
+    in f64; the rank's rows of each vector, its share of each gradient),
+    and to the JAX function on the unsharded operator at the bar of that
+    option's JAX test."""
+    p, results, _ = ranks
+    bar = _KRY_SOLVE_BAR.get(name, 1e-12)
+    for res in results:
+        for i, (got, want) in enumerate(zip(res[f"kry_{name}_sharded"],
+                                            res[f"kry_{name}_replicated"])):
+            scale = 1.0 if i in _KRY_RESIDUALS.get(name, ()) \
+                else np.abs(want).max()
+            assert np.abs(got - want).max() <= bar * scale, (name, i)
+    _kry_checks()[name]([res[f"kry_{name}_sharded"] for res in results],
+                        _jax_oracles())
 
 
 # -- the refusals, with no process group --------------------------------------
@@ -982,99 +1779,25 @@ def _solo_operator():
 
 
 def _out_of_slice():
+    """The general (non-Hermitian) tier, the one left on sharded vectors
+    (item 18, step 5)."""
     v = torch.zeros(16, dtype=F64)
     v[0] = 1.0
-
-    def call(fn):
-        return lambda op: fn(op, v)
-
     return {
-        "lanczos carry": call(lambda op, v: port.lanczos(
-            op, 4, restart_mode="carry", device="cpu")),
-        "lanczos bf16 basis": call(lambda op, v: port.lanczos(
-            op, 4, basis_dtype=torch.bfloat16, device="cpu")),
-        "lanczos_adaptive": call(lambda op, v: port.lanczos_adaptive(
-            op, 4, device="cpu")),
-        "power_iteration": call(lambda op, v: port.power_iteration(
-            op, 4, device="cpu")),
-        "refine_eigenpair": call(lambda op, v: port.refine_eigenpair(
-            op, 1.0, v, device="cpu")),
-        "dominant_eigh restart_cycles": call(lambda op, v: port.dominant_eigh(
-            op, k=4, restart_cycles=2, device="cpu")),
-        "dominant_eigh early_exit_tol": call(lambda op, v: port.dominant_eigh(
-            op, k=4, early_exit_tol=1e-8, device="cpu")),
-        "dominant_eigh basis_dtype": call(lambda op, v: port.dominant_eigh(
-            op, k=4, basis_dtype=torch.float32, device="cpu")),
-        "dominant_eigh carry": call(lambda op, v: port.dominant_eigh(
-            op, k=4, restart_mode="carry", device="cpu")),
-        "dominant_eigh precond": call(lambda op, v: port.dominant_eigh(
-            op, k=4, precond=lambda x: x, device="cpu")),
-        "dominant_eigh_multi precond": call(
-            lambda op, v: port.dominant_eigh_multi(
-                op, r=2, k=4, precond=lambda x: x, device="cpu")),
-        "lobpcg_eigh precond": call(lambda op, v: port.lobpcg_eigh(
-            op, 2, precond=lambda x: x, device="cpu")),
-        "lobpcg_eigh_general": call(lambda op, v: port.lobpcg_eigh_general(
-            op, op, 2, device="cpu")),
-        "solve_deflated minres": call(lambda op, v: port.solve_deflated(
-            op, 1.0, v, v, method="minres", device="cpu")),
-        "solve_deflated precond": call(lambda op, v: port.solve_deflated(
-            op, 1.0, v, v, precond=lambda x: x, device="cpu")),
-        "solve_deflated_info precond": call(
-            lambda op, v: port.solve_deflated_info(
-                op, 1.0, v, v, precond=lambda x: x, device="cpu")),
-        "solve_spd": call(lambda op, v: port.solve_spd(op, v, device="cpu")),
-        "solve_symmetric": call(lambda op, v: port.solve_symmetric(
-            op, v, device="cpu")),
-        "solve_general": call(lambda op, v: port.solve_general(
-            op, v, device="cpu")),
-        "cg": call(lambda op, v: port.cg(op.matvec, v, device="cpu")),
-        "cg_info": call(lambda op, v: port.cg_info(op.matvec, v,
-                                                   device="cpu")),
-        "minres": call(lambda op, v: port.minres(op.matvec, v,
-                                                 device="cpu")),
-        "bicgstab": call(lambda op, v: port.bicgstab(op.matvec, v,
-                                                     device="cpu")),
-        "gmres": call(lambda op, v: port.gmres(op.matvec, v, device="cpu")),
-        "dominant_eig": call(lambda op, v: port.dominant_eig(
-            op, device="cpu")),
-        "dominant_eig_multi": call(lambda op, v: port.dominant_eig_multi(
-            op, device="cpu")),
-        "dominant_eig_pair": call(lambda op, v: port.dominant_eig_pair(
-            op, device="cpu")),
-        "dominant_eig_spectrum": call(
-            lambda op, v: port.dominant_eig_spectrum(op, device="cpu")),
-        "spectrum_structure": call(lambda op, v: port.spectrum_structure(
-            op, device="cpu")),
-        "dominant_eigh_gen": call(lambda op, v: port.dominant_eigh_gen(
-            op, op, 2, device="cpu")),
-        "solve_deflated_pencil": call(
-            lambda op, v: port.solve_deflated_pencil(
-                op, op, 1.0, v, v, v, device="cpu")),
-        "interior_eigh": call(lambda op, v: port.interior_eigh(
-            op, 0.5, k=4, device="cpu")),
-        "spectral_bounds": call(lambda op, v: port.spectral_bounds(
-            op, k=4, device="cpu")),
-        "spectral_slice": call(lambda op, v: port.spectral_slice(
-            op, 0.5, 1.5, r=2, device="cpu")),
-        "spectral_density": call(lambda op, v: port.spectral_density(
-            op, [0.0], device="cpu")),
-        "trace_function": call(lambda op, v: port.trace_function(
-            op, torch.exp, device="cpu")),
-        "logdet": call(lambda op, v: port.logdet(op, device="cpu")),
-        "spectral_function": call(lambda op, v: port.spectral_function(
-            op, v, [0.0], 0.1, device="cpu")),
-        "restart_init": call(lambda op, v: port.restart_init(
-            op, 4, device="cpu")),
-        "lanczos_restarted": call(lambda op, v: port.lanczos_restarted(
-            op, 4, device="cpu")),
-        "dominant_svd": call(lambda op, v: port.dominant_svd(
-            op, r=2, k=4, device="cpu")),
-        "operator_diagonal": call(lambda op, v: port.operator_diagonal(op)),
-        "jacobi_precond": call(lambda op, v: port.jacobi_precond(op)),
-        "block_jacobi_precond": call(
-            lambda op, v: port.block_jacobi_precond(op)),
-        "DeflatedOperator": call(lambda op, v: port.DeflatedOperator(op, v)),
+        "bicgstab": lambda op: port.bicgstab(op.matvec, v, device="cpu"),
+        "gmres": lambda op: port.gmres(op.matvec, v, device="cpu"),
+        "solve_general": lambda op: port.solve_general(op, v, device="cpu"),
+        "dominant_eig": lambda op: port.dominant_eig(op, device="cpu"),
+        "dominant_eig_multi": lambda op: port.dominant_eig_multi(
+            op, device="cpu"),
+        "dominant_eig_pair": lambda op: port.dominant_eig_pair(
+            op, device="cpu"),
+        "dominant_eig_spectrum": lambda op: port.dominant_eig_spectrum(
+            op, device="cpu"),
+        "spectrum_structure": lambda op: port.spectrum_structure(
+            op, device="cpu"),
+        "dominant_svd": lambda op: port.dominant_svd(op, r=2, k=4,
+                                                     device="cpu"),
     }
 
 
@@ -1088,11 +1811,92 @@ def test_out_of_slice_solver_refuses_sharded_vectors(name):
         _out_of_slice()[name](_solo_operator())
 
 
-def test_restart_cycle_refuses_sharded_vectors():
-    from dominantsparseeigenad_tpu_torch.ops.restart import RestartState
-    state = RestartState(*(torch.zeros(1),) * len(RestartState._fields))
-    with pytest.raises(NotImplementedError, match="queue 1 item 18"):
-        port.restart_cycle(_solo_operator(), state, 4)
+def test_refuse_sharded_is_called_at_the_general_tier_only():
+    """``refuse_sharded`` has exactly the nine call sites of the general
+    tier, the entries of ``_out_of_slice``."""
+    import pathlib
+    import re
+    pkg = pathlib.Path(port.__file__).parent
+    calls = sorted(
+        m.group(1) for path in pkg.rglob("*.py")
+        for m in re.finditer(r'refuse_sharded\("([^"]+)"',
+                             path.read_text()))
+    assert calls == sorted(_out_of_slice())
+
+
+def _row_sharded_types(sg):
+    return {
+        "RowShardedOperator": port.RowShardedOperator(
+            torch.eye(16, dtype=F64), sg, vectors="sharded"),
+        "RowShardedBellOperator": _solo_operator(),
+        "ShardedMatrixFreeOperator": models.tfim_sharded_operator(
+            4, 0.5, sg, device="cpu", vectors="sharded")}
+
+
+@pytest.mark.parametrize("kind", ["RowShardedOperator",
+                                  "RowShardedBellOperator",
+                                  "ShardedMatrixFreeOperator"])
+def test_operator_diagonal_refuses_row_sharded_types(kind):
+    """``operator_diagonal`` knows no row-sharded operator (TypeError, as
+    the JAX function's type dispatch); the preconditioners take an
+    explicit ``diag=`` or ``blocks=`` there."""
+    sg = ShardGroup(group=None, rank=0, size=1, backend="gloo")
+    op = _row_sharded_types(sg)[kind]
+    with pytest.raises(TypeError, match="no structural diagonal"):
+        port.operator_diagonal(op)
+    with pytest.raises(TypeError, match="no structural diagonal"):
+        port.jacobi_precond(op)
+
+
+def test_preconditioners_take_the_ranks_rows():
+    """Rank 1 of 2 applies rows 12..23 of the whole ``diag``; block-Jacobi
+    raises when the rank's rows are not whole blocks, or when the blocks
+    do not cover the whole dimension."""
+    sg = ShardGroup(group=None, rank=1, size=2, backend="gloo")
+    op = port.RowShardedOperator(torch.eye(24, dtype=F64), sg,
+                                 vectors="sharded")
+    d = torch.arange(1.0, 25.0, dtype=F64)
+    r = torch.ones(12, dtype=F64)
+    torch.testing.assert_close(port.jacobi_precond(op, diag=d)(r),
+                               1.0 / d[12:], rtol=0, atol=0)
+    with pytest.raises(ValueError, match="pass the whole 24"):
+        port.jacobi_precond(op, diag=d[12:])
+    with pytest.raises(ValueError, match="not a whole number"):
+        port.block_jacobi_precond(op, blocks=torch.eye(8, dtype=F64)
+                                  .repeat(3, 1, 1))
+    with pytest.raises(ValueError, match="pass the whole 24"):
+        port.block_jacobi_precond(op, blocks=torch.eye(4, dtype=F64)
+                                  .repeat(3, 1, 1))
+    m = port.block_jacobi_precond(op, blocks=torch.eye(4, dtype=F64)
+                                  .repeat(6, 1, 1) * 2.0)
+    torch.testing.assert_close(m(r), r / 2.0)
+
+
+def test_pencil_layouts_must_conform():
+    """A pencil whose A is sharded and whose B is whole does not conform
+    (the composites' rule), in the solver and in its pencil solve."""
+    op = _solo_operator()
+    whole = port.DenseOperator(torch.eye(16, dtype=F64))
+    v = torch.zeros(16, 1, dtype=F64)
+    for call in (lambda: port.dominant_eigh_gen(op, whole, 2, device="cpu"),
+                 lambda: port.lobpcg_eigh_general(op, whole, 2,
+                                                  device="cpu"),
+                 lambda: port.solve_deflated_pencil(op, whole, 0.0, v, v,
+                                                    v[:, 0], device="cpu")):
+        with pytest.raises(ValueError, match="do not conform"):
+            call()
+
+
+def test_deflated_operator_takes_the_ranks_rows():
+    """``DeflatedOperator`` over sharded vectors takes V with the rank's
+    rows (rank 1 of 2 holds 8 of 16)."""
+    sg = ShardGroup(group=None, rank=1, size=2, backend="gloo")
+    op = port.RowShardedOperator(torch.eye(16, dtype=F64), sg,
+                                 vectors="sharded")
+    assert port.DeflatedOperator(op, torch.zeros(8, 1, dtype=F64)).V \
+        .shape == (8, 1)
+    with pytest.raises(ValueError, match="the operator's vectors 8"):
+        port.DeflatedOperator(op, torch.zeros(16, 1, dtype=F64))
 
 
 def test_composites_carry_the_layout():

@@ -625,6 +625,80 @@ def test_trace_and_logdet_with_jax_probes(spd256, monkeypatch):
     assert _rel(g_ld.numpy(), gldj) <= 1e-8
 
 
+# -- slicing and KPM on sharded vectors at p = 1 ------------------------------
+
+@pytest.fixture
+def solo(tmp_path):
+    """A one-rank gloo group in this process: the sharded-vector layout at
+    p = 1, whose sums over the ranks are real one-rank all_reduces."""
+    import torch.distributed as dist
+    port.init_distributed("gloo", f"file://{tmp_path}/store", 0, 1)
+    try:
+        yield port.make_mesh()
+    finally:
+        dist.destroy_process_group()
+
+
+def test_sharded_vectors_trace_and_logdet_with_jax_probes(spd256, solo,
+                                                          monkeypatch):
+    """``test_trace_and_logdet_with_jax_probes`` on sharded vectors (the
+    moments summed over the ranks, the probes the rank's rows of JAX's):
+    the same bars against JAX."""
+    spd = spd256
+    key = jax.random.PRNGKey(11)
+    _jax_draws(monkeypatch, key)
+    a = _t(spd).requires_grad_()
+    op = port.RowShardedOperator(a, solo, vectors="sharded")
+    tr = port.trace_function(op, lambda x: torch.exp(-0.3 * x), degree=60,
+                             n_probe=8, device="cpu")
+    ld = port.logdet(op, degree=80, n_probe=8, device="cpu")
+    g_ld, = torch.autograd.grad(ld, a)
+    trj, (ldj, gldj) = jax.jit(lambda m: (
+        jx.trace_function(m, lambda x: jnp.exp(-0.3 * x), degree=60,
+                          n_probe=8, key=key),
+        jax.value_and_grad(lambda x: jx.logdet(x, degree=80, n_probe=8,
+                                               key=key))(m)))(
+            jnp.asarray(spd))
+    assert _rel(float(tr), float(trj)) <= 1e-12
+    assert _rel(float(ld), float(ldj)) <= 1e-10
+    assert _rel(g_ld.numpy(), gldj) <= 1e-8
+
+
+def test_sharded_vectors_density_with_jax_probes(solo, monkeypatch):
+    """The density of ``test_spectral_density_matches_exact_moments_and_jax``
+    on sharded vectors with JAX's draws against JAX's (1e-12)."""
+    rng = np.random.default_rng(1)
+    n = 256
+    a = rng.standard_normal((n, n)) / np.sqrt(n)
+    a = (a + a.T) / np.sqrt(2)
+    es = np.linspace(-1.8, 1.8, 41)
+    key = jax.random.PRNGKey(3)
+    _jax_draws(monkeypatch, key)
+    got = port.spectral_density(
+        port.RowShardedOperator(_t(a), solo, vectors="sharded"), _t(es),
+        degree=100, n_probe=8, device="cpu")
+    want = jax.jit(lambda m, e: jx.spectral_density(
+        jx.DenseOperator(m), e, degree=100, n_probe=8, key=key))(
+            jnp.asarray(a), jnp.asarray(es))
+    assert _rel(got.numpy(), want) <= 1e-12
+
+
+def test_sharded_vectors_slice_matches_dense_eigh_and_jax(dense_slice, solo):
+    """``test_slice_matches_dense_eigh_and_jax`` on sharded vectors: the
+    filtered operator carries the layout into LOBPCG, and the
+    Rayleigh-Ritz matrix and the residuals sum over the ranks."""
+    a, ew, lo_e, hi_e, (lj, vj, ij) = dense_slice
+    lams, v, info = port.spectral_slice(
+        port.RowShardedOperator(_t(a), solo, vectors="sharded"), lo_e, hi_e,
+        r=8, degree=100, maxiter=400, tol=1e-8, device="cpu")
+    assert float(info.n_inside) == float(ij.n_inside) == 6.0
+    l_in, p_in = _inside(lams, v, lo_e, hi_e)
+    lj_in, pj_in = _inside(lj, vj, lo_e, hi_e)
+    np.testing.assert_allclose(l_in, ew[110:116], rtol=1e-10)
+    assert _rel(l_in, lj_in) <= 1e-8
+    assert np.abs(p_in - pj_in).max() <= 1e-6
+
+
 def test_logdet_tight_bounds_interpolation_exact():
     """With the certified auto-bounds the only logdet error is trace
     noise: within 3 ||ln A||_F sqrt(2 / 64) of the truth."""

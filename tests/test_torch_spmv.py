@@ -153,3 +153,66 @@ def test_build_targets_sm90a():
     assert "arch=compute_90a,code=sm_90a" in spmv.NVCC_FLAGS
     assert spmv._SRC.name == "bell_spmv.cu" and spmv._SRC.exists()
     assert spmv._BUILD_DIR.parts[-2:] == ("build", "torch_kernels")
+
+
+def _routed(case, vals, cols, x, dvals, dx):
+    """The wrapper's product under ``case``, and the same quantity from the
+    plain version under PyTorch's own autograd."""
+    plain = spmv._bell_spmv_torch
+    if case == "no_grad":
+        with torch.no_grad():
+            return port.bell_spmv(vals.requires_grad_(), cols, x), \
+                plain(vals.detach(), cols, x)
+    if case == "nothing_requires_grad":
+        return port.bell_spmv(vals, cols, x), plain(vals, cols, x)
+    if case == "reverse":
+        got, want = [], []
+        for fn, out in ((port.bell_spmv, got), (plain, want)):
+            v, xx = vals.clone().requires_grad_(), x.clone().requires_grad_()
+            (fn(v, cols, xx) * dx).sum().backward()
+            out.extend([v.grad, xx.grad])
+        return torch.cat([t.reshape(-1) for t in got]), \
+            torch.cat([t.reshape(-1) for t in want])
+    if case == "forward_ad":
+        import torch.autograd.forward_ad as fwAD
+        with fwAD.dual_level():
+            y = port.bell_spmv(fwAD.make_dual(vals, dvals), cols,
+                               fwAD.make_dual(x, dx))
+            tangent = fwAD.unpack_dual(y).tangent
+        return tangent, plain(dvals, cols, x) + plain(vals, cols, dx)
+    if case == "vmap":
+        xs = torch.stack([x, dx, x - dx])
+        return torch.func.vmap(lambda z: port.bell_spmv(vals, cols, z))(xs), \
+            torch.stack([plain(vals, cols, z) for z in xs])
+    assert case == "jvp"
+    return torch.func.jvp(lambda v: port.bell_spmv(v, cols, x),
+                          (vals,), (dvals,))[1], plain(dvals, cols, x)
+
+
+@pytest.mark.parametrize("case, through_function", [
+    ("no_grad", False), ("nothing_requires_grad", False), ("reverse", True),
+    ("forward_ad", True), ("vmap", True), ("jvp", True)])
+def test_product_skips_the_function_only_where_nothing_is_differentiated(
+        monkeypatch, case, through_function):
+    """``_bell_product`` goes straight to the product when no derivative
+    can be taken of it, and through ``_BellProduct`` for reverse mode,
+    forward mode and ``torch.func``; the value or derivative is the plain
+    version's."""
+    calls = []
+
+    class Counted(spmv._BellProduct):
+        @classmethod
+        def apply(cls, *args):
+            calls.append(1)
+            return super().apply(*args)
+
+    monkeypatch.setattr(spmv, "_BellProduct", Counted)
+    vals, cols, x = _operator(n=64, bs=8, seed=11)
+    rng = np.random.default_rng(12)
+    vals, cols, x = (torch.from_numpy(a) for a in (vals, cols, x))
+    dvals = torch.from_numpy(rng.standard_normal(tuple(vals.shape)))
+    dx = torch.from_numpy(rng.standard_normal(x.shape[0]))
+    got, want = _routed(case, vals, cols, x, dvals, dx)
+    assert bool(calls) == through_function
+    # f64 sums of <= 8 blocks x 8 terms in another order.
+    assert _rel(got.detach(), want.detach()) <= 1e-12
