@@ -440,6 +440,29 @@ line each:
    launches are counted from 0 and added to the K4a and ring rows of the
    ``kernels`` line; the ranks ran the same collectives and agree bit for
    bit.  Ranks sharing one card over gloo: not multi-GPU numbers.
+26. ``sharded_general`` (right after ``sharded_solvers``): the general
+   (non-symmetric) tier over sharded vectors, two gloo ranks sharing the
+   card, after the unsharded references in this process.  (a) Config
+   #5's non-symmetric twin (its pattern, positive float32 values drawn as
+   the ``eig`` phase draws them): ``dominant_eig`` (Arnoldi, 64 steps a
+   side) unsharded on K4b, and on the ranks as
+   ``RowShardedBellOperator(..., symmetric=False, vectors="sharded")`` in
+   all_gather (K4a panel SpMVs) and ring (bucket SpMVs) mode: λ against
+   the unsharded run, both one-sided residuals, ∂λ/∂panel against l⊗r on
+   the rank's pattern, and the gradient of <c, r> (the transposed
+   bordered BiCGStab over sharded vectors, its border on rank 0) against
+   the unsharded run's on sampled block-rows and in Frobenius norm; the
+   forward and both backwards timed, the products and collectives of the
+   forward counted.  (b) The small twin (``EIG_BELL``):
+   ``dominant_eig_multi`` (m = 2), ``solve_general`` by BiCGStab, GMRES
+   and CGNR on A + 2 λ1 I with the gradient in b, ``dominant_svd``
+   (r = 2); a dense float64 ``RowShardedOperator`` (n = 256) with a
+   dominant conjugate pair: ``dominant_eig_pair`` and the
+   ``spectrum_structure`` replay of ``dominant_eig_spectrum`` (m = 2),
+   each with a gradient; all against the unsharded runs.  The launches
+   are counted from 0 and added to the K4a and ring rows of the
+   ``kernels`` line.  Ranks sharing one card over gloo: not multi-GPU
+   numbers.
 
 Then a ``kernels`` line (each SpMM entry with its config-#5 times, bound
 and library time at every r of ``spmm``, the panel entries at r = 8 and
@@ -543,6 +566,27 @@ SV_CKPT_K = 8
 SS_KPM_RTOL = 1e-4
 SS_PENCIL_GRAD_RTOL = 1e-3
 SS_F11_RTOL = 1e-4
+# The sharded_general phase (2 ranks sharing the card over gloo): the
+# general (non-symmetric) tier over sharded vectors.  Config #5's
+# non-symmetric twin (its pattern, positive float32 values: the mean part,
+# 0.51 (C ⊗ J) for the ring's circulant C of 8 offsets in 4096 block-rows,
+# puts |λ2|/λ1 near 0.78), held against the unsharded run at the
+# sharded phase's SHARDED_BELL_VS_UNSHARDED and the eig phase's bars.  The
+# gradient of <c, r> runs the transposed bordered BiCGStab, which stops
+# at float32's floor (50 eps, a relative residual of 6e-6) in both runs
+# with products summed in another order; its error is that floor times
+# the bordered system's conditioning (|λ1| / |λ1 - λ2| ~ 5), so the bar
+# SG_RLOSS_RTOL leaves a factor ~30 above it, on the gradient's sampled
+# block-rows and on its whole Frobenius norm.  The small cases (the
+# EIG_BELL twin, float32) at SG_SMALL_RTOL, the solves on A + 2 λ1 I
+# (SG_SOLVE_SHIFT: eigenvalues with real parts in about [1.4, 3] λ1); the
+# dense float64 pair (SG_PAIR: n, numpy seed) at SG_PAIR_RTOL.
+SG_RLOSS_RTOL = 1e-3
+SG_SMALL_RTOL = 1e-4
+SG_SOLVE_SHIFT = 2.0
+SG_PAIR = (256, 83)
+SG_PAIR_RTOL = 1e-8
+SG_SAMPLE_ROWS = 8                     # block-rows a rank, compared
 FWD_CG_MAXITER = 300                   # the forward-mode tangent's CG
 # The bf16 basis's polish held against a float64 Newton step from the same
 # Ritz pair: both CGs capped at this many iterations, where a float32 CG
@@ -3651,6 +3695,371 @@ def phase_sharded_solvers(pkg, spmv):
     return ring_gain, panel_gain
 
 
+def sampled_block_rows(world, nb):
+    """The block-rows whose gradient the sharded_general phase compares:
+    the first and last ``SG_SAMPLE_ROWS // 2`` of each rank's range."""
+    nb_l, half = nb // world, SG_SAMPLE_ROWS // 2
+    return [rank * nb_l + j for rank in range(world)
+            for j in (*range(half), *range(nb_l - half, nb_l))]
+
+
+def dense_pair_input():
+    """The float64 (n, n) matrix of the sharded_general phase's pair cases:
+    a dominant conjugate pair 3 e^{±0.7i}, then 2, the rest in [0, 1.5),
+    in a random orthonormal basis (numpy seed)."""
+    n, seed = SG_PAIR
+    rng = np.random.default_rng(seed)
+    blk = np.zeros((n, n))
+    blk[:2, :2] = 3.0 * np.array([[np.cos(0.7), -np.sin(0.7)],
+                                  [np.sin(0.7), np.cos(0.7)]])
+    blk[2, 2] = 2.0
+    blk[3:, 3:] = np.diag(1.5 * rng.random(n - 3))
+    q, _ = np.linalg.qr(rng.standard_normal((n, n)))
+    return torch.tensor(q @ blk @ q.T, dtype=torch.float64, device=DEVICE)
+
+
+def general_small_cases(pkg, op, a_pair, pair_operator, lam1,
+                        rows=lambda t: t, total=lambda t: t):
+    """The sharded_general phase's small cases on the EIG_BELL twin ``op``
+    and on ``pair_operator(a)`` of the dense pair ``a_pair`` (whole, or
+    sharded with ``rows`` the rank's rows of a whole vector and ``total``
+    a sum over the ranks): each result as lists and arrays, the vectors
+    the rank's rows, the gradients in ``a_pair`` the rank's shares."""
+    n = op.dim
+    gen = torch.Generator(device=DEVICE).manual_seed(47)
+    b = rows(torch.randn(n, generator=gen, device=DEVICE))
+    c = rows(torch.randn(n, generator=gen, device=DEVICE))
+    out = {}
+    t0 = time.perf_counter()
+    lams, ls, rs = pkg.dominant_eig_multi(op, m=2,
+                                          arnoldi_k=EIG_BELL_ARNOLDI_K,
+                                          device=DEVICE)
+    out["multi"] = {"lams": lams.tolist(), "r": rs.cpu().numpy()}
+    shifted = pkg.ShiftedOperator(op, -SG_SOLVE_SHIFT * lam1)
+    for method in ("bicgstab", "gmres", "cgnr"):
+        bl = b.clone().requires_grad_(True)
+        x = pkg.solve_general(shifted, bl, method=method, device=DEVICE)
+        (gb,) = torch.autograd.grad(total((c * x).sum()), bl)
+        out[f"solve_{method}"] = {"x": x.detach().cpu().numpy(),
+                                  "db": gb.cpu().numpy()}
+    u, sv, v = pkg.dominant_svd(op, r=2, device=DEVICE)
+    out["svd"] = {"s": sv.tolist(), "u": u.cpu().numpy(),
+                  "v": v.cpu().numpy()}
+    torch.cuda.synchronize()
+    out["bell_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    leaf = a_pair.clone().requires_grad_(True)
+    lam, l, r = pkg.dominant_eig_pair(pair_operator(leaf), device=DEVICE)
+    loss = lam.real + 0.5 * lam.imag + total((r.real ** 3).sum())
+    (g,) = torch.autograd.grad(loss, leaf)
+    out["pair"] = {"lam": [lam.real.item(), lam.imag.item()],
+                   "r": r.detach().cpu().numpy(), "grad": g.cpu().numpy()}
+    structure = pkg.spectrum_structure(pair_operator(a_pair), m=2,
+                                       device=DEVICE)
+    leaf = a_pair.clone().requires_grad_(True)
+    lams, _, _, _ = pkg.dominant_eig_spectrum(
+        pair_operator(leaf), m=2, structure=structure, device=DEVICE)
+    (g,) = torch.autograd.grad(lams.real.sum() + lams.imag.abs().sum(),
+                               leaf)
+    out["spectrum"] = {"structure": list(structure),
+                       "lams": [[z.real, z.imag] for z in lams.tolist()],
+                       "grad": g.cpu().numpy()}
+    torch.cuda.synchronize()
+    out["pair_s"] = time.perf_counter() - t0
+    return out
+
+
+def _sharded_general_solves(ref, sg):
+    """One rank of the sharded_general phase (module docstring): ``ref``
+    holds the unsharded run's λ and the small cases' shifts."""
+    import dominantsparseeigenad_tpu_torch as pkg
+    from dominantsparseeigenad_tpu_torch.parallel import collectives
+    spmv = importlib.import_module("dominantsparseeigenad_tpu_torch.ops."
+                                   "bell_spmv")
+    sparse = importlib.import_module("dominantsparseeigenad_tpu_torch.ops."
+                                     "sparse")
+    cg = importlib.import_module("dominantsparseeigenad_tpu_torch.ops.cg")
+    t_rank = time.perf_counter()
+    out = {"rank": sg.rank}
+    spmv.reset_launch_counts()
+    collectives.reset_collective_counts()
+
+    def rows(t):
+        return lay.rows(t).clone()
+
+    def total(t):
+        return collectives.sum_over_ranks(t, sg)
+
+    # ---- (b) the small cases first (their warm-up is the small twin) ---
+    small = positive_ring_bell(pkg, sparse)
+    sop = pkg.RowShardedBellOperator.from_bell(small, sg, symmetric=False,
+                                               vectors="sharded")
+    del small
+    lay = sop.vector_layout
+    a_pair = dense_pair_input()
+    out["small"] = general_small_cases(
+        pkg, sop, a_pair, lambda a: pkg.RowShardedOperator(
+            a, sg, vectors="sharded"), ref["small_lam1"], rows, total)
+    del sop, a_pair
+    torch.cuda.empty_cache()
+
+    # ---- (a) config #5's non-symmetric twin, both modes -----------------
+    op = positive_ring_bell(pkg, sparse, CONFIG5)
+    n, bs, _ = CONFIG5
+    nb = n // bs
+    panels = {"all_gather": pkg.RowShardedBellOperator.from_bell(
+        op, sg, symmetric=False, vectors="sharded")}
+    panels["ring"] = pkg.RowShardedBellOperator.from_bell(
+        op, sg, symmetric=False, mode="ring", vectors="sharded").with_vals(
+        panels["all_gather"].vals)
+    del op
+    torch.cuda.empty_cache()
+    lay = panels["all_gather"].vector_layout
+    nb_l = nb // sg.size
+    c = rows(torch.randn(n, generator=torch.Generator(
+        device=DEVICE).manual_seed(43), device=DEVICE))
+    mine = [i - sg.rank * nb_l for i in sampled_block_rows(sg.size, nb)
+            if sg.rank * nb_l <= i < (sg.rank + 1) * nb_l]
+    kw = dict(method="arnoldi", arnoldi_k=EIG_BELL_ARNOLDI_K, device=DEVICE)
+    torch.cuda.synchronize()
+    big = {}
+    for mode, sop in panels.items():
+        before = _sv_counts(spmv)
+        x = sop.vals.detach().requires_grad_(True)
+        with counted_products(pkg, cg) as products:
+            (lam, l, r, info), fwd_s = timed(lambda: pkg.dominant_eig(
+                sop.with_vals(x), with_info=True, **kw))
+            fwd_counts = _sv_diff(_sv_counts(spmv), before)
+            fwd_products = {k: products[k] for k in ("matvec", "rmatvec")}
+            (g_lam,), bwd_s = timed(lambda: torch.autograd.grad(
+                lam, x, retain_graph=True))
+            (g_r,), rloss_s = timed(lambda: torch.autograd.grad(
+                total((c * r).sum()), x))
+        lam, l, r = lam.detach(), l.detach(), r.detach()
+        with torch.no_grad():
+            res_r = float(lay.norm(sop.matvec(r) - lam * r) / lam.abs())
+            res_l = float(lay.norm(sop.rmatvec(l) - lam * l)
+                          / (lam.abs() * lay.norm(l)))
+            r_whole = pkg.row_sharding(sg).gather(r)
+            cols = sop.cols.long()
+            lr = l.reshape(nb_l, 1, bs, 1) * r_whole.reshape(nb, bs)[cols][
+                :, :, None, :]
+            grad_vs_lr = rel_err(g_lam, lr)
+            del lr
+            # Summed over the ranks: the whole gradient's.
+            g_r_sq = float(total((g_r.double() ** 2).sum()))
+        fwd_coll = fwd_counts[3]
+        n_products = fwd_products["matvec"] + fwd_products["rmatvec"]
+        big[mode] = {
+            "lam": float(lam), "hex": float(lam).hex(),
+            "residual_right": res_r, "residual_left": res_l,
+            "power_iterations": float(info.iterations),
+            "converged": float(info.converged),
+            "rank1_defect": float(info.rank1_defect),
+            "dlam_dpanel_vs_l_r": grad_vs_lr,
+            "drloss_sampled": g_r[mine].cpu().numpy(),
+            "drloss_fro_sq": g_r_sq,
+            "forward_s": fwd_s, "backward_lam_s": bwd_s,
+            "backward_rloss_s": rloss_s,
+            "forward_products": fwd_products,
+            "forward_collectives": fwd_coll,
+            "collectives_per_product": {
+                k: v / max(n_products, 1) for k, v in fwd_coll.items()},
+            "products": _read_counts(products),
+            "launches": _sv_diff(_sv_counts(spmv), before)}
+        del x, g_lam, g_r, r_whole
+        torch.cuda.empty_cache()
+    out["big"] = big
+    out["collectives"] = dict(collectives.collective_counts)
+    ring, panel, _, _ = _sv_counts(spmv)
+    out.update({"ring_launches": ring, "panel_launches": panel,
+                "rank_s": time.perf_counter() - t_rank})
+    del panels
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_sharded_general(pkg, spmv):
+    """The general (non-symmetric) tier over sharded vectors (module
+    docstring): the unsharded references in this process first, then two
+    ranks; returns the panel and ring launches of the ranks' counted
+    path."""
+    import functools
+    sparse = importlib.import_module("dominantsparseeigenad_tpu_torch.ops."
+                                     "sparse")
+    cg = importlib.import_module("dominantsparseeigenad_tpu_torch.ops.cg")
+    t_phase = time.perf_counter()
+    n, bs, _ = CONFIG5
+    nb = n // bs
+    ref = {}
+    # (b) unsharded: the small twin (its λ1 sets the solves' shift) and
+    # the dense pair.
+    small = positive_ring_bell(pkg, sparse)
+    lam1 = float(pkg.dominant_eig(small, method="arnoldi",
+                                  arnoldi_k=EIG_BELL_ARNOLDI_K,
+                                  device=DEVICE)[0])
+    a_pair = dense_pair_input()
+    ref_small = general_small_cases(pkg, small, a_pair, pkg.DenseOperator,
+                                    lam1)
+    del small, a_pair
+    # (a) unsharded: config #5's twin on K4b, the same calls.
+    op = positive_ring_bell(pkg, sparse, CONFIG5)
+    c = torch.randn(n, generator=torch.Generator(device=DEVICE).manual_seed(
+        43), device=DEVICE)
+    x = op.vals.detach().requires_grad_(True)
+    kw = dict(method="arnoldi", arnoldi_k=EIG_BELL_ARNOLDI_K, device=DEVICE)
+    before = dict(spmv.launch_counts)
+    with counted_products(pkg, cg) as products:
+        (lam, l, r, info), fwd_s = timed(lambda: pkg.dominant_eig(
+            op.with_vals(x), with_info=True, **kw))
+        (g_lam,), bwd_s = timed(lambda: torch.autograd.grad(
+            lam, x, retain_graph=True))
+        (g_r,), rloss_s = timed(lambda: torch.autograd.grad((c * r).sum(),
+                                                             x))
+    sample = sampled_block_rows(SHARDED_RANKS, nb)
+    # The mean part's circulant over the block-rows (row 0's block-columns
+    # are its offsets): its two largest |eigenvalues|.
+    ring = np.zeros(nb)
+    ring[op.cols[0].cpu().numpy()] = 1.0
+    mu = np.sort(np.abs(np.fft.fft(ring)))[::-1]
+    ref_big = {"lam": float(lam.detach()),
+               "mean_part_mu2_over_mu1": float(mu[1] / mu[0]),
+               "power_iterations": float(info.iterations),
+               "converged": float(info.converged),
+               "rank1_defect": float(info.rank1_defect),
+               "forward_s": fwd_s, "backward_lam_s": bwd_s,
+               "backward_rloss_s": rloss_s,
+               "products": _read_counts(products),
+               "launches": {k: v - before[k] for k, v in
+                            spmv.launch_counts.items() if v != before[k]}}
+    drloss_sampled = g_r[sample].cpu().numpy()
+    drloss_fro_sq = float((g_r.double() ** 2).sum())
+    del op, x, g_lam, g_r, lam, l, r, c
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    ranks, wall_s = spawn_ranks(
+        SHARDED_RANKS, functools.partial(_sharded_general_solves,
+                                         {"small_lam1": lam1}))
+    first = ranks[0]
+    big_err = {}
+    for mode in ("all_gather", "ring"):
+        got = np.concatenate([res["big"][mode].pop("drloss_sampled")
+                              for res in ranks])
+        big_err[mode] = {
+            "lam": abs(first["big"][mode]["lam"] - ref_big["lam"])
+            / abs(ref_big["lam"]),
+            "drloss_sampled": float(np.abs(got - drloss_sampled).max()
+                                    / np.abs(drloss_sampled).max()),
+            "drloss_fro": abs(math.sqrt(first["big"][mode]["drloss_fro_sq"])
+                              - math.sqrt(drloss_fro_sq))
+            / math.sqrt(drloss_fro_sq)}
+
+    def whole(key, sub):
+        return np.concatenate([res["small"][key][sub] for res in ranks])
+
+    small_err = {
+        "multi_lams": rel_err(torch.tensor(first["small"]["multi"]["lams"]),
+                              torch.tensor(ref_small["multi"]["lams"])),
+        "svd_s": rel_err(torch.tensor(first["small"]["svd"]["s"]),
+                         torch.tensor(ref_small["svd"]["s"])),
+        "svd_uv_alignment": max(
+            1.0 - abs(float((whole("svd", k)[:, i] * ref_small["svd"][k][
+                :, i]).sum())) for k in ("u", "v") for i in range(2)),
+        "pair_lam": float(abs(complex(*first["small"]["pair"]["lam"])
+                              - complex(*ref_small["pair"]["lam"]))
+                          / abs(complex(*ref_small["pair"]["lam"]))),
+        "pair_r": float(np.abs(whole("pair", "r") - ref_small["pair"]["r"])
+                        .max() / np.abs(ref_small["pair"]["r"]).max()),
+        "pair_grad": float(np.abs(sum(res["small"]["pair"]["grad"]
+                                      for res in ranks)
+                                  - ref_small["pair"]["grad"]).max()
+                           / np.abs(ref_small["pair"]["grad"]).max()),
+        "spectrum_lams": float(np.abs(
+            np.subtract(first["small"]["spectrum"]["lams"],
+                        ref_small["spectrum"]["lams"])).max()
+            / np.abs(ref_small["spectrum"]["lams"]).max()),
+        "spectrum_grad": float(np.abs(sum(res["small"]["spectrum"]["grad"]
+                                          for res in ranks)
+                                      - ref_small["spectrum"]["grad"]).max()
+                               / np.abs(ref_small["spectrum"]["grad"])
+                               .max())}
+    for method in ("bicgstab", "gmres", "cgnr"):
+        key = f"solve_{method}"
+        for sub in ("x", "db"):
+            small_err[f"{key}_{sub}"] = float(
+                np.abs(whole(key, sub) - ref_small[key][sub]).max()
+                / np.abs(ref_small[key][sub]).max())
+    ring_gain, panel_gain = {}, {}
+    for res in ranks:
+        add_counts(ring_gain, res["ring_launches"])
+        add_counts(panel_gain, res["panel_launches"])
+    for res in ranks:
+        for part in ("multi", "svd", "pair", "solve_bicgstab",
+                     "solve_gmres", "solve_cgnr", "spectrum"):
+            for k in ("r", "u", "v", "x", "db", "grad"):
+                res["small"][part].pop(k, None)
+    note = ("2 ranks sharing one card over gloo; not a multi-GPU or "
+            "scaling number")
+    emit({"phase": "sharded_general", "note": note,
+          "card": nvidia_smi_name_power(), "wall_s": wall_s,
+          "config5_twin": {"shape": CONFIG5, "arnoldi_k": EIG_BELL_ARNOLDI_K,
+                           "unsharded": ref_big, "rel_vs_unsharded": big_err,
+                           "sampled_block_rows": sample},
+          "small": {"shape": EIG_BELL, "pair": SG_PAIR,
+                    "solve_shift": SG_SOLVE_SHIFT * lam1,
+                    "rel_vs_unsharded": small_err,
+                    "structure": ref_small["spectrum"]["structure"],
+                    "unsharded_s": {k: ref_small[k]
+                                    for k in ("bell_s", "pair_s")}},
+          "launches_gained": {"ring": ring_gain, "panel": panel_gain},
+          "ranks": ranks, "phase_s": time.perf_counter() - t_phase})
+    checks = {}
+    for mode in ("all_gather", "ring"):
+        row = first["big"][mode]
+        checks.update({
+            f"twin {mode}: λ vs unsharded, rel {SHARDED_BELL_VS_UNSHARDED}":
+                big_err[mode]["lam"] <= SHARDED_BELL_VS_UNSHARDED,
+            f"twin {mode}: residuals, rel {EIG_BELL_RESIDUAL}":
+                all(max(res["big"][mode]["residual_right"],
+                        res["big"][mode]["residual_left"])
+                    <= EIG_BELL_RESIDUAL for res in ranks),
+            f"twin {mode}: ∂λ/∂panel vs l⊗r, rel 1e-4":
+                all(res["big"][mode]["dlam_dpanel_vs_l_r"] <= 1e-4
+                    for res in ranks),
+            f"twin {mode}: ∂<c, r>/∂vals vs unsharded, rel {SG_RLOSS_RTOL}":
+                big_err[mode]["drloss_sampled"] <= SG_RLOSS_RTOL
+                and big_err[mode]["drloss_fro"] <= SG_RLOSS_RTOL,
+            f"twin {mode}: power loop converged": row["converged"] == 1.0,
+            f"twin {mode}: ranks bitwise equal λ": all(
+                res["big"][mode]["hex"] == row["hex"] for res in ranks)})
+    checks.update({
+        "twin all_gather: panel SpMVs (K4a), no ring launch":
+            first["big"]["all_gather"]["launches"][1].get(
+                "bell_spmv_f32", 0) > 0
+            and not first["big"]["all_gather"]["launches"][0],
+        "twin ring: ring bucket SpMVs": first["big"]["ring"]["launches"][0]
+            .get("bell_spmv_f32", 0) > 0,
+        "unsharded twin: banded SpMVs (K4b)":
+            ref_big["launches"].get("bell_spmv_banded_f32", 0) > 0,
+        "ranks ran the same collectives": all(
+            res["collectives"] == first["collectives"] for res in ranks),
+        f"spectrum structure {ref_small['spectrum']['structure']}":
+            all(res["small"]["spectrum"]["structure"]
+                == ref_small["spectrum"]["structure"] for res in ranks),
+        "finite": all(math.isfinite(x) for res in ranks
+                      for x in _floats(res)),
+    })
+    for key, err in small_err.items():
+        bar = SG_PAIR_RTOL if key.startswith(("pair", "spectrum")) \
+            else SG_SMALL_RTOL
+        checks[f"small {key} vs unsharded, rel {bar}"] = err <= bar
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"sharded_general phase failed: {failed}")
+    return ring_gain, panel_gain
+
+
 def tfim_pass(pkg, models, n, dtype, **extra):
     """One forward-mode pass at the headline settings (``extra``: more
     ``dominant_eigh`` options): (E0, dE0/dg, χ_F, ψ), with
@@ -4718,12 +5127,14 @@ def phase_ising2d(pkg, spmv):
 @contextlib.contextmanager
 def counted_products(pkg, cg):
     """Count the products that run inside the block: every matvec and
-    rmatvec of a ``DenseOperator`` or a ``BellOperator``, and the
-    iterations of every BiCGStab (``ops/cg.py::_bicgstab_loop``, wrapped
-    for the duration; its count stays on the device until read)."""
+    rmatvec of a ``DenseOperator``, a ``BellOperator`` or a
+    ``RowShardedBellOperator``, and the iterations of every BiCGStab
+    (``ops/cg.py::_bicgstab_loop``, wrapped for the duration; its count
+    stays on the device until read)."""
     counts = {"matvec": 0, "rmatvec": 0, "bicgstab_iterations": []}
     saved = []
-    for cls in (pkg.DenseOperator, pkg.BellOperator):
+    for cls in (pkg.DenseOperator, pkg.BellOperator,
+                pkg.RowShardedBellOperator):
         for name in ("matvec", "rmatvec"):
             fn = getattr(cls, name)
 
@@ -4921,14 +5332,17 @@ def eig_dense(pkg, cg, dtype):
     return out, checks
 
 
-def positive_ring_bell(pkg, sparse):
+def positive_ring_bell(pkg, sparse, shape=EIG_BELL):
     """A non-symmetric BellOperator with positive values on config #5's
-    ring-band pattern at the small shape ``EIG_BELL`` (banded: K4b)."""
-    n, bs, bpr = EIG_BELL
+    ring-band pattern at ``shape`` (the small ``EIG_BELL`` by default;
+    banded: K4b)."""
+    n, bs, bpr = shape
     base = sparse.random_bell_operator(n, bs, bpr, device=DEVICE)
     gen = torch.Generator(device=DEVICE).manual_seed(41)
     vals = torch.rand(base.vals.shape, device=DEVICE, generator=gen) + 0.01
-    return pkg.BellOperator(vals, base.cols, n, symmetric=False)
+    cols = base.cols
+    del base
+    return pkg.BellOperator(vals, cols, n, symmetric=False)
 
 
 def eig_bell(pkg, spmv, sparse, cg):
@@ -7773,6 +8187,9 @@ def main():
     ss_ring_counts, ss_panel_counts = phase_sharded_solvers(pkg, spmv)
     add_counts(ring_counts, ss_ring_counts)
     add_counts(panel_counts, ss_panel_counts)
+    sg_ring_counts, sg_panel_counts = phase_sharded_general(pkg, spmv)
+    add_counts(ring_counts, sg_ring_counts)
+    add_counts(panel_counts, sg_panel_counts)
     phase_tfim(pkg)
     phase_sweep(pkg)
     so_counts, reverse_c5 = phase_second_order(pkg, spmv)

@@ -35,8 +35,14 @@ names its operator) run on the rank's rows, their inner products and
 norms summed over the ranks (so every rank reads the same residual and
 stops at the same iteration), λ marked where it enters the rank's rows;
 the default iteration cap is 10 N of the whole N.  A preconditioner's
-apply is row-local (``ops/precond.py``).  BiCGStab, GMRES and the
-general solve raise there (queue 1 item 18).
+apply is row-local (``ops/precond.py``).  BiCGStab, GMRES (its Arnoldi
+basis the rank's columns, its small Hessenberg problem the same on every
+rank) and the general solve run there too, ``bicgstab``/``gmres`` on a
+bound ``op.matvec``.  A bordered system's vector ``z = (x; ν)`` has its
+own layout (``layout.bordered(k)``): the first rank holds the border ν
+after its rows and the others hold zeros there, so that the loops' summed
+dots count ν once; the bordered product reads ν and writes its border in
+one all-reduce, and λ and ν enter the rank's rows marked (``bcast``).
 
 Complex operators: every inner product conjugates (``hdot``), and CG's
 and MINRES's step sizes are real for a Hermitian system.  PyTorch's
@@ -60,7 +66,7 @@ from .operators import (LinearOperator, _add, _per_lane, _project_out,
                         check_device, hdot, hmatmul, layout_bcast,
                         layout_norm, layout_sum, local_dim, matvec_layout,
                         nestable_jvp, partial_vjp, per_lane_vmap, rebind,
-                        refuse_sharded, tol_floor, vector_layout)
+                        tol_floor, vector_layout)
 from .precond import _apply_columns
 
 # The JAX loops test the residual on the device every iteration inside a
@@ -139,16 +145,26 @@ def _cg_loop(matvec: Callable, b, tol: float, maxiter, x0=None,
 
 
 def _bicgstab_loop(matvec: Callable, b, tol: float, maxiter, x0=None,
-                   atol: float = 0.0):
+                   atol: float = 0.0, layout=None):
     """BiCGStab (van der Vorst), the JAX ``bicgstab`` recurrence with its
     breakdown guards; returns ``(x, iterations)``, the second a device
     tensor counting the iterations that ran unfrozen (what the JAX
     ``while_loop`` counts).  The state freezes once the residual meets
     the target or the iteration stops (a near-zero ``rho`` or
     ``<rhat, v>``, ``omega = 0``, or a non-finite step, which is
-    discarded); the host reads that every ``CHECK_EVERY`` iterations."""
+    discarded); the host reads that every ``CHECK_EVERY`` iterations.
+    Under a sharded ``layout`` b is the rank's rows and every dot and
+    norm is summed over the ranks (the breakdown and finiteness tests
+    read those, the same on every rank)."""
     if maxiter is None:
-        maxiter = 10 * b.shape[-1]
+        maxiter = 10 * (b.shape[-1] if layout is None else layout.dim)
+
+    def dot(a, c):
+        return layout_sum(layout, hdot(a, c))
+
+    def norm(a):
+        return layout_norm(layout, a)
+
     if x0 is None:
         x = torch.zeros_like(b)
         r = b.clone()
@@ -156,17 +172,17 @@ def _bicgstab_loop(matvec: Callable, b, tol: float, maxiter, x0=None,
         x = x0.to(b.dtype).clone()
         r = b - matvec(x)
     tol = tol_floor(tol, b.dtype)
-    target2 = torch.clamp(tol * tol * hdot(b, b).real, min=float(atol) ** 2)
+    target2 = torch.clamp(tol * tol * dot(b, b).real, min=float(atol) ** 2)
     # scipy's near-breakdown test |rho| <= eps ||rhat|| ||r||: an exact
     # zero test lets |rho| ~ eps^2 through and beta ~ 1/rho overflows.
     eps = float(torch.finfo(b.dtype).eps)
     rhat = r.clone()
-    rhat_norm = torch.linalg.vector_norm(rhat)
+    rhat_norm = norm(rhat)
     one = torch.ones((), dtype=b.dtype, device=b.device)
     zero = torch.zeros_like(one)
     p, v = torch.zeros_like(b), torch.zeros_like(b)
     rho = alpha = omega = one
-    rr = hdot(r, r).real
+    rr = dot(r, r).real
     stop = torch.zeros((), dtype=torch.bool, device=b.device)
     its = torch.zeros((), dtype=torch.int64, device=b.device)
     it = 0
@@ -175,9 +191,8 @@ def _bicgstab_loop(matvec: Callable, b, tol: float, maxiter, x0=None,
             break
         for _ in range(min(CHECK_EVERY, maxiter - it)):
             active = (rr > target2) & ~stop
-            rho_new = hdot(rhat, r)
-            broke = rho_new.abs() <= eps * rhat_norm \
-                * torch.linalg.vector_norm(r)
+            rho_new = dot(rhat, r)
+            broke = rho_new.abs() <= eps * rhat_norm * norm(r)
             beta = torch.where(broke, zero,
                                (rho_new / torch.where(broke, one, rho))
                                * (alpha / torch.where(omega == 0, one,
@@ -185,21 +200,20 @@ def _bicgstab_loop(matvec: Callable, b, tol: float, maxiter, x0=None,
             p_new = r + beta * (p - omega * v)
             with record_function("bicgstab_matvec"):
                 v_new = matvec(p_new)
-            denom = hdot(rhat, v_new)
-            broke = broke | (denom.abs() <= eps * rhat_norm
-                             * torch.linalg.vector_norm(v_new))
+            denom = dot(rhat, v_new)
+            broke = broke | (denom.abs() <= eps * rhat_norm * norm(v_new))
             alpha_new = torch.where(broke, zero,
                                     rho_new / torch.where(broke, one, denom))
             s = r - alpha_new * v_new
             with record_function("bicgstab_matvec"):
                 t = matvec(s)
-            tt = hdot(t, t)
+            tt = dot(t, t)
             omega_new = torch.where(tt == 0, zero,
-                                    hdot(t, s) / torch.where(tt == 0, one,
-                                                             tt))
+                                    dot(t, s) / torch.where(tt == 0, one,
+                                                            tt))
             x_new = x + alpha_new * p_new + omega_new * s
             r_new = s - omega_new * t
-            rr_new = hdot(r_new, r_new).real
+            rr_new = dot(r_new, r_new).real
             # A non-finite step (an overflow past the guards) is
             # discarded: the loop stops on the last good iterate.
             bad = ~torch.isfinite(rr_new)
@@ -231,11 +245,13 @@ def bicgstab(matvec: Callable, b: torch.Tensor, *,
     Stops once ``||r|| <= max(tol ||b||, atol)`` (``tol`` clamped to what
     the dtype can reach), on a breakdown (a near-zero ``rho`` or
     ``<rhat, v>``, scaled by eps, or ``omega = 0``; x stays the last
-    finite iterate), or after ``maxiter`` iterations (default 10 N).
+    finite iterate), or after ``maxiter`` iterations (default 10 N).  On
+    a bound ``op.matvec`` of an operator whose vectors are sharded, ``b``
+    is the rank's rows and the dots are summed over the ranks.
     """
-    refuse_sharded("bicgstab", matvec)
     check_device(device, b)
-    return _bicgstab_loop(matvec, b, tol, maxiter, x0, atol)[0]
+    return _bicgstab_loop(matvec, b, tol, maxiter, x0, atol,
+                          matvec_layout(matvec))[0]
 
 
 def _hessenberg_lstsq(h, rhs):
@@ -259,11 +275,14 @@ def _hessenberg_lstsq(h, rhs):
 
 
 def _gmres_loop(matvec: Callable, b, tol: float, maxiter, x0=None,
-                atol: float = 0.0, restart: int = 32):
+                atol: float = 0.0, restart: int = 32, layout=None):
     """Restarted GMRES(m), the JAX ``gmres`` cycle; returns ``(x, inner
     steps run)``.  The host reads the residual once a cycle (m products),
-    which is the JAX loop's own test, so nothing runs past it."""
-    n = b.shape[-1]
+    which is the JAX loop's own test, so nothing runs past it.  Under a
+    sharded ``layout`` b is the rank's rows, the basis holds the rank's
+    columns, its Gram-Schmidt coefficients and norms are summed over the
+    ranks, and the Hessenberg problem is the same on every rank."""
+    n = b.shape[-1] if layout is None else layout.dim
     m = max(1, min(int(restart), n))
     if maxiter is None:
         maxiter = 10 * n
@@ -275,16 +294,21 @@ def _gmres_loop(matvec: Callable, b, tol: float, maxiter, x0=None,
         x = x0.to(b.dtype).clone()
         r = b - matvec(x)
     tol = tol_floor(tol, b.dtype)
-    target2 = torch.clamp(tol * tol * hdot(b, b).real, min=float(atol) ** 2)
+
+    def rr(a):
+        return layout_sum(layout, hdot(a, a)).real
+
+    target2 = torch.clamp(tol * tol * rr(b), min=float(atol) ** 2)
     tiny = torch.finfo(b.dtype).tiny
     cycles = 0
-    while cycles < max_cycles and bool(hdot(r, r).real > target2):
-        beta = torch.linalg.vector_norm(r)
-        basis = torch.zeros((m + 1, n), dtype=b.dtype, device=b.device)
+    while cycles < max_cycles and bool(rr(r) > target2):
+        beta = layout_norm(layout, r)
+        basis = torch.zeros((m + 1, b.shape[-1]), dtype=b.dtype,
+                            device=b.device)
         basis[0] = r / torch.clamp(beta, min=tiny)
         h = torch.zeros((m + 1, m), dtype=b.dtype, device=b.device)
         for j in range(m):
-            arnoldi_step(matvec, basis, h, j)
+            arnoldi_step(matvec, basis, h, j, layout)
         rhs = torch.zeros(m + 1, dtype=b.dtype, device=b.device)
         rhs[0] = beta
         y = _hessenberg_lstsq(h, rhs)
@@ -304,10 +328,11 @@ def gmres(matvec: Callable, b: torch.Tensor, *,
     the cost of an (m+1, N) basis.  ``maxiter`` bounds the inner
     (Arnoldi) steps, default 10 N; the test ``||r|| <= max(tol ||b||,
     atol)`` is made once a cycle, on the residual of the Arnoldi
-    relation."""
-    refuse_sharded("gmres", matvec)
+    relation.  On a bound ``op.matvec`` of an operator whose vectors are
+    sharded, ``b`` is the rank's rows and the basis the rank's columns."""
     check_device(device, b)
-    return _gmres_loop(matvec, b, tol, maxiter, x0, atol, restart)[0]
+    return _gmres_loop(matvec, b, tol, maxiter, x0, atol, restart,
+                       matvec_layout(matvec))[0]
 
 
 def cg(matvec: Callable, b: torch.Tensor, *, x0: torch.Tensor | None = None,
@@ -856,6 +881,14 @@ def solve_symmetric(op, b: torch.Tensor, *, tol: float = 1e-7,
     return _undeflated(op, b, tol, maxiter, "minres", device)
 
 
+def _bordered_layout(op, k):
+    """``layout.bordered(k)`` of ``op``'s sharded vectors: the layout of
+    a bordered vector ``(x; ν)`` with a border of ``k`` entries; None for
+    whole vectors, or with no border (z is x)."""
+    lay = vector_layout(op)
+    return None if lay is None or k == 0 else lay.bordered(k)
+
+
 def _bordered_mv(op, transpose, lam, U, W):
     """``z = (x; ν) -> (M x + conj(U) ν; conj(W)^T x)``, ``M = A - λ I``
     (``A^T - λ I`` with ``transpose``): the bordered matrix of the JAX
@@ -863,53 +896,68 @@ def _bordered_mv(op, transpose, lam, U, W):
     0 for a plain system.  The border vectors are conjugated as the JAX
     code writes them (a complex pair's isotropic eigenvectors need it);
     for real dtypes that is the identity.  Its transpose is the same map
-    on ``A^T`` with U and W swapped."""
+    on ``A^T`` with U and W swapped.  Over sharded vectors x, U and W are
+    the rank's rows and z is laid out by ``layout.bordered(k)``: ν is read
+    from the first rank and ``conj(W)^T x``, summed over the ranks, is
+    written there (one all-reduce for both); λ enters marked by the
+    caller."""
     apply = op.rmatvec if transpose else op.matvec
-    n = op.dim
+    n = local_dim(op)
     uc, wc = U.conj(), W.conj()
+    bl = _bordered_layout(op, U.shape[-1])
 
     def mv(z):
         x, nu = z[:n], z[n:]
-        return torch.cat([apply(x) - lam * x + hmatmul(uc, nu),
-                          hmatmul(wc.T, x)])
+        wx = hmatmul(wc.T, x)
+        if bl is not None:
+            nu, wx = bl.exchange(nu, wx)
+        top = apply(x) - lam * x + hmatmul(uc, nu)
+        return torch.cat([top, wx]) if bl is None else bl.join(top, wx)
     return mv
 
 
-def _general_loop(mv, rmv, rhs, tol, maxiter, method):
+def _general_loop(mv, rmv, rhs, tol, maxiter, method, layout=None):
     """The solver of :class:`_GeneralSolve` on ``mv`` (``rmv``, its
-    transpose, only CGNR uses)."""
+    transpose, only CGNR uses), on the ``layout`` of ``rhs``."""
     if method == "bicgstab":
-        return _bicgstab_loop(mv, rhs, tol, maxiter)[0]
+        return _bicgstab_loop(mv, rhs, tol, maxiter, layout=layout)[0]
     if method == "gmres":
-        return _gmres_loop(mv, rhs, tol, maxiter)[0]
+        return _gmres_loop(mv, rhs, tol, maxiter, layout=layout)[0]
 
     # CG on the normal equations needs the adjoint B^H, not the bilinear
     # transpose: B^H x = conj(B^T conj(x)), the identity for real dtypes.
     def adj(x):
         return rmv(x.conj()).conj()
-    return _cg_loop(lambda x: adj(mv(x)), adj(rhs), tol, maxiter)[0]
+    return _cg_loop(lambda x: adj(mv(x)), adj(rhs), tol, maxiter,
+                    layout=layout)[0]
 
 
 def _bordered_mv_tangent(op, transpose, lam, U, W, z, dlam, dU, dW,
                          dparams):
     """The tangent of ``z -> B z`` (:func:`_bordered_mv`) at a fixed
     ``z = (x; ν)`` along ``(dλ, dU, dW, dθ)``, or None when nothing
-    moves: ``(dA x - dλ x + conj(dU) ν; conj(dW)^T x)``."""
-    n = op.dim
+    moves: ``(dA x - dλ x + conj(dU) ν; conj(dW)^T x)``, on z's layout
+    (ν read from the first rank, the border written there)."""
+    n = local_dim(op)
     x, nu = z[:n], z[n:]
+    bl = _bordered_layout(op, U.shape[-1])
+    bottom = None if dW is None else hmatmul(dW.conj().T, x)
+    if bl is not None and (dU is not None or dW is not None):
+        nu, wx = bl.exchange(nu, torch.zeros_like(nu) if bottom is None
+                             else bottom)
+        bottom = None if dW is None else wx
     top = _tangent_product(op, x, dparams, transpose)
     if dlam is not None:
-        top = _add(top, -dlam * x)
+        top = _add(top, -layout_bcast(vector_layout(op), dlam) * x)
     if dU is not None:
         top = _add(top, hmatmul(dU.conj(), nu))
-    bottom = None if dW is None else hmatmul(dW.conj().T, x)
     if top is None and bottom is None:
         return None
     if top is None:
         top = torch.zeros_like(x)
     if bottom is None:
         bottom = torch.zeros_like(nu)
-    return torch.cat([top, bottom])
+    return torch.cat([top, bottom]) if bl is None else bl.join(top, bottom)
 
 
 @per_lane_vmap
@@ -931,7 +979,10 @@ class _GeneralSolve(torch.autograd.Function):
     (:func:`_bordered_mv_tangent`).  The forward records no graph; the
     rules are built of this Function and differentiable operations on
     the operator rebuilt from their parameters, so they differentiate
-    again, in either mode; ``vmap`` goes lane by lane."""
+    again, in either mode; ``vmap`` goes lane by lane.  Over sharded
+    vectors ``rhs`` and z are laid out by ``layout.bordered(k)`` (the
+    border on the first rank, zeros on the others), which the solvers'
+    products keep."""
 
     @staticmethod
     def forward(op, transpose, tol, maxiter, method, rhs, lam, U, W,
@@ -939,7 +990,9 @@ class _GeneralSolve(torch.autograd.Function):
         op = rebind(op, params)
         mv = _bordered_mv(op, transpose, lam, U, W)
         rmv = _bordered_mv(op, not transpose, lam, W, U)
-        return _general_loop(mv, rmv, rhs, tol, maxiter, method)
+        bl = _bordered_layout(op, U.shape[-1])
+        return _general_loop(mv, rmv, rhs, tol, maxiter, method,
+                             vector_layout(op) if bl is None else bl)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -991,14 +1044,14 @@ def solve_general(op, b: torch.Tensor, *, tol: float = 1e-7,
     (:class:`_GeneralSolve`).  Where the JAX function takes a matvec and
     an rmatvec, this one takes a :class:`~.operators.LinearOperator` (or
     a dense tensor), which carries both and exposes the tensors the
-    gradients go to; a bare callable raises TypeError.
+    gradients go to; a bare callable raises TypeError.  Over an operator
+    whose vectors are sharded, ``b`` and x are the rank's rows.
     """
     if method not in ("bicgstab", "cgnr", "gmres"):
         raise ValueError(
             f"method must be bicgstab|cgnr|gmres, got {method!r}")
     op = _solve_operator(op, b, device)
-    refuse_sharded("solve_general", op)
-    empty = torch.zeros((op.dim, 0), dtype=b.dtype, device=b.device)
+    empty = torch.zeros((local_dim(op), 0), dtype=b.dtype, device=b.device)
     zero = torch.zeros((), dtype=b.dtype, device=b.device)
     return _GeneralSolve.apply(op, False, tol, maxiter, method, b, zero,
                                empty, empty, *op.parameters())

@@ -72,6 +72,18 @@ real simple eigenvalue (``dominant_eig``) or a conjugate pair
 every stage's operator stays real.  The structure of the cascade is
 found on the host from concrete values; ``spectrum_structure`` returns it
 so that a derivative run can replay it.
+
+Sharded vectors (``operators.vector_layout``): every entry point runs on
+an operator whose vectors are the rank's rows.  The start vectors are the
+rank's rows of the whole draw, the Arnoldi bases hold the rank's columns,
+every pairing and norm is summed over the ranks, the pivot and the phase
+shifts read the whole vector (``layout.pivot``, ``take``, ``one_hot``),
+the block power iteration orthonormalizes by a QR across the ranks
+(``layout.tall_qr``), and the deflated and complexified operators carry
+the layout.  Every host decision reads a value that is the same on every
+rank, so the ranks run the same collectives; a replicated value (λ, a
+pairing) entering the rank's rows is marked (``layout_bcast``), so that
+a second backward sums its shares.
 """
 
 from __future__ import annotations
@@ -83,10 +95,12 @@ import torch
 
 from .cg import CHECK_EVERY, _GeneralSolve
 from .lanczos import arnoldi_step
-from .operators import (LinearOperator, MatrixFreeOperator, as_operator,
-                        check_device, hdot, hmatmul, nestable_jvp, partial_vjp,
-                        per_lane_vmap, pivot_gauge, real_dtype, rebind,
-                        refuse_sharded, tol_floor)
+from .operators import (LinearOperator, MatrixFreeOperator, _reduced,
+                        as_operator,
+                        check_device, hdot, hmatmul, layout_bcast,
+                        layout_norm, layout_sum, local_dim, nestable_jvp,
+                        partial_vjp, per_lane_vmap, pivot_gauge, real_dtype,
+                        rebind, tol_floor, vector_layout)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -129,10 +143,16 @@ class PowerInfo(NamedTuple):
     rank1_defect: torch.Tensor
 
 
-def _bdot(a, b):
+def _bdot(a, b, layout=None):
     """The bilinear pairing ``sum(a * b)`` (never conjugated: l is the
-    transpose left eigenvector, and its annihilator row is l^T)."""
-    return torch.dot(a, b)
+    transpose left eigenvector, and its annihilator row is l^T), summed
+    over the ranks under a sharded ``layout``."""
+    return layout_sum(layout, torch.dot(a, b))
+
+
+def _hdot(a, b, layout=None):
+    """``hdot`` over the whole vector."""
+    return layout_sum(layout, hdot(a, b))
 
 
 def _hessenberg_defect(hk):
@@ -152,27 +172,28 @@ def _hessenberg_defect(hk):
     return m, s[1] / torch.clamp(s[0], min=tiny)
 
 
-def _arnoldi_factorization(mv, n, k, q0, dtype):
+def _arnoldi_factorization(mv, n, k, q0, dtype, layout=None):
     """k Arnoldi steps from the unit vector ``q0``: ``(basis (k+1, N),
-    H (k+1, k))``."""
-    basis = torch.zeros((k + 1, n), dtype=dtype, device=q0.device)
+    H (k+1, k))``; the basis holds the rank's columns under a sharded
+    ``layout`` (H is the same on every rank)."""
+    basis = torch.zeros((k + 1, q0.shape[0]), dtype=dtype, device=q0.device)
     basis[0] = q0
     h = torch.zeros((k + 1, k), dtype=dtype, device=q0.device)
     for j in range(k):
-        arnoldi_step(mv, basis, h, j)
+        arnoldi_step(mv, basis, h, j, layout)
     return basis, h
 
 
-def _probe_defect(mv, n, k, v0, dtype):
+def _probe_defect(mv, n, k, v0, dtype, layout=None):
     """The Perron defect of a k-step Arnoldi probe from ``v0`` (the power
     loop's exit iterate): a converged simple real pair breaks the probe
     down at once (defect ~0); a complex dominant pair keeps the iterate
     wandering in its invariant plane, which the probe captures (O(1))."""
-    _, h = _arnoldi_factorization(mv, n, k, v0, dtype)
+    _, h = _arnoldi_factorization(mv, n, k, v0, dtype, layout)
     return _hessenberg_defect(h[:k, :k])[1]
 
 
-def _arnoldi_ritz_vector(mv, n, k, q0, dtype):
+def _arnoldi_ritz_vector(mv, n, k, q0, dtype, layout=None):
     """``(v, defect)``: the dominant Ritz vector of a k-step Arnoldi
     factorization of ``mv`` from the unit ``q0``, and the Perron defect of
     its Hessenberg block.  The dominant eigenvector of the small block is
@@ -180,19 +201,23 @@ def _arnoldi_ritz_vector(mv, n, k, q0, dtype):
     strongest one, as in the JAX package (whose TPU had no non-symmetric
     ``eig``); forward only, the IFT rule wraps the converged triple."""
     tiny = torch.finfo(dtype).tiny
-    basis, h = _arnoldi_factorization(mv, n, k, q0, dtype)
+    basis, h = _arnoldi_factorization(mv, n, k, q0, dtype, layout)
     mp, defect = _hessenberg_defect(h[:k, :k])
     y = mp[:, torch.argmax(torch.linalg.vector_norm(mp, dim=0))]
     y = y / torch.clamp(torch.linalg.vector_norm(y), min=tiny)
     v = hmatmul(basis[:k].T, y)
-    return v / torch.clamp(torch.linalg.vector_norm(v), min=tiny), defect
+    return v / torch.clamp(layout_norm(layout, v), min=tiny), defect
 
 
-def _unit(n, dtype, generator):
-    """A unit start vector drawn from ``generator``."""
-    v = torch.randn(n, dtype=dtype, device=generator.device,
-                    generator=generator)
-    return v / torch.linalg.vector_norm(v)
+def _unit(n, dtype, generator, layout=None):
+    """A unit start vector drawn from ``generator`` (the rank's rows of
+    the whole draw under a sharded ``layout``)."""
+    if layout is None:
+        v = torch.randn(n, dtype=dtype, device=generator.device,
+                        generator=generator)
+    else:
+        v = layout.draw((n,), generator, dtype, generator.device)
+    return v / layout_norm(layout, v)
 
 
 def _power_pair(op, opts: EigOptions):
@@ -208,15 +233,18 @@ def _power_pair(op, opts: EigOptions):
     n, dtype = op.dim, op.dtype
     rdt = real_dtype(dtype)
     tiny = torch.finfo(dtype).tiny
+    lay = vector_layout(op)
     generator = torch.Generator(device=op.device).manual_seed(opts.seed)
-    r0, l0 = _unit(n, dtype, generator), _unit(n, dtype, generator)
+    r0 = _unit(n, dtype, generator, lay)
+    l0 = _unit(n, dtype, generator, lay)
     defect = None
     if opts.method == "arnoldi":
         # A Krylov-filtered start: the loop then only polishes the Ritz
         # vectors and certifies them.
         k = max(2, min(opts.arnoldi_k, n))
-        r0, defect_r = _arnoldi_ritz_vector(op.matvec, n, k, r0, dtype)
-        l0, defect_l = _arnoldi_ritz_vector(op.rmatvec, n, k, l0, dtype)
+        r0, defect_r = _arnoldi_ritz_vector(op.matvec, n, k, r0, dtype, lay)
+        l0, defect_l = _arnoldi_ritz_vector(op.rmatvec, n, k, l0, dtype,
+                                            lay)
         defect = torch.maximum(defect_r, defect_l)
     ptol = tol_floor(opts.power_tol, dtype)
     r, l = r0, l0
@@ -229,15 +257,15 @@ def _power_pair(op, opts: EigOptions):
         for _ in range(min(CHECK_EVERY, opts.num_iters - it)):
             active = resid > ptol
             wr = op.matvec(r)
-            lam_r = hdot(r, wr)
-            res_r = torch.linalg.vector_norm(wr - lam_r * r)
+            lam_r = _hdot(r, wr, lay)
+            res_r = layout_norm(lay, wr - lam_r * r)
             wl = op.rmatvec(l)
-            lam_l = hdot(l, wl)
-            res_l = torch.linalg.vector_norm(wl - lam_l * l)
+            lam_l = _hdot(l, wl, lay)
+            res_l = layout_norm(lay, wl - lam_l * l)
             scale = torch.clamp(lam_r.abs(), min=tiny)
             res_new = torch.maximum(res_r, res_l) / scale
-            r = torch.where(active, wr / torch.linalg.vector_norm(wr), r)
-            l = torch.where(active, wl / torch.linalg.vector_norm(wl), l)
+            r = torch.where(active, wr / layout_norm(lay, wr), r)
+            l = torch.where(active, wl / layout_norm(lay, wl), l)
             resid = torch.where(active, res_new, resid)
             its = its + active
             it += 1
@@ -245,11 +273,12 @@ def _power_pair(op, opts: EigOptions):
         # The power path's Perron guard: a 6-step probe of each exit
         # iterate, once.
         kd = max(2, min(6, n))
-        defect = torch.maximum(_probe_defect(op.matvec, n, kd, r, dtype),
-                               _probe_defect(op.rmatvec, n, kd, l, dtype))
-    r = pivot_gauge(r)
-    ln = _bdot(l, r)
-    lam = _bdot(l, op.matvec(r)) / ln
+        defect = torch.maximum(
+            _probe_defect(op.matvec, n, kd, r, dtype, lay),
+            _probe_defect(op.rmatvec, n, kd, l, dtype, lay))
+    r = pivot_gauge(r, layout=lay)
+    ln = _bdot(l, r, lay)
+    lam = _bdot(l, op.matvec(r), lay) / ln
     l = l / ln
     info = PowerInfo(iterations=its.to(rdt), residual=resid,
                      converged=(resid <= ptol).to(rdt),
@@ -262,33 +291,49 @@ def _bordered_solve(op, transpose, u, w, b, lam, opts):
     ``M = A - λI`` (``A^T - λI`` with ``transpose``): the solution of
     ``M x = b - ν u`` with ``w^T x = 0``, by ``opts.solver``,
     differentiable (``cg._GeneralSolve``; its backward solves the
-    transposed system ``[[M^T, w], [u^T, 0]]``)."""
+    transposed system ``[[M^T, w], [u^T, 0]]``).  Over sharded vectors
+    b, u, w and x are the rank's rows; λ enters them marked."""
     rhs = torch.cat([b, b.new_zeros(1)])
     z = _GeneralSolve.apply(op, transpose, opts.tol, opts.maxiter,
-                            opts.solver, rhs, lam, u[:, None], w[:, None],
-                            *op.parameters())
-    return z[:op.dim]
+                            opts.solver, rhs,
+                            layout_bcast(vector_layout(op), lam),
+                            u[:, None], w[:, None], *op.parameters())
+    return z[:local_dim(op)]
 
 
-def _phase_shift(r, dr):
+def _pivot_entries(r, *ts, layout=None):
+    """``(r[p], *(t[p] for t in ts), e_p)``: the entries of r and of each
+    ``t`` at r's pivot p (its first largest |r|) and the rows of the unit
+    vector there, over the whole vector under a sharded ``layout``."""
+    if layout is None:
+        p = torch.argmax(r.abs())
+        return (r[p], *(t[p] for t in ts),
+                torch.nn.functional.one_hot(p, r.shape[0]).to(r.dtype))
+    p, _ = layout.pivot(r)
+    return (layout.take(r, p), *(layout.take(t, p) for t in ts),
+            layout.one_hot(p, r.dtype))
+
+
+def _phase_shift(r, dr, layout=None):
     """The JAX ``_eig_tangents``' shift of a complex dr along r:
     ``dr + (-Re<r, dr> - i Im dr[p] / r[p]) r`` keeps ``||r||`` and the
     pivot entry's phase; the identity for a real dtype."""
     if not r.is_complex():
         return dr
-    p = torch.argmax(r.abs())
-    return dr + (-hdot(r, dr).real - 1j * dr[p].imag / r[p].real) * r
+    rp, drp, _ = _pivot_entries(r, dr, layout=layout)
+    c = -_hdot(r, dr, layout).real - 1j * drp.imag / rp.real
+    return dr + layout_bcast(layout, c) * r
 
 
-def _phase_shift_cotangent(r, g):
+def _phase_shift_cotangent(r, g, layout=None):
     """The transpose of :func:`_phase_shift` on a cotangent of dr, up to
     a multiple of r (which the caller drops: the solve it feeds annihilates
     r): ``g + i (Im<g, r> / r[p]) e_p``."""
     if not r.is_complex():
         return g
-    p = torch.argmax(r.abs())
-    e = torch.nn.functional.one_hot(p, r.shape[0]).to(r.dtype)
-    return g + 1j * (hdot(g, r).imag / r[p].real) * e
+    rp, e = _pivot_entries(r, layout=layout)
+    c = 1j * (_hdot(g, r, layout).imag / rp.real)
+    return g + layout_bcast(layout, c) * e
 
 
 def _outputs(with_info, lam, l, r, info):
@@ -338,23 +383,28 @@ class _DominantEig(torch.autograd.Function):
         two bordered solves; zero tangents (None) for the info fields."""
         opts = ctx.opts
         op, lam, l, r = _saved(ctx)
+        lay = vector_layout(op)
         info = (None,) * ctx.n_info
         if all(t is None for t in dparams):
             return (torch.zeros_like(lam), torch.zeros_like(l),
                     torch.zeros_like(r), *info)
         dar = op.tangent_matvec(r, dparams)
         datl = op.tangent_rmatvec(l, dparams)
-        dlam = _bdot(l, dar)
-        dr = _bordered_solve(op, False, l, r, -(dar - dlam * r), lam, opts)
-        dr = _phase_shift(r, dr)
-        dl0 = _bordered_solve(op, True, r, l, -(datl - dlam * l), lam, opts)
-        c = -_bdot(l, dr) - _bdot(r, dl0)
-        return (dlam, dl0 + c * l, dr, *info)
+        dlam = _bdot(l, dar, lay)
+        dlam_rows = layout_bcast(lay, dlam)
+        dr = _bordered_solve(op, False, l, r, -(dar - dlam_rows * r), lam,
+                             opts)
+        dr = _phase_shift(r, dr, lay)
+        dl0 = _bordered_solve(op, True, r, l, -(datl - dlam_rows * l), lam,
+                              opts)
+        c = -_bdot(l, dr, lay) - _bdot(r, dl0, lay)
+        return (dlam, dl0 + layout_bcast(lay, c) * l, dr, *info)
 
     @staticmethod
     def backward(ctx, lam_bar, l_bar, r_bar, *info_bar):
         opts = ctx.opts
         op, lam, l, r = _saved(ctx)
+        lay = vector_layout(op)
         if lam_bar is None and l_bar is None and r_bar is None:
             return (None,) * (3 + len(op.parameters()))
         lam_tot = torch.zeros_like(lam) if lam_bar is None else lam_bar
@@ -362,7 +412,7 @@ class _DominantEig(torch.autograd.Function):
         # reaches dl0 and dr (conj(l^H l̄) is l̄ . l for real dtypes).
         g_l0 = g_r = None
         if l_bar is not None:
-            c_bar = hdot(l, l_bar)
+            c_bar = _reduced(lay, hdot(l, l_bar))
             g_l0 = l_bar - c_bar * r.conj()
             g_r = -c_bar * l.conj()
         if r_bar is not None:
@@ -377,20 +427,23 @@ class _DominantEig(torch.autograd.Function):
         # and the first step would divide by round-off.
         cot_ar = None
         if g_r is not None:
-            g_r = _phase_shift_cotangent(r, g_r)
-            g_r = g_r - hdot(r, g_r) / hdot(r, r) * r
+            g_r = _phase_shift_cotangent(r, g_r, lay)
+            g_r = g_r - layout_bcast(
+                lay, _hdot(r, g_r, lay) / _hdot(r, r, lay)) * r
             bb_r = _bordered_solve(op, True, r, l, g_r.conj(), lam,
                                    opts).conj()
-            lam_tot = lam_tot + hdot(r, bb_r)
+            lam_tot = lam_tot + _hdot(r, bb_r, lay)
             cot_ar = -bb_r
         cot_atl = None
         if g_l0 is not None:
-            g_l0 = g_l0 - hdot(l, g_l0) / hdot(l, l) * l
+            g_l0 = g_l0 - layout_bcast(
+                lay, _hdot(l, g_l0, lay) / _hdot(l, l, lay)) * l
             bb_l = _bordered_solve(op, False, l, r, g_l0.conj(), lam,
                                    opts).conj()
-            lam_tot = lam_tot + hdot(l, bb_l)
+            lam_tot = lam_tot + _hdot(l, bb_l, lay)
             cot_atl = -bb_l
-        cot_ar = lam_tot * l.conj() + (0 if cot_ar is None else cot_ar)
+        cot_ar = layout_bcast(lay, lam_tot) * l.conj() \
+            + (0 if cot_ar is None else cot_ar)
         # The gradient of Re<cot_ar, A r> + Re<cot_atl, A^T l>: the
         # partials of one matvec(r) and one rmatvec(l), r and l held
         # constant.
@@ -440,9 +493,10 @@ def dominant_eig(op, num_iters: int = 500, *, tol: float = 1e-10,
     Returns ``(λ, l, r)`` with ``||r|| = 1``, the largest-magnitude entry
     of r real and positive and ``l^T r = 1`` (bilinear: for a complex
     operator l is the transpose left eigenvector, ``A^T l = λ l``); with
-    ``with_info`` also a :class:`PowerInfo`.
+    ``with_info`` also a :class:`PowerInfo`.  Over an operator whose
+    vectors are sharded (``vectors="sharded"``), l and r are the rank's
+    rows and λ is the same on every rank.
     """
-    refuse_sharded("dominant_eig", op)
     if solver not in ("bicgstab", "cgnr", "gmres"):
         raise ValueError(
             f"solver must be bicgstab|cgnr|gmres, got {solver!r}")
@@ -463,14 +517,31 @@ def dominant_eig(op, num_iters: int = 500, *, tol: float = 1e-10,
 
 def _wielandt_deflate_mv(params, x):
     """``(M - λ r l^T) x`` with ``l^T r = 1``: removes λ from the spectrum
-    and leaves every other eigenvalue and its vectors as they were."""
+    and leaves every other eigenvalue and its vectors as they were (over
+    sharded vectors l, r and x are the rank's rows, and λ and the pairing
+    enter them marked)."""
     lam, l, r, inner = params
-    return inner.matvec(x) - lam * r * _bdot(l, x)
+    lay = vector_layout(inner)
+    return inner.matvec(x) - layout_bcast(lay, lam) * r \
+        * _reduced(lay, torch.dot(l, x))
 
 
 def _wielandt_deflate_rmv(params, x):
     lam, l, r, inner = params
-    return inner.rmatvec(x) - lam * l * _bdot(r, x)
+    lay = vector_layout(inner)
+    return inner.rmatvec(x) - layout_bcast(lay, lam) * l \
+        * _reduced(lay, torch.dot(r, x))
+
+
+def _deflated_stage(matvec_fn, rmatvec_fn, params, op, device):
+    """The next stage's operator: ``matvec_fn``/``rmatvec_fn`` on
+    ``params`` (whose last entry is the stage before it), non-symmetric,
+    on ``op``'s vector layout."""
+    stage = MatrixFreeOperator(matvec_fn, params, dim=op.dim, dtype=op.dtype,
+                               rmatvec_fn=rmatvec_fn, symmetric=False,
+                               device=device)
+    stage.vector_layout = vector_layout(op)
+    return stage
 
 
 def dominant_eig_multi(op, m: int = 2, *, num_iters: int = 500,
@@ -493,9 +564,8 @@ def dominant_eig_multi(op, m: int = 2, *, num_iters: int = 500,
 
     Returns ``(lams (m,), ls (N, m), rs (N, m))`` with ``||r_j|| = 1`` and
     ``l_j^T r_j = 1``; with ``with_info`` also a :class:`PowerInfo` of
-    (m,) fields.
+    (m,) fields.  Over sharded vectors ls and rs are the rank's rows.
     """
-    refuse_sharded("dominant_eig_multi", op)
     op = as_operator(op)
     dev = check_device(device, op)
     m = int(m)
@@ -516,10 +586,9 @@ def dominant_eig_multi(op, m: int = 2, *, num_iters: int = 500,
         ls.append(l)
         rs.append(r)
         if j + 1 < m:
-            cur = MatrixFreeOperator(_wielandt_deflate_mv, (lam, l, r, cur),
-                                     dim=op.dim, dtype=op.dtype,
-                                     rmatvec_fn=_wielandt_deflate_rmv,
-                                     symmetric=False, device=dev)
+            cur = _deflated_stage(_wielandt_deflate_mv,
+                                  _wielandt_deflate_rmv, (lam, l, r, cur),
+                                  op, dev)
     out = (torch.stack(lams), torch.stack(ls, dim=-1),
            torch.stack(rs, dim=-1))
     if with_info:
@@ -563,6 +632,10 @@ class _ComplexifiedOperator(LinearOperator):
         return _ComplexifiedOperator(self.inner.with_parameters(tensors))
 
     @property
+    def vector_layout(self):
+        return vector_layout(self.inner)
+
+    @property
     def dim(self):
         return self.inner.dim
 
@@ -591,7 +664,18 @@ def _block_eigvec(b, lam):
     return torch.where(nrm > tiny, y / torch.clamp(nrm, min=tiny), e0)
 
 
-def _subspace_2(mm, n, dtype, generator, num_iters, tol):
+def _orthonormal(z, layout=None):
+    """The Q of the thin QR of the whole (N, 2) block ``z`` (the rank's
+    rows of it under a sharded ``layout``: a QR across the ranks), its
+    columns' signs fixed so that R has a non-negative diagonal: Q is then
+    unique, and an iteration on it converges pointwise."""
+    qn, rr = torch.linalg.qr(z) if layout is None else layout.tall_qr(z)
+    d = torch.diagonal(rr)
+    sgn = torch.sign(torch.where(d == 0, torch.ones_like(d), d))
+    return qn * sgn[None, :]
+
+
+def _subspace_2(mm, n, dtype, generator, num_iters, tol, layout=None):
     """The dominant 2-D invariant subspace of a real operator by
     orthogonal (block power) iteration on its (N, 2) products ``mm``:
     ``(Q (N, 2), B = Q^T A Q, residual, iterations)``, the residual that
@@ -599,22 +683,24 @@ def _subspace_2(mm, n, dtype, generator, num_iters, tol):
     most ``tol`` (read on the host every ``CHECK_EVERY`` steps, the state
     frozen on the device in between, as in :func:`_power_pair`) or after
     ``num_iters`` steps; then one more product gives the returned B and
-    residual on the returned Q."""
+    residual on the returned Q.  Under a sharded ``layout`` Q holds the
+    rank's rows (the start those of the whole draw) and B and the
+    residual are the same on every rank."""
     tiny = torch.finfo(dtype).tiny
-    q, _ = torch.linalg.qr(torch.randn((n, 2), dtype=dtype,
-                                       device=generator.device,
-                                       generator=generator))
+    if layout is None:
+        start = torch.randn((n, 2), dtype=dtype, device=generator.device,
+                            generator=generator)
+    else:
+        start = layout.draw((n, 2), generator, dtype, generator.device)
+    q = _orthonormal(start, layout)
 
     def step(q):
         z = mm(q)
-        b = hmatmul(q.T, z)
-        resid = (torch.linalg.matrix_norm(z - hmatmul(q, b))
+        b = layout_sum(layout, hmatmul(q.T, z))
+        # The Frobenius norm of the whole (N, 2) block.
+        resid = (layout_norm(layout, z - hmatmul(q, b))
                  / torch.clamp(torch.linalg.matrix_norm(b), min=tiny))
-        qn, rr = torch.linalg.qr(z)
-        # QR's sign ambiguity fixed, so the iteration converges pointwise.
-        d = torch.diagonal(rr)
-        sgn = torch.sign(torch.where(d == 0, torch.ones_like(d), d))
-        return qn * sgn[None, :], b, resid
+        return _orthonormal(z, layout), b, resid
 
     resid = torch.full((), float("inf"), dtype=dtype, device=q.device)
     its = torch.zeros((), dtype=torch.int64, device=q.device)
@@ -642,12 +728,13 @@ def _pair_forward(op, opts: EigOptions):
     (``|l^T r|`` of the unit vectors below 100 eps) keeps l unit instead
     and reports ``converged = 0``."""
     n, dtype = op.dim, op.dtype
+    lay = vector_layout(op)
     ptol = tol_floor(opts.power_tol, dtype)
     generator = torch.Generator(device=op.device).manual_seed(opts.seed)
     qr_, br, resid_r, it_r = _subspace_2(op.matmat, n, dtype, generator,
-                                         opts.num_iters, ptol)
+                                         opts.num_iters, ptol, lay)
     ql_, bl, resid_l, it_l = _subspace_2(op.rmatmat, n, dtype, generator,
-                                         opts.num_iters, ptol)
+                                         opts.num_iters, ptol, lay)
     resid = torch.maximum(resid_r, resid_l)
     cdtype = _ComplexifiedOperator(op).dtype
     tr = br[0, 0] + br[1, 1]
@@ -663,15 +750,15 @@ def _pair_forward(op, opts: EigOptions):
                       torch.complex(tr / 2 + sgn * root,
                                     torch.zeros_like(tr)))
     r = hmatmul(qr_.to(cdtype), _block_eigvec(br, lam))
-    r = pivot_gauge(r / torch.linalg.vector_norm(r))
+    r = pivot_gauge(r / layout_norm(lay, r), layout=lay)
     # The left vector: A^T l = λ l, the same eigenvalue of B_l (the real
     # operator's spectrum is that of its transpose).  Unit first, so that
     # |l^T r| is the left/right cosine, and the bilinear scale only where
     # it is finite.
     l = hmatmul(ql_.to(cdtype), _block_eigvec(bl, lam))
     rtiny = torch.finfo(dtype).tiny
-    l = l / torch.clamp(torch.linalg.vector_norm(l), min=rtiny)
-    s = _bdot(l, r)
+    l = l / torch.clamp(layout_norm(lay, l), min=rtiny)
+    s = _bdot(l, r, lay)
     well_cond = s.abs() >= 100 * torch.finfo(dtype).eps
     l = l / torch.where(well_cond, s, torch.ones_like(s))
     info = PowerInfo(
@@ -730,9 +817,9 @@ def dominant_eig_pair(op, num_iters: int = 500, *, tol: float = 1e-10,
     treat that as "no usable pair" (:func:`dominant_eig_spectrum` raises
     on it).  With ``with_info`` also a :class:`PowerInfo` of the two
     subspace iterations (their larger residual and step count;
-    ``rank1_defect`` 0).
+    ``rank1_defect`` 0).  Over sharded vectors l and r are the rank's
+    rows.
     """
-    refuse_sharded("dominant_eig_pair", op)
     if solver not in ("bicgstab", "cgnr", "gmres"):
         raise ValueError(
             f"solver must be bicgstab|cgnr|gmres, got {solver!r}")
@@ -752,14 +839,19 @@ def dominant_eig_pair(op, num_iters: int = 500, *, tol: float = 1e-10,
 
 def _real_pair_deflate_mv(params, x):
     """``(M - 2 Re(λ r l^T)) x``, real: a conjugate pair deflated at once,
-    with ``a = Re(λ r)``, ``b = Im(λ r)``, ``l = lr + i li``."""
+    with ``a = Re(λ r)``, ``b = Im(λ r)``, ``l = lr + i li`` (the rank's
+    rows over sharded vectors, the pairings entering them marked)."""
     a, b, lr, li, inner = params
-    return inner.matvec(x) - 2.0 * (a * _bdot(lr, x) - b * _bdot(li, x))
+    lay = vector_layout(inner)
+    return inner.matvec(x) - 2.0 * (a * _reduced(lay, torch.dot(lr, x))
+                                    - b * _reduced(lay, torch.dot(li, x)))
 
 
 def _real_pair_deflate_rmv(params, x):
     a, b, lr, li, inner = params
-    return inner.rmatvec(x) - 2.0 * (lr * _bdot(a, x) - li * _bdot(b, x))
+    lay = vector_layout(inner)
+    return inner.rmatvec(x) - 2.0 * (lr * _reduced(lay, torch.dot(a, x))
+                                     - li * _reduced(lay, torch.dot(b, x)))
 
 
 def dominant_eig_spectrum(op, m: int = 4, *, num_iters: int = 500,
@@ -793,12 +885,14 @@ def dominant_eig_spectrum(op, m: int = 4, *, num_iters: int = 500,
     |λ| (conjugate members adjacent) and (N, len(lams)) ``ls``, ``rs``
     with ``||r_j|| = 1`` and ``l_j^T r_j = 1``.  A pair is never split:
     when the m-th slot falls on its first member both are returned, and
-    ``lams`` has m + 1 entries.
+    ``lams`` has m + 1 entries.  Over sharded vectors ls and rs are the
+    rank's rows, and every decision reads values that are the same on
+    every rank.
     """
-    refuse_sharded("dominant_eig_spectrum", op)
     op = as_operator(op)
     dev = check_device(device, op)
     _check_real(op, "dominant_eig_spectrum")
+    lay = vector_layout(op)
     cdtype = _ComplexifiedOperator(op).dtype
     kw = dict(num_iters=num_iters, tol=tol, maxiter=maxiter,
               power_tol=power_tol, solver=solver, device=dev)
@@ -816,11 +910,11 @@ def dominant_eig_spectrum(op, m: int = 4, *, num_iters: int = 500,
             gen = torch.Generator(device=dev).manual_seed(seed + stage)
             kk = max(2, min(32, op.dim))
             d_r = _arnoldi_ritz_vector(cur.matvec, cur.dim, kk,
-                                       _unit(cur.dim, cur.dtype, gen),
-                                       cur.dtype)[1]
+                                       _unit(cur.dim, cur.dtype, gen, lay),
+                                       cur.dtype, lay)[1]
             d_l = _arnoldi_ritz_vector(cur.rmatvec, cur.dim, kk,
-                                       _unit(cur.dim, cur.dtype, gen),
-                                       cur.dtype)[1]
+                                       _unit(cur.dim, cur.dtype, gen, lay),
+                                       cur.dtype, lay)[1]
             kind = "pair"
             if float(torch.maximum(d_r, d_l)) < 1e-2:
                 probe = dominant_eig(cur, seed=seed + stage,
@@ -839,9 +933,8 @@ def dominant_eig_spectrum(op, m: int = 4, *, num_iters: int = 500,
             lam, l, r = dominant_eig_pair(cur, seed=seed + stage, **kw)
             if structure is None:
                 tiny = torch.finfo(op.dtype).tiny
-                cos_lr = float(_bdot(l, r).abs() / torch.clamp(
-                    torch.linalg.vector_norm(l)
-                    * torch.linalg.vector_norm(r), min=tiny))
+                cos_lr = float(_bdot(l, r, lay).abs() / torch.clamp(
+                    layout_norm(lay, l) * layout_norm(lay, r), min=tiny))
                 # 10x the solver's own floor: below it l's scale is
                 # unusable and the deflation would not remove the pair.
                 if cos_lr < 1000 * float(torch.finfo(op.dtype).eps):
@@ -861,21 +954,19 @@ def dominant_eig_spectrum(op, m: int = 4, *, num_iters: int = 500,
             lams += [lam, lam.conj()]
             ls += [l, l.conj()]
             rs += [r, r.conj()]
-            lr_ = lam * r
-            cur = MatrixFreeOperator(
-                _real_pair_deflate_mv,
-                (lr_.real, lr_.imag, l.real, l.imag, cur), dim=op.dim,
-                dtype=op.dtype, rmatvec_fn=_real_pair_deflate_rmv,
-                symmetric=False, device=dev)
+            lr_ = layout_bcast(lay, lam) * r
+            cur = _deflated_stage(_real_pair_deflate_mv,
+                                  _real_pair_deflate_rmv,
+                                  (lr_.real, lr_.imag, l.real, l.imag, cur),
+                                  op, dev)
         else:
             lam_r, l_r, r_r = lam.real, l.real, r.real
             lams.append(lam_r.to(cdtype))
             ls.append(l_r.to(cdtype))
             rs.append(r_r.to(cdtype))
-            cur = MatrixFreeOperator(
-                _wielandt_deflate_mv, (lam_r, l_r, r_r, cur), dim=op.dim,
-                dtype=op.dtype, rmatvec_fn=_wielandt_deflate_rmv,
-                symmetric=False, device=dev)
+            cur = _deflated_stage(_wielandt_deflate_mv,
+                                  _wielandt_deflate_rmv,
+                                  (lam_r, l_r, r_r, cur), op, dev)
         stage += 1
     return (torch.stack(lams), torch.stack(ls, dim=-1),
             torch.stack(rs, dim=-1), tuple(built))
@@ -888,6 +979,5 @@ def spectrum_structure(op, m: int = 4, **kwargs) -> tuple:
     in modulus order, so one discovery serves a sweep of parameters
     until a real eigenvalue collides into a pair.  Takes the keyword
     arguments of :func:`dominant_eig_spectrum`."""
-    refuse_sharded("spectrum_structure", op)
     kwargs.pop("structure", None)
     return dominant_eig_spectrum(op, m, **kwargs)[3]

@@ -78,7 +78,7 @@ class LanczosInfo(NamedTuple):
     converged: torch.Tensor
 
 
-def arnoldi_step(mv, basis, h, j: int):
+def arnoldi_step(mv, basis, h, j: int, layout=None):
     """One Arnoldi step: ``basis`` is (k+1, N) with rows > j zero, ``h``
     the (k+1, k) Hessenberg matrix; writes basis row ``j + 1`` and
     column ``j`` of ``h`` in place and returns ``(basis, h)``.
@@ -88,15 +88,18 @@ def arnoldi_step(mv, basis, h, j: int):
     :func:`~.operators.hmatmul`.  A happy breakdown (a residual of norm
     <= tiny) leaves the next row zero, and the GMRES least squares and
     the Ritz extraction see zero columns after it, as in the JAX step.
+    Under a sharded ``layout`` (``operators.vector_layout``) the basis
+    is (k+1, N/p), the rank's columns, and both passes' coefficients and
+    the norm are summed over the ranks: h is the same on every rank.
     """
     tiny = torch.finfo(basis.dtype).tiny
     w = mv(basis[j])
-    coeffs = hmatmul(basis.conj(), w)
+    coeffs = layout_sum(layout, hmatmul(basis.conj(), w))
     w = w - hmatmul(basis.T, coeffs)
-    extra = hmatmul(basis.conj(), w)
+    extra = layout_sum(layout, hmatmul(basis.conj(), w))
     w = w - hmatmul(basis.T, extra)
     coeffs = coeffs + extra
-    hj = torch.linalg.vector_norm(w)
+    hj = layout_norm(layout, w)
     w = torch.where(hj > tiny, w / torch.clamp(hj, min=tiny),
                     torch.zeros_like(w))
     basis[j + 1] = w

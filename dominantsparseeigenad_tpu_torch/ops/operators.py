@@ -192,7 +192,12 @@ def vector_layout(op):
     * ``pivot(v)``: the global index of the first largest |v| (per column
       of a block) and the entry there; ``take(t, idx)`` the entries of
       ``t`` at global indices, and ``one_hot(idx, dtype)`` the rank's rows
-      of the unit vectors there, all the same on every rank.
+      of the unit vectors there, all the same on every rank;
+    * ``tall_qr(z)``: the thin QR of a whole (N, r) block from its rows;
+    * ``stacked()``: the layout of the (2N,) vectors (u; v) of the
+      Hermitian embedding of an operator on this one (``svd.py``);
+      ``bordered(k)``: that of a bordered vector (x; ν), whose border of
+      k entries the first rank holds (``cg.py``, the bordered solves).
 
     Duck-typed: ``ops/`` never imports ``parallel/``."""
     return getattr(op, "vector_layout", None)
@@ -240,22 +245,6 @@ def local_dim(op) -> int:
     or the rank's rows under a sharded layout."""
     layout = vector_layout(op)
     return op.dim if layout is None else layout.local_dim
-
-
-SHARDED_REFUSAL = ("on vectors sharded over ranks is not ported yet "
-                   "(ROADMAP.md, queue 1 item 18: the general "
-                   "(non-Hermitian) solvers on sharded vectors); use "
-                   "vectors='replicated'")
-
-
-def refuse_sharded(what: str, *items):
-    """Raise NotImplementedError if an operator among ``items`` carries a
-    sharded vector layout (a local dot there would be a plausible wrong
-    number); ``items`` may hold tensors, callables (a bound ``matvec``
-    names its operator) and None."""
-    for item in items:
-        if matvec_layout(item) is not None:
-            raise NotImplementedError(f"{what} {SHARDED_REFUSAL}")
 
 
 def tol_floor(tol: float, dtype) -> float:

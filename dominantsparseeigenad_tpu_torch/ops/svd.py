@@ -16,6 +16,12 @@ mode, is the block IFT rule of :func:`~.eigh.dominant_eigh_multi`; this
 module only builds the embedding and unpacks the halves.  TRG's
 ``split_method="lanczos"`` (``models/ising2d.py``) differentiates the free
 energy through it.
+
+Over a square operator whose vectors are sharded, a rank holds its rows
+of u and its rows of v: the embedding's vectors are laid out by
+``layout.stacked()`` (two segments of the whole (2N,) vector, the draws
+and the pivot those of the whole vector), and u and v are the rank's
+rows.
 """
 
 from __future__ import annotations
@@ -24,7 +30,7 @@ import torch
 
 from .eigh import dominant_eigh_multi
 from .operators import (LinearOperator, MatrixFreeOperator, as_operator,
-                        hmatmul, refuse_sharded)
+                        hmatmul, layout_norm, local_dim, vector_layout)
 
 
 class _RectOperator(LinearOperator):
@@ -75,19 +81,27 @@ class _Embedding(MatrixFreeOperator):
 
 
 def _embed(op: LinearOperator, m: int, n: int) -> MatrixFreeOperator:
+    """The embedding of ``op`` (m, n); over sharded vectors (a square
+    ``op``) on the stacked layout, ``w[:m]`` the rank's rows of u."""
+    layout = vector_layout(op)
+    split = local_dim(op) if layout is not None else m
+
     def apply(params, w):
         inner = op.with_parameters(params)
-        u, v = w[:m], w[m:]
+        u, v = w[:split], w[split:]
         if w.ndim == 1:
             return torch.cat([inner.matvec(v), inner.rmatvec(u.conj()).conj()])
         return torch.cat([inner.matmat(v), inner.rmatmat(u.conj()).conj()])
 
-    return _Embedding(apply, list(op.parameters()), dim=m + n,
-                      dtype=op.dtype, device=op.device)
+    emb = _Embedding(apply, list(op.parameters()), dim=m + n,
+                     dtype=op.dtype, device=op.device)
+    if layout is not None:
+        emb.vector_layout = layout.stacked()
+    return emb
 
 
-def _colunit(b):
-    nrm = torch.linalg.vector_norm(b, dim=0)
+def _colunit(b, layout=None):
+    nrm = layout_norm(layout, b, dim=0)
     return b / torch.clamp(nrm, min=torch.finfo(b.dtype).tiny)[None, :]
 
 
@@ -109,9 +123,11 @@ def dominant_svd(a, r: int = 4, k: int = 128, *, tol: float = 1e-8,
     Lanczos) or ``x0`` ((m + n, r), LOBPCG) gives its start.
     ``with_info=True`` appends the block's :class:`~.lanczos.LanczosInfo`.
     Triplets past rank(A) (``s_i ~ 0``) are unit null-space vectors, not
-    singular triplets; ``s`` is clamped at 0.
+    singular triplets; ``s`` is clamped at 0.  Over a square operator
+    whose vectors are sharded, u and v are the rank's rows (``v0`` and
+    ``x0``: the rank's rows of u's part, then of v's, ``stacked().rows``
+    of the whole start).
     """
-    refuse_sharded("dominant_svd", a)
     if isinstance(a, LinearOperator):
         op = as_operator(a)
         m = n = op.dim
@@ -131,7 +147,9 @@ def dominant_svd(a, r: int = 4, k: int = 128, *, tol: float = 1e-8,
     lams, w = out[0], out[1]
     # For σ_i > 0 the halves of w_i = (u_i; v_i)/√2 have norm 1/√2 each;
     # normalizing each half also keeps null-space columns unit.
-    u, v = _colunit(w[:m]), _colunit(w[m:])
+    layout = vector_layout(op)
+    split = m if layout is None else local_dim(op)
+    u, v = _colunit(w[:split], layout), _colunit(w[split:], layout)
     lams = torch.maximum(lams, torch.zeros_like(lams))
     if with_info:
         return u, lams, v, out[2]

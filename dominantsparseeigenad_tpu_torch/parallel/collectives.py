@@ -70,7 +70,7 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-from ..ops.operators import nestable_jvp, per_lane_vmap
+from ..ops.operators import hmatmul, nestable_jvp, per_lane_vmap
 
 # Collectives run by this process, by kind (one per call of the three
 # functions below, also on one rank).
@@ -357,7 +357,11 @@ class ShardedVectors:
     every (N, r) block.  The solvers take their contractions over the
     vector axis through it (``ops/operators.py``, ``vector_layout``);
     every result is the same on every rank, so the ranks stay in step.
-    Two layouts are equal when their group and dimension are."""
+    Two layouts are equal when their kind, group and dimension are.
+
+    The rank's rows are the global rows of :meth:`_segments`, in that
+    order: one segment here; the Hermitian embedding's two
+    (:class:`StackedVectors`)."""
 
     def __init__(self, group, dim: int):
         if dim % group.size:
@@ -368,9 +372,16 @@ class ShardedVectors:
         self.local_dim = self.dim // group.size
         self.offset = group.rank * self.local_dim
 
+    def _key(self):
+        return self.group, self.dim
+
     def __eq__(self, other):
-        return isinstance(other, ShardedVectors) and \
-            (self.group, self.dim) == (other.group, other.dim)
+        return type(other) is type(self) and self._key() == other._key()
+
+    def _segments(self):
+        """``((start, length), ...)``: the global rows the rank holds, in
+        the order it holds them (ascending)."""
+        return ((self.offset, self.local_dim),)
 
     def sum(self, t):
         """The sum over ranks of the local contraction ``t``."""
@@ -389,7 +400,8 @@ class ShardedVectors:
 
     def rows(self, t):
         """The rank's rows of a whole (N, ...) tensor."""
-        return t.narrow(0, self.offset, self.local_dim)
+        parts = [t.narrow(0, s, n) for s, n in self._segments()]
+        return parts[0] if len(parts) == 1 else torch.cat(parts)
 
     def draw(self, shape, generator, dtype, device):
         """``torch.randn(shape)`` of the whole (N, ...) tensor from
@@ -400,6 +412,11 @@ class ShardedVectors:
                            device=device)
         return self.rows(full).clone()
 
+    def _global_rows(self, device):
+        """The global index of each of the rank's rows."""
+        return torch.cat([torch.arange(s, s + n, device=device)
+                          for s, n in self._segments()])
+
     def pivot(self, v):
         """``(idx, entry)``: the global index of the first largest |v| (of
         each column of an (N/p, r) block) and the entry there, the same on
@@ -407,16 +424,19 @@ class ShardedVectors:
         all-gather of each rank's (max |v|, index, entry)."""
         block = v if v.ndim == 2 else v[:, None]
         mag = torch.abs(block)
+        # The rank's rows ascend globally: its first largest is its lowest.
         local = torch.argmax(mag, dim=0)
         entry = torch.gather(block, 0, local[None])[0]
         parts = [torch.gather(mag, 0, local[None])[0].double(),
-                 (local + self.offset).double()]
+                 self._global_rows(v.device)[local].double()]
         parts += ([entry.real.double(), entry.imag.double()]
                   if entry.is_complex() else [entry.double()])
         got = all_gather_rows(torch.stack(parts)[None], self.group)
-        # Ranks hold ascending rows: the first rank with the largest
-        # magnitude holds the lowest index among ties.
-        best = torch.argmax(got[:, 0], dim=0)
+        # Among the ranks with the largest magnitude, the lowest index.
+        top = got[:, 0].max(dim=0).values
+        index = torch.where(got[:, 0] == top, got[:, 1],
+                            torch.full_like(got[:, 1], float("inf")))
+        best = torch.argmin(index, dim=0)
         pick = got[best, :, torch.arange(block.shape[1],
                                           device=best.device)]
         idx = pick[:, 1].long()
@@ -425,9 +445,17 @@ class ShardedVectors:
         return (idx[0], entry[0]) if v.ndim == 1 else (idx, entry)
 
     def _owned(self, idx):
-        local = idx - self.offset
-        mine = (local >= 0) & (local < self.local_dim)
-        return mine, torch.where(mine, local, torch.zeros_like(local))
+        """Whether the rank holds global ``idx``, and its local row
+        there (0 where it does not)."""
+        mine = torch.zeros_like(idx, dtype=torch.bool)
+        local = torch.zeros_like(idx)
+        first = 0
+        for s, n in self._segments():
+            inside = (idx >= s) & (idx < s + n)
+            local = torch.where(inside, idx - s + first, local)
+            mine = mine | inside
+            first += n
+        return mine, local
 
     def take(self, t, idx):
         """The entries of the whole ``t`` at global ``idx`` (a scalar
@@ -444,7 +472,100 @@ class ShardedVectors:
     def one_hot(self, idx, dtype):
         """The rank's rows of the unit vector e_idx (an (N/p,) vector), or
         of one per column (an (N/p, r) block)."""
-        rows = torch.arange(self.offset, self.offset + self.local_dim,
-                            device=idx.device)
+        rows = self._global_rows(idx.device)
         hot = rows == idx if idx.ndim == 0 else rows[:, None] == idx[None, :]
         return hot.to(dtype)
+
+    def tall_qr(self, z):
+        """The thin QR of the whole (N, r) block whose rows ``z`` the rank
+        holds: ``(the rank's rows of Q, R)``, R the same on every rank.
+        A local QR, then the QR of the ranks' R factors stacked in rank
+        order (one all-gather of r x r).  At one rank the second QR is of
+        a triangular R, its Q the identity, and this is ``torch.linalg.qr``
+        exactly.  Forward only (the block power iteration's)."""
+        q, r = torch.linalg.qr(z)
+        qs, r = torch.linalg.qr(all_gather_rows(r, self.group))
+        k = z.shape[1]
+        return hmatmul(q, qs[self.group.rank * k:(self.group.rank + 1) * k]), r
+
+    def stacked(self):
+        """The layout of the Hermitian embedding's vectors (u; v) of an
+        operator on this layout (:class:`StackedVectors`)."""
+        return StackedVectors(self)
+
+    def bordered(self, k: int):
+        """The layout of a bordered vector (x; ν) with x on this layout
+        and a border of ``k`` entries (:class:`BorderedVectors`)."""
+        return BorderedVectors(self, k)
+
+
+class StackedVectors(ShardedVectors):
+    """The layout of the (2N,) vectors ``(u; v)`` of the Hermitian
+    embedding ``[[0, A], [A^H, 0]]`` of an operator A on ``inner``'s
+    sharded N-vectors: a rank holds its rows of u and its rows of v,
+    global rows ``[o, o + N/p)`` and ``[N + o, N + o + N/p)``, stacked in
+    that order (``w[:N/p]`` is its u, ``w[N/p:]`` its v).  The draws are
+    the rows of the whole (2N, ...) draw, and the pivot breaks a tie of
+    magnitude by the lowest global index, as ``torch.argmax`` of the whole
+    vector does (not by rank: rank 1's u rows come before rank 0's v
+    rows)."""
+
+    def __init__(self, inner: ShardedVectors):
+        self.inner = inner
+        self.group = inner.group
+        self.dim = 2 * inner.dim
+        self.local_dim = 2 * inner.local_dim
+
+    def _key(self):
+        return self.inner._key()
+
+    def _segments(self):
+        lay = self.inner
+        return ((lay.offset, lay.local_dim),
+                (lay.dim + lay.offset, lay.local_dim))
+
+
+class BorderedVectors:
+    """The layout of a bordered vector ``z = (x; ν)``: x the rank's rows
+    of a vector on the sharded ``inner`` layout, ν a border of ``k``
+    entries that the first rank holds after its rows and every other rank
+    holds as zeros.  A local dot summed over the ranks then counts ν
+    once, so the Krylov loops run on z with ``inner``'s sums and norms;
+    a product on z reads ν with :meth:`exchange` and writes its border
+    with :meth:`join`, which keeps the zeros.  (Summing a ν that every
+    rank held would count it p times.)"""
+
+    def __init__(self, inner: ShardedVectors, k: int):
+        self.inner, self.k = inner, int(k)
+        self.group = inner.group
+        self.dim = inner.dim + self.k
+        self.local_dim = inner.local_dim + self.k
+        self.holds_border = inner.group.rank == 0
+
+    def __eq__(self, other):
+        return isinstance(other, BorderedVectors) and \
+            (self.inner, self.k) == (other.inner, other.k)
+
+    def sum(self, t):
+        return self.inner.sum(t)
+
+    def bcast(self, t):
+        return self.inner.bcast(t)
+
+    def norm(self, x, dim=None):
+        return self.inner.norm(x, dim)
+
+    def join(self, x, nu):
+        """The bordered vector of the rank's rows ``x`` and the replicated
+        border ``nu``: ``nu`` after the first rank's rows, zeros after the
+        others' (kept in the graph: every rank runs the backward's
+        collectives)."""
+        return torch.cat([x, nu * (1.0 if self.holds_border else 0.0)])
+
+    def exchange(self, tail, t):
+        """``(ν, Σ t)`` in one all-reduce: ν, the border of a bordered
+        vector whose local tail is ``tail``, and the local contraction
+        ``t`` (k,) summed over the ranks, both replicated and marked as
+        they enter the rank's rows (:meth:`ShardedVectors.bcast`)."""
+        both = self.sum(torch.cat([tail, t]))
+        return self.bcast(both[:self.k]), self.bcast(both[self.k:])

@@ -679,20 +679,25 @@ def _solo_sharded():
         torch.zeros(1, 1, 4, 4), torch.zeros(1, 1, dtype=torch.int32), 4,
         _solo_sharded()[0], mode="ring"),
      ValueError, r"mode='ring' needs vectors='sharded'"),
-    (lambda: port.dominant_eig(_solo_sharded()[1], device="cpu"),
-     NotImplementedError, r"ROADMAP\.md, queue 1 item 18"),
-    (lambda: port.gmres(_solo_sharded()[1].matvec, torch.ones(4),
-                        device="cpu"),
-     NotImplementedError, r"ROADMAP\.md, queue 1 item 18"),
-], ids=["RowShardedOperator ring", "RowShardedBellOperator ring",
-        "dominant_eig", "gmres"])
+], ids=["RowShardedOperator ring", "RowShardedBellOperator ring"])
 def test_sharded_refusals_name_item_14(call, error, match):
     """F7's refusals after item 14: ring mode over replicated vectors
-    (the segment a ring step would send is already on every rank), and a
-    solver of the general tier, which does not carry the sharded-vector
-    layout yet (queue 1 item 18)."""
+    (the segment a ring step would send is already on every rank).  The
+    general tier carries the sharded-vector layout since item 18 was
+    done, and refuses nothing there."""
     with pytest.raises(error, match=match):
         call()
+
+
+def test_no_module_defines_or_calls_refuse_sharded():
+    """Every solver carries the sharded-vector layout: no module of the
+    port defines or calls ``refuse_sharded``, nor keeps its message."""
+    for path in _sources():
+        text = path.read_text()
+        assert "refuse_sharded" not in text, path.name
+        assert "SHARDED_REFUSAL" not in text, path.name
+        assert "on vectors sharded over ranks is not ported" not in text, \
+            path.name
 
 
 def test_option_classes_and_pair_solvers_are_exported():

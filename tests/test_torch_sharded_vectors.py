@@ -1,7 +1,9 @@
 """The port's sharded-vector layout (``vectors="sharded"``,
-``shard_vector``, ``row_sharding``, ``replicated``), ``mode="ring"`` of
-both row-sharded operators and multi-process checkpoints, against the
-JAX package on the 8-virtual-device CPU mesh (f64 unless stated).
+``shard_vector``, ``row_sharding``, ``replicated``, and the bordered and
+stacked layouts of the general tier), ``mode="ring"`` of both row-sharded
+operators, every solver over sharded vectors and multi-process
+checkpoints, against the JAX package on the 8-virtual-device CPU mesh
+(f64 unless stated).
 
 The port runs one process per rank on a gloo group, spawned once per
 world size by a module-scoped fixture (p = 1 runs in this process).
@@ -34,6 +36,7 @@ import traceback
 import numpy as np
 import pytest
 import torch
+import torch.autograd.forward_ad as fwAD
 import torch.distributed as dist
 
 import dominantsparseeigenad_tpu_torch as port
@@ -46,7 +49,7 @@ from dominantsparseeigenad_tpu_torch.parallel.mesh import ShardGroup
 torch.set_num_threads(2)
 
 F64 = torch.float64
-RANK_TIMEOUT_S = 180        # a rank's whole run; each queue read and join
+RANK_TIMEOUT_S = 600        # a rank's whole run; each queue read and join
 MODES = ("all_gather", "ring")
 LOBPCG_R, LOBPCG_K = 2, 400
 BLOCK_R, BLOCK_K = 5, 60
@@ -97,6 +100,30 @@ def _complex_hermitian_pair(n, seed):
         return (a + a.conj().T) / 2
 
     return herm(), herm(), rng.standard_normal(n) + 1j * rng.standard_normal(n)
+
+
+def _general_inputs(nonsym_dense):
+    """The inputs of the general tier's cases (item 18, step 5): the
+    dense non-symmetric matrix behind ``nonsym``, a positive
+    non-symmetric Bell (block-columns i, i ± 1, i ± 2 of block-row i: one
+    Perron root, the next modulus about half of it), its tangent
+    direction, and a real matrix with a dominant conjugate pair
+    3 e^{±0.7i}, then 1.5, then the rest in [0, 0.75): each power or
+    subspace iteration contracts by about 1/2 a step."""
+    rng = np.random.default_rng(17)
+    vals = np.abs(rng.standard_normal((8, 5, 8, 8))) + 0.01
+    i = np.arange(8)
+    cols = np.stack([i, (i + 1) % 8, (i - 1) % 8, (i + 2) % 8,
+                     (i - 2) % 8], 1).astype(np.int32)
+    blk = np.zeros((64, 64))
+    blk[:2, :2] = 3.0 * np.array([[np.cos(0.7), -np.sin(0.7)],
+                                  [np.sin(0.7), np.cos(0.7)]])
+    blk[2, 2] = 1.5
+    blk[3:, 3:] = np.diag(0.75 * rng.random(61))
+    q, _ = np.linalg.qr(rng.standard_normal((64, 64)))
+    return {"ns_dense": nonsym_dense, "pos_bell": (vals, cols),
+            "pos_dir": rng.standard_normal(vals.shape),
+            "pair_a": q @ blk @ q.T}
 
 
 def _solver_inputs(bell, normal):
@@ -187,6 +214,7 @@ def _inputs():
         "cx": _complex_hermitian_pair(32, 13),
         "alphas": np.random.default_rng(10).standard_normal(CKPT_K),
         **_solver_inputs(bell, normal),
+        **_general_inputs(a),
     }
 
 
@@ -483,6 +511,11 @@ class _Layout:
     def op(self, a, **kw):
         return port.RowShardedOperator(a, self.sg, vectors=self.vectors,
                                        **kw)
+
+    def bell(self, spec, n=64):
+        """A non-symmetric ``RowShardedBellOperator`` of the global
+        ``(vals, cols)``: the rank's panel."""
+        return _bell(spec, self.sg, n, symmetric=False, vectors=self.vectors)
 
     def place(self, x):
         return self.lay.rows(x) if self.vectors == "sharded" else x
@@ -801,6 +834,186 @@ def _diagnostics_part(inp, sg, out):
             float(utils.cg_relative_residual(sop.matvec, L.place(b), x))]
 
 
+SPEC_M = 3                   # the spectrum's slots: a pair, then a real
+PAIR_ITERS, PAIR_PTOL = 800, 1e-13    # tests/test_torch_eig_pair.py
+GEN_SHIFT = 8.0              # the solves' A + 8 I: eigenvalues near 8
+GEN_TOL = 1e-12
+GEN_RESTART = 20             # GMRES restarts within the 64 unknowns
+STRUCTURE_CODES = {"pair": 0, "real": 1, "pair_real": 2}
+
+
+def _panel_of(L, t):
+    """The rank's block-rows of a global (nb, ...) tensor."""
+    nb_l = t.shape[0] // L.sg.size
+    return t[L.sg.rank * nb_l:(L.sg.rank + 1) * nb_l]
+
+
+def _general_cases(inp):
+    """The general tier's entry points (item 18, step 5), each ``L ->
+    [tensors]`` in the layout of ``L``: the rank's rows of each vector,
+    the rank's share (or panel) of each gradient, the replicated values
+    as they are."""
+    b, c = _t(inp["b64"]), _t(inp["c64"])
+    ns = _t(inp["ns_dense"])
+    shifted = ns + GEN_SHIFT * torch.eye(64, dtype=F64)
+    pos, pos_dir = inp["pos_bell"], _t(inp["pos_dir"])
+    pair_a = _t(inp["pair_a"])
+
+    def solve(L, method):
+        return _solve_grads(L, lambda op, x: port.solve_general(
+            op, x, tol=GEN_TOL, method=method, device="cpu"), shifted, b, c)
+
+    def eig(L, method):
+        """λ, l, r; the panel's gradient of λ + Σ r⁴ + <c, l> (both
+        bordered solves); with Arnoldi, forward mode along the values'
+        direction (the rule does not depend on the method)."""
+        op = L.bell(pos)
+        panel = op.vals.clone().requires_grad_(True)
+        lam, l, r = port.dominant_eig(op.with_vals(panel), method=method,
+                                      tol=GEN_TOL, device="cpu")
+        loss = lam + L.total((r ** 4).sum()) + L.total((L.place(c) * l)
+                                                       .sum())
+        loss.backward()
+        out = [lam, L.rows(l), L.rows(r), panel.grad]
+        if method == "power":
+            return out
+        with fwAD.dual_level():
+            dual = fwAD.make_dual(op.vals, _panel_of(L, pos_dir))
+            tangents = [fwAD.unpack_dual(t).tangent for t in
+                        port.dominant_eig(op.with_vals(dual), method=method,
+                                          tol=GEN_TOL, device="cpu")]
+        return out + [tangents[0], L.rows(tangents[1]),
+                      L.rows(tangents[2])]
+
+    def eig_second_order(L):
+        """λ + Σ r⁴ along vals + t D (t replicated: the ranks' shares of
+        its gradient summed): the value, d/dt and d²/dt², the bordered
+        solves inside the first backward."""
+        op = L.bell(pos)
+        t = torch.zeros((), dtype=F64, requires_grad=True)
+        vals = op.vals + collectives.replicate(t, L.sg) * _panel_of(L,
+                                                                     pos_dir)
+        lam, _, r = port.dominant_eig(op.with_vals(vals), method="arnoldi",
+                                      tol=GEN_TOL, device="cpu")
+        loss = lam + L.total((r ** 4).sum())
+        (d1,) = torch.autograd.grad(loss, t, create_graph=True)
+        (d2,) = torch.autograd.grad(d1, t)
+        return [loss, d1, d2]
+
+    def multi(L):
+        op = L.bell(pos)
+        panel = op.vals.clone().requires_grad_(True)
+        lams, ls, rs = port.dominant_eig_multi(op.with_vals(panel), m=2,
+                                               tol=GEN_TOL, device="cpu")
+        (lams * torch.tensor([1.0, 2.0], dtype=F64)).sum().backward()
+        return [lams, L.rows(ls), L.rows(rs), panel.grad]
+
+    def pair(L):
+        """λ, l, r and the gradient of a loss on λ and on Re r (its phase
+        gauge's pivot inside the rule)."""
+        leaf = pair_a.clone().requires_grad_(True)
+        lam, l, r = port.dominant_eig_pair(L.op(leaf), num_iters=PAIR_ITERS,
+                                           power_tol=PAIR_PTOL, tol=GEN_TOL,
+                                           device="cpu")
+        loss = lam.real + 0.5 * lam.imag + L.total((r.real ** 3).sum())
+        loss.backward()
+        return [lam, L.rows(l), L.rows(r), leaf.grad]
+
+    def spectrum(L):
+        """The discovered structure, then the replay and its gradient."""
+        kw = dict(num_iters=PAIR_ITERS, power_tol=PAIR_PTOL, tol=GEN_TOL,
+                  device="cpu")
+        found = port.spectrum_structure(L.op(pair_a), SPEC_M, **kw)
+        leaf = pair_a.clone().requires_grad_(True)
+        lams, ls, rs, _ = port.dominant_eig_spectrum(
+            L.op(leaf), SPEC_M, structure=found, **kw)
+        (lams.real.sum() + 0.3 * lams.imag.abs().sum()).backward()
+        return [lams, L.rows(ls), L.rows(rs), leaf.grad,
+                torch.tensor([STRUCTURE_CODES[k] for k in found])]
+
+    def svd(L):
+        leaf = ns.clone().requires_grad_(True)
+        u, s, v = port.dominant_svd(L.op(leaf), r=2, k=64, device="cpu")
+        (s * torch.tensor([1.0, 2.0], dtype=F64)).sum().backward()
+        return [s, L.rows(u), L.rows(v), leaf.grad]
+
+    return {
+        "bicgstab": lambda L: [L.rows(port.bicgstab(
+            L.op(shifted).matvec, L.place(b), tol=GEN_TOL, device="cpu"))],
+        "gmres": lambda L: [L.rows(port.gmres(
+            L.op(shifted).matvec, L.place(b), tol=GEN_TOL,
+            restart=GEN_RESTART, device="cpu"))],
+        "solve_general_bicgstab": lambda L: solve(L, "bicgstab"),
+        "solve_general_gmres": lambda L: solve(L, "gmres"),
+        "solve_general_cgnr": lambda L: solve(L, "cgnr"),
+        "eig_power": lambda L: eig(L, "power"),
+        "eig_arnoldi": lambda L: eig(L, "arnoldi"),
+        "eig_second_order": eig_second_order,
+        "eig_multi": multi,
+        "eig_pair": pair,
+        "eig_spectrum": spectrum,
+        "svd": svd,
+    }
+
+
+def _general_part(inp, sg, out):
+    """Every entry point of the general tier in both layouts at the
+    rank's p."""
+    for name, case in _general_cases(inp).items():
+        for vectors in ("sharded", "replicated"):
+            got = case(_Layout(sg, vectors))
+            out[f"gen_{name}_{vectors}"] = [
+                np.asarray(t.detach().numpy()) for t in got]
+
+
+def _layouts_part(sg, out):
+    """The two layouts of this slice at the rank's p: a bordered dot
+    against the whole one, and the stacked layout's draw, pivot, take and
+    one-hot against the whole (2N,) vector."""
+    lay = collectives.ShardedVectors(sg, 64)
+    gen = torch.Generator().manual_seed(7)
+    x1, x2 = (torch.randn(64, dtype=F64, generator=gen) for _ in range(2))
+    nu1, nu2 = (torch.randn(2, dtype=F64, generator=gen) for _ in range(2))
+    bl = lay.bordered(2)
+    got = bl.sum(port.hdot(bl.join(lay.rows(x1), nu1),
+                           bl.join(lay.rows(x2), nu2)))
+    want = port.hdot(torch.cat([x1, nu1]), torch.cat([x2, nu2]))
+    out["bordered_dot"] = (float(got), float(want))
+    out["bordered_norm"] = (float(bl.norm(bl.join(lay.rows(x1), nu1))),
+                            float(torch.linalg.vector_norm(
+                                torch.cat([x1, nu1]))))
+    st = lay.stacked()
+    whole = torch.randn(128, 3, dtype=F64,
+                        generator=torch.Generator().manual_seed(8))
+    drawn = st.draw((128, 3), torch.Generator().manual_seed(8), F64, "cpu")
+    out["stacked_draw"] = bool(torch.equal(drawn, st.rows(whole)))
+    o, n_l = sg.rank * (64 // sg.size), 64 // sg.size
+    out["stacked_rows"] = bool(torch.equal(st.rows(whole), torch.cat(
+        [whole[o:o + n_l], whole[64 + o:64 + o + n_l]])))
+    # A tie of magnitude between a row of u that rank 1 holds (global
+    # 64/p + 3 < 64) and a row of v that rank 0 holds (64 + 2): the lower
+    # global index wins, as torch.argmax of the whole vector.
+    v = whole[:, 0].clone()
+    v[[64 // sg.size + 3, 64 + 2]] = torch.tensor([5.0, -5.0], dtype=F64)
+    idx, entry = st.pivot(st.rows(v))
+    j = int(torch.argmax(v.abs()))
+    out["stacked_pivot"] = (int(idx), float(entry), j, float(v[j]))
+    blk = whole.clone()
+    blk[64 // sg.size + 3] = 9.0
+    blk[64 + 2] = -9.0
+    bidx, bentry = st.pivot(st.rows(blk))
+    bwant = torch.argmax(blk.abs(), dim=0)
+    out["stacked_pivot_block"] = (bidx.tolist(), bentry.tolist(),
+                                  bwant.tolist(),
+                                  blk[bwant, torch.arange(3)].tolist())
+    out["stacked_take"] = (float(st.take(st.rows(whole[:, 1]), idx)),
+                           float(whole[int(idx), 1]))
+    hot = torch.zeros(128, dtype=F64)
+    hot[int(idx)] = 1.0
+    out["stacked_one_hot"] = bool(torch.equal(st.one_hot(idx, F64),
+                                              st.rows(hot)))
+
+
 def _compute(inp, ckpt_dir):
     sg = port.make_mesh()
     collectives.reset_collective_counts()
@@ -818,6 +1031,8 @@ def _compute(inp, ckpt_dir):
     _kpm_part(inp, sg, out)
     _pencil_part(inp, sg, out)
     _krylov_part(inp, sg, out)
+    _layouts_part(sg, out)
+    _general_part(inp, sg, out)
     # (Before the checkpoints: at p = 4 two of the ranks write one.)
     out["collectives"] = dict(collectives.collective_counts)
     _checkpoint_part(inp, sg, out, ckpt_dir)
@@ -1200,6 +1415,97 @@ def _jax_solver_oracles(inp):
     return got
 
 
+def _jax_general():
+    """The JAX package's values for the general tier's cases, computed
+    once for the run's xdist workers."""
+    return _shared("jax_general", _compute_jax_general)
+
+
+@functools.lru_cache(maxsize=None)
+def _compute_jax_general():
+    """Each general-tier case on the unsharded operator, in one jitted
+    program, at the settings the ranks use (JAX draws its own start
+    vectors: a converged triple is the same after the gauge); the
+    spectrum's structure is discovered once, on the host, as the JAX
+    function does."""
+    import jax
+    import jax.numpy as jnp
+    import dominantsparseeigenad_tpu as jx
+
+    inp = _inputs()
+    pair_kw = dict(num_iters=PAIR_ITERS, power_tol=PAIR_PTOL, tol=GEN_TOL)
+    structure = jx.spectrum_structure(jx.DenseOperator(
+        jnp.asarray(inp["pair_a"])), SPEC_M, **pair_kw)
+    cols = jnp.asarray(inp["pos_bell"][1])
+    weights = jnp.array([1.0, 2.0])
+
+    def bell(v):
+        return jx.BellOperator(v, cols, 64, symmetric=False,
+                               use_pallas=False)
+
+    @jax.jit
+    def oracles(ns, b, c, vals, direction, pair_a):
+        shifted = ns + GEN_SHIFT * jnp.eye(64)
+        out = {"bicgstab": jx.bicgstab(lambda x: shifted @ x, b,
+                                       tol=GEN_TOL),
+               "gmres": jx.gmres(lambda x: shifted @ x, b, tol=GEN_TOL,
+                                 restart=GEN_RESTART)}
+        for method in ("bicgstab", "gmres", "cgnr"):
+            def solve(m, rhs, method=method):
+                return jx.solve_general(lambda x: m @ x, lambda x: m.T @ x,
+                                        rhs, tol=GEN_TOL, method=method)
+            out[f"solve_general_{method}"] = (
+                solve(shifted, b),
+                jax.grad(lambda m, rhs: jnp.dot(c, solve(m, rhs)),
+                         argnums=(0, 1))(shifted, b))
+        for method in ("power", "arnoldi"):
+            def eig(v, method=method):
+                return jx.dominant_eig(bell(v), method=method, tol=GEN_TOL)
+
+            def loss(v, eig=eig):
+                lam, l, r = eig(v)
+                return lam + jnp.sum(r ** 4) + jnp.dot(c, l)
+            out[f"eig_{method}"] = (eig(vals), jax.grad(loss)(vals),
+                                    jax.jvp(eig, (vals,), (direction,))[1])
+
+        def multi(v):
+            return jx.dominant_eig_multi(bell(v), m=2, tol=GEN_TOL)
+        out["eig_multi"] = (multi(vals), jax.grad(
+            lambda v: jnp.sum(multi(v)[0] * weights))(vals))
+
+        def pair(m):
+            return jx.dominant_eig_pair(jx.DenseOperator(m), **pair_kw)
+
+        def pair_loss(m):
+            lam, _, r = pair(m)
+            return lam.real + 0.5 * lam.imag + jnp.sum(r.real ** 3)
+        out["eig_pair"] = (pair(pair_a), jax.grad(pair_loss)(pair_a))
+
+        def spectrum(m):
+            return jx.dominant_eig_spectrum(jx.DenseOperator(m), SPEC_M,
+                                            structure=structure,
+                                            **pair_kw)[:3]
+
+        def spectrum_loss(m):
+            lams = spectrum(m)[0]
+            return jnp.sum(lams.real) + 0.3 * jnp.sum(jnp.abs(lams.imag))
+        out["eig_spectrum"] = (spectrum(pair_a),
+                               jax.grad(spectrum_loss)(pair_a))
+
+        def svd(m):
+            return jx.dominant_svd(m, r=2, k=64)
+        out["svd"] = (svd(ns), jax.grad(
+            lambda m: jnp.sum(svd(m)[1] * weights))(ns))
+        return out
+
+    got = oracles(*(jnp.asarray(t) for t in (
+        inp["ns_dense"], inp["b64"], inp["c64"], inp["pos_bell"][0],
+        inp["pos_dir"], inp["pair_a"])))
+    got = jax.tree.map(np.asarray, got)
+    got["structure"] = tuple(structure)
+    return got
+
+
 def _rel(a, b):
     a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
     return np.abs(a - b).max() / np.abs(b).max()
@@ -1509,9 +1815,10 @@ def test_checkpoint_round_trip_and_jax_load(ranks):
 def test_ranks_run_the_same_collectives(ranks):
     """Lockstep: every rank ran the same collectives, and the replicated
     results are bitwise the same on every rank, those of the Hermitian
-    solvers over sharded vectors too (every host branch there reads one
-    of them: breakdowns, the early exit, the residual reads of CG and
-    MINRES, LOBPCG's stop)."""
+    solvers and of the general tier over sharded vectors too (every host
+    branch there reads one of them: breakdowns, the early exit, the
+    residual reads of CG, MINRES, BiCGStab and GMRES, LOBPCG's stop, the
+    power loops' stop, the spectrum's decisions)."""
     p, results, _ = ranks
     first = results[0]
     for res in results[1:]:
@@ -1525,6 +1832,10 @@ def test_ranks_run_the_same_collectives(ranks):
             for i in _KRY_REPLICATED[name]:
                 assert np.array_equal(res[f"kry_{name}_sharded"][i],
                                       first[f"kry_{name}_sharded"][i]), name
+        for name, outputs in _GEN_REPLICATED.items():
+            for i in outputs:
+                assert np.array_equal(res[f"gen_{name}_sharded"][i],
+                                      first[f"gen_{name}_sharded"][i]), name
 
 
 # -- the Hermitian solvers over sharded vectors (item 18, steps 1-4) ----------
@@ -1766,7 +2077,156 @@ def test_krylov_option_on_sharded_vectors(ranks, name):
                         _jax_oracles())
 
 
-# -- the refusals, with no process group --------------------------------------
+# -- the general tier over sharded vectors (item 18, step 5) ------------------
+
+def _crel(a, b):
+    """max |a - b| / max |b|, complex arrays as they are."""
+    a, b = np.asarray(a), np.asarray(b)
+    return np.abs(a - b).max() / np.abs(b).max()
+
+
+def _sign_fixed(got, want):
+    """``got``'s columns with the signs that match ``want``'s (a singular
+    pair is defined up to one sign)."""
+    return got * np.sign((got * want).sum(axis=0))[None, :]
+
+
+def _gen_checks():
+    """Each general-tier case against the JAX package on the unsharded
+    operator: values at 1e-10, vectors at 1e-9, first derivatives at
+    1e-8 (the IFT solves stop at 1e-12 in both packages), the singular
+    vectors and their gradient at Lanczos's tolerance."""
+    def solve(x, want):
+        assert _crel(_vec(x, 0), want) <= 1e-10
+
+    def triple(outs, want, grad, panels=True):
+        (lam, l, r), g = want[:2]
+        assert _crel(outs[0][0], lam) <= 1e-10
+        assert _crel(_vec(outs, 1), l) <= 1e-9
+        assert _crel(_vec(outs, 2), r) <= 1e-9
+        got_g = _vec(outs, 3) if panels else _share(outs, 3)
+        assert _crel(got_g, g) <= grad
+
+    def eig(outs, want):
+        triple(outs, want, 1e-8)
+        if len(outs[0]) == 4:
+            return
+        dlam, dl, dr = want[2]
+        assert _crel(outs[0][4], dlam) <= 1e-8
+        assert _crel(_vec(outs, 5), dl) <= 1e-8
+        assert _crel(_vec(outs, 6), dr) <= 1e-8
+
+    def spectrum(outs, want, structure):
+        triple(outs, want, 1e-8, panels=False)
+        assert tuple(outs[0][4]) == tuple(STRUCTURE_CODES[k]
+                                          for k in structure)
+
+    def svd(outs, want):
+        (u, s, v), g = want
+        assert _crel(outs[0][0], s) <= 1e-9
+        assert _crel(_sign_fixed(_vec(outs, 1), u), u) <= 1e-7
+        assert _crel(_sign_fixed(_vec(outs, 2), v), v) <= 1e-7
+        assert _crel(_share(outs, 3), g) <= 1e-7
+
+    return {
+        "bicgstab": lambda outs, want: solve(outs, want["bicgstab"]),
+        "gmres": lambda outs, want: solve(outs, want["gmres"]),
+        **{f"solve_general_{m}": (
+            lambda outs, want, m=m: _check_solve_grads(
+                outs, want[f"solve_general_{m}"]))
+           for m in ("bicgstab", "gmres", "cgnr")},
+        "eig_power": lambda outs, want: eig(outs, want["eig_power"]),
+        "eig_arnoldi": lambda outs, want: eig(outs, want["eig_arnoldi"]),
+        "eig_multi": lambda outs, want: triple(outs, want["eig_multi"],
+                                               1e-8),
+        "eig_pair": lambda outs, want: triple(outs, want["eig_pair"], 1e-8,
+                                              panels=False),
+        "eig_spectrum": lambda outs, want: spectrum(
+            outs, want["eig_spectrum"], want["structure"]),
+        "svd": lambda outs, want: svd(outs, want["svd"]),
+    }
+
+
+# The outputs of each case that are replicated (the same on every rank).
+_GEN_REPLICATED = {
+    "eig_power": (0,), "eig_arnoldi": (0, 4),
+    "eig_second_order": (0, 1, 2), "eig_multi": (0,), "eig_pair": (0,),
+    "eig_spectrum": (0, 4), "svd": (0,)}
+
+
+def _layouts_agree(results, p, name, bar):
+    """Case ``name`` over sharded vectors against the replicated layout
+    at the same p: equal at p = 1, within ``bar`` of each output's scale
+    at p > 1 (the ranks' dots sum in another order)."""
+    for res in results:
+        for i, (got, want) in enumerate(zip(res[f"gen_{name}_sharded"],
+                                            res[f"gen_{name}_replicated"])):
+            if p == 1:
+                assert np.array_equal(got, want), (name, i)
+            else:
+                assert np.abs(got - want).max() <= \
+                    bar * np.abs(want).max(), (name, i)
+
+
+@pytest.mark.parametrize("name", sorted(_gen_checks()))
+def test_general_tier_on_sharded_vectors(ranks, name):
+    """Each entry point of the general tier (BiCGStab and GMRES on a
+    bound matvec, ``solve_general`` by its three methods with the
+    gradients in the matrix and the right-hand side, ``dominant_eig`` by
+    power and Arnoldi with the gradient of a loss on λ, l and r and
+    forward mode, ``dominant_eig_multi``, ``dominant_eig_pair``,
+    ``spectrum_structure`` and ``dominant_eig_spectrum``, ``dominant_svd``)
+    over sharded vectors: equal to the replicated layout at the same p
+    (exactly at p = 1, 1e-10 in f64 above; the rank's rows of each
+    vector, its share or panel of each gradient), and to the JAX
+    function on the unsharded operator."""
+    p, results, _ = ranks
+    _layouts_agree(results, p, name, 1e-10)
+    _gen_checks()[name]([res[f"gen_{name}_sharded"] for res in results],
+                        _jax_general())
+
+
+def test_general_tier_second_order_on_sharded_vectors(ranks):
+    """d²/dt² of λ + Σ r⁴ of ``dominant_eig`` along a direction of the
+    values: the bordered solves run inside the first backward, and the
+    second differentiates through them.  Equal to the replicated layout
+    at the same p (a missing mark where λ or ν enters the rank's rows
+    passes at first order and at p = 1, not at p = 2 and 4)."""
+    p, results, _ = ranks
+    _layouts_agree(results, p, "eig_second_order", 1e-9)
+
+
+def test_bordered_dot_counts_the_border_once(ranks):
+    """A bordered vector (x; ν) holds its border on the first rank only:
+    the dot and the norm of two, summed over the ranks, are the whole
+    vectors' (a border on every rank would count ν p times)."""
+    p, results, _ = ranks
+    for res in results:
+        for key in ("bordered_dot", "bordered_norm"):
+            got, want = res[key]
+            assert abs(got - want) <= 1e-13 * abs(want), key
+
+
+def test_stacked_layout_is_the_whole_embedding_vector(ranks):
+    """The stacked layout of the Hermitian embedding: a rank's rows are
+    its rows of u and of v; the draw is those rows of the whole draw;
+    the pivot on a tie between a u row of rank 1 and a v row of rank 0
+    is the lower global index (``torch.argmax`` of the whole vector, not
+    rank order), for a vector and per column of a block; ``take`` and
+    ``one_hot`` at that index."""
+    p, results, _ = ranks
+    for res in results:
+        assert res["stacked_draw"] and res["stacked_rows"]
+        idx, entry, want_idx, want_entry = res["stacked_pivot"]
+        assert (idx, entry) == (want_idx, want_entry)
+        bidx, bentry, bwant, bwant_entry = res["stacked_pivot_block"]
+        assert bidx == bwant and bentry == bwant_entry
+        got, want = res["stacked_take"]
+        assert got == want
+        assert res["stacked_one_hot"]
+
+
+# -- one rank, with no spawn -------------------------------------------------
 
 def _solo_operator():
     """A sharded-vector operator on one rank, built with its ShardGroup
@@ -1778,50 +2238,65 @@ def _solo_operator():
                                        vectors="sharded")
 
 
-def _out_of_slice():
-    """The general (non-Hermitian) tier, the one left on sharded vectors
-    (item 18, step 5)."""
-    v = torch.zeros(16, dtype=F64)
-    v[0] = 1.0
-    return {
-        "bicgstab": lambda op: port.bicgstab(op.matvec, v, device="cpu"),
-        "gmres": lambda op: port.gmres(op.matvec, v, device="cpu"),
-        "solve_general": lambda op: port.solve_general(op, v, device="cpu"),
-        "dominant_eig": lambda op: port.dominant_eig(op, device="cpu"),
-        "dominant_eig_multi": lambda op: port.dominant_eig_multi(
-            op, device="cpu"),
-        "dominant_eig_pair": lambda op: port.dominant_eig_pair(
-            op, device="cpu"),
-        "dominant_eig_spectrum": lambda op: port.dominant_eig_spectrum(
-            op, device="cpu"),
-        "spectrum_structure": lambda op: port.spectrum_structure(
-            op, device="cpu"),
-        "dominant_svd": lambda op: port.dominant_svd(op, r=2, k=4,
-                                                     device="cpu"),
-    }
+def _solo_general(name):
+    """The general tier on a one-rank group: ``name``'s call, its
+    operator built from a global dense matrix in the given layout."""
+    rng = np.random.default_rng(29)
+    pos = np.abs(rng.standard_normal((16, 16))) + 0.01
+    blk = np.diag(np.concatenate([[0.0, 0.0], 1.5 * rng.random(14)]))
+    blk[:2, :2] = [[0.0, -3.0], [3.0, 0.0]]
+    q, _ = np.linalg.qr(rng.standard_normal((16, 16)))
+    pair_a = _t(q @ blk @ q.T)
+    shifted = _t(rng.standard_normal((16, 16)) + 6.0 * np.eye(16))
+    b = _t(rng.standard_normal(16))
+
+    def call(vectors):
+        sg = ShardGroup(group=None, rank=0, size=1, backend="gloo")
+
+        def op(a):
+            return port.RowShardedOperator(a, sg, vectors=vectors)
+        return {
+            "bicgstab": lambda: [port.bicgstab(op(shifted).matvec, b,
+                                               device="cpu")],
+            "gmres": lambda: [port.gmres(op(shifted).matvec, b, restart=6,
+                                         device="cpu")],
+            "solve_general": lambda: [port.solve_general(op(shifted), b,
+                                                         device="cpu")],
+            "dominant_eig": lambda: list(port.dominant_eig(
+                op(_t(pos)), device="cpu")),
+            "dominant_eig_multi": lambda: list(port.dominant_eig_multi(
+                op(_t(pos)), device="cpu")),
+            "dominant_eig_pair": lambda: list(port.dominant_eig_pair(
+                op(pair_a), device="cpu")),
+            "dominant_eig_spectrum": lambda: list(port.dominant_eig_spectrum(
+                op(pair_a), m=2, device="cpu")[:3]),
+            "spectrum_structure": lambda: [torch.tensor([
+                STRUCTURE_CODES[k] for k in port.spectrum_structure(
+                    op(pair_a), m=2, device="cpu")])],
+            "dominant_svd": lambda: list(port.dominant_svd(
+                op(_t(pos)), r=2, k=16, device="cpu")),
+        }[name]()
+    return call
 
 
-@pytest.mark.parametrize("name", sorted(_out_of_slice()))
-def test_out_of_slice_solver_refuses_sharded_vectors(name):
-    """Every entry point that does not carry the layout raises, naming
-    the queue item that will: a local dot over the rank's rows would be a
-    plausible wrong number."""
-    with pytest.raises(NotImplementedError,
-                       match=r"ROADMAP\.md, queue 1 item 18"):
-        _out_of_slice()[name](_solo_operator())
+_GENERAL_NAMES = ("bicgstab", "dominant_eig", "dominant_eig_multi",
+                  "dominant_eig_pair", "dominant_eig_spectrum",
+                  "dominant_svd", "gmres", "solve_general",
+                  "spectrum_structure")
 
 
-def test_refuse_sharded_is_called_at_the_general_tier_only():
-    """``refuse_sharded`` has exactly the nine call sites of the general
-    tier, the entries of ``_out_of_slice``."""
-    import pathlib
-    import re
-    pkg = pathlib.Path(port.__file__).parent
-    calls = sorted(
-        m.group(1) for path in pkg.rglob("*.py")
-        for m in re.finditer(r'refuse_sharded\("([^"]+)"',
-                             path.read_text()))
-    assert calls == sorted(_out_of_slice())
+@pytest.mark.parametrize("name", _GENERAL_NAMES)
+def test_general_tier_runs_on_sharded_vectors(name, tmp_path):
+    """Each entry point of the general tier on a one-rank sharded-vector
+    operator gives the replicated layout's outputs exactly."""
+    port.init_distributed("gloo", f"file://{tmp_path}/store", 0, 1)
+    try:
+        call = _solo_general(name)
+        sharded, replicated = call("sharded"), call("replicated")
+    finally:
+        dist.destroy_process_group()
+    for got, want in zip(sharded, replicated):
+        assert torch.equal(got, want), name
 
 
 def _row_sharded_types(sg):
