@@ -40,6 +40,7 @@ import torch
 from ..ops.eigh import dominant_eigh, dominant_eigh_multi
 from ..ops.observables import fidelity_susceptibility as _chi
 from ..ops.operators import _BlockMatrixFreeOperator, hdot, resolve_device
+from ..ops.spans import span
 from ..parallel.collectives import ppermute
 from ..parallel.mesh import SHARD_AXIS, make_mesh
 from ..parallel.sharded import ShardedMatrixFreeOperator
@@ -83,11 +84,13 @@ def flip_sum(x: torch.Tensor, n: int) -> torch.Tensor:
 
 def tfim_matvec(params, x: torch.Tensor) -> torch.Tensor:
     """y = H(g) x, matrix-free, for a state (2^n,) or a block (2^n, m).
-    params = (g, zz_diagonal)."""
+    params = (g, zz_diagonal).  Each call is one ``tfim_matvec`` range
+    while a profiler records, whichever solver makes the product."""
     g, diag = params
     n = diag.shape[0].bit_length() - 1
-    d = diag.to(x.dtype)
-    return (d if x.ndim == 1 else d[:, None]) * x - g * flip_sum(x, n)
+    with span("tfim_matvec"):
+        d = diag.to(x.dtype)
+        return (d if x.ndim == 1 else d[:, None]) * x - g * flip_sum(x, n)
 
 
 def _coupling(g, dtype, dev):

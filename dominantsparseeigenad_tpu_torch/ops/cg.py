@@ -58,7 +58,6 @@ from __future__ import annotations
 from typing import Callable
 
 import torch
-from torch.profiler import record_function
 
 from .lanczos import arnoldi_step
 from .operators import (LinearOperator, _add, _per_lane, _project_out,
@@ -68,6 +67,7 @@ from .operators import (LinearOperator, _add, _per_lane, _project_out,
                         nestable_jvp, partial_vjp, per_lane_vmap, rebind,
                         tol_floor, vector_layout)
 from .precond import _apply_columns
+from .spans import count, host_read, recording, span
 
 # The JAX loops test the residual on the device every iteration inside a
 # ``lax.while_loop``.  Eager PyTorch would have to read it on the host,
@@ -100,7 +100,13 @@ def _cg_loop(matvec: Callable, b, tol: float, maxiter, x0=None,
     counting the products made (frozen iterations included).  Stops once
     ``||r|| <= max(tol ||b||, atol)``, as the JAX loop does.  Under a
     sharded ``layout`` b is the rank's rows and every dot is summed over
-    the ranks."""
+    the ranks.
+
+    While a profiler records, the steps that ran unfrozen are summed on
+    the device (one add a step) and come back in the test's own read
+    every ``CHECK_EVERY`` steps: the counter ``cg_iterations``.  A solve
+    that ``maxiter`` stops reads nothing after its last block, whose
+    steps then count as unfrozen."""
     if maxiter is None:
         maxiter = 10 * (b.shape[-1] if layout is None else layout.dim)
     if x0 is None:
@@ -120,13 +126,25 @@ def _cg_loop(matvec: Callable, b, tol: float, maxiter, x0=None,
     tol = tol_floor(tol, b.dtype)
     target2 = torch.clamp(tol * tol * dot(b, b), min=float(atol) ** 2)
     zero = torch.zeros_like(rz)
-    it = 0
+    useful = torch.zeros((), dtype=torch.int64, device=b.device) \
+        if recording() else None
+    ran = checked = it = 0
     while it < maxiter:
-        if not bool(rr > target2):
+        if useful is None:
+            go = host_read("cg_check", rr > target2)
+        else:
+            # The test and the count in one value: go on if it is >= 0,
+            # and the unfrozen steps are it or its complement.
+            state = host_read("cg_check",
+                              torch.where(rr > target2, useful, ~useful))
+            go, ran, checked = state >= 0, max(state, ~state), it
+        if not go:
             break
         for _ in range(min(CHECK_EVERY, maxiter - it)):
             active = rr > target2
-            with record_function("cg_matvec"):
+            if useful is not None:
+                useful = useful + active
+            with span("cg_matvec"):
                 ap = matvec(p)
             denom = dot(p, ap)
             alpha = torch.where(active & (denom != 0), rz / _nonzero(denom),
@@ -141,6 +159,8 @@ def _cg_loop(matvec: Callable, b, tol: float, maxiter, x0=None,
             rz = torch.where(active, rz_new, rz)
             rr = torch.where(active, rr_new, rr)
             it += 1
+    if useful is not None:
+        count("cg_iterations", ran + it - checked)
     return x, it
 
 
@@ -187,7 +207,7 @@ def _bicgstab_loop(matvec: Callable, b, tol: float, maxiter, x0=None,
     its = torch.zeros((), dtype=torch.int64, device=b.device)
     it = 0
     while it < maxiter:
-        if not bool((rr > target2) & ~stop):
+        if not host_read("bicgstab_check", (rr > target2) & ~stop):
             break
         for _ in range(min(CHECK_EVERY, maxiter - it)):
             active = (rr > target2) & ~stop
@@ -198,14 +218,14 @@ def _bicgstab_loop(matvec: Callable, b, tol: float, maxiter, x0=None,
                                * (alpha / torch.where(omega == 0, one,
                                                       omega)))
             p_new = r + beta * (p - omega * v)
-            with record_function("bicgstab_matvec"):
+            with span("bicgstab_matvec"):
                 v_new = matvec(p_new)
             denom = dot(rhat, v_new)
             broke = broke | (denom.abs() <= eps * rhat_norm * norm(v_new))
             alpha_new = torch.where(broke, zero,
                                     rho_new / torch.where(broke, one, denom))
             s = r - alpha_new * v_new
-            with record_function("bicgstab_matvec"):
+            with span("bicgstab_matvec"):
                 t = matvec(s)
             tt = dot(t, t)
             omega_new = torch.where(tt == 0, zero,

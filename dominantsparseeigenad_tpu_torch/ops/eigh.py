@@ -124,6 +124,7 @@ from .operators import (_reduced, as_operator, check_device, hdot, hmatmul,
                         tol_floor, vector_layout)
 from .precond import _apply_columns
 from .restart import lanczos_restarted
+from .spans import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -307,57 +308,61 @@ class _DominantEigh(torch.autograd.Function):
         tangents ``dparams`` (the JAX package's ``_pair_jvp``); zero
         tangents for the info fields (None: PyTorch's zero tangent of an
         output marked non-differentiable)."""
-        opts = ctx.opts
-        op, pairs = _DominantEigh._saved(ctx)
-        layout = vector_layout(op)
-        moving = any(t is not None for t in dparams)
-        tangents = []
-        for sign, lam, v in zip(_signs(opts.extreme), pairs[::2],
-                                pairs[1::2]):
-            if not moving:
-                tangents += [torch.zeros_like(lam), torch.zeros_like(v)]
-                continue
-            dav = op.tangent_matvec(v, dparams)
-            # <v, dA v> is real for a Hermitian dA, as λ is.
-            dlam = layout_sum(layout, hdot(v, dav)).real
-            dv = solve_deflated(op, lam, v,
-                                -(dav - layout_bcast(layout, dlam) * v),
-                                definite_sign=sign, tol=opts.tol,
-                                maxiter=opts.maxiter, precond=opts.precond,
-                                device=op.device)
-            tangents += [dlam, _pivot_phase_project(v, dv, layout)]
-        return (*tangents, *(None,) * ctx.n_info)
+        with span("ift_jvp"):
+            opts = ctx.opts
+            op, pairs = _DominantEigh._saved(ctx)
+            layout = vector_layout(op)
+            moving = any(t is not None for t in dparams)
+            tangents = []
+            for sign, lam, v in zip(_signs(opts.extreme), pairs[::2],
+                                    pairs[1::2]):
+                if not moving:
+                    tangents += [torch.zeros_like(lam), torch.zeros_like(v)]
+                    continue
+                dav = op.tangent_matvec(v, dparams)
+                # <v, dA v> is real for a Hermitian dA, as λ is.
+                dlam = layout_sum(layout, hdot(v, dav)).real
+                dv = solve_deflated(op, lam, v,
+                                    -(dav - layout_bcast(layout, dlam) * v),
+                                    definite_sign=sign, tol=opts.tol,
+                                    maxiter=opts.maxiter,
+                                    precond=opts.precond, device=op.device)
+                tangents += [dlam, _pivot_phase_project(v, dv, layout)]
+            return (*tangents, *(None,) * ctx.n_info)
 
     @staticmethod
     def backward(ctx, *bars):
-        opts = ctx.opts
-        op, pairs = _DominantEigh._saved(ctx)
-        layout = vector_layout(op)
-        grads = [None] * len(op.parameters())
-        for sign, lam, v, lam_bar, v_bar in zip(
-                _signs(opts.extreme), pairs[::2], pairs[1::2], bars[0::2],
-                bars[1::2]):
-            if lam_bar is None and v_bar is None:
-                continue
-            # u = λ̄ v + x, x = solve_deflated(A, λ, v, -(I - v v^H) v̄);
-            # a pair whose v̄ never arrived needs no solve.
-            u = torch.zeros_like(v) if lam_bar is None \
-                else layout_bcast(layout, lam_bar) * v
-            if v_bar is not None:
-                v_bar = _pivot_phase_cotangent(v, v_bar, layout)
-                b = -(v_bar - v * _reduced(layout, hdot(v, v_bar)))
-                u = u + solve_deflated(op, lam, v, b, definite_sign=sign,
-                                       tol=opts.tol, maxiter=opts.maxiter,
-                                       precond=opts.precond,
-                                       device=op.device)
-            # u^H (dA/dθ) v: differentiate one matvec A(θ) v with output
-            # cotangent u, v held constant (under create_graph v's own
-            # history stays in the graph: "recursive, so higher order").
-            got = partial_vjp(op, lambda held: held.matvec(v), [], u,
-                              ctx.needs_input_grad[5:])
-            grads = [g if h is None else h if g is None else g + h
-                     for g, h in zip(grads, got)]
-        return (None, None, None, None, None, *grads)
+        with span("ift_backward"):
+            opts = ctx.opts
+            op, pairs = _DominantEigh._saved(ctx)
+            layout = vector_layout(op)
+            grads = [None] * len(op.parameters())
+            for sign, lam, v, lam_bar, v_bar in zip(
+                    _signs(opts.extreme), pairs[::2], pairs[1::2],
+                    bars[0::2], bars[1::2]):
+                if lam_bar is None and v_bar is None:
+                    continue
+                # u = λ̄ v + x, x = solve_deflated(A, λ, v, -(I - v v^H)
+                # v̄); a pair whose v̄ never arrived needs no solve.
+                u = torch.zeros_like(v) if lam_bar is None \
+                    else layout_bcast(layout, lam_bar) * v
+                if v_bar is not None:
+                    v_bar = _pivot_phase_cotangent(v, v_bar, layout)
+                    b = -(v_bar - v * _reduced(layout, hdot(v, v_bar)))
+                    u = u + solve_deflated(op, lam, v, b, definite_sign=sign,
+                                           tol=opts.tol,
+                                           maxiter=opts.maxiter,
+                                           precond=opts.precond,
+                                           device=op.device)
+                # u^H (dA/dθ) v: differentiate one matvec A(θ) v with
+                # output cotangent u, v held constant (under create_graph
+                # v's own history stays in the graph: "recursive, so
+                # higher order").
+                got = partial_vjp(op, lambda held: held.matvec(v), [], u,
+                                  ctx.needs_input_grad[5:])
+                grads = [g if h is None else h if g is None else g + h
+                         for g, h in zip(grads, got)]
+            return (None, None, None, None, None, *grads)
 
 
 def dominant_eigh(op, k: int = 128, *, extreme: str = "min",
@@ -666,13 +671,15 @@ class _DominantEighMulti(torch.autograd.Function):
         one SpMM on the tangent values) and one batched deflated solve.
         The info fields get zero tangents (None, as in
         :class:`_DominantEigh`)."""
-        op, lams, v = _DominantEighMulti._saved(ctx)
-        info = (None,) * ctx.n_info
-        if all(t is None for t in dparams):
-            return (torch.zeros_like(lams), torch.zeros_like(v), *info)
-        return (*_block_tangents(op, lams, v, dparams, ctx.opts,
-                                 _DominantEighMulti._solve(ctx, op, lams,
-                                                           v)), *info)
+        with span("ift_jvp"):
+            op, lams, v = _DominantEighMulti._saved(ctx)
+            info = (None,) * ctx.n_info
+            if all(t is None for t in dparams):
+                return (torch.zeros_like(lams), torch.zeros_like(v), *info)
+            return (*_block_tangents(op, lams, v, dparams, ctx.opts,
+                                     _DominantEighMulti._solve(ctx, op,
+                                                               lams, v)),
+                    *info)
 
     @staticmethod
     def _solve(ctx, op, lams, v):
@@ -685,15 +692,16 @@ class _DominantEighMulti(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, lams_bar, v_bar, *info_bar):
-        op, lams, v = _DominantEighMulti._saved(ctx)
-        if lams_bar is None and v_bar is None:
-            return (None,) * (5 + len(op.parameters()))
-        u = _block_cotangent(lams, v, lams_bar, v_bar, ctx.opts,
-                             _DominantEighMulti._solve(ctx, op, lams, v),
-                             vector_layout(op))
-        grads = partial_vjp(op, lambda held: held.matmat(v), [], u,
-                            ctx.needs_input_grad[5:])
-        return (None, None, None, None, None, *grads)
+        with span("ift_backward"):
+            op, lams, v = _DominantEighMulti._saved(ctx)
+            if lams_bar is None and v_bar is None:
+                return (None,) * (5 + len(op.parameters()))
+            u = _block_cotangent(lams, v, lams_bar, v_bar, ctx.opts,
+                                 _DominantEighMulti._solve(ctx, op, lams, v),
+                                 vector_layout(op))
+            grads = partial_vjp(op, lambda held: held.matmat(v), [], u,
+                                ctx.needs_input_grad[5:])
+            return (None, None, None, None, None, *grads)
 
 
 def dominant_eigh_multi(op, r: int = 4, k: int = 128, *,

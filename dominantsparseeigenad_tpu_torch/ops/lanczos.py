@@ -17,9 +17,11 @@ conjugate the basis, α = Re<q, A q> and β = ||w|| are real, so the
 tridiagonal T stays real (solved in float64) and the Ritz values are
 real; a complex basis cannot be stored narrower (no complex bfloat16).
 
-Profiler ranges name the step's phases as the JAX package's
-``jax.named_scope`` does: ``lanczos_matvec`` around the product,
-``lanczos_reorth`` around the reorthogonalization passes.
+Profiler ranges (``spans.py``, opened only while a profiler records)
+name the step's phases as the JAX package's ``jax.named_scope`` does:
+``lanczos_matvec`` around the product, ``lanczos_reorth`` around the
+reorthogonalization passes; the host reads of β, of the early exit's
+test and of T's ``eigh`` are ``host_read`` ranges.
 
 On an operator whose vectors are sharded over ranks
 (``operators.vector_layout``) the loops run on the rank's rows: a
@@ -38,12 +40,12 @@ from typing import NamedTuple
 
 import torch
 from torch._C._functorch import is_functorch_wrapped_tensor
-from torch.profiler import record_function
 
 from .operators import (_reduced, as_operator, check_device, hdot, hmatmul,
                         layout_bcast, layout_norm, layout_sum, local_dim,
                         outside_transforms, pivot_gauge, real_dtype,
                         tol_floor, under_vmap, vector_layout)
+from .spans import host_read, span
 
 
 def _breakdown_rel_tol(real_dtype) -> float:
@@ -121,8 +123,9 @@ def _tridiagonal_eigh(alphas, betas):
     float32 ``eigh`` of a 60 x 60 T on an H100 put λ_min 6.6e-6 (relative)
     off the float64 eigenvalue of the same T, 50 times float32 round-off;
     T is small, so the float64 solve costs nothing that matters."""
-    evals, evecs = torch.linalg.eigh(_tridiagonal(alphas.double(),
-                                                  betas.double()))
+    with host_read("lanczos_tridiagonal_eigh"):
+        evals, evecs = torch.linalg.eigh(_tridiagonal(alphas.double(),
+                                                      betas.double()))
     return evals.to(alphas.dtype), evecs.to(alphas.dtype)
 
 
@@ -243,21 +246,21 @@ def _step(op, basis, i, q, q_prev, beta_prev, generator, reorthogonalize,
     """
     dtype = real_dtype(q.dtype)
     layout = vector_layout(op)
-    with record_function("lanczos_matvec"):
+    with span("lanczos_matvec"):
         w = op.matvec(q)
     # <q, A q> is real for a Hermitian A: T stays real.
     alpha = layout_sum(layout, hdot(q, w)).real
     w = w - layout_bcast(layout, alpha) * q \
         - layout_bcast(layout, beta_prev) * q_prev
     if reorthogonalize:
-        with record_function("lanczos_reorth"):
+        with span("lanczos_reorth"):
             for _ in range(reorth_passes):
                 w = _project_out(basis[:i + 1], w, layout)
     beta = layout_norm(layout, w)
     scale = torch.sqrt(alpha * alpha + beta_prev * beta_prev) + 1.0
     broke = beta <= _breakdown_rel_tol(dtype) * scale
     if r_perp is None:
-        if bool(broke):
+        if host_read("lanczos_beta", broke):
             r = _draw(op.dim, generator, q.dtype, q.device, layout)
             r = _project_out(basis[:i + 1], r, layout)
             q_next = r / (layout_norm(layout, r) + torch.finfo(dtype).tiny)
@@ -467,7 +470,7 @@ def lanczos_adaptive(op, k: int, *, extreme: str = "min",
         converged = resid <= tol
         # A replicated estimate (T is the same on every rank): every rank
         # stops at the same checkpoint.
-        if bool(converged):
+        if host_read("lanczos_converged", converged):
             break
     layout = vector_layout(op)
     v = pivot_gauge(_ritz_vector(basis[:done].T, y, layout), layout=layout)

@@ -20,6 +20,17 @@ iterating past it can destabilize LOBPCG (the whitened Gram matrix turns
 ill-conditioned once the residual block is at round-off), and one read
 is small next to two SpMMs.
 
+While a profiler records, each iteration's Rayleigh-Ritz step is one
+``lobpcg_rayleigh_ritz`` range (``spans.py``): from the normalization of
+W to the whitened P (the whitenings, the Rayleigh-Ritz ``eigh``, the
+cat and the block products of the small bases).  W's projection, the
+two block products and the residual stay outside it, in the order the
+iteration runs them: one range holding W's projection as well needs the
+next W formed before the P product is launched, and the card then
+idles while the host launches the residual's read (2-4% slower at
+config #5's r = 8 on an H100).  The read and each ``eigh``, which checks
+its error codes on the host, are ``host_read`` ranges.
+
 A complex Hermitian operator runs the same iteration with Hermitian Gram
 matrices and conjugated projections; the Ritz values are real.
 
@@ -50,6 +61,7 @@ import torch
 from .operators import (_reduced, as_operator, check_device, common_layout,
                         hmatmul, layout_norm, layout_sum, local_dim,
                         pivot_gauge, real_dtype, tol_floor, vector_layout)
+from .spans import host_read, span
 
 
 class LobpcgInfo(NamedTuple):
@@ -86,7 +98,8 @@ def _whiten_metric(S, MS, companions, drop_tol, layout=None):
     ``S`` (``S_white = S t``)."""
     g = layout_sum(layout, hmatmul(S.mH, MS))
     g = 0.5 * (g + g.mH)
-    d, u = torch.linalg.eigh(g)
+    with host_read("lobpcg_whiten_eigh"):
+        d, u = torch.linalg.eigh(g)
     tiny = torch.finfo(d.dtype).tiny
     keep = d > drop_tol * torch.clamp(d[-1], min=tiny)
     scale = torch.where(keep, torch.rsqrt(torch.clamp(d, min=tiny)),
@@ -110,7 +123,9 @@ def _rayleigh_ritz(So, ASo, keep, r, layout=None):
     t = 0.5 * (t + t.mH)
     big = 2.0 * torch.linalg.matrix_norm(t) + 1.0
     penalty = torch.where(keep, torch.zeros_like(big), big)
-    evals, evecs = torch.linalg.eigh(t + torch.diag(penalty).to(t.dtype))
+    with host_read("lobpcg_ritz_eigh"):
+        evals, evecs = torch.linalg.eigh(t + torch.diag(penalty)
+                                         .to(t.dtype))
     return evals[:r], evecs[:, :r]
 
 
@@ -194,7 +209,7 @@ def lobpcg_eigh(op, r: int = 4, *, extreme: str = "min", maxiter: int = 200,
     res = resid_norm(x, ax, lams)
     p = ap = zeros
     it = 0
-    while it < maxiter and float(res) > tol:
+    while it < maxiter and host_read("lobpcg_residual", res) > tol:
         rblk = ax - x * lams[None, :]
         w = precond(rblk) if precond is not None else rblk
         # Project W off span(X) twice and unit-normalize its columns, so
@@ -202,25 +217,27 @@ def lobpcg_eigh(op, r: int = 4, *, extreme: str = "min", maxiter: int = 200,
         for _ in range(2):
             w = w - hmatmul(x, _reduced(layout, hmatmul(x.mH, w)))
         aw = amat(w)
-        w, aw = _colnormalize((w, aw), layout)
-        s = torch.cat([x, w, p], dim=1)
-        a_s = torch.cat([ax, aw, ap], dim=1)
-        so, aso, keep, t = _whiten(s, a_s, drop_tol, layout)
-        lams, y = _rayleigh_ritz(so, aso, keep, r, layout)
-        x_new = hmatmul(so, y)
-        ax = hmatmul(aso, y)
-        # Next conjugate directions: the W/P part of the update, taken in
-        # the original [X, W, P] coordinates (zero the X rows of t @ y),
-        # projected off the new X and orthonormalized.  A P is applied
-        # again rather than tracked: t carries rsqrt-of-tiny factors near
-        # ill-conditioning, and a tracked image loses consistency.
-        c_wp = hmatmul(t, y)
-        c_wp[:r] = 0
-        p_raw = hmatmul(s, c_wp)
-        p_raw = p_raw - hmatmul(x_new,
-                                _reduced(layout, hmatmul(x_new.mH, p_raw)))
-        (p,), _, _ = _whiten_metric(p_raw, p_raw, (p_raw,), drop_tol,
-                                    layout)
+        with span("lobpcg_rayleigh_ritz"):
+            w, aw = _colnormalize((w, aw), layout)
+            s = torch.cat([x, w, p], dim=1)
+            a_s = torch.cat([ax, aw, ap], dim=1)
+            so, aso, keep, t = _whiten(s, a_s, drop_tol, layout)
+            lams, y = _rayleigh_ritz(so, aso, keep, r, layout)
+            x_new = hmatmul(so, y)
+            ax = hmatmul(aso, y)
+            # Next conjugate directions: the W/P part of the update, taken
+            # in the original [X, W, P] coordinates (zero the X rows of
+            # t @ y), projected off the new X and orthonormalized.  A P is
+            # applied again rather than tracked: t carries rsqrt-of-tiny
+            # factors near ill-conditioning, and a tracked image loses
+            # consistency.
+            c_wp = hmatmul(t, y)
+            c_wp[:r] = 0
+            p_raw = hmatmul(s, c_wp)
+            p_raw = p_raw - hmatmul(
+                x_new, _reduced(layout, hmatmul(x_new.mH, p_raw)))
+            (p,), _, _ = _whiten_metric(p_raw, p_raw, (p_raw,), drop_tol,
+                                        layout)
         ap = amat(p)
         x = x_new
         res = resid_norm(x, ax, lams)
@@ -296,7 +313,7 @@ def lobpcg_eigh_general(a, b, r: int = 4, *, extreme: str = "min",
     res = resid_norm(ax, bx, lams)
     p = ap = bp = zeros
     it = 0
-    while it < maxiter and float(res) > tol:
+    while it < maxiter and host_read("lobpcg_residual", res) > tol:
         rblk = ax - bx * lams[None, :]
         w = precond(rblk) if precond is not None else rblk
         # B-project W off span(X) twice, then unit-normalize its columns.
@@ -304,24 +321,27 @@ def lobpcg_eigh_general(a, b, r: int = 4, *, extreme: str = "min",
             w = w - hmatmul(x, _reduced(layout, hmatmul(bx.mH, w)))
         aw = amat(w)
         bw = b.matmat(w)
-        w, aw, bw = _colnormalize((w, aw, bw), layout)
-        s = torch.cat([x, w, p], dim=1)
-        a_s = torch.cat([ax, aw, ap], dim=1)
-        b_s = torch.cat([bx, bw, bp], dim=1)
-        (so, aso, bso), keep, t = _whiten_metric(s, b_s, (s, a_s, b_s),
-                                                 drop_tol, layout)
-        lams, y = _rayleigh_ritz(so, aso, keep, r, layout)
-        x_new, ax, bx_new = hmatmul(so, y), hmatmul(aso, y), hmatmul(bso, y)
-        # The W/P part of the update in the original [X, W, P]
-        # coordinates, B-projected off the new X, Euclidean-whitened for
-        # scale, and both operators applied again (as in lobpcg_eigh).
-        c_wp = hmatmul(t, y)
-        c_wp[:r] = 0
-        p_raw = hmatmul(s, c_wp)
-        p_raw = p_raw - hmatmul(x_new,
-                                _reduced(layout, hmatmul(bx_new.mH, p_raw)))
-        (p,), _, _ = _whiten_metric(p_raw, p_raw, (p_raw,), drop_tol,
-                                    layout)
+        with span("lobpcg_rayleigh_ritz"):
+            w, aw, bw = _colnormalize((w, aw, bw), layout)
+            s = torch.cat([x, w, p], dim=1)
+            a_s = torch.cat([ax, aw, ap], dim=1)
+            b_s = torch.cat([bx, bw, bp], dim=1)
+            (so, aso, bso), keep, t = _whiten_metric(
+                s, b_s, (s, a_s, b_s), drop_tol, layout)
+            lams, y = _rayleigh_ritz(so, aso, keep, r, layout)
+            x_new, ax, bx_new = (hmatmul(so, y), hmatmul(aso, y),
+                                 hmatmul(bso, y))
+            # The W/P part of the update in the original [X, W, P]
+            # coordinates, B-projected off the new X, Euclidean-whitened
+            # for scale, and both operators applied again (as in
+            # lobpcg_eigh).
+            c_wp = hmatmul(t, y)
+            c_wp[:r] = 0
+            p_raw = hmatmul(s, c_wp)
+            p_raw = p_raw - hmatmul(
+                x_new, _reduced(layout, hmatmul(bx_new.mH, p_raw)))
+            (p,), _, _ = _whiten_metric(p_raw, p_raw, (p_raw,), drop_tol,
+                                        layout)
         ap = amat(p)
         bp = b.matmat(p)
         x, bx = x_new, bx_new

@@ -22,7 +22,10 @@ random vector that continues a broken-down recurrence is a pure function
 of (0x5452, step index), a fresh generator seeded ``0x5452 + j`` (the JAX
 package folds the step index into ``PRNGKey(0x5452)``), so a resumed
 process draws what an uninterrupted one draws.  The breakdown test is
-read on the host every step (the JAX ``lax.cond``).
+read on the host every step (the JAX ``lax.cond``).  Each host read is
+a ``host_read`` range of ``spans.py``, and each step's projections
+against the window the range ``restart_reorth``, while a profiler
+records.
 
 Forward only: ``dominant_eigh(restart_cycles=...)`` differentiates the
 converged pair by the implicit-function-theorem rule of ``eigh.py``.
@@ -48,6 +51,7 @@ from .lanczos import _breakdown_rel_tol, _tridiagonal_eigh, lanczos
 from .operators import (_reduced, as_operator, check_device, hdot, hmatmul,
                         layout_norm, layout_sum, local_dim, pivot_gauge,
                         real_dtype, vector_layout)
+from .spans import host_read, span
 
 # The JAX package's restart stream, PRNGKey(0x5452).
 RESTART_SEED = 0x5452
@@ -90,7 +94,8 @@ def _fresh_vector(n, j, dtype, dev, rows, layout=None):
     r = _project(rows, _project(rows, r / layout_norm(layout, r), layout),
                  layout)
     rn = layout_norm(layout, r)
-    exhausted = bool(rn <= (float(n) ** 0.5) * _breakdown_rel_tol(rdt))
+    exhausted = host_read("restart_fresh",
+                          rn <= (float(n) ** 0.5) * _breakdown_rel_tol(rdt))
     return r / torch.clamp(rn, min=torch.finfo(rdt).tiny), exhausted
 
 
@@ -105,7 +110,8 @@ def _continuation(w, b, scale, dead_in, j, rows, n, layout=None):
     already, the remaining steps are dead: zero vectors, zero
     couplings.  ``n`` is the whole dimension; ``b`` and ``scale`` are
     replicated under a sharded ``layout``."""
-    broke = bool(b <= _breakdown_rel_tol(b.dtype) * scale)
+    broke = host_read("restart_breakdown",
+                      b <= _breakdown_rel_tol(b.dtype) * scale)
     dead = dead_in
     if broke and not dead_in:
         q_next, dead = _fresh_vector(n, j, w.dtype, w.device, rows, layout)
@@ -145,14 +151,15 @@ def _cycle(op, state: RestartState, k: int, extreme: str,
     # cycle dead: a fresh vector there would re-derive eigenvalues that
     # theta already holds, and their duplicate Ritz vectors would break
     # the next cycle's orthonormality.
-    dead = bool(layout_norm(layout, state.q) < 0.5)
+    dead = host_read("restart_dead", layout_norm(layout, state.q) < 0.5)
     q = slab[l]
     w = op.matvec(q)
     alpha = torch.zeros((), dtype=rdt, device=dev) if dead \
         else layout_sum(layout, hdot(q, w)).real
     w = w - alpha * q - hmatmul(state.s.to(dtype), slab[:l])
-    for _ in range(reorth_passes):
-        w = _project(slab[:l + 1], w, layout)
+    with span("restart_reorth"):
+        for _ in range(reorth_passes):
+            w = _project(slab[:l + 1], w, layout)
     beta = layout_norm(layout, w)
     scale = alpha.abs() + torch.linalg.vector_norm(state.s) + 1.0
     dead_mask[l] = dead
@@ -168,8 +175,9 @@ def _cycle(op, state: RestartState, k: int, extreme: str,
         a = torch.zeros((), dtype=rdt, device=dev) if dead \
             else layout_sum(layout, hdot(q, w)).real
         w = w - a * q - beta_prev * q_prev
-        for _ in range(reorth_passes):
-            w = _project(slab[:j + 1], w, layout)
+        with span("restart_reorth"):
+            for _ in range(reorth_passes):
+                w = _project(slab[:j + 1], w, layout)
         b = layout_norm(layout, w)
         scale = torch.sqrt(a * a + beta_prev * beta_prev) + 1.0
         dead_mask[j] = dead
@@ -187,7 +195,8 @@ def _cycle(op, state: RestartState, k: int, extreme: str,
         mask = torch.tensor(dead_mask, device=dev)
         shift = bound if extreme == "min" else -bound
         t = t + torch.diag(torch.where(mask, shift, torch.zeros_like(bound)))
-    evals, evecs = torch.linalg.eigh(t.double())
+    with host_read("restart_arrowhead_eigh"):
+        evals, evecs = torch.linalg.eigh(t.double())
     order = torch.arange(l, device=dev)
     if extreme == "max":
         order = k - 1 - order

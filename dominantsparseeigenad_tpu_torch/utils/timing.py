@@ -8,11 +8,22 @@ Counterpart of ``dominantsparseeigenad_tpu/utils/timing.py``:
   each leaf to the host.
 * :func:`trace`: a context manager around ``torch.profiler`` that writes
   one Chrome/Perfetto trace file.
-* ``torch.profiler.record_function`` marks the solvers' phases where the
+* ``ops/spans.py`` holds every range and counter of the port:
+  ``span(name)``, ``count(name, n)`` and ``host_read(site, tensor)``.
+  Behind one gate, ``torch._C._autograd._profiler_enabled()``, a range
+  (a ``torch.profiler.record_function``) is opened and a counter moved
+  only while a profiler records, under :func:`trace` too; otherwise a
+  call is that flag check.  The ranges mark the solvers' phases where the
   JAX package opens a ``jax.named_scope``, with the same names:
   ``lanczos_matvec`` and ``lanczos_reorth`` (``ops/lanczos.py``),
-  ``cg_matvec`` and ``bicgstab_matvec`` (``ops/cg.py``), so a trace shows
-  the algorithm's phases beside the kernels.
+  ``cg_matvec`` and ``bicgstab_matvec`` (``ops/cg.py``); and the layer
+  boundaries the benchmark reads: ``ift_backward`` and ``ift_jvp`` (the
+  IFT rules, ``ops/eigh.py``), ``tfim_matvec`` (``models/tfim.py``),
+  ``lobpcg_rayleigh_ritz`` (``ops/lobpcg.py``), ``restart_reorth``
+  (``ops/restart.py``), and ``host_read.<site>`` around each read of a
+  device value on the host; and one counter, ``cg_iterations`` (the
+  CG's unfrozen steps).  ``spans.RANGES`` and ``spans.HOST_READS`` list
+  the ranges; ``spans.counts`` holds the counter.
 """
 
 from __future__ import annotations

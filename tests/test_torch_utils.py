@@ -24,11 +24,14 @@ from dominantsparseeigenad_tpu.ops.cg import solve_deflated_info as j_sdi
 from dominantsparseeigenad_tpu.ops.lanczos import LanczosResult as JLR
 
 import dominantsparseeigenad_tpu_torch as port
-from dominantsparseeigenad_tpu_torch import utils
+import torch.autograd.forward_ad as fwAD
+from dominantsparseeigenad_tpu_torch import models, utils
+from dominantsparseeigenad_tpu_torch.ops import spans
 from dominantsparseeigenad_tpu_torch.ops.cg import solve_deflated_info
 
 # The module, not the function of the same name that ops exports.
 port_cg = importlib.import_module("dominantsparseeigenad_tpu_torch.ops.cg")
+port_tfim = importlib.import_module("dominantsparseeigenad_tpu_torch.models.tfim")
 
 torch.set_num_threads(2)
 
@@ -388,23 +391,260 @@ def test_trace_needs_a_card_or_device_cpu(tmp_path, monkeypatch):
     assert not list(tmp_path.glob("trace_*.json"))
 
 
-def test_named_ranges_sit_where_jax_names_its_scopes():
-    """Each range name occurs in the port's ``ops/`` as often, and in the
-    same file, as the JAX package's ``jax.named_scope`` of that name, and
-    nowhere else in the port."""
-    pat_jax = re.compile(r'named_scope\("(\w+)"\)')
-    pat_port = re.compile(r'record_function\("(\w+)"\)')
+def _found(pkg, pat):
+    """``{(file, name): occurrences}`` of ``pat``'s name in ``pkg``."""
+    out = collections.Counter()
+    for path in sorted((ROOT / pkg).rglob("*.py")):
+        for name in pat.findall(path.read_text()):
+            out[(path.relative_to(ROOT / pkg).as_posix(), name)] += 1
+    return out
 
-    def found(pkg, pat):
-        out = collections.Counter()
-        for path in sorted((ROOT / pkg).rglob("*.py")):
-            for name in pat.findall(path.read_text()):
-                out[(path.relative_to(ROOT / pkg).as_posix(), name)] += 1
+
+def test_named_ranges_sit_where_jax_names_its_scopes():
+    """Each ``jax.named_scope`` of the JAX package is a ``span`` of the
+    port at the same name, in the same file, as often, and nowhere else;
+    the port opens no range but through ``ops/spans.py``; every other
+    range it opens (``span`` or ``host_read``) is one that module lists,
+    each listed one is opened, and PERF.md's §3 names each beside the
+    metric that reads it (or the README's trace that shows it)."""
+    port_pkg = "dominantsparseeigenad_tpu_torch"
+    jax_sites = _found("dominantsparseeigenad_tpu",
+                       re.compile(r'named_scope\("(\w+)"\)'))
+    assert sum(jax_sites.values()) == 5
+    opened = _found(port_pkg, re.compile(r'\bspan\("(\w+)"\)'))
+    jax_names = {name for _, name in jax_sites}
+    assert {k: n for k, n in opened.items() if k[1] in jax_names} \
+        == jax_sites
+    raw = _found(port_pkg, re.compile(r"(record_function)\("))
+    assert set(raw) == {("ops/spans.py", "record_function")}
+    assert {name for _, name in opened} == set(spans.RANGES)
+    read_sites = _found(port_pkg, re.compile(r'\bhost_read\("(\w+)"'))
+    assert {name for _, name in read_sites} == set(spans.HOST_READS)
+    perf = (ROOT / "PERF.md").read_text()
+    layers = perf[perf.index("## 3. Layers"):perf.index("## 4. Cells")]
+    for name in (*spans.RANGES, "host_read.<site>", "cg_iterations",
+                 "host_reads_per_solve", "read_stall_pct", "cg_useful_pct"):
+        assert f"`{name}`" in layers, name
+
+
+def _tfim_forward(k=30):
+    """A forward-mode ``dominant_eigh`` on ``tfim_operator(8, g)``."""
+    with fwAD.dual_level():
+        g = fwAD.make_dual(torch.tensor(1.2, dtype=F64),
+                           torch.ones((), dtype=F64))
+        lam, _ = port.dominant_eigh(models.tfim_operator(8, g, device="cpu"),
+                                    k=k, tol=1e-8, device="cpu")
+        return fwAD.unpack_dual(lam).tangent
+
+
+def test_spans_cost_a_flag_check_without_a_profiler(tmp_path, monkeypatch):
+    """With no profiler recording, the helpers of ``ops/spans.py`` enter
+    no ``record_function`` and move no counter, also through a
+    forward-mode solve and a LOBPCG solve, which open every kind of range
+    under a profiler; under ``trace(device="cpu")`` the same calls open
+    their ranges and count."""
+    entered = []
+    real = spans.record_function
+
+    def counted(name):
+        entered.append(name)
+        return real(name)
+
+    monkeypatch.setattr(spans, "record_function", counted)
+    monkeypatch.setattr(spans, "counts", collections.Counter())
+    a = torch.from_numpy(_sym(48, seed=3))
+
+    def calls():
+        with spans.span("tfim_matvec"):
+            spans.count("cg_iterations", 3)
+        with spans.host_read("lanczos_tridiagonal_eigh"):
+            pass
+        assert spans.host_read("lanczos_beta", torch.tensor(True)) is True
+        assert spans.host_read("lobpcg_residual",
+                               torch.tensor(0.5, dtype=F64)) == 0.5
+        _tfim_forward(k=20)
+        port.lobpcg_eigh(a, r=2, maxiter=5, device="cpu")
+
+    assert not spans.recording()
+    calls()
+    assert entered == [] and not spans.counts
+    with utils.trace(str(tmp_path), device="cpu"):
+        assert spans.recording()
+        calls()
+    assert entered[:3] == ["tfim_matvec", "host_read.lanczos_tridiagonal_eigh",
+                           "host_read.lanczos_beta"]
+    for name in ("ift_jvp", "lanczos_matvec", "cg_matvec",
+                 "lobpcg_rayleigh_ritz", "host_read.lobpcg_whiten_eigh"):
+        assert name in entered, name
+    assert set(spans.counts) == {"cg_iterations"}
+    assert spans.counts["cg_iterations"] > 3
+    assert entered.count("host_read.lanczos_beta") == 1 + 20
+
+
+def _port_ranges(log_dir):
+    files = sorted(pathlib.Path(log_dir).glob("trace_*.json"))
+    assert len(files) == 1, files
+    events = json.loads(files[0].read_text())["traceEvents"]
+    return collections.Counter(
+        e["name"] for e in events if e.get("cat") == "user_annotation"
+        and (e["name"] in spans.RANGES or e["name"].startswith("host_read.")))
+
+
+def _traced(log_dir, fn):
+    """``(fn(), the port's ranges in its trace)``, counters from 0."""
+    spans.counts.clear()
+    with utils.trace(str(log_dir), device="cpu"):
+        out = fn()
+    return out, _port_ranges(log_dir)
+
+
+def _counted(monkeypatch, module, name):
+    """Record each call of ``module.name`` (its return value)."""
+    calls = []
+    real = getattr(module, name)
+
+    def counted(*args, **kw):
+        out = real(*args, **kw)
+        calls.append(out)
         return out
 
-    jax_sites = found("dominantsparseeigenad_tpu", pat_jax)
-    assert sum(jax_sites.values()) == 5
-    assert found("dominantsparseeigenad_tpu_torch", pat_port) == jax_sites
+    monkeypatch.setattr(module, name, counted)
+    return calls
+
+
+def _case_jvp(log_dir, monkeypatch):
+    """Forward mode: the tangent product and the CG under ``ift_jvp``;
+    ``cg_iterations`` is the products of the same solve checked every
+    step, where no step is frozen."""
+    cgs = _counted(monkeypatch, port_cg, "_cg_loop")
+    products = _counted(monkeypatch, port_tfim, "tfim_matvec")
+    _, ranges = _traced(log_dir, _tfim_forward)
+    ((_, cg),), made = cgs, len(products)
+    useful = spans.counts["cg_iterations"]
+    every = port_cg.CHECK_EVERY
+    monkeypatch.setattr(port_cg, "CHECK_EVERY", 1)
+    _tfim_forward()
+    assert 0 < useful == cgs[-1][1] < cg
+    return ranges, {"ift_jvp": 1, "tfim_matvec": made, "lanczos_matvec": 30,
+                    "lanczos_reorth": 30, "cg_matvec": cg,
+                    "host_read.lanczos_beta": 30,
+                    "host_read.lanczos_tridiagonal_eigh": 1,
+                    "host_read.cg_check": cg // every + 1}
+
+
+def _case_backward(log_dir, monkeypatch, func=False):
+    """Reverse mode with a loss on v: the deflated CG and the cotangent
+    product under ``ift_backward``."""
+    cgs = _counted(monkeypatch, port_cg, "_cg_loop")
+    products = _counted(monkeypatch, port_tfim, "tfim_matvec")
+    c = torch.from_numpy(np.random.default_rng(2).standard_normal(256))
+
+    def loss(g):
+        lam, v = port.dominant_eigh(models.tfim_operator(8, g, device="cpu"),
+                                    k=30, tol=1e-8, device="cpu")
+        return lam + c @ v
+
+    def solve():
+        g = torch.tensor(1.2, dtype=F64, requires_grad=not func)
+        if func:
+            return torch.func.grad(loss)(g)
+        loss(g).backward()
+        return g.grad
+
+    grad, ranges = _traced(log_dir, solve)
+    assert torch.isfinite(grad)
+    ((_, cg),) = cgs
+    return ranges, {"ift_backward": 1, "tfim_matvec": len(products),
+                    "lanczos_matvec": 30, "lanczos_reorth": 30,
+                    "cg_matvec": cg, "host_read.lanczos_beta": 30,
+                    "host_read.lanczos_tridiagonal_eigh": 1,
+                    "host_read.cg_check": cg // port_cg.CHECK_EVERY + 1}
+
+
+def _case_func_grad(log_dir, monkeypatch):
+    """The same under ``torch.func.grad``: the deflated CG reads its
+    check from functorch's wrapped tensors, under the profiler too."""
+    return _case_backward(log_dir, monkeypatch, func=True)
+
+
+def _case_restart(log_dir, monkeypatch):
+    """Thick restart, k = 16 (4 kept), 2 cycles of 12 steps."""
+    products = _counted(monkeypatch, port_tfim, "tfim_matvec")
+    _traced(log_dir, lambda: port.dominant_eigh(
+        models.tfim_operator(8, 1.2, device="cpu"), k=16, restart_cycles=2,
+        device="cpu"))
+    return _port_ranges(log_dir), {
+        "tfim_matvec": len(products), "lanczos_matvec": 16,
+        "lanczos_reorth": 16, "restart_reorth": 2 * 12,
+        "host_read.lanczos_beta": 16,
+        "host_read.lanczos_tridiagonal_eigh": 1,
+        "host_read.restart_breakdown": 1 + 2 * 12,
+        "host_read.restart_dead": 2, "host_read.restart_arrowhead_eigh": 2}
+
+
+def _case_lobpcg(log_dir, monkeypatch):
+    """LOBPCG on a 48 x 48 matrix, converged: one Rayleigh-Ritz range an
+    iteration, a residual read per loop test."""
+    a = torch.from_numpy(_sym(48, seed=4))
+    (_, _, info), ranges = _traced(log_dir, lambda: port.lobpcg_eigh(
+        a, r=4, with_info=True, device="cpu"))
+    it = int(info.iterations)
+    assert float(info.converged) == 1.0 and it > 5
+    return ranges, {"lobpcg_rayleigh_ritz": it,
+                    "host_read.lobpcg_residual": it + 1,
+                    "host_read.lobpcg_whiten_eigh": 1 + 2 * it,
+                    "host_read.lobpcg_ritz_eigh": it}
+
+
+def _case_bicgstab(log_dir, monkeypatch):
+    """BiCGStab: two products a step, a check every CHECK_EVERY steps."""
+    m = torch.from_numpy(_sym(48, seed=7) + 20 * np.eye(48))
+    c = torch.from_numpy(np.random.default_rng(6).standard_normal(48))
+    products = []
+
+    def mv(x):
+        products.append(1)
+        return m @ x
+
+    _, ranges = _traced(log_dir, lambda: port.bicgstab(mv, c, tol=1e-10,
+                                                       device="cpu"))
+    steps = len(products) // 2
+    return ranges, {"bicgstab_matvec": len(products),
+                    "host_read.bicgstab_check":
+                        steps // port_cg.CHECK_EVERY + 1}
+
+
+def _case_adaptive(log_dir, monkeypatch):
+    """The early exit: T's eigh and the test at each checkpoint reached
+    (16, 24, 36, 54, 60)."""
+    op = models.tfim_operator(8, 1.2, device="cpu")
+    (_, _, info), ranges = _traced(log_dir, lambda: port.lanczos_adaptive(
+        op, 60, tol=1e-9, device="cpu"))
+    done = int(info.effective_k)
+    reached = sum(1 for c in (16, 24, 36, 54, 60) if c <= done)
+    assert float(info.converged) == 1.0 and reached >= 2
+    return ranges, {"tfim_matvec": done, "lanczos_matvec": done,
+                    "lanczos_reorth": done, "host_read.lanczos_beta": done,
+                    "host_read.lanczos_converged": reached,
+                    "host_read.lanczos_tridiagonal_eigh": reached}
+
+
+@pytest.mark.parametrize("case", [_case_jvp, _case_backward, _case_func_grad,
+                                  _case_restart, _case_lobpcg, _case_bicgstab,
+                                  _case_adaptive],
+                         ids=lambda f: f.__name__[6:])
+def test_trace_holds_the_port_ranges_and_counters(tmp_path, monkeypatch,
+                                                   case):
+    """Under ``trace(device="cpu")`` each solver opens its ranges once per
+    unit of work (a product, a step's projections, a rule, an iteration,
+    a host read); its one counter, ``cg_iterations``, moves only in a
+    CG, by at most the products."""
+    monkeypatch.setattr(spans, "counts", collections.Counter())
+    ranges, expected = case(tmp_path, monkeypatch)
+    assert ranges == expected
+    cg = expected.get("cg_matvec", 0)
+    assert set(spans.counts) == ({"cg_iterations"} if cg else set())
+    assert 0 < spans.counts["cg_iterations"] <= cg or not cg
 
 
 def test_utils_exports_the_jax_list():
